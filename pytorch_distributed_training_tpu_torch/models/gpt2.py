@@ -1,0 +1,139 @@
+"""GPT-2 causal language model (counterpart: the JAX package's
+``models/gpt2.py``): wte + wpe embeddings, pre-LN blocks with tanh GELU
+and residuals, a final ``ln_f`` and a weight-tied LM head.
+
+dtype policy, as in the JAX package: parameters float32; embeddings,
+matmuls and the residual stream in the compute dtype; LayerNorm and
+softmax statistics in float32; logits float32, computed as the float32
+product of the compute-dtype-rounded operands (the JAX head is a bf16 x
+bf16 product with float32 accumulation; ``torch.matmul`` on bf16 would
+round the logits to bf16). Parameter names follow the flax tree with
+``block_i`` as ``blocks.i`` (``models/convert.py``).
+
+``forward(..., paged=PagedKV(...))`` runs the serving engine's paged
+prefill/decode; without it, full-sequence causal attention.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pytorch_distributed_training_tpu_torch.models.bert import (
+    BertSelfAttention,
+    DenseGeneral,
+    PagedKV,
+    compute_dtype,
+    dense,
+    layer_norm_module,
+    param_dtype,
+)
+from pytorch_distributed_training_tpu_torch.ops.attention import (
+    make_attention_bias,
+)
+from pytorch_distributed_training_tpu_torch.utils.config import ModelConfig
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: an ``embedding`` table, lookups in ``dtype``."""
+
+    def __init__(self, num: int, features: int, *, dtype: torch.dtype,
+                 param_dtype: torch.dtype, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        table = torch.empty(num, features, dtype=param_dtype, device=device)
+        table.normal_(0.0, 0.02, generator=generator)
+        self.embedding = nn.Parameter(table)
+
+    def forward(self, ids):
+        # gather, then cast: the same values as flax's cast-then-gather
+        return F.embedding(ids, self.embedding).to(self.dtype)
+
+
+class GPT2Block(nn.Module):
+    """Pre-LN transformer block (LN before each sublayer)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        super().__init__()
+        h = cfg.hidden_size
+        self.ln_1 = layer_norm_module(cfg, device)
+        self.attention = BertSelfAttention(cfg, device, generator)
+        self.ln_2 = layer_norm_module(cfg, device)
+        self.mlp_up = dense(cfg, (h,), (cfg.intermediate_size,), device,
+                            generator)
+        self.mlp_down = dense(cfg, (cfg.intermediate_size,), (h,), device,
+                              generator)
+
+    def forward(self, x, attention_bias=None, paged=None):
+        h = self.attention(self.ln_1(x), attention_bias, paged)
+        x = x + h
+        h = self.mlp_up(self.ln_2(x))
+        h = F.gelu(h, approximate="tanh")  # GPT-2's tanh approximation
+        return x + self.mlp_down(h)
+
+
+class GPT2LMModel(nn.Module):
+    """wte+wpe embeddings -> N pre-LN blocks -> ln_f -> tied-head logits."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not cfg.causal:
+            raise ValueError("GPT2LMModel needs a causal config")
+        self.config = cfg
+        kw = dict(dtype=compute_dtype(cfg), param_dtype=param_dtype(cfg),
+                  device=device, generator=generator)
+        self.wte = Embed(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wpe = Embed(cfg.max_position_embeddings, cfg.hidden_size, **kw)
+        self.blocks = nn.ModuleList(
+            GPT2Block(cfg, device, generator) for _ in range(cfg.num_layers)
+        )
+        self.ln_f = layer_norm_module(cfg, device)
+        # float32 copy of the compute-dtype head, set by cast_for_serving
+        self.head_weight: Optional[torch.Tensor] = None
+
+    @torch.no_grad()
+    def cast_for_serving(self) -> None:
+        """Cast the embeddings and matmul weights to the compute dtype once,
+        in place (LayerNorm parameters stay float32), and keep the float32
+        copy of the rounded tied head. Values are unchanged: every forward
+        casts them to the compute dtype anyway, as flax does per call."""
+        cdt = compute_dtype(self.config)
+        for mod in self.modules():
+            if isinstance(mod, DenseGeneral):
+                mod.kernel.data = mod.kernel.data.to(cdt)
+                mod.bias.data = mod.bias.data.to(cdt)
+            elif isinstance(mod, Embed):
+                mod.embedding.data = mod.embedding.data.to(cdt)
+        self.head_weight = self.wte.embedding.data.float()
+
+    def forward(self, input_ids, *, position_ids=None, attention_mask=None,
+                paged: Optional[PagedKV] = None):
+        cfg = self.config
+        batch, seq = input_ids.shape
+        if seq > cfg.max_position_embeddings:
+            raise ValueError(
+                f"sequence length {seq} exceeds max_position_embeddings "
+                f"{cfg.max_position_embeddings}"
+            )
+        if position_ids is None:
+            position_ids = torch.arange(
+                seq, device=input_ids.device
+            )[None, :].expand(batch, seq)
+        x = self.wte(input_ids) + self.wpe(position_ids)
+        bias = make_attention_bias(attention_mask)
+        for i, block in enumerate(self.blocks):
+            layer = None
+            if paged is not None:
+                k_pages, v_pages = paged.pools[i]
+                layer = (k_pages, v_pages, paged.block_table,
+                         paged.context_len)
+            x = block(x, bias, layer)
+        x = self.ln_f(x)
+        head = self.head_weight
+        if head is None:
+            head = self.wte.embedding.to(compute_dtype(cfg)).float()
+        return torch.matmul(x.float(), head.t())

@@ -1,0 +1,57 @@
+"""Full-sequence attention (counterpart: the JAX package's
+``ops/attention.py``).
+
+``make_attention_bias`` and the plain ``"reference"`` implementation:
+fp32 scores and softmax whatever the input dtype, ``finfo.min`` masking,
+probs cast to the V dtype. q/k/v are [batch, seq, heads, head_dim] as in
+the JAX package. The ``"flash"`` implementation is the JAX package's
+Pallas kernel, not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def make_attention_bias(attention_mask: Optional[torch.Tensor], *,
+                        dtype=torch.float32) -> Optional[torch.Tensor]:
+    """[batch, kv_len] 1/0 mask -> additive bias [batch, 1, 1, kv_len]."""
+    if attention_mask is None:
+        return None
+    neg = torch.finfo(dtype).min
+    bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, neg)
+    return bias.to(dtype)
+
+
+def causal_bias(q_len: int, kv_len: int, *, device=None,
+                dtype=torch.float32) -> torch.Tensor:
+    i = torch.arange(q_len, device=device)[:, None]
+    j = torch.arange(kv_len, device=device)[None, :]
+    neg = torch.finfo(dtype).min
+    return torch.where(j <= i, 0.0, neg).to(dtype)[None, None, :, :]
+
+
+def reference_attention(q, k, v, bias=None, *, causal: bool = False):
+    """Plain einsum attention; softmax in fp32 regardless of input dtype."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bsnd,btnd->bnst", q.float(), k.float()) * scale
+    if bias is not None:
+        scores = scores + bias.float()
+    if causal:
+        scores = scores + causal_bias(q.shape[-3], k.shape[-3],
+                                      device=q.device)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, v)
+
+
+def dot_product_attention(q, k, v, bias=None, *, impl: str = "reference",
+                          causal: bool = False):
+    """Dispatch to the configured attention implementation."""
+    if impl == "reference":
+        return reference_attention(q, k, v, bias, causal=causal)
+    raise NotImplementedError(
+        f"attention impl {impl!r} is not ported yet (the flash kernels are "
+        f"queue 2 of ROADMAP.md)"
+    )
