@@ -8,13 +8,23 @@ the JAX package), in phases that each raise on failure:
 
 1. device: a CUDA GPU must be visible; prints ``nvidia-smi``'s name and
    power limit;
-2. build: compiles every CUDA kernel of the serving path from
+2. build: compiles every CUDA source of the port from
    ``pytorch_distributed_training_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a``, one process per source, all at once;
 3. kernels: holds each kernel against its plain PyTorch version on the
-   card (tolerances below), and times kernel, plain version and the
-   library yardstick at the serving shapes with CUDA events;
-4. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
+   card (tolerances below; the dropout masks bit for bit), backward kernels
+   through ``torch.autograd.grad``, and times kernel, plain version and the
+   library yardstick at the main paths' shapes with CUDA-graph replay;
+4. train: runs the port's ``train_dp`` on bert-large-cased at full width
+   and depth (3 optimizer steps of 96 = 8 x 12 on the synthetic MRPC task,
+   then the full 408-row eval), with the launch counters reset just before
+   and read just after and checked against the counts the step derives;
+   finite losses, moved parameters, bit-identical per-step losses in a
+   second run; a third run under ``torch.profiler``;
+5. cpu-vs-card: the ``tiny`` preset with dropout on, trained 2 steps on
+   the CPU (plain versions) and on the card (kernels) from one seed: the
+   per-step losses agree, so the card's masks are the plain generator's;
+6. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
    (random weights from ``--seed 0``) over a JSONL request stream, with the
    kernels' launch counters reset just before and read just after; checks
    every request's token count, the launch counts against the engine's
@@ -31,8 +41,10 @@ fails.
 from __future__ import annotations
 
 import functools
+import gc
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -75,10 +87,38 @@ PROMPTS = tuple(
 # other matmul shapes; logits of the random model have a spread of ~0.6)
 MARGIN_TOL = 0.1
 
+# training-kernel shapes: the main path's rows 8 x 128 = 1024 at H 1024,
+# ragged row counts, and the widths of the tiny and bert-base presets
+TRAIN_SHAPES = ((1024, 1024), (8, 1024), (1000, 1024), (4096, 1024),
+                (1024, 64), (1024, 768), (1000, 768), (8, 64))
+MAIN_ROWS, MAIN_H = 1024, 1024
+DROPOUT_RATE = 0.1        # hidden_dropout = attention_dropout of the presets
+# the probs of bert-large at micro 8, seq 128; its embeddings; ragged sizes
+MASK_SHAPES = ((8, 16, 128, 128), (8, 128, 1024), (1000, 3), (7,), (8, 1024))
+# float32 dscale/dbias sums over rows in another order: |got - want| <=
+# 2^-16 of the column's sum of absolute terms
+PARAM_SUM_SLACK = 2.0 ** -16
+
+TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
+              "--train-size", "288", "--eval-size", "408", "--num-epochs",
+              "1", "--device", "cuda", "--seed", "42", "--log-every", "0"]
+# cpu-vs-card: float32 so the two devices' matmuls agree to ~1e-6 and a
+# single differing mask element (a loss change of ~1e-3) shows
+TINY_ARGS = ["--model", "tiny", "--task", "synthetic", "--train-size", "32",
+             "--eval-size", "32", "--global-batch-size", "16",
+             "--micro-batch-size", "8", "--num-epochs", "1", "--seed", "7",
+             "--no-bf16", "--warmup-steps", "1", "--learning-rate", "1e-3",
+             "--log-every", "0"]
+CPU_CARD_RTOL = 1e-4
+
+_PKG = "pytorch_distributed_training_tpu"
 REPLACES = {
-    "layer_norm": "pytorch_distributed_training_tpu/ops/layer_norm.py:102",
-    "paged_attention":
-        "pytorch_distributed_training_tpu/ops/paged_attention.py:238",
+    "layer_norm": f"{_PKG}/ops/layer_norm.py:102",
+    "layer_norm_bwd": f"{_PKG}/ops/layer_norm.py:131",
+    "dropout_add_layer_norm": f"{_PKG}/ops/layer_norm.py:296",
+    "dropout_add_layer_norm_bwd": f"{_PKG}/ops/layer_norm.py:345",
+    "mask_scale": f"{_PKG}/ops/dropout.py:107",
+    "paged_attention": f"{_PKG}/ops/paged_attention.py:238",
 }
 
 
@@ -153,6 +193,50 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
+def check_ln_close(what, got, want) -> float:
+    """Per element: 1 bf16 ulp of the larger magnitude + LN_FP32_SLACK.
+    Returns the largest error; raises beyond the tolerance."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = bf16_ulp(torch.maximum(g.abs(), w.abs())) + LN_FP32_SLACK
+    bad = err > tol
+    if bad.any() or not torch.isfinite(g).all():
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} elements beyond 1 bf16 ulp + "
+            f"{LN_FP32_SLACK}: got {g[bad][:4].tolist()} want "
+            f"{w[bad][:4].tolist()}"
+        )
+    return float(err.max())
+
+
+def check_sums(what, got, want, abs_terms) -> float:
+    """float32 column sums (dscale, dbias) taken in another order: within
+    PARAM_SUM_SLACK of each column's sum of absolute terms."""
+    err = (got.float() - want.float()).abs()
+    bad = err > PARAM_SUM_SLACK * abs_terms
+    if bad.any():
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} columns beyond {PARAM_SUM_SLACK} x "
+            f"sum |terms|: err {err[bad][:4].tolist()}"
+        )
+    return float((err / abs_terms.clamp_min(1e-30)).max())
+
+
+def check_launches(what, counts, want) -> None:
+    """Every kernel launched exactly ``want`` times (0 when not named) and
+    every named kernel at least once."""
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    for name in _build.KERNELS:
+        got, need = counts.get(name, 0), want.get(name, 0)
+        if got != need or (name in want and need == 0):
+            raise AssertionError(
+                f"{name}: {got} launches in the {what}, want {need}"
+            )
+
+
 # ------------------------------------------------------------- phase 1, 2
 
 
@@ -211,24 +295,14 @@ def layer_norm_phase(device, rows=LN_ROWS, hidden=LN_HIDDEN,
                              out_dtype=torch.bfloat16)
             want = reference_layer_norm(x, scale, bias, eps=1e-5,
                                         out_dtype=torch.bfloat16)
-            err = (got.float() - want.float()).abs()
-            tol = bf16_ulp(torch.maximum(got.float().abs(),
-                                         want.float().abs())) + LN_FP32_SLACK
-            bad = err > tol
-            if bad.any() or not torch.isfinite(got.float()).all():
-                raise AssertionError(
-                    f"layer_norm rows={n} {in_dtype}: {int(bad.sum())} "
-                    f"elements beyond 1 bf16 ulp + {LN_FP32_SLACK}: got "
-                    f"{got.float()[bad][:4].tolist()} want "
-                    f"{want.float()[bad][:4].tolist()}"
-                )
-            worst = max(worst, float(err.max()))
+            worst = max(worst, check_ln_close(
+                f"layer_norm rows={n} {in_dtype}", got, want))
     say(f"[kernels] layer_norm parity ok: rows {list(rows)} x "
         f"{{bf16, f32}} in -> bf16 out, max abs err {worst} (<= 1 bf16 "
         f"ulp + {LN_FP32_SLACK} per element)")
 
     timings = {}
-    for n in (serve_rows, 128, 4096):
+    for n in (serve_rows, 128, MAIN_ROWS, 4096):
         x = torch.randn(n, hidden, generator=g, device=device,
                         dtype=torch.bfloat16)
         sb, bb = scale.bfloat16(), bias.bfloat16()
@@ -247,7 +321,8 @@ def layer_norm_phase(device, rows=LN_ROWS, hidden=LN_HIDDEN,
         timings[n] = t
         say(f"[kernels] layer_norm rows={n} H={hidden} bf16->bf16: "
             + json.dumps(t))
-    return dict(max_abs_err=worst, **timings[serve_rows])
+    return dict(max_abs_err=worst, **timings[MAIN_ROWS],
+                serve=timings[serve_rows])
 
 
 def paged_inputs(device, lengths, *, windows, batch, heads, head_dim,
@@ -338,7 +413,7 @@ def paged_phase(device, lengths=PAGED_LENGTHS, serve=SERVE_CONTEXTS,
     return dict(max_abs_err=err, **timings["serve"])
 
 
-# ---------------------------------------------------------------- phase 4
+# ---------------------------------------------------------------- phase 6
 
 
 def request_lines(prompts, new_tokens) -> str:
@@ -406,21 +481,16 @@ def serve_phase(argv=SERVE_ARGS, prompts=PROMPTS, new_tokens=NEW_TOKENS,
     give the same greedy streams."""
     import torch
 
-    from pytorch_distributed_training_tpu_torch.ops import _build
-
     torch.cuda.reset_peak_memory_stats()
     events, stats, counts, wall = serve_once(argv, prompts, new_tokens)
     toks = streams(events, prompts, new_tokens)
     peak = torch.cuda.max_memory_allocated()
     prefills, ticks = stats["admitted"], stats["decode_dispatches"]
-    want = {"layer_norm": (2 * n_layers + 1) * (prefills + ticks),
-            "paged_attention": n_layers * ticks}
-    for name in _build.KERNEL_SOURCES:
-        if counts.get(name, 0) == 0 or counts[name] != want[name]:
-            raise AssertionError(
-                f"{name}: {counts.get(name, 0)} launches in the serve run, "
-                f"want {want[name]} ({prefills} prefills, {ticks} ticks)"
-            )
+    check_launches(
+        f"serve run ({prefills} prefills, {ticks} ticks)", counts,
+        {"layer_norm": (2 * n_layers + 1) * (prefills + ticks),
+         "paged_attention": n_layers * ticks},
+    )
     cold = dict(requests=len(prompts), new_tokens=new_tokens,
                 **serve_metrics(events, stats, wall), peak_mem_bytes=peak,
                 launches=counts)
@@ -435,11 +505,20 @@ def serve_phase(argv=SERVE_ARGS, prompts=PROMPTS, new_tokens=NEW_TOKENS,
     return dict(cold, warm=warm, streams=toks)
 
 
+_PORT_KERNELS = (
+    ("layer_norm_fwd_kernel", "layer_norm"),
+    ("layer_norm_bwd_kernel", "layer_norm_bwd"),
+    ("dal_fwd_kernel", "dropout_add_layer_norm"),
+    ("dal_bwd_kernel", "dropout_add_layer_norm_bwd"),
+    ("mask_scale_kernel", "mask_scale"),
+    ("paged_decode_kernel", "paged_attention"),
+)
+
+
 def _kernel_class(name: str) -> str:
-    if "layer_norm_fwd_kernel" in name:
-        return "layer_norm (port kernel)"
-    if "paged_decode_kernel" in name:
-        return "paged_attention (port kernel)"
+    for symbol, kernel in _PORT_KERNELS:
+        if symbol in name:
+            return f"{kernel} (port kernel)"
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matmul"
@@ -463,7 +542,6 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
     seconds (prefill + decode dispatches, each ending in a host copy). The
     server is built first (weights copied to the card) and the profiler
     covers only the requests."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pytorch_distributed_training_tpu_torch.cli import serve_lm
@@ -483,29 +561,38 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
         server.close(drain=True)
     events = [json.loads(line) for line in out.getvalue().splitlines()]
     streams(events, prompts, new_tokens)
+    engine_s = warm["prefill_s"] + warm["decode_s"]
+    res = device_time_by_class(prof, engine_s)
+    say("[profile] " + json.dumps(res))
+    return res
+
+
+def device_time_by_class(prof, wall_s, top_n=10) -> dict:
+    """Device kernel time of a ``torch.profiler`` run by kernel class, and
+    its share of ``wall_s`` (the host seconds of the profiled work)."""
+    from torch.autograd import DeviceType
+
     by_class: dict[str, float] = {}
     top = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a user range on the device (the optimizer's "Optimizer.step#..."
+        # annotation) spans kernels counted on their own: skip it
+        if (e.device_type != DeviceType.CUDA or "#" in e.key
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = float(getattr(e, "self_device_time_total", 0.0))
         cls = _kernel_class(e.key)
         by_class[cls] = by_class.get(cls, 0.0) + us
         top.append((us, e.count, e.key[:90]))
     total_us = sum(by_class.values())
-    engine_s = warm["prefill_s"] + warm["decode_s"]
-    res = dict(
+    for us, count, name in sorted(top, reverse=True)[:top_n]:
+        say(f"[profile] {us / 1e3:9.3f} ms {count:6d}x {name}")
+    return dict(
         device_kernel_ms=total_us / 1e3,
-        busy_share_of_warm_engine_time=(
-            total_us / 1e6 / engine_s if engine_s else None
-        ),
+        busy_share=total_us / 1e6 / wall_s if wall_s else None,
         by_class_ms={k: v / 1e3 for k, v in sorted(
             by_class.items(), key=lambda kv: -kv[1])},
     )
-    say("[profile] " + json.dumps(res))
-    for us, count, name in sorted(top, reverse=True)[:10]:
-        say(f"[profile] {us / 1e3:9.3f} ms {count:6d}x {name}")
-    return res
 
 
 def full_sequence_phase(device, toks, prompts, model_name="gpt2-medium",
@@ -555,6 +642,405 @@ def full_sequence_phase(device, toks, prompts, model_name="gpt2-medium",
     return res
 
 
+# ------------------------------------------------- phase 3, training kernels
+
+
+def _ln_train_inputs(g, rows, hidden, device):
+    """bf16 activations (mean 3, std 2, as the serving check) and their
+    gradient, float32 scale/bias."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    x = (3.0 + 2.0 * randn(rows, hidden)).bfloat16()
+    dy = randn(rows, hidden).bfloat16()
+    scale = 1.0 + 0.1 * randn(hidden)
+    bias = 0.1 * randn(hidden)
+    return x, dy, scale, bias
+
+
+def _xhat(x, eps):
+    xf = x.float()
+    c = xf - xf.mean(dim=-1, keepdim=True)
+    return c * (c.square().mean(dim=-1, keepdim=True) + eps).rsqrt()
+
+
+def _grads(fn, leaves, dy):
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, dy)
+
+
+def ln_bwd_phase(device, shapes=TRAIN_SHAPES, eps=1e-12) -> dict:
+    """Kernel 2 through ``torch.autograd.grad`` of the port's LayerNorm
+    against autograd through the plain forward."""
+    import functools
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops.layer_norm import (
+        _layer_norm_bwd_cuda,
+        layer_norm,
+        reference_layer_norm,
+        reference_layer_norm_bwd,
+    )
+
+    g = torch.Generator(device=device).manual_seed(2)
+    worst = worst_sum = 0.0
+    for rows, hidden in shapes:
+        x, dy, scale, bias = _ln_train_inputs(g, rows, hidden, device)
+        kw = dict(eps=eps, out_dtype=torch.bfloat16)
+        _, got = _grads(functools.partial(layer_norm, **kw),
+                        (x, scale, bias), dy)
+        _, want = _grads(functools.partial(reference_layer_norm, **kw),
+                         (x, scale, bias), dy)
+        what = f"layer_norm_bwd rows={rows} H={hidden}"
+        worst = max(worst, check_ln_close(what + " dx", got[0], want[0]))
+        dyf, xh = dy.float(), _xhat(x, eps)
+        worst_sum = max(
+            worst_sum,
+            check_sums(what + " dscale", got[1], want[1],
+                       (dyf * xh).abs().sum(0)),
+            check_sums(what + " dbias", got[2], want[2], dyf.abs().sum(0)),
+        )
+    say(f"[kernels] layer_norm_bwd parity ok: {list(shapes)} bf16, dx max "
+        f"abs err {worst} (<= 1 bf16 ulp + {LN_FP32_SLACK}), dscale/dbias "
+        f"max err {worst_sum} of the column's sum |terms| (<= "
+        f"{PARAM_SUM_SLACK})")
+    x, dy, scale, bias = _ln_train_inputs(g, MAIN_ROWS, MAIN_H, device)
+    sb, bb = scale.bfloat16(), bias.bfloat16()
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [MAIN_H], sb, bb,
+                                                     eps)
+    t = dict(
+        ms=time_ms(lambda: _layer_norm_bwd_cuda(x, dy, scale, eps=eps)),
+        plain_ms=time_ms(lambda: reference_layer_norm_bwd(x, dy, scale,
+                                                          eps=eps)),
+        library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [MAIN_H], mean, rstd, sb, bb, [True, True, True])),
+    )
+    t["bound_ms"], t["bound_by"] = bound(
+        MAIN_ROWS * MAIN_H * 2 * 3 + 3 * MAIN_H * 4, 12.0 * MAIN_ROWS * MAIN_H)
+    say(f"[kernels] layer_norm_bwd rows={MAIN_ROWS} H={MAIN_H} bf16: "
+        + json.dumps(t))
+    return dict(max_abs_err=worst, **t)
+
+
+def dal_phase(device, shapes=TRAIN_SHAPES, rate=DROPOUT_RATE, eps=1e-12):
+    """Kernels 3 and 4: the forward's mask against the plain generator bit
+    for bit (h = 1, x = 0 makes s the mask-scale itself), s bit for bit at
+    random inputs, y and the gradients through ``torch.autograd.grad``
+    against the plain forward and backward under autograd (both save s in
+    bf16), dh exactly 0 where h was dropped."""
+    import functools
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops.dropout import keep_mask
+    from pytorch_distributed_training_tpu_torch.ops.layer_norm import (
+        _dal_bwd_cuda,
+        _dal_fwd_cuda,
+        dropout_add_layer_norm,
+        reference_dal_bwd,
+        reference_dal_fwd,
+        reference_dropout_add_layer_norm,
+    )
+
+    g = torch.Generator(device=device).manual_seed(3)
+    bf16 = torch.bfloat16
+    worst = worst_sum = 0.0
+    for rows, hidden in shapes:
+        seed, site = 1000 + rows + hidden, 1
+        kw = dict(rate=rate, seed=seed, site=site, eps=eps)
+        x, dy, scale, bias = _ln_train_inputs(g, rows, hidden, device)
+        h = torch.randn(rows, hidden, generator=g, device=device).bfloat16()
+        keep = keep_mask((rows, hidden), rate, seed, site, device)
+        ones = torch.ones(rows, hidden, dtype=bf16, device=device)
+        _, s_mask = _dal_fwd_cuda(ones, torch.zeros_like(ones), scale, bias,
+                                  out_dtype=bf16, save_s=True, **kw)
+        what = f"dropout_add_layer_norm rows={rows} H={hidden}"
+        if not torch.equal(s_mask > 0, keep):
+            raise AssertionError(f"{what}: the kernel's mask differs from "
+                                 f"the plain generator's")
+        _, s_k = _dal_fwd_cuda(h, x, scale, bias, out_dtype=bf16,
+                               save_s=True, **kw)
+        _, s_p = reference_dal_fwd(h, x, scale, bias, out_dtype=bf16, **kw)
+        if not torch.equal(s_k, s_p):
+            raise AssertionError(f"{what}: saved s differs from the plain "
+                                 f"version's")
+        y_k, got = _grads(functools.partial(dropout_add_layer_norm,
+                                            out_dtype=bf16, **kw),
+                          (h, x, scale, bias), dy)
+        y_p, want = _grads(functools.partial(reference_dropout_add_layer_norm,
+                                             out_dtype=bf16, **kw),
+                           (h, x, scale, bias), dy)
+        worst = max(worst, check_ln_close(what + " y", y_k, y_p),
+                    check_ln_close(what + "_bwd dh", got[0], want[0]),
+                    check_ln_close(what + "_bwd dx", got[1], want[1]))
+        if not torch.equal(got[0][~keep], torch.zeros_like(got[0][~keep])):
+            raise AssertionError(f"{what}_bwd: dh is not 0 where h dropped")
+        dyf, xh = dy.float(), _xhat(s_p, eps)
+        worst_sum = max(
+            worst_sum,
+            check_sums(what + "_bwd dscale", got[2], want[2],
+                       (dyf * xh).abs().sum(0)),
+            check_sums(what + "_bwd dbias", got[3], want[3],
+                       dyf.abs().sum(0)),
+        )
+    say(f"[kernels] dropout_add_layer_norm fwd/bwd parity ok: "
+        f"{list(shapes)} bf16, rate {rate}: masks and s identical to the "
+        f"plain version, y/dh/dx max abs err {worst} (<= 1 bf16 ulp + "
+        f"{LN_FP32_SLACK}), dscale/dbias max err {worst_sum} of sum |terms|")
+    x, dy, scale, bias = _ln_train_inputs(g, MAIN_ROWS, MAIN_H, device)
+    h = torch.randn(MAIN_ROWS, MAIN_H, generator=g, device=device).bfloat16()
+    kw = dict(rate=rate, seed=77, site=0, eps=eps)
+    _, s = _dal_fwd_cuda(h, x, scale, bias, out_dtype=bf16, save_s=True,
+                         **kw)
+    n_bytes = MAIN_ROWS * MAIN_H * 2 * 4
+    fwd = dict(
+        ms=time_ms(lambda: _dal_fwd_cuda(h, x, scale, bias, out_dtype=bf16,
+                                         save_s=True, **kw)),
+        plain_ms=time_ms(lambda: reference_dal_fwd(h, x, scale, bias,
+                                                   out_dtype=bf16, **kw)),
+        library_ms=None,
+    )
+    fwd["bound_ms"], fwd["bound_by"] = bound(n_bytes + 2 * MAIN_H * 4,
+                                             16.0 * MAIN_ROWS * MAIN_H)
+    bwd = dict(
+        ms=time_ms(lambda: _dal_bwd_cuda(s, dy, scale, **kw)),
+        plain_ms=time_ms(lambda: reference_dal_bwd(s, dy, scale, **kw)),
+        library_ms=None,
+    )
+    bwd["bound_ms"], bwd["bound_by"] = bound(n_bytes + 3 * MAIN_H * 4,
+                                             20.0 * MAIN_ROWS * MAIN_H)
+    say(f"[kernels] dropout_add_layer_norm rows={MAIN_ROWS} H={MAIN_H} bf16 "
+        f"rate {rate}, training forward: " + json.dumps(fwd))
+    say(f"[kernels] dropout_add_layer_norm_bwd rows={MAIN_ROWS} H={MAIN_H}: "
+        + json.dumps(bwd))
+    say("[kernels] dropout_add_layer_norm(_bwd) library_ms null: no single "
+        "PyTorch call computes dropout + residual add + LayerNorm")
+    return dict(max_abs_err=worst, **fwd), dict(max_abs_err=worst, **bwd)
+
+
+def mask_scale_phase(device, shapes=MASK_SHAPES, rate=DROPOUT_RATE) -> dict:
+    """Kernel 5 against the plain generator, bit for bit, at the main
+    path's shapes and ragged element counts, bf16 and float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.ops.dropout import (
+        mask_scale,
+        reference_mask_scale,
+    )
+
+    for i, shape in enumerate(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            kw = dict(seed=500 + i, site=2)
+            got = mask_scale(shape, rate, dtype, device=device, **kw)
+            want = reference_mask_scale(shape, rate, dtype, device=device,
+                                        **kw)
+            if got.dtype != dtype or not torch.equal(got, want):
+                raise AssertionError(f"mask_scale {shape} {dtype} differs "
+                                     f"from the plain version")
+    say(f"[kernels] mask_scale parity ok: {list(shapes)} x {{bf16, f32}}, "
+        f"identical to the plain generator's mask-scale")
+    probs = shapes[0]
+    n = 1
+    for d in probs:
+        n *= d
+    ones = torch.ones(probs, dtype=torch.bfloat16, device=device)
+    kw = dict(seed=9, site=2, device=device)
+    t = dict(
+        ms=time_ms(lambda: mask_scale(probs, rate, torch.bfloat16, **kw)),
+        plain_ms=time_ms(lambda: reference_mask_scale(probs, rate,
+                                                      torch.bfloat16, **kw)),
+        library_ms=time_ms(lambda: F.dropout(ones, rate, training=True)),
+    )
+    # ~25 integer operations an element (Philox4x32-10: 10 rounds of 2
+    # mulhi, 2 mullo, 4 xor, 2 key adds per 4 elements, then the compare
+    # and select), counted at the table's float32 rate
+    t["bound_ms"], t["bound_by"] = bound(n * 2, 25.0 * n)
+    say(f"[kernels] mask_scale {probs} bf16 rate {rate}: " + json.dumps(t))
+    return dict(max_abs_err=0.0, **t)
+
+
+# ------------------------------------------------------------ phase 4, 5
+
+
+def expected_train_launches(*, micro: int, eval_batches: int,
+                            layers: int) -> dict:
+    """Launches of a counted train run: per microbatch forward the
+    embeddings LN, 2 tails per layer and 2 + layers mask-scales
+    (embeddings, classifier, the probs of each layer); per backward the
+    LN and tail backwards and the probs masks again (attention_remat
+    recomputes the core); per eval batch the forwards, deterministic."""
+    return {
+        "layer_norm": micro + eval_batches,
+        "layer_norm_bwd": micro,
+        "dropout_add_layer_norm": 2 * layers * (micro + eval_batches),
+        "dropout_add_layer_norm_bwd": 2 * layers * micro,
+        "mask_scale": (2 + 2 * layers) * micro,
+    }
+
+
+def train_once(argv):
+    """One run of the port's train_dp; returns (trainer, launch counts of
+    this run, wall seconds)."""
+    from pytorch_distributed_training_tpu_torch.cli import train_dp
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train_dp.train(argv)
+    wall = time.perf_counter() - t0
+    return trainer, dict(_build.LAUNCH_COUNTS), wall
+
+
+def train_metrics(trainer, wall) -> dict:
+    rec = trainer.history[-1]
+    steps = len(trainer.step_log)
+    return dict(
+        wall_s=wall, steps=steps, samples_per_s=rec["samples_per_sec"],
+        ms_per_step=1e3 * trainer.tcfg.global_batch_size
+        / rec["samples_per_sec"],
+        losses=[s["loss"] for s in trainer.step_log],
+        grad_norms=[s["grad_norm"] for s in trainer.step_log],
+        accuracy=rec["accuracy"], f1=rec["f1"],
+    )
+
+
+def train_phase(argv=TRAIN_ARGS) -> dict:
+    """The training main path, counted (first run, cold), then a second
+    run from the same seed that must give bit-identical per-step losses."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.models.bert import (
+        BertForSequenceClassification,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer, counts, wall = train_once(argv)
+    peak = torch.cuda.max_memory_allocated()
+    tc, mc = trainer.tcfg, trainer.mcfg
+    micro = trainer.state.step * tc.grad_accum_steps
+    check_launches(
+        f"train run ({trainer.state.step} steps x {tc.grad_accum_steps} "
+        f"microbatches, {trainer.eval_loader.steps_per_epoch} eval batches)",
+        counts, expected_train_launches(
+            micro=micro, eval_batches=trainer.eval_loader.steps_per_epoch,
+            layers=mc.num_layers),
+    )
+    cold = train_metrics(trainer, wall)
+    if cold["steps"] != 3 or not all(
+            map(math.isfinite, cold["losses"] + cold["grad_norms"])):
+        raise AssertionError(f"train run: {cold}")
+    # the weights of step 0, made again from the seed on the CPU
+    start = BertForSequenceClassification(
+        mc, generator=torch.Generator().manual_seed(tc.seed)
+    ).state_dict()
+    now = trainer.state.module.state_dict()
+    unmoved = [k for k in start
+               if torch.equal(now[k].cpu(), start[k])]
+    if unmoved:
+        raise AssertionError(f"parameters unchanged after 3 steps: "
+                             f"{unmoved[:5]}")
+    del trainer, start, now
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold.update(peak_mem_bytes=peak, launches=counts,
+                layers=mc.num_layers, hidden=mc.hidden_size)
+    say("[train] cold run: " + json.dumps(cold))
+    trainer, _, wall = train_once(argv)
+    warm = train_metrics(trainer, wall)
+    # the eval alone once more, timed: the profile's busy share needs the
+    # warm run's device-side seconds (steps + eval)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.evaluate()
+    torch.cuda.synchronize()
+    warm["eval_s"] = time.perf_counter() - t0
+    warm["train_s"] = warm["steps"] * warm["ms_per_step"] / 1e3
+    del trainer
+    if warm["losses"] != cold["losses"]:
+        raise AssertionError(f"per-step losses differ between two runs: "
+                             f"{cold['losses']} vs {warm['losses']}")
+    say("[train] warm run: " + json.dumps(warm))
+    say("[train] per-step losses bit-identical across two runs")
+    return dict(cold, warm=warm)
+
+
+def train_profile_phase(warm, argv=TRAIN_ARGS) -> dict:
+    """Device kernel time of the 3 steps and the eval under
+    ``torch.profiler``, by kernel class (the trainer is built first, so
+    the weight copy to the card is outside the window), and its share of
+    the warm run's step and eval seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_training_tpu_torch.cli import train_dp
+
+    trainer = train_dp.build_trainer(train_dp.build_parser().parse_args(argv))
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run()
+    wall = time.perf_counter() - t0
+    del trainer
+    res = dict(device_time_by_class(prof, warm["train_s"] + warm["eval_s"]),
+               profiled_wall_s=wall, host=host_time_by_op(prof))
+    say("[train-profile] " + json.dumps(res))
+    return res
+
+
+def host_time_by_op(prof, top_n=12) -> dict:
+    """Host self time of a ``torch.profiler`` run by operator (the main
+    thread and autograd's backward thread together), the largest first,
+    and the number of kernel launches the host issued."""
+    from torch.autograd import DeviceType
+
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and "#" not in e.key]
+    ops.sort(key=lambda e: -e.self_cpu_time_total)
+    launches = sum(e.count for e in ops
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                "cuLaunchKernel", "cuLaunchKernelEx"))
+    for e in ops[:top_n]:
+        say(f"[train-profile] host {e.self_cpu_time_total / 1e3:9.3f} ms "
+            f"{e.count:7d}x {e.key[:80]}")
+    return dict(self_ms_total=sum(e.self_cpu_time_total for e in ops) / 1e3,
+                runtime_launches=launches,
+                top_self_ms={e.key[:60]: e.self_cpu_time_total / 1e3
+                             for e in ops[:top_n]})
+
+
+def cpu_vs_card_phase(argv=TINY_ARGS) -> dict:
+    """The tiny preset with dropout on, 2 steps of accumulation 2 from one
+    seed, on the CPU (plain versions) and on the card (kernels)."""
+    runs = {}
+    for device in ("cpu", "cuda"):
+        trainer, _, _ = train_once(argv + ["--device", device])
+        runs[device] = train_metrics(trainer, 0.0)
+        if trainer.mcfg.hidden_dropout <= 0 or len(trainer.step_log) != 2:
+            raise AssertionError("cpu-vs-card wants dropout on and 2 steps")
+    cpu, card = runs["cpu"], runs["cuda"]
+    for key in ("losses", "grad_norms"):
+        for a, b in zip(cpu[key], card[key]):
+            if not math.isclose(a, b, rel_tol=CPU_CARD_RTOL):
+                raise AssertionError(
+                    f"cpu-vs-card {key}: cpu {cpu[key]} card {card[key]} "
+                    f"(rtol {CPU_CARD_RTOL})")
+    res = dict(cpu_losses=cpu["losses"], card_losses=card["losses"],
+               cpu_grad_norms=cpu["grad_norms"],
+               card_grad_norms=card["grad_norms"],
+               max_rel_diff=max(abs(a - b) / abs(a) for a, b in zip(
+                   cpu["losses"] + cpu["grad_norms"],
+                   card["losses"] + card["grad_norms"])))
+    say(f"[cpu-vs-card] tiny, dropout on, float32: " + json.dumps(res)
+        + f" (rtol {CPU_CARD_RTOL})")
+    return res
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -568,28 +1054,40 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from pytorch_distributed_training_tpu_torch.ops import _build
 
+    # one stream throughout; pinned all the same for cuBLAS's determinism
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t0 = time.perf_counter()
     smi = device_phase()
     build_phase()
-    ln = layer_norm_phase(device)
-    pa = paged_phase(device)
+    res = {"layer_norm": layer_norm_phase(device),
+           "paged_attention": paged_phase(device),
+           "layer_norm_bwd": ln_bwd_phase(device),
+           "mask_scale": mask_scale_phase(device)}
+    res["dropout_add_layer_norm"], res["dropout_add_layer_norm_bwd"] = (
+        dal_phase(device))
+    train = train_phase()
+    train_profile_phase(train["warm"])
+    cpu_vs_card_phase()
     serve = serve_phase()
     full_sequence_phase(device, serve.pop("streams"), PROMPTS)
     profile_phase(serve["warm"])
 
     kernels = []
-    for name, res in (("layer_norm", ln), ("paged_attention", pa)):
+    for name in _build.KERNELS:
+        r = res[name]
+        launches = (serve["launches"] if name == "paged_attention"
+                    else train["launches"]).get(name, 0)
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_training_tpu_torch/csrc/"
-                   + _build.KERNEL_SOURCES[name],
-            replaces=REPLACES[name], launches=serve["launches"][name],
-            max_abs_err=res["max_abs_err"], ms=res["ms"],
-            plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
-            bound_by=res["bound_by"], library_ms=res["library_ms"],
+                   + _build.KERNEL_SOURCES[_build.KERNELS[name]],
+            replaces=REPLACES[name], launches=launches,
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
             parity="pass",
         ))
     say(f"[done] {time.perf_counter() - t0:.1f} s on {smi}")

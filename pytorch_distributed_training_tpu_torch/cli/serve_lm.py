@@ -65,7 +65,7 @@ def build_server(args):
         EngineConfig,
         InferenceServer,
     )
-    from pytorch_distributed_training_tpu_torch.serve.engine import (
+    from pytorch_distributed_training_tpu_torch.utils.device import (
         resolve_device,
     )
 

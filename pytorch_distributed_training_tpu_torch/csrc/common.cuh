@@ -44,6 +44,23 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Widest row the one-warp-per-row LayerNorm kernels take: 64 floats a lane.
+constexpr int kMaxRowWidth = 2048;
+
+// Sum the per-warp partial rows red[w * h + j] (w < warps) of a block into
+// out[j], warp 0's first, in that fixed order (no atomics: two runs give
+// the same bits). Every thread of the block must call it.
+__device__ __forceinline__ void sum_warp_rows(const float* red, int warps,
+                                              int h, float* out) {
+  __syncthreads();
+  for (int j = threadIdx.x; j < h; j += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += red[w * h + j];
+    out[j] = s;
+  }
+  __syncthreads();
+}
+
 }  // namespace pdt
 
 extern "C" const char* pdt_cuda_error_string(int code) {

@@ -25,6 +25,7 @@ from torch import nn
 from pytorch_distributed_training_tpu_torch.models.bert import (
     BertSelfAttention,
     DenseGeneral,
+    Embed,
     PagedKV,
     compute_dtype,
     dense,
@@ -35,22 +36,6 @@ from pytorch_distributed_training_tpu_torch.ops.attention import (
     make_attention_bias,
 )
 from pytorch_distributed_training_tpu_torch.utils.config import ModelConfig
-
-
-class Embed(nn.Module):
-    """flax ``nn.Embed``: an ``embedding`` table, lookups in ``dtype``."""
-
-    def __init__(self, num: int, features: int, *, dtype: torch.dtype,
-                 param_dtype: torch.dtype, device=None, generator=None):
-        super().__init__()
-        self.dtype = dtype
-        table = torch.empty(num, features, dtype=param_dtype, device=device)
-        table.normal_(0.0, 0.02, generator=generator)
-        self.embedding = nn.Parameter(table)
-
-    def forward(self, ids):
-        # gather, then cast: the same values as flax's cast-then-gather
-        return F.embedding(ids, self.embedding).to(self.dtype)
 
 
 class GPT2Block(nn.Module):

@@ -12,6 +12,9 @@ failed build raises with the compiler's output; nothing falls back.
 ``build()`` compiles several sources at once, one ``nvcc`` process each,
 all started together.
 
+A library may hold several kernels (``KERNELS`` names each kernel's
+library): the LayerNorm forward and backward share ``layer_norm.cu``.
+
 Launch counts: every kernel wrapper adds one to ``LAUNCH_COUNTS[name]``
 where it launches its kernel and nowhere else, so a run can show that the
 main path went through the kernel (the counterpart of the JAX package's
@@ -34,10 +37,22 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-#: kernel name -> CUDA source under csrc/
+#: library name -> CUDA source under csrc/
 KERNEL_SOURCES = {
     "layer_norm": "layer_norm.cu",
+    "dropout_add_layer_norm": "dropout_add_layer_norm.cu",
+    "dropout": "dropout.cu",
     "paged_attention": "paged_attention.cu",
+}
+
+#: kernel (the name its launches are counted under) -> library holding it
+KERNELS = {
+    "layer_norm": "layer_norm",
+    "layer_norm_bwd": "layer_norm",
+    "dropout_add_layer_norm": "dropout_add_layer_norm",
+    "dropout_add_layer_norm_bwd": "dropout_add_layer_norm",
+    "mask_scale": "dropout",
+    "paged_attention": "paged_attention",
 }
 
 NVCC_FLAGS = (
@@ -140,6 +155,8 @@ def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
     """Raise when a launch returned a CUDA error (``cudaGetLastError``
     right after the launch: a refused launch never runs, and a later
     synchronize would not report it)."""
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel {name!r}; have {sorted(KERNELS)}")
     if code != 0:
         msg = lib.pdt_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (code {code})")

@@ -4,8 +4,11 @@
 ``make_attention_bias`` and the plain ``"reference"`` implementation:
 fp32 scores and softmax whatever the input dtype, ``finfo.min`` masking,
 probs cast to the V dtype. q/k/v are [batch, seq, heads, head_dim] as in
-the JAX package. The ``"flash"`` implementation is the JAX package's
-Pallas kernel, not ported yet.
+the JAX package. Probability dropout follows the JAX package's order for
+the ``"kernel"`` dropout impl: cast the fp32 probs to the V dtype first,
+then multiply by the mask-scale tensor (``ops/dropout.py``), so the mask
+saved for the backward is half-width. The ``"flash"`` implementation is
+the JAX package's Pallas kernel, not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from pytorch_distributed_training_tpu_torch.ops.dropout import raw_dropout
 
 
 def make_attention_bias(attention_mask: Optional[torch.Tensor], *,
@@ -33,8 +38,12 @@ def causal_bias(q_len: int, kv_len: int, *, device=None,
     return torch.where(j <= i, 0.0, neg).to(dtype)[None, None, :, :]
 
 
-def reference_attention(q, k, v, bias=None, *, causal: bool = False):
-    """Plain einsum attention; softmax in fp32 regardless of input dtype."""
+def reference_attention(q, k, v, bias=None, *, causal: bool = False,
+                        dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None,
+                        dropout_site: int = 0):
+    """Plain einsum attention; softmax in fp32 regardless of input dtype.
+    ``dropout_seed`` None is deterministic."""
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bsnd,btnd->bnst", q.float(), k.float()) * scale
     if bias is not None:
@@ -43,14 +52,21 @@ def reference_attention(q, k, v, bias=None, *, causal: bool = False):
         scores = scores + causal_bias(q.shape[-3], k.shape[-3],
                                       device=q.device)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    if dropout_seed is not None and dropout_rate > 0.0:
+        probs = raw_dropout(probs, dropout_rate, dropout_seed, dropout_site)
     return torch.einsum("bnst,btnd->bsnd", probs, v)
 
 
 def dot_product_attention(q, k, v, bias=None, *, impl: str = "reference",
-                          causal: bool = False):
+                          causal: bool = False, dropout_rate: float = 0.0,
+                          dropout_seed: Optional[int] = None,
+                          dropout_site: int = 0):
     """Dispatch to the configured attention implementation."""
     if impl == "reference":
-        return reference_attention(q, k, v, bias, causal=causal)
+        return reference_attention(
+            q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed, dropout_site=dropout_site,
+        )
     raise NotImplementedError(
         f"attention impl {impl!r} is not ported yet (the flash kernels are "
         f"queue 2 of ROADMAP.md)"

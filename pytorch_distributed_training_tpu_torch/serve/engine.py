@@ -48,6 +48,7 @@ from pytorch_distributed_training_tpu_torch.serve.queue import (
     RequestQueue,
 )
 from pytorch_distributed_training_tpu_torch.serve.sampling import device_sample
+from pytorch_distributed_training_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_training_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -63,18 +64,6 @@ _NOT_PORTED = {
     "weights_dtype": ("float32", "int8 weights (queue 1, slice 4)"),
     "kv_dtype": ("float32", "int8 KV pools (queue 1, slice 4)"),
 }
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; a CUDA device must exist (never a quiet
-    fall back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} asked for but torch.cuda.is_available() is "
-            f"false (pass device='cpu' to run the plain CPU path)"
-        )
-    return dev
 
 
 @dataclasses.dataclass

@@ -294,28 +294,37 @@ def test_bpe_tokenizer_matches_jax(tmp_path):
 
 
 def test_port_imports_no_jax_and_cuda_entry_point_refuses_without_gpu():
-    """Every port module imports with JAX and the JAX package blocked, and
-    ``serve_lm --device cuda`` raises on a machine without a GPU instead of
-    carrying on on the CPU."""
+    """Every port module imports with JAX, flax, optax and the JAX package
+    blocked, and ``serve_lm --device cuda`` and ``train_dp --device cuda``
+    raise on a machine without a GPU instead of carrying on on the CPU."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for name in ("jax", "flax", "pytorch_distributed_training_tpu"):
+        for name in ("jax", "flax", "optax",
+                     "pytorch_distributed_training_tpu"):
             sys.modules[name] = None
         import pytorch_distributed_training_tpu_torch as pkg
         mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                        pkg.__name__ + ".")]
         for m in mods:
             importlib.import_module(m)
+        for m in ("train.loop", "train.step", "cli.train_dp",
+                  "comms.bootstrap", "data.pipeline", "ops.dropout"):
+            assert pkg.__name__ + "." + m in mods, m
         import torch
         assert not torch.cuda.is_available()
-        from pytorch_distributed_training_tpu_torch.cli import serve_lm
-        try:
-            serve_lm.main(["--model", "gpt2-tiny", "--device", "cuda"])
-        except RuntimeError as e:
-            assert "cuda" in str(e), e
-            print("REFUSED", len(mods))
-        else:
-            raise SystemExit("serve_lm --device cuda ran without a GPU")
+        from pytorch_distributed_training_tpu_torch.cli import (
+            serve_lm, train_dp)
+        for main, argv in ((serve_lm.main, ["--model", "gpt2-tiny"]),
+                           (train_dp.main, ["--model", "tiny", "--task",
+                                            "synthetic"])):
+            try:
+                main(argv + ["--device", "cuda"])
+            except RuntimeError as e:
+                assert "cuda" in str(e), e
+            else:
+                raise SystemExit(f"{main.__module__} --device cuda ran "
+                                 f"without a GPU")
+        print("REFUSED", len(mods))
     """)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run(
@@ -324,4 +333,4 @@ def test_port_imports_no_jax_and_cuda_entry_point_refuses_without_gpu():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     refused, count = proc.stdout.split()[-2:]
-    assert refused == "REFUSED" and int(count) >= 20
+    assert refused == "REFUSED" and int(count) >= 35
