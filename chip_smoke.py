@@ -14,7 +14,8 @@ the JAX package), in phases that each raise on failure:
 3. kernels: holds each kernel against its plain PyTorch version on the
    card (tolerances below; the dropout masks bit for bit), backward kernels
    through ``torch.autograd.grad``, and times kernel, plain version and the
-   library yardstick at the main paths' shapes with CUDA-graph replay;
+   library yardstick at the main paths' shapes with CUDA-graph replay (the
+   flash kernels against ``F.scaled_dot_product_attention``);
 4. train: runs the port's ``train_dp`` on bert-large-cased at full width
    and depth (3 optimizer steps of 96 = 8 x 12 on the synthetic MRPC task,
    then the full 408-row eval), with the launch counters reset just before
@@ -24,7 +25,17 @@ the JAX package), in phases that each raise on failure:
 5. cpu-vs-card: the ``tiny`` preset with dropout on, trained 2 steps on
    the CPU (plain versions) and on the card (kernels) from one seed: the
    per-step losses agree, so the card's masks are the plain generator's;
-6. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
+   then the same for ``gpt2-tiny`` through ``train_lm`` (the
+   whole-sequence flash kernels);
+6. lm: runs the port's ``train_lm`` on gpt2-medium at full width and
+   depth, at seq 1024 (3 optimizer steps of 32 = 4 x 8, then a 64-row
+   eval: the blockwise flash kernels) and at seq 128 (1 step of 96 = 8 x
+   12, then a 32-row eval: the whole-sequence pair), the launch counters
+   reset just before each and read just after and checked against the
+   counts the step derives; finite losses, moved parameters, bit-identical
+   per-step losses in a second seq-1024 run, and a third under
+   ``torch.profiler``;
+7. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
    (random weights from ``--seed 0``) over a JSONL request stream, with the
    kernels' launch counters reset just before and read just after; checks
    every request's token count, the launch counts against the engine's
@@ -111,6 +122,41 @@ TINY_ARGS = ["--model", "tiny", "--task", "synthetic", "--train-size", "32",
              "--log-every", "0"]
 CPU_CARD_RTOL = 1e-4
 
+# flash attention at the LM paths' shapes: gpt2-medium at seq 1024, micro
+# 4 (blockwise pair) and at seq 128, micro 8 (whole-sequence pair)
+FLASH_BLOCKWISE = (4, 16, 1024, 64)
+FLASH_WHOLE = (8, 16, 128, 64)
+# bf16 outputs against the plain version's: 2 bf16 ulps of the element
+# plus 1e-3 of the tensor's largest magnitude (float32 sums in another
+# order; p rounded to bf16 against another running max)
+FLASH_BF16_ULPS = 2
+FLASH_BF16_SLACK = 1e-3
+# float32 case, rate 0.1, q = 0 (each visible key weighs 1 / its row's
+# count, >= 1/1024) and v, dO in [1, 1.5): a single differing mask element
+# moves its row of o, and its key's row of dv, by >= 1 / (0.9 * 1024) ~
+# 1.1e-3 in every column; the kernels' float32 error is ~1e-6
+FLASH_FP32_TOL = 1e-5
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate (the flash
+# inputs' type)
+BF16_FLOPS_PER_S = 989e12
+
+LM_1024_ARGS = ["--model", "gpt2-medium", "--task", "lm",
+                "--max-seq-length", "1024", "--global-batch-size", "32",
+                "--micro-batch-size", "4", "--train-size", "96",
+                "--eval-size", "64", "--num-epochs", "1", "--seed", "42",
+                "--log-every", "0", "--device", "cuda"]
+LM_128_ARGS = ["--model", "gpt2-medium", "--task", "lm", "--train-size", "96",
+               "--eval-size", "32", "--num-epochs", "1", "--seed", "42",
+               "--log-every", "0", "--device", "cuda"]
+# gpt2-tiny keeps "reference" attention as its preset; --attention flash
+# puts the whole-sequence kernels (head_dim 16, float32) on the path
+TINY_LM_ARGS = ["--model", "gpt2-tiny", "--attention", "flash", "--task", "lm",
+                "--train-size", "32",
+                "--eval-size", "32", "--global-batch-size", "16",
+                "--micro-batch-size", "8", "--num-epochs", "1", "--seed", "7",
+                "--no-bf16", "--warmup-steps", "1", "--learning-rate", "1e-3",
+                "--log-every", "0"]
+
 _PKG = "pytorch_distributed_training_tpu"
 REPLACES = {
     "layer_norm": f"{_PKG}/ops/layer_norm.py:102",
@@ -119,6 +165,10 @@ REPLACES = {
     "dropout_add_layer_norm_bwd": f"{_PKG}/ops/layer_norm.py:345",
     "mask_scale": f"{_PKG}/ops/dropout.py:107",
     "paged_attention": f"{_PKG}/ops/paged_attention.py:238",
+    "flash_fwd": f"{_PKG}/ops/flash_attention.py:103",
+    "flash_bwd": f"{_PKG}/ops/flash_attention.py:360",
+    "flash_whole_fwd": f"{_PKG}/ops/flash_attention.py:467",
+    "flash_whole_bwd": f"{_PKG}/ops/flash_attention.py:505",
 }
 
 
@@ -179,10 +229,11 @@ def eager_ms(fn, *, reps: int = 25, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     """Least time for the work on the card, in ms, and what bounds it."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOPS_PER_S * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -512,6 +563,9 @@ _PORT_KERNELS = (
     ("dal_bwd_kernel", "dropout_add_layer_norm_bwd"),
     ("mask_scale_kernel", "mask_scale"),
     ("paged_decode_kernel", "paged_attention"),
+    ("flash_fwd_kernel<", "flash_fwd / flash_whole_fwd"),
+    ("flash_bwd_kernel<", "flash_bwd / flash_whole_bwd"),
+    ("flash_dq_sum_kernel", "flash_bwd / flash_whole_bwd dq sum"),
 )
 
 
@@ -885,15 +939,18 @@ def expected_train_launches(*, micro: int, eval_batches: int,
     }
 
 
-def train_once(argv):
-    """One run of the port's train_dp; returns (trainer, launch counts of
-    this run, wall seconds)."""
-    from pytorch_distributed_training_tpu_torch.cli import train_dp
+def train_once(argv, cli="train_dp"):
+    """One run of the port's train_dp (or another trainer CLI of the port);
+    returns (trainer, launch counts of this run, wall seconds)."""
+    import importlib
+
     from pytorch_distributed_training_tpu_torch.ops import _build
 
+    module = importlib.import_module(
+        f"pytorch_distributed_training_tpu_torch.cli.{cli}")
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    trainer = train_dp.train(argv)
+    trainer = module.train(argv)
     wall = time.perf_counter() - t0
     return trainer, dict(_build.LAUNCH_COUNTS), wall
 
@@ -971,16 +1028,19 @@ def train_phase(argv=TRAIN_ARGS) -> dict:
     return dict(cold, warm=warm)
 
 
-def train_profile_phase(warm, argv=TRAIN_ARGS) -> dict:
+def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
+                        tag="train-profile") -> dict:
     """Device kernel time of the 3 steps and the eval under
     ``torch.profiler``, by kernel class (the trainer is built first, so
     the weight copy to the card is outside the window), and its share of
     the warm run's step and eval seconds."""
+    import importlib
+
     from torch.profiler import ProfilerActivity, profile
 
-    from pytorch_distributed_training_tpu_torch.cli import train_dp
-
-    trainer = train_dp.build_trainer(train_dp.build_parser().parse_args(argv))
+    module = importlib.import_module(
+        f"pytorch_distributed_training_tpu_torch.cli.{cli}")
+    trainer = module.build_trainer(module.build_parser().parse_args(argv))
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -989,7 +1049,7 @@ def train_profile_phase(warm, argv=TRAIN_ARGS) -> dict:
     del trainer
     res = dict(device_time_by_class(prof, warm["train_s"] + warm["eval_s"]),
                profiled_wall_s=wall, host=host_time_by_op(prof))
-    say("[train-profile] " + json.dumps(res))
+    say(f"[{tag}] " + json.dumps(res))
     return res
 
 
@@ -1014,13 +1074,14 @@ def host_time_by_op(prof, top_n=12) -> dict:
                              for e in ops[:top_n]})
 
 
-def cpu_vs_card_phase(argv=TINY_ARGS) -> dict:
+def cpu_vs_card_phase(argv=TINY_ARGS, cli="train_dp") -> dict:
     """The tiny preset with dropout on, 2 steps of accumulation 2 from one
     seed, on the CPU (plain versions) and on the card (kernels)."""
+    metrics = lm_metrics if cli == "train_lm" else train_metrics
     runs = {}
     for device in ("cpu", "cuda"):
-        trainer, _, _ = train_once(argv + ["--device", device])
-        runs[device] = train_metrics(trainer, 0.0)
+        trainer, _, _ = train_once(argv + ["--device", device], cli)
+        runs[device] = metrics(trainer, 0.0)
         if trainer.mcfg.hidden_dropout <= 0 or len(trainer.step_log) != 2:
             raise AssertionError("cpu-vs-card wants dropout on and 2 steps")
     cpu, card = runs["cpu"], runs["cuda"]
@@ -1036,9 +1097,317 @@ def cpu_vs_card_phase(argv=TINY_ARGS) -> dict:
                max_rel_diff=max(abs(a - b) / abs(a) for a, b in zip(
                    cpu["losses"] + cpu["grad_norms"],
                    card["losses"] + card["grad_norms"])))
-    say(f"[cpu-vs-card] tiny, dropout on, float32: " + json.dumps(res)
-        + f" (rtol {CPU_CARD_RTOL})")
+    say(f"[cpu-vs-card] {trainer.mcfg.num_layers}-layer "
+        f"{argv[argv.index('--model') + 1]} ({cli}), dropout on, float32: "
+        + json.dumps(res) + f" (rtol {CPU_CARD_RTOL})")
     return res
+
+
+# ------------------------------------------------- phase 3, flash kernels
+
+
+def flash_inputs(device, shape, dtype, *, seed, uniform=False):
+    """q, k, v, dO as [B, N, S, D] views of [B, S, N, D] tensors (as the
+    model hands them over) and the key-padding bias: row 1 ragged (two
+    thirds of its keys), row 2 fully masked. ``uniform``: q = 0 and v, dO
+    in [1, 1.5) (see FLASH_FP32_TOL)."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops.attention import (
+        make_attention_bias,
+    )
+
+    b, n, s, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def bsnd(low=None):
+        if low is None:
+            return torch.randn(b, s, n, d, generator=g, device=device)
+        return low + 0.5 * torch.rand(b, s, n, d, generator=g, device=device)
+
+    q, k, v, do = bsnd(), bsnd(), bsnd(), bsnd()
+    if uniform:
+        q, v, do = torch.zeros_like(q), bsnd(1.0), bsnd(1.0)
+    mask = torch.ones(b, s, dtype=torch.int32, device=device)
+    mask[1, s * 2 // 3:] = 0
+    mask[2] = 0
+    bias = make_attention_bias(mask)
+    return ([t.to(dtype).transpose(1, 2) for t in (q, k, v, do)], bias)
+
+
+def check_flash_close(what, got, want, *, tol=None) -> float:
+    """bf16: per element FLASH_BF16_ULPS bf16 ulps + FLASH_BF16_SLACK of
+    the largest |want|; float32: ``tol`` absolute. Returns the largest
+    error."""
+    import torch
+
+    g, w = got.detach().float(), want.detach().float()
+    err = (g - w).abs()
+    if tol is None:
+        limit = (FLASH_BF16_ULPS * bf16_ulp(torch.maximum(g.abs(), w.abs()))
+                 + FLASH_BF16_SLACK * float(w.abs().max()))
+    else:
+        limit = torch.full_like(err, tol)
+    bad = err > limit
+    if bad.any() or not torch.isfinite(g).all():
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {err.numel()} elements beyond the "
+            f"tolerance (max err {float(err.max())}): got "
+            f"{g[bad][:4].tolist()} want {w[bad][:4].tolist()}")
+    return float(err.max())
+
+
+def flash_pair_parity(device, shape, whole, dtype, rate, seed,
+                      uniform=False) -> float:
+    """One pair's forward and gradients through ``flash_attention_base``
+    (``torch.autograd.grad``) against the plain forward and backward on
+    the same inputs; causal, key-padding bias, site 2."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    (q, k, v, do), bias = flash_inputs(device, shape, dtype, seed=seed,
+                                       uniform=uniform)
+    kw = dict(causal=True, rate=rate, seed=seed, site=2)
+    # the adapter's blocks at the main paths' shapes: the whole sequence,
+    # or 512 of 1024
+    block = shape[2] if whole else shape[2] // 2
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o_k = fa.flash_attention_base(*leaves, bias, seed, dropout_rate=rate,
+                                  causal=True, block_q=block, block_k=block,
+                                  dropout_site=2)
+    got = torch.autograd.grad(o_k, leaves, do)
+    if whole:
+        o_p = fa.reference_whole_fwd(q, k, v, bias, **kw)
+        want = fa.reference_whole_bwd(q, k, v, bias, o_p, do, **kw)
+    else:
+        o_p, lse_p = fa.reference_flash_fwd(q, k, v, bias, **kw)
+        want = fa.reference_flash_bwd(q, k, v, bias, o_p, lse_p, do, **kw)
+        _, lse_k = fa.flash_fwd(q, k, v, bias, **kw)
+        lerr = (lse_k - lse_p).abs()
+        if bool((lerr > 1e-5 * lse_p.abs().clamp_min(1.0)).any()):
+            raise AssertionError(f"flash_fwd lse {shape}: max err "
+                                 f"{float(lerr.max())}")
+    tol = FLASH_FP32_TOL if dtype == torch.float32 else None
+    what = (f"{'flash_whole' if whole else 'flash'} {tuple(shape)} {dtype} "
+            f"rate {rate}")
+    worst = check_flash_close(what + " o", o_k, o_p, tol=tol)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = 1.0 if tol is None else max(1.0, float(b.abs().max()))
+        worst = max(worst, check_flash_close(
+            f"{what} {name}", a, b, tol=None if tol is None else tol * scale))
+    if o_k[2].abs().max() != 0 or not all(
+            bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError(f"{what}: the fully masked row is not 0, or a "
+                             f"gradient is not finite")
+    return worst
+
+
+def flash_bounds(shape, whole, esize=2):
+    """(fwd, bwd) least times: bytes each input read once and each output
+    written once; operations 4 D (forward) and 10 D (backward: the QK^T
+    recompute, dP, dV, dK, dQ) per causally visible (q, k) pair, at the
+    bf16 tensor-core rate."""
+    b, n, s, d = shape
+    x = b * n * s * d * esize                     # one of q/k/v/o/dO/dq/...
+    lse = 0 if whole else b * n * s * 4
+    pairs = b * n * s * (s + 1) // 2
+    fwd = bound(4 * x + lse + b * s * 4, 4.0 * d * pairs, BF16_FLOPS_PER_S)
+    bwd = bound(8 * x + lse + b * s * 4, 10.0 * d * pairs, BF16_FLOPS_PER_S)
+    return fwd, bwd
+
+
+def flash_phase(device) -> dict:
+    """Kernels 6-9: each pair bf16 at rates 0 and 0.1 and float32 at 0.1
+    against its plain version, then kernel, plain and SDPA times at the
+    main paths' shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    res = {}
+    for whole, shape in ((False, FLASH_BLOCKWISE), (True, FLASH_WHOLE)):
+        names = (("flash_whole_fwd", "flash_whole_bwd") if whole
+                 else ("flash_fwd", "flash_bwd"))
+        worst = max(flash_pair_parity(device, shape, whole, torch.bfloat16,
+                                      rate, 10 + i)
+                    for i, rate in enumerate((0.0, DROPOUT_RATE)))
+        worst32 = flash_pair_parity(device, shape, whole, torch.float32,
+                                    DROPOUT_RATE, 20, uniform=True)
+        say(f"[kernels] {names[0]}/{names[1]} parity ok: {list(shape)} "
+            f"causal, ragged + fully masked rows; bf16 at rates 0 and "
+            f"{DROPOUT_RATE}, max abs err {worst} (<= {FLASH_BF16_ULPS} bf16 "
+            f"ulps + {FLASH_BF16_SLACK} x max|want|); float32 at rate "
+            f"{DROPOUT_RATE}, uniform probs, max err {worst32} (<= "
+            f"{FLASH_FP32_TOL} x max(1, max|want|): one differing mask "
+            f"element would move o or dv by >= 1.1e-3)")
+
+        (q, k, v, do), bias = flash_inputs(device, shape, torch.bfloat16,
+                                           seed=30)
+        kw = dict(causal=True, rate=DROPOUT_RATE, seed=30, site=2)
+        qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+        if whole:
+            o = fa.flash_whole_fwd(q, k, v, bias, **kw)
+            fwd = lambda: fa.flash_whole_fwd(q, k, v, bias, **kw)  # noqa
+            bwd = lambda: fa.flash_whole_bwd(q, k, v, bias, o, do, **kw)  # noqa
+            pfwd = lambda: fa.reference_whole_fwd(q, k, v, bias, **kw)  # noqa
+            pbwd = lambda: fa.reference_whole_bwd(  # noqa
+                q, k, v, bias, o, do, **kw)
+        else:
+            o, lse = fa.flash_fwd(q, k, v, bias, **kw)
+            fwd = lambda: fa.flash_fwd(q, k, v, bias, **kw)  # noqa
+            bwd = lambda: fa.flash_bwd(q, k, v, bias, o, lse, do, **kw)  # noqa
+            pfwd = lambda: fa.reference_flash_fwd(q, k, v, bias, **kw)  # noqa
+            pbwd = lambda: fa.reference_flash_bwd(  # noqa
+                q, k, v, bias, o, lse, do, **kw)
+        lib = torch.ops.aten._scaled_dot_product_flash_attention(
+            qc, kc, vc, 0.0, True)
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa
+            qc, kc, vc, is_causal=True)
+        sdpa_bwd = lambda: (  # noqa
+            torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                doc, qc, kc, vc, lib[0], lib[1], lib[2], lib[3], lib[4],
+                lib[5], 0.0, True, lib[6], lib[7]))
+        leaves = [t.detach().clone().requires_grad_() for t in (qc, kc, vc)]
+        sdpa_train = lambda: torch.autograd.grad(  # noqa
+            F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
+            doc)
+        (fb, fby), (bb, bby) = flash_bounds(shape, whole)
+        plain_kw = dict(reps=5, inner=2)
+        t_fwd = dict(ms=time_ms(fwd), plain_ms=time_ms(pfwd, **plain_kw),
+                     library_ms=time_ms(sdpa_fwd), bound_ms=fb, bound_by=fby)
+        t_bwd = dict(ms=time_ms(bwd), plain_ms=time_ms(pbwd, **plain_kw),
+                     library_ms=time_ms(sdpa_bwd), bound_ms=bb, bound_by=bby,
+                     sdpa_fwd_bwd_eager_ms=eager_ms(sdpa_train))
+        say(f"[kernels] {names[0]} {list(shape)} bf16 causal rate "
+            f"{DROPOUT_RATE}: " + json.dumps(t_fwd)
+            + " (library: F.scaled_dot_product_attention(is_causal=True), "
+              "no padding bias, no dropout)")
+        say(f"[kernels] {names[1]} {list(shape)} bf16 causal rate "
+            f"{DROPOUT_RATE}: " + json.dumps(t_bwd)
+            + " (library: aten._scaled_dot_product_flash_attention_backward"
+              " on SDPA's saved outputs)")
+        res[names[0]] = dict(max_abs_err=max(worst, worst32), **t_fwd)
+        res[names[1]] = dict(max_abs_err=max(worst, worst32), **t_bwd)
+        del q, k, v, do, o, lib, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------- phase 6
+
+
+def expected_lm_launches(*, micro: int, eval_batches: int, layers: int,
+                         whole: bool) -> dict:
+    """Launches of a counted LM run: per microbatch forward the LNs (2 a
+    block + ln_f), the hidden-dropout masks (embeddings + 2 a block) and
+    one flash forward a block; per backward the LN and flash backwards
+    (the masks are saved, not redrawn); per eval batch the forwards,
+    deterministic."""
+    fwd, bwd = (("flash_whole_fwd", "flash_whole_bwd") if whole
+                else ("flash_fwd", "flash_bwd"))
+    lns = 2 * layers + 1
+    return {
+        fwd: layers * (micro + eval_batches),
+        bwd: layers * micro,
+        "layer_norm": lns * (micro + eval_batches),
+        "layer_norm_bwd": lns * micro,
+        "mask_scale": lns * micro,
+    }
+
+
+def lm_metrics(trainer, wall) -> dict:
+    rec = trainer.history[-1]
+    tc = trainer.tcfg
+    return dict(
+        wall_s=wall, steps=len(trainer.step_log),
+        samples_per_s=rec["samples_per_sec"],
+        tokens_per_s=rec["samples_per_sec"] * tc.max_seq_length,
+        ms_per_step=1e3 * tc.global_batch_size / rec["samples_per_sec"],
+        losses=[s["loss"] for s in trainer.step_log],
+        grad_norms=[s["grad_norm"] for s in trainer.step_log],
+        eval_loss=rec["eval_loss"], perplexity=rec["perplexity"],
+        token_accuracy=rec["token_accuracy"],
+    )
+
+
+def lm_phase(argv, *, steps, rerun, tag) -> dict:
+    """One counted ``train_lm`` run on gpt2-medium (finite losses; weights
+    moved when ``steps`` > 1); with ``rerun``, a second from the same seed
+    whose per-step losses must be bit-identical and a timed eval."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.models.gpt2 import (
+        GPT2LMModel,
+    )
+    from pytorch_distributed_training_tpu_torch.ops.flash_attention import (
+        whole_seq,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer, counts, wall = train_once(argv, "train_lm")
+    peak = torch.cuda.max_memory_allocated()
+    tc, mc = trainer.tcfg, trainer.mcfg
+    seq = tc.max_seq_length
+    whole = whole_seq(seq, seq, min(seq, 512), min(seq, 512))
+    micro = trainer.state.step * tc.grad_accum_steps
+    check_launches(
+        f"{tag} run ({trainer.state.step} steps x {tc.grad_accum_steps} "
+        f"microbatches, {trainer.eval_loader.steps_per_epoch} eval batches)",
+        counts, expected_lm_launches(
+            micro=micro, eval_batches=trainer.eval_loader.steps_per_epoch,
+            layers=mc.num_layers, whole=whole),
+    )
+    cold = lm_metrics(trainer, wall)
+    if cold["steps"] != steps or not all(map(
+            math.isfinite,
+            cold["losses"] + cold["grad_norms"] + [cold["eval_loss"]])):
+        raise AssertionError(f"{tag} run: {cold}")
+    # the warmup schedule's learning rate is 0 at update 1, so only a run
+    # of more than one step can move the weights
+    if steps > 1:
+        start = GPT2LMModel(
+            mc, generator=torch.Generator().manual_seed(tc.seed)
+        ).state_dict()
+        now = trainer.state.module.state_dict()
+        unmoved = [k for k in start if torch.equal(now[k].cpu(), start[k])]
+        if unmoved:
+            raise AssertionError(f"{tag}: parameters unchanged after "
+                                 f"{steps} steps: {unmoved[:5]}")
+        del start, now
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold.update(peak_mem_bytes=peak, launches=counts, layers=mc.num_layers,
+                hidden=mc.hidden_size, seq=seq,
+                attention="whole-sequence flash" if whole
+                else "blockwise flash")
+    say(f"[{tag}] cold run: " + json.dumps(cold))
+    if not rerun:
+        return cold
+    trainer, _, wall = train_once(argv, "train_lm")
+    warm = lm_metrics(trainer, wall)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.evaluate()
+    torch.cuda.synchronize()
+    warm["eval_s"] = time.perf_counter() - t0
+    warm["train_s"] = warm["steps"] * warm["ms_per_step"] / 1e3
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if warm["losses"] != cold["losses"]:
+        raise AssertionError(f"{tag}: per-step losses differ between two "
+                             f"runs: {cold['losses']} vs {warm['losses']}")
+    say(f"[{tag}] warm run: " + json.dumps(warm))
+    say(f"[{tag}] per-step losses bit-identical across two runs")
+    return dict(cold, warm=warm)
 
 
 # ------------------------------------------------------------------- main
@@ -1060,26 +1429,49 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t0 = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        laps[name] = round(time.perf_counter() - t0 - sum(laps.values()), 1)
+
     smi = device_phase()
     build_phase()
+    lap("build")
     res = {"layer_norm": layer_norm_phase(device),
            "paged_attention": paged_phase(device),
            "layer_norm_bwd": ln_bwd_phase(device),
            "mask_scale": mask_scale_phase(device)}
     res["dropout_add_layer_norm"], res["dropout_add_layer_norm_bwd"] = (
         dal_phase(device))
+    lap("kernels")
+    res.update(flash_phase(device))
+    lap("flash kernels")
     train = train_phase()
+    lap("train")
     train_profile_phase(train["warm"])
+    lap("train-profile")
     cpu_vs_card_phase()
+    lm = lm_phase(LM_1024_ARGS, steps=3, rerun=True, tag="lm-1024")
+    lap("lm-1024")
+    train_profile_phase(lm["warm"], LM_1024_ARGS, "train_lm",
+                        tag="lm-1024-profile")
+    lap("lm-1024-profile")
+    lm_short = lm_phase(LM_128_ARGS, steps=1, rerun=False, tag="lm-128")
+    cpu_vs_card_phase(TINY_LM_ARGS, "train_lm")
+    lap("lm-128 + cpu-vs-card")
     serve = serve_phase()
     full_sequence_phase(device, serve.pop("streams"), PROMPTS)
     profile_phase(serve["warm"])
+    lap("serve")
+    say("[done] seconds by phase " + json.dumps(laps))
 
     kernels = []
+    # each kernel's launches from the main path that runs it
+    runs = dict(paged_attention=serve, flash_fwd=lm, flash_bwd=lm,
+                flash_whole_fwd=lm_short, flash_whole_bwd=lm_short)
     for name in _build.KERNELS:
         r = res[name]
-        launches = (serve["launches"] if name == "paged_attention"
-                    else train["launches"]).get(name, 0)
+        launches = runs.get(name, train)["launches"].get(name, 0)
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_training_tpu_torch/csrc/"

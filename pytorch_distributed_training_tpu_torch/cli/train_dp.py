@@ -67,11 +67,17 @@ def build_trainer(args):
 
 def train(argv=None):
     """Parse ``argv``, run the trainer to its end and return it."""
+    return run(build_parser().parse_args(argv), build_trainer)
+
+
+def run(args, build):
+    """Build the trainer of ``args`` with ``build``, run it to its end,
+    write ``--history-out`` (rank 0) and leave the process group; the
+    trainer. Shared with ``cli/train_lm``."""
     from pytorch_distributed_training_tpu_torch.comms.bootstrap import shutdown
 
-    args = build_parser().parse_args(argv)
     try:
-        trainer = build_trainer(args)
+        trainer = build(args)
         trainer.run()
         if args.history_out and trainer.info.is_main:
             with open(args.history_out, "w") as f:

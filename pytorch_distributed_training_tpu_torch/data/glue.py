@@ -3,8 +3,9 @@
 ``load_task_arrays`` and ``eval_splits``).
 
 Tasks: MRPC (the reference workload), MNLI (matched and mismatched
-validation splits), SST-2, QNLI, and ``synthetic``, the MRPC-shaped
-stand-in of ``data/synthetic.py``. ``auto`` tries MRPC through the
+validation splits), SST-2, QNLI, ``synthetic``, the MRPC-shaped
+stand-in of ``data/synthetic.py``, and ``lm``, its causal-LM corpus (no
+labels; ``num_labels`` 0). ``auto`` tries MRPC through the
 ``datasets`` package and falls back to ``synthetic`` when it is missing
 or the hub and cache are unreachable. Real text is encoded with the
 WordPiece vocabulary at ``vocab_path`` or the hash tokenizer (the JAX
@@ -32,6 +33,8 @@ TASKS = {
     "sst2": (("glue", "sst2"), "sentence", None, 2),
     "qnli": (("glue", "qnli"), "question", "sentence", 2),
     "synthetic": (None, None, None, 2),
+    # the synthetic causal-LM corpus (data/synthetic.py synthetic_lm_task)
+    "lm": (None, None, None, 0),
 }
 
 
@@ -78,7 +81,8 @@ def load_task_arrays(
         synthetic.MRPC_EVAL_SIZE,
     ),
 ) -> tuple[dict[str, np.ndarray], int]:
-    """({input_ids, attention_mask, token_type_ids, labels}, num_labels).
+    """({input_ids, attention_mask, token_type_ids, labels}, num_labels);
+    the ``lm`` task has only {input_ids, attention_mask} and 0 labels.
 
     ``split`` is "train", "validation" or (MNLI) "validation_mismatched".
     """
@@ -92,6 +96,16 @@ def load_task_arrays(
             seed=seed if split == "train" else seed + 1,
         )
         return data, 2
+    if task == "lm":
+        # both splits sample one chain (the table from ``seed``) through
+        # their own row streams, each made at its own size
+        n_train, n_eval = synthetic_sizes
+        n = n_train if split == "train" else n_eval
+        data = synthetic.synthetic_lm_task(
+            n, max_length=max_length, vocab_size=vocab_size, seed=seed,
+            row_seed=seed + (1 if split == "train" else 2),
+        )
+        return data, 0
     if task not in TASKS:
         raise KeyError(f"unknown task {task!r}; have {sorted(TASKS)}")
     ds_args, field_a, field_b, num_labels = TASKS[task]

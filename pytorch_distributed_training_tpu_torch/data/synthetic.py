@@ -1,6 +1,6 @@
-"""Deterministic synthetic GLUE-shaped pair task for offline runs
-(counterpart: the JAX package's ``data/synthetic.py``
-``synthetic_pair_task``, whose stream this copy keeps byte for byte).
+"""Deterministic synthetic tasks for offline runs (counterpart: the JAX
+package's ``data/synthetic.py`` ``synthetic_pair_task`` and
+``synthetic_lm_task``, whose streams this copy keeps byte for byte).
 
 Same tensor contract and split sizes as GLUE/MRPC (3668 train / 408
 validation). Binary: label 1 = segment B is segment A with ~15% token
@@ -22,6 +22,46 @@ from pytorch_distributed_training_tpu_torch.data.tokenizer import (
 MRPC_TRAIN_SIZE = 3668
 MRPC_EVAL_SIZE = 408
 MARKER_BAND = 64  # per-class marker sub-vocab width for multi-class tasks
+
+
+def synthetic_lm_task(
+    n_examples: int,
+    *,
+    max_length: int = 128,
+    vocab_size: int = 50257,
+    seed: int = 42,
+    order: int = 1,
+    row_seed: int | None = None,
+) -> dict[str, np.ndarray]:
+    """{input_ids, attention_mask} int32 rows of a learnable causal-LM
+    corpus: a fixed random order-``order`` Markov chain over a 256-token
+    alphabet (tokens 2..257, each context preferring 4 successors),
+    embedded in the full vocab; dense rows, no padding. The transition
+    table depends only on ``seed``; ``row_seed`` (when given) seeds an
+    independent stream for the rows, so disjoint splits of one chain are
+    each made at their own size."""
+    rng = np.random.default_rng(seed)
+    alphabet = 256
+    table = rng.dirichlet(np.full(4, 0.5), size=alphabet**order)
+    cum = table.cumsum(axis=1)
+    prefs = rng.integers(0, alphabet, size=(alphabet**order, 4))
+    if row_seed is not None:
+        rng = np.random.default_rng(row_seed)
+
+    ids = np.empty((n_examples, max_length), np.int64)
+    ids[:, :order] = rng.integers(0, alphabet, size=(n_examples, order))
+    for t in range(order, max_length):
+        ctx = ids[:, t - order]
+        for k in range(1, order):
+            ctx = ctx * alphabet + ids[:, t - order + k]
+        u = rng.random(n_examples)
+        choice = (u[:, None] > cum[ctx]).sum(axis=1).clip(0, 3)
+        ids[:, t] = prefs[ctx, choice]
+    ids = (ids + 2) % vocab_size
+    return {
+        "input_ids": ids.astype(np.int32),
+        "attention_mask": np.ones((n_examples, max_length), np.int32),
+    }
 
 
 def synthetic_pair_task(

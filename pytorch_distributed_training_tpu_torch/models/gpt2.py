@@ -11,7 +11,21 @@ round the logits to bf16). Parameter names follow the flax tree with
 ``block_i`` as ``blocks.i`` (``models/convert.py``).
 
 ``forward(..., paged=PagedKV(...))`` runs the serving engine's paged
-prefill/decode; without it, full-sequence causal attention.
+prefill/decode; without it, full-sequence causal attention through
+``cfg.attention_impl`` (the flash kernels for ``gpt2-medium``).
+
+Training: ``forward(input_ids, attention_mask=None, token_type_ids=None,
+position_ids=None, dropout_seed=None)``, the JAX model's uniform signature
+(``token_type_ids`` is taken and ignored), so the train and eval steps
+drive it as they drive the BERT classifier. Dropout at ``hidden_dropout``
+on the embeddings, after attention and after ``mlp_down``, and on the
+attention probabilities at ``attention_dropout`` (the JAX package's
+``models/gpt2.py``). Seeds, as ``models/bert.py`` derives them: the
+embeddings draw from ``fold_in(seed, 0)`` (site 0), block i from
+``fold_in(seed, i + 1)``, where the attention output is site 0
+(``_SITE_ATTENTION_NORM``), the MLP output site 1 (``_SITE_MLP_NORM``) and
+the probs site 2 (``_SITE_PROBS``). ``dropout_seed`` None is
+deterministic (eval and serving).
 """
 
 from __future__ import annotations
@@ -23,10 +37,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_distributed_training_tpu_torch.models.bert import (
+    _SITE_ATTENTION_NORM,
+    _SITE_MLP_NORM,
     BertSelfAttention,
     DenseGeneral,
     Embed,
     PagedKV,
+    _child_seed,
     compute_dtype,
     dense,
     layer_norm_module,
@@ -35,6 +52,7 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
 from pytorch_distributed_training_tpu_torch.ops.attention import (
     make_attention_bias,
 )
+from pytorch_distributed_training_tpu_torch.ops.dropout import Dropout
 from pytorch_distributed_training_tpu_torch.utils.config import ModelConfig
 
 
@@ -51,13 +69,16 @@ class GPT2Block(nn.Module):
                             generator)
         self.mlp_down = dense(cfg, (cfg.intermediate_size,), (h,), device,
                               generator)
+        self.dropout = Dropout(cfg.hidden_dropout)
 
-    def forward(self, x, attention_bias=None, paged=None):
-        h = self.attention(self.ln_1(x), attention_bias, paged)
-        x = x + h
+    def forward(self, x, attention_bias=None, paged=None, dropout_seed=None):
+        h = self.attention(self.ln_1(x), attention_bias, paged,
+                           dropout_seed=dropout_seed)
+        x = x + self.dropout(h, dropout_seed, _SITE_ATTENTION_NORM)
         h = self.mlp_up(self.ln_2(x))
         h = F.gelu(h, approximate="tanh")  # GPT-2's tanh approximation
-        return x + self.mlp_down(h)
+        return x + self.dropout(self.mlp_down(h), dropout_seed,
+                                _SITE_MLP_NORM)
 
 
 class GPT2LMModel(nn.Module):
@@ -77,6 +98,7 @@ class GPT2LMModel(nn.Module):
             GPT2Block(cfg, device, generator) for _ in range(cfg.num_layers)
         )
         self.ln_f = layer_norm_module(cfg, device)
+        self.dropout = Dropout(cfg.hidden_dropout)
         # float32 copy of the compute-dtype head, set by cast_for_serving
         self.head_weight: Optional[torch.Tensor] = None
 
@@ -95,9 +117,11 @@ class GPT2LMModel(nn.Module):
                 mod.embedding.data = mod.embedding.data.to(cdt)
         self.head_weight = self.wte.embedding.data.float()
 
-    def forward(self, input_ids, *, position_ids=None, attention_mask=None,
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                position_ids=None, dropout_seed: Optional[int] = None, *,
                 paged: Optional[PagedKV] = None):
         cfg = self.config
+        input_ids = input_ids.long()
         batch, seq = input_ids.shape
         if seq > cfg.max_position_embeddings:
             raise ValueError(
@@ -109,6 +133,7 @@ class GPT2LMModel(nn.Module):
                 seq, device=input_ids.device
             )[None, :].expand(batch, seq)
         x = self.wte(input_ids) + self.wpe(position_ids)
+        x = self.dropout(x, _child_seed(dropout_seed, 0))
         bias = make_attention_bias(attention_mask)
         for i, block in enumerate(self.blocks):
             layer = None
@@ -116,7 +141,7 @@ class GPT2LMModel(nn.Module):
                 k_pages, v_pages = paged.pools[i]
                 layer = (k_pages, v_pages, paged.block_table,
                          paged.context_len)
-            x = block(x, bias, layer)
+            x = block(x, bias, layer, _child_seed(dropout_seed, i + 1))
         x = self.ln_f(x)
         head = self.head_weight
         if head is None:

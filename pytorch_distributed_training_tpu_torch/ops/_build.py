@@ -13,7 +13,8 @@ failed build raises with the compiler's output; nothing falls back.
 all started together.
 
 A library may hold several kernels (``KERNELS`` names each kernel's
-library): the LayerNorm forward and backward share ``layer_norm.cu``.
+library): the LayerNorm forward and backward share ``layer_norm.cu``, the
+four flash-attention kernels ``flash_attention.cu``.
 
 Launch counts: every kernel wrapper adds one to ``LAUNCH_COUNTS[name]``
 where it launches its kernel and nowhere else, so a run can show that the
@@ -43,6 +44,7 @@ KERNEL_SOURCES = {
     "dropout_add_layer_norm": "dropout_add_layer_norm.cu",
     "dropout": "dropout.cu",
     "paged_attention": "paged_attention.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 #: kernel (the name its launches are counted under) -> library holding it
@@ -53,6 +55,10 @@ KERNELS = {
     "dropout_add_layer_norm_bwd": "dropout_add_layer_norm",
     "mask_scale": "dropout",
     "paged_attention": "paged_attention",
+    "flash_fwd": "flash_attention",
+    "flash_bwd": "flash_attention",
+    "flash_whole_fwd": "flash_attention",
+    "flash_whole_bwd": "flash_attention",
 }
 
 NVCC_FLAGS = (

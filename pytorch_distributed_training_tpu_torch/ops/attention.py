@@ -7,8 +7,8 @@ probs cast to the V dtype. q/k/v are [batch, seq, heads, head_dim] as in
 the JAX package. Probability dropout follows the JAX package's order for
 the ``"kernel"`` dropout impl: cast the fp32 probs to the V dtype first,
 then multiply by the mask-scale tensor (``ops/dropout.py``), so the mask
-saved for the backward is half-width. The ``"flash"`` implementation is
-the JAX package's Pallas kernel, not ported yet.
+saved for the backward is half-width. ``"flash"`` goes to
+``ops/flash_attention.flash_attention`` (the flash kernels).
 """
 
 from __future__ import annotations
@@ -67,7 +67,13 @@ def dot_product_attention(q, k, v, bias=None, *, impl: str = "reference",
             q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
             dropout_seed=dropout_seed, dropout_site=dropout_site,
         )
-    raise NotImplementedError(
-        f"attention impl {impl!r} is not ported yet (the flash kernels are "
-        f"queue 2 of ROADMAP.md)"
-    )
+    if impl == "flash":
+        from pytorch_distributed_training_tpu_torch.ops.flash_attention import (
+            flash_attention,
+        )
+
+        return flash_attention(
+            q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed, dropout_site=dropout_site,
+        )
+    raise ValueError(f"unknown attention impl {impl!r}")

@@ -98,6 +98,17 @@ def philox_bits(n: int, seed: int, site: int, device=None) -> torch.Tensor:
     return torch.stack(words, dim=1).reshape(-1)[:n]
 
 
+def philox_bits_at(index: torch.Tensor, seed: int, site: int) -> torch.Tensor:
+    """``bits(seed, site, i)`` at arbitrary flat indices: int64 ``index``
+    (any shape) -> int64 words of the same shape, so a tile's mask can be
+    drawn without the words before it."""
+    group = index >> 2
+    zero = torch.zeros_like(group)
+    words = torch.stack(philox4x32_10(group & _M32, group >> 32, zero, zero,
+                                      seed, site), dim=-1)
+    return torch.gather(words, -1, (index & 3)[..., None])[..., 0]
+
+
 def keep_mask(shape, rate: float, seed: int, site: int,
               device=None) -> torch.Tensor:
     """Boolean keep mask of ``shape`` over the flat element index."""

@@ -1,13 +1,20 @@
 """The Trainer: data, model, optimizer, DDP, epochs, eval and the metric
-history (counterpart: the JAX package's ``train/loop.py`` ``Trainer``, the
-data-parallel classification path).
+history (counterpart: the JAX package's ``train/loop.py`` ``Trainer``, its
+data-parallel classification and causal-LM paths).
+
+The task picks the objective, as in the JAX trainer: ``lm`` trains a
+causal preset (``GPT2LMModel``) on next-token cross-entropy
+(``"causal_lm"``), every other task an encoder preset
+(``BertForSequenceClassification``) on classification; a preset whose
+``causal`` disagrees raises.
 
 Per epoch: every optimizer step over ``[accum, micro, ...]`` batches, then
 a masked eval pass over the whole validation split and one history record
 with the JAX trainer's keys (``epoch``, ``train_loss``,
 ``samples_per_sec``, ``samples_per_sec_per_chip``, then the eval metrics:
-``accuracy`` and, for binary tasks, ``f1``). ``step_log`` keeps each
-step's loss and grad norm, fetched from the device once per epoch.
+``accuracy`` and, for binary tasks, ``f1``; for ``lm``, ``eval_loss``,
+``perplexity`` and ``token_accuracy``). ``step_log`` keeps each step's
+loss and grad norm, fetched from the device once per epoch.
 
 Not ported here (ROADMAP.md, queue 1): checkpoints and resume, the
 watchdog, preemption handling, telemetry sinks, runtime guards, the
@@ -37,7 +44,9 @@ from pytorch_distributed_training_tpu_torch.data.pipeline import ShardedLoader
 from pytorch_distributed_training_tpu_torch.models.bert import (
     BertForSequenceClassification,
 )
+from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2LMModel
 from pytorch_distributed_training_tpu_torch.train.metrics import (
+    LMMetricAccumulator,
     MetricAccumulator,
 )
 from pytorch_distributed_training_tpu_torch.train.optim import (
@@ -71,10 +80,13 @@ class Trainer:
 
         # ------------------------------------------------------------ data
         task = resolve_task(task)  # once, so both splits agree
-        if model_config.causal:
+        self.objective = "causal_lm" if task == "lm" else "classification"
+        if (self.objective == "causal_lm") != bool(model_config.causal):
             raise ValueError(
-                "the data-parallel classification trainer needs an encoder "
-                "preset (causal LM training is slice 3 in ROADMAP.md)"
+                f"task {task!r} implies objective {self.objective!r} but the "
+                f"model config has causal={model_config.causal} — use a "
+                f"decoder preset (gpt2-*) with --task lm, an encoder preset "
+                f"with classification tasks"
             )
         sizes = (tcfg.train_size or synthetic.MRPC_TRAIN_SIZE,
                  tcfg.eval_size or synthetic.MRPC_EVAL_SIZE)
@@ -108,7 +120,9 @@ class Trainer:
 
         # ----------------------------------------------------------- model
         # made on the CPU from the seed, so every device starts alike
-        model = BertForSequenceClassification(
+        model_cls = (GPT2LMModel if model_config.causal
+                     else BertForSequenceClassification)
+        model = model_cls(
             model_config, generator=torch.Generator().manual_seed(tcfg.seed),
         ).to(self.device)
         total_updates = self.train_loader.steps_per_epoch * tcfg.num_epochs
@@ -131,8 +145,9 @@ class Trainer:
                                         wrapped=wrapped)
         self.train_step = make_train_step(
             grad_accum_steps=tcfg.grad_accum_steps, rank=self.info.rank,
+            objective=self.objective,
         )
-        self.eval_step = make_eval_step()
+        self.eval_step = make_eval_step(self.objective)
         self.history: list[dict] = []
         self.step_log: list[dict] = []
 
@@ -197,7 +212,8 @@ class Trainer:
         second split suffixed)."""
         out = {}
         for suffix, loader in self.eval_loaders.items():
-            acc = MetricAccumulator(self.mcfg.num_labels)
+            acc = (LMMetricAccumulator() if self.objective == "causal_lm"
+                   else MetricAccumulator(self.mcfg.num_labels))
             totals = None
             for batch in loader.epoch():
                 counts = self.eval_step(self.state, batch)

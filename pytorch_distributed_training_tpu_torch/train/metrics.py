@@ -1,10 +1,14 @@
-"""Eval metrics from confusion counts (counterpart: the JAX package's
-``train/metrics.py`` ``MetricAccumulator``): accuracy = correct / total and
-binary F1 = 2tp / (2tp + fp + fn) with positive label 1 (the GLUE/MRPC
-convention), folded from per-batch count dicts.
+"""Eval metrics from per-batch counts (counterpart: the JAX package's
+``train/metrics.py`` ``MetricAccumulator`` and ``LMMetricAccumulator``):
+accuracy = correct / total and binary F1 = 2tp / (2tp + fp + fn) with
+positive label 1 (the GLUE/MRPC convention); for causal-LM eval, the mean
+next-token NLL, its perplexity (the NLL clamped at 30) and the token
+accuracy.
 """
 
 from __future__ import annotations
+
+import math
 
 
 class MetricAccumulator:
@@ -31,3 +35,29 @@ class MetricAccumulator:
             denom = 2 * self._c["tp"] + self._c["fp"] + self._c["fn"]
             out["f1"] = 2 * self._c["tp"] / denom if denom else 0.0
         return out
+
+
+class LMMetricAccumulator:
+    """Folds causal-LM eval counts: eval loss, perplexity, token accuracy."""
+
+    FIELDS = ("nll_sum", "token_count", "token_correct")
+
+    def __init__(self, num_labels: int = 0):  # signature-compatible
+        self.reset()
+
+    def reset(self) -> None:
+        self._c = {k: 0.0 for k in self.FIELDS}
+
+    def update(self, counts: dict) -> None:
+        for k in self.FIELDS:
+            if k in counts:
+                self._c[k] += float(counts[k])
+
+    def compute(self) -> dict:
+        n = self._c["token_count"]
+        nll = self._c["nll_sum"] / n if n else 0.0
+        return {
+            "eval_loss": nll,
+            "perplexity": math.exp(min(nll, 30.0)),
+            "token_accuracy": self._c["token_correct"] / n if n else 0.0,
+        }

@@ -3,7 +3,7 @@ package's ``utils/config.py`` ``ModelConfig``, ``model_preset``,
 ``TrainConfig``, ``add_dataclass_args`` and ``dataclass_from_args``).
 
 The fields are those the ported paths read (GPT-2 serving, BERT
-data-parallel fine-tuning), with the JAX package's defaults, so
+data-parallel fine-tuning, GPT-2 causal-LM training), with the JAX package's defaults, so
 ``ModelConfig()`` and a preset name mean the same model in both packages.
 Options whose path is not ported yet raise ``NotImplementedError`` naming
 the ROADMAP.md queue that holds them.
@@ -40,7 +40,7 @@ class ModelConfig:
     layer_norm_eps: float = 1e-12
     num_labels: int = 2
     # full-sequence (non-paged) attention: "reference" is the plain einsum
-    # path; "flash" names the JAX package's Pallas kernel, not yet ported
+    # path, "flash" the flash kernels (ops/flash_attention.py)
     attention_impl: str = "reference"
     # only "native" matmuls are ported (int8 waits for its slice)
     matmul_impl: str = "native"
@@ -58,6 +58,8 @@ class ModelConfig:
     # only "fused" (the LayerNorm kernels) is ported
     layernorm_impl: str = "fused"
     remat: bool = False  # per-layer remat: not ported
+    remat_policy: str = "nothing"  # what per-layer remat saves: not ported
+    remat_mlp: bool = False  # remat of each block's MLP tail: not ported
     scan_layers: bool = False  # stacked trunk: not ported (models/convert.py
     #                            reads a scanned checkpoint all the same)
 
@@ -73,7 +75,9 @@ class ModelConfig:
                                        "streams, slice 2 leftovers"),
             ("layernorm_impl", "fused", "the jnp-math LayerNorm switch, "
                                         "slice 2 leftovers"),
-            ("remat", False, "per-layer remat, slice 3"),
+            ("remat", False, "per-layer remat, slice 3 leftovers"),
+            ("remat_policy", "nothing", "per-layer remat, slice 3 leftovers"),
+            ("remat_mlp", False, "MLP remat, slice 3 leftovers"),
             ("scan_layers", False, "the scanned trunk, slice 5"),
         )
         for name, ported, item in not_ported:
@@ -106,8 +110,8 @@ _MODEL_PRESETS: dict[str, dict[str, Any]] = {
         vocab_size=50257, hidden_size=1024, num_layers=24, num_heads=16,
         intermediate_size=4096, max_position_embeddings=1024,
         type_vocab_size=0, causal=True, layer_norm_eps=1e-5,
-        # the JAX preset trains with Pallas flash attention; serving never
-        # reads it (decode attention is the paged path)
+        # trains with the flash kernels, as the JAX preset does; serving
+        # never reads it (decode attention is the paged path)
         attention_impl="flash",
     ),
     # tiny configs for tests and smoke runs

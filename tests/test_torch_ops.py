@@ -375,10 +375,12 @@ def test_kernel_modules_build_nothing_at_import():
     assert sum(_build.LAUNCH_COUNTS.values()) == 0
     assert set(_build.KERNEL_SOURCES) == {
         "layer_norm", "dropout_add_layer_norm", "dropout", "paged_attention",
+        "flash_attention",
     }
     assert set(_build.KERNELS) == {
         "layer_norm", "layer_norm_bwd", "dropout_add_layer_norm",
         "dropout_add_layer_norm_bwd", "mask_scale", "paged_attention",
+        "flash_fwd", "flash_bwd", "flash_whole_fwd", "flash_whole_bwd",
     }
     assert set(_build.KERNELS.values()) == set(_build.KERNEL_SOURCES)
     for src in _build.KERNEL_SOURCES.values():
