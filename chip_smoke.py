@@ -15,7 +15,11 @@ the JAX package), in phases that each raise on failure:
    card (tolerances below; the dropout masks bit for bit), backward kernels
    through ``torch.autograd.grad``, and times kernel, plain version and the
    library yardstick at the main paths' shapes with CUDA-graph replay (the
-   flash kernels against ``F.scaled_dot_product_attention``);
+   flash kernels against ``F.scaled_dot_product_attention``; the
+   multi-query paged kernel at q_len 1-64 over lengths on and off page
+   boundaries, timed at the verify and chunk shapes against SDPA on the
+   gathered K/V; the two-pass flash backward also against the fused
+   kernel's gradients);
 4. train: runs the port's ``train_dp`` on bert-large-cased at full width
    and depth (3 optimizer steps of 96 = 8 x 12 on the synthetic MRPC task,
    then the full 408-row eval), with the launch counters reset just before
@@ -34,7 +38,9 @@ the JAX package), in phases that each raise on failure:
    reset just before each and read just after and checked against the
    counts the step derives; finite losses, moved parameters, bit-identical
    per-step losses in a second seq-1024 run, and a third under
-   ``torch.profiler``;
+   ``torch.profiler``; then the seq-1024 run again with
+   ``PDT_FLASH_TWO_PASS=1`` (the two-pass backward kernels counted, step
+   1's loss bit-identical to the fused run's, later steps within 1e-3);
 7. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
    (random weights from ``--seed 0``) over a JSONL request stream, with the
    kernels' launch counters reset just before and read just after; checks
@@ -42,9 +48,17 @@ the JAX package), in phases that each raise on failure:
    prefill and decode counts, greedy streams identical across two runs, and
    each served token against a full-sequence forward of the same model;
    a further run under ``torch.profiler`` breaks the device time down by
-   kernel class.
+   kernel class;
+8. serve options: ``serve_lm`` again with ``--spec-k 4`` (a second run
+   must give the same greedy streams), ``--prefill-chunk 32`` and
+   ``--prefix-cache`` (12 prompts sharing a 4-page prefix, two of them
+   copying a page on write), each counted against the engine's verify,
+   chunk and decode dispatches, the pages left equal to those the prefix
+   cache holds, every served token checked against the full-sequence
+   forward.
 
-Prints one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+Prints one ``kernels`` JSON line (13 kernels) and, last, ``{"ok": true,
+"device": ...}``.
 Exits non-zero, with no result, when no CUDA GPU is visible or any phase
 fails.
 """
@@ -77,13 +91,21 @@ LN_ROWS = (4, 16, 128, 4096)
 # cast (a few float32 ulps of unit-scale terms), which alone can move an
 # output near zero by many of its own tiny ulps
 LN_FP32_SLACK = 2.0 ** -16
-PAGED = dict(batch=8, heads=16, head_dim=64, page_size=16)
+PAGED = dict(heads=16, head_dim=64, page_size=16)  # one sequence a length
 PAGED_LENGTHS = (1, 15, 16, 17, 300, 1024, 64, 513)
 PAGED_TOL = 2e-2          # atol = rtol, bf16 output vs float32 plain version
 # decode tick of the serve phase: 8 slots, block-table rows of
 # (128 + 64) / 16 pages, contexts of prompts up to 120 bytes + 32 tokens
 SERVE_CONTEXTS = (17, 33, 48, 65, 90, 120, 140, 152)
 SERVE_WINDOWS = 12
+# kernel 13: query blocks of the verify (spec_k 4 + 1) and chunk (32)
+# dispatches, and parity lengths on and off page boundaries (each q_len
+# also at lengths q_len and q_len + 1); the verify run's block-table rows
+# hold ceil((128 + 64 + 4) / 16) pages
+PAGED_MQ_QLENS = (1, 2, 5, 16, 32, 64)
+PAGED_MQ_LENGTHS = (15, 16, 17, 300, 1024)
+VERIFY_Q, VERIFY_WINDOWS = 5, 13
+CHUNK_Q, CHUNK_CONTEXTS = 32, (32, 64, 96, 128, 160)
 
 SERVE_ARGS = ["--model", "gpt2-medium", "--device", "cuda", "--seed", "0",
               "--num-slots", "8", "--prompt-buckets", "16,32,64,128",
@@ -93,6 +115,36 @@ PROMPTS = tuple(
     ("The quick brown fox jumps over the lazy dog. " * 3)[:n]
     for n in (5, 12, 16, 23, 31, 40, 57, 64, 77, 96, 110, 120)
 )
+# the serve-option runs: speculative decoding (n-gram drafts, k = 4),
+# chunked prefill (32 a chunk) and the prefix cache, over 12 prompts that
+# share a 64-byte prefix (4 pages of 16) with distinct tails; two tails
+# diverge from an earlier one mid-page (bytes 75 and 89), so their hits
+# copy a page on write
+SHARED_PREFIX = ("System prompt: you are a careful assistant; answer in one "
+                 "line. ")
+PREFIX_PROMPTS = tuple(SHARED_PREFIX + t for t in (
+    "Summarize the report on river pollution.",
+    "What is the capital of France?",
+    "Summarize the report on rainfall in May.",
+    "Summarize two books by the same author.",
+    "Name three prime numbers.",
+    "Translate good morning into Spanish.",
+    "Who painted the ceiling of the Sistine Chapel?",
+    "Give one synonym for quick.",
+    "How many legs does a spider have?",
+    "Explain what a compiler does.",
+    "List the planets nearest the sun.",
+    "What year did the first moon landing happen?",
+))
+SERVE_OPTIONS = (
+    ("spec", ["--spec-k", "4"], PROMPTS),
+    ("chunked", ["--prefill-chunk", "32"], PROMPTS),
+    ("prefix", ["--prefix-cache"], PREFIX_PROMPTS),
+)
+# two-pass LM run against the fused one: step 1's loss is the same
+# forward, so bit-identical; later steps carry the gradients' other
+# summation order (dq summed in registers, not as per-k-tile partials)
+TWO_PASS_RTOL = 1e-3
 # full-sequence check: a served greedy token's logit may trail the
 # full-sequence maximum by this much (bf16 activations over 24 layers,
 # other matmul shapes; logits of the random model have a spread of ~0.6)
@@ -165,10 +217,13 @@ REPLACES = {
     "dropout_add_layer_norm_bwd": f"{_PKG}/ops/layer_norm.py:345",
     "mask_scale": f"{_PKG}/ops/dropout.py:107",
     "paged_attention": f"{_PKG}/ops/paged_attention.py:238",
+    "paged_attention_mq": f"{_PKG}/ops/paged_attention.py:417",
     "flash_fwd": f"{_PKG}/ops/flash_attention.py:103",
     "flash_bwd": f"{_PKG}/ops/flash_attention.py:360",
     "flash_whole_fwd": f"{_PKG}/ops/flash_attention.py:467",
     "flash_whole_bwd": f"{_PKG}/ops/flash_attention.py:505",
+    "flash_dq": f"{_PKG}/ops/flash_attention.py:186",
+    "flash_dkv": f"{_PKG}/ops/flash_attention.py:306",
 }
 
 
@@ -376,35 +431,45 @@ def layer_norm_phase(device, rows=LN_ROWS, hidden=LN_HIDDEN,
                 serve=timings[serve_rows])
 
 
-def paged_inputs(device, lengths, *, windows, batch, heads, head_dim,
-                 page_size, seed=0):
-    """bf16 pools filled with noise (the null page 0 included), each
-    sequence's pages in a random order, block-table tails on page 0."""
+def paged_inputs(device, lengths, *, windows, heads, head_dim, page_size,
+                 q_len=None, dtype=None, seed=0):
+    """Pools filled with noise (the null page 0 included), each sequence's
+    pages in a random order, block-table tails on page 0, one sequence a
+    length; q [B, H, D], or [B, q_len, H, D] with ``q_len``; bf16 unless
+    ``dtype`` says otherwise."""
     import torch
 
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device=device).manual_seed(seed)
     need = [-(-n // page_size) for n in lengths]
     num_pages = 1 + sum(need) + 3
     shape = (num_pages, page_size, heads, head_dim)
-    k_pages = torch.randn(shape, generator=g, device=device).bfloat16()
-    v_pages = torch.randn(shape, generator=g, device=device).bfloat16()
+    k_pages = torch.randn(shape, generator=g, device=device).to(dtype)
+    v_pages = torch.randn(shape, generator=g, device=device).to(dtype)
     order = (torch.randperm(num_pages - 1, generator=g, device=device)
              + 1).tolist()
-    bt = torch.zeros(batch, windows, dtype=torch.int32)
+    bt = torch.zeros(len(lengths), windows, dtype=torch.int32)
     for b, n in enumerate(need):
         bt[b, :n] = torch.tensor([order.pop() for _ in range(n)])
-    q = torch.randn(batch, heads, head_dim, generator=g,
-                    device=device).bfloat16()
+    rows = () if q_len is None else (q_len,)
+    q = torch.randn(len(lengths), *rows, heads, head_dim, generator=g,
+                    device=device).to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32)
     return q, k_pages, v_pages, bt.to(device), lens.to(device)
 
 
-def paged_bound(lengths, *, batch, heads, head_dim, page_size):
+def paged_bound(lengths, *, heads, head_dim, page_size, q_len=1):
+    """Least time of paged attention over ``lengths`` with ``q_len`` query
+    rows a sequence: each visible K and V row read once (bf16), q and o
+    once, the block table and lengths; 4 D operations per (head, row,
+    visible token) at the bf16 rate of the bf16 inputs."""
     tokens = sum(lengths)
-    n_bytes = (tokens * heads * head_dim * 2 * 2          # K and V, bf16
-               + 2 * batch * heads * head_dim * 2          # q in, out
-               + sum(-(-n // page_size) for n in lengths) * 4 + batch * 4)
-    return bound(n_bytes, 4.0 * tokens * heads * head_dim)
+    pairs = sum(n - (q_len - 1) + r for n in lengths for r in range(q_len))
+    n_bytes = (tokens * heads * head_dim * 2 * 2
+               + 2 * len(lengths) * q_len * heads * head_dim * 2
+               + sum(-(-n // page_size) for n in lengths) * 4
+               + len(lengths) * 4)
+    return bound(n_bytes, 4.0 * pairs * heads * head_dim, BF16_FLOPS_PER_S)
 
 
 def paged_phase(device, lengths=PAGED_LENGTHS, serve=SERVE_CONTEXTS,
@@ -462,6 +527,89 @@ def paged_phase(device, lengths=PAGED_LENGTHS, serve=SERVE_CONTEXTS,
         say(f"[kernels] paged_attention {label} lengths {list(lens_list)} "
             f"W={w}: " + json.dumps(t))
     return dict(max_abs_err=err, **timings["serve"])
+
+
+def paged_mq_phase(device, q_lens=PAGED_MQ_QLENS, lengths=PAGED_MQ_LENGTHS,
+                   geometry=None) -> dict:
+    """Kernel 13 against its plain version, float32 and bf16, at each
+    q_len over lengths on and off page boundaries (each row's horizon, a
+    row fully masked on whole computed pages, null-page tails), then timed
+    at the verify and chunk shapes of the serve-option runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.ops.paged_attention import (
+        _paged_reference_mq,
+        paged_attention,
+    )
+
+    geo = dict(PAGED, **(geometry or {}))
+    scale = geo["head_dim"] ** -0.5
+    worst = worst32 = 0.0
+    for q_len in q_lens:
+        lens_q = tuple(n for n in (q_len, q_len + 1, *lengths) if n >= q_len)
+        windows = -(-max(lens_q) // geo["page_size"])
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, bt, lens = paged_inputs(
+                device, lens_q, q_len=q_len, windows=windows, dtype=dtype,
+                seed=q_len, **geo)
+            got = paged_attention(q, kp, vp, bt, lens, scale=scale)
+            want = _paged_reference_mq(q.float(), kp.float(), vp.float(), bt,
+                                       lens, scale)
+            if got.dtype != dtype or got.shape != q.shape:
+                raise AssertionError(f"paged_attention_mq gave {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            if dtype == torch.float32:
+                # float32 kernel, float32 accumulation: FLASH_FP32_TOL
+                lim = FLASH_FP32_TOL * max(1.0, float(want.abs().max()))
+                what = f"paged_attention_mq q_len {q_len} lengths {lens_q}"
+                worst32 = max(worst32, check_flash_close(what, got, want,
+                                                         tol=lim))
+            else:
+                torch.testing.assert_close(got.float(), want, atol=PAGED_TOL,
+                                           rtol=PAGED_TOL)
+                worst = max(worst, float((got.float() - want).abs().max()))
+    say(f"[kernels] paged_attention_mq parity ok: q_len {list(q_lens)} x "
+        f"lengths (q_len, q_len + 1, {list(lengths)}), permuted pages, "
+        f"null-page tails, rows masked on whole pages; bf16 max abs err "
+        f"{worst} (atol=rtol={PAGED_TOL}), float32 max abs err {worst32} "
+        f"(<= {FLASH_FP32_TOL} x max(1, max|want|))")
+
+    def timed(label, lens_list, q_len, windows):
+        q, kp, vp, bt, lens = paged_inputs(
+            device, lens_list, q_len=q_len, windows=windows, seed=1, **geo)
+        # the library yardstick: SDPA over K/V gathered beforehand, with
+        # the boolean causal-horizon mask
+        idx = bt.long()
+        b, h, d = q.shape[0], q.shape[2], q.shape[3]
+        kg = kp[idx].reshape(b, -1, h, d).transpose(1, 2).contiguous()
+        vg = vp[idx].reshape(b, -1, h, d).transpose(1, 2).contiguous()
+        limit = (lens[:, None] - (q_len - 1)
+                 + torch.arange(q_len, device=device)[None])
+        mask = (torch.arange(kg.shape[2], device=device)[None, None]
+                < limit[:, :, None])[:, None]
+        q4 = q.transpose(1, 2).contiguous()
+        kernel = functools.partial(paged_attention, q, kp, vp, bt, lens,
+                                   scale=scale)
+        t = dict(
+            ms=time_ms(kernel), eager_ms=eager_ms(kernel),
+            plain_ms=time_ms(lambda: _paged_reference_mq(q, kp, vp, bt, lens,
+                                                         scale)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q4, kg, vg, attn_mask=mask, scale=scale)),
+        )
+        t["bound_ms"], t["bound_by"] = paged_bound(
+            lens_list, q_len=q_len, **geo)
+        say(f"[kernels] paged_attention_mq {label} q [{b}, {q_len}, {h}, "
+            f"{d}] bf16 lengths {list(lens_list)} W={windows}: "
+            + json.dumps(t))
+        return t
+
+    verify = timed("verify", tuple(c + VERIFY_Q for c in SERVE_CONTEXTS),
+                   VERIFY_Q, VERIFY_WINDOWS)
+    chunks = {n: timed("chunk", (n,), CHUNK_Q, SERVE_WINDOWS)
+              for n in CHUNK_CONTEXTS}
+    return dict(max_abs_err=max(worst, worst32), **verify, chunk=chunks)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -556,6 +704,89 @@ def serve_phase(argv=SERVE_ARGS, prompts=PROMPTS, new_tokens=NEW_TOKENS,
     return dict(cold, warm=warm, streams=toks)
 
 
+def serve_option_launches(stats, n_layers) -> dict:
+    """Launches of a serve run from the engine's counts: the 4-D-query
+    kernel once a layer per verify and chunk dispatch, the decode kernel
+    once a layer per plain decode dispatch, the LayerNorm 2 a layer + 1
+    per bucket prefill, chunk and decode-phase dispatch."""
+    verify, chunks = stats["spec_dispatches"], stats["prefill_chunks"]
+    plain = stats["decode_dispatches"] - verify
+    want = {"layer_norm": (2 * n_layers + 1) * (
+        stats["prefill_dispatches"] + chunks + stats["decode_dispatches"])}
+    if plain:
+        want["paged_attention"] = n_layers * plain
+    if verify + chunks:
+        want["paged_attention_mq"] = n_layers * (verify + chunks)
+    return want
+
+
+def serve_options_phase(plain_streams, new_tokens=NEW_TOKENS,
+                        n_layers=24) -> dict:
+    """``serve_lm`` with each serving option on gpt2-medium at full width,
+    counted: every request's token count, the launch counts against the
+    engine's dispatch counts, the pages left (those the prefix cache
+    holds), a second speculative run with the same greedy streams, and how
+    many streams equal the plain run's."""
+    res = {}
+    for name, flags, prompts in SERVE_OPTIONS:
+        argv = SERVE_ARGS + flags
+        events, stats, counts, wall = serve_once(argv, prompts, new_tokens)
+        toks = streams(events, prompts, new_tokens)
+        check_launches(f"{name} serve run", counts,
+                       serve_option_launches(stats, n_layers))
+        pc = stats["prefix_cache"]
+        held = pc["prefix_cached_pages"] if pc else 0
+        if stats["kv_pages_used"] != held or stats["page_exhausted"]:
+            raise AssertionError(
+                f"{name}: {stats['kv_pages_used']} pages in use after the "
+                f"run, the prefix cache holds {held}; page_exhausted "
+                f"{stats['page_exhausted']}")
+        ttft = [e["ttft_s"] for e in events if e["event"] == "done"]
+        m = dict(
+            wall_s=wall, requests=len(prompts),
+            decode_tokens=stats["decode_tokens"],
+            decode_dispatches=stats["decode_dispatches"],
+            decode_tok_per_s=stats["decode_tokens"] / stats["decode_s"],
+            ttft_p50_s=statistics.median(ttft), ttft_max_s=max(ttft),
+            prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+            prefill_dispatches=stats["prefill_dispatches"],
+            chunk_dispatches=stats["prefill_chunks"],
+            verify_dispatches=stats["spec_dispatches"],
+            launches=counts,
+        )
+        if name == "spec":
+            m.update(accepted_per_verify=stats["spec_accepted"]
+                     / stats["spec_dispatches"],
+                     accept_rate=stats["spec_accept_rate"],
+                     tokens_per_dispatch=stats["tokens_per_dispatch"])
+            again, stats2, _, _ = serve_once(argv, prompts, new_tokens)
+            if streams(again, prompts, new_tokens) != toks:
+                raise AssertionError("speculative greedy streams differ "
+                                     "between two runs")
+            m["warm_decode_tok_per_s"] = (stats2["decode_tokens"]
+                                          / stats2["decode_s"])
+            m["profile"] = profile_phase(
+                dict(prefill_s=stats2["prefill_s"],
+                     decode_s=stats2["decode_s"]),
+                argv, prompts, new_tokens, tag="profile-spec")
+        if pc:
+            m.update(hit_rate=pc["prefix_hit_rate"],
+                     prefix_hits=pc["prefix_hits"],
+                     prefill_tokens_skipped=pc["prefill_tokens_skipped"],
+                     prefill_tokens=stats["prefill_tokens"],
+                     cow_copies=pc["cow_copies"],
+                     cached_pages=pc["prefix_cached_pages"])
+            if pc["cow_copies"] < 2 or pc["prefix_hits"] < len(prompts) - 1:
+                raise AssertionError(f"prefix run: {pc}")
+        if prompts is PROMPTS:
+            m["streams_equal_plain"] = sum(
+                toks[r] == plain_streams[r] for r in toks)
+        say(f"[serve-{name}] " + json.dumps(m))
+        res[name] = dict(m, streams=toks, prompts=prompts)
+    say("[serve-spec] greedy streams identical across two runs")
+    return res
+
+
 _PORT_KERNELS = (
     ("layer_norm_fwd_kernel", "layer_norm"),
     ("layer_norm_bwd_kernel", "layer_norm_bwd"),
@@ -563,9 +794,11 @@ _PORT_KERNELS = (
     ("dal_bwd_kernel", "dropout_add_layer_norm_bwd"),
     ("mask_scale_kernel", "mask_scale"),
     ("paged_decode_kernel", "paged_attention"),
+    ("paged_mq_kernel", "paged_attention_mq"),
     ("flash_fwd_kernel<", "flash_fwd / flash_whole_fwd"),
-    ("flash_bwd_kernel<", "flash_bwd / flash_whole_bwd"),
+    ("flash_bwd_kernel<", "flash_bwd / flash_whole_bwd / flash_dkv"),
     ("flash_dq_sum_kernel", "flash_bwd / flash_whole_bwd dq sum"),
+    ("flash_dq_kernel<", "flash_dq"),
 )
 
 
@@ -590,7 +823,7 @@ def _kernel_class(name: str) -> str:
 
 
 def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
-                  new_tokens=NEW_TOKENS) -> dict:
+                  new_tokens=NEW_TOKENS, tag="profile") -> dict:
     """Device kernel time of one more serve run under ``torch.profiler``,
     by kernel class, and the device's busy share of the warm run's engine
     seconds (prefill + decode dispatches, each ending in a host copy). The
@@ -617,7 +850,7 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
     streams(events, prompts, new_tokens)
     engine_s = warm["prefill_s"] + warm["decode_s"]
     res = device_time_by_class(prof, engine_s)
-    say("[profile] " + json.dumps(res))
+    say(f"[{tag}] " + json.dumps(res))
     return res
 
 
@@ -649,10 +882,11 @@ def device_time_by_class(prof, wall_s, top_n=10) -> dict:
     )
 
 
-def full_sequence_phase(device, toks, prompts, model_name="gpt2-medium",
+def full_sequence_phase(device, runs, model_name="gpt2-medium",
                         seed=0) -> dict:
     """Each served greedy token against a full-sequence forward (plain
-    attention, no pages) of the same model on the served context."""
+    attention, no pages) of the same model on the served context; ``runs``
+    maps a run's name to its (streams, prompts), one model for all."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.data.bpe import ByteTokenizer
@@ -670,30 +904,35 @@ def full_sequence_phase(device, toks, prompts, model_name="gpt2-medium",
     model.cast_for_serving()
     model.eval()
     tok = ByteTokenizer()
-    agree = total = 0
-    worst = 0.0
+    out = {}
     with torch.inference_mode():
-        for i, p in enumerate(prompts):
-            served = toks[f"r{i}"]
-            ids = tok.text_ids(p) + served[:-1]
-            logits = model(torch.tensor([ids], device=device))[0]
-            if not torch.isfinite(logits).all():
-                raise AssertionError(f"r{i}: non-finite logits")
-            rows = logits[len(ids) - len(served):]
-            picked = rows.gather(1, torch.tensor(served, device=device)[:, None])
-            margin = (rows.max(dim=1).values - picked[:, 0]).float()
-            worst = max(worst, float(margin.max()))
-            agree += int((margin == 0).sum())
-            total += len(served)
+        for name, (toks, prompts) in runs.items():
+            agree = total = 0
+            worst = 0.0
+            for i, p in enumerate(prompts):
+                served = toks[f"r{i}"]
+                ids = tok.text_ids(p) + served[:-1]
+                logits = model(torch.tensor([ids], device=device))[0]
+                if not torch.isfinite(logits).all():
+                    raise AssertionError(f"{name} r{i}: non-finite logits")
+                rows = logits[len(ids) - len(served):]
+                picked = rows.gather(
+                    1, torch.tensor(served, device=device)[:, None])
+                margin = (rows.max(dim=1).values - picked[:, 0]).float()
+                worst = max(worst, float(margin.max()))
+                agree += int((margin == 0).sum())
+                total += len(served)
+            if worst > MARGIN_TOL:
+                raise AssertionError(
+                    f"{name}: a served token trails the full-sequence "
+                    f"maximum by {worst} (> {MARGIN_TOL})"
+                )
+            out[name] = dict(tokens=total, argmax_agree=agree,
+                             worst_margin=worst)
+            say(f"[check] {name}: served vs full-sequence forward: "
+                + json.dumps(out[name]))
     del model
-    if worst > MARGIN_TOL:
-        raise AssertionError(
-            f"a served token trails the full-sequence maximum by {worst} "
-            f"(> {MARGIN_TOL})"
-        )
-    res = dict(tokens=total, argmax_agree=agree, worst_margin=worst)
-    say("[check] served vs full-sequence forward: " + json.dumps(res))
-    return res
+    return out
 
 
 # ------------------------------------------------- phase 3, training kernels
@@ -1300,26 +1539,113 @@ def flash_phase(device) -> dict:
     return res
 
 
+def two_pass_phase(device, shape=FLASH_BLOCKWISE) -> dict:
+    """Kernels 10 and 11 against their plain versions and against the
+    fused kernel 9's gradients on the same inputs (o and lse from the plain
+    forward): bf16 at rates 0 and 0.1, float32 at 0.1 with uniform probs;
+    then kernel, plain and SDPA-backward times."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    worst = {"flash_dq": 0.0, "flash_dkv": 0.0}
+    cases = [(torch.bfloat16, 0.0, 40, False),
+             (torch.bfloat16, DROPOUT_RATE, 41, False),
+             (torch.float32, DROPOUT_RATE, 42, True)]
+    for dtype, rate, seed, uniform in cases:
+        (q, k, v, do), bias = flash_inputs(device, shape, dtype, seed=seed,
+                                           uniform=uniform)
+        kw = dict(causal=True, rate=rate, seed=seed, site=2)
+        o, lse = fa.reference_flash_fwd(q, k, v, bias, **kw)
+        args = (q, k, v, bias, o, lse, do)
+        got = {"flash_dq": (fa.flash_dq(*args, **kw),),
+               "flash_dkv": fa.flash_dkv(*args, **kw)}
+        plain = {"flash_dq": (fa.reference_flash_dq(*args, **kw),),
+                 "flash_dkv": fa.reference_flash_dkv(*args, **kw)}
+        fused = fa.flash_bwd(*args, **kw)
+        fused = {"flash_dq": fused[:1], "flash_dkv": fused[1:]}
+        tol = FLASH_FP32_TOL if dtype == torch.float32 else None
+        for name in got:
+            for grad, a, b, c in zip(("dq",) if name == "flash_dq"
+                                     else ("dk", "dv"), got[name],
+                                     plain[name], fused[name]):
+                scale = 1.0 if tol is None else max(1.0,
+                                                    float(b.abs().max()))
+                lim = None if tol is None else tol * scale
+                what = f"{name} {list(shape)} {dtype} rate {rate} {grad}"
+                worst[name] = max(
+                    worst[name], check_flash_close(what, a, b, tol=lim),
+                    check_flash_close(what + " vs flash_bwd", a, c, tol=lim))
+    say(f"[kernels] flash_dq/flash_dkv parity ok: {list(shape)} causal, "
+        f"ragged + fully masked rows; bf16 at rates 0 and {DROPOUT_RATE}, "
+        f"float32 at {DROPOUT_RATE} with uniform probs; against the plain "
+        f"halves and the fused flash_bwd: max err {json.dumps(worst)} (bf16 "
+        f"<= {FLASH_BF16_ULPS} ulps + {FLASH_BF16_SLACK} x max|want|, float32 "
+        f"<= {FLASH_FP32_TOL} x max(1, max|want|))")
+
+    (q, k, v, do), bias = flash_inputs(device, shape, torch.bfloat16,
+                                       seed=30)
+    kw = dict(causal=True, rate=DROPOUT_RATE, seed=30, site=2)
+    o, lse = fa.flash_fwd(q, k, v, bias, **kw)
+    args = (q, k, v, bias, o, lse, do)
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    lib = torch.ops.aten._scaled_dot_product_flash_attention(
+        qc, kc, vc, 0.0, True)
+    sdpa_bwd = lambda: (  # noqa
+        torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            doc, qc, kc, vc, lib[0], lib[1], lib[2], lib[3], lib[4], lib[5],
+            0.0, True, lib[6], lib[7]))
+    b, n, sl, d = shape
+    x = b * n * sl * d * 2
+    pairs = b * n * sl * (sl + 1) // 2
+    extra = b * n * sl * 4 + b * sl * 4              # lse, bias
+    bounds = {"flash_dq": bound(6 * x + extra, 6.0 * d * pairs,
+                                BF16_FLOPS_PER_S),
+              "flash_dkv": bound(7 * x + extra, 8.0 * d * pairs,
+                                 BF16_FLOPS_PER_S)}
+    fns = {"flash_dq": (fa.flash_dq, fa.reference_flash_dq),
+           "flash_dkv": (fa.flash_dkv, fa.reference_flash_dkv)}
+    plain_kw = dict(reps=5, inner=2)
+    res = {}
+    for name, (kern, ref) in fns.items():
+        t = dict(ms=time_ms(lambda: kern(*args, **kw)),
+                 plain_ms=time_ms(lambda: ref(*args, **kw), **plain_kw),
+                 library_ms=time_ms(sdpa_bwd))
+        t["bound_ms"], t["bound_by"] = bounds[name]
+        say(f"[kernels] {name} {list(shape)} bf16 causal rate {DROPOUT_RATE}: "
+            + json.dumps(t) + " (library: the whole SDPA flash backward)")
+        res[name] = dict(max_abs_err=worst[name], **t)
+    del q, k, v, do, o, lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ----------------------------------------------------------------- phase 6
 
 
 def expected_lm_launches(*, micro: int, eval_batches: int, layers: int,
-                         whole: bool) -> dict:
+                         whole: bool, two_pass: bool = False) -> dict:
     """Launches of a counted LM run: per microbatch forward the LNs (2 a
     block + ln_f), the hidden-dropout masks (embeddings + 2 a block) and
     one flash forward a block; per backward the LN and flash backwards
-    (the masks are saved, not redrawn); per eval batch the forwards,
+    (the masks are saved, not redrawn; ``two_pass``: flash_dq and
+    flash_dkv for flash_bwd); per eval batch the forwards,
     deterministic."""
     fwd, bwd = (("flash_whole_fwd", "flash_whole_bwd") if whole
                 else ("flash_fwd", "flash_bwd"))
     lns = 2 * layers + 1
-    return {
+    out = {
         fwd: layers * (micro + eval_batches),
-        bwd: layers * micro,
         "layer_norm": lns * (micro + eval_batches),
         "layer_norm_bwd": lns * micro,
         "mask_scale": lns * micro,
     }
+    for name in (("flash_dq", "flash_dkv") if two_pass else (bwd,)):
+        out[name] = layers * micro
+    return out
 
 
 def lm_metrics(trainer, wall) -> dict:
@@ -1410,6 +1736,41 @@ def lm_phase(argv, *, steps, rerun, tag) -> dict:
     return dict(cold, warm=warm)
 
 
+def two_pass_lm_phase(fused, argv=LM_1024_ARGS, tag="lm-1024-two-pass"):
+    """``train_lm`` on the lm-1024 run with ``PDT_FLASH_TWO_PASS=1``:
+    kernels 10 and 11 take every blockwise backward (kernel 9 none), step
+    1's loss equals the fused run's bit for bit, later steps within
+    TWO_PASS_RTOL."""
+    os.environ["PDT_FLASH_TWO_PASS"] = "1"
+    try:
+        trainer, counts, wall = train_once(argv, "train_lm")
+    finally:
+        del os.environ["PDT_FLASH_TWO_PASS"]
+    tc, mc = trainer.tcfg, trainer.mcfg
+    micro = trainer.state.step * tc.grad_accum_steps
+    check_launches(
+        f"{tag} run ({trainer.state.step} steps x {tc.grad_accum_steps} "
+        f"microbatches)", counts, expected_lm_launches(
+            micro=micro, eval_batches=trainer.eval_loader.steps_per_epoch,
+            layers=mc.num_layers, whole=False, two_pass=True),
+    )
+    m = lm_metrics(trainer, wall)
+    del trainer
+    gc.collect()
+    losses, ref = m["losses"], fused["losses"]
+    if len(losses) != len(ref) or losses[0] != ref[0] or any(
+            not math.isclose(a, b, rel_tol=TWO_PASS_RTOL)
+            for a, b in zip(losses[1:], ref[1:])):
+        raise AssertionError(f"{tag}: losses {losses} against the fused "
+                             f"run's {ref} (step 1 exact, then rtol "
+                             f"{TWO_PASS_RTOL})")
+    m.update(launches=counts, fused_losses=ref,
+             fused_ms_per_step=fused["ms_per_step"],
+             fused_warm_ms_per_step=fused["warm"]["ms_per_step"])
+    say(f"[{tag}] " + json.dumps(m))
+    return m
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1444,7 +1805,9 @@ def main() -> int:
     res["dropout_add_layer_norm"], res["dropout_add_layer_norm_bwd"] = (
         dal_phase(device))
     lap("kernels")
+    res["paged_attention_mq"] = paged_mq_phase(device)
     res.update(flash_phase(device))
+    res.update(two_pass_phase(device))
     lap("flash kernels")
     train = train_phase()
     lap("train")
@@ -1456,19 +1819,28 @@ def main() -> int:
     train_profile_phase(lm["warm"], LM_1024_ARGS, "train_lm",
                         tag="lm-1024-profile")
     lap("lm-1024-profile")
+    two_pass = two_pass_lm_phase(lm)
+    lap("lm-1024-two-pass")
     lm_short = lm_phase(LM_128_ARGS, steps=1, rerun=False, tag="lm-128")
     cpu_vs_card_phase(TINY_LM_ARGS, "train_lm")
     lap("lm-128 + cpu-vs-card")
     serve = serve_phase()
-    full_sequence_phase(device, serve.pop("streams"), PROMPTS)
+    plain = serve.pop("streams")
     profile_phase(serve["warm"])
     lap("serve")
+    options = serve_options_phase(plain)
+    full_sequence_phase(device, {"serve": (plain, PROMPTS), **{
+        f"serve-{k}": (v.pop("streams"), v.pop("prompts"))
+        for k, v in options.items()}})
+    lap("serve options")
     say("[done] seconds by phase " + json.dumps(laps))
 
     kernels = []
     # each kernel's launches from the main path that runs it
     runs = dict(paged_attention=serve, flash_fwd=lm, flash_bwd=lm,
-                flash_whole_fwd=lm_short, flash_whole_bwd=lm_short)
+                flash_whole_fwd=lm_short, flash_whole_bwd=lm_short,
+                paged_attention_mq=options["spec"], flash_dq=two_pass,
+                flash_dkv=two_pass)
     for name in _build.KERNELS:
         r = res[name]
         launches = runs.get(name, train)["launches"].get(name, 0)

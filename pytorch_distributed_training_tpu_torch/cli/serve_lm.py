@@ -12,7 +12,10 @@ Engine knobs as in the JAX package: ``--num-slots`` fixed decode slots,
 ``--prompt-buckets`` prefill lengths, ``--max-new-tokens-cap`` bounds the
 KV cache (largest bucket + cap), ``--page-size``/``--num-pages`` size the
 paged KV pool, ``--queue-depth`` backpressure, ``--deadline-s`` default
-deadline. Events go to stdout, logs to stderr.
+deadline. Serving options: ``--spec-k`` speculative decoding (n-gram
+drafts), ``--prefill-chunk`` and ``--prefill-concurrency`` chunked prefill,
+``--prefix-cache`` the shared-KV prefix cache. Events go to stdout, logs
+to stderr.
 """
 
 from __future__ import annotations
@@ -47,6 +50,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-pages", type=int, default=0,
                    help="total KV pages incl. the reserved null page (0 = "
                         "auto-size so every slot fits a worst-case request)")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="speculative decoding: draft tokens proposed per "
+                        "slot per tick (0 = off); each verify dispatch "
+                        "scores k+1 positions and commits every accepted "
+                        "one — same token stream, fewer dispatches; drafts "
+                        "come from the n-gram (prompt-lookup) drafter")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="chunked prefill: stream prompts into the paged KV "
+                        "cache this many tokens per tick (0 = one prefill "
+                        "per bucket); long prompts stop monopolising the "
+                        "tick loop")
+    p.add_argument("--prefill-concurrency", type=int, default=1,
+                   help="slots streaming a chunked prompt at once; further "
+                        "admissions wait a tick (a hold, not page "
+                        "exhaustion)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="shared-KV prefix cache: finished prompts' pages "
+                        "are indexed in a token-keyed trie and a matching "
+                        "prompt prefix is served from the cache (refcounted "
+                        "pages, copy-on-write at the divergence point) — "
+                        "only the tail is prefilled, streams identical to "
+                        "cold prefill")
     p.add_argument("--deadline-s", type=float, default=0.0,
                    help="default per-request deadline (0 = none)")
     return p
@@ -84,6 +109,10 @@ def build_server(args):
         max_new_tokens=args.max_new_tokens_cap,
         page_size=args.page_size,
         num_pages=args.num_pages,
+        spec_k=args.spec_k,
+        prefill_chunk=args.prefill_chunk,
+        prefill_concurrency=args.prefill_concurrency,
+        prefix_cache=args.prefix_cache,
     )
     # the engine serves its own cast copy of the model
     server = InferenceServer(

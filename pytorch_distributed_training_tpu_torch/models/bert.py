@@ -19,7 +19,12 @@
     scores, ``finfo.min`` mask, fp32 softmax, probs in the V dtype);
   * decode (chunk == 1): one token appended at ``context_len``, then
     ``ops/paged_attention.paged_attention`` over the whole context. Idle
-    rows park on the null page 0; their outputs are ignored by the engine.
+    rows park on the null page 0; their outputs are ignored by the engine;
+  * multi-token query (``PagedKV.multiquery`` or ``paged_multiquery``,
+    chunk > 1): the chunk is
+    appended at ``context_len`` of an existing context (speculative
+    verify, chunked prefill, a prefix-hit tail) and attends causally over
+    the earlier pages and itself through the 4-D-query ``paged_attention``.
 
   Full-sequence attention takes a dropout seed (probs dropout, site 2 of
   the layer's seed) and, with ``attention_remat``, recomputes its core in
@@ -40,8 +45,8 @@ counterpart of the distinct flax ``make_rng("dropout")`` keys per module.
 
 The page pools are tensors the serving engine owns and passes in; the
 scatter writes them in place (the JAX package returns new pools, which
-XLA updates in place through donation). The dense cache, the multi-token
-query and int8 pools are not ported yet.
+XLA updates in place through donation). The dense cache and int8 pools
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -110,11 +115,15 @@ class Embed(nn.Module):
 class PagedKV:
     """Per-call paged-cache operands: the engine's pools (one ``(k_pages,
     v_pages)`` pair per layer), the block table [batch, W] int32 and the
-    context length [batch] int32 (tokens already in the pages)."""
+    context length [batch] int32 (tokens already in the pages).
+    ``multiquery``: a chunk of more than one token goes through the
+    4-D-query kernel over an existing context (as ``cfg.paged_multiquery``
+    does for every call) instead of the fresh-prefill branch."""
 
     pools: list
     block_table: torch.Tensor
     context_len: torch.Tensor
+    multiquery: bool = False
 
 
 class DenseGeneral(nn.Module):
@@ -167,7 +176,7 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, x, attention_bias=None, paged=None, dropout_seed=None):
         """``paged``: None for full-sequence attention, else ``(k_pages,
-        v_pages, block_table, context_len)`` for this layer.
+        v_pages, block_table, context_len, multiquery)`` for this layer.
         ``dropout_seed``: the layer's seed for probs dropout (None is
         deterministic)."""
         cfg = self.config
@@ -195,17 +204,22 @@ class BertSelfAttention(nn.Module):
         return self.out(out)
 
     def _paged_attend(self, q, k, v, attention_bias, k_pages, v_pages,
-                      block_table, context_len):
+                      block_table, context_len, multiquery):
         if not self.config.causal:
             raise ValueError("paged attention requires a causal model")
         batch, chunk, heads, head_dim = q.shape
         page_size = k_pages.shape[1]
+        windows = block_table.shape[1]
         # scatter this chunk's K/V through the block table: position idx+j
-        # lives at page bt[b, (idx+j)//P], offset (idx+j)%P
+        # lives at page bt[b, (idx+j)//P], offset (idx+j)%P; pad lanes of
+        # a last chunk past the table's reach land on the null page (the
+        # JAX scatter drops them)
         pos = context_len[:, None] + torch.arange(
             chunk, dtype=context_len.dtype, device=q.device
         )[None, :]
-        page_ids = torch.gather(block_table, 1, (pos // page_size).long())
+        win = (pos // page_size).long()
+        page_ids = torch.gather(block_table, 1, win.clamp(max=windows - 1))
+        page_ids = torch.where(win < windows, page_ids, 0)
         offs = pos % page_size
         kc = k.to(k_pages.dtype)
         vc = v.to(v_pages.dtype)
@@ -223,6 +237,16 @@ class BertSelfAttention(nn.Module):
                 scale=scale,
             )
             return out[:, None]
+        if multiquery or self.config.paged_multiquery:
+            # the chunk's rows sit at positions idx..idx+chunk-1 and see
+            # everything written up to themselves (lengths include the chunk)
+            if attention_bias is not None:
+                raise ValueError(
+                    "paged multiquery attention takes no attention bias "
+                    "(padding is expressed through context_len)"
+                )
+            return paged_attention(q, k_pages, v_pages, block_table,
+                                   context_len + chunk, scale=scale)
         # prefill: fresh sequence (context_len == 0 by engine contract), so
         # the visible context IS this chunk: the dense-cache formula
         scores = torch.einsum("bsnd,btnd->bnst", q.float(), kc.float()) * scale

@@ -11,8 +11,10 @@ round the logits to bf16). Parameter names follow the flax tree with
 ``block_i`` as ``blocks.i`` (``models/convert.py``).
 
 ``forward(..., paged=PagedKV(...))`` runs the serving engine's paged
-prefill/decode; without it, full-sequence causal attention through
-``cfg.attention_impl`` (the flash kernels for ``gpt2-medium``).
+prefill, decode and (with ``PagedKV.multiquery`` or
+``cfg.paged_multiquery``) multi-token query;
+without it, full-sequence causal attention through ``cfg.attention_impl``
+(the flash kernels for ``gpt2-medium``).
 
 Training: ``forward(input_ids, attention_mask=None, token_type_ids=None,
 position_ids=None, dropout_seed=None)``, the JAX model's uniform signature
@@ -140,7 +142,7 @@ class GPT2LMModel(nn.Module):
             if paged is not None:
                 k_pages, v_pages = paged.pools[i]
                 layer = (k_pages, v_pages, paged.block_table,
-                         paged.context_len)
+                         paged.context_len, paged.multiquery)
             x = block(x, bias, layer, _child_seed(dropout_seed, i + 1))
         x = self.ln_f(x)
         head = self.head_weight

@@ -44,6 +44,7 @@ KERNEL_SOURCES = {
     "dropout_add_layer_norm": "dropout_add_layer_norm.cu",
     "dropout": "dropout.cu",
     "paged_attention": "paged_attention.cu",
+    "paged_attention_mq": "paged_attention_mq.cu",
     "flash_attention": "flash_attention.cu",
 }
 
@@ -55,10 +56,13 @@ KERNELS = {
     "dropout_add_layer_norm_bwd": "dropout_add_layer_norm",
     "mask_scale": "dropout",
     "paged_attention": "paged_attention",
+    "paged_attention_mq": "paged_attention_mq",
     "flash_fwd": "flash_attention",
     "flash_bwd": "flash_attention",
     "flash_whole_fwd": "flash_attention",
     "flash_whole_bwd": "flash_attention",
+    "flash_dq": "flash_attention",
+    "flash_dkv": "flash_attention",
 }
 
 NVCC_FLAGS = (

@@ -1,6 +1,6 @@
 """Flash attention (counterpart: the JAX package's ``ops/flash_attention.py``).
 
-Four kernels (``csrc/flash_attention.cu``), each with its plain PyTorch
+Six kernels (``csrc/flash_attention.cu``), each with its plain PyTorch
 version here:
 
 - ``flash_fwd``: the blockwise forward (TPU ``_fwd_kernel``): online
@@ -9,6 +9,13 @@ version here:
 - ``flash_bwd``: the fused one-pass backward (TPU ``_dqkv_kernel``, the
   JAX package's default): dq, dk and dv from one recompute of the probs
   from ``lse``; delta = rowsum(dO * O) is formed in the kernel;
+- ``flash_dq`` / ``flash_dkv``: the two-pass backward (TPU ``_dq_kernel``
+  / ``_dkv_kernel``), taken by the blockwise route when
+  ``PDT_FLASH_TWO_PASS=1`` (read at each call): dq from a pass over the
+  k-tiles each q-tile sees, dk and dv from a pass over the q-tiles each
+  k-tile is seen by; each forms delta itself. Their plain versions are the
+  fused plain backward's two halves, so the plain two-pass equals the
+  plain fused backward;
 - ``flash_whole_fwd`` / ``flash_whole_bwd``: the whole-sequence pair (TPU
   ``_mh_fwd_kernel`` / ``_mh_bwd_kernel``): the softmax of a full row, no
   residual saved; the backward recomputes the row statistics itself.
@@ -40,8 +47,8 @@ dispatch: ``pick_block`` with a cap of 512, and the plain
 ``reference_attention`` when the bias is not [B, 1, 1, S], a length does
 not divide its block, or ``head_dim > 256``. The kernels take head_dim 16,
 32 and 64 in float32 or bfloat16; another shape on a CUDA tensor raises.
-The JAX package's two-pass backward (``PDT_FLASH_TWO_PASS=1``) is not
-ported: with that variable set, the adapter raises.
+The whole-sequence route keeps its own backward in both modes, as the JAX
+``_vjp_bwd`` does.
 
 Each wrapper runs its plain version on a CPU tensor and its kernel (built
 at first use) on a CUDA tensor, or raises.
@@ -129,20 +136,48 @@ def reference_flash_fwd(q, k, v, bias, *, causal: bool, rate: float = 0.0,
     return o.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
-def reference_flash_bwd(q, k, v, bias, o, lse, do, *, causal: bool,
-                        rate: float = 0.0, seed: int = 0, site: int = 0):
-    """Plain twin of ``flash_bwd``: (dq, dk, dv) from the saved lse."""
-    scale = q.shape[-1] ** -0.5
+def _recompute(q, k, v, bias, o, lse, do, causal, rate, seed, site):
+    """The backward's recompute from the saved lse: (p, the dropper, ds)."""
     s = _scores(q, k, bias, causal)
     p = torch.exp(s - lse[..., None])
     drop = _dropper(s.shape, rate, seed, site, q.device)
-    dof = do.float()
-    dp = drop(torch.matmul(dof, v.float().transpose(-1, -2)))
-    ds = p * (dp - _delta(o, do))
-    dv = torch.matmul(drop(p).transpose(-1, -2), dof)
-    dk = torch.matmul(ds.transpose(-1, -2), q.float() * scale)
-    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dp = drop(torch.matmul(do.float(), v.float().transpose(-1, -2)))
+    return p, drop, p * (dp - _delta(o, do))
+
+
+def _dq_from(ds, q, k):
+    return (torch.matmul(ds.to(k.dtype).float(), k.float())
+            * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def _dkv_from(p, drop, ds, q, k, v, do):
+    dv = torch.matmul(drop(p).transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float() * q.shape[-1] ** -0.5)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def reference_flash_dq(q, k, v, bias, o, lse, do, *, causal: bool,
+                       rate: float = 0.0, seed: int = 0, site: int = 0):
+    """Plain twin of ``flash_dq``: dq = (round(ds) K) * scale."""
+    _, _, ds = _recompute(q, k, v, bias, o, lse, do, causal, rate, seed, site)
+    return _dq_from(ds, q, k)
+
+
+def reference_flash_dkv(q, k, v, bias, o, lse, do, *, causal: bool,
+                        rate: float = 0.0, seed: int = 0, site: int = 0):
+    """Plain twin of ``flash_dkv``: (dk, dv), dk = ds^T (q * scale)."""
+    p, drop, ds = _recompute(q, k, v, bias, o, lse, do, causal, rate, seed,
+                             site)
+    return _dkv_from(p, drop, ds, q, k, v, do)
+
+
+def reference_flash_bwd(q, k, v, bias, o, lse, do, *, causal: bool,
+                        rate: float = 0.0, seed: int = 0, site: int = 0):
+    """Plain twin of ``flash_bwd``: (dq, dk, dv) from the saved lse, one
+    recompute shared by the two halves of the two-pass plain version."""
+    p, drop, ds = _recompute(q, k, v, bias, o, lse, do, causal, rate, seed,
+                             site)
+    return (_dq_from(ds, q, k), *_dkv_from(p, drop, ds, q, k, v, do))
 
 
 def _whole_probs(q, k, bias, causal):
@@ -191,6 +226,8 @@ _ENTRY_POINTERS = {
     "pdt_flash_fwd": 3,        # o, lse, stream
     "pdt_flash_whole_fwd": 2,  # o, stream
     "pdt_flash_bwd": 8,        # o, do, lse, dq, dk, dv, dq_part, stream
+    "pdt_flash_dq": 5,         # o, do, lse, dq, stream
+    "pdt_flash_dkv": 6,        # o, do, lse, dk, dv, stream
     "pdt_flash_whole_bwd": 7,  # o, do, dq, dk, dv, dq_part, stream
 }
 
@@ -309,23 +346,59 @@ def flash_fwd(q, k, v, bias, *, causal: bool, rate: float = 0.0,
     return o, lse
 
 
+def _bwd_inputs(name, q, k, v, bias, o, lse, do, kw):
+    """Kernel-side checks of a blockwise backward's inputs; (q, k, v, o,
+    do, lse, the common C arguments)."""
+    q, k, v, args = _cuda_common(name, q, k, v, bias, **kw)
+    o, do = _like(o, q), _like(do.to(q.dtype), q)
+    lse = lse.contiguous()
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"{name} takes a float32 lse [B, N, Sq], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    return q, k, v, o, do, lse, args
+
+
 def flash_bwd(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
               seed: int = 0, site: int = 0):
     """Fused blockwise backward: (dq, dk, dv)."""
     kw = dict(causal=causal, rate=rate, seed=seed, site=site)
     if _on_cpu("flash_bwd", q, k, v, bias, rate):
         return reference_flash_bwd(q, k, v, bias, o, lse, do, **kw)
-    q, k, v, args = _cuda_common("flash_bwd", q, k, v, bias, **kw)
-    o, do = _like(o, q), _like(do.to(q.dtype), q)
-    lse = lse.contiguous()
-    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
-        raise ValueError(f"flash_bwd takes a float32 lse [B, N, Sq], got "
-                         f"{lse.dtype} {tuple(lse.shape)}")
+    q, k, v, o, do, lse, args = _bwd_inputs("flash_bwd", q, k, v, bias, o,
+                                            lse, do, kw)
     dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(k)
     _launch("flash_bwd", "pdt_flash_bwd", q, args, o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _dq_scratch(q, k).data_ptr())
     return dq, dk, dv
+
+
+def flash_dq(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
+             seed: int = 0, site: int = 0):
+    """Two-pass blockwise backward, first pass: dq."""
+    kw = dict(causal=causal, rate=rate, seed=seed, site=site)
+    if _on_cpu("flash_dq", q, k, v, bias, rate):
+        return reference_flash_dq(q, k, v, bias, o, lse, do, **kw)
+    q, k, v, o, do, lse, args = _bwd_inputs("flash_dq", q, k, v, bias, o,
+                                            lse, do, kw)
+    dq = _empty_like(q)
+    _launch("flash_dq", "pdt_flash_dq", q, args, o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr())
+    return dq
+
+
+def flash_dkv(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
+              seed: int = 0, site: int = 0):
+    """Two-pass blockwise backward, second pass: (dk, dv)."""
+    kw = dict(causal=causal, rate=rate, seed=seed, site=site)
+    if _on_cpu("flash_dkv", q, k, v, bias, rate):
+        return reference_flash_dkv(q, k, v, bias, o, lse, do, **kw)
+    q, k, v, o, do, lse, args = _bwd_inputs("flash_dkv", q, k, v, bias, o,
+                                            lse, do, kw)
+    dk, dv = _empty_like(k), _empty_like(k)
+    _launch("flash_dkv", "pdt_flash_dkv", q, args, o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    return dk, dv
 
 
 def flash_whole_fwd(q, k, v, bias, *, causal: bool, rate: float = 0.0,
@@ -359,27 +432,34 @@ def flash_whole_bwd(q, k, v, bias, o, do, *, causal: bool, rate: float = 0.0,
 
 
 class _FlashBlockwise(torch.autograd.Function):
-    """Kernel 6 forward, kernel 9 backward; saves o and lse."""
+    """Kernel 6 forward; kernel 9 backward, or kernels 10 and 11 when
+    ``two_pass``; saves o and lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, rate, seed, site):
+    def forward(ctx, q, k, v, bias, causal, rate, seed, site, two_pass):
         ctx.opts = dict(causal=causal, rate=rate, seed=seed, site=site)
+        ctx.two_pass = two_pass
         o, lse = flash_fwd(q, k, v, bias, **ctx.opts)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, bias, o, lse, do, **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
+        saved = ctx.saved_tensors
+        if ctx.two_pass:
+            dq = flash_dq(*saved, do, **ctx.opts)
+            dk, dv = flash_dkv(*saved, do, **ctx.opts)
+        else:
+            dq, dk, dv = flash_bwd(*saved, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 class _FlashWhole(torch.autograd.Function):
     """Kernel 7 forward, kernel 8 backward; saves o only."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, rate, seed, site):
+    def forward(ctx, q, k, v, bias, causal, rate, seed, site, two_pass):
+        del two_pass  # one backward kernel in both modes, as in the JAX one
         ctx.opts = dict(causal=causal, rate=rate, seed=seed, site=site)
         o = flash_whole_fwd(q, k, v, bias, **ctx.opts)
         ctx.save_for_backward(q, k, v, bias, o)
@@ -389,13 +469,20 @@ class _FlashWhole(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, o = ctx.saved_tensors
         dq, dk, dv = flash_whole_bwd(q, k, v, bias, o, do, **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def whole_seq(q_len: int, kv_len: int, block_q: int, block_k: int) -> bool:
     """The JAX ``_whole_seq`` route: one block that is the whole sequence."""
     return (q_len == block_q and kv_len == block_k and q_len == kv_len
             and q_len <= _WHOLE_SEQ_MAX)
+
+
+def two_pass_backward() -> bool:
+    """``PDT_FLASH_TWO_PASS=1`` selects the two-pass blockwise backward
+    (kernels 10 and 11) over the fused one (kernel 9), as it flips the JAX
+    package's ``FUSED_BWD``; read at each call."""
+    return os.environ.get("PDT_FLASH_TWO_PASS", "0") == "1"
 
 
 def flash_attention_base(q, k, v, bias, seed: Optional[int], *,
@@ -405,7 +492,8 @@ def flash_attention_base(q, k, v, bias, seed: Optional[int], *,
                          dropout_site: int = 0):
     """Differentiable flash attention on [B, N, S, D]; ``bias`` is the
     key-padding bias [B, 1, 1, Sk] (None: no padding); ``seed`` None or
-    ``dropout_rate`` 0 is deterministic."""
+    ``dropout_rate`` 0 is deterministic. The blockwise route's backward is
+    fused or two-pass by ``two_pass_backward()`` at this call."""
     batch, _, q_len, _ = q.shape
     kv_len = k.shape[2]
     if q_len % block_q or kv_len % block_k:
@@ -420,7 +508,8 @@ def flash_attention_base(q, k, v, bias, seed: Optional[int], *,
     fn = (_FlashWhole if whole_seq(q_len, kv_len, block_q, block_k)
           else _FlashBlockwise)
     return fn.apply(q, k, v, bias, causal, rate,
-                    0 if seed is None else int(seed), dropout_site)
+                    0 if seed is None else int(seed), dropout_site,
+                    two_pass_backward())
 
 
 def pick_block(n: int, cap: int) -> int:
@@ -441,12 +530,6 @@ def flash_attention(q, k, v, bias=None, *, causal: bool = False,
                     dropout_site: int = 0):
     """The ``"flash"`` attention of ``ops/attention.py`` on [B, S, N, D],
     dispatched as the JAX adapter does (module docstring)."""
-    if os.environ.get("PDT_FLASH_TWO_PASS", "0") == "1":
-        raise NotImplementedError(
-            "PDT_FLASH_TWO_PASS=1 selects the two-pass flash backward "
-            "(kernels 10 and 11), which is not ported yet (ROADMAP.md, "
-            "queue 2)"
-        )
     _, q_len, _, head_dim = q.shape
     kv_len = k.shape[1]
     block_q = pick_block(q_len, DEFAULT_BLOCK_Q)

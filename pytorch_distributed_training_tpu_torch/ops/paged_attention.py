@@ -1,22 +1,28 @@
-"""Paged decode attention: the Hopper kernel and its plain version
-(counterpart: the JAX package's ``ops/paged_attention.py``, 3-D query).
+"""Paged attention: the Hopper kernels and their plain versions
+(counterpart: the JAX package's ``ops/paged_attention.py``).
 
 Shapes (as in the JAX package):
 
-- ``q``: [batch, heads, head_dim], ONE query token per sequence;
+- ``q``: [batch, heads, head_dim], ONE query token per sequence (the decode
+  step), or [batch, q_len, heads, head_dim], a causal block of query tokens
+  (speculative verify, chunked prefill, the tail of a prefix-cache hit):
+  the q_len tokens are the LAST q_len positions of the sequence and row
+  ``j`` sees positions ``< lengths - q_len + 1 + j``;
 - ``k_pages``/``v_pages``: [num_pages, page_size, heads, head_dim], the
   engine-owned pools; page 0 is the reserved null page idle sequences
   park on;
 - ``block_table``: [batch, pages_per_seq] int32, page ids in token order;
-- ``lengths``: [batch] int32, valid tokens per sequence INCLUDING the query
-  token (the engine writes the new K/V before attending); ``lengths >= 1``
-  is the engine's contract.
+- ``lengths``: [batch] int32, valid tokens per sequence INCLUDING every
+  query token (the engine writes the new K/V before attending);
+  ``lengths >= q_len`` is the engine's contract.
 
-The output has the pools' dtype. ``paged_attention`` on CPU tensors runs
-``_paged_reference`` (gather through the block table, the dense formula:
-fp32 scores, ``finfo(float32).min`` mask, fp32 softmax, probs cast to the
-V dtype); on CUDA tensors it launches ``csrc/paged_attention.cu``, which
-walks the block table in place, or raises. A 4-D (multi-token) query and
+The output has the pools' dtype. On CPU tensors ``paged_attention`` runs
+the plain versions ``_paged_reference`` (3-D) and ``_paged_reference_mq``
+(4-D): gather through the block table, the dense formula (fp32 scores,
+``finfo(float32).min`` mask, fp32 softmax, probs cast to the V dtype). On
+CUDA tensors it launches ``csrc/paged_attention.cu`` (3-D, counted as
+``paged_attention``) or ``csrc/paged_attention_mq.cu`` (4-D, counted as
+``paged_attention_mq``), both walking the block table in place, or raises.
 int8 pools are not ported yet.
 """
 
@@ -31,21 +37,17 @@ from pytorch_distributed_training_tpu_torch.ops import _build
 
 _NEG = torch.finfo(torch.float32).min
 _MAX_HEAD_DIM = 256
+_MAX_Q_LEN = 128          # the multi-query kernel's rows per (seq, head)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_AXES = ("num_pages", "page_size", "heads", "head_dim")
 
 
 def _check(q, k_pages, v_pages, block_table, lengths):
     """The JAX package's shape/dtype contract, axis by axis."""
-    if q.dim() == 4:
-        raise NotImplementedError(
-            "multi-token (4-D) query paged attention is not ported yet "
-            "(speculative verify / chunked prefill; see ROADMAP.md, queue 2 "
-            "kernel 13)"
-        )
-    if q.dim() != 3:
+    if q.dim() not in (3, 4):
         raise ValueError(
-            f"q must be [batch, heads, head_dim], got {tuple(q.shape)}"
+            f"q must be [batch, heads, head_dim] or "
+            f"[batch, q_len, heads, head_dim], got {tuple(q.shape)}"
         )
     if k_pages.shape != v_pages.shape:
         bad = ", ".join(
@@ -92,21 +94,28 @@ def _check(q, k_pages, v_pages, block_table, lengths):
             f"k_pages/v_pages dtypes differ: {k_pages.dtype} vs "
             f"{v_pages.dtype} (pools quantize together or not at all)"
         )
+    if q.dim() == 4 and q.shape[1] > block_table.shape[1] * k_pages.shape[1]:
+        raise ValueError(
+            f"q_len {q.shape[1]} exceeds the {block_table.shape[1]} x "
+            f"{k_pages.shape[1]} tokens a block-table row addresses"
+        )
     if k_pages.dtype == torch.int8:
         raise NotImplementedError(
             "int8 page pools are not ported yet (see ROADMAP.md, queue 1, "
-            "slice 4)"
+            "slice 4b)"
         )
 
 
 def paged_attention(q, k_pages, v_pages, block_table, lengths, *,
                     scale: float):
-    """Single-token decode attention through a page table; returns
-    [batch, heads, head_dim] in the pools' dtype."""
+    """Attention through a page table. 3-D ``q`` is the decode step
+    (returns [batch, heads, head_dim]); 4-D ``q`` a causal block of query
+    tokens (returns [batch, q_len, heads, head_dim]); the pools' dtype."""
     _check(q, k_pages, v_pages, block_table, lengths)
+    multi = q.dim() == 4
     if q.device.type == "cpu":
-        return _paged_reference(q, k_pages, v_pages, block_table, lengths,
-                                scale)
+        ref = _paged_reference_mq if multi else _paged_reference
+        return ref(q, k_pages, v_pages, block_table, lengths, scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, got {q.device}")
     return _paged_cuda(q, k_pages, v_pages, block_table, lengths, scale)
@@ -131,12 +140,39 @@ def _paged_reference(q, k_pages, v_pages, block_table, lengths, scale):
     return out.to(v.dtype)
 
 
+def _paged_reference_mq(q, k_pages, v_pages, block_table, lengths, scale):
+    """The JAX ``_paged_reference_mq``: row ``j`` of the query block sees
+    positions ``< lengths - (q_len - 1) + j``."""
+    batch, q_len, heads, head_dim = q.shape
+    page_size = k_pages.shape[1]
+    tokens = block_table.shape[1] * page_size
+    idx = block_table.long()
+    k = k_pages[idx].reshape(batch, tokens, heads, head_dim)
+    v = v_pages[idx].reshape(batch, tokens, heads, head_dim)
+    scores = torch.einsum("bqnd,btnd->bnqt", q.float(), k.float()) * scale
+    pos = torch.arange(tokens, device=q.device)
+    row = torch.arange(q_len, device=q.device)
+    limit = lengths[:, None].long() - (q_len - 1) + row[None, :]   # [B, Q]
+    valid = pos[None, None, :] < limit[:, :, None]                 # [B, Q, T]
+    scores = torch.where(valid[:, None], scores, _NEG)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bnqt,btnd->bqnd", probs.float(), v.float())
+    return out.to(v.dtype)
+
+
 @functools.cache
-def _kernel():
-    """(library, C entry point) of the paged kernel, built on first use."""
-    lib = _build.load("paged_attention")
-    fn = lib.pdt_paged_attention_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+def _kernel(multi: bool):
+    """(library, C entry point) of the paged kernel (``multi``: the 4-D
+    query one), built on first use."""
+    if multi:
+        lib = _build.load("paged_attention_mq")
+        fn = lib.pdt_paged_attention_mq
+        n_int = 6
+    else:
+        lib = _build.load("paged_attention")
+        fn = lib.pdt_paged_attention_decode
+        n_int = 5
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -159,19 +195,27 @@ def _paged_cuda(q, k_pages, v_pages, block_table, lengths, scale):
     for name, t in (("block_table", block_table), ("lengths", lengths)):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    batch, heads, head_dim = q.shape
+    multi = q.dim() == 4
+    batch, heads, head_dim = q.shape[0], q.shape[-2], q.shape[-1]
     if head_dim > _MAX_HEAD_DIM:
         raise ValueError(
             f"paged_attention kernel takes head_dim <= {_MAX_HEAD_DIM}, got "
             f"{head_dim}"
         )
+    if multi and not 1 <= q.shape[1] <= _MAX_Q_LEN:
+        raise ValueError(
+            f"paged_attention_mq kernel takes 1 <= q_len <= {_MAX_Q_LEN}, got "
+            f"{q.shape[1]}"
+        )
     out = torch.empty_like(q)
     if batch == 0:
         return out
-    lib, fn = _kernel()
+    lib, fn = _kernel(multi)
+    dims = (batch, q.shape[1]) if multi else (batch,)
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-              batch, heads, head_dim, k_pages.shape[1], block_table.shape[1],
+              *dims, heads, head_dim, k_pages.shape[1], block_table.shape[1],
               scale, _DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    _build.check_launch(lib, "paged_attention", code)
+    _build.check_launch(lib, "paged_attention_mq" if multi else
+                        "paged_attention", code)
     return out

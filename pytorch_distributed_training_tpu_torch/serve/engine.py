@@ -17,16 +17,36 @@
   page and their outputs are ignored.
 - **Sampling** on the device (``serve/sampling.py``); each tick moves one
   ``[slots]`` vector of token ids to the host.
+- **Speculative decoding** (``spec_k > 0``, ``spec_draft="ngram"``): the
+  host drafts k tokens per slot from the slot's own history (prompt
+  lookup, no dispatch), and ONE verify dispatch scores all k + 1
+  positions through the 4-D-query paged kernel, then accepts the leading
+  run of drafts that equal the per-position samples
+  (``sampling.spec_accept``). Every emitted token is the sample the
+  non-speculative engine would draw at that position, so streams are
+  identical. Rejected drafts roll back by the host not advancing the
+  slot's context past the accepted prefix: their K/V lanes stay dead in
+  the over-reserved pages (``PageAllocator.pages_reserved``).
+- **Chunked prefill** (``prefill_chunk > 0``): prompts stream into their
+  pages ``prefill_chunk`` tokens per tick through the same 4-D-query path,
+  between decode ticks; ``prefill_concurrency`` caps the slots streaming
+  at once (a transient queue hold, not page exhaustion).
+- **Prefix cache** (``prefix_cache``): finished prompts' full pages are
+  indexed in a token trie (``serve/prefix_cache.py``); a later prompt with
+  a matching prefix maps those pages into its row (refcounts bumped),
+  copies a partly matching page on write, and prefills only the tail
+  through the chunk path (chunks of ``prefill_chunk``, or a page when
+  chunking is off).
 
 Weights are cast to the compute dtype once at build (``GPT2LMModel.
 cast_for_serving``), which gives the values flax's per-call cast gives.
 
-Ported options: ``kv_layout="paged"``, ``sampling="device"``,
-``spec_k=0``, ``prefill_chunk=0``, ``prefix_cache=False``, ``tp=1``,
-float32 weights and KV. Every other value raises ``NotImplementedError``
-naming its ROADMAP.md item. Telemetry records, spans, the flight recorder,
-brownout, hot-swap and the runtime guards of the JAX engine are not
-ported yet.
+Ported options: ``kv_layout="paged"``, ``sampling="device"``, ``spec_k``
+with ``spec_draft="ngram"``, ``prefill_chunk``, ``prefill_concurrency``,
+``prefix_cache``, ``tp=1``, float32 weights and KV. Every other value
+raises ``NotImplementedError`` naming its ROADMAP.md item. Telemetry
+records, spans, the flight recorder, brownout, hot-swap and the runtime
+guards of the JAX engine are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,11 +63,17 @@ from pytorch_distributed_training_tpu_torch.models.bert import PagedKV
 from pytorch_distributed_training_tpu_torch.serve.paged_cache import (
     PageAllocator,
 )
+from pytorch_distributed_training_tpu_torch.serve.prefix_cache import (
+    PrefixCache,
+)
 from pytorch_distributed_training_tpu_torch.serve.queue import (
     GenRequest,
     RequestQueue,
 )
-from pytorch_distributed_training_tpu_torch.serve.sampling import device_sample
+from pytorch_distributed_training_tpu_torch.serve.sampling import (
+    device_sample,
+    spec_accept,
+)
 from pytorch_distributed_training_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_training_tpu_torch.utils.logging import get_logger
 
@@ -55,14 +81,14 @@ logger = get_logger(__name__)
 
 # ROADMAP.md items for the options this slice does not port
 _NOT_PORTED = {
-    "kv_layout": ("paged", "the dense KV layout (queue 1, slice 4)"),
-    "sampling": ("device", "host sampling (queue 1, slice 4)"),
-    "spec_k": (0, "speculative decoding (queue 1, slice 4; queue 2 kernel 13)"),
-    "prefill_chunk": (0, "chunked prefill (queue 1, slice 4; queue 2 kernel 13)"),
-    "prefix_cache": (False, "the prefix cache (queue 1, slice 4)"),
+    "kv_layout": ("paged", "the dense KV layout (queue 1, slice 4b)"),
+    "sampling": ("device", "host sampling (queue 1, slice 4b)"),
+    "spec_draft": ("ngram", "the draft-model lane (queue 1, slice 4b; it "
+                            "waits for a draft checkpoint in the repository)"),
+    "tenant_page_quota": (0.0, "tenant page quotas (queue 1, slice 4b)"),
     "tp": (1, "tensor-parallel serving (queue 1, slice 5)"),
-    "weights_dtype": ("float32", "int8 weights (queue 1, slice 4)"),
-    "kv_dtype": ("float32", "int8 KV pools (queue 1, slice 4)"),
+    "weights_dtype": ("float32", "int8 weights (queue 1, slice 4b)"),
+    "kv_dtype": ("float32", "int8 KV pools (queue 1, slice 4b)"),
 }
 
 
@@ -72,9 +98,10 @@ class EngineConfig:
 
     ``cache_len`` (largest bucket + ``max_new_tokens``) bounds every
     request. A request admitted at bucket ``b`` holds ``ceil((b +
-    max_new_tokens) / page_size)`` pages for its whole life. ``num_pages=0``
-    sizes the pool so every slot can hold a worst-case request (plus the
-    null page); set it lower to trade concurrency for KV memory.
+    max_new_tokens + spec_k) / page_size)`` pages for its whole life.
+    ``num_pages=0`` sizes the pool so every slot can hold a worst-case
+    request (plus the null page); set it lower to trade concurrency for KV
+    memory.
     """
 
     num_slots: int = 4
@@ -84,9 +111,18 @@ class EngineConfig:
     page_size: int = 16
     num_pages: int = 0          # total pages incl. null page; 0 = auto
     sampling: str = "device"
+    # speculative decoding: draft tokens proposed per slot per tick (0 off)
     spec_k: int = 0
+    # draft lane: "ngram" drafts from the slot's own history; "model" (a
+    # small draft model) is not ported
+    spec_draft: str = "ngram"
+    # chunked prefill: prompt tokens streamed per tick per slot (0 off)
     prefill_chunk: int = 0
+    # slots streaming a chunked prompt at once; further admissions wait
+    prefill_concurrency: int = 1
+    # shared-KV prefix cache over finished prompts' full pages
     prefix_cache: bool = False
+    tenant_page_quota: float = 0.0
     tp: int = 1
     weights_dtype: str = "float32"
     kv_dtype: str = "float32"
@@ -114,6 +150,17 @@ class EngineConfig:
             )
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {self.prefill_chunk}"
+            )
+        if self.prefill_concurrency < 1:
+            raise ValueError(
+                f"prefill_concurrency must be >= 1, got "
+                f"{self.prefill_concurrency}"
+            )
         if self.num_pages > 0 and self.num_pages < self.pages_per_slot + 1:
             raise ValueError(
                 f"num_pages {self.num_pages} cannot hold even one "
@@ -127,7 +174,8 @@ class EngineConfig:
 
     @property
     def pages_per_slot(self) -> int:
-        """Block-table row width: pages covering one worst-case request."""
+        """Block-table row width: pages covering one worst-case request
+        including the speculative overshoot."""
         return -(-(self.cache_len + self.spec_k) // self.page_size)
 
     @property
@@ -145,6 +193,11 @@ class _Slot:
     request: GenRequest
     pending_token: int          # sampled, not yet fed through decode
     steps_done: int = 0         # generated tokens already fed into the KV
+    # "prefill" while a prompt streams into the slot's pages (prefill_pos
+    # tokens written so far), "decode" once its first token is sampled
+    phase: str = "decode"
+    prefill_pos: int = 0
+    spec: bool = False          # in the speculative lane (fixed at admit)
 
 
 class DecodeEngine:
@@ -161,12 +214,12 @@ class DecodeEngine:
         cfg = model.config
         if not cfg.causal:
             raise ValueError("DecodeEngine needs a causal model")
-        if config.cache_len > cfg.max_position_embeddings:
+        if config.cache_len + config.spec_k > cfg.max_position_embeddings:
             raise ValueError(
                 f"cache_len {config.cache_len} (= largest bucket "
                 f"{config.prompt_buckets[-1]} + max_new_tokens "
-                f"{config.max_new_tokens}) exceeds max_position_embeddings "
-                f"{cfg.max_position_embeddings}"
+                f"{config.max_new_tokens}) + spec_k {config.spec_k} exceeds "
+                f"max_position_embeddings {cfg.max_position_embeddings}"
             )
         self.config = config
         self.device = resolve_device(device)
@@ -174,6 +227,7 @@ class DecodeEngine:
         serving.cast_for_serving()
         serving.eval().requires_grad_(False)
         self._model = serving
+        self._max_pos = cfg.max_position_embeddings
         pool_dtype = getattr(torch, cfg.compute_dtype)
         shape = (config.total_pages, config.page_size, cfg.num_heads,
                  cfg.head_dim)
@@ -186,20 +240,35 @@ class DecodeEngine:
             config.total_pages, config.page_size, config.pages_per_slot,
             config.num_slots,
         )
+        self._prefix = (PrefixCache(self._pages) if config.prefix_cache
+                        else None)
+        # chunk width: prefill_chunk, or one page for prefix-hit tails when
+        # only the cache is on
+        self._chunk_size = (config.prefill_chunk if config.prefill_chunk > 0
+                            else config.page_size)
         self._queue = queue
         self._slots: list[Optional[_Slot]] = [None] * config.num_slots
         self._prefill_buckets: set[int] = set()
+        self._match_scratch = None      # (req id, PrefixMatch) from accept
         self.ticks = 0
         self.busy_ticks = 0
         self.admitted = 0
         self.finished = 0
         self.page_exhausted = 0     # ticks the FIFO head waited on pages
         self._page_blocked = False  # scratch flag for the admission pass
-        self.prefill_tokens = 0
-        self.decode_dispatches = 0
-        self.decode_tokens = 0
-        # host seconds in prefill / decode dispatches, each ending in the
-        # token-id copy to the host (which waits for the device)
+        self.prefill_tokens = 0     # real prompt tokens through a prefill
+        self.prefill_dispatches = 0  # monolithic bucket prefills
+        self.prefill_chunks = 0     # chunk dispatches
+        self.decode_dispatches = 0  # decode-phase dispatches of any kind
+        self.decode_tokens = 0      # tokens emitted by decode-phase work
+        self.spec_dispatches = 0    # verify dispatches
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.cow_copies = 0
+        self.cached_tokens = 0      # prompt tokens served from the cache
+        # host seconds in prefill (bucket and chunk) and decode (plain and
+        # verify) dispatches; those ending in the token-id copy to the host
+        # wait for the device, a non-final chunk only enqueues
         self.prefill_s = 0.0
         self.decode_s = 0.0
         self.last_tick_t = time.monotonic()
@@ -230,15 +299,41 @@ class DecodeEngine:
         token = device_sample(last, [req.seed], [0], [req.temperature],
                               [req.top_k])
         self._prefill_buckets.add(bucket)
+        self.prefill_dispatches += 1
         return int(token[0])     # the prefill's one device-to-host copy
 
-    def _decode(self, tokens, ctx, seeds, steps, temps, top_ks) -> np.ndarray:
-        """Advance every slot one token; [slots] sampled ids on the host."""
+    def _chunk(self, req: GenRequest, slot: int, start: int,
+               sample_row: Optional[int]) -> Optional[int]:
+        """Write prompt tokens ``start .. start + chunk`` of ``req`` into
+        ``slot``'s pages (the last chunk zero-padded: pad lanes are dead
+        by the causal horizon now and by the context length later). With
+        ``sample_row`` (the chunk row of the prompt's last token) the first
+        token is sampled and returned; else nothing syncs."""
+        C = self._chunk_size
+        end = min(start + C, req.prompt_len)
+        ids = np.zeros((1, C), np.int64)
+        ids[0, : end - start] = req.prompt_ids[start:end]
+        # pad lanes past the position table read its last row (dead lanes)
+        pos = np.minimum(start + np.arange(C), self._max_pos - 1)
         paged = PagedKV(
             self._pools,
-            self._to_device(self._pages.block_table),
-            self._to_device(ctx),
+            self._to_device(self._pages.block_table[slot : slot + 1]),
+            self._to_device(np.asarray([start], np.int32)),
+            multiquery=True,
         )
+        logits = self._model(self._to_device(ids),
+                             position_ids=self._to_device(pos[None]),
+                             paged=paged)
+        if sample_row is None:
+            return None
+        token = device_sample(logits[0, sample_row][None], [req.seed], [0],
+                              [req.temperature], [req.top_k])
+        return int(token[0])
+
+    def _decode(self, tokens, bt, ctx, seeds, steps, temps,
+                top_ks) -> np.ndarray:
+        """Advance every slot one token; [slots] sampled ids on the host."""
+        paged = PagedKV(self._pools, self._to_device(bt), self._to_device(ctx))
         logits = self._model(
             self._to_device(tokens[:, None].astype(np.int64)),
             position_ids=self._to_device(ctx[:, None].astype(np.int64)),
@@ -246,6 +341,34 @@ class DecodeEngine:
         )
         sampled = device_sample(logits[:, 0], seeds, steps, temps, top_ks)
         return sampled.cpu().numpy()   # the tick's one device-to-host copy
+
+    def _verify(self, tokens, bt, ctx, seeds, steps0, temps,
+                top_ks) -> np.ndarray:
+        """Score all k + 1 positions of every slot (row = [pending, d1..dk]
+        written at ctx..ctx+k) and accept on the device; returns [slots,
+        k + 2] on the host: the k + 1 per-position samples, then the
+        accepted-draft count."""
+        q_len = tokens.shape[1]
+        paged = PagedKV(self._pools, self._to_device(bt), self._to_device(ctx),
+                        multiquery=True)
+        dev_tokens = self._to_device(tokens.astype(np.int64))
+        logits = self._model(
+            dev_tokens,
+            position_ids=self._to_device(
+                (ctx[:, None] + np.arange(q_len)).astype(np.int64)),
+            paged=paged,
+        )
+        target, accept = spec_accept(logits, dev_tokens[:, 1:], seeds,
+                                     steps0, temps, top_ks)
+        # the tick's one device-to-host copy
+        return torch.cat([target, accept[:, None]], dim=1).cpu().numpy()
+
+    def _page_copy(self, src: int, dst: int) -> None:
+        """Copy page ``src`` onto page ``dst`` in every layer's pools (the
+        copy-on-write of a partly matched prefix page)."""
+        for k_pages, v_pages in self._pools:
+            k_pages[dst].copy_(k_pages[src])
+            v_pages[dst].copy_(v_pages[src])
 
     # ---------------------------------------------------------- accounting
 
@@ -295,28 +418,86 @@ class DecodeEngine:
         return None
 
     def _evict(self, slot: int) -> None:
-        """Free ``slot`` and its pages for reuse."""
+        """Free ``slot`` and drop its page references (shared pages live on
+        in other rows or the prefix cache)."""
         self._slots[slot] = None
         self._pages.release(slot)
 
     def _pages_for(self, req: GenRequest) -> int:
-        """Up-front worst-case reservation: bucket + max_new_tokens."""
+        """Up-front worst-case reservation: bucket + max_new_tokens + the
+        speculative overshoot (every slot rides the verify scatter)."""
         return self._pages.pages_reserved(
             req.bucket + req.max_new_tokens, self.config.spec_k
         )
 
+    def _prompt_head(self, req: GenRequest) -> list:
+        """The matchable part of a prompt: all but its last token, which
+        the tail prefill must run to sample the first output (this also
+        keeps every later write past the shared full pages)."""
+        return [int(t) for t in req.prompt_ids[: req.prompt_len - 1]]
+
     def _admission_fits(self, req: GenRequest) -> bool:
-        """Page-budget admission predicate (``RequestQueue.pop_ready``)."""
-        if self._pages.can_alloc(self._pages_for(req)):
+        """Page-budget admission predicate (``RequestQueue.pop_ready``).
+        With the prefix cache the trie match happens here (stashed for the
+        admission right after a True): only the pages beyond the fully
+        matched shared ones come from the free list, and page pressure
+        first LRU-evicts cache-only runs."""
+        need = self._pages_for(req)
+        match = None
+        if self._prefix is not None:
+            match = self._prefix.match(self._prompt_head(req))
+            self._match_scratch = (req.id, match)
+            need -= len(match.pages)
+        if self._pages.can_alloc(need):
             return True
+        if self._prefix is not None:
+            # never evict the pages this very match is about to map
+            protect = set(match.pages)
+            if match.cow_src is not None:
+                protect.add(match.cow_src)
+            if self._prefix.evict_until(
+                need - self._pages.pages_free, protect=protect
+            ) and self._pages.can_alloc(need):
+                return True
         self._page_blocked = True
         return False
 
-    def _admit(self, req: GenRequest, slot: int) -> None:
-        """Prefill ``req`` into ``slot`` and take its first token."""
+    def _take_match(self, req: GenRequest):
+        """The trie match ``_admission_fits`` stashed for the request just
+        popped (None when the cache is off)."""
+        if self._prefix is None:
+            return None
+        stashed, self._match_scratch = self._match_scratch, None
+        if stashed is not None and stashed[0] == req.id:
+            return stashed[1]
+        return self._prefix.match(self._prompt_head(req))
+
+    def _prefill_resident(self) -> int:
+        return sum(1 for s in self._slots
+                   if s is not None and s.phase == "prefill")
+
+    def _admission_defer(self, req: GenRequest) -> bool:
+        """Chunked-prefill residency hold (``pop_ready(defer=)``): while
+        ``prefill_concurrency`` slots are streaming prompts in, admissions
+        wait a tick; checked before the page predicate, so a hold never
+        counts as page exhaustion."""
+        return self._prefill_resident() >= self.config.prefill_concurrency
+
+    def _slot_spec(self, req: GenRequest) -> bool:
+        """The request's speculative opt-in/out against the engine
+        default (on whenever spec_k > 0)."""
+        if self.config.spec_k <= 0:
+            return False
+        return req.spec if req.spec is not None else True
+
+    def _start(self, req: GenRequest) -> None:
         req.status = "running"
         req.admit_t = time.monotonic()
         self.admitted += 1
+
+    def _admit(self, req: GenRequest, slot: int) -> None:
+        """Prefill ``req`` into ``slot`` and take its first token."""
+        self._start(req)
         self._pages.admit(slot, self._pages_for(req))
         t0 = time.perf_counter()
         try:
@@ -327,18 +508,233 @@ class DecodeEngine:
             raise
         self.prefill_s += time.perf_counter() - t0
         self.prefill_tokens += req.prompt_len
+        # index the prompt's full pages before any release below: the
+        # cache's own reference keeps them alive past the slot
+        self._insert_prefix(slot, req)
         self._emit_token(req, token)
         if self._is_terminal(req, token):
             self._pages.release(slot)
             return
-        self._slots[slot] = _Slot(request=req, pending_token=token)
+        self._slots[slot] = _Slot(request=req, pending_token=token,
+                                  spec=self._slot_spec(req))
 
-    # ------------------------------------------------------------------ tick
+    def _admit_chunked(self, req: GenRequest, slot: int) -> None:
+        """Chunked admission: reserve the slot and its pages; the tick's
+        ``_advance_prefills`` streams the prompt in (its first chunk this
+        very tick)."""
+        self._start(req)
+        self._pages.admit(slot, self._pages_for(req))
+        self._slots[slot] = _Slot(request=req, pending_token=-1,
+                                  phase="prefill", spec=self._slot_spec(req))
+
+    def _admit_hit(self, req: GenRequest, slot: int, match) -> None:
+        """Prefix-cache hit: map the shared full pages into the slot's row
+        (read-only, refcounts bumped), copy the partly matched page into a
+        private one when the match ends mid-page, and leave the slot in
+        prefill phase at the cached boundary, so only the tail streams
+        through the chunk path. The reservation still covers the whole
+        worst case, drawing ``reserved - shared`` pages from the pool."""
+        self._start(req)
+        reserved = self._pages_for(req)
+        shared = list(match.pages)
+        cow = match.cow_src is not None
+        if cow:
+            shared.append(match.cow_src)
+        self._pages.admit_shared(slot, shared, reserved - len(shared))
+        try:
+            if cow:
+                # private copy before the tail's first write: a slot never
+                # writes a page with refcount > 1; its lanes past the
+                # cached length are dead (context length) and overwritten
+                old, new = self._pages.cow(slot, len(match.pages))
+                self._page_copy(old, new)
+                self.cow_copies += 1
+        except BaseException:
+            self._pages.release(slot)
+            raise
+        req.prefix_hit = True
+        req.cached_tokens = match.cached_len
+        self.cached_tokens += match.cached_len
+        self._slots[slot] = _Slot(
+            request=req, pending_token=-1, phase="prefill",
+            prefill_pos=match.cached_len, spec=self._slot_spec(req),
+        )
+
+    def _insert_prefix(self, slot: int, req: GenRequest) -> None:
+        """Index the just-prefilled prompt's FULL pages in the trie (the
+        cache takes its own reference on each new node's page). Called
+        after the dispatch that wrote the last prompt token; padding never
+        lands in the first ``prompt_len // page_size`` pages."""
+        if self._prefix is None:
+            return
+        ps = self.config.page_size
+        full = req.prompt_len // ps
+        if full <= 0:
+            return
+        self._prefix.insert(
+            [int(t) for t in req.prompt_ids[: full * ps]],
+            self._pages.slot_pages(slot)[:full],
+        )
+
+    # ------------------------------------------------------- chunked prefill
+
+    def _advance_prefills(self) -> bool:
+        """One chunk for every slot still streaming its prompt (a batch-1
+        dispatch each). On the final chunk the first token is sampled and
+        the slot turns to decode; other slots' decode ticks run between
+        chunks, so a long prompt does not stall them."""
+        C = self._chunk_size
+        chunks = 0
+        for i, s in enumerate(self._slots):
+            if s is None or s.phase != "prefill":
+                continue
+            req = s.request
+            start = s.prefill_pos
+            end = min(start + C, req.prompt_len)
+            is_last = end >= req.prompt_len
+            t0 = time.perf_counter()
+            token = self._chunk(req, i, start,
+                                req.prompt_len - 1 - start if is_last
+                                else None)
+            self.prefill_s += time.perf_counter() - t0
+            self.prefill_chunks += 1
+            req.chunks += 1
+            chunks += 1
+            self.prefill_tokens += end - start
+            s.prefill_pos = end
+            if is_last:
+                self._insert_prefix(i, req)
+                self._emit_token(req, token)
+                if self._is_terminal(req, token):
+                    self._evict(i)
+                else:
+                    s.phase = "decode"
+                    s.pending_token = token
+                    s.steps_done = 0
+        return chunks > 0
+
+    # ------------------------------------------------------------- drafting
+
+    @staticmethod
+    def _ngram_draft(hist: list, k: int) -> list:
+        """Prompt-lookup drafting (no dispatch): the continuation of the
+        most recent EARLIER occurrence of the trailing bigram (unigram
+        fallback) in the slot's own prompt + output, padded by repeating
+        the last proposal. A wrong guess costs only acceptance."""
+        out = []
+        for n in (2, 1):
+            if len(hist) <= n:
+                continue
+            pat = hist[-n:]
+            for i in range(len(hist) - n - 1, -1, -1):
+                if hist[i : i + n] == pat:
+                    out = list(hist[i + n : i + n + k])
+                    break
+            if out:
+                break
+        while len(out) < k:
+            out.append(out[-1] if out else hist[-1])
+        return out[:k]
+
+    # --------------------------------------------------------------- ticks
+
+    def _slot_inputs(self, active):
+        """Per-slot host operands of a decode-phase dispatch: context
+        lengths, sampling streams, and a block table where only ``active``
+        rows are real (a streaming prompt's pages must not take a decode
+        scatter)."""
+        S = self.config.num_slots
+        ctx = np.zeros((S,), np.int32)
+        seeds = np.zeros((S,), np.int64)
+        steps = np.zeros((S,), np.int64)
+        temps = np.zeros((S,), np.float32)
+        top_ks = np.zeros((S,), np.int64)
+        bt = np.zeros_like(self._pages.block_table)
+        for i in active:
+            s = self._slots[i]
+            r = s.request
+            ctx[i] = r.prompt_len + s.steps_done
+            seeds[i] = r.seed
+            steps[i] = s.steps_done + 1   # == len(r.tokens) at sample
+            temps[i] = r.temperature
+            top_ks[i] = r.top_k
+            bt[i] = self._pages.block_table[i]
+        return bt, ctx, seeds, steps, temps, top_ks
+
+    def _decode_tick(self, active) -> None:
+        """One plain decode dispatch: every decode-phase slot one token."""
+        tokens = np.zeros((self.config.num_slots,), np.int64)
+        for i in active:
+            tokens[i] = self._slots[i].pending_token
+        t0 = time.perf_counter()
+        sampled = self._decode(tokens, *self._slot_inputs(active))
+        self.decode_s += time.perf_counter() - t0
+        for i in active:
+            s = self._slots[i]
+            s.steps_done += 1
+            s.request.decode_ticks += 1
+            token = int(sampled[i])
+            self._emit_token(s.request, token)
+            if self._is_terminal(s.request, token):
+                self._evict(i)          # slot + pages free for reuse
+            else:
+                s.pending_token = token
+        self.decode_dispatches += 1
+        self.decode_tokens += len(active)
+
+    def _verify_tick(self, active) -> None:
+        """ONE verify dispatch advancing every decode-phase slot 1..k+1
+        tokens: n-gram drafts for the spec slots, all k+1 positions scored,
+        the leading exact-match run accepted, the accepted drafts plus the
+        sample at the first divergence emitted. Non-spec slots ride along
+        with acceptance forced to 0 (the one token a decode step would
+        give). Rollback is the context cursor not moving past what was
+        accepted."""
+        S, k = self.config.num_slots, self.config.spec_k
+        tokens = np.zeros((S, k + 1), np.int64)
+        for i in active:
+            s = self._slots[i]
+            r = s.request
+            tokens[i, 0] = s.pending_token
+            if s.spec:
+                hist = [int(t) for t in r.prompt_ids[: r.prompt_len]]
+                hist.extend(int(t) for t in r.tokens)
+                tokens[i, 1:] = self._ngram_draft(hist, k)
+            else:
+                tokens[i, 1:] = s.pending_token
+        t0 = time.perf_counter()
+        out = self._verify(tokens, *self._slot_inputs(active))
+        self.decode_s += time.perf_counter() - t0
+        target, accept = out[:, : k + 1], out[:, k + 1]
+        self.spec_dispatches += 1
+        self.decode_dispatches += 1
+        for i in active:
+            s = self._slots[i]
+            r = s.request
+            a = int(accept[i]) if s.spec else 0
+            r.decode_ticks += 1
+            if s.spec:
+                self.spec_drafted += k
+                self.spec_accepted += a
+                r.drafted += k
+                r.accepted += a
+            finished = False
+            for j in range(a + 1):
+                token = int(target[i, j])
+                s.steps_done += 1
+                self._emit_token(r, token)
+                self.decode_tokens += 1
+                if self._is_terminal(r, token):
+                    self._evict(i)
+                    finished = True
+                    break
+            if not finished:
+                s.pending_token = int(target[i, a])
 
     def tick(self) -> bool:
-        """One engine iteration: expire, admit, decode one token for every
-        active slot. True when any work happened (the serve loop idles on
-        the queue otherwise)."""
+        """One engine iteration: expire, admit, stream prompt chunks,
+        decode (or verify) every decode-phase slot. True when any work
+        happened (the serve loop idles on the queue otherwise)."""
         with torch.inference_mode():
             return self._tick_body()
 
@@ -357,17 +753,31 @@ class DecodeEngine:
                 worked = True
 
         # admissions: fill free slots in FIFO order; the head must also fit
-        # the page budget (a blocked head blocks the queue, no bypass)
+        # the page budget (a blocked head blocks the queue, no bypass).
+        # Chunked engines park admitted prompts in prefill phase, and so do
+        # prefix-cache hits (their tails stream from the cached boundary)
         self._page_blocked = False
+        chunked = self.config.prefill_chunk > 0
         while True:
             slot = self._free_slot()
             if slot is None:
                 break
-            req = self._queue.pop_ready(accept=self._admission_fits)
+            req = self._queue.pop_ready(
+                accept=self._admission_fits,
+                defer=self._admission_defer if chunked else None,
+            )
             if req is None:
                 break
             try:
-                self._admit(req, slot)
+                match = self._take_match(req)
+                if match is not None:
+                    self._prefix.note(match.hit)
+                if match is not None and match.hit:
+                    self._admit_hit(req, slot, match)
+                elif chunked:
+                    self._admit_chunked(req, slot)
+                else:
+                    self._admit(req, slot)
             except Exception:
                 # popped and not yet slotted: finish it so its waiter does
                 # not hang, then let the loop's failure path take over
@@ -377,38 +787,19 @@ class DecodeEngine:
         if self._page_blocked:
             self.page_exhausted += 1
 
-        active = [i for i, s in enumerate(self._slots) if s is not None]
+        # prompt chunks after admissions (a new slot's first chunk this
+        # tick) and before decode (its pages hold the prompt before any
+        # other dispatch could read them)
+        if chunked or self._prefix is not None:
+            worked = self._advance_prefills() or worked
+
+        active = [i for i, s in enumerate(self._slots)
+                  if s is not None and s.phase == "decode"]
         if active:
-            S = self.config.num_slots
-            tokens = np.zeros((S,), np.int64)
-            ctx = np.zeros((S,), np.int32)
-            seeds = np.zeros((S,), np.int64)
-            steps = np.zeros((S,), np.int64)
-            temps = np.zeros((S,), np.float32)
-            top_ks = np.zeros((S,), np.int64)
-            for i in active:
-                s = self._slots[i]
-                r = s.request
-                tokens[i] = s.pending_token
-                ctx[i] = r.prompt_len + s.steps_done
-                seeds[i] = r.seed
-                steps[i] = s.steps_done + 1   # == len(r.tokens) at sample
-                temps[i] = r.temperature
-                top_ks[i] = r.top_k
-            t0 = time.perf_counter()
-            sampled = self._decode(tokens, ctx, seeds, steps, temps, top_ks)
-            self.decode_s += time.perf_counter() - t0
-            for i in active:
-                s = self._slots[i]
-                s.steps_done += 1
-                token = int(sampled[i])
-                self._emit_token(s.request, token)
-                if self._is_terminal(s.request, token):
-                    self._evict(i)          # slot + pages free for reuse
-                else:
-                    s.pending_token = token
-            self.decode_dispatches += 1
-            self.decode_tokens += len(active)
+            if self.config.spec_k > 0:
+                self._verify_tick(active)
+            else:
+                self._decode_tick(active)
             worked = True
 
         self.ticks += 1
@@ -441,6 +832,11 @@ class DecodeEngine:
         return 2 * len(self._pools) * heads * head_dim * k_pages.element_size()
 
     def stats(self) -> dict:
+        prefix = None
+        if self._prefix is not None:
+            prefix = dict(self._prefix.stats(), cow_copies=self.cow_copies,
+                          pages_shared=self._pages.pages_shared,
+                          prefill_tokens_skipped=self.cached_tokens)
         return {
             "device": str(self.device),
             "ticks": self.ticks,
@@ -459,15 +855,30 @@ class DecodeEngine:
             "kv_pages_total": self._pages.num_pages - 1,
             "kv_pages_used": self._pages.pages_used,
             "kv_pages_free": self._pages.pages_free,
+            "kv_pages_shared": self._pages.pages_shared,
             "kv_pages_peak": self._pages.peak_used,
             "page_exhausted": self.page_exhausted,
             "prefill_tokens": self.prefill_tokens,
+            "prefill_dispatches": self.prefill_dispatches,
             "prefill_s": self.prefill_s,
+            "prefill_chunk": self.config.prefill_chunk,
+            "prefill_chunks": self.prefill_chunks,
+            "prefix_cache": prefix,
             "decode_dispatches": self.decode_dispatches,
             "decode_tokens": self.decode_tokens,
             "decode_s": self.decode_s,
             "tokens_per_dispatch": (
                 self.decode_tokens / self.decode_dispatches
                 if self.decode_dispatches else None
+            ),
+            "spec_k": self.config.spec_k,
+            "spec_draft": (self.config.spec_draft if self.config.spec_k > 0
+                           else None),
+            "spec_dispatches": self.spec_dispatches,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_accept_rate": (
+                self.spec_accepted / self.spec_drafted
+                if self.spec_drafted else None
             ),
         }

@@ -48,6 +48,10 @@ class GenRequest:
     deadline_s: Optional[float] = None      # relative to submit
     stream: Optional[Callable] = None       # stream(req, token_id) per token
     on_finish: Optional[Callable] = None    # on_finish(req) at terminal state
+    # speculative decoding opt-in/out; None defers to the engine default
+    # (on whenever EngineConfig.spec_k > 0). Spec and non-spec slots emit
+    # the same stream, so this is a latency knob, not a quality one.
+    spec: Optional[bool] = None
 
     # ---- engine-owned runtime state
     status: str = "new"      # new -> queued -> running -> done|expired|cancelled|error
@@ -58,6 +62,12 @@ class GenRequest:
     admit_t: Optional[float] = None
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
+    decode_ticks: int = 0    # decode or verify dispatches that advanced it
+    chunks: int = 0          # chunked-prefill dispatches consumed
+    prefix_hit: bool = False  # admission mapped shared prefix pages
+    cached_tokens: int = 0   # prompt tokens served from the prefix cache
+    drafted: int = 0         # speculative tokens drafted for it
+    accepted: int = 0        # speculative tokens accepted for it
     done: threading.Event = dataclasses.field(default_factory=threading.Event)
 
     @property
@@ -151,15 +161,23 @@ class RequestQueue:
                 dq.extend(keep)
         return expired
 
-    def pop_ready(self, accept=None) -> Optional[GenRequest]:
-        """The earliest-submitted bucket head, or None when idle or when
-        ``accept`` (the engine's admission predicate) rejects that head."""
+    def pop_ready(self, accept=None, defer=None) -> Optional[GenRequest]:
+        """The earliest-submitted bucket head, or None when idle, when
+        ``defer`` holds it or when ``accept`` rejects it.
+
+        ``defer`` is a transient hold checked before ``accept``: True
+        leaves the head in place with no side effect (the engine holds
+        admissions while ``prefill_concurrency`` prompts stream in, and the
+        hold is not page exhaustion). ``accept`` is the engine's admission
+        predicate (the page budget)."""
         with self._lock:
             head = None
             for dq in self._buckets.values():
                 if dq and (head is None or dq[0].submit_t < head[0].submit_t):
                     head = dq
             if head is None:
+                return None
+            if defer is not None and defer(head[0]):
                 return None
             if accept is not None and not accept(head[0]):
                 return None

@@ -1,5 +1,5 @@
 """On-device batched sampling for the decode engine (counterpart: the JAX
-package's ``serve/sampling.py`` ``device_sample``).
+package's ``serve/sampling.py`` ``device_sample`` and ``spec_accept``).
 
 Greedy rows (temperature <= 0) take ``argmax`` over the float32 logits,
 which returns the FIRST maximum, exactly as the JAX sampler. Sampled rows
@@ -66,3 +66,41 @@ def device_sample(logits: torch.Tensor, seeds, steps, temps, top_ks):
         probs = torch.softmax(scaled, dim=-1)
         out[r] = torch.multinomial(probs, 1, generator=gen)[0]
     return out
+
+
+def spec_accept(logits: torch.Tensor, draft: torch.Tensor, seeds, steps0,
+                temps, top_ks):
+    """Exact-match speculative acceptance over a verify block.
+
+    Row 0 of each slot's block is its pending token's position, rows 1..k
+    the draft candidates. Row ``j`` is sampled with the stream of step
+    ``steps0 + j`` (the stream the non-speculative engine would use at that
+    position), and a draft token is accepted iff it EQUALS that sample;
+    acceptance stops at the first mismatch. So the accepted stream is the
+    non-speculative stream token for token, greedy or fixed-seed; the draft
+    only sets how many positions one dispatch commits.
+
+    Args:
+        logits: [slots, q_len, vocab] float32 verify logits.
+        draft: [slots, q_len - 1] int64 draft candidates, on the logits'
+            device.
+        seeds, steps0, temps, top_ks: [slots] host values, as
+            ``device_sample`` takes them (``steps0`` is the step of row 0).
+
+    Returns:
+        (target [slots, q_len], accept [slots]) int64 on the logits'
+        device: per-position samples and the leading-match count; the
+        engine emits ``target[s, :accept[s] + 1]``.
+    """
+    slots, q_len, vocab = logits.shape
+    rows = np.arange(q_len)
+    target = device_sample(
+        logits.reshape(slots * q_len, vocab),
+        np.repeat(np.asarray(seeds), q_len),
+        (np.asarray(steps0)[:, None] + rows[None, :]).reshape(-1),
+        np.repeat(np.asarray(temps, np.float32), q_len),
+        np.repeat(np.asarray(top_ks), q_len),
+    ).reshape(slots, q_len)
+    matches = (target[:, : q_len - 1] == draft).long()
+    accept = torch.cumprod(matches, dim=1).sum(dim=1)
+    return target, accept

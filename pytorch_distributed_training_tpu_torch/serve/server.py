@@ -121,11 +121,12 @@ class InferenceServer:
                temperature: float = 0.0, top_k: int = 0,
                eot_id: Optional[int] = None, seed: int = 0,
                deadline_s: Optional[float] = None, stream=None,
-               on_finish=None, request_id: Optional[str] = None
-               ) -> GenRequest:
+               on_finish=None, request_id: Optional[str] = None,
+               spec: Optional[bool] = None) -> GenRequest:
         """Enqueue one request (any thread). Raises ``BackpressureError``
         when the queue is full; the request's ``done`` event fires at every
-        terminal state."""
+        terminal state. ``spec`` opts the request in or out of speculative
+        decoding (None: the engine's default)."""
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         req = GenRequest(
@@ -139,6 +140,7 @@ class InferenceServer:
             deadline_s=deadline_s,
             stream=stream,
             on_finish=on_finish,
+            spec=spec,
         )
         return self.queue.submit(req)
 
@@ -169,8 +171,10 @@ def serve_stdio(server: InferenceServer, tokenizer, in_stream,
 
     Input lines: ``{"prompt": str, "max_new_tokens"?: int,
     "temperature"?: float, "top_k"?: int, "seed"?: int, "deadline_s"?:
-    float, "id"?: str}``. Output events (one JSON per line, interleaved
-    across requests): ``{"id", "event": "token", "token_id", "text"}``,
+    float, "id"?: str, "spec"?: bool}`` (``spec``: the request's
+    speculative-decoding opt-in/out). Output events (one JSON per line,
+    interleaved across requests): ``{"id", "event": "token", "token_id",
+    "text"}``,
     ``{"id", "event": "done", "status", "finish_reason", "text",
     "new_tokens", "ttft_s"}`` and ``{"id", "event": "error", "error"}``.
     """
@@ -229,6 +233,11 @@ def serve_stdio(server: InferenceServer, tokenizer, in_stream,
                 raise TypeError(
                     f"prompt must be a string, got {type(prompt).__name__}"
                 )
+            spec = msg.get("spec")
+            if spec is not None and not isinstance(spec, bool):
+                raise TypeError(
+                    f"spec must be a boolean, got {type(spec).__name__}"
+                )
         except (json.JSONDecodeError, KeyError, TypeError) as e:
             write({"event": "error", "error": f"bad request line: {e}"})
             continue
@@ -251,6 +260,7 @@ def serve_stdio(server: InferenceServer, tokenizer, in_stream,
                 stream=on_token,
                 on_finish=on_finish,
                 request_id=msg.get("id"),
+                spec=spec,
             )
         except (BackpressureError, ValueError, RuntimeError) as e:
             write({"id": msg.get("id"), "event": "error",

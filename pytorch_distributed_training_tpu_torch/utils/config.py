@@ -62,6 +62,11 @@ class ModelConfig:
     remat_mlp: bool = False  # remat of each block's MLP tail: not ported
     scan_layers: bool = False  # stacked trunk: not ported (models/convert.py
     #                            reads a scanned checkpoint all the same)
+    # paged serving: a chunk of more than one token is appended at
+    # context_len of an EXISTING context and attends through the 4-D-query
+    # paged kernel (speculative verify, chunked prefill, prefix-hit tails);
+    # False keeps the fresh-prefill branch
+    paged_multiquery: bool = False
 
     def __post_init__(self):
         if self.attention_impl not in ("reference", "flash"):

@@ -157,7 +157,8 @@ def test_fully_masked_row_stays_finite_and_zero(block):
 def test_adapter_routes_like_the_jax_adapter(monkeypatch):
     # case 5: pick_block with a cap of 512, the whole-sequence route at
     # S <= 256, the plain attention for other biases, ragged lengths and
-    # head_dim > 256, and the two-pass switch refused
+    # head_dim > 256, and the two-pass switch, which moves the blockwise
+    # backward to flash_dq + flash_dkv and leaves the whole-sequence one
     calls = []
     real_base = fa.flash_attention_base
 
@@ -195,10 +196,26 @@ def test_adapter_routes_like_the_jax_adapter(monkeypatch):
     assert fa.pick_block(640, 512) == 128
     assert jax_fa.DEFAULT_BLOCK_Q == fa.DEFAULT_BLOCK_Q == 512
     assert jax_fa._WHOLE_SEQ_MAX == fa._WHOLE_SEQ_MAX
-    monkeypatch.setenv("PDT_FLASH_TWO_PASS", "1")
-    x = torch.zeros(1, 128, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention(x, x, x, causal=True)
+    backward = []
+
+    def spy(name):
+        real = getattr(fa, name)
+
+        def wrapped(*args, **kw):
+            backward.append(name)
+            return real(*args, **kw)
+        return wrapped
+
+    for name in ("flash_bwd", "flash_dq", "flash_dkv", "flash_whole_bwd"):
+        monkeypatch.setattr(fa, name, spy(name))
+    for env, seq, want in (("1", 640, ["flash_dq", "flash_dkv"]),
+                           ("1", 128, ["flash_whole_bwd"]),
+                           ("0", 640, ["flash_bwd"])):
+        monkeypatch.setenv("PDT_FLASH_TWO_PASS", env)
+        x = torch.randn(1, seq, 1, 8, requires_grad=True)
+        backward.clear()
+        fa.flash_attention(x, x, x, causal=True).sum().backward()
+        assert backward == want, (env, seq)
 
 
 def test_kernel_wrappers_check_their_inputs():
@@ -218,3 +235,41 @@ def test_kernel_wrappers_check_their_inputs():
     o, lse = fa.flash_fwd(*t, bias, causal=True)
     assert o.shape == t[0].shape and lse.shape == t[0].shape[:3]
     assert dict(_build.LAUNCH_COUNTS) == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_two_pass_grads_match_jax_two_pass(causal, monkeypatch):
+    # case 6: PDT_FLASH_TWO_PASS=1 on both sides: the port's flash_dq +
+    # flash_dkv plain versions against the Pallas _dq_kernel and
+    # _dkv_kernel (FUSED_BWD False) in interpret mode, block 16 at S 64
+    monkeypatch.setattr(jax_fa, "FUSED_BWD", False)
+    monkeypatch.setenv("PDT_FLASH_TWO_PASS", "1")
+    q, k, v, do, mask = _inputs(seed=4)
+    _, _, grads = _jax_base(q, k, v, mask, do, causal=causal, block=16)
+    _, pgrads = _port_base(q, k, v, mask, do, causal=causal, block=16)
+    for name, got, want in zip("qkv", pgrads, grads):
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL,
+                                   err_msg=f"two-pass d{name}")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_two_pass_equals_plain_fused(rate, monkeypatch):
+    # case 7: the two plain halves are the fused plain backward, bit for
+    # bit, directly and through the autograd route, with dropout on or off
+    q, k, v, do, mask = _inputs(seed=5)
+    bias = make_attention_bias(torch.from_numpy(mask))
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    kw = dict(causal=True, rate=rate, seed=77, site=2)
+    o, lse = fa.reference_flash_fwd(*t[:3], bias, **kw)
+    dq, dk, dv = fa.reference_flash_bwd(*t[:3], bias, o, lse, t[3], **kw)
+    assert torch.equal(fa.flash_dq(*t[:3], bias, o, lse, t[3], **kw), dq)
+    dk2, dv2 = fa.flash_dkv(*t[:3], bias, o, lse, t[3], **kw)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    seed = 77 if rate else None
+    grads = {}
+    for env in ("0", "1"):
+        monkeypatch.setenv("PDT_FLASH_TWO_PASS", env)
+        _, grads[env] = _port_base(q, k, v, mask, do, causal=True, block=16,
+                                   rate=rate, seed=seed)
+    for a, b in zip(grads["0"], grads["1"]):
+        np.testing.assert_array_equal(a, b)

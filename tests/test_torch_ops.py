@@ -352,8 +352,13 @@ def test_paged_attention_null_page_tail_and_garbage_pool():
 def test_paged_attention_validates_like_jax():
     q, kp, vp, bt, lengths = _paged_fixture()
     t = [torch.from_numpy(a) for a in (q, kp, vp, bt, lengths)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        paged_attention(t[0][:, None], *t[1:], scale=1.0)
+    # a 4-D query block is checked axis by axis too: its lengths against
+    # the batch, its q_len against what a block-table row addresses
+    with pytest.raises(ValueError, match="lengths"):
+        paged_attention(t[0][:, None], *t[1:4], t[4][:2], scale=1.0)
+    with pytest.raises(ValueError, match="q_len"):
+        paged_attention(t[0][:, None].expand(-1, 10 ** 3, -1, -1), *t[1:],
+                        scale=1.0)
     with pytest.raises(ValueError, match="q must be"):
         paged_attention(t[0][0], *t[1:], scale=1.0)
     with pytest.raises(ValueError, match="head_dim"):
@@ -375,12 +380,13 @@ def test_kernel_modules_build_nothing_at_import():
     assert sum(_build.LAUNCH_COUNTS.values()) == 0
     assert set(_build.KERNEL_SOURCES) == {
         "layer_norm", "dropout_add_layer_norm", "dropout", "paged_attention",
-        "flash_attention",
+        "paged_attention_mq", "flash_attention",
     }
     assert set(_build.KERNELS) == {
         "layer_norm", "layer_norm_bwd", "dropout_add_layer_norm",
         "dropout_add_layer_norm_bwd", "mask_scale", "paged_attention",
-        "flash_fwd", "flash_bwd", "flash_whole_fwd", "flash_whole_bwd",
+        "paged_attention_mq", "flash_fwd", "flash_bwd", "flash_whole_fwd",
+        "flash_whole_bwd", "flash_dq", "flash_dkv",
     }
     assert set(_build.KERNELS.values()) == set(_build.KERNEL_SOURCES)
     for src in _build.KERNEL_SOURCES.values():

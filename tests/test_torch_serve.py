@@ -199,8 +199,8 @@ def test_engine_eot_and_backpressure(lms):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("kv_layout", "dense"), ("sampling", "host"), ("spec_k", 2),
-    ("prefill_chunk", 8), ("prefix_cache", True), ("tp", 2),
+    ("kv_layout", "dense"), ("sampling", "host"), ("spec_draft", "model"),
+    ("tenant_page_quota", 0.5), ("weights_dtype", "int8"), ("tp", 2),
     ("kv_dtype", "int8"),
 ])
 def test_engine_config_unported_options_raise(option, value):
