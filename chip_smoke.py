@@ -18,8 +18,9 @@ the JAX package), in phases that each raise on failure:
    flash kernels against ``F.scaled_dot_product_attention``; the
    multi-query paged kernel at q_len 1-64 over lengths on and off page
    boundaries, timed at the verify and chunk shapes against SDPA on the
-   gathered K/V; the two-pass flash backward also against the fused
-   kernel's gradients);
+   gathered K/V; both paged kernels again on int8 pools with bf16 and
+   float32 q; the two-pass flash backward also against the fused kernel's
+   gradients);
 4. train: runs the port's ``train_dp`` on bert-large-cased at full width
    and depth (3 optimizer steps of 96 = 8 x 12 on the synthetic MRPC task,
    then the full 408-row eval), with the launch counters reset just before
@@ -55,9 +56,14 @@ the JAX package), in phases that each raise on failure:
    copying a page on write), each counted against the engine's verify,
    chunk and decode dispatches, the pages left equal to those the prefix
    cache holds, every served token checked against the full-sequence
-   forward.
+   forward; then int8 serving, ``--weights-dtype int8 --kv-dtype int8``
+   plain (profiled), with ``--spec-k 4`` and with ``--prefix-cache``, and
+   ``--weights-dtype int8`` alone, each counted (the int8-pool kernels
+   only) and checked against a full-sequence forward on the same
+   dequantized weights; one decode dispatch of the float and the int8
+   engine, its kernels counted and its host time taken in turns.
 
-Prints one ``kernels`` JSON line (13 kernels) and, last, ``{"ok": true,
+Prints one ``kernels`` JSON line (15 kernels) and, last, ``{"ok": true,
 "device": ...}``.
 Exits non-zero, with no result, when no CUDA GPU is visible or any phase
 fails.
@@ -106,6 +112,9 @@ PAGED_MQ_QLENS = (1, 2, 5, 16, 32, 64)
 PAGED_MQ_LENGTHS = (15, 16, 17, 300, 1024)
 VERIFY_Q, VERIFY_WINDOWS = 5, 13
 CHUNK_Q, CHUNK_CONTEXTS = 32, (32, 64, 96, 128, 160)
+# kernels 12 and 13 on int8 pools: float32 out against the plain int8
+# version within 1e-5 x max(1, max|want|) (float32 sums in another order)
+PAGED_INT8_TOL = 1e-5
 
 SERVE_ARGS = ["--model", "gpt2-medium", "--device", "cuda", "--seed", "0",
               "--num-slots", "8", "--prompt-buckets", "16,32,64,128",
@@ -136,10 +145,18 @@ PREFIX_PROMPTS = tuple(SHARED_PREFIX + t for t in (
     "List the planets nearest the sun.",
     "What year did the first moon landing happen?",
 ))
+INT8 = ["--weights-dtype", "int8", "--kv-dtype", "int8"]
 SERVE_OPTIONS = (
     ("spec", ["--spec-k", "4"], PROMPTS),
     ("chunked", ["--prefill-chunk", "32"], PROMPTS),
     ("prefix", ["--prefix-cache"], PREFIX_PROMPTS),
+    # int8 serving: weights and KV pools (kernels 12 and 13 on int8 pools),
+    # plain, speculative and with the prefix cache (its COW copies carry
+    # the scale pools); then weights only, on float pools
+    ("int8", INT8, PROMPTS),
+    ("int8-spec", INT8 + ["--spec-k", "4"], PROMPTS),
+    ("int8-prefix", INT8 + ["--prefix-cache"], PREFIX_PROMPTS),
+    ("int8-weights", ["--weights-dtype", "int8"], PROMPTS),
 )
 # two-pass LM run against the fused one: step 1's loss is the same
 # forward, so bit-identical; later steps carry the gradients' other
@@ -149,6 +166,10 @@ TWO_PASS_RTOL = 1e-3
 # full-sequence maximum by this much (bf16 activations over 24 layers,
 # other matmul shapes; logits of the random model have a spread of ~0.6)
 MARGIN_TOL = 0.1
+# the same under int8 KV pools, fixed before any run: each attended K/V
+# entry carries up to half a step of its row's absmax / 127 (~0.4% of it)
+# through 24 layers, where the float pools carry one bf16 rounding (0.4%)
+INT8_KV_MARGIN_TOL = 0.25
 
 # training-kernel shapes: the main path's rows 8 x 128 = 1024 at H 1024,
 # ragged row counts, and the widths of the tiny and bert-base presets
@@ -218,6 +239,8 @@ REPLACES = {
     "mask_scale": f"{_PKG}/ops/dropout.py:107",
     "paged_attention": f"{_PKG}/ops/paged_attention.py:238",
     "paged_attention_mq": f"{_PKG}/ops/paged_attention.py:417",
+    "paged_attention_int8": f"{_PKG}/ops/paged_attention.py:250",
+    "paged_attention_mq_int8": f"{_PKG}/ops/paged_attention.py:430",
     "flash_fwd": f"{_PKG}/ops/flash_attention.py:103",
     "flash_bwd": f"{_PKG}/ops/flash_attention.py:360",
     "flash_whole_fwd": f"{_PKG}/ops/flash_attention.py:467",
@@ -458,15 +481,19 @@ def paged_inputs(device, lengths, *, windows, heads, head_dim, page_size,
     return q, k_pages, v_pages, bt.to(device), lens.to(device)
 
 
-def paged_bound(lengths, *, heads, head_dim, page_size, q_len=1):
+def paged_bound(lengths, *, heads, head_dim, page_size, q_len=1,
+                int8=False):
     """Least time of paged attention over ``lengths`` with ``q_len`` query
-    rows a sequence: each visible K and V row read once (bf16), q and o
-    once, the block table and lengths; 4 D operations per (head, row,
-    visible token) at the bf16 rate of the bf16 inputs."""
+    rows a sequence: each visible K and V row read once (bf16; with
+    ``int8``, int8 values and a 4-byte scale a row), q (bf16) and o (bf16;
+    float32 with ``int8``) once, the block table and lengths; 4 D
+    operations per (head, row, visible token) at the bf16 rate."""
     tokens = sum(lengths)
     pairs = sum(n - (q_len - 1) + r for n in lengths for r in range(q_len))
-    n_bytes = (tokens * heads * head_dim * 2 * 2
-               + 2 * len(lengths) * q_len * heads * head_dim * 2
+    row = head_dim + 4 if int8 else head_dim * 2
+    n_bytes = (tokens * heads * row * 2
+               + len(lengths) * q_len * heads * head_dim * (2 + (4 if int8
+                                                               else 2))
                + sum(-(-n // page_size) for n in lengths) * 4
                + len(lengths) * 4)
     return bound(n_bytes, 4.0 * pairs * heads * head_dim, BF16_FLOPS_PER_S)
@@ -612,6 +639,111 @@ def paged_mq_phase(device, q_lens=PAGED_MQ_QLENS, lengths=PAGED_MQ_LENGTHS,
     return dict(max_abs_err=max(worst, worst32), **verify, chunk=chunks)
 
 
+def paged_int8_phase(device, lengths=PAGED_LENGTHS, q_lens=PAGED_MQ_QLENS,
+                     mq_lengths=PAGED_MQ_LENGTHS, geometry=None):
+    """Kernels 12 and 13 on int8 pools (K/V quantized by the port's
+    ``quantize_kv``) against their plain int8 versions on the card, with
+    bf16 and float32 q, at the parity lengths of the float phases; then
+    timed at the serve shape (12) and the verify and chunk shapes (13),
+    beside SDPA on the gathered K/V dequantized to bf16 beforehand (the
+    dequantization not timed). Returns (kernel 12 int8, kernel 13 int8)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.ops.paged_attention import (
+        _paged_reference,
+        _paged_reference_mq,
+        paged_attention,
+    )
+    from pytorch_distributed_training_tpu_torch.ops.quant import quantize_kv
+
+    geo = dict(PAGED, **(geometry or {}))
+    scale = geo["head_dim"] ** -0.5
+
+    def inputs(lens, q_len, windows, dtype, seed):
+        q, kp, vp, bt, ln = paged_inputs(
+            device, lens, q_len=q_len, windows=windows, dtype=torch.float32,
+            seed=seed, **geo)
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        return q.to(dtype), kq, vq, ks, vs, bt, ln
+
+    def check(what, q_len, lens, windows, seed):
+        worst = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kq, vq, ks, vs, bt, ln = inputs(lens, q_len, windows, dtype,
+                                               seed)
+            got = paged_attention(q, kq, vq, bt, ln, scale=scale,
+                                  k_scales=ks, v_scales=vs)
+            ref = _paged_reference if q_len is None else _paged_reference_mq
+            want = ref(q, kq, vq, bt, ln, scale, ks, vs)
+            if got.dtype != torch.float32 or got.shape != q.shape:
+                raise AssertionError(f"{what} gave {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            lim = PAGED_INT8_TOL * max(1.0, float(want.abs().max()))
+            worst = max(worst, check_flash_close(
+                f"{what} {dtype} lengths {list(lens)}", got, want, tol=lim))
+        return worst
+
+    err12 = check("paged_attention_int8", None, lengths,
+                  -(-max(lengths) // geo["page_size"]), 0)
+    err13 = 0.0
+    for q_len in q_lens:
+        lens_q = tuple(n for n in (q_len, q_len + 1, *mq_lengths)
+                       if n >= q_len)
+        err13 = max(err13, check(
+            f"paged_attention_mq_int8 q_len {q_len}", q_len, lens_q,
+            -(-max(lens_q) // geo["page_size"]), q_len))
+    say(f"[kernels] int8 pools parity ok: kernel 12 lengths {list(lengths)}, "
+        f"max abs err {err12}; kernel 13 q_len {list(q_lens)} x lengths "
+        f"(q_len, q_len + 1, {list(mq_lengths)}), max abs err {err13}; bf16 "
+        f"and float32 q, float32 out (<= {PAGED_INT8_TOL} x max(1, "
+        f"max|want|))")
+
+    def timed(label, lens, q_len, windows):
+        q, kq, vq, ks, vs, bt, ln = inputs(lens, q_len, windows,
+                                           torch.bfloat16, 1)
+        idx = bt.long()
+        b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+
+        def gathered(pages, sc):   # dequantized to bf16, [B, H, T, D]
+            x = pages[idx].float() * sc[idx][..., None]
+            return (x.reshape(b, -1, h, d).transpose(1, 2).contiguous()
+                    .bfloat16())
+
+        kg, vg = gathered(kq, ks), gathered(vq, vs)
+        rows = 1 if q_len is None else q_len
+        limit = (ln[:, None] - (rows - 1)
+                 + torch.arange(rows, device=device)[None])
+        mask = (torch.arange(kg.shape[2], device=device)[None, None]
+                < limit[:, :, None])[:, None]
+        q4 = (q[:, :, None] if q_len is None
+              else q.transpose(1, 2).contiguous())
+        ref = _paged_reference if q_len is None else _paged_reference_mq
+        kernel = functools.partial(paged_attention, q, kq, vq, bt, ln,
+                                   scale=scale, k_scales=ks, v_scales=vs)
+        t = dict(
+            ms=time_ms(kernel), eager_ms=eager_ms(kernel),
+            plain_ms=time_ms(lambda: ref(q, kq, vq, bt, ln, scale, ks, vs)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q4, kg, vg, attn_mask=mask, scale=scale)),
+        )
+        t["bound_ms"], t["bound_by"] = paged_bound(
+            lens, q_len=rows, int8=True, **geo)
+        say(f"[kernels] int8 pools {label} q [{b}, {rows}, {h}, {d}] bf16 "
+            f"lengths {list(lens)} W={windows}: " + json.dumps(t))
+        return t
+
+    serve = timed("paged_attention_int8 serve", SERVE_CONTEXTS, None,
+                  SERVE_WINDOWS)
+    verify = timed("paged_attention_mq_int8 verify",
+                   tuple(c + VERIFY_Q for c in SERVE_CONTEXTS), VERIFY_Q,
+                   VERIFY_WINDOWS)
+    chunks = {n: timed("paged_attention_mq_int8 chunk", (n,), CHUNK_Q,
+                       SERVE_WINDOWS) for n in CHUNK_CONTEXTS}
+    return (dict(max_abs_err=err12, **serve),
+            dict(max_abs_err=err13, **verify, chunk=chunks))
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -707,16 +839,18 @@ def serve_phase(argv=SERVE_ARGS, prompts=PROMPTS, new_tokens=NEW_TOKENS,
 def serve_option_launches(stats, n_layers) -> dict:
     """Launches of a serve run from the engine's counts: the 4-D-query
     kernel once a layer per verify and chunk dispatch, the decode kernel
-    once a layer per plain decode dispatch, the LayerNorm 2 a layer + 1
-    per bucket prefill, chunk and decode-phase dispatch."""
+    once a layer per plain decode dispatch (their int8-pool entries, and
+    no float one, on int8 pools), the LayerNorm 2 a layer + 1 per bucket
+    prefill, chunk and decode-phase dispatch."""
     verify, chunks = stats["spec_dispatches"], stats["prefill_chunks"]
     plain = stats["decode_dispatches"] - verify
+    sfx = "_int8" if stats["kv_dtype"] == "int8" else ""
     want = {"layer_norm": (2 * n_layers + 1) * (
         stats["prefill_dispatches"] + chunks + stats["decode_dispatches"])}
     if plain:
-        want["paged_attention"] = n_layers * plain
+        want["paged_attention" + sfx] = n_layers * plain
     if verify + chunks:
-        want["paged_attention_mq"] = n_layers * (verify + chunks)
+        want["paged_attention_mq" + sfx] = n_layers * (verify + chunks)
     return want
 
 
@@ -725,12 +859,17 @@ def serve_options_phase(plain_streams, new_tokens=NEW_TOKENS,
     """``serve_lm`` with each serving option on gpt2-medium at full width,
     counted: every request's token count, the launch counts against the
     engine's dispatch counts, the pages left (those the prefix cache
-    holds), a second speculative run with the same greedy streams, and how
-    many streams equal the plain run's."""
+    holds), peak memory, a second speculative run with the same greedy
+    streams (the first profiled, as is the int8 run), and how many streams
+    equal the plain run's."""
+    import torch
+
     res = {}
     for name, flags, prompts in SERVE_OPTIONS:
         argv = SERVE_ARGS + flags
+        torch.cuda.reset_peak_memory_stats()
         events, stats, counts, wall = serve_once(argv, prompts, new_tokens)
+        peak = torch.cuda.max_memory_allocated()
         toks = streams(events, prompts, new_tokens)
         check_launches(f"{name} serve run", counts,
                        serve_option_launches(stats, n_layers))
@@ -752,8 +891,16 @@ def serve_options_phase(plain_streams, new_tokens=NEW_TOKENS,
             prefill_dispatches=stats["prefill_dispatches"],
             chunk_dispatches=stats["prefill_chunks"],
             verify_dispatches=stats["spec_dispatches"],
+            peak_mem_bytes=peak, weight_bytes=stats["weight_bytes"],
+            kv_bytes_per_token=stats["kv_bytes_per_token"],
+            variant=stats["variant"], kv_dtype=stats["kv_dtype"],
             launches=counts,
         )
+        if name == "int8":
+            m["profile"] = profile_phase(
+                dict(prefill_s=stats["prefill_s"],
+                     decode_s=stats["decode_s"]),
+                argv, prompts, new_tokens, tag="profile-int8")
         if name == "spec":
             m.update(accepted_per_verify=stats["spec_accepted"]
                      / stats["spec_dispatches"],
@@ -787,6 +934,59 @@ def serve_options_phase(plain_streams, new_tokens=NEW_TOKENS,
     return res
 
 
+def tick_phase(reps=20) -> dict:
+    """One 8-slot decode dispatch of the serve engine (``_decode``: the
+    model's paged decode step, sampling, the ids' copy to the host) over
+    the serve contexts, with float and with int8 weights and pools: the
+    kernels of one dispatch (``torch.profiler`` over that dispatch alone)
+    and its host ms, the two engines alternated in one call (float, int8,
+    int8, float; ``reps`` dispatches each time)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_training_tpu_torch.cli import serve_lm
+
+    engines = {}
+    for name, flags in (("float", []), ("int8", INT8)):
+        server, _ = serve_lm.build_server(
+            serve_lm.build_parser().parse_args(SERVE_ARGS + flags))
+        engines[name] = server.engine
+    cfg = engines["float"].config
+    slots, width = cfg.num_slots, cfg.pages_per_slot
+    ctx = np.asarray(SERVE_CONTEXTS[:slots], np.int32)
+    args = (np.ones(slots, np.int64),
+            (1 + np.arange(slots * width, dtype=np.int32)).reshape(
+                slots, width),
+            ctx, np.zeros(slots, np.int64), ctx.astype(np.int64),
+            np.zeros(slots, np.float32), np.zeros(slots, np.int64))
+
+    def kernels(engine):
+        with torch.inference_mode():
+            engine._decode(*args)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                engine._decode(*args)
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and _kernel_class(e.key) != "copy")
+
+    def tick_ms(engine):
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                engine._decode(*args)     # ends in a copy to the host
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    res = {f"kernels_{k}": kernels(e) for k, e in engines.items()}
+    res["kernels_added_by_int8"] = res["kernels_int8"] - res["kernels_float"]
+    for k in ("float", "int8", "int8", "float"):
+        res.setdefault(f"tick_ms_{k}", []).append(tick_ms(engines[k]))
+    say("[serve-tick] " + json.dumps(res))
+    return res
+
+
 _PORT_KERNELS = (
     ("layer_norm_fwd_kernel", "layer_norm"),
     ("layer_norm_bwd_kernel", "layer_norm_bwd"),
@@ -805,6 +1005,8 @@ _PORT_KERNELS = (
 def _kernel_class(name: str) -> str:
     for symbol, kernel in _PORT_KERNELS:
         if symbol in name:
+            if symbol.startswith("paged") and "signed char" in name:
+                kernel += "_int8"   # the int8-pool instantiation
             return f"{kernel} (port kernel)"
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
@@ -886,7 +1088,12 @@ def full_sequence_phase(device, runs, model_name="gpt2-medium",
                         seed=0) -> dict:
     """Each served greedy token against a full-sequence forward (plain
     attention, no pages) of the same model on the served context; ``runs``
-    maps a run's name to its (streams, prompts), one model for all."""
+    maps a run's name to its (streams, prompts, weights dtype, margin
+    tolerance): the model's float32 weights cast for serving as the run's
+    engine casts them (int8: the same quantized projections, dequantized
+    per call)."""
+    import copy
+
     import torch
 
     from pytorch_distributed_training_tpu_torch.data.bpe import ByteTokenizer
@@ -897,16 +1104,21 @@ def full_sequence_phase(device, runs, model_name="gpt2-medium",
         model_preset,
     )
 
-    model = GPT2LMModel(
+    base = GPT2LMModel(
         model_preset(model_name, attention_impl="reference"),
         generator=torch.Generator().manual_seed(seed),
     ).to(device)
-    model.cast_for_serving()
-    model.eval()
+    models = {}
+    for weights in sorted({r[2] for r in runs.values()}):
+        models[weights] = copy.deepcopy(base)
+        models[weights].cast_for_serving(weights)
+        models[weights].eval()
+    del base
     tok = ByteTokenizer()
     out = {}
     with torch.inference_mode():
-        for name, (toks, prompts) in runs.items():
+        for name, (toks, prompts, weights, tol) in runs.items():
+            model = models[weights]
             agree = total = 0
             worst = 0.0
             for i, p in enumerate(prompts):
@@ -922,16 +1134,17 @@ def full_sequence_phase(device, runs, model_name="gpt2-medium",
                 worst = max(worst, float(margin.max()))
                 agree += int((margin == 0).sum())
                 total += len(served)
-            if worst > MARGIN_TOL:
+            if worst > tol:
                 raise AssertionError(
                     f"{name}: a served token trails the full-sequence "
-                    f"maximum by {worst} (> {MARGIN_TOL})"
+                    f"maximum by {worst} (> {tol})"
                 )
             out[name] = dict(tokens=total, argmax_agree=agree,
-                             worst_margin=worst)
+                             worst_margin=worst, tolerance=tol,
+                             weights=weights)
             say(f"[check] {name}: served vs full-sequence forward: "
                 + json.dumps(out[name]))
-    del model
+    del models
     return out
 
 
@@ -1806,6 +2019,8 @@ def main() -> int:
         dal_phase(device))
     lap("kernels")
     res["paged_attention_mq"] = paged_mq_phase(device)
+    res["paged_attention_int8"], res["paged_attention_mq_int8"] = (
+        paged_int8_phase(device))
     res.update(flash_phase(device))
     res.update(two_pass_phase(device))
     lap("flash kernels")
@@ -1829,9 +2044,15 @@ def main() -> int:
     profile_phase(serve["warm"])
     lap("serve")
     options = serve_options_phase(plain)
-    full_sequence_phase(device, {"serve": (plain, PROMPTS), **{
-        f"serve-{k}": (v.pop("streams"), v.pop("prompts"))
-        for k, v in options.items()}})
+    tick_phase()
+    checks = {"serve": (plain, PROMPTS, "float32", MARGIN_TOL)}
+    for k, v in options.items():
+        int8_kv = v["kv_dtype"] == "int8"
+        checks[f"serve-{k}"] = (
+            v.pop("streams"), v.pop("prompts"),
+            "int8" if v["variant"] == "int8" else "float32",
+            INT8_KV_MARGIN_TOL if int8_kv else MARGIN_TOL)
+    full_sequence_phase(device, checks)
     lap("serve options")
     say("[done] seconds by phase " + json.dumps(laps))
 
@@ -1840,7 +2061,8 @@ def main() -> int:
     runs = dict(paged_attention=serve, flash_fwd=lm, flash_bwd=lm,
                 flash_whole_fwd=lm_short, flash_whole_bwd=lm_short,
                 paged_attention_mq=options["spec"], flash_dq=two_pass,
-                flash_dkv=two_pass)
+                flash_dkv=two_pass, paged_attention_int8=options["int8"],
+                paged_attention_mq_int8=options["int8-spec"])
     for name in _build.KERNELS:
         r = res[name]
         launches = runs.get(name, train)["launches"].get(name, 0)

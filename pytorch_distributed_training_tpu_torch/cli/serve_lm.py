@@ -14,8 +14,9 @@ KV cache (largest bucket + cap), ``--page-size``/``--num-pages`` size the
 paged KV pool, ``--queue-depth`` backpressure, ``--deadline-s`` default
 deadline. Serving options: ``--spec-k`` speculative decoding (n-gram
 drafts), ``--prefill-chunk`` and ``--prefill-concurrency`` chunked prefill,
-``--prefix-cache`` the shared-KV prefix cache. Events go to stdout, logs
-to stderr.
+``--prefix-cache`` the shared-KV prefix cache, ``--weights-dtype int8``
+weight-only int8 projections, ``--kv-dtype int8`` int8 KV pools. Events go
+to stdout, logs to stderr.
 """
 
 from __future__ import annotations
@@ -72,6 +73,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "pages, copy-on-write at the divergence point) — "
                         "only the tail is prefilled, streams identical to "
                         "cold prefill")
+    p.add_argument("--weights-dtype", default="float32",
+                   choices=("float32", "int8"),
+                   help="serving weight precision: int8 quantizes every "
+                        "attention/MLP projection at load (per-channel fp32 "
+                        "scales, dequantized per call; activations and "
+                        "logits unchanged) at ~0.5x resident projection "
+                        "bytes of bf16")
+    p.add_argument("--kv-dtype", default="float32",
+                   choices=("float32", "int8"),
+                   help="paged KV precision: int8 pools + fp32 "
+                        "per-page-per-head scale pools, quantized on write "
+                        "and dequantized in the paged kernels ((head_dim + "
+                        "4) bytes a head and token; the page count and "
+                        "admission are unchanged)")
     p.add_argument("--deadline-s", type=float, default=0.0,
                    help="default per-request deadline (0 = none)")
     return p
@@ -113,6 +128,8 @@ def build_server(args):
         prefill_chunk=args.prefill_chunk,
         prefill_concurrency=args.prefill_concurrency,
         prefix_cache=args.prefix_cache,
+        weights_dtype=args.weights_dtype,
+        kv_dtype=args.kv_dtype,
     )
     # the engine serves its own cast copy of the model
     server = InferenceServer(

@@ -5,7 +5,8 @@
 //
 // Replaces the Pallas kernel _paged_kernel_mq of
 // pytorch_distributed_training_tpu/ops/paged_attention.py (launched by
-// _paged_pallas_mq, 4-D q, float pools): for each (batch b, query row r,
+// _paged_pallas_mq, 4-D q), float pools and its quantized branch (int8
+// pools, :430-434 and :457-459): for each (batch b, query row r,
 // head h), with Q rows and limit_r = lengths[b] - (Q - 1) + r,
 //   out = softmax(q_r . K[:limit_r] * scale) @ V[:limit_r]
 // where token t of sequence b lives at page block_table[b, t / P], offset
@@ -31,6 +32,15 @@
 // the chunks. Lane i scores token base + i; the warp reduces the chunk's max
 // and sum with shuffles, rescales, and accumulates P @ V reading each V row
 // once, coalesced across lanes. wgmma/TMA come later.
+//
+// int8 pools (pdt_paged_attention_mq_int8): K and V int8 beside fp32 scale
+// pools [num_pages, P, heads], one scale per (token, head); q float32 or
+// bfloat16, output float32. Staging dequantizes, float(k) * ks and
+// float(v) * vs per element (the TPU kernel's `page.astype(f32) * scale`),
+// so the scoring and P @ V loops are the float pools' own.
+
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -42,16 +52,21 @@ constexpr int kMaxWarps = 16;    // q_len <= kMaxRows * kMaxWarps = 128
 constexpr int kMaxDpl = 8;       // head_dim <= 256
 constexpr float kNegMin = -3.4028234663852886e38f;  // finfo(float32).min
 
-template <typename T, int DPL>
+// TQ: q's type; TKV: the pools' (int8 pools carry k_scales/v_scales, else
+// those are null and unread); TO: the output's
+template <typename TQ, typename TKV, typename TO, int DPL>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-paged_mq_kernel(const T* __restrict__ q,             // [B, Q, H, D]
-                const T* __restrict__ k_pages,       // [N, P, H, D]
-                const T* __restrict__ v_pages,       // [N, P, H, D]
+paged_mq_kernel(const TQ* __restrict__ q,            // [B, Q, H, D]
+                const TKV* __restrict__ k_pages,     // [N, P, H, D]
+                const TKV* __restrict__ v_pages,     // [N, P, H, D]
+                const float* __restrict__ k_scales,  // [N, P, H] or null
+                const float* __restrict__ v_scales,  // [N, P, H] or null
                 const int* __restrict__ block_table, // [B, W]
                 const int* __restrict__ lengths,     // [B]
-                T* __restrict__ out,                 // [B, Q, H, D]
+                TO* __restrict__ out,                // [B, Q, H, D]
                 int q_len, int heads, int head_dim, int page_size,
                 int windows, float scale) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   extern __shared__ float smem[];
   const int D = head_dim;
   float* k_s = smem;                      // [kChunk][D + 1]
@@ -89,11 +104,18 @@ paged_mq_kernel(const T* __restrict__ q,             // [B, Q, H, D]
       const int d = e - j * D;
       const int t = base + j;
       const int w = t / page_size;
-      const size_t row =
-          (static_cast<size_t>(bt[w]) * page_size + (t - w * page_size)) *
-              tok_stride + static_cast<size_t>(h) * D + d;
-      k_s[j * (D + 1) + d] = pdt::to_f32(k_pages[row]);
-      v_s[j * D + d] = pdt::to_f32(v_pages[row]);
+      const size_t tok =
+          static_cast<size_t>(bt[w]) * page_size + (t - w * page_size);
+      const size_t row = tok * tok_stride + static_cast<size_t>(h) * D + d;
+      if constexpr (kQuant) {
+        const size_t slot = tok * heads + h;  // (page, offset, h)
+        k_s[j * (D + 1) + d] =
+            static_cast<float>(k_pages[row]) * k_scales[slot];
+        v_s[j * D + d] = static_cast<float>(v_pages[row]) * v_scales[slot];
+      } else {
+        k_s[j * (D + 1) + d] = pdt::to_f32(k_pages[row]);
+        v_s[j * D + d] = pdt::to_f32(v_pages[row]);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -138,22 +160,22 @@ paged_mq_kernel(const T* __restrict__ q,             // [B, Q, H, D]
     const int r = warp + i * warps;
     if (r >= q_len) continue;
     const float inv = 1.f / (l[i] > 0.f ? l[i] : 1.f);
-    T* o = out + ((static_cast<size_t>(b) * q_len + r) * heads + h) * D;
+    TO* o = out + ((static_cast<size_t>(b) * q_len + r) * heads + h) * D;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) o[d] = pdt::from_f32<T>(acc[i][c] * inv);
+      if (d < D) o[d] = pdt::from_f32<TO>(acc[i][c] * inv);
     }
   }
 }
 
-template <typename T, int DPL>
+template <typename TQ, typename TKV, typename TO, int DPL>
 cudaError_t launch_dpl(const void* q, const void* k, const void* v,
-                       const int* bt, const int* lengths, void* out,
-                       int batch, int q_len, int heads, int head_dim,
-                       int page_size, int windows, float scale,
-                       cudaStream_t stream) {
-  auto kern = paged_mq_kernel<T, DPL>;
+                       const float* ks, const float* vs, const int* bt,
+                       const int* lengths, void* out, int batch, int q_len,
+                       int heads, int head_dim, int page_size, int windows,
+                       float scale, cudaStream_t stream) {
+  auto kern = paged_mq_kernel<TQ, TKV, TO, DPL>;
   // the opt-in to more than 48 KB of dynamic shared memory, once per
   // instantiation, to the card's largest (later launches, a CUDA-graph
   // capture among them, make no attribute call)
@@ -165,28 +187,35 @@ cudaError_t launch_dpl(const void* q, const void* k, const void* v,
        static_cast<size_t>(q_len) * head_dim);
   const int warps = min(kMaxWarps, max(4, q_len));
   kern<<<dim3(batch, heads), warps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bt, lengths, static_cast<T*>(out), q_len,
-      heads, head_dim, page_size, windows, scale);
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), ks, vs, bt, lengths, static_cast<TO*>(out),
+      q_len, heads, head_dim, page_size, windows, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TKV, typename TO>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* bt, const int* lengths, void* out, int batch,
-                   int q_len, int heads, int head_dim, int page_size,
-                   int windows, float scale, cudaStream_t stream) {
+                   const float* ks, const float* vs, const int* bt,
+                   const int* lengths, void* out, int batch, int q_len,
+                   int heads, int head_dim, int page_size, int windows,
+                   float scale, cudaStream_t stream) {
 #define PDT_PAMQ_CASE(DPL)                                                 \
   if (head_dim <= 32 * (DPL))                                              \
-    return launch_dpl<T, DPL>(q, k, v, bt, lengths, out, batch, q_len,     \
-                              heads, head_dim, page_size, windows, scale,  \
-                              stream);
+    return launch_dpl<TQ, TKV, TO, DPL>(q, k, v, ks, vs, bt, lengths, out, \
+                                        batch, q_len, heads, head_dim,     \
+                                        page_size, windows, scale, stream);
   PDT_PAMQ_CASE(1)
   PDT_PAMQ_CASE(2)
   PDT_PAMQ_CASE(4)
   PDT_PAMQ_CASE(kMaxDpl)
 #undef PDT_PAMQ_CASE
   return cudaErrorInvalidValue;  // head_dim > 256: the wrapper refuses it
+}
+
+bool bad_dims(int batch, int q_len, int heads, int head_dim, int page_size,
+              int windows) {
+  return batch <= 0 || q_len <= 0 || q_len > kMaxRows * kMaxWarps ||
+         heads <= 0 || head_dim <= 0 || page_size <= 0 || windows <= 0;
 }
 
 }  // namespace
@@ -201,20 +230,51 @@ extern "C" int pdt_paged_attention_mq(
     const void* block_table, const void* lengths, void* out, int batch,
     int q_len, int heads, int head_dim, int page_size, int windows,
     float scale, int dtype, void* stream) {
-  if (batch <= 0 || q_len <= 0 || q_len > kMaxRows * kMaxWarps ||
-      heads <= 0 || head_dim <= 0 || page_size <= 0 || windows <= 0)
+  if (bad_dims(batch, q_len, heads, head_dim, page_size, windows))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* bt = static_cast<const int*>(block_table);
   const int* ln = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == pdt::kBF16)
-    err = launch<__nv_bfloat16>(q, k_pages, v_pages, bt, ln, out, batch,
-                                q_len, heads, head_dim, page_size, windows,
-                                scale, st);
+    err = launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, bt, ln, out, batch, q_len,
+        heads, head_dim, page_size, windows, scale, st);
   else if (dtype == pdt::kF32)
-    err = launch<float>(q, k_pages, v_pages, bt, ln, out, batch, q_len,
-                        heads, head_dim, page_size, windows, scale, st);
+    err = launch<float, float, float>(
+        q, k_pages, v_pages, nullptr, nullptr, bt, ln, out, batch, q_len,
+        heads, head_dim, page_size, windows, scale, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// int8 pools: k_pages/v_pages int8 [num_pages, page_size, heads, head_dim]
+// with float32 k_scales/v_scales [num_pages, page_size, heads]; q float32
+// or bfloat16 (by q_dtype); out float32 [batch, q_len, heads, head_dim].
+// The rest as pdt_paged_attention_mq.
+extern "C" int pdt_paged_attention_mq_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* block_table,
+    const void* lengths, void* out, int batch, int q_len, int heads,
+    int head_dim, int page_size, int windows, float scale, int q_dtype,
+    void* stream) {
+  if (bad_dims(batch, q_len, heads, head_dim, page_size, windows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  const int* bt = static_cast<const int*>(block_table);
+  const int* ln = static_cast<const int*>(lengths);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (q_dtype == pdt::kBF16)
+    err = launch<__nv_bfloat16, int8_t, float>(
+        q, k_pages, v_pages, ks, vs, bt, ln, out, batch, q_len, heads,
+        head_dim, page_size, windows, scale, st);
+  else if (q_dtype == pdt::kF32)
+    err = launch<float, int8_t, float>(
+        q, k_pages, v_pages, ks, vs, bt, ln, out, batch, q_len, heads,
+        head_dim, page_size, windows, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -8,6 +8,10 @@
   shape ``in_shape + out_shape`` and ``bias`` of ``out_shape`` — so the
   weight bridge (``models/convert.py``) is a rename, not a relayout. The
   matmul runs in the compute dtype, as flax casts inputs and weights.
+  Weight-only int8 (``quantize``, or loading a ``kernel_scale``): an int8
+  ``kernel`` beside its fp32 per-output-channel ``kernel_scale``,
+  dequantized per call (``kernel.float() * kernel_scale`` cast to the
+  compute dtype, one op), so only the int8 bytes stay resident.
 - ``BertSelfAttention``: separate ``query``/``key``/``value`` projections
   to [heads, head_dim] and an ``out`` projection back; full-sequence
   attention through ``ops/attention.py``, or the PAGED branch when the
@@ -16,7 +20,9 @@
   * prefill (chunk > 1): the sequence is fresh (context_len == 0), its
     block-table row covers the chunk; K/V is scattered into its pages and
     attention is intra-chunk causal with the dense-cache formula (fp32
-    scores, ``finfo.min`` mask, fp32 softmax, probs in the V dtype);
+    scores, ``finfo.min`` mask, fp32 softmax, probs in the V dtype) over
+    the in-flight K/V in the compute dtype, so the first token is exact
+    whatever the pool dtype;
   * decode (chunk == 1): one token appended at ``context_len``, then
     ``ops/paged_attention.paged_attention`` over the whole context. Idle
     rows park on the null page 0; their outputs are ignored by the engine;
@@ -45,8 +51,10 @@ counterpart of the distinct flax ``make_rng("dropout")`` keys per module.
 
 The page pools are tensors the serving engine owns and passes in; the
 scatter writes them in place (the JAX package returns new pools, which
-XLA updates in place through donation). The dense cache and int8 pools
-are not ported yet.
+XLA updates in place through donation). int8 pools quantize on write
+(``ops/quant.quantize_kv``, one fp32 scale per token and head) and their
+scales scatter through the same (page, offset) indices into the layer's
+scale pools (``PagedKV.scales``). The dense cache is not ported yet.
 """
 
 from __future__ import annotations
@@ -71,6 +79,10 @@ from pytorch_distributed_training_tpu_torch.ops.layer_norm import (
 )
 from pytorch_distributed_training_tpu_torch.ops.paged_attention import (
     paged_attention,
+)
+from pytorch_distributed_training_tpu_torch.ops.quant import (
+    quantize_kernel,
+    quantize_kv,
 )
 from pytorch_distributed_training_tpu_torch.utils.config import ModelConfig
 
@@ -118,12 +130,22 @@ class PagedKV:
     context length [batch] int32 (tokens already in the pages).
     ``multiquery``: a chunk of more than one token goes through the
     4-D-query kernel over an existing context (as ``cfg.paged_multiquery``
-    does for every call) instead of the fresh-prefill branch."""
+    does for every call) instead of the fresh-prefill branch. ``scales``:
+    for int8 pools, one ``(k_scales, v_scales)`` pair per layer, fp32
+    [num_pages, page_size, heads]; None for float pools."""
 
     pools: list
     block_table: torch.Tensor
     context_len: torch.Tensor
     multiquery: bool = False
+    scales: Optional[list] = None
+
+    def layer(self, i: int) -> tuple:
+        """Layer ``i``'s operands, as ``BertSelfAttention`` takes them."""
+        k_scales, v_scales = (None, None) if self.scales is None else (
+            self.scales[i])
+        return (*self.pools[i], k_scales, v_scales, self.block_table,
+                self.context_len, self.multiquery)
 
 
 class DenseGeneral(nn.Module):
@@ -143,13 +165,48 @@ class DenseGeneral(nn.Module):
         self.bias = nn.Parameter(
             torch.zeros(self.out_shape, dtype=param_dtype, device=device)
         )
+        self.register_parameter("kernel_scale", None)
+
+    @torch.no_grad()
+    def quantize(self) -> None:
+        """Weight-only int8 in place: an int8 ``kernel`` and its fp32
+        per-output-channel ``kernel_scale`` (the ``in_shape`` axes kept as
+        size-1 dims), neither requiring grad. Idempotent."""
+        if self.kernel_scale is not None:
+            return
+        q, scale = quantize_kernel(self.kernel, len(self.in_shape))
+        self.kernel = nn.Parameter(q, requires_grad=False)
+        self.kernel_scale = nn.Parameter(scale, requires_grad=False)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # an int8 state (a ``kernel_scale`` beside an int8 kernel) loads
+        # as it is: take the quantized layout first, so the int8 values are
+        # copied, never cast into a float kernel without their scale
+        scale = state_dict.get(prefix + "kernel_scale")
+        if scale is not None and self.kernel_scale is None:
+            kernel = state_dict[prefix + "kernel"]
+            dev = self.kernel.device
+            self.kernel = nn.Parameter(
+                torch.empty(kernel.shape, dtype=kernel.dtype, device=dev),
+                requires_grad=False)
+            self.kernel_scale = nn.Parameter(
+                torch.empty(scale.shape, dtype=scale.dtype, device=dev),
+                requires_grad=False)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x):
         n_in = len(self.in_shape)
         lead = x.shape[: x.dim() - n_in]
-        w = self.kernel.to(self.dtype).reshape(
-            math.prod(self.in_shape), math.prod(self.out_shape)
-        )
+        if self.kernel_scale is None:
+            w = self.kernel.to(self.dtype)
+        else:
+            # int8: ``kernel.float() * kernel_scale`` in float32, rounded
+            # once into a compute-dtype tensor (one op), the values of the
+            # JAX package's dequantize-then-cast
+            w = torch.mul(self.kernel, self.kernel_scale, out=torch.empty(
+                self.kernel.shape, dtype=self.dtype,
+                device=self.kernel.device))
+        w = w.reshape(math.prod(self.in_shape), math.prod(self.out_shape))
         y = torch.matmul(x.to(self.dtype).reshape(*lead, w.shape[0]), w)
         # bias added after the product's rounding, as flax does
         y = y + self.bias.to(self.dtype).reshape(-1)
@@ -176,7 +233,8 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, x, attention_bias=None, paged=None, dropout_seed=None):
         """``paged``: None for full-sequence attention, else ``(k_pages,
-        v_pages, block_table, context_len, multiquery)`` for this layer.
+        v_pages, k_scales, v_scales, block_table, context_len,
+        multiquery)`` for this layer (``PagedKV.layer``).
         ``dropout_seed``: the layer's seed for probs dropout (None is
         deterministic)."""
         cfg = self.config
@@ -204,7 +262,8 @@ class BertSelfAttention(nn.Module):
         return self.out(out)
 
     def _paged_attend(self, q, k, v, attention_bias, k_pages, v_pages,
-                      block_table, context_len, multiquery):
+                      k_scales, v_scales, block_table, context_len,
+                      multiquery):
         if not self.config.causal:
             raise ValueError("paged attention requires a causal model")
         batch, chunk, heads, head_dim = q.shape
@@ -220,11 +279,24 @@ class BertSelfAttention(nn.Module):
         win = (pos // page_size).long()
         page_ids = torch.gather(block_table, 1, win.clamp(max=windows - 1))
         page_ids = torch.where(win < windows, page_ids, 0)
-        offs = pos % page_size
-        kc = k.to(k_pages.dtype)
-        vc = v.to(v_pages.dtype)
-        k_pages[page_ids.long(), offs.long()] = kc
-        v_pages[page_ids.long(), offs.long()] = vc
+        at = (page_ids.long(), (pos % page_size).long())
+        if k_pages.dtype == torch.int8:
+            # quantize-on-write: values and scales through the same (page,
+            # offset), so a token's int8 lanes and its scales stay together;
+            # K and V in one quantize_kv (its rows are independent, so the
+            # same values as two calls, in half the launches). The
+            # fresh-prefill branch below attends the unquantized K/V
+            kc, vc = k, v
+            kvq, kvs = quantize_kv(torch.stack([k, v]))
+            k_pages[at], v_pages[at] = kvq[0], kvq[1]
+            k_scales[at], v_scales[at] = kvs[0], kvs[1]
+            pool_kw = dict(k_scales=k_scales, v_scales=v_scales)
+        else:
+            kc = k.to(k_pages.dtype)
+            vc = v.to(v_pages.dtype)
+            k_pages[at] = kc
+            v_pages[at] = vc
+            pool_kw = {}
         scale = head_dim ** -0.5
         if chunk == 1:
             if attention_bias is not None:
@@ -234,7 +306,7 @@ class BertSelfAttention(nn.Module):
                 )
             out = paged_attention(
                 q[:, 0], k_pages, v_pages, block_table, context_len + 1,
-                scale=scale,
+                scale=scale, **pool_kw,
             )
             return out[:, None]
         if multiquery or self.config.paged_multiquery:
@@ -246,7 +318,8 @@ class BertSelfAttention(nn.Module):
                     "(padding is expressed through context_len)"
                 )
             return paged_attention(q, k_pages, v_pages, block_table,
-                                   context_len + chunk, scale=scale)
+                                   context_len + chunk, scale=scale,
+                                   **pool_kw)
         # prefill: fresh sequence (context_len == 0 by engine contract), so
         # the visible context IS this chunk: the dense-cache formula
         scores = torch.einsum("bsnd,btnd->bnst", q.float(), kc.float()) * scale

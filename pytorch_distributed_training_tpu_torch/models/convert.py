@@ -18,6 +18,11 @@ default, or ``bert/layers_scan/layer/...`` for BERT, each leaf with a
 leading [num_layers] axis; see the JAX package's ``models/relayout.py``
 and ``models/bert.py``) is unstacked into per-layer entries. Leaves are
 numpy arrays on the flax side, so this module needs no JAX.
+
+The weight-only int8 serving variant (the JAX package's
+``quantize_serve_params``: int8 ``kernel`` leaves beside fp32
+``kernel_scale`` ones) bridges as it is, dtypes kept both ways; a
+``DenseGeneral`` loading a ``kernel_scale`` takes the int8 layout.
 """
 
 from __future__ import annotations
@@ -74,8 +79,8 @@ def _torch_name(path: tuple) -> str:
 
 def params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]:
     """flax params (nested dict of arrays; GPT-2 LM or BERT classifier,
-    unscanned or scanned trunk) -> the port's ``state_dict`` (float32 CPU
-    tensors as given)."""
+    unscanned or scanned trunk, float or with int8 serving kernels) -> the
+    port's ``state_dict`` (CPU tensors of the leaves' dtypes)."""
     flat = _unstack(_flatten(flax_params))
     return {
         _torch_name(path): torch.from_numpy(np.array(leaf, copy=True))
@@ -85,7 +90,7 @@ def params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]:
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """Inverse of ``params_from_jax`` (unscanned trunk): nested dict of
-    numpy arrays in the flax tree layout."""
+    numpy arrays in the flax tree layout, float32 but for int8 kernels."""
     tree: dict = {}
     for name, tensor in state_dict.items():
         parts, flax_parts = name.split("."), []
@@ -101,5 +106,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         node = tree
         for p in flax_parts[:-1]:
             node = node.setdefault(p, {})
-        node[flax_parts[-1]] = tensor.detach().cpu().float().numpy()
+        leaf = tensor.detach().cpu()
+        if leaf.dtype != torch.int8:
+            leaf = leaf.float()
+        node[flax_parts[-1]] = leaf.numpy()
     return tree

@@ -55,6 +55,9 @@ from pytorch_distributed_training_tpu_torch.ops.attention import (
     make_attention_bias,
 )
 from pytorch_distributed_training_tpu_torch.ops.dropout import Dropout
+from pytorch_distributed_training_tpu_torch.ops.quant import (
+    _SERVE_QUANT_MODULES,
+)
 from pytorch_distributed_training_tpu_torch.utils.config import ModelConfig
 
 
@@ -105,15 +108,30 @@ class GPT2LMModel(nn.Module):
         self.head_weight: Optional[torch.Tensor] = None
 
     @torch.no_grad()
-    def cast_for_serving(self) -> None:
+    def cast_for_serving(self, weights_dtype: str = "float32") -> None:
         """Cast the embeddings and matmul weights to the compute dtype once,
         in place (LayerNorm parameters stay float32), and keep the float32
         copy of the rounded tied head. Values are unchanged: every forward
-        casts them to the compute dtype anyway, as flax does per call."""
+        casts them to the compute dtype anyway, as flax does per call.
+
+        ``weights_dtype="int8"``: the six projections of every block
+        (``ops/quant._SERVE_QUANT_MODULES``) are quantized instead, from
+        their float32 values, to an int8 ``kernel`` and an fp32
+        ``kernel_scale`` (the JAX engine's ``quantize_serve_params``), and
+        dequantize per call; embeddings, LayerNorms, biases and the tied
+        head are cast as for float32. Projections that arrive int8 (an int8
+        checkpoint) stay int8 under either value."""
+        if weights_dtype not in ("float32", "int8"):
+            raise ValueError(
+                f"weights_dtype must be float32/int8, got {weights_dtype!r}")
         cdt = compute_dtype(self.config)
-        for mod in self.modules():
+        for name, mod in self.named_modules():
             if isinstance(mod, DenseGeneral):
-                mod.kernel.data = mod.kernel.data.to(cdt)
+                if (weights_dtype == "int8"
+                        and name.rpartition(".")[2] in _SERVE_QUANT_MODULES):
+                    mod.quantize()
+                if mod.kernel_scale is None:
+                    mod.kernel.data = mod.kernel.data.to(cdt)
                 mod.bias.data = mod.bias.data.to(cdt)
             elif isinstance(mod, Embed):
                 mod.embedding.data = mod.embedding.data.to(cdt)
@@ -138,11 +156,7 @@ class GPT2LMModel(nn.Module):
         x = self.dropout(x, _child_seed(dropout_seed, 0))
         bias = make_attention_bias(attention_mask)
         for i, block in enumerate(self.blocks):
-            layer = None
-            if paged is not None:
-                k_pages, v_pages = paged.pools[i]
-                layer = (k_pages, v_pages, paged.block_table,
-                         paged.context_len, paged.multiquery)
+            layer = None if paged is None else paged.layer(i)
             x = block(x, bias, layer, _child_seed(dropout_seed, i + 1))
         x = self.ln_f(x)
         head = self.head_weight

@@ -14,7 +14,8 @@ all started together.
 
 A library may hold several kernels (``KERNELS`` names each kernel's
 library): the LayerNorm forward and backward share ``layer_norm.cu``, the
-four flash-attention kernels ``flash_attention.cu``.
+flash-attention kernels ``flash_attention.cu``, and each paged kernel's
+float and int8-pool instantiations their ``paged_attention*.cu``.
 
 Launch counts: every kernel wrapper adds one to ``LAUNCH_COUNTS[name]``
 where it launches its kernel and nowhere else, so a run can show that the
@@ -57,6 +58,8 @@ KERNELS = {
     "mask_scale": "dropout",
     "paged_attention": "paged_attention",
     "paged_attention_mq": "paged_attention_mq",
+    "paged_attention_int8": "paged_attention",
+    "paged_attention_mq_int8": "paged_attention_mq",
     "flash_fwd": "flash_attention",
     "flash_bwd": "flash_attention",
     "flash_whole_fwd": "flash_attention",

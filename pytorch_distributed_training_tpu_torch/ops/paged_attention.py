@@ -16,14 +16,21 @@ Shapes (as in the JAX package):
   query token (the engine writes the new K/V before attending);
   ``lengths >= q_len`` is the engine's contract.
 
-The output has the pools' dtype. On CPU tensors ``paged_attention`` runs
-the plain versions ``_paged_reference`` (3-D) and ``_paged_reference_mq``
-(4-D): gather through the block table, the dense formula (fp32 scores,
+int8 pools carry fp32 scale pools ``k_scales``/``v_scales`` of shape
+[num_pages, page_size, heads], one scale per (token, head), written
+through the same (page, offset) as their values (``ops/quant.quantize_kv``);
+float pools take none (``_check_scale_pool``).
+
+The output has the pools' dtype, float32 for int8 pools. On CPU tensors
+``paged_attention`` runs the plain versions ``_paged_reference`` (3-D) and
+``_paged_reference_mq`` (4-D): gather through the block table (int8 pages
+dequantized as ``page.float() * scale``), the dense formula (fp32 scores,
 ``finfo(float32).min`` mask, fp32 softmax, probs cast to the V dtype). On
 CUDA tensors it launches ``csrc/paged_attention.cu`` (3-D, counted as
-``paged_attention``) or ``csrc/paged_attention_mq.cu`` (4-D, counted as
-``paged_attention_mq``), both walking the block table in place, or raises.
-int8 pools are not ported yet.
+``paged_attention``, or ``paged_attention_int8`` on int8 pools) or
+``csrc/paged_attention_mq.cu`` (4-D, ``paged_attention_mq`` or
+``paged_attention_mq_int8``), all walking the block table in place and
+dequantizing in the kernel, or raises.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ _MAX_HEAD_DIM = 256
 _MAX_Q_LEN = 128          # the multi-query kernel's rows per (seq, head)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_AXES = ("num_pages", "page_size", "heads", "head_dim")
+_SCALE_AXES = ("num_pages", "page_size", "heads")
 
 
 def _check(q, k_pages, v_pages, block_table, lengths):
@@ -99,38 +107,86 @@ def _check(q, k_pages, v_pages, block_table, lengths):
             f"q_len {q.shape[1]} exceeds the {block_table.shape[1]} x "
             f"{k_pages.shape[1]} tokens a block-table row addresses"
         )
-    if k_pages.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 page pools are not ported yet (see ROADMAP.md, queue 1, "
-            "slice 4b)"
+
+
+def _check_scale_pool(pool_name, pool, scale_name, scales):
+    """The contract between an int8 pool and its scale pool, in the JAX
+    package's named-axis style: int8 pools REQUIRE fp32 scales of shape
+    [num_pages, page_size, heads]; float pools take none."""
+    if pool.dtype == torch.int8:
+        want = tuple(pool.shape[:3])
+        if scales is None:
+            raise ValueError(
+                f"{pool_name} is int8 but {scale_name} is missing: int8 "
+                f"pools require fp32 per-page-per-head scales of shape "
+                f"(num_pages, page_size, heads) = {want}"
+            )
+        if scales.dim() != 3:
+            raise ValueError(
+                f"{scale_name} must be [num_pages, page_size, heads]: got "
+                f"shape {tuple(scales.shape)} (rank {scales.dim()}, want 3)"
+            )
+        if tuple(scales.shape) != want:
+            bad = ", ".join(
+                f"{name} (axis {i}): got {g}, want {w}"
+                for i, (name, g, w) in enumerate(
+                    zip(_SCALE_AXES, scales.shape, want))
+                if g != w
+            )
+            raise ValueError(
+                f"{scale_name} shape mismatch on {bad} (got "
+                f"{tuple(scales.shape)}, want {want} from {pool_name})"
+            )
+        if scales.dtype != torch.float32:
+            raise ValueError(
+                f"{scale_name} must be float32, got {scales.dtype}"
+            )
+    elif scales is not None:
+        raise ValueError(
+            f"{scale_name} provided but {pool_name} dtype is {pool.dtype}: "
+            f"scale pools accompany int8 pages only"
         )
 
 
 def paged_attention(q, k_pages, v_pages, block_table, lengths, *,
-                    scale: float):
+                    scale: float, k_scales=None, v_scales=None):
     """Attention through a page table. 3-D ``q`` is the decode step
     (returns [batch, heads, head_dim]); 4-D ``q`` a causal block of query
-    tokens (returns [batch, q_len, heads, head_dim]); the pools' dtype."""
+    tokens (returns [batch, q_len, heads, head_dim]); the pools' dtype, or
+    float32 for int8 pools, which carry their fp32 ``k_scales`` and
+    ``v_scales`` [num_pages, page_size, heads]."""
     _check(q, k_pages, v_pages, block_table, lengths)
-    multi = q.dim() == 4
+    _check_scale_pool("k_pages", k_pages, "k_scales", k_scales)
+    _check_scale_pool("v_pages", v_pages, "v_scales", v_scales)
+    args = (q, k_pages, v_pages, block_table, lengths, scale, k_scales,
+            v_scales)
     if q.device.type == "cpu":
-        ref = _paged_reference_mq if multi else _paged_reference
-        return ref(q, k_pages, v_pages, block_table, lengths, scale)
+        return (_paged_reference_mq if q.dim() == 4 else _paged_reference)(
+            *args)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, got {q.device}")
-    return _paged_cuda(q, k_pages, v_pages, block_table, lengths, scale)
+    return _paged_cuda(*args)
 
 
-def _paged_reference(q, k_pages, v_pages, block_table, lengths, scale):
+def _gather_dequant(pages, scales, idx, batch, tokens, heads, head_dim):
+    """Gather pages through the block table ([B, W, P, H, D] -> [B, W*P, H,
+    D]: token order is page order x in-page offset, exactly how the
+    allocator lays tokens out) and, for int8 pools, dequantize against the
+    scale pool gathered the same way (one fp32 scale per token per head)."""
+    x = pages[idx].reshape(batch, tokens, heads, head_dim)
+    if scales is None:
+        return x
+    s = scales[idx].reshape(batch, tokens, heads)
+    return x.float() * s[..., None]
+
+
+def _paged_reference(q, k_pages, v_pages, block_table, lengths, scale,
+                     k_scales=None, v_scales=None):
     batch, heads, head_dim = q.shape
-    page_size = k_pages.shape[1]
-    windows = block_table.shape[1]
-    tokens = windows * page_size
-    # [B, W, P, H, D] -> [B, W*P, H, D]: token order is page order x in-page
-    # offset, exactly how the allocator lays tokens out
+    tokens = block_table.shape[1] * k_pages.shape[1]
     idx = block_table.long()
-    k = k_pages[idx].reshape(batch, tokens, heads, head_dim)
-    v = v_pages[idx].reshape(batch, tokens, heads, head_dim)
+    k = _gather_dequant(k_pages, k_scales, idx, batch, tokens, heads, head_dim)
+    v = _gather_dequant(v_pages, v_scales, idx, batch, tokens, heads, head_dim)
     scores = torch.einsum("bnd,btnd->bnt", q.float(), k.float()) * scale
     pos = torch.arange(tokens, device=q.device)
     valid = pos[None, :] < lengths[:, None]
@@ -140,15 +196,15 @@ def _paged_reference(q, k_pages, v_pages, block_table, lengths, scale):
     return out.to(v.dtype)
 
 
-def _paged_reference_mq(q, k_pages, v_pages, block_table, lengths, scale):
+def _paged_reference_mq(q, k_pages, v_pages, block_table, lengths, scale,
+                        k_scales=None, v_scales=None):
     """The JAX ``_paged_reference_mq``: row ``j`` of the query block sees
     positions ``< lengths - (q_len - 1) + j``."""
     batch, q_len, heads, head_dim = q.shape
-    page_size = k_pages.shape[1]
-    tokens = block_table.shape[1] * page_size
+    tokens = block_table.shape[1] * k_pages.shape[1]
     idx = block_table.long()
-    k = k_pages[idx].reshape(batch, tokens, heads, head_dim)
-    v = v_pages[idx].reshape(batch, tokens, heads, head_dim)
+    k = _gather_dequant(k_pages, k_scales, idx, batch, tokens, heads, head_dim)
+    v = _gather_dequant(v_pages, v_scales, idx, batch, tokens, heads, head_dim)
     scores = torch.einsum("bqnd,btnd->bnqt", q.float(), k.float()) * scale
     pos = torch.arange(tokens, device=q.device)
     row = torch.arange(q_len, device=q.device)
@@ -161,36 +217,42 @@ def _paged_reference_mq(q, k_pages, v_pages, block_table, lengths, scale):
 
 
 @functools.cache
-def _kernel(multi: bool):
+def _kernel(multi: bool, quantized: bool):
     """(library, C entry point) of the paged kernel (``multi``: the 4-D
-    query one), built on first use."""
-    if multi:
-        lib = _build.load("paged_attention_mq")
-        fn = lib.pdt_paged_attention_mq
-        n_int = 6
-    else:
-        lib = _build.load("paged_attention")
-        fn = lib.pdt_paged_attention_decode
-        n_int = 5
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
+    query one; ``quantized``: its int8-pool entry, which also takes the two
+    scale pools), built on first use."""
+    lib = _build.load("paged_attention_mq" if multi else "paged_attention")
+    fn = getattr(lib, ("pdt_paged_attention_mq" if multi else
+                       "pdt_paged_attention_decode")
+                 + ("_int8" if quantized else ""))
+    fn.argtypes = ([ctypes.c_void_p] * (8 if quantized else 6)
+                   + [ctypes.c_int] * (6 if multi else 5)
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _paged_cuda(q, k_pages, v_pages, block_table, lengths, scale):
-    tensors = (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-               ("block_table", block_table), ("lengths", lengths))
+def _paged_cuda(q, k_pages, v_pages, block_table, lengths, scale,
+                k_scales=None, v_scales=None):
+    """Launch the paged kernel: q float32 or bfloat16, with pools of q's
+    dtype (output in q's dtype) or int8 pools and their fp32 scale pools
+    (output float32); raises on anything else."""
+    quantized = k_pages.dtype == torch.int8
+    tensors = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages)]
+    if quantized:
+        tensors += [("k_scales", k_scales), ("v_scales", v_scales)]
+    tensors += [("block_table", block_table), ("lengths", lengths)]
     for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention kernel needs a contiguous {name}")
-    if q.dtype != k_pages.dtype or q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _DTYPE_CODES or not (quantized
+                                           or k_pages.dtype == q.dtype):
         raise ValueError(
-            f"paged_attention kernel takes q and pools of one dtype, float32 "
-            f"or bfloat16; got q {q.dtype}, pools {k_pages.dtype}"
+            f"paged_attention kernel takes a float32 or bfloat16 q with pools "
+            f"of q's dtype or int8 pools; got q {q.dtype}, pools "
+            f"{k_pages.dtype}"
         )
     for name, t in (("block_table", block_table), ("lengths", lengths)):
         if t.dtype != torch.int32:
@@ -207,15 +269,17 @@ def _paged_cuda(q, k_pages, v_pages, block_table, lengths, scale):
             f"paged_attention_mq kernel takes 1 <= q_len <= {_MAX_Q_LEN}, got "
             f"{q.shape[1]}"
         )
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, device=q.device,
+                      dtype=torch.float32 if quantized else q.dtype)
     if batch == 0:
         return out
-    lib, fn = _kernel(multi)
+    lib, fn = _kernel(multi, quantized)
+    ptrs = [t.data_ptr() for _, t in tensors] + [out.data_ptr()]
     dims = (batch, q.shape[1]) if multi else (batch,)
-    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-              *dims, heads, head_dim, k_pages.shape[1], block_table.shape[1],
-              scale, _DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    _build.check_launch(lib, "paged_attention_mq" if multi else
-                        "paged_attention", code)
+    code = fn(*ptrs, *dims, heads, head_dim, k_pages.shape[1],
+              block_table.shape[1], scale, _DTYPE_CODES[q.dtype],
+              _build.stream_ptr(q))
+    _build.check_launch(
+        lib, ("paged_attention_mq" if multi else "paged_attention")
+        + ("_int8" if quantized else ""), code)
     return out

@@ -41,12 +41,22 @@
 Weights are cast to the compute dtype once at build (``GPT2LMModel.
 cast_for_serving``), which gives the values flax's per-call cast gives.
 
+- **int8 weights** (``weights_dtype="int8"``): the projections quantize
+  once at build to int8 kernels with fp32 per-output-channel scales and
+  dequantize per call (``models/bert.DenseGeneral``); ``stats()["variant"]``
+  names the resident variant (``ops/quant.serve_params_variant``).
+- **int8 KV** (``kv_dtype="int8"``): int8 pools beside fp32 scale pools
+  [num_pages, page_size, heads]; K/V quantize on write and the paged
+  kernels dequantize in place (their int8-pool entries). The allocator is
+  dtype-blind: the same pages whatever the pool dtype.
+
 Ported options: ``kv_layout="paged"``, ``sampling="device"``, ``spec_k``
 with ``spec_draft="ngram"``, ``prefill_chunk``, ``prefill_concurrency``,
-``prefix_cache``, ``tp=1``, float32 weights and KV. Every other value
-raises ``NotImplementedError`` naming its ROADMAP.md item. Telemetry
-records, spans, the flight recorder, brownout, hot-swap and the runtime
-guards of the JAX engine are not ported yet.
+``prefix_cache``, ``tp=1``, ``weights_dtype`` and ``kv_dtype`` float32 or
+int8 (every option on int8 pools too). Every other value raises
+``NotImplementedError`` naming its ROADMAP.md item. Telemetry records,
+spans, the flight recorder, brownout, hot-swap (between float32 and int8
+among others) and the runtime guards of the JAX engine are not ported yet.
 """
 
 from __future__ import annotations
@@ -60,6 +70,9 @@ import numpy as np
 import torch
 
 from pytorch_distributed_training_tpu_torch.models.bert import PagedKV
+from pytorch_distributed_training_tpu_torch.ops.quant import (
+    serve_params_variant,
+)
 from pytorch_distributed_training_tpu_torch.serve.paged_cache import (
     PageAllocator,
 )
@@ -87,8 +100,6 @@ _NOT_PORTED = {
                             "waits for a draft checkpoint in the repository)"),
     "tenant_page_quota": (0.0, "tenant page quotas (queue 1, slice 4b)"),
     "tp": (1, "tensor-parallel serving (queue 1, slice 5)"),
-    "weights_dtype": ("float32", "int8 weights (queue 1, slice 4b)"),
-    "kv_dtype": ("float32", "int8 KV pools (queue 1, slice 4b)"),
 }
 
 
@@ -150,6 +161,15 @@ class EngineConfig:
             )
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.weights_dtype not in ("float32", "int8"):
+            raise ValueError(
+                f"weights_dtype must be float32/int8, got "
+                f"{self.weights_dtype!r}"
+            )
+        if self.kv_dtype not in ("float32", "int8"):
+            raise ValueError(
+                f"kv_dtype must be float32/int8, got {self.kv_dtype!r}"
+            )
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
         if self.prefill_chunk < 0:
@@ -224,18 +244,29 @@ class DecodeEngine:
         self.config = config
         self.device = resolve_device(device)
         serving = copy.deepcopy(model).to(self.device)
-        serving.cast_for_serving()
+        serving.cast_for_serving(config.weights_dtype)
         serving.eval().requires_grad_(False)
         self._model = serving
+        self.variant = serve_params_variant(serving.state_dict())
+        self.weight_bytes = sum(p.numel() * p.element_size()
+                                for p in serving.parameters())
         self._max_pos = cfg.max_position_embeddings
-        pool_dtype = getattr(torch, cfg.compute_dtype)
+        quant_kv = config.kv_dtype == "int8"
+        pool_dtype = (torch.int8 if quant_kv
+                      else getattr(torch, cfg.compute_dtype))
         shape = (config.total_pages, config.page_size, cfg.num_heads,
                  cfg.head_dim)
-        self._pools = [
-            (torch.zeros(shape, dtype=pool_dtype, device=self.device),
-             torch.zeros(shape, dtype=pool_dtype, device=self.device))
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        self._pools = [(zeros(shape, pool_dtype), zeros(shape, pool_dtype))
+                       for _ in range(cfg.num_layers)]
+        # int8 pools: one fp32 scale per (page, offset, head) beside them
+        self._scales = [
+            (zeros(shape[:3], torch.float32), zeros(shape[:3], torch.float32))
             for _ in range(cfg.num_layers)
-        ]
+        ] if quant_kv else None
         self._pages = PageAllocator(
             config.total_pages, config.page_size, config.pages_per_slot,
             config.num_slots,
@@ -278,6 +309,10 @@ class DecodeEngine:
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
+    def _paged(self, block_table, context_len, multiquery=False) -> PagedKV:
+        return PagedKV(self._pools, block_table, context_len,
+                       multiquery=multiquery, scales=self._scales)
+
     def _prefill(self, req: GenRequest, slot: int) -> int:
         """Prefill ``req`` into ``slot``'s pages; its first token."""
         bucket = req.bucket
@@ -285,8 +320,7 @@ class DecodeEngine:
         padded[0, : req.prompt_len] = req.prompt_ids
         # fresh sequence: context_len 0, K/V scattered straight into the
         # slot's pages through its block-table row
-        paged = PagedKV(
-            self._pools,
+        paged = self._paged(
             self._to_device(self._pages.block_table[slot : slot + 1]),
             torch.zeros((1,), dtype=torch.int32, device=self.device),
         )
@@ -315,8 +349,7 @@ class DecodeEngine:
         ids[0, : end - start] = req.prompt_ids[start:end]
         # pad lanes past the position table read its last row (dead lanes)
         pos = np.minimum(start + np.arange(C), self._max_pos - 1)
-        paged = PagedKV(
-            self._pools,
+        paged = self._paged(
             self._to_device(self._pages.block_table[slot : slot + 1]),
             self._to_device(np.asarray([start], np.int32)),
             multiquery=True,
@@ -333,7 +366,7 @@ class DecodeEngine:
     def _decode(self, tokens, bt, ctx, seeds, steps, temps,
                 top_ks) -> np.ndarray:
         """Advance every slot one token; [slots] sampled ids on the host."""
-        paged = PagedKV(self._pools, self._to_device(bt), self._to_device(ctx))
+        paged = self._paged(self._to_device(bt), self._to_device(ctx))
         logits = self._model(
             self._to_device(tokens[:, None].astype(np.int64)),
             position_ids=self._to_device(ctx[:, None].astype(np.int64)),
@@ -349,8 +382,8 @@ class DecodeEngine:
         k + 2] on the host: the k + 1 per-position samples, then the
         accepted-draft count."""
         q_len = tokens.shape[1]
-        paged = PagedKV(self._pools, self._to_device(bt), self._to_device(ctx),
-                        multiquery=True)
+        paged = self._paged(self._to_device(bt), self._to_device(ctx),
+                            multiquery=True)
         dev_tokens = self._to_device(tokens.astype(np.int64))
         logits = self._model(
             dev_tokens,
@@ -364,11 +397,12 @@ class DecodeEngine:
         return torch.cat([target, accept[:, None]], dim=1).cpu().numpy()
 
     def _page_copy(self, src: int, dst: int) -> None:
-        """Copy page ``src`` onto page ``dst`` in every layer's pools (the
-        copy-on-write of a partly matched prefix page)."""
-        for k_pages, v_pages in self._pools:
-            k_pages[dst].copy_(k_pages[src])
-            v_pages[dst].copy_(v_pages[src])
+        """Copy page ``src`` onto page ``dst`` in every layer's pools and,
+        for int8 pools, its scale pools (the copy-on-write of a partly
+        matched prefix page)."""
+        for pool in self._pools + (self._scales or []):
+            for leaf in pool:
+                leaf[dst].copy_(leaf[src])
 
     # ---------------------------------------------------------- accounting
 
@@ -826,10 +860,15 @@ class DecodeEngine:
             self._finish(req, "cancelled", "cancelled")
 
     def _kv_bytes_per_token(self) -> int:
-        """Pool bytes one token occupies across every layer (K and V)."""
+        """Pool bytes one token occupies across every layer (K and V):
+        ``head_dim`` values a head at the pool dtype, plus one fp32 scale a
+        head for int8 pools."""
         k_pages = self._pools[0][0]
         _, _, heads, head_dim = k_pages.shape
-        return 2 * len(self._pools) * heads * head_dim * k_pages.element_size()
+        per_head = head_dim * k_pages.element_size()
+        if self._scales is not None:
+            per_head += 4
+        return 2 * len(self._pools) * heads * per_head
 
     def stats(self) -> dict:
         prefix = None
@@ -850,6 +889,10 @@ class DecodeEngine:
             "prefill_buckets_used": sorted(self._prefill_buckets),
             "kv_layout": self.config.kv_layout,
             "sampling": self.config.sampling,
+            "weights_dtype": self.config.weights_dtype,
+            "kv_dtype": self.config.kv_dtype,
+            "variant": self.variant,
+            "weight_bytes": self.weight_bytes,
             "kv_bytes_per_token": self._kv_bytes_per_token(),
             "kv_page_size": self.config.page_size,
             "kv_pages_total": self._pages.num_pages - 1,

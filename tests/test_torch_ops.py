@@ -369,7 +369,8 @@ def test_paged_attention_validates_like_jax():
         paged_attention(t[0], t[1], t[2], t[3][:2], t[4], scale=1.0)
     with pytest.raises(ValueError, match="lengths"):
         paged_attention(*t[:4], t[4][:2], scale=1.0)
-    with pytest.raises(NotImplementedError, match="int8"):
+    # int8 pools come with their scale pools (tests/test_torch_quant.py)
+    with pytest.raises(ValueError, match="k_scales is missing"):
         paged_attention(t[0], t[1].to(torch.int8), t[2].to(torch.int8),
                         *t[3:], scale=1.0)
 
@@ -385,8 +386,9 @@ def test_kernel_modules_build_nothing_at_import():
     assert set(_build.KERNELS) == {
         "layer_norm", "layer_norm_bwd", "dropout_add_layer_norm",
         "dropout_add_layer_norm_bwd", "mask_scale", "paged_attention",
-        "paged_attention_mq", "flash_fwd", "flash_bwd", "flash_whole_fwd",
-        "flash_whole_bwd", "flash_dq", "flash_dkv",
+        "paged_attention_mq", "paged_attention_int8",
+        "paged_attention_mq_int8", "flash_fwd", "flash_bwd",
+        "flash_whole_fwd", "flash_whole_bwd", "flash_dq", "flash_dkv",
     }
     assert set(_build.KERNELS.values()) == set(_build.KERNEL_SOURCES)
     for src in _build.KERNEL_SOURCES.values():

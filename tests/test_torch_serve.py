@@ -200,8 +200,7 @@ def test_engine_eot_and_backpressure(lms):
 
 @pytest.mark.parametrize("option,value", [
     ("kv_layout", "dense"), ("sampling", "host"), ("spec_draft", "model"),
-    ("tenant_page_quota", 0.5), ("weights_dtype", "int8"), ("tp", 2),
-    ("kv_dtype", "int8"),
+    ("tenant_page_quota", 0.5), ("tp", 2),
 ])
 def test_engine_config_unported_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -308,7 +307,8 @@ def test_port_imports_no_jax_and_cuda_entry_point_refuses_without_gpu():
         for m in mods:
             importlib.import_module(m)
         for m in ("train.loop", "train.step", "cli.train_dp",
-                  "comms.bootstrap", "data.pipeline", "ops.dropout"):
+                  "comms.bootstrap", "data.pipeline", "ops.dropout",
+                  "ops.quant"):
             assert pkg.__name__ + "." + m in mods, m
         import torch
         assert not torch.cuda.is_available()
