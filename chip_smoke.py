@@ -199,6 +199,11 @@ CPU_CARD_RTOL = 1e-4
 # 4 (blockwise pair) and at seq 128, micro 8 (whole-sequence pair)
 FLASH_BLOCKWISE = (4, 16, 1024, 64)
 FLASH_WHOLE = (8, 16, 128, 64)
+# the tensor-core path at head_dim 32 (its scale is not a power of two)
+FLASH_BLOCKWISE_D32 = (4, 16, 1024, 32)
+# the tensor-core kernels' masks bit for bit: (Sq, Sk) with Sk a multiple
+# of 4 (lanes share a Philox call) and not (each lane draws its own)
+FLASH_MASK_SHAPES = ((64, 64), (48, 36), (64, 62))
 # bf16 outputs against the plain version's: 2 bf16 ulps of the element
 # plus 1e-3 of the tensor's largest magnitude (float32 sums in another
 # order; p rounded to bf16 against another running max)
@@ -995,8 +1000,12 @@ _PORT_KERNELS = (
     ("mask_scale_kernel", "mask_scale"),
     ("paged_decode_kernel", "paged_attention"),
     ("paged_mq_kernel", "paged_attention_mq"),
-    ("flash_fwd_kernel<", "flash_fwd / flash_whole_fwd"),
-    ("flash_bwd_kernel<", "flash_bwd / flash_whole_bwd / flash_dkv"),
+    ("flash_fwd_mma_kernel<", "flash_fwd"),
+    ("flash_bwd_mma_kernel<", "flash_bwd"),
+    ("flash_delta_kernel<", "flash_bwd delta pre-pass"),
+    ("flash_fwd_kernel<", "flash_fwd (float32) / flash_whole_fwd"),
+    ("flash_bwd_kernel<",
+     "flash_bwd (float32) / flash_whole_bwd / flash_dkv"),
     ("flash_dq_sum_kernel", "flash_bwd / flash_whole_bwd dq sum"),
     ("flash_dq_kernel<", "flash_dq"),
 )
@@ -1657,6 +1666,104 @@ def flash_pair_parity(device, shape, whole, dtype, rate, seed,
     return worst
 
 
+def flash_kernel_parity(device, shape, rate, seed) -> float:
+    """Kernels 6 and 9 each against its plain version on the same inputs
+    (bf16, causal, key-padding bias, site 2): the forward's o and lse, and
+    the backward fed the plain forward's o and lse. ``flash_pair_parity``
+    holds the chain instead, the backward fed the kernel's own o, whose bf16
+    roundings move delta and, where they flip the bf16 rounding of a large
+    ds, dq by a bf16 step of ds times k: at head dim 32 the chain can put a
+    dq element past the tolerance that each kernel alone keeps."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    (q, k, v, do), bias = flash_inputs(device, shape, torch.bfloat16,
+                                       seed=seed)
+    kw = dict(causal=True, rate=rate, seed=seed, site=2)
+    o_p, lse_p = fa.reference_flash_fwd(q, k, v, bias, **kw)
+    o_k, lse_k = fa.flash_fwd(q, k, v, bias, **kw)
+    lerr = (lse_k - lse_p).abs()
+    if bool((lerr > 1e-5 * lse_p.abs().clamp_min(1.0)).any()):
+        raise AssertionError(f"flash_fwd lse {shape}: max err "
+                             f"{float(lerr.max())}")
+    what = f"flash {tuple(shape)} bf16 rate {rate}"
+    worst = check_flash_close(what + " o", o_k, o_p)
+    got = fa.flash_bwd(q, k, v, bias, o_p, lse_p, do, **kw)
+    want = fa.reference_flash_bwd(q, k, v, bias, o_p, lse_p, do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        worst = max(worst, check_flash_close(f"{what} {name}", a, b))
+    return worst
+
+
+def flash_mask_parity(device, shapes=FLASH_MASK_SHAPES, rate=DROPOUT_RATE,
+                      seed=5, site=3) -> None:
+    """The tensor-core kernels 6 and 9 draw the plain version's mask bit for
+    bit: q = 0 (every visible key weighs the same) and v (forward) or dO
+    (backward) one-hot along head_dim, so o[b, n, i, j] and dv[b, n, j, i]
+    are nonzero exactly where element (i, j) of the probs is kept.
+    Non-causal, [2, 3, Sq, 64] bf16, the bf16 tolerance cannot hide a
+    flipped bit here."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    b, n, d = 2, 3, 64
+    eye = torch.eye(d, device=device, dtype=torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(seed)
+    for sq, sk in shapes:
+        q = torch.zeros(b, n, sq, d, device=device, dtype=torch.bfloat16)
+        k = torch.randn(b, n, sk, d, generator=g, device=device).to(
+            torch.bfloat16)
+        v = eye[:sk].expand(b, n, sk, d).contiguous()
+        do = eye[:sq].expand(b, n, sq, d).contiguous()
+        bias = torch.zeros(b, 1, 1, sk, device=device)
+        kw = dict(causal=False, rate=rate, seed=seed, site=site)
+        keep = fa.probs_keep((b, n, sq, sk), rate, seed, site, device)
+        o, lse = fa.flash_fwd(q, k, v, bias, **kw)
+        _, _, dv = fa.flash_bwd(q, k, v, bias, o, lse, do, **kw)
+        for what, got, want in (
+                ("flash_fwd o", o[..., :sk] != 0, keep),
+                ("flash_bwd dv", dv[..., :sq] != 0, keep.transpose(-1, -2))):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{what} [{b}, {n}, {sq}, {sk}] rate {rate}: "
+                    f"{int((got != want).sum())} mask elements differ "
+                    f"from the plain version's")
+    say(f"[kernels] flash_fwd/flash_bwd bf16 masks bit for bit: (Sq, Sk) "
+        f"{list(shapes)}, rate {rate}")
+
+
+def kernel_ms_by_symbol(fn, reps=20) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, by symbol (template
+    arguments dropped), from ``torch.profiler`` over ``reps`` eager
+    calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+)<", e.key) or re.search(r"(\w+)\(", e.key)
+        name = m.group(1) if m else e.key
+        us = float(getattr(e, "self_device_time_total", 0.0))
+        out[name] = out.get(name, 0.0) + us / reps / 1e3
+    return out
+
+
 def flash_bounds(shape, whole, esize=2):
     """(fwd, bwd) least times: bytes each input read once and each output
     written once; operations 4 D (forward) and 10 D (backward: the QK^T
@@ -1689,12 +1796,22 @@ def flash_phase(device) -> dict:
         worst = max(flash_pair_parity(device, shape, whole, torch.bfloat16,
                                       rate, 10 + i)
                     for i, rate in enumerate((0.0, DROPOUT_RATE)))
+        extra = ""
+        if not whole:
+            # the tensor-core path also at head_dim 32, and its masks
+            worst = max(worst, flash_kernel_parity(
+                device, FLASH_BLOCKWISE_D32, DROPOUT_RATE, 12))
+            flash_mask_parity(device)
+            extra = (f" (and {list(FLASH_BLOCKWISE_D32)} at rate "
+                     f"{DROPOUT_RATE}, each kernel on the plain version's "
+                     f"inputs)")
         worst32 = flash_pair_parity(device, shape, whole, torch.float32,
                                     DROPOUT_RATE, 20, uniform=True)
         say(f"[kernels] {names[0]}/{names[1]} parity ok: {list(shape)} "
             f"causal, ragged + fully masked rows; bf16 at rates 0 and "
-            f"{DROPOUT_RATE}, max abs err {worst} (<= {FLASH_BF16_ULPS} bf16 "
-            f"ulps + {FLASH_BF16_SLACK} x max|want|); float32 at rate "
+            f"{DROPOUT_RATE}{extra}, max abs err {worst} (<= "
+            f"{FLASH_BF16_ULPS} bf16 ulps + {FLASH_BF16_SLACK} x "
+            f"max|want|); float32 at rate "
             f"{DROPOUT_RATE}, uniform probs, max err {worst32} (<= "
             f"{FLASH_FP32_TOL} x max(1, max|want|): one differing mask "
             f"element would move o or dv by >= 1.1e-3)")
@@ -1736,6 +1853,19 @@ def flash_phase(device) -> dict:
         t_bwd = dict(ms=time_ms(bwd), plain_ms=time_ms(pbwd, **plain_kw),
                      library_ms=time_ms(sdpa_bwd), bound_ms=bb, bound_by=bby,
                      sdpa_fwd_bwd_eager_ms=eager_ms(sdpa_train))
+        if not whole:
+            # rate 0, like SDPA; the backward's kernels one by one (the
+            # delta pre-pass, the main kernel, the dq sum)
+            kw0 = dict(kw, rate=0.0)
+            o0, lse0 = fa.flash_fwd(q, k, v, bias, **kw0)
+            t_fwd["rate0_ms"] = time_ms(
+                lambda: fa.flash_fwd(q, k, v, bias, **kw0))
+            bwd0 = lambda: fa.flash_bwd(  # noqa
+                q, k, v, bias, o0, lse0, do, **kw0)
+            t_bwd["rate0_ms"] = time_ms(bwd0)
+            t_bwd["kernel_ms"] = kernel_ms_by_symbol(bwd)
+            t_bwd["rate0_kernel_ms"] = kernel_ms_by_symbol(bwd0)
+            del o0, lse0
         say(f"[kernels] {names[0]} {list(shape)} bf16 causal rate "
             f"{DROPOUT_RATE}: " + json.dumps(t_fwd)
             + " (library: F.scaled_dot_product_attention(is_causal=True), "

@@ -8,7 +8,8 @@ version here:
   the float32 log-sum-exp ``lse`` [B, N, Sq];
 - ``flash_bwd``: the fused one-pass backward (TPU ``_dqkv_kernel``, the
   JAX package's default): dq, dk and dv from one recompute of the probs
-  from ``lse``; delta = rowsum(dO * O) is formed in the kernel;
+  from ``lse``; delta = rowsum(dO * O) is formed in the kernel (float32)
+  or by a pre-pass the wrapper launches with it (bfloat16);
 - ``flash_dq`` / ``flash_dkv``: the two-pass backward (TPU ``_dq_kernel``
   / ``_dkv_kernel``), taken by the blockwise route when
   ``PDT_FLASH_TWO_PASS=1`` (read at each call): dq from a pass over the
@@ -49,6 +50,14 @@ not divide its block, or ``head_dim > 256``. The kernels take head_dim 16,
 32 and 64 in float32 or bfloat16; another shape on a CUDA tensor raises.
 The whole-sequence route keeps its own backward in both modes, as the JAX
 ``_vjp_bwd`` does.
+
+Entry points: ``flash_fwd`` and ``flash_bwd`` take the tensor-core
+kernels (``pdt_flash_fwd_mma``, ``pdt_flash_bwd_mma``: bf16 ``mma.sync``,
+``cp.async``, dv and dk as three bf16-piece products, see
+``split_bf16x3``) for bfloat16 inputs, which covers every head_dim the
+kernels take, and the float32 FMA kernels (``pdt_flash_fwd``,
+``pdt_flash_bwd``) for float32 inputs. The other four kernels have one
+entry point each.
 
 Each wrapper runs its plain version on a CPU tensor and its kernel (built
 at first use) on a CUDA tensor, or raises.
@@ -180,6 +189,18 @@ def reference_flash_bwd(q, k, v, bias, o, lse, do, *, causal: bool,
     return (_dq_from(ds, q, k), *_dkv_from(p, drop, ds, q, k, v, do))
 
 
+def split_bf16x3(x: torch.Tensor):
+    """float32 ``x`` as three bfloat16 pieces with hi + mid + lo == x
+    exactly (|x| >= 2^-110 or 0): hi the nearest bf16 of x, mid of what hi
+    leaves, lo of what both leave. The plain twin of the split the
+    tensor-core backward applies to p_drop and dS before dv = p_drop^T dO
+    and dk = dS^T q (``csrc/mma.cuh``); no path here uses it."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
 def _whole_probs(q, k, bias, causal):
     """The whole-sequence softmax (TPU ``_mh_softmax``)."""
     s = _scores(q, k, bias, causal)
@@ -224,8 +245,11 @@ _COMMON_ARGTYPES = (
 # stream last)
 _ENTRY_POINTERS = {
     "pdt_flash_fwd": 3,        # o, lse, stream
+    "pdt_flash_fwd_mma": 3,    # o, lse, stream
     "pdt_flash_whole_fwd": 2,  # o, stream
     "pdt_flash_bwd": 8,        # o, do, lse, dq, dk, dv, dq_part, stream
+    "pdt_flash_bwd_mma": 9,    # o, do, lse, delta, dq, dk, dv, dq_part,
+                               # stream
     "pdt_flash_dq": 5,         # o, do, lse, dq, stream
     "pdt_flash_dkv": 6,        # o, do, lse, dk, dv, stream
     "pdt_flash_whole_bwd": 7,  # o, do, dq, dk, dv, dq_part, stream
@@ -242,18 +266,27 @@ def _kernel(entry: str):
     return lib, fn
 
 
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte rows at 16-byte addresses (the tensor-core kernels copy 16
+    bytes at a time)."""
+    return (t.data_ptr() % 16 == 0
+            and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]))
+
+
 def _dense(t: torch.Tensor) -> torch.Tensor:
     """``t`` if it is [B, N, S, D] contiguous or the [B, N, S, D] view of a
     contiguous [B, S, N, D] tensor (the layouts the kernels read by
-    strides), else a contiguous copy."""
-    if t.is_contiguous() or t.transpose(1, 2).is_contiguous():
+    strides), aligned, else a contiguous copy."""
+    if ((t.is_contiguous() or t.transpose(1, 2).is_contiguous())
+            and _aligned(t)):
         return t
     return t.contiguous()
 
 
 def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """``t`` in ``ref``'s strides (a copy only when they differ)."""
-    if t.stride() == ref.stride():
+    """``t`` in ``ref``'s strides (a copy only when they differ or ``t`` is
+    not aligned)."""
+    if t.stride() == ref.stride() and _aligned(t):
         return t
     return _empty_like(ref, t.dtype).copy_(t)
 
@@ -334,15 +367,17 @@ def _on_cpu(name, q, k, v, bias, rate) -> bool:
 def flash_fwd(q, k, v, bias, *, causal: bool, rate: float = 0.0,
               seed: int = 0, site: int = 0):
     """Blockwise forward: (o, lse). Plain version on the CPU, kernel on a
-    CUDA device."""
+    CUDA device: the tensor-core kernel for bfloat16, the FMA one for
+    float32."""
     kw = dict(causal=causal, rate=rate, seed=seed, site=site)
     if _on_cpu("flash_fwd", q, k, v, bias, rate):
         return reference_flash_fwd(q, k, v, bias, **kw)
     q, k, v, args = _cuda_common("flash_fwd", q, k, v, bias, **kw)
     o = _empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", "pdt_flash_fwd", q, args, o.data_ptr(),
-            lse.data_ptr())
+    entry = ("pdt_flash_fwd_mma" if q.dtype == torch.bfloat16
+             else "pdt_flash_fwd")
+    _launch("flash_fwd", entry, q, args, o.data_ptr(), lse.data_ptr())
     return o, lse
 
 
@@ -360,16 +395,25 @@ def _bwd_inputs(name, q, k, v, bias, o, lse, do, kw):
 
 def flash_bwd(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
               seed: int = 0, site: int = 0):
-    """Fused blockwise backward: (dq, dk, dv)."""
+    """Fused blockwise backward: (dq, dk, dv); on a CUDA device the
+    tensor-core kernel (with its delta pre-pass and dq sum) for bfloat16,
+    the FMA one for float32."""
     kw = dict(causal=causal, rate=rate, seed=seed, site=site)
     if _on_cpu("flash_bwd", q, k, v, bias, rate):
         return reference_flash_bwd(q, k, v, bias, o, lse, do, **kw)
     q, k, v, o, do, lse, args = _bwd_inputs("flash_bwd", q, k, v, bias, o,
                                             lse, do, kw)
     dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(k)
-    _launch("flash_bwd", "pdt_flash_bwd", q, args, o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _dq_scratch(q, k).data_ptr())
+    grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _dq_scratch(q, k).data_ptr())
+    if q.dtype == torch.bfloat16:
+        delta = torch.empty(q.shape[:3], dtype=torch.float32,
+                            device=q.device)
+        _launch("flash_bwd", "pdt_flash_bwd_mma", q, args, o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *grads)
+    else:
+        _launch("flash_bwd", "pdt_flash_bwd", q, args, o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), *grads)
     return dq, dk, dv
 
 

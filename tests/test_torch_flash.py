@@ -273,3 +273,97 @@ def test_plain_two_pass_equals_plain_fused(rate, monkeypatch):
                                    rate=rate, seed=seed)
     for a, b in zip(grads["0"], grads["1"]):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------- the tensor-core backward's math
+
+
+def _bf16_values(*arrays):
+    """float32 arrays rounded to bf16 values: the operands the tensor-core
+    kernels take."""
+    return [torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+            for a in arrays]
+
+
+@pytest.mark.parametrize("what", ["p_drop", "ds"])
+def test_split_bf16x3_rebuilds_float32_exactly(what):
+    # the three-piece split kernel 9 applies to the float32 p_drop (in
+    # [0, 1 / (1 - rate)]) and dS (either sign, a wide range of magnitudes)
+    # before dv = p_drop^T dO and dk = dS^T q: hi + mid + lo == x exactly,
+    # each piece a bf16, where two pieces do not suffice
+    rng = np.random.default_rng(3)
+    n = 200_000
+    if what == "p_drop":
+        x = np.concatenate([rng.uniform(0.0, 1.0 / 0.9, n),
+                            np.exp(-rng.uniform(0.0, 70.0, n)) / 0.9,
+                            [0.0, 1.0, 1.0 / 0.9]])
+    else:
+        x = np.concatenate([rng.choice([-1.0, 1.0], n)
+                            * 10.0 ** rng.uniform(-30.0, 3.0, n),
+                            rng.normal(0.0, 1e-3, n), [0.0]])
+    x = torch.from_numpy(x.astype(np.float32))
+    hi, mid, lo = fa.split_bf16x3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    rebuilt = hi.double() + mid.double() + lo.double()
+    assert torch.equal(rebuilt, x.double())
+    assert not torch.equal(hi.double() + mid.double(), x.double())
+
+
+def _three_piece_bwd(q, k, v, bias, o, lse, do, *, causal, rate=0.0,
+                     seed=0, site=0):
+    """The plain backward with dv and dk as the float32 sums of the three
+    bf16-piece products, dk = (dS^T q) * scale as the kernel forms it."""
+    p, drop, ds = fa._recompute(q, k, v, bias, o, lse, do, causal, rate,
+                                seed, site)
+    pd_t = drop(p).transpose(-1, -2)
+    ds_t = ds.transpose(-1, -2)
+    dv = sum(torch.matmul(x.float(), do.float())
+             for x in fa.split_bf16x3(pd_t))
+    dk = sum(torch.matmul(x.float(), q.float())
+             for x in fa.split_bf16x3(ds_t)) * q.shape[-1] ** -0.5
+    return fa._dq_from(ds, q, k), dk, dv
+
+
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_three_piece_backward_matches_plain_and_jax(head_dim):
+    # bf16-valued inputs at S 64 (block 16, causal): the emulation of the
+    # tensor-core backward equals reference_flash_bwd within 1e-6 of each
+    # gradient's largest magnitude (float32 sums in another order; at D 32
+    # also one rounding a term, q * scale against a scale at the end), with
+    # dropout on too, and the JAX fused Pallas backward (interpret mode,
+    # rate 0) within TOL
+    q, k, v, do, mask = _inputs(head_dim=head_dim, seed=9)
+    q, k, v, do = _bf16_values(q, k, v, do)
+    bias = make_attention_bias(torch.from_numpy(mask))
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    for rate in (0.0, 0.1):
+        kw = dict(causal=True, rate=rate, seed=21, site=2)
+        o, lse = fa.reference_flash_fwd(*t[:3], bias, **kw)
+        want = fa.reference_flash_bwd(*t[:3], bias, o, lse, t[3], **kw)
+        got = _three_piece_bwd(*t[:3], bias, o, lse, t[3], **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            limit = 1e-6 * float(b.abs().max())
+            assert float((a - b).abs().max()) <= limit, (rate, name)
+    _, _, grads = _jax_base(q, k, v, mask, do, causal=True, block=16)
+    o, lse = fa.reference_flash_fwd(*t[:3], bias, causal=True)
+    got = _three_piece_bwd(*t[:3], bias, o, lse, t[3], causal=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, grads):
+        np.testing.assert_allclose(a.numpy(), b, rtol=TOL, atol=TOL,
+                                   err_msg=name)
+
+
+def test_delta_prepass_formula_matches_jax():
+    # kernel 9's pre-pass forms delta = rowsum(dO o) in float32 once, as the
+    # JAX _vjp_bwd does outside its kernel; the port's plain formula is
+    # JAX's on the same bf16 inputs (float32 sums in another order)
+    rng = np.random.default_rng(11)
+    o, do = (rng.normal(size=(2, 3, 40, 64)).astype(np.float32)
+             for _ in range(2))
+    o_t, do_t = (torch.from_numpy(a).to(torch.bfloat16) for a in (o, do))
+    jo, jdo = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (o, do))
+    want = jnp.sum(jdo.astype(jnp.float32) * jo.astype(jnp.float32),
+                   axis=-1)
+    got = fa._delta(o_t, do_t)[..., 0]
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
