@@ -15,7 +15,9 @@ the JAX package), in phases that each raise on failure:
    card (tolerances below; the dropout masks bit for bit), backward kernels
    through ``torch.autograd.grad``, and times kernel, plain version and the
    library yardstick at the main paths' shapes with CUDA-graph replay (the
-   flash kernels against ``F.scaled_dot_product_attention``; the
+   flash kernels against ``F.scaled_dot_product_attention``, at dropout
+   rates 0.1 and 0; the tensor-core kernels' masks bit for bit, and the
+   two-pass dk/dv kernel's gradients equal to the fused kernel's; the
    multi-query paged kernel at q_len 1-64 over lengths on and off page
    boundaries, timed at the verify and chunk shapes against SDPA on the
    gathered K/V; both paged kernels again on int8 pools with bf16 and
@@ -41,7 +43,9 @@ the JAX package), in phases that each raise on failure:
    per-step losses in a second seq-1024 run, and a third under
    ``torch.profiler``; then the seq-1024 run again with
    ``PDT_FLASH_TWO_PASS=1`` (the two-pass backward kernels counted, step
-   1's loss bit-identical to the fused run's, later steps within 1e-3);
+   1's loss bit-identical to the fused run's, later steps within 1e-3),
+   and once more under ``torch.profiler``; the seq-128 run also once more
+   under ``torch.profiler``;
 7. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
    (random weights from ``--seed 0``) over a JSONL request stream, with the
    kernels' launch counters reset just before and read just after; checks
@@ -201,9 +205,20 @@ FLASH_BLOCKWISE = (4, 16, 1024, 64)
 FLASH_WHOLE = (8, 16, 128, 64)
 # the tensor-core path at head_dim 32 (its scale is not a power of two)
 FLASH_BLOCKWISE_D32 = (4, 16, 1024, 32)
+# kernel 7 alone, (shape, q scale): head_dim 32 and 16, three and four
+# 64-key tiles (190, 256 keys, the larger shared memory), a length off
+# the 64-key tile (100) and off a multiple of 4
+# (190); the main shape with q x 16, whose scores spread past 62, so a
+# warp's p fall below 2^-90 and its divisions take the IEEE route
+FLASH_WHOLE_ALONE = (((8, 16, 128, 32), 1), ((4, 16, 256, 64), 1),
+                     ((4, 4, 100, 16), 1), ((3, 4, 190, 64), 1),
+                     (FLASH_WHOLE, 16))
 # the tensor-core kernels' masks bit for bit: (Sq, Sk) with Sk a multiple
 # of 4 (lanes share a Philox call) and not (each lane draws its own)
 FLASH_MASK_SHAPES = ((64, 64), (48, 36), (64, 62))
+# kernel 7's masks at Sq = Sk: one k-tile, a ragged one, two and four
+# k-tiles
+FLASH_WHOLE_MASK_LENGTHS = (64, 62, 128, 256)
 # bf16 outputs against the plain version's: 2 bf16 ulps of the element
 # plus 1e-3 of the tensor's largest magnitude (float32 sums in another
 # order; p rounded to bf16 against another running max)
@@ -1001,11 +1016,15 @@ _PORT_KERNELS = (
     ("paged_decode_kernel", "paged_attention"),
     ("paged_mq_kernel", "paged_attention_mq"),
     ("flash_fwd_mma_kernel<", "flash_fwd"),
+    ("flash_whole_fwd_mma_kernel<", "flash_whole_fwd"),
+    # the tensor-core backward template: kernel 9 with its dq work
+    # (<D, true>), kernel 11 without (<D, false>)
+    (r"flash_bwd_mma_kernel<\d+, false>", "flash_dkv"),
     ("flash_bwd_mma_kernel<", "flash_bwd"),
-    ("flash_delta_kernel<", "flash_bwd delta pre-pass"),
-    ("flash_fwd_kernel<", "flash_fwd (float32) / flash_whole_fwd"),
+    ("flash_delta_kernel<", "flash_bwd / flash_dkv delta pre-pass"),
+    ("flash_fwd_kernel<", "flash_fwd / flash_whole_fwd (float32)"),
     ("flash_bwd_kernel<",
-     "flash_bwd (float32) / flash_whole_bwd / flash_dkv"),
+     "flash_bwd / flash_dkv (float32) / flash_whole_bwd"),
     ("flash_dq_sum_kernel", "flash_bwd / flash_whole_bwd dq sum"),
     ("flash_dq_kernel<", "flash_dq"),
 )
@@ -1013,7 +1032,7 @@ _PORT_KERNELS = (
 
 def _kernel_class(name: str) -> str:
     for symbol, kernel in _PORT_KERNELS:
-        if symbol in name:
+        if re.search(symbol, name):
             if symbol.startswith("paged") and "signed char" in name:
                 kernel += "_int8"   # the int8-pool instantiation
             return f"{kernel} (port kernel)"
@@ -1490,11 +1509,13 @@ def train_phase(argv=TRAIN_ARGS) -> dict:
 
 
 def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
-                        tag="train-profile") -> dict:
-    """Device kernel time of the 3 steps and the eval under
+                        tag="train-profile", env=None) -> dict:
+    """Device kernel time of the steps and the eval under
     ``torch.profiler``, by kernel class (the trainer is built first, so
     the weight copy to the card is outside the window), and its share of
-    the warm run's step and eval seconds."""
+    the warm run's step and eval seconds (``warm`` None: of the profiled
+    wall, which the profiler's host cost inflates); ``env`` is set in the
+    environment around the run."""
     import importlib
 
     from torch.profiler import ProfilerActivity, profile
@@ -1502,14 +1523,25 @@ def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
     module = importlib.import_module(
         f"pytorch_distributed_training_tpu_torch.cli.{cli}")
     trainer = module.build_trainer(module.build_parser().parse_args(argv))
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.run()
-    wall = time.perf_counter() - t0
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.run()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     del trainer
-    res = dict(device_time_by_class(prof, warm["train_s"] + warm["eval_s"]),
-               profiled_wall_s=wall, host=host_time_by_op(prof))
+    base = "warm run's steps + eval" if warm else "profiled wall"
+    res = dict(device_time_by_class(
+        prof, warm["train_s"] + warm["eval_s"] if warm else wall),
+        busy_share_of=base, profiled_wall_s=wall, host=host_time_by_op(prof))
     say(f"[{tag}] " + json.dumps(res))
     return res
 
@@ -1698,14 +1730,44 @@ def flash_kernel_parity(device, shape, rate, seed) -> float:
     return worst
 
 
-def flash_mask_parity(device, shapes=FLASH_MASK_SHAPES, rate=DROPOUT_RATE,
-                      seed=5, site=3) -> None:
-    """The tensor-core kernels 6 and 9 draw the plain version's mask bit for
-    bit: q = 0 (every visible key weighs the same) and v (forward) or dO
-    (backward) one-hot along head_dim, so o[b, n, i, j] and dv[b, n, j, i]
-    are nonzero exactly where element (i, j) of the probs is kept.
-    Non-causal, [2, 3, Sq, 64] bf16, the bf16 tolerance cannot hide a
-    flipped bit here."""
+def flash_whole_kernel_parity(device, shapes=FLASH_WHOLE_ALONE,
+                              rate=DROPOUT_RATE, seed=13) -> float:
+    """Kernel 7 alone against its plain version (bf16, causal and not,
+    key-padding bias) where the chain's shape does not take it: head_dim
+    32 and 16, three and four k-tiles, lengths off the 64-key tile
+    and off a multiple of 4 (each lane draws its own mask bits), and
+    scores wide enough for the exact divisions."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    worst = 0.0
+    for i, (shape, q_scale) in enumerate(shapes):
+        (q, k, v, _), bias = flash_inputs(device, shape, torch.bfloat16,
+                                          seed=seed + i)
+        q = q * q_scale
+        for causal in (True, False):
+            kw = dict(causal=causal, rate=rate, seed=seed + i, site=2)
+            worst = max(worst, check_flash_close(
+                f"flash_whole_fwd {list(shape)} q x {q_scale} causal "
+                f"{causal} rate {rate}",
+                fa.flash_whole_fwd(q, k, v, bias, **kw),
+                fa.reference_whole_fwd(q, k, v, bias, **kw)))
+    return worst
+
+
+def flash_mask_parity(device, shapes=FLASH_MASK_SHAPES,
+                      whole_lengths=FLASH_WHOLE_MASK_LENGTHS,
+                      rate=DROPOUT_RATE, seed=5, site=3) -> None:
+    """The tensor-core kernels 6, 7, 9 and 11 draw the plain version's mask
+    bit for bit: q = 0 (every visible key weighs the same) and v (forward)
+    or dO (backward) one-hot along head_dim, so o[b, n, i, j] and dv[b, n,
+    j, i] are nonzero exactly where element (i, j) of the probs is kept.
+    Kernel 7 (Sq = Sk, keys past head_dim too) takes v one-hot over one
+    window of 64 keys at a time, the others zero. Non-causal, [2, 3, Sq, 64]
+    bf16, the bf16 tolerance cannot hide a flipped bit here."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.ops import (
@@ -1715,6 +1777,15 @@ def flash_mask_parity(device, shapes=FLASH_MASK_SHAPES, rate=DROPOUT_RATE,
     b, n, d = 2, 3, 64
     eye = torch.eye(d, device=device, dtype=torch.bfloat16)
     g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(causal=False, rate=rate, seed=seed, site=site)
+
+    def check(what, got, want, sq, sk):
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{what} [{b}, {n}, {sq}, {sk}] rate {rate}: "
+                f"{int((got != want).sum())} mask elements differ from the "
+                f"plain version's")
+
     for sq, sk in shapes:
         q = torch.zeros(b, n, sq, d, device=device, dtype=torch.bfloat16)
         k = torch.randn(b, n, sk, d, generator=g, device=device).to(
@@ -1722,20 +1793,29 @@ def flash_mask_parity(device, shapes=FLASH_MASK_SHAPES, rate=DROPOUT_RATE,
         v = eye[:sk].expand(b, n, sk, d).contiguous()
         do = eye[:sq].expand(b, n, sq, d).contiguous()
         bias = torch.zeros(b, 1, 1, sk, device=device)
-        kw = dict(causal=False, rate=rate, seed=seed, site=site)
         keep = fa.probs_keep((b, n, sq, sk), rate, seed, site, device)
         o, lse = fa.flash_fwd(q, k, v, bias, **kw)
         _, _, dv = fa.flash_bwd(q, k, v, bias, o, lse, do, **kw)
-        for what, got, want in (
-                ("flash_fwd o", o[..., :sk] != 0, keep),
-                ("flash_bwd dv", dv[..., :sq] != 0, keep.transpose(-1, -2))):
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"{what} [{b}, {n}, {sq}, {sk}] rate {rate}: "
-                    f"{int((got != want).sum())} mask elements differ "
-                    f"from the plain version's")
-    say(f"[kernels] flash_fwd/flash_bwd bf16 masks bit for bit: (Sq, Sk) "
-        f"{list(shapes)}, rate {rate}")
+        _, dv11 = fa.flash_dkv(q, k, v, bias, o, lse, do, **kw)
+        check("flash_fwd o", o[..., :sk] != 0, keep, sq, sk)
+        for what, grad in (("flash_bwd dv", dv), ("flash_dkv dv", dv11)):
+            check(what, grad[..., :sq] != 0, keep.transpose(-1, -2), sq, sk)
+    for s in whole_lengths:
+        q = torch.zeros(b, n, s, d, device=device, dtype=torch.bfloat16)
+        k = torch.randn(b, n, s, d, generator=g, device=device).to(
+            torch.bfloat16)
+        bias = torch.zeros(b, 1, 1, s, device=device)
+        keep = fa.probs_keep((b, n, s, s), rate, seed, site, device)
+        for k0 in range(0, s, d):
+            width = min(d, s - k0)
+            v = torch.zeros(b, n, s, d, device=device, dtype=torch.bfloat16)
+            v[:, :, k0:k0 + width] = eye[:width]
+            o = fa.flash_whole_fwd(q, k, v, bias, **kw)
+            check(f"flash_whole_fwd o (keys {k0}..{k0 + width - 1})",
+                  o[..., :width] != 0, keep[..., k0:k0 + width], s, s)
+    say(f"[kernels] flash_fwd/flash_bwd/flash_dkv bf16 masks bit for bit: "
+        f"(Sq, Sk) {list(shapes)}; flash_whole_fwd at Sq = Sk in "
+        f"{list(whole_lengths)}; rate {rate}")
 
 
 def kernel_ms_by_symbol(fn, reps=20) -> dict:
@@ -1781,7 +1861,7 @@ def flash_bounds(shape, whole, esize=2):
 def flash_phase(device) -> dict:
     """Kernels 6-9: each pair bf16 at rates 0 and 0.1 and float32 at 0.1
     against its plain version, then kernel, plain and SDPA times at the
-    main paths' shapes."""
+    main paths' shapes, the forwards also at rate 0."""
     import torch
     import torch.nn.functional as F
 
@@ -1796,7 +1876,6 @@ def flash_phase(device) -> dict:
         worst = max(flash_pair_parity(device, shape, whole, torch.bfloat16,
                                       rate, 10 + i)
                     for i, rate in enumerate((0.0, DROPOUT_RATE)))
-        extra = ""
         if not whole:
             # the tensor-core path also at head_dim 32, and its masks
             worst = max(worst, flash_kernel_parity(
@@ -1805,6 +1884,12 @@ def flash_phase(device) -> dict:
             extra = (f" (and {list(FLASH_BLOCKWISE_D32)} at rate "
                      f"{DROPOUT_RATE}, each kernel on the plain version's "
                      f"inputs)")
+        else:
+            worst = max(worst, flash_whole_kernel_parity(device))
+            extra = (f" (and flash_whole_fwd alone at "
+                     f"{[list(x) for x, _ in FLASH_WHOLE_ALONE]}, the "
+                     f"last with q x 16, causal and not, rate "
+                     f"{DROPOUT_RATE})")
         worst32 = flash_pair_parity(device, shape, whole, torch.float32,
                                     DROPOUT_RATE, 20, uniform=True)
         say(f"[kernels] {names[0]}/{names[1]} parity ok: {list(shape)} "
@@ -1853,10 +1938,14 @@ def flash_phase(device) -> dict:
         t_bwd = dict(ms=time_ms(bwd), plain_ms=time_ms(pbwd, **plain_kw),
                      library_ms=time_ms(sdpa_bwd), bound_ms=bb, bound_by=bby,
                      sdpa_fwd_bwd_eager_ms=eager_ms(sdpa_train))
-        if not whole:
-            # rate 0, like SDPA; the backward's kernels one by one (the
-            # delta pre-pass, the main kernel, the dq sum)
-            kw0 = dict(kw, rate=0.0)
+        # rate 0, like SDPA
+        kw0 = dict(kw, rate=0.0)
+        if whole:
+            t_fwd["rate0_ms"] = time_ms(
+                lambda: fa.flash_whole_fwd(q, k, v, bias, **kw0))
+        else:
+            # and the backward's kernels one by one (the delta pre-pass,
+            # the main kernel, the dq sum)
             o0, lse0 = fa.flash_fwd(q, k, v, bias, **kw0)
             t_fwd["rate0_ms"] = time_ms(
                 lambda: fa.flash_fwd(q, k, v, bias, **kw0))
@@ -1885,8 +1974,11 @@ def flash_phase(device) -> dict:
 def two_pass_phase(device, shape=FLASH_BLOCKWISE) -> dict:
     """Kernels 10 and 11 against their plain versions and against the
     fused kernel 9's gradients on the same inputs (o and lse from the plain
-    forward): bf16 at rates 0 and 0.1, float32 at 0.1 with uniform probs;
-    then kernel, plain and SDPA-backward times."""
+    forward): bf16 at rates 0 and 0.1 (and at head_dim 32), float32 at 0.1
+    with uniform probs; in bf16, kernel 11's dk and dv equal kernel 9's bit
+    for bit (the same sums in the same order: kernel 9 with its dq work
+    compiled out); then kernel, plain and SDPA-backward times at rates 0.1
+    and 0, and kernel 11's pre-pass and main kernel one by one."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.ops import (
@@ -1894,11 +1986,13 @@ def two_pass_phase(device, shape=FLASH_BLOCKWISE) -> dict:
     )
 
     worst = {"flash_dq": 0.0, "flash_dkv": 0.0}
-    cases = [(torch.bfloat16, 0.0, 40, False),
-             (torch.bfloat16, DROPOUT_RATE, 41, False),
-             (torch.float32, DROPOUT_RATE, 42, True)]
-    for dtype, rate, seed, uniform in cases:
-        (q, k, v, do), bias = flash_inputs(device, shape, dtype, seed=seed,
+    d32 = FLASH_BLOCKWISE_D32
+    cases = [(shape, torch.bfloat16, 0.0, 40, False),
+             (shape, torch.bfloat16, DROPOUT_RATE, 41, False),
+             (d32, torch.bfloat16, DROPOUT_RATE, 43, False),
+             (shape, torch.float32, DROPOUT_RATE, 42, True)]
+    for shp, dtype, rate, seed, uniform in cases:
+        (q, k, v, do), bias = flash_inputs(device, shp, dtype, seed=seed,
                                            uniform=uniform)
         kw = dict(causal=True, rate=rate, seed=seed, site=2)
         o, lse = fa.reference_flash_fwd(q, k, v, bias, **kw)
@@ -1917,22 +2011,32 @@ def two_pass_phase(device, shape=FLASH_BLOCKWISE) -> dict:
                 scale = 1.0 if tol is None else max(1.0,
                                                     float(b.abs().max()))
                 lim = None if tol is None else tol * scale
-                what = f"{name} {list(shape)} {dtype} rate {rate} {grad}"
+                what = f"{name} {list(shp)} {dtype} rate {rate} {grad}"
                 worst[name] = max(
                     worst[name], check_flash_close(what, a, b, tol=lim),
                     check_flash_close(what + " vs flash_bwd", a, c, tol=lim))
+                if (name == "flash_dkv" and dtype == torch.bfloat16
+                        and not torch.equal(a, c)):
+                    raise AssertionError(
+                        f"{what}: {int((a != c).sum())} elements differ "
+                        f"from flash_bwd's (want bit for bit)")
     say(f"[kernels] flash_dq/flash_dkv parity ok: {list(shape)} causal, "
-        f"ragged + fully masked rows; bf16 at rates 0 and {DROPOUT_RATE}, "
-        f"float32 at {DROPOUT_RATE} with uniform probs; against the plain "
-        f"halves and the fused flash_bwd: max err {json.dumps(worst)} (bf16 "
-        f"<= {FLASH_BF16_ULPS} ulps + {FLASH_BF16_SLACK} x max|want|, float32 "
-        f"<= {FLASH_FP32_TOL} x max(1, max|want|))")
+        f"ragged + fully masked rows; bf16 at rates 0 and {DROPOUT_RATE} "
+        f"(and {list(d32)} at {DROPOUT_RATE}), float32 at {DROPOUT_RATE} "
+        f"with uniform probs; against the plain halves and the fused "
+        f"flash_bwd: max err {json.dumps(worst)} (bf16 <= {FLASH_BF16_ULPS} "
+        f"ulps + {FLASH_BF16_SLACK} x max|want|, float32 <= "
+        f"{FLASH_FP32_TOL} x max(1, max|want|)); bf16 flash_dkv dk, dv "
+        f"equal to flash_bwd's bit for bit")
 
     (q, k, v, do), bias = flash_inputs(device, shape, torch.bfloat16,
                                        seed=30)
     kw = dict(causal=True, rate=DROPOUT_RATE, seed=30, site=2)
+    kw0 = dict(kw, rate=0.0)
     o, lse = fa.flash_fwd(q, k, v, bias, **kw)
+    o0, lse0 = fa.flash_fwd(q, k, v, bias, **kw0)
     args = (q, k, v, bias, o, lse, do)
+    args0 = (q, k, v, bias, o0, lse0, do)
     qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
     lib = torch.ops.aten._scaled_dot_product_flash_attention(
         qc, kc, vc, 0.0, True)
@@ -1954,13 +2058,20 @@ def two_pass_phase(device, shape=FLASH_BLOCKWISE) -> dict:
     res = {}
     for name, (kern, ref) in fns.items():
         t = dict(ms=time_ms(lambda: kern(*args, **kw)),
+                 rate0_ms=time_ms(lambda: kern(*args0, **kw0)),
                  plain_ms=time_ms(lambda: ref(*args, **kw), **plain_kw),
                  library_ms=time_ms(sdpa_bwd))
         t["bound_ms"], t["bound_by"] = bounds[name]
+        if name == "flash_dkv":
+            # the delta pre-pass and the main kernel
+            t["kernel_ms"] = kernel_ms_by_symbol(lambda: kern(*args, **kw))
+            t["rate0_kernel_ms"] = kernel_ms_by_symbol(
+                lambda: kern(*args0, **kw0))
         say(f"[kernels] {name} {list(shape)} bf16 causal rate {DROPOUT_RATE}: "
-            + json.dumps(t) + " (library: the whole SDPA flash backward)")
+            + json.dumps(t) + " (library: the whole SDPA flash backward, "
+              "rate 0, no bias)")
         res[name] = dict(max_abs_err=worst[name], **t)
-    del q, k, v, do, o, lib
+    del q, k, v, do, o, o0, lib
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2165,8 +2276,13 @@ def main() -> int:
                         tag="lm-1024-profile")
     lap("lm-1024-profile")
     two_pass = two_pass_lm_phase(lm)
+    train_profile_phase(None, LM_1024_ARGS, "train_lm",
+                        tag="lm-1024-two-pass-profile",
+                        env={"PDT_FLASH_TWO_PASS": "1"})
     lap("lm-1024-two-pass")
     lm_short = lm_phase(LM_128_ARGS, steps=1, rerun=False, tag="lm-128")
+    train_profile_phase(None, LM_128_ARGS, "train_lm",
+                        tag="lm-128-profile")
     cpu_vs_card_phase(TINY_LM_ARGS, "train_lm")
     lap("lm-128 + cpu-vs-card")
     serve = serve_phase()

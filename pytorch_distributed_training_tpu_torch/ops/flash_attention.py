@@ -14,7 +14,8 @@ version here:
   / ``_dkv_kernel``), taken by the blockwise route when
   ``PDT_FLASH_TWO_PASS=1`` (read at each call): dq from a pass over the
   k-tiles each q-tile sees, dk and dv from a pass over the q-tiles each
-  k-tile is seen by; each forms delta itself. Their plain versions are the
+  k-tile is seen by; delta is formed in the kernel, or by a pre-pass
+  (``flash_dkv`` on bfloat16). Their plain versions are the
   fused plain backward's two halves, so the plain two-pass equals the
   plain fused backward;
 - ``flash_whole_fwd`` / ``flash_whole_bwd``: the whole-sequence pair (TPU
@@ -47,17 +48,34 @@ adapter ``flash_attention`` ([B, S, N, D]) keeps the JAX adapter's
 dispatch: ``pick_block`` with a cap of 512, and the plain
 ``reference_attention`` when the bias is not [B, 1, 1, S], a length does
 not divide its block, or ``head_dim > 256``. The kernels take head_dim 16,
-32 and 64 in float32 or bfloat16; another shape on a CUDA tensor raises.
+32 and 64 in float32 or bfloat16, and the bfloat16 whole-sequence forward
+at most 256 keys (``_WHOLE_SEQ_MAX``, the route's ceiling); another shape
+on a CUDA tensor raises.
 The whole-sequence route keeps its own backward in both modes, as the JAX
 ``_vjp_bwd`` does.
 
-Entry points: ``flash_fwd`` and ``flash_bwd`` take the tensor-core
-kernels (``pdt_flash_fwd_mma``, ``pdt_flash_bwd_mma``: bf16 ``mma.sync``,
-``cp.async``, dv and dk as three bf16-piece products, see
-``split_bf16x3``) for bfloat16 inputs, which covers every head_dim the
-kernels take, and the float32 FMA kernels (``pdt_flash_fwd``,
-``pdt_flash_bwd``) for float32 inputs. The other four kernels have one
-entry point each.
+Entry points: ``flash_fwd``, ``flash_bwd``, ``flash_dkv`` and
+``flash_whole_fwd`` take the tensor-core kernels for bfloat16 inputs,
+which covers every head_dim the kernels take, and the float32 FMA kernels
+(``pdt_flash_fwd``, ``pdt_flash_bwd``, ``pdt_flash_dkv``,
+``pdt_flash_whole_fwd``) for float32 inputs. The tensor-core kernels run
+bf16 ``mma.sync`` with float32 accumulators on tiles that ``cp.async``
+brings into shared memory:
+
+- ``pdt_flash_fwd_mma`` (kernel 6) and ``pdt_flash_bwd_mma`` (kernel 9,
+  with a delta pre-pass and the dq sum): dv and dk as three bf16-piece
+  products (``split_bf16x3``); at seq 1024 kernel 6 is bound by bytes,
+  kernel 9 by operations;
+- ``pdt_flash_dkv_mma`` (kernel 11): kernel 9's pre-pass and main kernel
+  with the dq work compiled out, so its dk and dv are kernel 9's sums in
+  kernel 9's order; bytes and operations (8 D a visible pair) about even
+  at seq 1024;
+- ``pdt_flash_whole_fwd_mma`` (kernel 7, Sk <= 256): the row's K and V
+  stay in shared memory; a warp walks the tiles twice, the row's max and
+  sum online, then the normalised p and P V; bound by bytes at seq 128.
+
+``flash_dq`` and ``flash_whole_bwd`` keep one FMA entry point each, for
+both dtypes.
 
 Each wrapper runs its plain version on a CPU tensor and its kernel (built
 at first use) on a CUDA tensor, or raises.
@@ -252,6 +270,8 @@ _ENTRY_POINTERS = {
                                # stream
     "pdt_flash_dq": 5,         # o, do, lse, dq, stream
     "pdt_flash_dkv": 6,        # o, do, lse, dk, dv, stream
+    "pdt_flash_dkv_mma": 7,    # o, do, lse, delta, dk, dv, stream
+    "pdt_flash_whole_fwd_mma": 2,  # o, stream
     "pdt_flash_whole_bwd": 7,  # o, do, dq, dk, dv, dq_part, stream
 }
 
@@ -393,6 +413,12 @@ def _bwd_inputs(name, q, k, v, bias, o, lse, do, kw):
     return q, k, v, o, do, lse, args
 
 
+def _delta_scratch(q):
+    """float32 [B, N, Sq] that the tensor-core backwards' pre-pass fills
+    with delta = rowsum(dO o)."""
+    return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+
+
 def flash_bwd(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
               seed: int = 0, site: int = 0):
     """Fused blockwise backward: (dq, dk, dv); on a CUDA device the
@@ -407,10 +433,9 @@ def flash_bwd(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
     grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              _dq_scratch(q, k).data_ptr())
     if q.dtype == torch.bfloat16:
-        delta = torch.empty(q.shape[:3], dtype=torch.float32,
-                            device=q.device)
         _launch("flash_bwd", "pdt_flash_bwd_mma", q, args, o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *grads)
+                do.data_ptr(), lse.data_ptr(), _delta_scratch(q).data_ptr(),
+                *grads)
     else:
         _launch("flash_bwd", "pdt_flash_bwd", q, args, o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), *grads)
@@ -433,27 +458,44 @@ def flash_dq(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
 
 def flash_dkv(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
               seed: int = 0, site: int = 0):
-    """Two-pass blockwise backward, second pass: (dk, dv)."""
+    """Two-pass blockwise backward, second pass: (dk, dv); on a CUDA
+    device the tensor-core kernel (with its delta pre-pass) for bfloat16,
+    the FMA one for float32."""
     kw = dict(causal=causal, rate=rate, seed=seed, site=site)
     if _on_cpu("flash_dkv", q, k, v, bias, rate):
         return reference_flash_dkv(q, k, v, bias, o, lse, do, **kw)
     q, k, v, o, do, lse, args = _bwd_inputs("flash_dkv", q, k, v, bias, o,
                                             lse, do, kw)
     dk, dv = _empty_like(k), _empty_like(k)
-    _launch("flash_dkv", "pdt_flash_dkv", q, args, o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    grads = (dk.data_ptr(), dv.data_ptr())
+    if q.dtype == torch.bfloat16:
+        _launch("flash_dkv", "pdt_flash_dkv_mma", q, args, o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), _delta_scratch(q).data_ptr(),
+                *grads)
+    else:
+        _launch("flash_dkv", "pdt_flash_dkv", q, args, o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), *grads)
     return dk, dv
 
 
 def flash_whole_fwd(q, k, v, bias, *, causal: bool, rate: float = 0.0,
                     seed: int = 0, site: int = 0):
-    """Whole-sequence forward: o."""
+    """Whole-sequence forward: o; on a CUDA device the tensor-core kernel
+    for bfloat16 (up to ``_WHOLE_SEQ_MAX`` keys, the route's ceiling), the
+    FMA one for float32."""
     kw = dict(causal=causal, rate=rate, seed=seed, site=site)
     if _on_cpu("flash_whole_fwd", q, k, v, bias, rate):
         return reference_whole_fwd(q, k, v, bias, **kw)
     q, k, v, args = _cuda_common("flash_whole_fwd", q, k, v, bias, **kw)
+    entry = "pdt_flash_whole_fwd"
+    if q.dtype == torch.bfloat16:
+        if k.shape[2] > _WHOLE_SEQ_MAX:
+            raise ValueError(f"flash_whole_fwd kernel takes at most "
+                             f"{_WHOLE_SEQ_MAX} keys in bfloat16, got "
+                             f"{k.shape[2]}")
+        entry = "pdt_flash_whole_fwd_mma"
     o = _empty_like(q)
-    _launch("flash_whole_fwd", "pdt_flash_whole_fwd", q, args, o.data_ptr())
+    _launch("flash_whole_fwd", entry, q, args, o.data_ptr())
     return o
 
 

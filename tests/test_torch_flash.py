@@ -5,6 +5,8 @@ numpy inputs. In interpret mode the TPU PRNG's bits are all zero, so the
 parity with JAX is at dropout rate 0; at rate 0.1 the port's flash is held
 to the port's own plain attention, which draws the same Philox mask."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -312,16 +314,13 @@ def test_split_bf16x3_rebuilds_float32_exactly(what):
 def _three_piece_bwd(q, k, v, bias, o, lse, do, *, causal, rate=0.0,
                      seed=0, site=0):
     """The plain backward with dv and dk as the float32 sums of the three
-    bf16-piece products, dk = (dS^T q) * scale as the kernel forms it."""
-    p, drop, ds = fa._recompute(q, k, v, bias, o, lse, do, causal, rate,
-                                seed, site)
-    pd_t = drop(p).transpose(-1, -2)
-    ds_t = ds.transpose(-1, -2)
-    dv = sum(torch.matmul(x.float(), do.float())
-             for x in fa.split_bf16x3(pd_t))
-    dk = sum(torch.matmul(x.float(), q.float())
-             for x in fa.split_bf16x3(ds_t)) * q.shape[-1] ** -0.5
-    return fa._dq_from(ds, q, k), dk, dv
+    bf16-piece products, dk = (dS^T q) * scale as the kernel forms it:
+    kernel 11's dk and dv (``_kernel11_dkv``) and the plain dq."""
+    _, _, ds = fa._recompute(q, k, v, bias, o, lse, do, causal, rate, seed,
+                             site)
+    return (fa._dq_from(ds, q, k),
+            *_kernel11_dkv(q, k, v, bias, o, lse, do, causal=causal,
+                           rate=rate, seed=seed, site=site))
 
 
 @pytest.mark.parametrize("head_dim", [32, 64])
@@ -367,3 +366,196 @@ def test_delta_prepass_formula_matches_jax():
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
+
+
+# ----------------------------- the tensor-core kernels 11 and 7's math
+
+
+def _kernel11_dkv(q, k, v, bias, o, lse, do, *, causal, rate=0.0, seed=0,
+                  site=0):
+    """Kernel 11's arithmetic: delta = rowsum(dO o) in float32 as its
+    pre-pass forms it, p = exp(s - lse), dv = p_drop^T dO and dk = (dS^T
+    q) * scale (raw q, scaled once) each the float32 sum of three
+    bf16-piece products; no dq."""
+    scale = q.shape[-1] ** -0.5
+    s = fa._scores(q, k, bias, causal)
+    p = torch.exp(s - lse[..., None])
+    drop = fa._dropper(s.shape, rate, seed, site, q.device)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    ds = p * (drop(torch.matmul(do.float(), v.float().transpose(-1, -2)))
+              - delta)
+    dv = sum(torch.matmul(x.float(), do.float())
+             for x in fa.split_bf16x3(drop(p).transpose(-1, -2)))
+    dk = sum(torch.matmul(x.float(), q.float())
+             for x in fa.split_bf16x3(ds.transpose(-1, -2))) * scale
+    return dk, dv
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_kernel11_dkv_emulation_matches_plain(head_dim, rate):
+    # (a) bf16-valued inputs at S 64 (causal, a padded key tail): the
+    # emulation of the tensor-core dk/dv pass equals reference_flash_dkv
+    # within 1e-6 of each gradient's largest magnitude (float32 sums in
+    # another order; at D 32 also one rounding a term, q * scale against
+    # a scale at the end)
+    q, k, v, do, mask = _inputs(head_dim=head_dim, seed=9)
+    t = [torch.from_numpy(a) for a in _bf16_values(q, k, v, do)]
+    bias = make_attention_bias(torch.from_numpy(mask))
+    kw = dict(causal=True, rate=rate, seed=21, site=2)
+    o, lse = fa.reference_flash_fwd(*t[:3], bias, **kw)
+    got = _kernel11_dkv(*t[:3], bias, o, lse, t[3], **kw)
+    want = fa.reference_flash_dkv(*t[:3], bias, o, lse, t[3], **kw)
+    for name, a, b in zip(("dk", "dv"), got, want):
+        limit = 1e-6 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= limit, name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel11_dkv_emulation_matches_jax_two_pass(causal, monkeypatch):
+    # (a) the same emulation against the JAX two-pass backward (FUSED_BWD
+    # False: the Pallas _dkv_kernel in interpret mode), rate 0, block 16
+    # at S 64, on bf16-valued inputs
+    monkeypatch.setattr(jax_fa, "FUSED_BWD", False)
+    q, k, v, do, mask = _inputs(head_dim=64, seed=6)
+    q, k, v, do = _bf16_values(q, k, v, do)
+    _, _, (_, jdk, jdv) = _jax_base(q, k, v, mask, do, causal=causal,
+                                    block=16)
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    bias = make_attention_bias(torch.from_numpy(mask))
+    o, lse = fa.reference_flash_fwd(*t[:3], bias, causal=causal)
+    dk, dv = _kernel11_dkv(*t[:3], bias, o, lse, t[3], causal=causal)
+    np.testing.assert_allclose(dk.numpy(), jdk, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(dv.numpy(), jdv, rtol=TOL, atol=TOL)
+
+
+def _kernel7_fwd(q, k, v, bias, *, causal, rate=0.0, seed=0, site=0):
+    """Kernel 7's arithmetic: the first walk's online row max (from -1e30)
+    and sum over 64-key tiles, each lane t of a quad summing its columns
+    2t and 2t + 1 of each group of 8 keys, rescaled to the running max,
+    the quad adding its four parts by two xor shuffles at the end; then
+    p = exp(s - m) / l (normalised before dropout, as JAX _mh_softmax),
+    dropped, rounded to v's dtype, P V in float32."""
+    s = fa._scores(q, k, bias, causal)
+    m = torch.full((*s.shape[:-1], 1), fa._NEG_INF)
+    lane = torch.zeros(*s.shape[:-1], 4, dtype=torch.float32)
+    for k0 in range(0, s.shape[-1], 64):
+        tile = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
+        part = torch.exp(tile - m_new).reshape(
+            *tile.shape[:-1], 8, 4, 2).sum(dim=(-3, -1))
+        lane = lane * torch.exp(m - m_new) + part
+        m = m_new
+    l = ((lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3]))
+    p = torch.exp(s - m) / l[..., None].clamp_min(fa._L_FLOOR)
+    pd = fa._dropper(p.shape, rate, seed, site, q.device)(p)
+    return torch.matmul(pd.to(v.dtype).float(), v.float())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [128, 256])
+def test_kernel7_emulation_matches_plain_and_jax(seq, causal):
+    # (b) [2, 2, S, 64], a padded key tail on row 1: the emulation of the
+    # tensor-core whole-sequence forward (two walks over 64-key tiles)
+    # equals reference_whole_fwd within 1e-6 of max|o| (float32 sums
+    # in another order), with dropout on too, and the JAX whole-sequence
+    # Pallas forward (interpret mode, rate 0) within TOL
+    q, k, v, _, mask = _inputs(seq=seq, head_dim=64, seed=12,
+                               lens=(seq, seq * 2 // 3))
+    bias = make_attention_bias(torch.from_numpy(mask))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    for rate in (0.0, 0.1):
+        kw = dict(causal=causal, rate=rate, seed=31, site=2)
+        got = _kernel7_fwd(*t, bias, **kw)
+        want = fa.reference_whole_fwd(*t, bias, **kw)
+        limit = 1e-6 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= limit, rate
+    with jax_fa.tpu_interpret_mode():
+        jo = jax_fa._flash_fwd_whole_seq(
+            *(jnp.asarray(a) for a in (q, k, v)), jax_bias(jnp.asarray(mask)),
+            jnp.zeros((1,), jnp.int32), 0.0, causal)
+    got = _kernel7_fwd(*t, bias, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jo), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [128, 256])
+def test_kernel7_emulation_bf16_rounds_the_normalised_p(seq, causal):
+    # (b) bf16 q, k and v, so the emulation rounds the normalised, dropped
+    # p to bf16 before P V, as reference_whole_fwd does. Their bf16 o
+    # agree but in at most 1e-3 of the elements, each within one bf16 ulp
+    # (2^-7 max(|got|, |want|)) + 1e-3 max|want|: a float32 order of l's
+    # sum can move a p across a bf16 rounding boundary. The
+    # blockwise kernel's order, round(exp(s - m)) V / l, misses in more
+    # than a tenth of them, so the check tells the two orders apart.
+    q, k, v, _, mask = _inputs(seq=seq, head_dim=64, seed=12,
+                               lens=(seq, seq * 2 // 3))
+    bias = make_attention_bias(torch.from_numpy(mask))
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    for rate in (0.0, 0.1):
+        kw = dict(causal=causal, rate=rate, seed=31, site=2)
+        want = fa.reference_whole_fwd(*t, bias, **kw).float()
+        got = _kernel7_fwd(*t, bias, **kw).to(torch.bfloat16).float()
+        diff = (got - want).abs()
+        assert float((diff > 0).float().mean()) <= 1e-3, rate
+        limit = (2.0 ** -7 * torch.maximum(got.abs(), want.abs())
+                 + 1e-3 * float(want.abs().max()))
+        assert bool((diff <= limit).all()), rate
+        s = fa._scores(*t[:2], bias, causal)
+        e = torch.exp(s - s.amax(-1, keepdim=True).clamp_min(fa._NEG_INF))
+        ed = fa._dropper(e.shape, rate, 31, 2, e.device)(e)
+        blockwise = (torch.matmul(ed.to(torch.bfloat16).float(), t[2].float())
+                     / e.sum(-1, keepdim=True)).to(torch.bfloat16).float()
+        assert float((blockwise != want).float().mean()) > 0.1, rate
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_dkv",
+                                  "flash_whole_fwd"])
+def test_bf16_calls_take_the_tensor_core_entry_points(name, monkeypatch):
+    # (c) a CUDA-typed call (the device test patched to say "not the
+    # CPU", _launch recording instead of launching): bf16 takes the *_mma
+    # entry point, float32 the FMA one, each with the pointer count that
+    # _ENTRY_POINTERS registers (the stream last)
+    launched = []
+
+    def record(kernel_name, entry, anchor, args, *pointers):
+        assert len(args) == len(fa._COMMON_ARGTYPES)
+        assert len(pointers) + 1 == fa._ENTRY_POINTERS[entry], entry
+        launched.append((kernel_name, entry))
+
+    def not_cpu(fn_name, q, k, v, bias, rate):
+        fa._check(fn_name, q, k, v, bias)
+        return False
+
+    monkeypatch.setattr(fa, "_launch", record)
+    monkeypatch.setattr(fa, "_on_cpu", not_cpu)
+    q, k, v, do, mask = _inputs(seq=64, head_dim=32)
+    bias = make_attention_bias(torch.from_numpy(mask))
+    lse = torch.zeros(2, 2, 64)
+    for dtype, entry in ((torch.bfloat16, f"pdt_{name}_mma"),
+                         (torch.float32, f"pdt_{name}")):
+        t = [torch.from_numpy(a).to(dtype) for a in (q, k, v, do)]
+        extra = () if "fwd" in name else (t[0], lse, t[3])
+        launched.clear()
+        getattr(fa, name)(*t[:3], bias, *extra, causal=True)
+        assert launched == [(name, entry)]
+    if name == "flash_whole_fwd":
+        # past the route's ceiling of 256 keys the bf16 kernel raises
+        x = torch.zeros(1, 1, 320, 32, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="at most 256 keys"):
+            fa.flash_whole_fwd(x, x, x, torch.zeros(1, 1, 1, 320),
+                               causal=False)
+
+
+def test_entry_pointer_counts_match_the_cuda_source():
+    # (c) every extern "C" entry point of csrc/flash_attention.cu takes,
+    # after the common arguments, the pointers _ENTRY_POINTERS counts
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    entries = re.findall(
+        r'extern "C" int (\w+)\(PDT_FLASH_COMMON_ARGS,([^)]*)\)', src)
+    assert {e for e, _ in entries} == set(fa._ENTRY_POINTERS)
+    for entry, rest in entries:
+        assert rest.count(",") + 1 == fa._ENTRY_POINTERS[entry], entry
