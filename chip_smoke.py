@@ -16,8 +16,10 @@ the JAX package), in phases that each raise on failure:
    through ``torch.autograd.grad``, and times kernel, plain version and the
    library yardstick at the main paths' shapes with CUDA-graph replay (the
    flash kernels against ``F.scaled_dot_product_attention``, at dropout
-   rates 0.1 and 0; the tensor-core kernels' masks bit for bit, and the
-   two-pass dk/dv kernel's gradients equal to the fused kernel's; the
+   rates 0.1 and 0, the backwards' kernels one by one; the whole-sequence
+   pair also alone at other head dims and lengths; the tensor-core
+   kernels' masks bit for bit, and the two-pass dk/dv kernel's gradients
+   equal to the fused kernel's; the
    multi-query paged kernel at q_len 1-64 over lengths on and off page
    boundaries, timed at the verify and chunk shapes against SDPA on the
    gathered K/V; both paged kernels again on int8 pools with bf16 and
@@ -45,7 +47,8 @@ the JAX package), in phases that each raise on failure:
    ``PDT_FLASH_TWO_PASS=1`` (the two-pass backward kernels counted, step
    1's loss bit-identical to the fused run's, later steps within 1e-3),
    and once more under ``torch.profiler``; the seq-128 run also once more
-   under ``torch.profiler``;
+   under ``torch.profiler``; no LM profile may hold an FMA flash kernel
+   (they take float32 only);
 7. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
    (random weights from ``--seed 0``) over a JSONL request stream, with the
    kernels' launch counters reset just before and read just after; checks
@@ -205,20 +208,27 @@ FLASH_BLOCKWISE = (4, 16, 1024, 64)
 FLASH_WHOLE = (8, 16, 128, 64)
 # the tensor-core path at head_dim 32 (its scale is not a power of two)
 FLASH_BLOCKWISE_D32 = (4, 16, 1024, 32)
-# kernel 7 alone, (shape, q scale): head_dim 32 and 16, three and four
-# 64-key tiles (190, 256 keys, the larger shared memory), a length off
-# the 64-key tile (100) and off a multiple of 4
-# (190); the main shape with q x 16, whose scores spread past 62, so a
-# warp's p fall below 2^-90 and its divisions take the IEEE route
+# kernels 7 and 8 alone, (shape, q scale): head_dim 32 and 16, three and
+# four 64-key tiles (190, 256 keys, kernel 7's larger shared memory), a
+# length off the 64-key tile (100) and off a multiple of 4 (190); the main
+# shape with q x 16, whose scores spread past 62, so a warp's p fall below
+# 2^-90 and its divisions take the IEEE route
 FLASH_WHOLE_ALONE = (((8, 16, 128, 32), 1), ((4, 16, 256, 64), 1),
                      ((4, 4, 100, 16), 1), ((3, 4, 190, 64), 1),
                      (FLASH_WHOLE, 16))
 # the tensor-core kernels' masks bit for bit: (Sq, Sk) with Sk a multiple
 # of 4 (lanes share a Philox call) and not (each lane draws its own)
 FLASH_MASK_SHAPES = ((64, 64), (48, 36), (64, 62))
-# kernel 7's masks at Sq = Sk: one k-tile, a ragged one, two and four
-# k-tiles
+# kernels 7 and 8's masks at Sq = Sk: one k-tile, a ragged one, two and
+# four k-tiles
 FLASH_WHOLE_MASK_LENGTHS = (64, 62, 128, 256)
+# kernel 10's masks: the shapes above, and several k-tiles with Sk a
+# multiple of 4 and not
+FLASH_DQ_MASK_SHAPES = FLASH_MASK_SHAPES + ((130, 190), (128, 256))
+# the FMA flash kernels take float32 only: a bf16 LM run's profile holds
+# none of them
+FMA_FLASH_SYMBOLS = ("flash_fwd_kernel<", "flash_bwd_kernel<",
+                     "flash_dq_kernel<")
 # bf16 outputs against the plain version's: 2 bf16 ulps of the element
 # plus 1e-3 of the tensor's largest magnitude (float32 sums in another
 # order; p rounded to bf16 against another running max)
@@ -1017,16 +1027,20 @@ _PORT_KERNELS = (
     ("paged_mq_kernel", "paged_attention_mq"),
     ("flash_fwd_mma_kernel<", "flash_fwd"),
     ("flash_whole_fwd_mma_kernel<", "flash_whole_fwd"),
-    # the tensor-core backward template: kernel 9 with its dq work
-    # (<D, true>), kernel 11 without (<D, false>)
-    (r"flash_bwd_mma_kernel<\d+, false>", "flash_dkv"),
+    ("flash_whole_stats_mma_kernel<", "flash_whole_bwd statistics pre-pass"),
+    ("flash_dq_mma_kernel<", "flash_dq"),
+    # the tensor-core backward template <D, kDq, kWhole>: kernel 9
+    # <D, true, false>, kernel 11 <D, false, false>, kernel 8
+    # <D, true, true>
+    (r"flash_bwd_mma_kernel<\d+, false, false>", "flash_dkv"),
+    (r"flash_bwd_mma_kernel<\d+, true, true>", "flash_whole_bwd"),
     ("flash_bwd_mma_kernel<", "flash_bwd"),
-    ("flash_delta_kernel<", "flash_bwd / flash_dkv delta pre-pass"),
+    ("flash_delta_kernel<", "flash_bwd / flash_dq + flash_dkv delta pre-pass"),
     ("flash_fwd_kernel<", "flash_fwd / flash_whole_fwd (float32)"),
     ("flash_bwd_kernel<",
-     "flash_bwd / flash_dkv (float32) / flash_whole_bwd"),
+     "flash_bwd / flash_dkv / flash_whole_bwd (float32)"),
     ("flash_dq_sum_kernel", "flash_bwd / flash_whole_bwd dq sum"),
-    ("flash_dq_kernel<", "flash_dq"),
+    ("flash_dq_kernel<", "flash_dq (float32)"),
 )
 
 
@@ -1509,13 +1523,14 @@ def train_phase(argv=TRAIN_ARGS) -> dict:
 
 
 def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
-                        tag="train-profile", env=None) -> dict:
+                        tag="train-profile", env=None, forbid=()) -> dict:
     """Device kernel time of the steps and the eval under
     ``torch.profiler``, by kernel class (the trainer is built first, so
     the weight copy to the card is outside the window), and its share of
     the warm run's step and eval seconds (``warm`` None: of the profiled
     wall, which the profiler's host cost inflates); ``env`` is set in the
-    environment around the run."""
+    environment around the run; a device kernel whose name holds a
+    ``forbid`` symbol fails the phase."""
     import importlib
 
     from torch.profiler import ProfilerActivity, profile
@@ -1538,6 +1553,13 @@ def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
             else:
                 os.environ[k] = v
     del trainer
+    from torch.autograd import DeviceType
+
+    bad = sorted({e.key[:90] for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and any(sym in e.key for sym in forbid)})
+    if bad:
+        raise AssertionError(f"{tag}: launched {bad}, none wanted")
     base = "warm run's steps + eval" if warm else "profiled wall"
     res = dict(device_time_by_class(
         prof, warm["train_s"] + warm["eval_s"] if warm else wall),
@@ -1732,11 +1754,12 @@ def flash_kernel_parity(device, shape, rate, seed) -> float:
 
 def flash_whole_kernel_parity(device, shapes=FLASH_WHOLE_ALONE,
                               rate=DROPOUT_RATE, seed=13) -> float:
-    """Kernel 7 alone against its plain version (bf16, causal and not,
-    key-padding bias) where the chain's shape does not take it: head_dim
-    32 and 16, three and four k-tiles, lengths off the 64-key tile
-    and off a multiple of 4 (each lane draws its own mask bits), and
-    scores wide enough for the exact divisions."""
+    """Kernels 7 and 8 each alone against its plain version (bf16, causal
+    and not, key-padding bias; kernel 8 fed the plain forward's o) where
+    the chain's shape does not take it: head_dim 32 and 16, three and four
+    k-tiles, lengths off the 64-key tile and off a multiple of 4 (each
+    lane draws its own mask bits), and scores wide enough for the exact
+    divisions."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.ops import (
@@ -1745,29 +1768,40 @@ def flash_whole_kernel_parity(device, shapes=FLASH_WHOLE_ALONE,
 
     worst = 0.0
     for i, (shape, q_scale) in enumerate(shapes):
-        (q, k, v, _), bias = flash_inputs(device, shape, torch.bfloat16,
-                                          seed=seed + i)
+        (q, k, v, do), bias = flash_inputs(device, shape, torch.bfloat16,
+                                           seed=seed + i)
         q = q * q_scale
         for causal in (True, False):
             kw = dict(causal=causal, rate=rate, seed=seed + i, site=2)
+            what = (f"{list(shape)} q x {q_scale} causal {causal} rate "
+                    f"{rate}")
+            o = fa.reference_whole_fwd(q, k, v, bias, **kw)
             worst = max(worst, check_flash_close(
-                f"flash_whole_fwd {list(shape)} q x {q_scale} causal "
-                f"{causal} rate {rate}",
-                fa.flash_whole_fwd(q, k, v, bias, **kw),
-                fa.reference_whole_fwd(q, k, v, bias, **kw)))
+                f"flash_whole_fwd {what}",
+                fa.flash_whole_fwd(q, k, v, bias, **kw), o))
+            got = fa.flash_whole_bwd(q, k, v, bias, o, do, **kw)
+            want = fa.reference_whole_bwd(q, k, v, bias, o, do, **kw)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                worst = max(worst, check_flash_close(
+                    f"flash_whole_bwd {what} {name}", a, b))
     return worst
 
 
 def flash_mask_parity(device, shapes=FLASH_MASK_SHAPES,
                       whole_lengths=FLASH_WHOLE_MASK_LENGTHS,
+                      dq_shapes=FLASH_DQ_MASK_SHAPES,
                       rate=DROPOUT_RATE, seed=5, site=3) -> None:
-    """The tensor-core kernels 6, 7, 9 and 11 draw the plain version's mask
-    bit for bit: q = 0 (every visible key weighs the same) and v (forward)
-    or dO (backward) one-hot along head_dim, so o[b, n, i, j] and dv[b, n,
-    j, i] are nonzero exactly where element (i, j) of the probs is kept.
-    Kernel 7 (Sq = Sk, keys past head_dim too) takes v one-hot over one
-    window of 64 keys at a time, the others zero. Non-causal, [2, 3, Sq, 64]
-    bf16, the bf16 tolerance cannot hide a flipped bit here."""
+    """The tensor-core kernels 6-11 draw the plain version's mask bit for
+    bit: q = 0 (every visible key weighs the same) and v (forward) or dO
+    (backward) one-hot along head_dim, so o[b, n, i, j] and dv[b, n, j, i]
+    are nonzero exactly where element (i, j) of the probs is kept. Kernels
+    7 and 8 (Sq = Sk, keys or rows past head_dim too) take v, or dO, one-hot
+    over one window of 64 keys, or q rows, at a time, the others zero.
+    Kernel 10: o = 0 (so delta = 0), v and dO all ones (dP = D before the
+    mask) and k one-hot over one window of 64 keys at a time, so dq[b, n,
+    i, j] is nonzero exactly where element (i, k0 + j) is kept.
+    Non-causal, [2, 3, Sq, 64] bf16, the bf16 tolerance cannot hide a
+    flipped bit here."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.ops import (
@@ -1785,6 +1819,10 @@ def flash_mask_parity(device, shapes=FLASH_MASK_SHAPES,
                 f"{what} [{b}, {n}, {sq}, {sk}] rate {rate}: "
                 f"{int((got != want).sum())} mask elements differ from the "
                 f"plain version's")
+
+    def windows(s):
+        for w0 in range(0, s, d):
+            yield w0, min(d, s - w0)
 
     for sq, sk in shapes:
         q = torch.zeros(b, n, sq, d, device=device, dtype=torch.bfloat16)
@@ -1806,16 +1844,36 @@ def flash_mask_parity(device, shapes=FLASH_MASK_SHAPES,
             torch.bfloat16)
         bias = torch.zeros(b, 1, 1, s, device=device)
         keep = fa.probs_keep((b, n, s, s), rate, seed, site, device)
-        for k0 in range(0, s, d):
-            width = min(d, s - k0)
-            v = torch.zeros(b, n, s, d, device=device, dtype=torch.bfloat16)
-            v[:, :, k0:k0 + width] = eye[:width]
-            o = fa.flash_whole_fwd(q, k, v, bias, **kw)
-            check(f"flash_whole_fwd o (keys {k0}..{k0 + width - 1})",
-                  o[..., :width] != 0, keep[..., k0:k0 + width], s, s)
+        zeros = torch.zeros(b, n, s, d, device=device, dtype=torch.bfloat16)
+        for w0, width in windows(s):
+            one_hot = zeros.clone()
+            one_hot[:, :, w0:w0 + width] = eye[:width]
+            o = fa.flash_whole_fwd(q, k, one_hot, bias, **kw)
+            check(f"flash_whole_fwd o (keys {w0}..{w0 + width - 1})",
+                  o[..., :width] != 0, keep[..., w0:w0 + width], s, s)
+            _, _, dv = fa.flash_whole_bwd(q, k, k, bias, zeros, one_hot,
+                                          **kw)
+            check(f"flash_whole_bwd dv (q rows {w0}..{w0 + width - 1})",
+                  dv[..., :width] != 0,
+                  keep[..., w0:w0 + width, :].transpose(-1, -2), s, s)
+    for sq, sk in dq_shapes:
+        q = torch.zeros(b, n, sq, d, device=device, dtype=torch.bfloat16)
+        ones_k = torch.ones(b, n, sk, d, device=device, dtype=torch.bfloat16)
+        bias = torch.zeros(b, 1, 1, sk, device=device)
+        keep = fa.probs_keep((b, n, sq, sk), rate, seed, site, device)
+        _, lse = fa.flash_fwd(q, ones_k, ones_k, bias, **kw)
+        o = torch.zeros_like(q)
+        do = torch.ones_like(q)
+        for w0, width in windows(sk):
+            k = torch.zeros_like(ones_k)
+            k[:, :, w0:w0 + width] = eye[:width]
+            dq = fa.flash_dq(q, k, ones_k, bias, o, lse, do, **kw)
+            check(f"flash_dq dq (keys {w0}..{w0 + width - 1})",
+                  dq[..., :width] != 0, keep[..., w0:w0 + width], sq, sk)
     say(f"[kernels] flash_fwd/flash_bwd/flash_dkv bf16 masks bit for bit: "
-        f"(Sq, Sk) {list(shapes)}; flash_whole_fwd at Sq = Sk in "
-        f"{list(whole_lengths)}; rate {rate}")
+        f"(Sq, Sk) {list(shapes)}; flash_whole_fwd/flash_whole_bwd at Sq = "
+        f"Sk in {list(whole_lengths)}; flash_dq at (Sq, Sk) "
+        f"{list(dq_shapes)}; rate {rate}")
 
 
 def kernel_ms_by_symbol(fn, reps=20) -> dict:
@@ -1886,8 +1944,8 @@ def flash_phase(device) -> dict:
                      f"inputs)")
         else:
             worst = max(worst, flash_whole_kernel_parity(device))
-            extra = (f" (and flash_whole_fwd alone at "
-                     f"{[list(x) for x, _ in FLASH_WHOLE_ALONE]}, the "
+            extra = (f" (and flash_whole_fwd, flash_whole_bwd each alone "
+                     f"at {[list(x) for x, _ in FLASH_WHOLE_ALONE]}, the "
                      f"last with q x 16, causal and not, rate "
                      f"{DROPOUT_RATE})")
         worst32 = flash_pair_parity(device, shape, whole, torch.float32,
@@ -1941,8 +1999,17 @@ def flash_phase(device) -> dict:
         # rate 0, like SDPA
         kw0 = dict(kw, rate=0.0)
         if whole:
+            # and the backward's kernels one by one (the statistics
+            # pre-pass, the main kernel, the dq sum)
             t_fwd["rate0_ms"] = time_ms(
                 lambda: fa.flash_whole_fwd(q, k, v, bias, **kw0))
+            o0 = fa.flash_whole_fwd(q, k, v, bias, **kw0)
+            bwd0 = lambda: fa.flash_whole_bwd(  # noqa
+                q, k, v, bias, o0, do, **kw0)
+            t_bwd["rate0_ms"] = time_ms(bwd0)
+            t_bwd["kernel_ms"] = kernel_ms_by_symbol(bwd)
+            t_bwd["rate0_kernel_ms"] = kernel_ms_by_symbol(bwd0)
+            del o0
         else:
             # and the backward's kernels one by one (the delta pre-pass,
             # the main kernel, the dq sum)
@@ -1978,7 +2045,9 @@ def two_pass_phase(device, shape=FLASH_BLOCKWISE) -> dict:
     with uniform probs; in bf16, kernel 11's dk and dv equal kernel 9's bit
     for bit (the same sums in the same order: kernel 9 with its dq work
     compiled out); then kernel, plain and SDPA-backward times at rates 0.1
-    and 0, and kernel 11's pre-pass and main kernel one by one."""
+    and 0 (each call with its own delta pre-pass, as a caller without
+    ``delta=`` gets), and each one's pre-pass and main kernel one by
+    one."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.ops import (
@@ -2062,11 +2131,10 @@ def two_pass_phase(device, shape=FLASH_BLOCKWISE) -> dict:
                  plain_ms=time_ms(lambda: ref(*args, **kw), **plain_kw),
                  library_ms=time_ms(sdpa_bwd))
         t["bound_ms"], t["bound_by"] = bounds[name]
-        if name == "flash_dkv":
-            # the delta pre-pass and the main kernel
-            t["kernel_ms"] = kernel_ms_by_symbol(lambda: kern(*args, **kw))
-            t["rate0_kernel_ms"] = kernel_ms_by_symbol(
-                lambda: kern(*args0, **kw0))
+        # the delta pre-pass and the main kernel
+        t["kernel_ms"] = kernel_ms_by_symbol(lambda: kern(*args, **kw))
+        t["rate0_kernel_ms"] = kernel_ms_by_symbol(
+            lambda: kern(*args0, **kw0))
         say(f"[kernels] {name} {list(shape)} bf16 causal rate {DROPOUT_RATE}: "
             + json.dumps(t) + " (library: the whole SDPA flash backward, "
               "rate 0, no bias)")
@@ -2273,16 +2341,17 @@ def main() -> int:
     lm = lm_phase(LM_1024_ARGS, steps=3, rerun=True, tag="lm-1024")
     lap("lm-1024")
     train_profile_phase(lm["warm"], LM_1024_ARGS, "train_lm",
-                        tag="lm-1024-profile")
+                        tag="lm-1024-profile", forbid=FMA_FLASH_SYMBOLS)
     lap("lm-1024-profile")
     two_pass = two_pass_lm_phase(lm)
     train_profile_phase(None, LM_1024_ARGS, "train_lm",
                         tag="lm-1024-two-pass-profile",
-                        env={"PDT_FLASH_TWO_PASS": "1"})
+                        env={"PDT_FLASH_TWO_PASS": "1"},
+                        forbid=FMA_FLASH_SYMBOLS)
     lap("lm-1024-two-pass")
     lm_short = lm_phase(LM_128_ARGS, steps=1, rerun=False, tag="lm-128")
     train_profile_phase(None, LM_128_ARGS, "train_lm",
-                        tag="lm-128-profile")
+                        tag="lm-128-profile", forbid=FMA_FLASH_SYMBOLS)
     cpu_vs_card_phase(TINY_LM_ARGS, "train_lm")
     lap("lm-128 + cpu-vs-card")
     serve = serve_phase()

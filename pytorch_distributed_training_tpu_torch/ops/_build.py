@@ -164,16 +164,20 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
+def check_launch(lib: ctypes.CDLL, name: str, code: int,
+                 count: bool = True) -> None:
     """Raise when a launch returned a CUDA error (``cudaGetLastError``
     right after the launch: a refused launch never runs, and a later
-    synchronize would not report it)."""
+    synchronize would not report it); else count it under ``name``. A
+    pre-pass that a caller runs once for two counted kernels (the flash
+    delta) passes ``count=False``."""
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}; have {sorted(KERNELS)}")
     if code != 0:
         msg = lib.pdt_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (code {code})")
-    LAUNCH_COUNTS[name] += 1
+    if count:
+        LAUNCH_COUNTS[name] += 1
 
 
 def stream_ptr(tensor) -> int:

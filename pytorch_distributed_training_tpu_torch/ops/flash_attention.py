@@ -14,10 +14,12 @@ version here:
   / ``_dkv_kernel``), taken by the blockwise route when
   ``PDT_FLASH_TWO_PASS=1`` (read at each call): dq from a pass over the
   k-tiles each q-tile sees, dk and dv from a pass over the q-tiles each
-  k-tile is seen by; delta is formed in the kernel, or by a pre-pass
-  (``flash_dkv`` on bfloat16). Their plain versions are the
-  fused plain backward's two halves, so the plain two-pass equals the
-  plain fused backward;
+  k-tile is seen by. Each takes ``delta=`` (``flash_delta``: rowsum(dO *
+  O) in float32, [B, N, Sq]), which the two-pass route forms once and
+  hands to both, as the JAX ``_vjp_bwd`` does; without it a call forms
+  its own (the pre-pass on bfloat16, in the kernel on float32). Their
+  plain versions are the fused plain backward's two halves, so the plain
+  two-pass equals the plain fused backward;
 - ``flash_whole_fwd`` / ``flash_whole_bwd``: the whole-sequence pair (TPU
   ``_mh_fwd_kernel`` / ``_mh_bwd_kernel``): the softmax of a full row, no
   residual saved; the backward recomputes the row statistics itself.
@@ -48,17 +50,17 @@ adapter ``flash_attention`` ([B, S, N, D]) keeps the JAX adapter's
 dispatch: ``pick_block`` with a cap of 512, and the plain
 ``reference_attention`` when the bias is not [B, 1, 1, S], a length does
 not divide its block, or ``head_dim > 256``. The kernels take head_dim 16,
-32 and 64 in float32 or bfloat16, and the bfloat16 whole-sequence forward
-at most 256 keys (``_WHOLE_SEQ_MAX``, the route's ceiling); another shape
-on a CUDA tensor raises.
+32 and 64 in float32 or bfloat16, and the bfloat16 whole-sequence pair at
+most 256 keys (``_WHOLE_SEQ_MAX``, the route's ceiling); another shape on
+a CUDA tensor raises.
 The whole-sequence route keeps its own backward in both modes, as the JAX
 ``_vjp_bwd`` does.
 
-Entry points: ``flash_fwd``, ``flash_bwd``, ``flash_dkv`` and
-``flash_whole_fwd`` take the tensor-core kernels for bfloat16 inputs,
-which covers every head_dim the kernels take, and the float32 FMA kernels
-(``pdt_flash_fwd``, ``pdt_flash_bwd``, ``pdt_flash_dkv``,
-``pdt_flash_whole_fwd``) for float32 inputs. The tensor-core kernels run
+Entry points: every wrapper takes a tensor-core kernel (``pdt_*_mma``)
+for bfloat16 inputs, which covers every head_dim the kernels take, and
+its float32 FMA kernel (``pdt_flash_fwd``, ``pdt_flash_bwd``,
+``pdt_flash_dq``, ``pdt_flash_dkv``, ``pdt_flash_whole_fwd``,
+``pdt_flash_whole_bwd``) for float32 inputs. The tensor-core kernels run
 bf16 ``mma.sync`` with float32 accumulators on tiles that ``cp.async``
 brings into shared memory:
 
@@ -66,16 +68,20 @@ brings into shared memory:
   with a delta pre-pass and the dq sum): dv and dk as three bf16-piece
   products (``split_bf16x3``); at seq 1024 kernel 6 is bound by bytes,
   kernel 9 by operations;
-- ``pdt_flash_dkv_mma`` (kernel 11): kernel 9's pre-pass and main kernel
-  with the dq work compiled out, so its dk and dv are kernel 9's sums in
-  kernel 9's order; bytes and operations (8 D a visible pair) about even
-  at seq 1024;
+- ``pdt_flash_dq_mma`` (kernel 10): the forward's grid; a warp keeps its
+  rows of round(q * scale) and dO as fragments and walks the k-tiles,
+  dq accumulated in registers; bound by bytes at seq 1024;
+- ``pdt_flash_dkv_mma`` (kernel 11): kernel 9's main kernel with the dq
+  work compiled out, so its dk and dv are kernel 9's sums in kernel 9's
+  order; bytes and operations (8 D a visible pair) about even at seq
+  1024; kernels 10 and 11 read a delta from ``pdt_flash_delta``;
 - ``pdt_flash_whole_fwd_mma`` (kernel 7, Sk <= 256): the row's K and V
   stay in shared memory; a warp walks the tiles twice, the row's max and
-  sum online, then the normalised p and P V; bound by bytes at seq 128.
-
-``flash_dq`` and ``flash_whole_bwd`` keep one FMA entry point each, for
-both dtypes.
+  sum online, then the normalised p and P V; bound by bytes at seq 128;
+- ``pdt_flash_whole_bwd_mma`` (kernel 8, Sk <= 256): a pre-pass forms
+  each row's max and sum by kernel 7's walk, and delta; then kernel 9's
+  main kernel with the normalised p and dk = round(dS)^T q, and the dq
+  sum; bound by bytes at seq 128.
 
 Each wrapper runs its plain version on a CPU tensor and its kernel (built
 at first use) on a CUDA tensor, or raises.
@@ -163,13 +169,17 @@ def reference_flash_fwd(q, k, v, bias, *, causal: bool, rate: float = 0.0,
     return o.to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
-def _recompute(q, k, v, bias, o, lse, do, causal, rate, seed, site):
-    """The backward's recompute from the saved lse: (p, the dropper, ds)."""
+def _recompute(q, k, v, bias, o, lse, do, causal, rate, seed, site,
+               delta=None):
+    """The backward's recompute from the saved lse: (p, the dropper, ds);
+    ``delta`` [B, N, Sq] as ``flash_delta`` forms it, or None to form it
+    here."""
     s = _scores(q, k, bias, causal)
     p = torch.exp(s - lse[..., None])
     drop = _dropper(s.shape, rate, seed, site, q.device)
     dp = drop(torch.matmul(do.float(), v.float().transpose(-1, -2)))
-    return p, drop, p * (dp - _delta(o, do))
+    d = _delta(o, do) if delta is None else delta[..., None]
+    return p, drop, p * (dp - d)
 
 
 def _dq_from(ds, q, k):
@@ -184,17 +194,20 @@ def _dkv_from(p, drop, ds, q, k, v, do):
 
 
 def reference_flash_dq(q, k, v, bias, o, lse, do, *, causal: bool,
-                       rate: float = 0.0, seed: int = 0, site: int = 0):
+                       rate: float = 0.0, seed: int = 0, site: int = 0,
+                       delta=None):
     """Plain twin of ``flash_dq``: dq = (round(ds) K) * scale."""
-    _, _, ds = _recompute(q, k, v, bias, o, lse, do, causal, rate, seed, site)
+    _, _, ds = _recompute(q, k, v, bias, o, lse, do, causal, rate, seed, site,
+                          delta)
     return _dq_from(ds, q, k)
 
 
 def reference_flash_dkv(q, k, v, bias, o, lse, do, *, causal: bool,
-                        rate: float = 0.0, seed: int = 0, site: int = 0):
+                        rate: float = 0.0, seed: int = 0, site: int = 0,
+                        delta=None):
     """Plain twin of ``flash_dkv``: (dk, dv), dk = ds^T (q * scale)."""
     p, drop, ds = _recompute(q, k, v, bias, o, lse, do, causal, rate, seed,
-                             site)
+                             site, delta)
     return _dkv_from(p, drop, ds, q, k, v, do)
 
 
@@ -268,11 +281,15 @@ _ENTRY_POINTERS = {
     "pdt_flash_bwd": 8,        # o, do, lse, dq, dk, dv, dq_part, stream
     "pdt_flash_bwd_mma": 9,    # o, do, lse, delta, dq, dk, dv, dq_part,
                                # stream
+    "pdt_flash_delta": 4,      # o, do, delta, stream
     "pdt_flash_dq": 5,         # o, do, lse, dq, stream
+    "pdt_flash_dq_mma": 5,     # do, lse, delta, dq, stream
     "pdt_flash_dkv": 6,        # o, do, lse, dk, dv, stream
-    "pdt_flash_dkv_mma": 7,    # o, do, lse, delta, dk, dv, stream
+    "pdt_flash_dkv_mma": 6,    # do, lse, delta, dk, dv, stream
     "pdt_flash_whole_fwd_mma": 2,  # o, stream
     "pdt_flash_whole_bwd": 7,  # o, do, dq, dk, dv, dq_part, stream
+    "pdt_flash_whole_bwd_mma": 9,  # o, do, stats, delta, dq, dk, dv,
+                                   # dq_part, stream
 }
 
 
@@ -362,10 +379,10 @@ def _cuda_common(name, q, k, v, bias, causal, rate, seed, site):
     return q, k, v, args
 
 
-def _launch(kernel_name, entry, anchor, args, *pointers):
+def _launch(kernel_name, entry, anchor, args, *pointers, count=True):
     lib, fn = _kernel(entry)
     code = fn(*args, *pointers, _build.stream_ptr(anchor))
-    _build.check_launch(lib, kernel_name, code)
+    _build.check_launch(lib, kernel_name, code, count)
 
 
 def _dq_scratch(q, k):
@@ -442,40 +459,99 @@ def flash_bwd(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
     return dq, dk, dv
 
 
+def flash_delta(o, do):
+    """delta = rowsum(dO * O) in float32, [B, N, Sq], formed once for both
+    passes of the two-pass backward (JAX ``_vjp_bwd`` forms it outside
+    ``_dq_kernel`` and ``_dkv_kernel``): the plain formula on the CPU, the
+    pre-pass kernel ``pdt_flash_delta`` on a CUDA device for bfloat16.
+    None for float32 on a CUDA device, whose FMA kernels form delta
+    themselves."""
+    if o.device.type == "cpu":
+        return _delta(o, do)[..., 0]
+    if o.dtype != torch.bfloat16:
+        return None
+    if o.dim() != 4 or do.shape != o.shape or o.shape[-1] not in \
+            _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_delta kernel takes o and do of one [B, N, "
+                         f"S, D] shape with D in {_KERNEL_HEAD_DIMS}; got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}")
+    o = _dense(o)
+    do = _like(do.to(o.dtype), o)
+    b, n, sq, d = o.shape
+    delta = _delta_scratch(o)
+    # the pre-pass reads the shape, o's strides (do shares them) and the
+    # dtype of the common arguments
+    args = (o.data_ptr(), o.data_ptr(), o.data_ptr(), 0, b, n, sq, sq, d,
+            *o.stride()[:3], *o.stride()[:3], 1.0, 0, 0, 0, 0, 0, 1.0,
+            _DTYPE_CODES[o.dtype])
+    # one pre-pass for kernels 10 and 11, counted under neither
+    _launch("flash_dq", "pdt_flash_delta", o, args, o.data_ptr(),
+            do.data_ptr(), delta.data_ptr(), count=False)
+    return delta
+
+
+def _given_delta(name, delta, q, o, do):
+    """The delta a bfloat16 two-pass kernel reads: ``delta`` checked, or
+    a new one from the pre-pass."""
+    if delta is None:
+        return flash_delta(o, do)
+    if (delta.shape != q.shape[:3] or delta.dtype != torch.float32
+            or not delta.is_contiguous() or delta.device != q.device):
+        raise ValueError(f"{name} takes a contiguous float32 delta [B, N, "
+                         f"Sq] on {q.device}, got {delta.dtype} "
+                         f"{tuple(delta.shape)} on {delta.device}")
+    return delta
+
+
 def flash_dq(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
-             seed: int = 0, site: int = 0):
-    """Two-pass blockwise backward, first pass: dq."""
+             seed: int = 0, site: int = 0, delta=None):
+    """Two-pass blockwise backward, first pass: dq; on a CUDA device the
+    tensor-core kernel for bfloat16 (reading ``delta``, or the pre-pass's
+    when None), the FMA one for float32 (delta formed in the kernel)."""
     kw = dict(causal=causal, rate=rate, seed=seed, site=site)
     if _on_cpu("flash_dq", q, k, v, bias, rate):
-        return reference_flash_dq(q, k, v, bias, o, lse, do, **kw)
+        return reference_flash_dq(q, k, v, bias, o, lse, do, delta=delta,
+                                  **kw)
     q, k, v, o, do, lse, args = _bwd_inputs("flash_dq", q, k, v, bias, o,
                                             lse, do, kw)
     dq = _empty_like(q)
-    _launch("flash_dq", "pdt_flash_dq", q, args, o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dq.data_ptr())
+    if q.dtype == torch.bfloat16:
+        delta = _given_delta("flash_dq", delta, q, o, do)
+        _launch("flash_dq", "pdt_flash_dq_mma", q, args, do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    else:
+        _launch("flash_dq", "pdt_flash_dq", q, args, o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dq.data_ptr())
     return dq
 
 
 def flash_dkv(q, k, v, bias, o, lse, do, *, causal: bool, rate: float = 0.0,
-              seed: int = 0, site: int = 0):
+              seed: int = 0, site: int = 0, delta=None):
     """Two-pass blockwise backward, second pass: (dk, dv); on a CUDA
-    device the tensor-core kernel (with its delta pre-pass) for bfloat16,
-    the FMA one for float32."""
+    device the tensor-core kernel for bfloat16 (reading ``delta``, or the
+    pre-pass's when None), the FMA one for float32."""
     kw = dict(causal=causal, rate=rate, seed=seed, site=site)
     if _on_cpu("flash_dkv", q, k, v, bias, rate):
-        return reference_flash_dkv(q, k, v, bias, o, lse, do, **kw)
+        return reference_flash_dkv(q, k, v, bias, o, lse, do, delta=delta,
+                                   **kw)
     q, k, v, o, do, lse, args = _bwd_inputs("flash_dkv", q, k, v, bias, o,
                                             lse, do, kw)
     dk, dv = _empty_like(k), _empty_like(k)
     grads = (dk.data_ptr(), dv.data_ptr())
     if q.dtype == torch.bfloat16:
-        _launch("flash_dkv", "pdt_flash_dkv_mma", q, args, o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), _delta_scratch(q).data_ptr(),
-                *grads)
+        delta = _given_delta("flash_dkv", delta, q, o, do)
+        _launch("flash_dkv", "pdt_flash_dkv_mma", q, args, do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), *grads)
     else:
         _launch("flash_dkv", "pdt_flash_dkv", q, args, o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), *grads)
     return dk, dv
+
+
+def _whole_bf16_keys(name, k):
+    if k.dtype == torch.bfloat16 and k.shape[2] > _WHOLE_SEQ_MAX:
+        raise ValueError(f"{name} kernel takes at most {_WHOLE_SEQ_MAX} keys "
+                         f"in bfloat16, got {k.shape[2]}")
 
 
 def flash_whole_fwd(q, k, v, bias, *, causal: bool, rate: float = 0.0,
@@ -487,13 +563,9 @@ def flash_whole_fwd(q, k, v, bias, *, causal: bool, rate: float = 0.0,
     if _on_cpu("flash_whole_fwd", q, k, v, bias, rate):
         return reference_whole_fwd(q, k, v, bias, **kw)
     q, k, v, args = _cuda_common("flash_whole_fwd", q, k, v, bias, **kw)
-    entry = "pdt_flash_whole_fwd"
-    if q.dtype == torch.bfloat16:
-        if k.shape[2] > _WHOLE_SEQ_MAX:
-            raise ValueError(f"flash_whole_fwd kernel takes at most "
-                             f"{_WHOLE_SEQ_MAX} keys in bfloat16, got "
-                             f"{k.shape[2]}")
-        entry = "pdt_flash_whole_fwd_mma"
+    _whole_bf16_keys("flash_whole_fwd", k)
+    entry = ("pdt_flash_whole_fwd_mma" if q.dtype == torch.bfloat16
+             else "pdt_flash_whole_fwd")
     o = _empty_like(q)
     _launch("flash_whole_fwd", entry, q, args, o.data_ptr())
     return o
@@ -501,16 +573,28 @@ def flash_whole_fwd(q, k, v, bias, *, causal: bool, rate: float = 0.0,
 
 def flash_whole_bwd(q, k, v, bias, o, do, *, causal: bool, rate: float = 0.0,
                     seed: int = 0, site: int = 0):
-    """Whole-sequence backward: (dq, dk, dv)."""
+    """Whole-sequence backward: (dq, dk, dv); on a CUDA device the
+    tensor-core kernel for bfloat16 (up to ``_WHOLE_SEQ_MAX`` keys; with
+    its statistics pre-pass and dq sum), the FMA one for float32."""
     kw = dict(causal=causal, rate=rate, seed=seed, site=site)
     if _on_cpu("flash_whole_bwd", q, k, v, bias, rate):
         return reference_whole_bwd(q, k, v, bias, o, do, **kw)
     q, k, v, args = _cuda_common("flash_whole_bwd", q, k, v, bias, **kw)
+    _whole_bf16_keys("flash_whole_bwd", k)
     o, do = _like(o, q), _like(do.to(q.dtype), q)
     dq, dk, dv = _empty_like(q), _empty_like(k), _empty_like(k)
-    _launch("flash_whole_bwd", "pdt_flash_whole_bwd", q, args, o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _dq_scratch(q, k).data_ptr())
+    grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _dq_scratch(q, k).data_ptr())
+    if q.dtype == torch.bfloat16:
+        # the pre-pass's m, l and 1 / l of each row, and delta
+        stats = torch.empty((3, *q.shape[:3]), dtype=torch.float32,
+                            device=q.device)
+        _launch("flash_whole_bwd", "pdt_flash_whole_bwd_mma", q, args,
+                o.data_ptr(), do.data_ptr(), stats.data_ptr(),
+                _delta_scratch(q).data_ptr(), *grads)
+    else:
+        _launch("flash_whole_bwd", "pdt_flash_whole_bwd", q, args,
+                o.data_ptr(), do.data_ptr(), *grads)
     return dq, dk, dv
 
 
@@ -518,8 +602,8 @@ def flash_whole_bwd(q, k, v, bias, o, do, *, causal: bool, rate: float = 0.0,
 
 
 class _FlashBlockwise(torch.autograd.Function):
-    """Kernel 6 forward; kernel 9 backward, or kernels 10 and 11 when
-    ``two_pass``; saves o and lse."""
+    """Kernel 6 forward; kernel 9 backward, or kernels 10 and 11 (after one
+    delta pre-pass) when ``two_pass``; saves o and lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, rate, seed, site, two_pass):
@@ -533,8 +617,10 @@ class _FlashBlockwise(torch.autograd.Function):
     def backward(ctx, do):
         saved = ctx.saved_tensors
         if ctx.two_pass:
-            dq = flash_dq(*saved, do, **ctx.opts)
-            dk, dv = flash_dkv(*saved, do, **ctx.opts)
+            # delta once for both passes, as the JAX _vjp_bwd forms it
+            delta = flash_delta(saved[4], do)
+            dq = flash_dq(*saved, do, delta=delta, **ctx.opts)
+            dk, dv = flash_dkv(*saved, do, delta=delta, **ctx.opts)
         else:
             dq, dk, dv = flash_bwd(*saved, do, **ctx.opts)
         return dq, dk, dv, None, None, None, None, None, None

@@ -429,14 +429,13 @@ def test_kernel11_dkv_emulation_matches_jax_two_pass(causal, monkeypatch):
     np.testing.assert_allclose(dv.numpy(), jdv, rtol=TOL, atol=TOL)
 
 
-def _kernel7_fwd(q, k, v, bias, *, causal, rate=0.0, seed=0, site=0):
-    """Kernel 7's arithmetic: the first walk's online row max (from -1e30)
-    and sum over 64-key tiles, each lane t of a quad summing its columns
-    2t and 2t + 1 of each group of 8 keys, rescaled to the running max,
-    the quad adding its four parts by two xor shuffles at the end; then
-    p = exp(s - m) / l (normalised before dropout, as JAX _mh_softmax),
-    dropped, rounded to v's dtype, P V in float32."""
-    s = fa._scores(q, k, bias, causal)
+def _kernel7_stats(s):
+    """Kernel 7's first walk, which kernel 8's pre-pass shares: the online
+    row max (from -1e30) and sum over 64-key tiles, each lane t of a quad
+    summing its columns 2t and 2t + 1 of each group of 8 keys, rescaled to
+    the running max, the quad adding its four parts by two xor shuffles at
+    the end; (m, l floored at 1e-30), each [..., Sq, 1]. ``s`` holds a
+    whole number of 64-key tiles (keys past Sk at -inf, as the kernel's)."""
     m = torch.full((*s.shape[:-1], 1), fa._NEG_INF)
     lane = torch.zeros(*s.shape[:-1], 4, dtype=torch.float32)
     for k0 in range(0, s.shape[-1], 64):
@@ -447,7 +446,16 @@ def _kernel7_fwd(q, k, v, bias, *, causal, rate=0.0, seed=0, site=0):
         lane = lane * torch.exp(m - m_new) + part
         m = m_new
     l = ((lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3]))
-    p = torch.exp(s - m) / l[..., None].clamp_min(fa._L_FLOOR)
+    return m, l[..., None].clamp_min(fa._L_FLOOR)
+
+
+def _kernel7_fwd(q, k, v, bias, *, causal, rate=0.0, seed=0, site=0):
+    """Kernel 7's arithmetic: the first walk's m and l (``_kernel7_stats``);
+    then p = exp(s - m) / l (normalised before dropout, as JAX
+    _mh_softmax), dropped, rounded to v's dtype, P V in float32."""
+    s = fa._scores(q, k, bias, causal)
+    m, l = _kernel7_stats(s)
+    p = torch.exp(s - m) / l
     pd = fa._dropper(p.shape, rate, seed, site, q.device)(p)
     return torch.matmul(pd.to(v.dtype).float(), v.float())
 
@@ -510,18 +518,21 @@ def test_kernel7_emulation_bf16_rounds_the_normalised_p(seq, causal):
         assert float((blockwise != want).float().mean()) > 0.1, rate
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_dkv",
-                                  "flash_whole_fwd"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_dq",
+                                  "flash_dkv", "flash_whole_fwd",
+                                  "flash_whole_bwd"])
 def test_bf16_calls_take_the_tensor_core_entry_points(name, monkeypatch):
     # (c) a CUDA-typed call (the device test patched to say "not the
     # CPU", _launch recording instead of launching): bf16 takes the *_mma
     # entry point, float32 the FMA one, each with the pointer count that
-    # _ENTRY_POINTERS registers (the stream last)
+    # _ENTRY_POINTERS registers (the stream last); on these CPU tensors
+    # flash_dq and flash_dkv take flash_delta's plain delta
     launched = []
 
-    def record(kernel_name, entry, anchor, args, *pointers):
+    def record(kernel_name, entry, anchor, args, *pointers, count=True):
         assert len(args) == len(fa._COMMON_ARGTYPES)
         assert len(pointers) + 1 == fa._ENTRY_POINTERS[entry], entry
+        assert count
         launched.append((kernel_name, entry))
 
     def not_cpu(fn_name, q, k, v, bias, rate):
@@ -536,16 +547,18 @@ def test_bf16_calls_take_the_tensor_core_entry_points(name, monkeypatch):
     for dtype, entry in ((torch.bfloat16, f"pdt_{name}_mma"),
                          (torch.float32, f"pdt_{name}")):
         t = [torch.from_numpy(a).to(dtype) for a in (q, k, v, do)]
-        extra = () if "fwd" in name else (t[0], lse, t[3])
+        extra = ((t[0], t[3]) if name == "flash_whole_bwd"
+                 else () if "fwd" in name else (t[0], lse, t[3]))
         launched.clear()
         getattr(fa, name)(*t[:3], bias, *extra, causal=True)
         assert launched == [(name, entry)]
-    if name == "flash_whole_fwd":
-        # past the route's ceiling of 256 keys the bf16 kernel raises
+    if name.startswith("flash_whole"):
+        # past the route's ceiling of 256 keys the bf16 kernels raise
         x = torch.zeros(1, 1, 320, 32, dtype=torch.bfloat16)
+        extra = () if name == "flash_whole_fwd" else (x, x)
         with pytest.raises(ValueError, match="at most 256 keys"):
-            fa.flash_whole_fwd(x, x, x, torch.zeros(1, 1, 1, 320),
-                               causal=False)
+            getattr(fa, name)(x, x, x, torch.zeros(1, 1, 1, 320), *extra,
+                              causal=False)
 
 
 def test_entry_pointer_counts_match_the_cuda_source():
@@ -559,3 +572,193 @@ def test_entry_pointer_counts_match_the_cuda_source():
     assert {e for e, _ in entries} == set(fa._ENTRY_POINTERS)
     for entry, rest in entries:
         assert rest.count(",") + 1 == fa._ENTRY_POINTERS[entry], entry
+
+
+# ----------------------------- the tensor-core kernels 10 and 8's math
+
+
+def _kernel10_dq(q, k, v, bias, o, lse, do, *, causal, rate=0.0, seed=0,
+                 site=0):
+    """Kernel 10's arithmetic: delta from the pre-pass's formula
+    (``flash_delta``); per 64-key tile, in order, p = exp(s - lse), dP = dO
+    V^T dropped (p never, as JAX _dq_kernel), ds = p (dP - delta) and dq +=
+    round(ds) K in float32 (ds rounded to k's dtype before the product);
+    dq * scale at the end."""
+    s = fa._scores(q, k, bias, causal)
+    p = torch.exp(s - lse[..., None])
+    dp = fa._dropper(s.shape, rate, seed, site, q.device)(
+        torch.matmul(do.float(), v.float().transpose(-1, -2)))
+    ds = p * (dp - fa.flash_delta(o, do)[..., None])
+    dq = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, k.shape[2], 64):
+        dq = dq + torch.matmul(ds[..., k0:k0 + 64].to(k.dtype).float(),
+                               k[..., k0:k0 + 64, :].float())
+    return dq * q.shape[-1] ** -0.5
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_kernel10_dq_emulation_matches_plain(head_dim, rate):
+    # (a) bf16-valued inputs at S 192 (three 64-key tiles, causal, a padded
+    # key tail): the emulation of the tensor-core dq pass equals
+    # reference_flash_dq within 1e-6 of max|dq| (float32 sums in another
+    # order), and so does the plain version handed flash_delta's delta
+    q, k, v, do, mask = _inputs(seq=192, head_dim=head_dim, seed=14,
+                                lens=(192, 130))
+    t = [torch.from_numpy(a) for a in _bf16_values(q, k, v, do)]
+    bias = make_attention_bias(torch.from_numpy(mask))
+    kw = dict(causal=True, rate=rate, seed=23, site=2)
+    o, lse = fa.reference_flash_fwd(*t[:3], bias, **kw)
+    want = fa.reference_flash_dq(*t[:3], bias, o, lse, t[3], **kw)
+    limit = 1e-6 * float(want.abs().max())
+    got = _kernel10_dq(*t[:3], bias, o, lse, t[3], **kw)
+    assert float((got - want).abs().max()) <= limit
+    given = fa.reference_flash_dq(*t[:3], bias, o, lse, t[3],
+                                  delta=fa.flash_delta(o, t[3]), **kw)
+    assert torch.equal(given, want)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel10_dq_emulation_matches_jax_two_pass(causal, monkeypatch):
+    # (a) the same emulation against the JAX two-pass backward (FUSED_BWD
+    # False: the Pallas _dq_kernel in interpret mode), rate 0, block 64 at
+    # S 128 (two k-tiles), on bf16-valued inputs
+    monkeypatch.setattr(jax_fa, "FUSED_BWD", False)
+    q, k, v, do, mask = _inputs(seq=128, head_dim=64, seed=15,
+                                lens=(128, 85))
+    q, k, v, do = _bf16_values(q, k, v, do)
+    _, _, (jdq, _, _) = _jax_base(q, k, v, mask, do, causal=causal,
+                                  block=64)
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    bias = make_attention_bias(torch.from_numpy(mask))
+    o, lse = fa.reference_flash_fwd(*t[:3], bias, causal=causal)
+    dq = _kernel10_dq(*t[:3], bias, o, lse, t[3], causal=causal)
+    np.testing.assert_allclose(dq.numpy(), jdq, rtol=TOL, atol=TOL)
+
+
+def test_kernel10_ds_rounds_to_bf16_before_k():
+    # (a) bf16 q, k, v and dO: the emulation rounds ds to bf16 before the
+    # K product, as reference_flash_dq does; their bf16 dq agree but in at
+    # most 1e-3 of the elements, each within one bf16 ulp (float32 sums in
+    # another order can move a dq across a rounding boundary) + 1e-3
+    # max|want|
+    q, k, v, do, mask = _inputs(seq=192, head_dim=64, seed=16,
+                                lens=(192, 130))
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do)]
+    bias = make_attention_bias(torch.from_numpy(mask))
+    for rate in (0.0, 0.1):
+        kw = dict(causal=True, rate=rate, seed=24, site=2)
+        o, lse = fa.reference_flash_fwd(*t[:3], bias, **kw)
+        want = fa.reference_flash_dq(*t[:3], bias, o, lse, t[3], **kw)
+        got = _kernel10_dq(*t[:3], bias, o, lse, t[3], **kw).to(
+            torch.bfloat16)
+        want, got = want.float(), got.float()
+        diff = (got - want).abs()
+        assert float((diff > 0).float().mean()) <= 1e-3, rate
+        limit = (2.0 ** -7 * torch.maximum(got.abs(), want.abs())
+                 + 1e-3 * float(want.abs().max()))
+        assert bool((diff <= limit).all()), rate
+
+
+def _kernel8_bwd(q, k, v, bias, o, do, *, causal, rate=0.0, seed=0,
+                 site=0):
+    """Kernel 8's arithmetic: the pre-pass's m and l by kernel 7's walk
+    (``_kernel7_stats``) and delta = rowsum(dO o); p = exp(s - m) / l,
+    normalised before dropout; dv = p_drop^T dO as the float32 sum of three
+    bf16-piece products; dk = (round(dS)^T q) * scale, one product on q as
+    given; dq the per-64-key-tile partials (round(dS) K) * scale summed in
+    k-tile order (the dq sum)."""
+    scale = q.shape[-1] ** -0.5
+    sk = k.shape[2]
+    pad = -sk % 64  # the kernel's keys past Sk: -inf, p = 0
+    s = torch.nn.functional.pad(fa._scores(q, k, bias, causal), (0, pad),
+                                value=-float("inf"))
+    m, l = _kernel7_stats(s)
+    p = (torch.exp(s - m) / l)[..., :sk]
+    drop = fa._dropper(p.shape, rate, seed, site, q.device)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    ds = p * (drop(torch.matmul(do.float(), v.float().transpose(-1, -2)))
+              - delta)
+    dv = sum(torch.matmul(x.float(), do.float())
+             for x in fa.split_bf16x3(drop(p).transpose(-1, -2)))
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      q.float()) * scale
+    dq = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, sk, 64):
+        dq = dq + torch.matmul(ds[..., k0:k0 + 64].to(k.dtype).float(),
+                               k[..., k0:k0 + 64, :].float()) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [128, 256])
+def test_kernel8_emulation_matches_plain(seq, causal):
+    # (b) [2, 2, S, 64] bf16-valued inputs, a padded key tail on row 1:
+    # the emulation of the tensor-core whole-sequence backward equals
+    # reference_whole_bwd within 1e-6 of each gradient's largest magnitude
+    # (float32 sums in another order), at rates 0 and 0.1; dv within 2e-6:
+    # it sums up to 256 p of one sign, each a float32 ulp or two from the
+    # plain p (l summed in kernel 7's lane order), 1.5e-6 at S 256 causal
+    q, k, v, do, mask = _inputs(seq=seq, head_dim=64, seed=17,
+                                lens=(seq, seq * 2 // 3))
+    t = [torch.from_numpy(a) for a in _bf16_values(q, k, v, do)]
+    bias = make_attention_bias(torch.from_numpy(mask))
+    for rate in (0.0, 0.1):
+        kw = dict(causal=causal, rate=rate, seed=33, site=2)
+        o = fa.reference_whole_fwd(*t[:3], bias, **kw)
+        want = fa.reference_whole_bwd(*t[:3], bias, o, t[3], **kw)
+        got = _kernel8_bwd(*t[:3], bias, o, t[3], **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            limit = (2e-6 if name == "dv" else 1e-6) * float(b.abs().max())
+            assert float((a - b).abs().max()) <= limit, (rate, name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel8_emulation_matches_jax_whole_sequence(causal):
+    # (b) the same emulation against the JAX whole-sequence backward
+    # (_mh_bwd_kernel in interpret mode), rate 0, S 128 = the block, on
+    # bf16-valued inputs
+    q, k, v, do, mask = _inputs(seq=128, head_dim=64, seed=18,
+                                lens=(128, 85))
+    q, k, v, do = _bf16_values(q, k, v, do)
+    _, _, grads = _jax_base(q, k, v, mask, do, causal=causal, block=128)
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    bias = make_attention_bias(torch.from_numpy(mask))
+    o = fa.reference_whole_fwd(*t[:3], bias, causal=causal)
+    got = _kernel8_bwd(*t[:3], bias, o, t[3], causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, grads):
+        np.testing.assert_allclose(a.numpy(), b, rtol=TOL, atol=TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_two_pass_backward_forms_delta_once(rate, monkeypatch):
+    # (d) the two-pass route forms delta = rowsum(dO o) once (flash_delta)
+    # and hands the same tensor to flash_dq and flash_dkv, as the JAX
+    # _vjp_bwd does; the fused route forms it inside flash_bwd
+    formed, handed = [], []
+    real_delta = fa._delta
+
+    def count_delta(o, do):
+        formed.append(o.shape)
+        return real_delta(o, do)
+
+    def spy(name):
+        real = getattr(fa, name)
+
+        def wrapped(*args, **kw):
+            handed.append((name, kw.get("delta")))
+            return real(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(fa, "_delta", count_delta)
+    for name in ("flash_dq", "flash_dkv"):
+        monkeypatch.setattr(fa, name, spy(name))
+    monkeypatch.setenv("PDT_FLASH_TWO_PASS", "1")
+    q, k, v, do, mask = _inputs(seed=19)
+    _port_base(q, k, v, mask, do, causal=True, block=16, rate=rate,
+               seed=5 if rate else None)
+    assert len(formed) == 1
+    assert [n for n, _ in handed] == ["flash_dq", "flash_dkv"]
+    assert handed[0][1] is handed[1][1] is not None
+    assert handed[0][1].shape == (2, 2, 64)
