@@ -19,7 +19,10 @@ the JAX package), in phases that each raise on failure:
    rates 0.1 and 0, the backwards' kernels one by one; the whole-sequence
    pair also alone at other head dims and lengths; the tensor-core
    kernels' masks bit for bit, and the two-pass dk/dv kernel's gradients
-   equal to the fused kernel's; the
+   equal to the fused kernel's; the single-query paged kernel on bf16 and
+   float32 pools at head dims 32-256 and one whose rows are no multiple
+   of 16 bytes, two calls bit-identical, timed at the serve and parity
+   shapes against SDPA on the gathered K/V; the
    multi-query paged kernel at q_len 1-64 over lengths on and off page
    boundaries, timed at the verify and chunk shapes against SDPA on the
    gathered K/V; both paged kernels again on int8 pools with bf16 and
@@ -107,6 +110,10 @@ LN_FP32_SLACK = 2.0 ** -16
 PAGED = dict(heads=16, head_dim=64, page_size=16)  # one sequence a length
 PAGED_LENGTHS = (1, 15, 16, 17, 300, 1024, 64, 513)
 PAGED_TOL = 2e-2          # atol = rtol, bf16 output vs float32 plain version
+# kernel 12 (float and int8 pools) also at other head dims: 16-byte loads
+# with 1 to 32 lanes a row (32, 96, 128, 256) and, for 50, a row that is
+# no multiple of 16 bytes in any pool dtype (the scalar-load instantiation)
+PAGED_HEAD_DIMS = (32, 96, 128, 256, 50)
 # decode tick of the serve phase: 8 slots, block-table rows of
 # (128 + 64) / 16 pages, contexts of prompts up to 120 bytes + 32 tokens
 SERVE_CONTEXTS = (17, 33, 48, 65, 90, 120, 140, 152)
@@ -424,9 +431,17 @@ def build_phase() -> None:
     for name, log in _build.BUILD_LOGS.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill", log)]
+        # the instantiations that spill (ptxas reports each entry function,
+        # then its spill bytes)
+        spilling = [
+            m.group(1) for m in re.finditer(
+                r"entry function '(\S+)'(.*?)(?=entry function|\Z)", log,
+                re.S)
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill",
+                                              m.group(2)))]
         say(f"[build] {name}: {len(regs)} instantiations, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)}, spill bytes "
-            f"{sum(spills)}")
+            f"{sum(spills)}" + (f", spilling {spilling}" if spilling else ""))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -529,8 +544,52 @@ def paged_bound(lengths, *, heads, head_dim, page_size, q_len=1,
     return bound(n_bytes, 4.0 * pairs * heads * head_dim, BF16_FLOPS_PER_S)
 
 
+def same_bits(what, a, b) -> None:
+    """Two calls of a kernel on the same inputs: identical bits."""
+    import torch
+
+    if not torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8)):
+        raise AssertionError(f"{what}: two calls differ in their bits")
+
+
+def paged_parity(device, lengths, geo, dtype) -> float:
+    """Kernel 12 on float pools of ``dtype`` (q the same) against its plain
+    version in float32: bf16 within PAGED_TOL, float32 within
+    FLASH_FP32_TOL x max(1, max|want|); a second call gives the same bits.
+    Returns the largest error."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops.paged_attention import (
+        _paged_reference,
+        paged_attention,
+    )
+
+    scale = geo["head_dim"] ** -0.5
+    windows = -(-max(lengths) // geo["page_size"])
+    q, kp, vp, bt, lens = paged_inputs(device, lengths, windows=windows,
+                                       dtype=dtype, **geo)
+    got = paged_attention(q, kp, vp, bt, lens, scale=scale)
+    want = _paged_reference(q.float(), kp.float(), vp.float(), bt, lens,
+                            scale)
+    what = (f"paged_attention {dtype} D={geo['head_dim']} lengths "
+            f"{list(lengths)}")
+    if got.dtype != dtype or got.shape != want.shape:
+        raise AssertionError(f"{what} gave {got.dtype} {tuple(got.shape)}")
+    if dtype == torch.float32:
+        err = check_flash_close(what, got, want, tol=FLASH_FP32_TOL * max(
+            1.0, float(want.abs().max())))
+    else:
+        torch.testing.assert_close(got.float(), want, atol=PAGED_TOL,
+                                   rtol=PAGED_TOL)
+        err = float((got.float() - want).abs().max())
+    same_bits(what, got, paged_attention(q, kp, vp, bt, lens, scale=scale))
+    return err
+
+
 def paged_phase(device, lengths=PAGED_LENGTHS, serve=SERVE_CONTEXTS,
-                serve_windows=SERVE_WINDOWS, geometry=None) -> dict:
+                serve_windows=SERVE_WINDOWS, geometry=None,
+                head_dims=PAGED_HEAD_DIMS) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -542,20 +601,16 @@ def paged_phase(device, lengths=PAGED_LENGTHS, serve=SERVE_CONTEXTS,
     geo = dict(PAGED, **(geometry or {}))
     scale = geo["head_dim"] ** -0.5
     windows = -(-max(lengths) // geo["page_size"])
-    q, kp, vp, bt, lens = paged_inputs(device, lengths, windows=windows,
-                                       **geo)
-    got = paged_attention(q, kp, vp, bt, lens, scale=scale)
-    want = _paged_reference(q.float(), kp.float(), vp.float(), bt, lens,
-                            scale)
-    if got.dtype != torch.bfloat16 or got.shape != want.shape:
-        raise AssertionError(f"paged_attention gave {got.dtype} "
-                             f"{tuple(got.shape)}")
-    torch.testing.assert_close(got.float(), want, atol=PAGED_TOL,
-                               rtol=PAGED_TOL)
-    err = float((got.float() - want).abs().max())
+    errs = {}
+    for d in (geo["head_dim"], *head_dims):
+        for dtype in (torch.bfloat16, torch.float32):
+            errs[f"D={d} {str(dtype)[6:]}"] = paged_parity(
+                device, lengths, dict(geo, head_dim=d), dtype)
+    err = max(errs.values())
     say(f"[kernels] paged_attention parity ok: lengths {list(lengths)}, "
-        f"permuted pages, null-page tails, max abs err {err} "
-        f"(atol=rtol={PAGED_TOL})")
+        f"permuted pages, null-page tails, two calls bit-identical; max abs "
+        f"err " + json.dumps(errs) + f" (bf16 atol=rtol={PAGED_TOL}, "
+        f"float32 <= {FLASH_FP32_TOL} x max(1, max|want|))")
 
     timings = {}
     for label, lens_list, w in (("serve", serve, serve_windows),
@@ -670,11 +725,13 @@ def paged_mq_phase(device, q_lens=PAGED_MQ_QLENS, lengths=PAGED_MQ_LENGTHS,
 
 
 def paged_int8_phase(device, lengths=PAGED_LENGTHS, q_lens=PAGED_MQ_QLENS,
-                     mq_lengths=PAGED_MQ_LENGTHS, geometry=None):
+                     mq_lengths=PAGED_MQ_LENGTHS, geometry=None,
+                     head_dims=PAGED_HEAD_DIMS):
     """Kernels 12 and 13 on int8 pools (K/V quantized by the port's
     ``quantize_kv``) against their plain int8 versions on the card, with
-    bf16 and float32 q, at the parity lengths of the float phases; then
-    timed at the serve shape (12) and the verify and chunk shapes (13),
+    bf16 and float32 q, at the parity lengths of the float phases (kernel
+    12 also at ``head_dims``, two calls bit-identical); then timed at the
+    serve and parity shapes (12) and the verify and chunk shapes (13),
     beside SDPA on the gathered K/V dequantized to bf16 beforehand (the
     dequantization not timed). Returns (kernel 12 int8, kernel 13 int8)."""
     import torch
@@ -690,32 +747,38 @@ def paged_int8_phase(device, lengths=PAGED_LENGTHS, q_lens=PAGED_MQ_QLENS,
     geo = dict(PAGED, **(geometry or {}))
     scale = geo["head_dim"] ** -0.5
 
-    def inputs(lens, q_len, windows, dtype, seed):
+    def inputs(lens, q_len, windows, dtype, seed, g=geo):
         q, kp, vp, bt, ln = paged_inputs(
             device, lens, q_len=q_len, windows=windows, dtype=torch.float32,
-            seed=seed, **geo)
+            seed=seed, **g)
         (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
         return q.to(dtype), kq, vq, ks, vs, bt, ln
 
-    def check(what, q_len, lens, windows, seed):
+    def check(what, q_len, lens, windows, seed, g=geo):
         worst = 0.0
         for dtype in (torch.bfloat16, torch.float32):
             q, kq, vq, ks, vs, bt, ln = inputs(lens, q_len, windows, dtype,
-                                               seed)
-            got = paged_attention(q, kq, vq, bt, ln, scale=scale,
-                                  k_scales=ks, v_scales=vs)
+                                               seed, g)
+            run = functools.partial(paged_attention, q, kq, vq, bt, ln,
+                                    scale=g["head_dim"] ** -0.5,
+                                    k_scales=ks, v_scales=vs)
+            got = run()
             ref = _paged_reference if q_len is None else _paged_reference_mq
-            want = ref(q, kq, vq, bt, ln, scale, ks, vs)
+            want = ref(q, kq, vq, bt, ln, g["head_dim"] ** -0.5, ks, vs)
             if got.dtype != torch.float32 or got.shape != q.shape:
                 raise AssertionError(f"{what} gave {got.dtype} "
                                      f"{tuple(got.shape)}")
             lim = PAGED_INT8_TOL * max(1.0, float(want.abs().max()))
-            worst = max(worst, check_flash_close(
-                f"{what} {dtype} lengths {list(lens)}", got, want, tol=lim))
+            tag = f"{what} {dtype} D={g['head_dim']} lengths {list(lens)}"
+            worst = max(worst, check_flash_close(tag, got, want, tol=lim))
+            if q_len is None:
+                same_bits(tag, got, run())
         return worst
 
-    err12 = check("paged_attention_int8", None, lengths,
-                  -(-max(lengths) // geo["page_size"]), 0)
+    err12 = max(
+        check("paged_attention_int8", None, lengths,
+              -(-max(lengths) // geo["page_size"]), 0, dict(geo, head_dim=d))
+        for d in (geo["head_dim"], *head_dims))
     err13 = 0.0
     for q_len in q_lens:
         lens_q = tuple(n for n in (q_len, q_len + 1, *mq_lengths)
@@ -724,6 +787,7 @@ def paged_int8_phase(device, lengths=PAGED_LENGTHS, q_lens=PAGED_MQ_QLENS,
             f"paged_attention_mq_int8 q_len {q_len}", q_len, lens_q,
             -(-max(lens_q) // geo["page_size"]), q_len))
     say(f"[kernels] int8 pools parity ok: kernel 12 lengths {list(lengths)}, "
+        f"head_dim {[geo['head_dim'], *head_dims]}, two calls bit-identical, "
         f"max abs err {err12}; kernel 13 q_len {list(q_lens)} x lengths "
         f"(q_len, q_len + 1, {list(mq_lengths)}), max abs err {err13}; bf16 "
         f"and float32 q, float32 out (<= {PAGED_INT8_TOL} x max(1, "
@@ -765,6 +829,8 @@ def paged_int8_phase(device, lengths=PAGED_LENGTHS, q_lens=PAGED_MQ_QLENS,
 
     serve = timed("paged_attention_int8 serve", SERVE_CONTEXTS, None,
                   SERVE_WINDOWS)
+    timed("paged_attention_int8 parity", lengths, None,
+          -(-max(lengths) // geo["page_size"]))
     verify = timed("paged_attention_mq_int8 verify",
                    tuple(c + VERIFY_Q for c in SERVE_CONTEXTS), VERIFY_Q,
                    VERIFY_WINDOWS)
