@@ -24,10 +24,11 @@ the JAX package), in phases that each raise on failure:
    of 16 bytes, two calls bit-identical, timed at the serve and parity
    shapes against SDPA on the gathered K/V; the
    multi-query paged kernel at q_len 1-64 over lengths on and off page
-   boundaries, timed at the verify and chunk shapes against SDPA on the
-   gathered K/V; both paged kernels again on int8 pools with bf16 and
-   float32 q; the two-pass flash backward also against the fused kernel's
-   gradients);
+   boundaries and of its 16-row tiles, also at head dims 32-256 and 50,
+   two calls bit-identical, timed at the verify and chunk shapes against
+   SDPA on the gathered K/V; both paged kernels again on int8 pools with
+   bf16 and float32 q; the two-pass flash backward also against the fused
+   kernel's gradients);
 4. train: runs the port's ``train_dp`` on bert-large-cased at full width
    and depth (3 optimizer steps of 96 = 8 x 12 on the synthetic MRPC task,
    then the full 408-row eval), with the launch counters reset just before
@@ -66,7 +67,9 @@ the JAX package), in phases that each raise on failure:
    copying a page on write), each counted against the engine's verify,
    chunk and decode dispatches, the pages left equal to those the prefix
    cache holds, every served token checked against the full-sequence
-   forward; then int8 serving, ``--weights-dtype int8 --kv-dtype int8``
+   forward, each run once more under ``torch.profiler`` (kernel 13's share
+   of the device time; its float32 FMA kernel may not appear); then int8
+   serving, ``--weights-dtype int8 --kv-dtype int8``
    plain (profiled), with ``--spec-k 4`` and with ``--prefix-cache``, and
    ``--weights-dtype int8`` alone, each counted (the int8-pool kernels
    only) and checked against a full-sequence forward on the same
@@ -121,9 +124,12 @@ SERVE_WINDOWS = 12
 # kernel 13: query blocks of the verify (spec_k 4 + 1) and chunk (32)
 # dispatches, and parity lengths on and off page boundaries (each q_len
 # also at lengths q_len and q_len + 1); the verify run's block-table rows
-# hold ceil((128 + 64 + 4) / 16) pages
-PAGED_MQ_QLENS = (1, 2, 5, 16, 32, 64)
+# hold ceil((128 + 64 + 4) / 16) pages. q_len 17 and 33 span a boundary
+# of the kernel's 16-row tiles.
+PAGED_MQ_QLENS = (1, 2, 5, 16, 17, 32, 33, 64)
 PAGED_MQ_LENGTHS = (15, 16, 17, 300, 1024)
+# kernel 13 (float and int8 pools) also at PAGED_HEAD_DIMS, at these q_lens
+PAGED_MQ_HEAD_DIM_QLENS = (5, 17, 32)
 VERIFY_Q, VERIFY_WINDOWS = 5, 13
 CHUNK_Q, CHUNK_CONTEXTS = 32, (32, 64, 96, 128, 160)
 # kernels 12 and 13 on int8 pools: float32 out against the plain int8
@@ -236,6 +242,11 @@ FLASH_DQ_MASK_SHAPES = FLASH_MASK_SHAPES + ((130, 190), (128, 256))
 # none of them
 FMA_FLASH_SYMBOLS = ("flash_fwd_kernel<", "flash_bwd_kernel<",
                      "flash_dq_kernel<")
+# kernel 13's FMA kernel takes float32 pools only: a serve-option run on
+# bf16 or int8 pools holds none of it
+FMA_PAGED_SYMBOLS = ("paged_mq_kernel<",)
+# the serve-option runs profiled (spec: its second run)
+PROFILED_OPTIONS = ("spec", "chunked", "prefix", "int8")
 # bf16 outputs against the plain version's: 2 bf16 ulps of the element
 # plus 1e-3 of the tensor's largest magnitude (float32 sums in another
 # order; p rounded to bf16 against another running max)
@@ -642,11 +653,13 @@ def paged_phase(device, lengths=PAGED_LENGTHS, serve=SERVE_CONTEXTS,
 
 
 def paged_mq_phase(device, q_lens=PAGED_MQ_QLENS, lengths=PAGED_MQ_LENGTHS,
-                   geometry=None) -> dict:
+                   geometry=None, head_dims=PAGED_HEAD_DIMS,
+                   head_dim_q_lens=PAGED_MQ_HEAD_DIM_QLENS) -> dict:
     """Kernel 13 against its plain version, float32 and bf16, at each
     q_len over lengths on and off page boundaries (each row's horizon, a
-    row fully masked on whole computed pages, null-page tails), then timed
-    at the verify and chunk shapes of the serve-option runs."""
+    row fully masked on whole computed pages, null-page tails), also at
+    ``head_dims`` (at ``head_dim_q_lens``), two calls bit-identical; then
+    timed at the verify and chunk shapes of the serve-option runs."""
     import torch
     import torch.nn.functional as F
 
@@ -657,35 +670,47 @@ def paged_mq_phase(device, q_lens=PAGED_MQ_QLENS, lengths=PAGED_MQ_LENGTHS,
 
     geo = dict(PAGED, **(geometry or {}))
     scale = geo["head_dim"] ** -0.5
-    worst = worst32 = 0.0
-    for q_len in q_lens:
+    errs = {}
+    cases = [(geo["head_dim"], q) for q in q_lens] + [
+        (d, q) for d in head_dims for q in head_dim_q_lens]
+    for d, q_len in cases:
         lens_q = tuple(n for n in (q_len, q_len + 1, *lengths) if n >= q_len)
         windows = -(-max(lens_q) // geo["page_size"])
+        g = dict(geo, head_dim=d)
         for dtype in (torch.float32, torch.bfloat16):
             q, kp, vp, bt, lens = paged_inputs(
                 device, lens_q, q_len=q_len, windows=windows, dtype=dtype,
-                seed=q_len, **geo)
-            got = paged_attention(q, kp, vp, bt, lens, scale=scale)
+                seed=q_len, **g)
+            run = functools.partial(paged_attention, q, kp, vp, bt, lens,
+                                    scale=d ** -0.5)
+            got = run()
             want = _paged_reference_mq(q.float(), kp.float(), vp.float(), bt,
-                                       lens, scale)
+                                       lens, d ** -0.5)
+            what = (f"paged_attention_mq {dtype} D={d} q_len {q_len} "
+                    f"lengths {lens_q}")
             if got.dtype != dtype or got.shape != q.shape:
-                raise AssertionError(f"paged_attention_mq gave {got.dtype} "
+                raise AssertionError(f"{what} gave {got.dtype} "
                                      f"{tuple(got.shape)}")
             if dtype == torch.float32:
                 # float32 kernel, float32 accumulation: FLASH_FP32_TOL
                 lim = FLASH_FP32_TOL * max(1.0, float(want.abs().max()))
-                what = f"paged_attention_mq q_len {q_len} lengths {lens_q}"
-                worst32 = max(worst32, check_flash_close(what, got, want,
-                                                         tol=lim))
+                err = check_flash_close(what, got, want, tol=lim)
             else:
                 torch.testing.assert_close(got.float(), want, atol=PAGED_TOL,
                                            rtol=PAGED_TOL)
-                worst = max(worst, float((got.float() - want).abs().max()))
+                err = float((got.float() - want).abs().max())
+            same_bits(what, got, run())
+            key = f"D={d} {str(dtype)[6:]}"
+            errs[key] = max(errs.get(key, 0.0), err)
+    worst = max(v for k, v in errs.items() if k.endswith("bfloat16"))
+    worst32 = max(v for k, v in errs.items() if k.endswith("float32"))
     say(f"[kernels] paged_attention_mq parity ok: q_len {list(q_lens)} x "
         f"lengths (q_len, q_len + 1, {list(lengths)}), permuted pages, "
-        f"null-page tails, rows masked on whole pages; bf16 max abs err "
-        f"{worst} (atol=rtol={PAGED_TOL}), float32 max abs err {worst32} "
-        f"(<= {FLASH_FP32_TOL} x max(1, max|want|))")
+        f"null-page tails, rows masked on whole pages; head_dim "
+        f"{list(head_dims)} at q_len {list(head_dim_q_lens)}; two calls "
+        f"bit-identical; bf16 max abs err {worst} (atol=rtol={PAGED_TOL}), "
+        f"float32 max abs err {worst32} (<= {FLASH_FP32_TOL} x max(1, "
+        f"max|want|)); by head_dim " + json.dumps(errs))
 
     def timed(label, lens_list, q_len, windows):
         q, kp, vp, bt, lens = paged_inputs(
@@ -726,11 +751,13 @@ def paged_mq_phase(device, q_lens=PAGED_MQ_QLENS, lengths=PAGED_MQ_LENGTHS,
 
 def paged_int8_phase(device, lengths=PAGED_LENGTHS, q_lens=PAGED_MQ_QLENS,
                      mq_lengths=PAGED_MQ_LENGTHS, geometry=None,
-                     head_dims=PAGED_HEAD_DIMS):
+                     head_dims=PAGED_HEAD_DIMS,
+                     head_dim_q_lens=PAGED_MQ_HEAD_DIM_QLENS):
     """Kernels 12 and 13 on int8 pools (K/V quantized by the port's
     ``quantize_kv``) against their plain int8 versions on the card, with
-    bf16 and float32 q, at the parity lengths of the float phases (kernel
-    12 also at ``head_dims``, two calls bit-identical); then timed at the
+    bf16 and float32 q, at the parity lengths of the float phases (both
+    also at ``head_dims``, kernel 13 there at ``head_dim_q_lens``; two
+    calls bit-identical); then timed at the
     serve and parity shapes (12) and the verify and chunk shapes (13),
     beside SDPA on the gathered K/V dequantized to bf16 beforehand (the
     dequantization not timed). Returns (kernel 12 int8, kernel 13 int8)."""
@@ -771,8 +798,7 @@ def paged_int8_phase(device, lengths=PAGED_LENGTHS, q_lens=PAGED_MQ_QLENS,
             lim = PAGED_INT8_TOL * max(1.0, float(want.abs().max()))
             tag = f"{what} {dtype} D={g['head_dim']} lengths {list(lens)}"
             worst = max(worst, check_flash_close(tag, got, want, tol=lim))
-            if q_len is None:
-                same_bits(tag, got, run())
+            same_bits(tag, got, run())
         return worst
 
     err12 = max(
@@ -780,18 +806,21 @@ def paged_int8_phase(device, lengths=PAGED_LENGTHS, q_lens=PAGED_MQ_QLENS,
               -(-max(lengths) // geo["page_size"]), 0, dict(geo, head_dim=d))
         for d in (geo["head_dim"], *head_dims))
     err13 = 0.0
-    for q_len in q_lens:
+    for d, q_len in ([(geo["head_dim"], q) for q in q_lens]
+                     + [(d, q) for d in head_dims for q in head_dim_q_lens]):
         lens_q = tuple(n for n in (q_len, q_len + 1, *mq_lengths)
                        if n >= q_len)
         err13 = max(err13, check(
             f"paged_attention_mq_int8 q_len {q_len}", q_len, lens_q,
-            -(-max(lens_q) // geo["page_size"]), q_len))
+            -(-max(lens_q) // geo["page_size"]), q_len,
+            dict(geo, head_dim=d)))
     say(f"[kernels] int8 pools parity ok: kernel 12 lengths {list(lengths)}, "
-        f"head_dim {[geo['head_dim'], *head_dims]}, two calls bit-identical, "
-        f"max abs err {err12}; kernel 13 q_len {list(q_lens)} x lengths "
-        f"(q_len, q_len + 1, {list(mq_lengths)}), max abs err {err13}; bf16 "
-        f"and float32 q, float32 out (<= {PAGED_INT8_TOL} x max(1, "
-        f"max|want|))")
+        f"head_dim {[geo['head_dim'], *head_dims]}, max abs err {err12}; "
+        f"kernel 13 q_len {list(q_lens)} x lengths (q_len, q_len + 1, "
+        f"{list(mq_lengths)}), head_dim {list(head_dims)} at q_len "
+        f"{list(head_dim_q_lens)}, max abs err {err13}; two calls "
+        f"bit-identical; bf16 and float32 q, float32 out (<= "
+        f"{PAGED_INT8_TOL} x max(1, max|want|))")
 
     def timed(label, lens, q_len, windows):
         q, kq, vq, ks, vs, bt, ln = inputs(lens, q_len, windows,
@@ -956,7 +985,8 @@ def serve_options_phase(plain_streams, new_tokens=NEW_TOKENS,
     counted: every request's token count, the launch counts against the
     engine's dispatch counts, the pages left (those the prefix cache
     holds), peak memory, a second speculative run with the same greedy
-    streams (the first profiled, as is the int8 run), and how many streams
+    streams, one more run of each of ``PROFILED_OPTIONS`` under the
+    profiler (no kernel of ``FMA_PAGED_SYMBOLS``), and how many streams
     equal the plain run's."""
     import torch
 
@@ -992,26 +1022,23 @@ def serve_options_phase(plain_streams, new_tokens=NEW_TOKENS,
             variant=stats["variant"], kv_dtype=stats["kv_dtype"],
             launches=counts,
         )
-        if name == "int8":
-            m["profile"] = profile_phase(
-                dict(prefill_s=stats["prefill_s"],
-                     decode_s=stats["decode_s"]),
-                argv, prompts, new_tokens, tag="profile-int8")
+        warm = stats
         if name == "spec":
             m.update(accepted_per_verify=stats["spec_accepted"]
                      / stats["spec_dispatches"],
                      accept_rate=stats["spec_accept_rate"],
                      tokens_per_dispatch=stats["tokens_per_dispatch"])
-            again, stats2, _, _ = serve_once(argv, prompts, new_tokens)
+            again, warm, _, _ = serve_once(argv, prompts, new_tokens)
             if streams(again, prompts, new_tokens) != toks:
                 raise AssertionError("speculative greedy streams differ "
                                      "between two runs")
-            m["warm_decode_tok_per_s"] = (stats2["decode_tokens"]
-                                          / stats2["decode_s"])
+            m["warm_decode_tok_per_s"] = (warm["decode_tokens"]
+                                          / warm["decode_s"])
+        if name in PROFILED_OPTIONS:
             m["profile"] = profile_phase(
-                dict(prefill_s=stats2["prefill_s"],
-                     decode_s=stats2["decode_s"]),
-                argv, prompts, new_tokens, tag="profile-spec")
+                dict(prefill_s=warm["prefill_s"], decode_s=warm["decode_s"]),
+                argv, prompts, new_tokens, tag=f"profile-{name}",
+                forbid=FMA_PAGED_SYMBOLS)
         if pc:
             m.update(hit_rate=pc["prefix_hit_rate"],
                      prefix_hits=pc["prefix_hits"],
@@ -1090,7 +1117,8 @@ _PORT_KERNELS = (
     ("dal_bwd_kernel", "dropout_add_layer_norm_bwd"),
     ("mask_scale_kernel", "mask_scale"),
     ("paged_decode_kernel", "paged_attention"),
-    ("paged_mq_kernel", "paged_attention_mq"),
+    ("paged_mq_mma_kernel<", "paged_attention_mq"),
+    ("paged_mq_kernel<", "paged_attention_mq (float32)"),
     ("flash_fwd_mma_kernel<", "flash_fwd"),
     ("flash_whole_fwd_mma_kernel<", "flash_whole_fwd"),
     ("flash_whole_stats_mma_kernel<", "flash_whole_bwd statistics pre-pass"),
@@ -1133,12 +1161,14 @@ def _kernel_class(name: str) -> str:
 
 
 def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
-                  new_tokens=NEW_TOKENS, tag="profile") -> dict:
+                  new_tokens=NEW_TOKENS, tag="profile", forbid=()) -> dict:
     """Device kernel time of one more serve run under ``torch.profiler``,
-    by kernel class, and the device's busy share of the warm run's engine
-    seconds (prefill + decode dispatches, each ending in a host copy). The
-    server is built first (weights copied to the card) and the profiler
-    covers only the requests."""
+    by kernel class, kernel 13's share of it, and the device's busy share
+    of the warm run's engine seconds (prefill + decode dispatches, each
+    ending in a host copy). The server is built first (weights copied to
+    the card) and the profiler covers only the requests; a device kernel
+    whose name holds a ``forbid`` symbol fails the phase."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pytorch_distributed_training_tpu_torch.cli import serve_lm
@@ -1158,8 +1188,17 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
         server.close(drain=True)
     events = [json.loads(line) for line in out.getvalue().splitlines()]
     streams(events, prompts, new_tokens)
+    bad = sorted({e.key[:90] for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and any(sym in e.key for sym in forbid)})
+    if bad:
+        raise AssertionError(f"{tag}: launched {bad}, none wanted")
     engine_s = warm["prefill_s"] + warm["decode_s"]
     res = device_time_by_class(prof, engine_s)
+    mq = sum(v for k, v in res["by_class_ms"].items()
+             if k.startswith("paged_attention_mq"))
+    res.update(paged_mq_ms=mq, paged_mq_share=(
+        mq / res["device_kernel_ms"] if res["device_kernel_ms"] else None))
     say(f"[{tag}] " + json.dumps(res))
     return res
 
