@@ -13,7 +13,9 @@ the JAX package), in phases that each raise on failure:
    ``sm_90a``, one process per source, all at once;
 3. kernels: holds each kernel against its plain PyTorch version on the
    card (tolerances below; the dropout masks bit for bit), backward kernels
-   through ``torch.autograd.grad``, and times kernel, plain version and the
+   through ``torch.autograd.grad`` (the LayerNorm pair also at H 64-2048
+   and 1001, bf16 and float32 in and out, on rows off 16 bytes, two calls
+   bit-identical), and times kernel, plain version and the
    library yardstick at the main paths' shapes with CUDA-graph replay (the
    flash kernels against ``F.scaled_dot_product_attention``, at dropout
    rates 0.1 and 0, the backwards' kernels one by one; the whole-sequence
@@ -104,7 +106,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 LN_HIDDEN = 1024
-LN_ROWS = (4, 16, 128, 4096)
+# kernel 1's parity rows (either side of its few-rows plan, 256) and
+# widths: the tiny and bert-base presets, gpt2-medium/bert-large, the
+# widest row, and one no multiple of 8 (single-element chunks)
+LN_ROWS = (4, 16, 128, 300, 4096)
+LN_WIDTHS = (64, 768, 1024, 2048, 1001)
 # LayerNorm tolerance per element: 1 bf16 ulp of the element, plus the
 # float32 difference of two summation orders and rsqrt roundings before the
 # cast (a few float32 ulps of unit-scale terms), which alone can move an
@@ -202,6 +208,10 @@ MASK_SHAPES = ((8, 16, 128, 128), (8, 128, 1024), (1000, 3), (7,), (8, 1024))
 # float32 dscale/dbias sums over rows in another order: |got - want| <=
 # 2^-16 of the column's sum of absolute terms
 PARAM_SUM_SLACK = 2.0 ** -16
+# kernel 2 at the training shapes and the widest row and one no multiple
+# of 8 (single-element chunks)
+LN_BWD_SHAPES = TRAIN_SHAPES + ((1024, 2048), (8, 2048), (1000, 1001),
+                                (64, 1001))
 
 TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
               "--train-size", "288", "--eval-size", "408", "--num-epochs",
@@ -453,13 +463,27 @@ def build_phase() -> None:
         say(f"[build] {name}: {len(regs)} instantiations, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)}, spill bytes "
             f"{sum(spills)}" + (f", spilling {spilling}" if spilling else ""))
+        if name == "layer_norm" and sum(spills):
+            raise AssertionError(f"layer_norm spills: {spilling}")
 
 
 # ---------------------------------------------------------------- phase 3
 
 
-def layer_norm_phase(device, rows=LN_ROWS, hidden=LN_HIDDEN,
-                     serve_rows=8) -> dict:
+def _off16(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary (a
+    view at an odd storage offset: the kernels' single-element chunks)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    return out
+
+
+def layer_norm_phase(device, rows=LN_ROWS, widths=LN_WIDTHS,
+                     hidden=LN_HIDDEN, serve_rows=8) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -469,23 +493,36 @@ def layer_norm_phase(device, rows=LN_ROWS, hidden=LN_HIDDEN,
     )
 
     g = torch.Generator(device=device).manual_seed(0)
+    dtypes = (torch.bfloat16, torch.float32)
+    worst = 0.0
+    for h in widths:
+        scale = 1.0 + 0.1 * torch.randn(h, generator=g, device=device)
+        bias = 0.1 * torch.randn(h, generator=g, device=device)
+        for n in rows:
+            for in_dtype in dtypes:
+                x = (3.0 + 2.0 * torch.randn(n, h, generator=g,
+                                             device=device)).to(in_dtype)
+                cases = [(x, out) for out in dtypes]
+                if n in (serve_rows // 2, 300):   # x off 16 bytes, both plans
+                    cases.append((_off16(x), torch.bfloat16))
+                for xc, out_dtype in cases:
+                    run = functools.partial(layer_norm, xc, scale, bias,
+                                            eps=1e-5, out_dtype=out_dtype)
+                    got = run()
+                    want = reference_layer_norm(xc, scale, bias, eps=1e-5,
+                                                out_dtype=out_dtype)
+                    what = (f"layer_norm rows={n} H={h} {in_dtype} -> "
+                            f"{out_dtype}"
+                            + (" (x off 16 bytes)" if xc is not x else ""))
+                    worst = max(worst, check_ln_close(what, got, want))
+                    same_bits(what, got, run())
+    say(f"[kernels] layer_norm parity ok: rows {list(rows)} x H "
+        f"{list(widths)} x {{bf16, f32}} in -> {{bf16, f32}} out, and x off "
+        f"16 bytes; max abs err {worst} (<= 1 bf16 ulp + {LN_FP32_SLACK} "
+        f"per element); two calls bit-identical")
+
     scale = 1.0 + 0.1 * torch.randn(hidden, generator=g, device=device)
     bias = 0.1 * torch.randn(hidden, generator=g, device=device)
-    worst = 0.0
-    for n in rows:
-        for in_dtype in (torch.bfloat16, torch.float32):
-            x = (3.0 + 2.0 * torch.randn(n, hidden, generator=g,
-                                         device=device)).to(in_dtype)
-            got = layer_norm(x, scale, bias, eps=1e-5,
-                             out_dtype=torch.bfloat16)
-            want = reference_layer_norm(x, scale, bias, eps=1e-5,
-                                        out_dtype=torch.bfloat16)
-            worst = max(worst, check_ln_close(
-                f"layer_norm rows={n} {in_dtype}", got, want))
-    say(f"[kernels] layer_norm parity ok: rows {list(rows)} x "
-        f"{{bf16, f32}} in -> bf16 out, max abs err {worst} (<= 1 bf16 "
-        f"ulp + {LN_FP32_SLACK} per element)")
-
     timings = {}
     for n in (serve_rows, 128, MAIN_ROWS, 4096):
         x = torch.randn(n, hidden, generator=g, device=device,
@@ -1112,7 +1149,8 @@ def tick_phase(reps=20) -> dict:
 
 _PORT_KERNELS = (
     ("layer_norm_fwd_kernel", "layer_norm"),
-    ("layer_norm_bwd_kernel", "layer_norm_bwd"),
+    ("layer_norm_bwd_dx_kernel", "layer_norm_bwd dx pass"),
+    ("layer_norm_bwd_params_kernel", "layer_norm_bwd column pass"),
     ("dal_fwd_kernel", "dropout_add_layer_norm"),
     ("dal_bwd_kernel", "dropout_add_layer_norm_bwd"),
     ("mask_scale_kernel", "mask_scale"),
@@ -1209,6 +1247,7 @@ def device_time_by_class(prof, wall_s, top_n=10) -> dict:
     from torch.autograd import DeviceType
 
     by_class: dict[str, float] = {}
+    launches: dict[str, int] = {}
     top = []
     for e in prof.key_averages():
         # a user range on the device (the optimizer's "Optimizer.step#..."
@@ -1219,6 +1258,7 @@ def device_time_by_class(prof, wall_s, top_n=10) -> dict:
         us = float(getattr(e, "self_device_time_total", 0.0))
         cls = _kernel_class(e.key)
         by_class[cls] = by_class.get(cls, 0.0) + us
+        launches[cls] = launches.get(cls, 0) + e.count
         top.append((us, e.count, e.key[:90]))
     total_us = sum(by_class.values())
     for us, count, name in sorted(top, reverse=True)[:top_n]:
@@ -1228,6 +1268,11 @@ def device_time_by_class(prof, wall_s, top_n=10) -> dict:
         busy_share=total_us / 1e6 / wall_s if wall_s else None,
         by_class_ms={k: v / 1e3 for k, v in sorted(
             by_class.items(), key=lambda kv: -kv[1])},
+        # each port kernel's device us a launch (class time / launches)
+        port_us_per_launch={k: by_class[k] / launches[k] for k in by_class
+                            if k.endswith("(port kernel)") and launches[k]},
+        port_launches={k: n for k, n in launches.items()
+                       if k.endswith("(port kernel)")},
     )
 
 
@@ -1327,9 +1372,37 @@ def _grads(fn, leaves, dy):
     return out.detach(), torch.autograd.grad(out, leaves, dy)
 
 
-def ln_bwd_phase(device, shapes=TRAIN_SHAPES, eps=1e-12) -> dict:
+def ln_bwd_times(x, dy, scale, bias, eps) -> dict:
+    """Kernel 2, its plain version and ``native_layer_norm_backward`` (the
+    library call, bf16 scale/bias, all three gradients) at x's shape."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops.layer_norm import (
+        _layer_norm_bwd_cuda,
+        reference_layer_norm_bwd,
+    )
+
+    rows, h = x.shape
+    sb, bb = scale.bfloat16(), bias.bfloat16()
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [h], sb, bb, eps)
+    t = dict(
+        ms=time_ms(lambda: _layer_norm_bwd_cuda(x, dy, scale, eps=eps)),
+        plain_ms=time_ms(lambda: reference_layer_norm_bwd(x, dy, scale,
+                                                          eps=eps)),
+        library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [h], mean, rstd, sb, bb, [True, True, True])),
+    )
+    t["bound_ms"], t["bound_by"] = bound(
+        rows * h * x.element_size() * 3 + 3 * h * 4, 12.0 * rows * h)
+    return t
+
+
+def ln_bwd_phase(device, shapes=LN_BWD_SHAPES, eps=1e-12,
+                 timed_rows=(MAIN_ROWS, 4096)) -> dict:
     """Kernel 2 through ``torch.autograd.grad`` of the port's LayerNorm
-    against autograd through the plain forward."""
+    against autograd through the plain forward, on bf16 and float32 x; x
+    and dy off 16 bytes (single-element chunks); two calls bit-identical;
+    times at ``timed_rows`` x MAIN_H."""
     import functools
 
     import torch
@@ -1343,14 +1416,9 @@ def ln_bwd_phase(device, shapes=TRAIN_SHAPES, eps=1e-12) -> dict:
 
     g = torch.Generator(device=device).manual_seed(2)
     worst = worst_sum = 0.0
-    for rows, hidden in shapes:
-        x, dy, scale, bias = _ln_train_inputs(g, rows, hidden, device)
-        kw = dict(eps=eps, out_dtype=torch.bfloat16)
-        _, got = _grads(functools.partial(layer_norm, **kw),
-                        (x, scale, bias), dy)
-        _, want = _grads(functools.partial(reference_layer_norm, **kw),
-                         (x, scale, bias), dy)
-        what = f"layer_norm_bwd rows={rows} H={hidden}"
+
+    def check(what, x, dy, got, want):
+        nonlocal worst, worst_sum
         worst = max(worst, check_ln_close(what + " dx", got[0], want[0]))
         dyf, xh = dy.float(), _xhat(x, eps)
         worst_sum = max(
@@ -1359,26 +1427,41 @@ def ln_bwd_phase(device, shapes=TRAIN_SHAPES, eps=1e-12) -> dict:
                        (dyf * xh).abs().sum(0)),
             check_sums(what + " dbias", got[2], want[2], dyf.abs().sum(0)),
         )
-    say(f"[kernels] layer_norm_bwd parity ok: {list(shapes)} bf16, dx max "
-        f"abs err {worst} (<= 1 bf16 ulp + {LN_FP32_SLACK}), dscale/dbias "
-        f"max err {worst_sum} of the column's sum |terms| (<= "
-        f"{PARAM_SUM_SLACK})")
-    x, dy, scale, bias = _ln_train_inputs(g, MAIN_ROWS, MAIN_H, device)
-    sb, bb = scale.bfloat16(), bias.bfloat16()
-    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [MAIN_H], sb, bb,
-                                                     eps)
-    t = dict(
-        ms=time_ms(lambda: _layer_norm_bwd_cuda(x, dy, scale, eps=eps)),
-        plain_ms=time_ms(lambda: reference_layer_norm_bwd(x, dy, scale,
-                                                          eps=eps)),
-        library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-            dy, x, [MAIN_H], mean, rstd, sb, bb, [True, True, True])),
-    )
-    t["bound_ms"], t["bound_by"] = bound(
-        MAIN_ROWS * MAIN_H * 2 * 3 + 3 * MAIN_H * 4, 12.0 * MAIN_ROWS * MAIN_H)
-    say(f"[kernels] layer_norm_bwd rows={MAIN_ROWS} H={MAIN_H} bf16: "
-        + json.dumps(t))
-    return dict(max_abs_err=worst, **t)
+
+    for rows, hidden in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy, scale, bias = _ln_train_inputs(g, rows, hidden, device)
+            x = x.to(dtype)
+            kw = dict(eps=eps, out_dtype=torch.bfloat16)
+            _, got = _grads(functools.partial(layer_norm, **kw),
+                            (x, scale, bias), dy)
+            _, want = _grads(functools.partial(reference_layer_norm, **kw),
+                             (x, scale, bias), dy)
+            what = f"layer_norm_bwd rows={rows} H={hidden} {dtype}"
+            check(what, x, dy, got, want)
+            dyc = dy.to(dtype)
+            once = _layer_norm_bwd_cuda(x, dyc, scale, eps=eps)
+            again = _layer_norm_bwd_cuda(x, dyc, scale, eps=eps)
+            for name, a, b in zip(("dx", "dscale", "dbias"), once, again):
+                same_bits(f"{what} {name}", a, b)
+            if rows in (8, MAIN_ROWS) and hidden in (64, MAIN_H):
+                xo, dyo = _off16(x), _off16(dyc)
+                check(what + " (x, dy off 16 bytes)", x, dyc,
+                      _layer_norm_bwd_cuda(xo, dyo, scale, eps=eps),
+                      reference_layer_norm_bwd(x, dyc, scale, eps=eps))
+    say(f"[kernels] layer_norm_bwd parity ok: {list(shapes)} x {{bf16, "
+        f"f32}}, and x, dy off 16 bytes; dx max abs err {worst} (<= 1 bf16 "
+        f"ulp + {LN_FP32_SLACK}), dscale/dbias max err {worst_sum} of the "
+        f"column's sum |terms| (<= {PARAM_SUM_SLACK}); two calls "
+        f"bit-identical")
+    timings = {}
+    for rows in timed_rows:
+        x, dy, scale, bias = _ln_train_inputs(g, rows, MAIN_H, device)
+        timings[rows] = ln_bwd_times(x, dy, scale, bias, eps)
+        say(f"[kernels] layer_norm_bwd rows={rows} H={MAIN_H} bf16: "
+            + json.dumps(timings[rows]))
+    return dict(max_abs_err=worst, **timings[MAIN_ROWS],
+                **{f"rows_{n}": t for n, t in timings.items()})
 
 
 def dal_phase(device, shapes=TRAIN_SHAPES, rate=DROPOUT_RATE, eps=1e-12):

@@ -5,251 +5,508 @@
 // row-wise LayerNorm over the last axis with float32 statistics, the
 // biased variance mean((x - mean)^2), eps inside the rsqrt, float32
 // scale/bias, output cast to the requested dtype. The formula is the
-// plain version's (ops/layer_norm.py reference_layer_norm) step by step.
+// plain version's (ops/layer_norm.py reference_layer_norm) step by step:
+// mean, then the centred variance, both from the row held in registers,
+// then (x - mean) * rstd * scale + bias.
 //
 // Bound: bytes. A row is read once and written once (plus the shared
-// scale/bias, which stay in L1/L2); the arithmetic is ~8 float ops per
-// element, far below the card's rate. Design: one warp per row, four rows
-// per block; each lane keeps its ceil(H/32) elements in registers (two-pass
-// mean then centred variance, both warp-shuffle reductions), so the row is
-// never re-read from memory. Lanes read neighbouring elements, so each
-// warp load is coalesced. No minimum row count: decode runs at num_slots
-// rows, unlike the TPU kernel's 16-row tile floor.
+// scale/bias, which stay in L1/L2); ~8 float ops an element. At the decode
+// tick (8 rows) there are too few bytes for the rate to matter, and the
+// time is the chain of dependent steps, so the design keeps that chain to
+// one memory trip: every load of a thread (x as 16-byte chunks, 8 bf16 or
+// 4 float32; scale and bias as float4) is issued at the start, before the
+// two reductions, and y leaves as 16-byte (or 8-byte) stores.
+//
+// Row mapping. A row belongs to `wpr` warps (32 * wpr threads); thread t
+// of the row takes chunks t, t + 32 * wpr, ... . With one warp a row the
+// reductions are warp shuffles only; with several, the warps' sums meet in
+// shared memory behind a named barrier of the row's warps alone, summed in
+// warp order. A block holds `slots` rows. The wrapper picks (wpr, slots)
+// from the shape alone (ops/layer_norm.py _fwd_plan): a block a row and
+// one chunk a thread while rows are few, as at the decode tick, so the
+// row's loads spread over many threads and SMs; a warp or two a row and
+// several rows a block when rows are many.
+//
+// Vector and scalar variants. The 16-byte loads need every row to start
+// on a 16-byte boundary: x, y, scale and bias aligned and H a multiple of
+// the chunk. Otherwise (a contiguous view at an odd storage offset, an H
+// such as 1000 in bf16) the same kernel runs with one element a chunk
+// (VEC 1), lane-strided.
 //
 // Backward. Replaces the Pallas kernel _bwd_kernel of the same file
 // (launched by _bwd): dx = _ln_dx(xhat, dy, scale, rstd) in x's dtype,
-// with the statistics recomputed from x (_ln_stats), and float32 partial
-// sums of dy * xhat and dy for dscale and dbias, one row per block, which
-// the wrapper sums with torch.sum as the JAX package sums its per-block
-// partials outside its kernel.
+// with the statistics recomputed from x (_ln_stats), and the float32
+// column sums dscale = sum(dy * xhat), dbias = sum(dy) over the rows.
 //
-// Bound: bytes. x and dy are read once and dx written once (3 x 2 MiB at
-// 1024 x 1024 bf16, 1.9 us at 3.35 TB/s); the partial rows add
-// blocks x H x 8 bytes. Design: the forward's layout (one warp per row,
-// the row of x and dy in registers, lane-strided columns), so the
-// recomputed statistics use the forward's summation order. A warp walks
-// rows blockIdx.x * 4 + warp, then + 4 * gridDim.x; each lane keeps its
-// columns' dscale/dbias sums in registers across those rows, and the
-// block adds its four warps' rows through shared memory in a fixed order.
-// No atomics, so two runs give the same bits.
+// Bound: bytes. x and dy read once, dx written once (3 x 2 MiB at 1024 x
+// 1024 bf16, 1.9 us at 3.35 TB/s). Two passes, launched back to back by
+// one call, with no partial rows in device memory and no atomics:
+//   1. dx pass: the forward's row mapping and 16-byte loads (x, dy and
+//      scale issued together at the start, scale once a row), the mean,
+//      the centred variance, then sum(wdy * xhat) and sum(wdy) in one
+//      reduction; writes dx and the row's (mean, rstd), 8 bytes a row.
+//   2. column pass: a block owns two 16-byte chunks of columns (16 bf16
+//      or 8 float32; 32 single columns on the scalar path) over every
+//      row, so no sum crosses blocks: thread `group` takes rows group, group +
+//      groups, ... in order, recomputing xhat = (x - mean) * rstd as pass
+//      1 formed it, then the groups of a warp meet by xor-butterfly and
+//      the warps in warp order. It reads x and dy a second time, from L2
+//      where pass 1 left them.
+// Each sum's order is fixed by the shape, so two runs give the same bits.
+// (One launch that summed the columns across blocks, through clusters or
+// a last-block ticket, spent more on its barriers and on the rows each
+// block had to walk than this second pass costs.)
+
+#include <initializer_list>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // rows per block
+constexpr int kMaxThreads = 512;   // a block: at most 16 warps
+constexpr int kMaxSlots = kMaxThreads / 32;
+constexpr int kMaxRowWarps = 16;   // warps a row
+// the backward's column pass: threads a block, and 16-byte chunks a block
+// (32 single columns on the scalar path)
+constexpr int kColumnThreads = 512;
+template <int VEC>
+constexpr int column_chunks() { return VEC == 1 ? 32 : 2; }
 
-template <typename Tin, typename Tout, int VPT>
-__global__ void __launch_bounds__(kWarps * 32)
+// Values of x a thread holds (and, in the backward's dx pass, of dy and
+// scale), at most: the instantiations that stay within 128 registers
+// unspilled.
+template <int VEC>
+constexpr int max_floats() { return VEC == 8 ? 32 : 16; }
+
+// VEC elements of T, aligned for one 16-byte access (two for 8 float32)
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC < 16 ? sizeof(T) * VEC : 16) Pack {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
+  return *reinterpret_cast<const Pack<T, VEC>*>(p);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack(const Pack<T, VEC>& p,
+                                       float (&out)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = pdt::to_f32(p.v[i]);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_pack(T* p, const float (&in)[VEC]) {
+  Pack<T, VEC> pk;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) pk.v[i] = pdt::from_f32<T>(in[i]);
+  *reinterpret_cast<Pack<T, VEC>*>(p) = pk;
+}
+
+// Named barrier of one row's warps (barrier 0 is __syncthreads').
+__device__ __forceinline__ void row_barrier(int slot, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + slot), "r"(threads) : "memory");
+}
+
+// Sums each v[i] over the row's threads and leaves the same bits in all of
+// them: a warp's lanes by xor-butterfly, then, with several warps a row,
+// the warps' sums in warp order through red[i * kMaxRowWarps + warp]. Each
+// reduction round of a row has a red area of its own, so a warp that runs
+// ahead into the next round never overwrites sums still being read.
+template <int N>
+__device__ __forceinline__ void row_sum(float (&v)[N], float* red, int wpr,
+                                        int warp, int slot) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = pdt::warp_sum(v[i]);
+  if (wpr == 1) return;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[i * kMaxRowWarps + warp] = v[i];
+  }
+  row_barrier(slot, wpr * 32);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = 0.f;
+    for (int w = 0; w < wpr; ++w) s += red[i * kMaxRowWarps + w];
+    v[i] = s;
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+template <typename Tin, typename Tout, int VEC, int CPT>
+__global__ void __launch_bounds__(kMaxThreads)
 layer_norm_fwd_kernel(const Tin* __restrict__ x,
                       const float* __restrict__ scale,
-                      const float* __restrict__ bias,
-                      Tout* __restrict__ y, int rows, int h, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const Tin* xr = x + static_cast<size_t>(row) * h;
-  float v[VPT];
-  float sum = 0.f;
+                      const float* __restrict__ bias, Tout* __restrict__ y,
+                      int rows, int h, float eps, int wpr) {
+  __shared__ float red[kMaxSlots][2][2 * kMaxRowWarps];
+  const int tpr = wpr * 32;
+  const int slot = threadIdx.x / tpr;
+  const int t = threadIdx.x - slot * tpr;
+  const int row = blockIdx.x * (blockDim.x / tpr) + slot;
+  if (row >= rows) return;  // the row's warps leave together
+  const int n = h / VEC;
+  const size_t base = static_cast<size_t>(row) * h;
+  float v[CPT][VEC], s[CPT][VEC], b[CPT][VEC];
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int j = i * 32 + lane;
-    v[i] = j < h ? pdt::to_f32(xr[j]) : 0.f;
-    sum += v[i];
-  }
-  const float inv_h = 1.f / static_cast<float>(h);
-  const float mean = pdt::warp_sum(sum) * inv_h;
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int j = i * 32 + lane;
-    if (j < h) {
-      const float c = v[i] - mean;
-      v[i] = c;
-      sq += c * c;
+  for (int c = 0; c < CPT; ++c) {
+    const int k = c * tpr + t;
+    if (k < n) {
+      unpack(load_pack<Tin, VEC>(x + base + k * VEC), v[c]);
+      unpack(load_pack<float, VEC>(scale + k * VEC), s[c]);
+      unpack(load_pack<float, VEC>(bias + k * VEC), b[c]);
     }
   }
-  const float rstd = rsqrtf(pdt::warp_sum(sq) * inv_h + eps);
-  Tout* yr = y + static_cast<size_t>(row) * h;
+  float sum[1] = {0.f};
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int j = i * 32 + lane;
-    if (j < h) yr[j] = pdt::from_f32<Tout>(v[i] * rstd * scale[j] + bias[j]);
+  for (int c = 0; c < CPT; ++c) {
+    if (c * tpr + t < n) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sum[0] += v[c][i];
+    }
+  }
+  row_sum(sum, red[slot][0], wpr, t >> 5, slot);
+  const float fh = static_cast<float>(h);
+  const float mean = sum[0] / fh;
+  float sq[1] = {0.f};
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    if (c * tpr + t < n) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        v[c][i] -= mean;
+        sq[0] += v[c][i] * v[c][i];
+      }
+    }
+  }
+  row_sum(sq, red[slot][1], wpr, t >> 5, slot);
+  const float rstd = rsqrtf(sq[0] / fh + eps);
+  Tout* yr = y + base;
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int k = c * tpr + t;
+    if (k < n) {
+      float o[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[i] = v[c][i] * rstd * s[c][i] + b[c][i];
+      store_pack<Tout, VEC>(yr + k * VEC, o);
+    }
+  }
+}
+
+// The smallest instantiated chunk count >= cpt (a power of two), launched.
+template <typename Tin, typename Tout, int VEC, int CPT = 1>
+cudaError_t launch_fwd(const void* x, const float* scale, const float* bias,
+                       void* y, int rows, int h, float eps, int wpr,
+                       int slots, int cpt, cudaStream_t stream) {
+  if constexpr (CPT * VEC > max_floats<VEC>()) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (cpt > CPT)
+      return launch_fwd<Tin, Tout, VEC, 2 * CPT>(x, scale, bias, y, rows, h,
+                                                 eps, wpr, slots, cpt, stream);
+    const dim3 grid((rows + slots - 1) / slots);
+    layer_norm_fwd_kernel<Tin, Tout, VEC, CPT>
+        <<<grid, slots * wpr * 32, 0, stream>>>(
+            static_cast<const Tin*>(x), scale, bias, static_cast<Tout*>(y),
+            rows, h, eps, wpr);
+    return cudaGetLastError();
   }
 }
 
 template <typename Tin, typename Tout>
-cudaError_t launch(const void* x, const float* scale, const float* bias,
-                   void* y, int rows, int h, float eps, cudaStream_t stream) {
-  const dim3 grid((rows + kWarps - 1) / kWarps);
-  const dim3 block(kWarps * 32);
-  const Tin* xp = static_cast<const Tin*>(x);
-  Tout* yp = static_cast<Tout*>(y);
-#define PDT_LN_CASE(VPT)                                                  \
-  if (h <= 32 * (VPT)) {                                                  \
-    layer_norm_fwd_kernel<Tin, Tout, VPT>                                 \
-        <<<grid, block, 0, stream>>>(xp, scale, bias, yp, rows, h, eps);  \
-    return cudaGetLastError();                                            \
-  }
-  PDT_LN_CASE(1)
-  PDT_LN_CASE(2)
-  PDT_LN_CASE(4)
-  PDT_LN_CASE(8)
-  PDT_LN_CASE(16)
-  PDT_LN_CASE(32)
-  PDT_LN_CASE(64)
-#undef PDT_LN_CASE
-  return cudaErrorInvalidValue;  // h > 2048: the wrapper refuses it first
+cudaError_t launch_fwd_vec(const void* x, const float* scale,
+                           const float* bias, void* y, int rows, int h,
+                           float eps, int vec, int wpr, int slots, int cpt,
+                           cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(Tin);
+  if (vec == kVec)
+    return launch_fwd<Tin, Tout, kVec>(x, scale, bias, y, rows, h, eps, wpr,
+                                       slots, cpt, stream);
+  return launch_fwd<Tin, Tout, 1>(x, scale, bias, y, rows, h, eps, wpr, slots,
+                                  cpt, stream);
 }
 
-template <typename T, int VPT>
-__global__ void __launch_bounds__(kWarps * 32)
-layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                      const float* __restrict__ scale, T* __restrict__ dx,
-                      float* __restrict__ dscale_part,
-                      float* __restrict__ dbias_part, int rows, int h,
-                      float eps) {
-  __shared__ float red[kWarps * pdt::kMaxRowWidth];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// ----------------------------------------------------------------- backward
+
+// dx of a row, and its (mean, rstd) for the column pass: the forward's
+// mapping and loads (x, dy and scale chunks all issued at the start), three
+// reductions (the mean, the centred variance, then sum(wdy * xhat) and
+// sum(wdy) together).
+template <typename T, int VEC, int CPT>
+__global__ void __launch_bounds__(kMaxThreads)
+layer_norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                         const float* __restrict__ scale, T* __restrict__ dx,
+                         float2* __restrict__ stats, int rows, int h,
+                         float eps, int wpr) {
+  __shared__ float red[kMaxSlots][3][2 * kMaxRowWarps];
+  const int tpr = wpr * 32;
+  const int slot = threadIdx.x / tpr;
+  const int t = threadIdx.x - slot * tpr;
+  const int warp = t >> 5;
+  const int row = blockIdx.x * (blockDim.x / tpr) + slot;
+  if (row >= rows) return;  // the row's warps leave together
+  const int n = h / VEC;
+  const size_t base = static_cast<size_t>(row) * h;
   const float fh = static_cast<float>(h);
-  float ps[VPT], pb[VPT];
+  float v[CPT][VEC], g[CPT][VEC], w[CPT][VEC];
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) ps[i] = pb[i] = 0.f;
-  for (int row = blockIdx.x * kWarps + warp; row < rows;
-       row += gridDim.x * kWarps) {
-    const size_t base = static_cast<size_t>(row) * h;
-    float v[VPT], g[VPT];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const int j = i * 32 + lane;
-      v[i] = j < h ? pdt::to_f32(x[base + j]) : 0.f;
-      g[i] = j < h ? pdt::to_f32(dy[base + j]) : 0.f;
-      sum += v[i];
+  for (int c = 0; c < CPT; ++c) {
+    const int k = c * tpr + t;
+    if (k < n) {
+      unpack(load_pack<T, VEC>(x + base + k * VEC), v[c]);
+      unpack(load_pack<T, VEC>(dy + base + k * VEC), g[c]);
+      unpack(load_pack<float, VEC>(scale + k * VEC), w[c]);
     }
-    const float mean = pdt::warp_sum(sum) / fh;
-    float sq = 0.f;
+  }
+  float st[1] = {0.f};
 #pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const int j = i * 32 + lane;
-      if (j < h) {
-        v[i] -= mean;
-        sq += v[i] * v[i];
-      }
+  for (int c = 0; c < CPT; ++c) {
+    if (c * tpr + t < n) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) st[0] += v[c][i];
     }
-    const float rstd = rsqrtf(pdt::warp_sum(sq) / fh + eps);
-    float s1 = 0.f, s2 = 0.f;
+  }
+  row_sum(st, red[slot][0], wpr, warp, slot);
+  const float mean = st[0] / fh;
+  float sq[1] = {0.f};
 #pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const int j = i * 32 + lane;
-      v[i] *= rstd;  // xhat
-      const float wdy = j < h ? g[i] * scale[j] : 0.f;
-      s1 += wdy * v[i];
-      s2 += wdy;
-    }
-    const float c1 = pdt::warp_sum(s1) / fh;
-    const float c2 = pdt::warp_sum(s2) / fh;
+  for (int c = 0; c < CPT; ++c) {
+    if (c * tpr + t < n) {
 #pragma unroll
-    for (int i = 0; i < VPT; ++i) {
-      const int j = i * 32 + lane;
-      if (j < h) {
-        const float wdy = g[i] * scale[j];
-        dx[base + j] = pdt::from_f32<T>((wdy - v[i] * c1 - c2) * rstd);
-        ps[i] += g[i] * v[i];
-        pb[i] += g[i];
+      for (int i = 0; i < VEC; ++i) {
+        v[c][i] -= mean;
+        sq[0] += v[c][i] * v[c][i];
       }
     }
   }
-  float* mine = red + warp * h;
+  row_sum(sq, red[slot][1], wpr, warp, slot);
+  const float rstd = rsqrtf(sq[0] / fh + eps);
+  float cs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int j = i * 32 + lane;
-    if (j < h) mine[j] = ps[i];
-  }
-  pdt::sum_warp_rows(red, kWarps, h,
-                     dscale_part + static_cast<size_t>(blockIdx.x) * h);
+  for (int c = 0; c < CPT; ++c) {
+    if (c * tpr + t < n) {
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int j = i * 32 + lane;
-    if (j < h) mine[j] = pb[i];
+      for (int i = 0; i < VEC; ++i) {
+        v[c][i] *= rstd;  // xhat
+        g[c][i] *= w[c][i];  // wdy
+        cs[0] += g[c][i] * v[c][i];
+        cs[1] += g[c][i];
+      }
+    }
   }
-  pdt::sum_warp_rows(red, kWarps, h,
-                     dbias_part + static_cast<size_t>(blockIdx.x) * h);
+  row_sum(cs, red[slot][2], wpr, warp, slot);
+  const float c1 = cs[0] / fh;
+  const float c2 = cs[1] / fh;
+  T* dxr = dx + base;
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int k = c * tpr + t;
+    if (k < n) {
+      float o[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[i] = (g[c][i] - v[c][i] * c1 - c2) * rstd;
+      store_pack<T, VEC>(dxr + k * VEC, o);
+    }
+  }
+  if (t == 0) stats[row] = make_float2(mean, rstd);
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* x, const void* dy, const float* scale,
-                       void* dx, float* dscale_part, float* dbias_part,
-                       int rows, int h, float eps, int blocks,
-                       cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* dyp = static_cast<const T*>(dy);
-  T* dxp = static_cast<T*>(dx);
-#define PDT_LN_BWD_CASE(VPT)                                                \
-  if (h <= 32 * (VPT)) {                                                    \
-    layer_norm_bwd_kernel<T, VPT><<<blocks, kWarps * 32, 0, stream>>>(      \
-        xp, dyp, scale, dxp, dscale_part, dbias_part, rows, h, eps);        \
-    return cudaGetLastError();                                              \
+// dscale and dbias of CB chunks of columns, over every row: thread
+// (group, j) takes chunk j of rows group, group + groups, ... in order,
+// with xhat = (x - mean) * rstd recomputed as the dx pass formed it; then
+// the groups of a warp by xor-butterfly and the warps in warp order.
+template <typename T, int VEC, int CB>
+__global__ void __launch_bounds__(kColumnThreads)
+layer_norm_bwd_params_kernel(const T* __restrict__ x,
+                             const T* __restrict__ dy,
+                             const float2* __restrict__ stats,
+                             float* __restrict__ dscale,
+                             float* __restrict__ dbias, int rows, int h) {
+  __shared__ float red[kColumnThreads / 32][CB][2][VEC];
+  const int j = threadIdx.x % CB;
+  const int group = threadIdx.x / CB;
+  const int groups = blockDim.x / CB;
+  const int n = h / VEC;
+  const int k = blockIdx.x * CB + j;
+  float ps[VEC], pb[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) ps[i] = pb[i] = 0.f;
+  if (k < n) {
+    const size_t step = static_cast<size_t>(groups) * h;
+    const T* xp = x + static_cast<size_t>(group) * h + k * VEC;
+    const T* gp = dy + static_cast<size_t>(group) * h + k * VEC;
+#pragma unroll 4
+    for (int r = group; r < rows; r += groups, xp += step, gp += step) {
+      float xv[VEC], gv[VEC];
+      unpack(load_pack<T, VEC>(xp), xv);
+      unpack(load_pack<T, VEC>(gp), gv);
+      const float2 s = stats[r];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xhat = (xv[i] - s.x) * s.y;
+        ps[i] += gv[i] * xhat;
+        pb[i] += gv[i];
+      }
+    }
   }
-  PDT_LN_BWD_CASE(1)
-  PDT_LN_BWD_CASE(2)
-  PDT_LN_BWD_CASE(4)
-  PDT_LN_BWD_CASE(8)
-  PDT_LN_BWD_CASE(16)
-  PDT_LN_BWD_CASE(32)
-  PDT_LN_BWD_CASE(64)
-#undef PDT_LN_BWD_CASE
-  return cudaErrorInvalidValue;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+#pragma unroll
+    for (int o = 16; o >= CB; o >>= 1) {
+      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], o);
+      pb[i] += __shfl_xor_sync(0xffffffffu, pb[i], o);
+    }
+  }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane < CB) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      red[warp][lane][0][i] = ps[i];
+      red[warp][lane][1][i] = pb[i];
+    }
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < CB * VEC) {
+    const int jj = threadIdx.x / VEC;
+    const int i = threadIdx.x % VEC;
+    const int kk = blockIdx.x * CB + jj;
+    if (kk < n) {
+      float a = 0.f, b = 0.f;
+      for (int w = 0; w < kColumnThreads / 32; ++w) {
+        a += red[w][jj][0][i];
+        b += red[w][jj][1][i];
+      }
+      dscale[kk * VEC + i] = a;
+      dbias[kk * VEC + i] = b;
+    }
+  }
+}
+
+template <typename T, int VEC, int CPT = 1>
+cudaError_t launch_bwd(const void* x, const void* dy, const float* scale,
+                       void* dx, float2* stats, float* dscale, float* dbias,
+                       int rows, int h, float eps, int wpr, int slots,
+                       int cpt, cudaStream_t stream) {
+  if constexpr (CPT * VEC > max_floats<VEC>()) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (cpt > CPT)
+      return launch_bwd<T, VEC, 2 * CPT>(x, dy, scale, dx, stats, dscale,
+                                         dbias, rows, h, eps, wpr, slots,
+                                         cpt, stream);
+    const T* xp = static_cast<const T*>(x);
+    const T* dyp = static_cast<const T*>(dy);
+    layer_norm_bwd_dx_kernel<T, VEC, CPT>
+        <<<(rows + slots - 1) / slots, slots * wpr * 32, 0, stream>>>(
+            xp, dyp, scale, static_cast<T*>(dx), stats, rows, h, eps, wpr);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    constexpr int kCB = column_chunks<VEC>();
+    const int chunks = h / VEC;
+    layer_norm_bwd_params_kernel<T, VEC, kCB>
+        <<<(chunks + kCB - 1) / kCB, kColumnThreads, 0, stream>>>(
+            xp, dyp, stats, dscale, dbias, rows, h);
+    return cudaGetLastError();
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// Checks what both kernels take: vec (elements a chunk) 1, or 16 bytes
+// of the element with every row 16-byte aligned; wpr 1, 2, 4 or 8; the
+// chunks a thread (returned in *cpt).
+bool check_plan(int h, int esize, int vec, int wpr, int* cpt,
+                std::initializer_list<const void*> ptrs) {
+  if (h <= 0 || h > pdt::kMaxRowWidth) return false;
+  if (wpr <= 0 || wpr > kMaxRowWarps || (wpr & (wpr - 1)) != 0) return false;
+  if (vec != 1) {
+    if (vec * esize != 16 || h % vec != 0) return false;
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return false;
+  }
+  const int n = h / vec;
+  *cpt = (n + 32 * wpr - 1) / (32 * wpr);
+  return true;
 }
 
 }  // namespace
 
 // x, dy, dx [rows, h] (float32 or bfloat16, by dtype), scale [h] float32,
-// dscale_part/dbias_part [blocks, h] float32. Returns the cudaError_t of
-// the launch.
+// stats [rows] float2 scratch (each row's mean and rstd, written by the dx
+// pass and read by the column pass), dscale/dbias [h] float32. vec:
+// elements a chunk (1, or 16 bytes of the dtype); wpr: warps a row; slots:
+// rows a block of the dx pass (slots * wpr <= 16). Launches the two passes
+// on the stream; returns the cudaError_t of the launches.
 extern "C" int pdt_layer_norm_bwd(const void* x, const void* dy,
-                                  const void* scale, void* dx,
-                                  void* dscale_part, void* dbias_part,
-                                  int rows, int h, float eps, int dtype,
-                                  int blocks, void* stream) {
-  if (rows <= 0 || h <= 0 || h > pdt::kMaxRowWidth || blocks <= 0)
+                                  const void* scale, void* dx, void* stats,
+                                  void* dscale, void* dbias, int rows, int h,
+                                  float eps, int dtype, int vec, int wpr,
+                                  int slots, void* stream) {
+  const int esize = dtype == pdt::kBF16 ? 2 : 4;
+  int cpt = 0;
+  if (rows <= 0 || (dtype != pdt::kBF16 && dtype != pdt::kF32) ||
+      slots <= 0 || slots * wpr > kMaxSlots ||
+      !check_plan(h, esize, vec, wpr, &cpt, {x, dy, dx, scale}))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* s = static_cast<const float*>(scale);
-  float* ps = static_cast<float*>(dscale_part);
-  float* pb = static_cast<float*>(dbias_part);
+  float2* sp = static_cast<float2*>(stats);
+  float* ds = static_cast<float*>(dscale);
+  float* db = static_cast<float*>(dbias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == pdt::kBF16)
-    err = launch_bwd<__nv_bfloat16>(x, dy, s, dx, ps, pb, rows, h, eps,
-                                    blocks, st);
-  else if (dtype == pdt::kF32)
-    err = launch_bwd<float>(x, dy, s, dx, ps, pb, rows, h, eps, blocks, st);
-  else
-    err = cudaErrorInvalidValue;
+  if (dtype == pdt::kBF16) {
+    err = vec == 1
+        ? launch_bwd<__nv_bfloat16, 1>(x, dy, s, dx, sp, ds, db, rows, h, eps,
+                                       wpr, slots, cpt, st)
+        : launch_bwd<__nv_bfloat16, 8>(x, dy, s, dx, sp, ds, db, rows, h, eps,
+                                       wpr, slots, cpt, st);
+  } else {
+    err = vec == 1
+        ? launch_bwd<float, 1>(x, dy, s, dx, sp, ds, db, rows, h, eps, wpr,
+                               slots, cpt, st)
+        : launch_bwd<float, 4>(x, dy, s, dx, sp, ds, db, rows, h, eps, wpr,
+                               slots, cpt, st);
+  }
   return static_cast<int>(err);
 }
 
 // x [rows, h] (float32 or bfloat16, by x_dtype), scale/bias [h] float32,
-// y [rows, h] (by y_dtype). Returns the cudaError_t of the launch.
+// y [rows, h] (by y_dtype). vec: elements a chunk (1, or 16 bytes of x's
+// dtype); wpr: warps a row; slots: rows a block (slots * wpr <= 16).
+// Returns the cudaError_t of the launch.
 extern "C" int pdt_layer_norm_fwd(const void* x, const void* scale,
                                   const void* bias, void* y, int rows, int h,
                                   float eps, int x_dtype, int y_dtype,
+                                  int vec, int wpr, int slots,
                                   void* stream) {
-  if (rows <= 0 || h <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool dtypes_ok = (x_dtype == pdt::kBF16 || x_dtype == pdt::kF32) &&
+                         (y_dtype == pdt::kBF16 || y_dtype == pdt::kF32);
+  const int esize = x_dtype == pdt::kBF16 ? 2 : 4;
+  int cpt = 0;
+  if (rows <= 0 || !dtypes_ok || slots <= 0 || slots * wpr > kMaxSlots ||
+      !check_plan(h, esize, vec, wpr, &cpt, {x, y, scale, bias}))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_dtype == pdt::kBF16 && y_dtype == pdt::kBF16)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(x, s, b, y, rows, h, eps, st);
-  else if (x_dtype == pdt::kBF16 && y_dtype == pdt::kF32)
-    err = launch<__nv_bfloat16, float>(x, s, b, y, rows, h, eps, st);
-  else if (x_dtype == pdt::kF32 && y_dtype == pdt::kBF16)
-    err = launch<float, __nv_bfloat16>(x, s, b, y, rows, h, eps, st);
-  else if (x_dtype == pdt::kF32 && y_dtype == pdt::kF32)
-    err = launch<float, float>(x, s, b, y, rows, h, eps, st);
+    err = launch_fwd_vec<__nv_bfloat16, __nv_bfloat16>(
+        x, s, b, y, rows, h, eps, vec, wpr, slots, cpt, st);
+  else if (x_dtype == pdt::kBF16)
+    err = launch_fwd_vec<__nv_bfloat16, float>(x, s, b, y, rows, h, eps, vec,
+                                               wpr, slots, cpt, st);
+  else if (y_dtype == pdt::kBF16)
+    err = launch_fwd_vec<float, __nv_bfloat16>(x, s, b, y, rows, h, eps, vec,
+                                               wpr, slots, cpt, st);
   else
-    err = cudaErrorInvalidValue;
+    err = launch_fwd_vec<float, float>(x, s, b, y, rows, h, eps, vec, wpr,
+                                       slots, cpt, st);
   return static_cast<int>(err);
 }

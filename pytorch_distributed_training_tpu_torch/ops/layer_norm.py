@@ -11,8 +11,9 @@ emits it directly). Both ops are ``torch.autograd.Function``s whose
 backward is a kernel too:
 
 - ``layer_norm``: forward ``csrc/layer_norm.cu`` ``pdt_layer_norm_fwd``;
-  backward ``pdt_layer_norm_bwd`` recomputes the statistics from the
-  saved x and returns dx in x's dtype and float32 dscale/dbias.
+  backward ``pdt_layer_norm_bwd`` (a dx pass, then a column pass)
+  recomputes the statistics from the saved x and returns dx in x's dtype
+  and float32 dscale/dbias.
 - ``dropout_add_layer_norm``: ``LN(x + dropout(h))`` with the keep mask
   drawn from ``(seed, site)`` (``ops/dropout.py``); the forward saves
   ``s = x + dropout(h)`` in h's dtype (bf16 under the bf16 policy) and
@@ -21,10 +22,12 @@ backward is a kernel too:
   forward writes no s. The two tails of a block share one seed and differ
   by ``site``.
 
-Both kernels' backward write float32 partial rows of dscale/dbias, one per
-block, which are summed here with ``torch.sum`` (the JAX package sums its
-per-block partials outside its kernel too): no atomics, so two runs give
-the same bits.
+The LayerNorm backward forms dscale/dbias in a column pass of its own
+kernel call, each block summing its columns over every row in a fixed
+order (``csrc/layer_norm.cu``). The dropout-add-LayerNorm backward writes
+float32 partial rows, one per block, which are summed here with
+``torch.sum`` (the JAX package sums its per-block partials outside its
+kernel too). No atomics on the sums, so two runs give the same bits.
 
 On a CPU tensor every step runs its plain version (``reference_*``); on a
 CUDA tensor the kernels (built at first use) or an error.
@@ -54,6 +57,17 @@ _ROWS_PER_BLOCK = 4
 # summation order, and the bits, do not depend on the card)
 _MAX_PARTIAL_BLOCKS = 256
 
+# LayerNorm kernels (csrc/layer_norm.cu): a row belongs to ``wpr`` warps,
+# each thread holding chunks of 16 bytes of the row (``vec`` elements), or
+# single elements where a row is not 16-byte aligned, at most as many
+# values as the kernels hold unspilled (max_floats: 32 of 16-byte
+# bf16 chunks, else 16). The forward and the backward's dx pass take a
+# block a row and one chunk a thread below _FEW_ROWS rows, else
+# _MANY_ROW_WARPS warps a block.
+_FEW_ROWS = 256
+_MANY_ROW_WARPS = 4
+_ROW_WARPS = (1, 2, 4, 8, 16)
+
 
 def _use_kernel(x: torch.Tensor, what: str) -> bool:
     if x.device.type == "cpu":
@@ -66,6 +80,36 @@ def _use_kernel(x: torch.Tensor, what: str) -> bool:
 def _partial_blocks(rows: int) -> int:
     """Blocks (= float32 partial rows) of a backward launch over ``rows``."""
     return max(1, min(-(-rows // _ROWS_PER_BLOCK), _MAX_PARTIAL_BLOCKS))
+
+
+def _vec(h: int, dtype: torch.dtype, *tensors) -> int:
+    """Elements a chunk: 16 bytes of ``dtype`` when every row of every
+    tensor starts on a 16-byte boundary, else 1."""
+    vec = 16 // dtype.itemsize
+    if h % vec == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return vec
+    return 1
+
+
+def _warps_per_row(h: int, vec: int, floats: int) -> int:
+    """Fewest warps a row (a power of two, at most 16) such that a thread
+    holds at most ``floats`` values of the row."""
+    chunks = -(-h // vec)
+    for wpr in _ROW_WARPS:
+        if -(-chunks // (32 * wpr)) * vec <= floats:
+            return wpr
+    return _ROW_WARPS[-1]
+
+
+@functools.lru_cache(maxsize=1024)
+def _row_plan(rows: int, h: int, vec: int) -> tuple[int, int]:
+    """(warps a row, rows a block) of a forward or dx-pass launch, from the
+    shape."""
+    if rows < _FEW_ROWS:
+        # a block a row, one chunk a thread where 16 warps suffice
+        return _warps_per_row(h, vec, vec), 1
+    wpr = _warps_per_row(h, vec, 32 if vec == 8 else 16)
+    return wpr, max(1, _MANY_ROW_WARPS // wpr)
 
 
 # --------------------------------------------------------- plain versions
@@ -153,14 +197,14 @@ def _ln_kernels():
     """(library, forward entry, backward entry), built on first use."""
     lib = _build.load("layer_norm")
     fwd = lib.pdt_layer_norm_fwd
-    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_float, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
+    fwd.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = lib.pdt_layer_norm_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_float, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
     bwd.restype = ctypes.c_int
     return lib, fwd, bwd
 
@@ -213,10 +257,12 @@ def _layer_norm_cuda(x, scale, bias, eps: float, out_dtype):
     rows = x.numel() // h
     if rows == 0:
         return y
+    vec = _vec(h, x.dtype, x, y, scale, bias)
+    wpr, slots = _row_plan(rows, h, vec)
     lib, fn, _ = _ln_kernels()
     code = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
               rows, h, eps, _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
-              _build.stream_ptr(x))
+              vec, wpr, slots, _build.stream_ptr(x))
     _build.check_launch(lib, "layer_norm", code)
     return y
 
@@ -231,14 +277,17 @@ def _layer_norm_bwd_cuda(x, dy, scale, *, eps: float):
     if rows == 0:
         zero = torch.zeros(h, dtype=torch.float32, device=x.device)
         return dx, zero, zero.clone()
-    blocks = _partial_blocks(rows)
-    parts = torch.empty(2, blocks, h, dtype=torch.float32, device=x.device)
+    sums = torch.empty(2, h, dtype=torch.float32, device=x.device)
+    stats = torch.empty(rows, 2, dtype=torch.float32, device=x.device)
+    vec = _vec(h, x.dtype, x, dy, dx, scale)
+    wpr, slots = _row_plan(rows, h, vec)
     lib, _, fn = _ln_kernels()
     code = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-              parts[0].data_ptr(), parts[1].data_ptr(), rows, h, eps,
-              _DTYPE_CODES[x.dtype], blocks, _build.stream_ptr(x))
+              stats.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), rows,
+              h, eps, _DTYPE_CODES[x.dtype], vec, wpr, slots,
+              _build.stream_ptr(x))
     _build.check_launch(lib, "layer_norm_bwd", code)
-    return (dx, *parts.sum(dim=1))  # (dscale, dbias)
+    return dx, sums[0], sums[1]
 
 
 def _dropout_args(rate: float, seed: int, site: int):
