@@ -13,9 +13,10 @@ the JAX package), in phases that each raise on failure:
    ``sm_90a``, one process per source, all at once;
 3. kernels: holds each kernel against its plain PyTorch version on the
    card (tolerances below; the dropout masks bit for bit), backward kernels
-   through ``torch.autograd.grad`` (the LayerNorm pair also at H 64-2048
-   and 1001, bf16 and float32 in and out, on rows off 16 bytes, two calls
-   bit-identical), and times kernel, plain version and the
+   through ``torch.autograd.grad`` (the LayerNorm pair and the
+   dropout-add-LayerNorm pair also at H 64-2048 and 1001, bf16 and float32
+   in and out, on rows off 16 bytes, two calls bit-identical; the latter
+   also at rate 0 and without s), and times kernel, plain version and the
    library yardstick at the main paths' shapes with CUDA-graph replay (the
    flash kernels against ``F.scaled_dot_product_attention``, at dropout
    rates 0.1 and 0, the backwards' kernels one by one; the whole-sequence
@@ -212,6 +213,8 @@ PARAM_SUM_SLACK = 2.0 ** -16
 # of 8 (single-element chunks)
 LN_BWD_SHAPES = TRAIN_SHAPES + ((1024, 2048), (8, 2048), (1000, 1001),
                                 (64, 1001))
+# the eval forward's rows of kernel 3 (eval batch 32 x seq 128)
+DAL_EVAL_ROWS = 4096
 
 TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
               "--train-size", "288", "--eval-size", "408", "--num-epochs",
@@ -463,8 +466,8 @@ def build_phase() -> None:
         say(f"[build] {name}: {len(regs)} instantiations, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)}, spill bytes "
             f"{sum(spills)}" + (f", spilling {spilling}" if spilling else ""))
-        if name == "layer_norm" and sum(spills):
-            raise AssertionError(f"layer_norm spills: {spilling}")
+        if name in ("layer_norm", "dropout_add_layer_norm") and sum(spills):
+            raise AssertionError(f"{name} spills: {spilling}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1152,7 +1155,8 @@ _PORT_KERNELS = (
     ("layer_norm_bwd_dx_kernel", "layer_norm_bwd dx pass"),
     ("layer_norm_bwd_params_kernel", "layer_norm_bwd column pass"),
     ("dal_fwd_kernel", "dropout_add_layer_norm"),
-    ("dal_bwd_kernel", "dropout_add_layer_norm_bwd"),
+    ("dal_bwd_dx_kernel", "dropout_add_layer_norm_bwd dx pass"),
+    ("dal_bwd_params_kernel", "dropout_add_layer_norm_bwd column pass"),
     ("mask_scale_kernel", "mask_scale"),
     ("paged_decode_kernel", "paged_attention"),
     ("paged_mq_mma_kernel<", "paged_attention_mq"),
@@ -1263,14 +1267,26 @@ def device_time_by_class(prof, wall_s, top_n=10) -> dict:
     total_us = sum(by_class.values())
     for us, count, name in sorted(top, reverse=True)[:top_n]:
         say(f"[profile] {us / 1e3:9.3f} ms {count:6d}x {name}")
+    # each port kernel's device us a launch (class time / launches), and a
+    # two-pass backward's us a call (both passes over the dx pass's
+    # launches; each call launches both, so their counts must agree)
+    per_launch = {k: by_class[k] / launches[k] for k in by_class
+                  if k.endswith("(port kernel)") and launches[k]}
+    dx_tail = " dx pass (port kernel)"
+    for dx in [k for k in by_class if k.endswith(dx_tail)]:
+        kernel = dx[:-len(dx_tail)]
+        col = f"{kernel} column pass (port kernel)"
+        if launches.get(col, 0) != launches[dx]:
+            raise AssertionError(f"{kernel}: {launches[dx]} dx passes but "
+                                 f"{launches.get(col, 0)} column passes")
+        per_launch[f"{kernel} (port kernel, dx + column pass)"] = (
+            (by_class[dx] + by_class[col]) / launches[dx])
     return dict(
         device_kernel_ms=total_us / 1e3,
         busy_share=total_us / 1e6 / wall_s if wall_s else None,
         by_class_ms={k: v / 1e3 for k, v in sorted(
             by_class.items(), key=lambda kv: -kv[1])},
-        # each port kernel's device us a launch (class time / launches)
-        port_us_per_launch={k: by_class[k] / launches[k] for k in by_class
-                            if k.endswith("(port kernel)") and launches[k]},
+        port_us_per_launch=per_launch,
         port_launches={k: n for k, n in launches.items()
                        if k.endswith("(port kernel)")},
     )
@@ -1464,12 +1480,28 @@ def ln_bwd_phase(device, shapes=LN_BWD_SHAPES, eps=1e-12,
                 **{f"rows_{n}": t for n, t in timings.items()})
 
 
-def dal_phase(device, shapes=TRAIN_SHAPES, rate=DROPOUT_RATE, eps=1e-12):
+def dal_bound(rows, hidden, *, n_rows_io, params, rate):
+    """Least time of a dropout-add-LayerNorm call: ``n_rows_io`` bf16
+    [rows, hidden] tensors read or written once, ``params`` float32 [hidden]
+    vectors; 16 float operations an element (20 in the backward are within
+    rounding of it), and ~25 integer ones for Philox at rate > 0 (as
+    kernel 5's bound counts them), at the float32 rate."""
+    ops = (16.0 + (25.0 if rate > 0 else 0.0)) * rows * hidden
+    return bound(n_rows_io * rows * hidden * 2 + params * hidden * 4, ops)
+
+
+def dal_phase(device, shapes=LN_BWD_SHAPES, rate=DROPOUT_RATE, eps=1e-12,
+              eval_rows=DAL_EVAL_ROWS) -> tuple[dict, dict]:
     """Kernels 3 and 4: the forward's mask against the plain generator bit
     for bit (h = 1, x = 0 makes s the mask-scale itself), s bit for bit at
     random inputs, y and the gradients through ``torch.autograd.grad``
     against the plain forward and backward under autograd (both save s in
-    bf16), dh exactly 0 where h was dropped."""
+    bf16), dh exactly 0 where h was dropped, two calls bit-identical; at
+    H 64-2048 and 1001 (single-element chunks), on inputs off 16 bytes, at
+    rate 0, without s (eval), and for every (h, y) dtype pair. Times at
+    the training shape (MAIN_ROWS x MAIN_H, rate 0.1, s saved; the
+    backward's two passes also one by one) and the eval forward
+    (``eval_rows`` x MAIN_H, rate 0, no s)."""
     import functools
 
     import torch
@@ -1485,8 +1517,52 @@ def dal_phase(device, shapes=TRAIN_SHAPES, rate=DROPOUT_RATE, eps=1e-12):
     )
 
     g = torch.Generator(device=device).manual_seed(3)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     worst = worst_sum = 0.0
+
+    def check_bwd(what, s, dy, got, want, keep):
+        nonlocal worst, worst_sum
+        worst = max(worst, check_ln_close(what + " dh", got[0], want[0]),
+                    check_ln_close(what + " dx", got[1], want[1]))
+        if keep is not None and not torch.equal(
+                got[0][~keep], torch.zeros_like(got[0][~keep])):
+            raise AssertionError(f"{what}: dh is not 0 where h dropped")
+        dyf, xh = dy.float(), _xhat(s, eps)
+        worst_sum = max(
+            worst_sum,
+            check_sums(what + " dscale", got[2], want[2],
+                       (dyf * xh).abs().sum(0)),
+            check_sums(what + " dbias", got[3], want[3], dyf.abs().sum(0)),
+        )
+
+    def check_pair(what, h, x, dy, scale, bias, kw, out_dtype, keep):
+        """The kernels' forward (y, s) and backward against the plain ones
+        on the same s, each call twice bit-identical."""
+        nonlocal worst
+        fwd = functools.partial(_dal_fwd_cuda, h, x, scale, bias,
+                                out_dtype=out_dtype, **kw)
+        y_k, s_k = fwd(save_s=True)
+        y_p, s_p = reference_dal_fwd(h, x, scale, bias, out_dtype=out_dtype,
+                                     **kw)
+        if not torch.equal(s_k, s_p):
+            raise AssertionError(f"{what}: saved s differs from the plain "
+                                 f"version's")
+        worst = max(worst, check_ln_close(what + " y", y_k, y_p))
+        y_e, s_e = fwd(save_s=False)
+        if s_e is not None:
+            raise AssertionError(f"{what}: s returned with save_s=False")
+        for name, a, b in (("y", y_k, fwd(save_s=True)[0]),
+                           ("s", s_k, fwd(save_s=True)[1]),
+                           ("y without s", y_k, y_e)):
+            same_bits(f"{what} {name}", a, b)
+        bwd = functools.partial(_dal_bwd_cuda, s_k, dy.to(h.dtype), scale,
+                                **kw)
+        got = bwd()
+        check_bwd(what + "_bwd", s_k, dy.to(h.dtype), got,
+                  reference_dal_bwd(s_k, dy.to(h.dtype), scale, **kw), keep)
+        for name, a, b in zip(("dh", "dx", "dscale", "dbias"), got, bwd()):
+            same_bits(f"{what}_bwd {name}", a, b)
+
     for rows, hidden in shapes:
         seed, site = 1000 + rows + hidden, 1
         kw = dict(rate=rate, seed=seed, site=site, eps=eps)
@@ -1500,41 +1576,47 @@ def dal_phase(device, shapes=TRAIN_SHAPES, rate=DROPOUT_RATE, eps=1e-12):
         if not torch.equal(s_mask > 0, keep):
             raise AssertionError(f"{what}: the kernel's mask differs from "
                                  f"the plain generator's")
-        _, s_k = _dal_fwd_cuda(h, x, scale, bias, out_dtype=bf16,
-                               save_s=True, **kw)
-        _, s_p = reference_dal_fwd(h, x, scale, bias, out_dtype=bf16, **kw)
-        if not torch.equal(s_k, s_p):
-            raise AssertionError(f"{what}: saved s differs from the plain "
-                                 f"version's")
+        check_pair(what, h, x, dy, scale, bias, kw, bf16, keep)
+        # the autograd Function of the entry point, against the plain one
         y_k, got = _grads(functools.partial(dropout_add_layer_norm,
                                             out_dtype=bf16, **kw),
                           (h, x, scale, bias), dy)
         y_p, want = _grads(functools.partial(reference_dropout_add_layer_norm,
                                              out_dtype=bf16, **kw),
                            (h, x, scale, bias), dy)
-        worst = max(worst, check_ln_close(what + " y", y_k, y_p),
-                    check_ln_close(what + "_bwd dh", got[0], want[0]),
-                    check_ln_close(what + "_bwd dx", got[1], want[1]))
-        if not torch.equal(got[0][~keep], torch.zeros_like(got[0][~keep])):
-            raise AssertionError(f"{what}_bwd: dh is not 0 where h dropped")
-        dyf, xh = dy.float(), _xhat(s_p, eps)
-        worst_sum = max(
-            worst_sum,
-            check_sums(what + "_bwd dscale", got[2], want[2],
-                       (dyf * xh).abs().sum(0)),
-            check_sums(what + "_bwd dbias", got[3], want[3],
-                       dyf.abs().sum(0)),
-        )
+        worst = max(worst, check_ln_close(what + " y (autograd)", y_k, y_p))
+        _, s_p = reference_dal_fwd(h, x, scale, bias, out_dtype=bf16, **kw)
+        check_bwd(what + "_bwd (autograd)", s_p, dy, got, want, keep)
+        if rows in (8, MAIN_ROWS) and hidden in (64, MAIN_H):
+            check_pair(what + " (inputs off 16 bytes)", _off16(h), _off16(x),
+                       _off16(dy), scale, bias, kw, bf16, keep)
+        if hidden in (64, MAIN_H, 1001) and rows in (8, 1000, MAIN_ROWS):
+            kw0 = dict(kw, rate=0.0)
+            check_pair(what + " rate 0", h, x, dy, scale, bias, kw0, bf16,
+                       None)
+    # every (h, y) dtype pair the kernels take
+    rows, hidden = 1000, 768
+    x, dy, scale, bias = _ln_train_inputs(g, rows, hidden, device)
+    hf = torch.randn(rows, hidden, generator=g, device=device)
+    kw = dict(rate=rate, seed=21, site=0, eps=eps)
+    keep = keep_mask((rows, hidden), rate, 21, 0, device)
+    for in_dtype, out_dtype in ((bf16, f32), (f32, f32), (f32, bf16)):
+        check_pair(f"dropout_add_layer_norm rows={rows} H={hidden} "
+                   f"{in_dtype} -> {out_dtype}", hf.to(in_dtype),
+                   x.to(in_dtype), dy, scale, bias, kw, out_dtype, keep)
     say(f"[kernels] dropout_add_layer_norm fwd/bwd parity ok: "
-        f"{list(shapes)} bf16, rate {rate}: masks and s identical to the "
-        f"plain version, y/dh/dx max abs err {worst} (<= 1 bf16 ulp + "
-        f"{LN_FP32_SLACK}), dscale/dbias max err {worst_sum} of sum |terms|")
+        f"{list(shapes)} bf16, rate {rate} (inputs off 16 bytes at 8 and "
+        f"{MAIN_ROWS} rows; rate 0; y without s; bf16/f32 in and out at "
+        f"{rows} x {hidden}): masks and s identical to the plain version, "
+        f"y/dh/dx max abs err {worst} (<= 1 bf16 ulp + {LN_FP32_SLACK}), "
+        f"dh 0 where h dropped, dscale/dbias max err {worst_sum} of sum "
+        f"|terms| (<= {PARAM_SUM_SLACK}); two calls bit-identical")
+
     x, dy, scale, bias = _ln_train_inputs(g, MAIN_ROWS, MAIN_H, device)
     h = torch.randn(MAIN_ROWS, MAIN_H, generator=g, device=device).bfloat16()
     kw = dict(rate=rate, seed=77, site=0, eps=eps)
     _, s = _dal_fwd_cuda(h, x, scale, bias, out_dtype=bf16, save_s=True,
                          **kw)
-    n_bytes = MAIN_ROWS * MAIN_H * 2 * 4
     fwd = dict(
         ms=time_ms(lambda: _dal_fwd_cuda(h, x, scale, bias, out_dtype=bf16,
                                          save_s=True, **kw)),
@@ -1542,22 +1624,40 @@ def dal_phase(device, shapes=TRAIN_SHAPES, rate=DROPOUT_RATE, eps=1e-12):
                                                    out_dtype=bf16, **kw)),
         library_ms=None,
     )
-    fwd["bound_ms"], fwd["bound_by"] = bound(n_bytes + 2 * MAIN_H * 4,
-                                             16.0 * MAIN_ROWS * MAIN_H)
+    fwd["bound_ms"], fwd["bound_by"] = dal_bound(
+        MAIN_ROWS, MAIN_H, n_rows_io=4, params=2, rate=rate)
     bwd = dict(
         ms=time_ms(lambda: _dal_bwd_cuda(s, dy, scale, **kw)),
         plain_ms=time_ms(lambda: reference_dal_bwd(s, dy, scale, **kw)),
         library_ms=None,
+        kernel_ms=kernel_ms_by_symbol(lambda: _dal_bwd_cuda(s, dy, scale,
+                                                            **kw)),
     )
-    bwd["bound_ms"], bwd["bound_by"] = bound(n_bytes + 3 * MAIN_H * 4,
-                                             20.0 * MAIN_ROWS * MAIN_H)
+    bwd["bound_ms"], bwd["bound_by"] = dal_bound(
+        MAIN_ROWS, MAIN_H, n_rows_io=4, params=3, rate=rate)
+    # the eval forward: rate 0, no s
+    x, _, scale, bias = _ln_train_inputs(g, eval_rows, MAIN_H, device)
+    h = torch.randn(eval_rows, MAIN_H, generator=g, device=device).bfloat16()
+    kw0 = dict(rate=0.0, seed=0, site=0, eps=eps, out_dtype=bf16)
+    ev = dict(
+        ms=time_ms(lambda: _dal_fwd_cuda(h, x, scale, bias, save_s=False,
+                                         **kw0)),
+        plain_ms=time_ms(lambda: reference_dal_fwd(h, x, scale, bias,
+                                                   **kw0)),
+        library_ms=None,
+    )
+    ev["bound_ms"], ev["bound_by"] = dal_bound(
+        eval_rows, MAIN_H, n_rows_io=3, params=2, rate=0.0)
     say(f"[kernels] dropout_add_layer_norm rows={MAIN_ROWS} H={MAIN_H} bf16 "
         f"rate {rate}, training forward: " + json.dumps(fwd))
+    say(f"[kernels] dropout_add_layer_norm rows={eval_rows} H={MAIN_H} bf16 "
+        f"rate 0, eval forward (no s): " + json.dumps(ev))
     say(f"[kernels] dropout_add_layer_norm_bwd rows={MAIN_ROWS} H={MAIN_H}: "
         + json.dumps(bwd))
     say("[kernels] dropout_add_layer_norm(_bwd) library_ms null: no single "
         "PyTorch call computes dropout + residual add + LayerNorm")
-    return dict(max_abs_err=worst, **fwd), dict(max_abs_err=worst, **bwd)
+    return (dict(max_abs_err=worst, **fwd, eval=ev),
+            dict(max_abs_err=worst, **bwd))
 
 
 def mask_scale_phase(device, shapes=MASK_SHAPES, rate=DROPOUT_RATE) -> dict:

@@ -22,7 +22,7 @@
 // reductions are warp shuffles only; with several, the warps' sums meet in
 // shared memory behind a named barrier of the row's warps alone, summed in
 // warp order. A block holds `slots` rows. The wrapper picks (wpr, slots)
-// from the shape alone (ops/layer_norm.py _fwd_plan): a block a row and
+// from the shape alone (ops/layer_norm.py _row_plan): a block a row and
 // one chunk a thread while rows are few, as at the decode tick, so the
 // row's loads spread over many threads and SMs; a warp or two a row and
 // several rows a block when rows are many.
@@ -55,83 +55,23 @@
 // Each sum's order is fixed by the shape, so two runs give the same bits.
 // (One launch that summed the columns across blocks, through clusters or
 // a last-block ticket, spent more on its barriers and on the rows each
-// block had to walk than this second pass costs.)
+// block had to walk than this second pass costs.) The row helpers and the
+// column pass live in layer_norm_rows.cuh, shared with
+// dropout_add_layer_norm.cu.
 
-#include <initializer_list>
-
-#include "common.cuh"
+#include "layer_norm_rows.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;   // a block: at most 16 warps
-constexpr int kMaxSlots = kMaxThreads / 32;
-constexpr int kMaxRowWarps = 16;   // warps a row
-// the backward's column pass: threads a block, and 16-byte chunks a block
-// (32 single columns on the scalar path)
-constexpr int kColumnThreads = 512;
-template <int VEC>
-constexpr int column_chunks() { return VEC == 1 ? 32 : 2; }
-
-// Values of x a thread holds (and, in the backward's dx pass, of dy and
-// scale), at most: the instantiations that stay within 128 registers
-// unspilled.
-template <int VEC>
-constexpr int max_floats() { return VEC == 8 ? 32 : 16; }
-
-// VEC elements of T, aligned for one 16-byte access (two for 8 float32)
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC < 16 ? sizeof(T) * VEC : 16) Pack {
-  T v[VEC];
-};
-
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
-  return *reinterpret_cast<const Pack<T, VEC>*>(p);
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void unpack(const Pack<T, VEC>& p,
-                                       float (&out)[VEC]) {
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) out[i] = pdt::to_f32(p.v[i]);
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_pack(T* p, const float (&in)[VEC]) {
-  Pack<T, VEC> pk;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) pk.v[i] = pdt::from_f32<T>(in[i]);
-  *reinterpret_cast<Pack<T, VEC>*>(p) = pk;
-}
-
-// Named barrier of one row's warps (barrier 0 is __syncthreads').
-__device__ __forceinline__ void row_barrier(int slot, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(1 + slot), "r"(threads) : "memory");
-}
-
-// Sums each v[i] over the row's threads and leaves the same bits in all of
-// them: a warp's lanes by xor-butterfly, then, with several warps a row,
-// the warps' sums in warp order through red[i * kMaxRowWarps + warp]. Each
-// reduction round of a row has a red area of its own, so a warp that runs
-// ahead into the next round never overwrites sums still being read.
-template <int N>
-__device__ __forceinline__ void row_sum(float (&v)[N], float* red, int wpr,
-                                        int warp, int slot) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = pdt::warp_sum(v[i]);
-  if (wpr == 1) return;
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) red[i * kMaxRowWarps + warp] = v[i];
-  }
-  row_barrier(slot, wpr * 32);
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = 0.f;
-    for (int w = 0; w < wpr; ++w) s += red[i * kMaxRowWarps + w];
-    v[i] = s;
-  }
-}
+using pdt::kColumnThreads;
+using pdt::kMaxRowWarps;
+using pdt::kMaxSlots;
+using pdt::kMaxThreads;
+using pdt::load_pack;
+using pdt::max_floats;
+using pdt::row_sum;
+using pdt::store_pack;
+using pdt::unpack;
 
 // ------------------------------------------------------------------ forward
 
@@ -314,10 +254,7 @@ layer_norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   if (t == 0) stats[row] = make_float2(mean, rstd);
 }
 
-// dscale and dbias of CB chunks of columns, over every row: thread
-// (group, j) takes chunk j of rows group, group + groups, ... in order,
-// with xhat = (x - mean) * rstd recomputed as the dx pass formed it; then
-// the groups of a warp by xor-butterfly and the warps in warp order.
+// The column pass (layer_norm_rows.cuh), under a symbol of this library.
 template <typename T, int VEC, int CB>
 __global__ void __launch_bounds__(kColumnThreads)
 layer_norm_bwd_params_kernel(const T* __restrict__ x,
@@ -325,65 +262,7 @@ layer_norm_bwd_params_kernel(const T* __restrict__ x,
                              const float2* __restrict__ stats,
                              float* __restrict__ dscale,
                              float* __restrict__ dbias, int rows, int h) {
-  __shared__ float red[kColumnThreads / 32][CB][2][VEC];
-  const int j = threadIdx.x % CB;
-  const int group = threadIdx.x / CB;
-  const int groups = blockDim.x / CB;
-  const int n = h / VEC;
-  const int k = blockIdx.x * CB + j;
-  float ps[VEC], pb[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) ps[i] = pb[i] = 0.f;
-  if (k < n) {
-    const size_t step = static_cast<size_t>(groups) * h;
-    const T* xp = x + static_cast<size_t>(group) * h + k * VEC;
-    const T* gp = dy + static_cast<size_t>(group) * h + k * VEC;
-#pragma unroll 4
-    for (int r = group; r < rows; r += groups, xp += step, gp += step) {
-      float xv[VEC], gv[VEC];
-      unpack(load_pack<T, VEC>(xp), xv);
-      unpack(load_pack<T, VEC>(gp), gv);
-      const float2 s = stats[r];
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float xhat = (xv[i] - s.x) * s.y;
-        ps[i] += gv[i] * xhat;
-        pb[i] += gv[i];
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-#pragma unroll
-    for (int o = 16; o >= CB; o >>= 1) {
-      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], o);
-      pb[i] += __shfl_xor_sync(0xffffffffu, pb[i], o);
-    }
-  }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (lane < CB) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      red[warp][lane][0][i] = ps[i];
-      red[warp][lane][1][i] = pb[i];
-    }
-  }
-  __syncthreads();
-  if (static_cast<int>(threadIdx.x) < CB * VEC) {
-    const int jj = threadIdx.x / VEC;
-    const int i = threadIdx.x % VEC;
-    const int kk = blockIdx.x * CB + jj;
-    if (kk < n) {
-      float a = 0.f, b = 0.f;
-      for (int w = 0; w < kColumnThreads / 32; ++w) {
-        a += red[w][jj][0][i];
-        b += red[w][jj][1][i];
-      }
-      dscale[kk * VEC + i] = a;
-      dbias[kk * VEC + i] = b;
-    }
-  }
+  pdt::column_pass<T, VEC, CB>(x, dy, stats, dscale, dbias, rows, h);
 }
 
 template <typename T, int VEC, int CPT = 1>
@@ -405,34 +284,11 @@ cudaError_t launch_bwd(const void* x, const void* dy, const float* scale,
             xp, dyp, scale, static_cast<T*>(dx), stats, rows, h, eps, wpr);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    constexpr int kCB = column_chunks<VEC>();
-    const int chunks = h / VEC;
-    layer_norm_bwd_params_kernel<T, VEC, kCB>
-        <<<(chunks + kCB - 1) / kCB, kColumnThreads, 0, stream>>>(
+    layer_norm_bwd_params_kernel<T, VEC, pdt::column_chunks<VEC>()>
+        <<<pdt::column_blocks<VEC>(h), kColumnThreads, 0, stream>>>(
             xp, dyp, stats, dscale, dbias, rows, h);
     return cudaGetLastError();
   }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<size_t>(p) & 15) == 0;
-}
-
-// Checks what both kernels take: vec (elements a chunk) 1, or 16 bytes
-// of the element with every row 16-byte aligned; wpr 1, 2, 4 or 8; the
-// chunks a thread (returned in *cpt).
-bool check_plan(int h, int esize, int vec, int wpr, int* cpt,
-                std::initializer_list<const void*> ptrs) {
-  if (h <= 0 || h > pdt::kMaxRowWidth) return false;
-  if (wpr <= 0 || wpr > kMaxRowWarps || (wpr & (wpr - 1)) != 0) return false;
-  if (vec != 1) {
-    if (vec * esize != 16 || h % vec != 0) return false;
-    for (const void* p : ptrs)
-      if (!aligned16(p)) return false;
-  }
-  const int n = h / vec;
-  *cpt = (n + 32 * wpr - 1) / (32 * wpr);
-  return true;
 }
 
 }  // namespace
@@ -450,9 +306,9 @@ extern "C" int pdt_layer_norm_bwd(const void* x, const void* dy,
                                   int slots, void* stream) {
   const int esize = dtype == pdt::kBF16 ? 2 : 4;
   int cpt = 0;
-  if (rows <= 0 || (dtype != pdt::kBF16 && dtype != pdt::kF32) ||
-      slots <= 0 || slots * wpr > kMaxSlots ||
-      !check_plan(h, esize, vec, wpr, &cpt, {x, dy, dx, scale}))
+  if ((dtype != pdt::kBF16 && dtype != pdt::kF32) ||
+      !pdt::check_plan(rows, h, esize, vec, wpr, slots, &cpt,
+                       {x, dy, dx, scale}))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* s = static_cast<const float*>(scale);
   float2* sp = static_cast<float2*>(stats);
@@ -489,8 +345,8 @@ extern "C" int pdt_layer_norm_fwd(const void* x, const void* scale,
                          (y_dtype == pdt::kBF16 || y_dtype == pdt::kF32);
   const int esize = x_dtype == pdt::kBF16 ? 2 : 4;
   int cpt = 0;
-  if (rows <= 0 || !dtypes_ok || slots <= 0 || slots * wpr > kMaxSlots ||
-      !check_plan(h, esize, vec, wpr, &cpt, {x, y, scale, bias}))
+  if (!dtypes_ok || !pdt::check_plan(rows, h, esize, vec, wpr, slots, &cpt,
+                                     {x, y, scale, bias}))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);

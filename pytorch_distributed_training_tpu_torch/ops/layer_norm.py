@@ -22,12 +22,14 @@ backward is a kernel too:
   forward writes no s. The two tails of a block share one seed and differ
   by ``site``.
 
-The LayerNorm backward forms dscale/dbias in a column pass of its own
-kernel call, each block summing its columns over every row in a fixed
-order (``csrc/layer_norm.cu``). The dropout-add-LayerNorm backward writes
-float32 partial rows, one per block, which are summed here with
-``torch.sum`` (the JAX package sums its per-block partials outside its
-kernel too). No atomics on the sums, so two runs give the same bits.
+Both backwards are one call of two passes: a dx pass that also writes
+each row's (mean, rstd), then a column pass that forms dscale/dbias, each
+block summing its columns over every row in a fixed order
+(``csrc/layer_norm_rows.cuh``, shared by ``csrc/layer_norm.cu`` and
+``csrc/dropout_add_layer_norm.cu``). No partial rows and no atomics, so
+two runs give the same bits. All four kernels take a row as 16-byte
+chunks where every row is 16-byte aligned, else one element a chunk, on
+the launch plan ``_row_plan``.
 
 On a CPU tensor every step runs its plain version (``reference_*``); on a
 CUDA tensor the kernels (built at first use) or an error.
@@ -49,21 +51,17 @@ from pytorch_distributed_training_tpu_torch.ops.dropout import (
     mask_threshold,
 )
 
-_MAX_H = 2048  # 64 float registers per lane in the one-warp-per-row kernels
+# widest row the kernels take (csrc/layer_norm_rows.cuh kMaxRowWidth), the
+# widest that chip_smoke.py holds them against (the presets' is 1024)
+_MAX_H = 2048
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS_PER_BLOCK = 4
-# backward grid cap: blocks beyond it walk more rows per warp instead of
-# writing more partial rows (a function of the row count only, so the
-# summation order, and the bits, do not depend on the card)
-_MAX_PARTIAL_BLOCKS = 256
 
-# LayerNorm kernels (csrc/layer_norm.cu): a row belongs to ``wpr`` warps,
-# each thread holding chunks of 16 bytes of the row (``vec`` elements), or
-# single elements where a row is not 16-byte aligned, at most as many
-# values as the kernels hold unspilled (max_floats: 32 of 16-byte
-# bf16 chunks, else 16). The forward and the backward's dx pass take a
-# block a row and one chunk a thread below _FEW_ROWS rows, else
-# _MANY_ROW_WARPS warps a block.
+# The row kernels (both forwards and both dx passes): a row belongs to
+# ``wpr`` warps, each thread holding chunks of 16 bytes of the row (``vec``
+# elements), or single elements where a row is not 16-byte aligned, at most
+# as many values as the kernels hold unspilled (max_floats: 32 of 16-byte
+# bf16 chunks, else 16). They take a block a row and one chunk a thread
+# below _FEW_ROWS rows, else _MANY_ROW_WARPS warps a block.
 _FEW_ROWS = 256
 _MANY_ROW_WARPS = 4
 _ROW_WARPS = (1, 2, 4, 8, 16)
@@ -75,11 +73,6 @@ def _use_kernel(x: torch.Tensor, what: str) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, got {x.device}")
     return True
-
-
-def _partial_blocks(rows: int) -> int:
-    """Blocks (= float32 partial rows) of a backward launch over ``rows``."""
-    return max(1, min(-(-rows // _ROWS_PER_BLOCK), _MAX_PARTIAL_BLOCKS))
 
 
 def _vec(h: int, dtype: torch.dtype, *tensors) -> int:
@@ -103,8 +96,8 @@ def _warps_per_row(h: int, vec: int, floats: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def _row_plan(rows: int, h: int, vec: int) -> tuple[int, int]:
-    """(warps a row, rows a block) of a forward or dx-pass launch, from the
-    shape."""
+    """(warps a row, rows a block) of a forward or dx-pass launch of any
+    of the four kernels, from the shape."""
     if rows < _FEW_ROWS:
         # a block a row, one chunk a thread where 16 warps suffice
         return _warps_per_row(h, vec, vec), 1
@@ -212,17 +205,17 @@ def _ln_kernels():
 @functools.cache
 def _dal_kernels():
     lib = _build.load("dropout_add_layer_norm")
+    dropout = [ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+               ctypes.c_int]
     fwd = lib.pdt_dal_fwd
     fwd.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, *dropout] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = lib.pdt_dal_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, *dropout] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     bwd.restype = ctypes.c_int
     return lib, fwd, bwd
 
@@ -313,11 +306,15 @@ def _dal_fwd_cuda(h, x, scale, bias, *, rate: float, seed: int, site: int,
     rows = x.numel() // hdim
     if rows == 0:
         return y, s
+    outs = (y, s) if save_s else (y,)
+    vec = _vec(hdim, x.dtype, h, x, *outs, scale, bias)
+    wpr, slots = _row_plan(rows, hdim, vec)
     lib, fn, _ = _dal_kernels()
     code = fn(h.data_ptr(), x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
               y.data_ptr(), s.data_ptr() if save_s else None, rows, hdim,
               eps, *_dropout_args(rate, seed, site), _DTYPE_CODES[x.dtype],
-              _DTYPE_CODES[out_dtype], _build.stream_ptr(x))
+              _DTYPE_CODES[out_dtype], vec, wpr, slots,
+              _build.stream_ptr(x))
     _build.check_launch(lib, "dropout_add_layer_norm", code)
     return y, s
 
@@ -334,15 +331,18 @@ def _dal_bwd_cuda(s, dy, scale, *, rate: float, seed: int, site: int,
     if rows == 0:
         zero = torch.zeros(hdim, dtype=torch.float32, device=s.device)
         return dh, dx, zero, zero.clone()
-    blocks = _partial_blocks(rows)
-    parts = torch.empty(2, blocks, hdim, dtype=torch.float32, device=s.device)
+    sums = torch.empty(2, hdim, dtype=torch.float32, device=s.device)
+    stats = torch.empty(rows, 2, dtype=torch.float32, device=s.device)
+    vec = _vec(hdim, s.dtype, s, dy, dh, dx, scale)
+    wpr, slots = _row_plan(rows, hdim, vec)
     lib, _, fn = _dal_kernels()
     code = fn(s.data_ptr(), dy.data_ptr(), scale.data_ptr(), dh.data_ptr(),
-              dx.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows,
-              hdim, eps, *_dropout_args(rate, seed, site),
-              _DTYPE_CODES[s.dtype], blocks, _build.stream_ptr(s))
+              dx.data_ptr(), stats.data_ptr(), sums[0].data_ptr(),
+              sums[1].data_ptr(), rows, hdim, eps,
+              *_dropout_args(rate, seed, site), _DTYPE_CODES[s.dtype], vec,
+              wpr, slots, _build.stream_ptr(s))
     _build.check_launch(lib, "dropout_add_layer_norm_bwd", code)
-    return (dh, dx, *parts.sum(dim=1))
+    return dh, dx, sums[0], sums[1]
 
 
 # --------------------------------------------------------------- autograd

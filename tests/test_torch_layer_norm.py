@@ -306,10 +306,3 @@ def test_backward_order_matches_jax_pallas_vjp_interpret():
         np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
         for g, w in zip(got[1:], want[1:]):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-4)
-
-
-@pytest.mark.parametrize("rows,blocks", [(1, 1), (8, 2), (1000, 250),
-                                         (1024, 256), (4096, 256)])
-def test_dropout_add_layer_norm_partial_blocks_unchanged(rows, blocks):
-    # kernel 4 (csrc/dropout_add_layer_norm.cu) keeps its own plan
-    assert port_ln._partial_blocks(rows) == blocks
