@@ -7,16 +7,22 @@ Drives ``pytorch_distributed_training_tpu_torch`` only (never JAX, nothing of
 the JAX package), in phases that each raise on failure:
 
 1. device: a CUDA GPU must be visible; prints ``nvidia-smi``'s name and
-   power limit;
+   power limit, and the top SM clock that sets the integer rate of the
+   bounds;
 2. build: compiles every CUDA source of the port from
    ``pytorch_distributed_training_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a``, one process per source, all at once;
+   ``sm_90a``, one process per source, all at once (the LayerNorm,
+   dropout-add-LayerNorm and dropout libraries may not spill), and counts
+   the Philox mask's integer instructions an element by pipe in their
+   SASS (``cuobjdump``);
 3. kernels: holds each kernel against its plain PyTorch version on the
    card (tolerances below; the dropout masks bit for bit), backward kernels
    through ``torch.autograd.grad`` (the LayerNorm pair and the
    dropout-add-LayerNorm pair also at H 64-2048 and 1001, bf16 and float32
    in and out, on rows off 16 bytes, two calls bit-identical; the latter
-   also at rate 0 and without s), and times kernel, plain version and the
+   also at rate 0 and without s; kernel 5's mask-only and apply modes on
+   x off 16 bytes and holding NaN and infinities, and the gradient through
+   ``raw_dropout``), and times kernel, plain version and the
    library yardstick at the main paths' shapes with CUDA-graph replay (the
    flash kernels against ``F.scaled_dot_product_attention``, at dropout
    rates 0.1 and 0, the backwards' kernels one by one; the whole-sequence
@@ -35,7 +41,9 @@ the JAX package), in phases that each raise on failure:
 4. train: runs the port's ``train_dp`` on bert-large-cased at full width
    and depth (3 optimizer steps of 96 = 8 x 12 on the synthetic MRPC task,
    then the full 408-row eval), with the launch counters reset just before
-   and read just after and checked against the counts the step derives;
+   and read just after and checked against the counts the step derives
+   (no plain mask-scale tensor made: every dropout site applies its mask
+   in the kernel);
    finite losses, moved parameters, bit-identical per-step losses in a
    second run; a third run under ``torch.profiler``;
 5. cpu-vs-card: the ``tiny`` preset with dropout on, trained 2 steps on
@@ -79,7 +87,10 @@ the JAX package), in phases that each raise on failure:
    dequantized weights; one decode dispatch of the float and the int8
    engine, its kernels counted and its host time taken in turns.
 
-Prints one ``kernels`` JSON line (15 kernels) and, last, ``{"ok": true,
+Prints one ``kernels`` JSON line (16 kernels; kernel 5's mask-only mode,
+``mask_scale``, is on no main path since its apply mode,
+``mask_scale_apply``, took every dropout site, so its launches are 0) and,
+last, ``{"ok": true,
 "device": ...}``.
 Exits non-zero, with no result, when no CUDA GPU is visible or any phase
 fails.
@@ -87,6 +98,7 @@ fails.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import io
@@ -105,6 +117,42 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # outside the tensor cores, where these kernels do their arithmetic
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# 32-bit integer results a clock per SM on compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): multiply and
+# multiply-add (IMAD*, the FMA-heavy pipe) and add, logic, compare, select
+# and shifts (the ALU pipe) each run at 64, where float32 FMA runs at 128;
+# times the SMs and the card's top SM clock (int_instr_per_s)
+INT_RESULTS_PER_CLOCK_SM = 64
+# Integer instructions an element of the Philox mask, (FMA-heavy pipe, ALU
+# pipe), as sass_per_element counts them in cuobjdump -sass of the
+# libraries ops/_build.py builds (CUDA 12.8's nvcc for sm_90a, on an
+# NVIDIA H100 80GB HBM3; the build phase prints the counts of its own
+# build beside these): the loop that draws a chunk's Philox groups, over
+# its elements (kernel 5's main loop, a chunk of 8 bf16, with its load,
+# multiply and store; kernels 3 and 4's mask loop, a chunk of 8). A group
+# of four is 18 IMAD.WIDE.U32 and ~20 LOP3 (round 0 folds), the rest the
+# compare, select and addressing. The bound takes the busier pipe.
+PHILOX_INT_PER_ELEMENT = {
+    "mask_scale": (5.0, 7.0),
+    "mask_scale_apply": (5.75, 7.75),
+    "dal_fwd": (5.125, 7.75),
+    "dal_bwd_dx": (4.875, 8.0),
+}
+# (library, symbol pattern in cuobjdump's mangled names, elements an
+# iteration of the loop counted) of each entry above: the main path's
+# instantiations (bf16; rows of 1024 at H 1024 for kernels 3 and 4)
+SASS_LOOPS = {
+    "mask_scale": ("dropout", r"dropout_kernelI13__nv_bfloat16jLb0E", 8),
+    "mask_scale_apply": ("dropout", r"dropout_kernelI13__nv_bfloat16jLb1E", 8),
+    "dal_fwd": ("dropout_add_layer_norm",
+                r"dal_fwd_kernelI13__nv_bfloat16S\w*Li8ELi4ELb1E", 8),
+    "dal_bwd_dx": ("dropout_add_layer_norm",
+                   r"dal_bwd_dx_kernelI13__nv_bfloat16Li8ELi4ELb1E", 8),
+}
+# SASS opcodes (before the first dot) by pipe, as sass_per_element counts
+SASS_FMA_HEAVY = ("IMAD", "IMUL")
+SASS_ALU = ("LOP3", "ISETP", "SEL", "FSEL", "IADD3", "SHF", "LEA", "PRMT",
+            "FSETP", "IMNMX", "FMNMX")
 
 LN_HIDDEN = 1024
 # kernel 1's parity rows (either side of its few-rows plan, 256) and
@@ -206,6 +254,12 @@ MAIN_ROWS, MAIN_H = 1024, 1024
 DROPOUT_RATE = 0.1        # hidden_dropout = attention_dropout of the presets
 # the probs of bert-large at micro 8, seq 128; its embeddings; ragged sizes
 MASK_SHAPES = ((8, 16, 128, 128), (8, 128, 1024), (1000, 3), (7,), (8, 1024))
+# kernel 5's parity shapes: those and lm-1024's residual sites (4 x 1024 x
+# 1024); apply timed at BERT's probs, lm-1024's residual sites, BERT's
+# embeddings and its classifier
+MASK_PARITY_SHAPES = MASK_SHAPES + ((4, 1024, 1024),)
+APPLY_SHAPES = ((8, 16, 128, 128), (4, 1024, 1024), (8, 128, 1024),
+                (8, 1024))
 # float32 dscale/dbias sums over rows in another order: |got - want| <=
 # 2^-16 of the column's sum of absolute terms
 PARAM_SUM_SLACK = 2.0 ** -16
@@ -298,6 +352,7 @@ REPLACES = {
     "dropout_add_layer_norm": f"{_PKG}/ops/layer_norm.py:296",
     "dropout_add_layer_norm_bwd": f"{_PKG}/ops/layer_norm.py:345",
     "mask_scale": f"{_PKG}/ops/dropout.py:107",
+    "mask_scale_apply": f"{_PKG}/ops/dropout.py:107",
     "paged_attention": f"{_PKG}/ops/paged_attention.py:238",
     "paged_attention_mq": f"{_PKG}/ops/paged_attention.py:417",
     "paged_attention_int8": f"{_PKG}/ops/paged_attention.py:250",
@@ -368,12 +423,117 @@ def eager_ms(fn, *, reps: int = 25, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+@functools.cache
+def sm_clock_mhz() -> float:
+    """The card's top SM clock, ``nvidia-smi``'s clocks.max.sm."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
+
+
+def int_instr_per_s() -> float:
+    """32-bit integer instructions a second one pipe of the card issues:
+    SMs x INT_RESULTS_PER_CLOCK_SM x the top SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT_RESULTS_PER_CLOCK_SM * sm_clock_mhz() * 1e6
+
+
 def bound(n_bytes: float, flops: float,
-          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
-    """Least time for the work on the card, in ms, and what bounds it."""
+          flops_per_s: float = FP32_FLOPS_PER_S,
+          int_instr: float = 0.0) -> tuple[float, str]:
+    """Least time for the work on the card, in ms, and what bounds it:
+    ``flops`` at ``flops_per_s``, ``int_instr`` 32-bit integer instructions
+    (the busier pipe's) at ``int_instr_per_s``."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / flops_per_s * 1e3
+    if int_instr:
+        by_ops = max(by_ops, int_instr / int_instr_per_s() * 1e3)
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def philox_int(kernel: str, n: float) -> float:
+    """Integer instructions of the busier pipe for ``n`` elements of
+    ``kernel``'s mask (PHILOX_INT_PER_ELEMENT)."""
+    return max(PHILOX_INT_PER_ELEMENT[kernel]) * n
+
+
+def sass_functions(lib_path: str) -> dict:
+    """``cuobjdump -sass`` of a built library: mangled function name ->
+    its SASS text."""
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    parts = re.split(r"^\s*Function\s*:\s*(\S+)\s*$", text, flags=re.M)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                        r"([A-Z][A-Z0-9_]*)([.A-Z0-9_]*)")
+
+
+def sass_per_element(sass: str, elements: int) -> dict:
+    """Instructions an element, by pipe, of the loop in ``sass`` (one
+    function of ``cuobjdump -sass``) that draws the most Philox groups (a
+    backward branch and the address it jumps to bound a loop; the whole
+    function when it has none), over the ``elements`` an iteration takes;
+    and the loop's opcodes. Each instruction counts once (IMAD.WIDE
+    too)."""
+    insns, branches = [], []
+    for line in sass.splitlines():
+        m = _SASS_INSN.search(line)
+        if not m:
+            continue
+        addr, op = int(m.group(1), 16), m.group(2)
+        insns.append((addr, op, m.group(2) + m.group(3)))
+        tgt = re.search(r"BRA(?:\.\w+)*\s+0x([0-9a-f]+)", line)
+        if op == "BRA" and tgt:
+            branches.append((addr, int(tgt.group(1), 16)))
+    loops = [(t, a) for a, t in branches if t < a]
+    if not loops:
+        loops = [(insns[0][0], insns[-1][0])] if insns else [(0, -1)]
+
+    def body(lo, hi):
+        return [i for i in insns if lo <= i[0] <= hi]
+
+    def philox(b):
+        return sum(full == "IMAD.WIDE.U32" for _, _, full in b)
+
+    # the loop with the most Philox products (IMAD.WIDE.U32), the
+    # innermost of equals
+    best = max((body(lo, hi) for lo, hi in loops),
+               key=lambda b: (philox(b), -len(b)))
+    ops: dict[str, int] = {}
+    for _, _, full in best:
+        ops[full] = ops.get(full, 0) + 1
+    heavy = sum(op in SASS_FMA_HEAVY for _, op, _ in best)
+    alu = sum(op in SASS_ALU for _, op, _ in best)
+    return dict(fma_heavy=heavy / elements, alu=alu / elements,
+                loop_instructions=len(best), elements=elements,
+                opcodes=dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+
+
+def sass_counts(loops=SASS_LOOPS) -> dict:
+    """sass_per_element of each entry of ``loops`` in the built
+    libraries."""
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    funcs = {}
+    out = {}
+    for key, (lib, pattern, elements) in loops.items():
+        if lib not in funcs:
+            funcs[lib] = sass_functions(str(_build._lib_path(lib)))
+        hits = [n for n in funcs[lib] if re.search(pattern, n)]
+        if len(hits) != 1:
+            raise AssertionError(f"SASS of {key}: {len(hits)} functions "
+                                 f"match {pattern!r} in lib{lib}: {hits}")
+        out[key] = dict(sass_per_element(funcs[lib][hits[0]], elements),
+                        function=hits[0])
+    return out
 
 
 def bf16_ulp(x):
@@ -441,6 +601,10 @@ def device_phase() -> str:
     say(f"[device] {smi}")
     say(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    say(f"[device] clocks.max.sm {sm_clock_mhz():.0f} MHz x "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
+        f"{INT_RESULTS_PER_CLOCK_SM} a clock: {int_instr_per_s():.4g} "
+        f"integer instructions/s a pipe")
     return smi
 
 
@@ -466,8 +630,17 @@ def build_phase() -> None:
         say(f"[build] {name}: {len(regs)} instantiations, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)}, spill bytes "
             f"{sum(spills)}" + (f", spilling {spilling}" if spilling else ""))
-        if name in ("layer_norm", "dropout_add_layer_norm") and sum(spills):
+        if (name in ("layer_norm", "dropout_add_layer_norm", "dropout")
+                and sum(spills)):
             raise AssertionError(f"{name} spills: {spilling}")
+    # the Philox mask's integer instructions an element, by pipe, beside
+    # the counts the bounds take
+    for key, c in sass_counts().items():
+        say(f"[build] SASS {key}: {c['fma_heavy']:.3f} FMA-heavy + "
+            f"{c['alu']:.3f} ALU integer instructions an element ("
+            f"{c['loop_instructions']} in the loop over {c['elements']} "
+            f"elements; bounds take {PHILOX_INT_PER_ELEMENT[key]}) "
+            + json.dumps(c["opcodes"]))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1157,7 +1330,9 @@ _PORT_KERNELS = (
     ("dal_fwd_kernel", "dropout_add_layer_norm"),
     ("dal_bwd_dx_kernel", "dropout_add_layer_norm_bwd dx pass"),
     ("dal_bwd_params_kernel", "dropout_add_layer_norm_bwd column pass"),
-    ("mask_scale_kernel", "mask_scale"),
+    # csrc/dropout.cu's template <T, Idx, CPT, APPLY>
+    (r"dropout_kernel<[^>]*true>", "mask_scale_apply"),
+    ("dropout_kernel<", "mask_scale"),
     ("paged_decode_kernel", "paged_attention"),
     ("paged_mq_mma_kernel<", "paged_attention_mq"),
     ("paged_mq_kernel<", "paged_attention_mq (float32)"),
@@ -1480,14 +1655,16 @@ def ln_bwd_phase(device, shapes=LN_BWD_SHAPES, eps=1e-12,
                 **{f"rows_{n}": t for n, t in timings.items()})
 
 
-def dal_bound(rows, hidden, *, n_rows_io, params, rate):
+def dal_bound(rows, hidden, *, n_rows_io, params, rate, kernel="dal_fwd"):
     """Least time of a dropout-add-LayerNorm call: ``n_rows_io`` bf16
     [rows, hidden] tensors read or written once, ``params`` float32 [hidden]
     vectors; 16 float operations an element (20 in the backward are within
-    rounding of it), and ~25 integer ones for Philox at rate > 0 (as
-    kernel 5's bound counts them), at the float32 rate."""
-    ops = (16.0 + (25.0 if rate > 0 else 0.0)) * rows * hidden
-    return bound(n_rows_io * rows * hidden * 2 + params * hidden * 4, ops)
+    rounding of it) at the float32 rate, and at rate > 0 the Philox mask's
+    integer instructions (``kernel``'s PHILOX_INT_PER_ELEMENT) at the
+    integer rate."""
+    n = rows * hidden
+    return bound(n_rows_io * n * 2 + params * hidden * 4, 16.0 * n,
+                 int_instr=philox_int(kernel, n) if rate > 0 else 0.0)
 
 
 def dal_phase(device, shapes=LN_BWD_SHAPES, rate=DROPOUT_RATE, eps=1e-12,
@@ -1634,7 +1811,8 @@ def dal_phase(device, shapes=LN_BWD_SHAPES, rate=DROPOUT_RATE, eps=1e-12,
                                                             **kw)),
     )
     bwd["bound_ms"], bwd["bound_by"] = dal_bound(
-        MAIN_ROWS, MAIN_H, n_rows_io=4, params=3, rate=rate)
+        MAIN_ROWS, MAIN_H, n_rows_io=4, params=3, rate=rate,
+        kernel="dal_bwd_dx")
     # the eval forward: rate 0, no s
     x, _, scale, bias = _ln_train_inputs(g, eval_rows, MAIN_H, device)
     h = torch.randn(eval_rows, MAIN_H, generator=g, device=device).bfloat16()
@@ -1660,46 +1838,115 @@ def dal_phase(device, shapes=LN_BWD_SHAPES, rate=DROPOUT_RATE, eps=1e-12,
             dict(max_abs_err=worst, **bwd))
 
 
-def mask_scale_phase(device, shapes=MASK_SHAPES, rate=DROPOUT_RATE) -> dict:
-    """Kernel 5 against the plain generator, bit for bit, at the main
-    path's shapes and ragged element counts, bf16 and float32."""
+def same_bits_or_nan(what, got, want) -> None:
+    """Bit for bit, where ``want`` is NaN only NaN (its payload aside)."""
+    import torch
+
+    nan = torch.isnan(want)
+    if got.dtype != want.dtype or got.shape != want.shape or not (
+            torch.equal(torch.isnan(got), nan) and torch.equal(
+                got.masked_fill(nan, 0).view(torch.int16 if got.itemsize == 2
+                                             else torch.int32),
+                want.masked_fill(nan, 0).view(torch.int16 if want.itemsize
+                                              == 2 else torch.int32))):
+        raise AssertionError(f"{what}: differs from the plain version")
+
+
+def mask_scale_phase(device, shapes=MASK_PARITY_SHAPES, timed=APPLY_SHAPES,
+                     rate=DROPOUT_RATE) -> tuple[dict, dict]:
+    """Kernel 5's two modes against the plain versions, bit for bit: the
+    mask-scale (mask-only) and ``x * mask-scale`` (apply, on x at its
+    place and one element past 16 bytes: the scalar path; x holding NaN
+    and infinities), bf16 and float32, two calls bit-identical; the
+    forward and gradient of ``raw_dropout`` against autograd of the plain
+    product. Times mask-only at BERT's probs and apply at ``timed``
+    beside the two-launch pair (mask-only, then an aten mul), the plain
+    version and ``F.dropout``."""
     import torch
     import torch.nn.functional as F
 
     from pytorch_distributed_training_tpu_torch.ops.dropout import (
+        _apply_cuda,
+        _mask_scale_cuda,
         mask_scale,
+        raw_dropout,
         reference_mask_scale,
     )
 
+    g = torch.Generator(device=device).manual_seed(13)
+    bf16 = torch.bfloat16
     for i, shape in enumerate(shapes):
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (bf16, torch.float32):
             kw = dict(seed=500 + i, site=2)
-            got = mask_scale(shape, rate, dtype, device=device, **kw)
-            want = reference_mask_scale(shape, rate, dtype, device=device,
-                                        **kw)
-            if got.dtype != dtype or not torch.equal(got, want):
-                raise AssertionError(f"mask_scale {shape} {dtype} differs "
-                                     f"from the plain version")
-    say(f"[kernels] mask_scale parity ok: {list(shapes)} x {{bf16, f32}}, "
-        f"identical to the plain generator's mask-scale")
+            what = f"{shape} {dtype}"
+            m = reference_mask_scale(shape, rate, dtype, device=device, **kw)
+            for _ in range(2):
+                same_bits_or_nan(f"mask_scale {what}", mask_scale(
+                    shape, rate, dtype, device=device, **kw), m)
+            x = torch.randn(shape, generator=g, device=device).to(dtype)
+            flat = x.view(-1)
+            flat[::97] = float("nan")
+            flat[1::89] = float("inf")
+            flat[2::83] = -float("inf")
+            want = x * m
+            for xin, where in ((x, "aligned"), (_off16(x), "off 16 bytes")):
+                for _ in range(2):
+                    same_bits_or_nan(f"apply {what} {where}", _apply_cuda(
+                        xin, rate, kw["seed"], kw["site"]), want)
+            x = torch.randn(shape, generator=g, device=device).to(dtype)
+            dy = torch.randn(shape, generator=g, device=device).to(dtype)
+            xk = x.clone().requires_grad_()
+            yk = raw_dropout(xk, rate, **kw)
+            yk.backward(dy)
+            xp = x.clone().requires_grad_()
+            yp = xp * m
+            yp.backward(dy)
+            same_bits_or_nan(f"raw_dropout {what}", yk.detach(), yp.detach())
+            same_bits_or_nan(f"raw_dropout gradient {what}", xk.grad,
+                             xp.grad)
+    say(f"[kernels] mask_scale / mask_scale_apply parity ok: "
+        f"{list(shapes)} x {{bf16, f32}}: the mask-scale and x * mask-scale "
+        f"(x aligned and off 16 bytes, with NaN and +-inf) identical to the "
+        f"plain version's bits (NaN where it is NaN), two calls "
+        f"bit-identical; raw_dropout's output and gradient identical to "
+        f"autograd of the plain product")
     probs = shapes[0]
-    n = 1
-    for d in probs:
-        n *= d
-    ones = torch.ones(probs, dtype=torch.bfloat16, device=device)
+    n = math.prod(probs)
+    ones = torch.ones(probs, dtype=bf16, device=device)
     kw = dict(seed=9, site=2, device=device)
-    t = dict(
-        ms=time_ms(lambda: mask_scale(probs, rate, torch.bfloat16, **kw)),
-        plain_ms=time_ms(lambda: reference_mask_scale(probs, rate,
-                                                      torch.bfloat16, **kw)),
+    mask = dict(
+        ms=time_ms(lambda: mask_scale(probs, rate, bf16, **kw)),
+        plain_ms=time_ms(lambda: reference_mask_scale(probs, rate, bf16,
+                                                      **kw)),
         library_ms=time_ms(lambda: F.dropout(ones, rate, training=True)),
     )
-    # ~25 integer operations an element (Philox4x32-10: 10 rounds of 2
-    # mulhi, 2 mullo, 4 xor, 2 key adds per 4 elements, then the compare
-    # and select), counted at the table's float32 rate
-    t["bound_ms"], t["bound_by"] = bound(n * 2, 25.0 * n)
-    say(f"[kernels] mask_scale {probs} bf16 rate {rate}: " + json.dumps(t))
-    return dict(max_abs_err=0.0, **t)
+    # the output written once; the mask's integer instructions
+    mask["bound_ms"], mask["bound_by"] = bound(
+        n * 2, 0.0, int_instr=philox_int("mask_scale", n))
+    say(f"[kernels] mask_scale {probs} bf16 rate {rate}: "
+        + json.dumps(mask))
+    applied = {}
+    for shape in timed:
+        x = torch.randn(shape, generator=g, device=device).to(bf16)
+        n = math.prod(shape)
+        t = dict(
+            ms=time_ms(lambda: _apply_cuda(x, rate, 9, 2)),
+            pair_ms=time_ms(lambda: x * _mask_scale_cuda(shape, rate, bf16,
+                                                         9, 2, device)),
+            plain_ms=time_ms(lambda: x * reference_mask_scale(
+                shape, rate, bf16, **kw)),
+            library_ms=time_ms(lambda: F.dropout(x, rate, training=True)),
+        )
+        # x read and y written once, a multiply an element, the mask's
+        # integer instructions
+        t["bound_ms"], t["bound_by"] = bound(
+            n * 4, float(n), int_instr=philox_int("mask_scale_apply", n))
+        applied[str(list(shape))] = t
+        say(f"[kernels] mask_scale_apply {list(shape)} bf16 rate {rate} "
+            f"(pair_ms: mask_scale then an aten mul): " + json.dumps(t))
+    return (dict(max_abs_err=0.0, **mask),
+            dict(max_abs_err=0.0, **applied[str(list(probs))],
+                 shapes=applied))
 
 
 # ------------------------------------------------------------ phase 4, 5
@@ -1708,17 +1955,43 @@ def mask_scale_phase(device, shapes=MASK_SHAPES, rate=DROPOUT_RATE) -> dict:
 def expected_train_launches(*, micro: int, eval_batches: int,
                             layers: int) -> dict:
     """Launches of a counted train run: per microbatch forward the
-    embeddings LN, 2 tails per layer and 2 + layers mask-scales
-    (embeddings, classifier, the probs of each layer); per backward the
-    LN and tail backwards and the probs masks again (attention_remat
-    recomputes the core); per eval batch the forwards, deterministic."""
+    embeddings LN, 2 tails per layer and 2 + layers dropouts (embeddings,
+    classifier, the probs of each layer); per backward the LN and tail
+    backwards, the probs dropouts again (attention_remat recomputes the
+    core) and each dropout's backward (the mask drawn again, applied to
+    dy); per eval batch the forwards, deterministic. No mask-scale tensor
+    is made."""
     return {
         "layer_norm": micro + eval_batches,
         "layer_norm_bwd": micro,
         "dropout_add_layer_norm": 2 * layers * (micro + eval_batches),
         "dropout_add_layer_norm_bwd": 2 * layers * micro,
-        "mask_scale": (2 + 2 * layers) * micro,
+        "mask_scale_apply": (4 + 3 * layers) * micro,
     }
+
+
+@contextlib.contextmanager
+def no_mask_tensor(what):
+    """Fails when the plain mask-scale is made inside: on the card every
+    dropout site applies its mask in the kernel's one pass (and the
+    counted runs want no mask-only launch), so no site multiplies by a
+    mask-scale tensor."""
+    from pytorch_distributed_training_tpu_torch.ops import dropout
+
+    plain, made = dropout.reference_mask_scale, []
+
+    def counted(*args, **kwargs):
+        made.append(args[0])
+        return plain(*args, **kwargs)
+
+    dropout.reference_mask_scale = counted
+    try:
+        yield
+    finally:
+        dropout.reference_mask_scale = plain
+    if made:
+        raise AssertionError(f"{what}: {len(made)} plain mask-scale tensors "
+                             f"made on the card (shapes {made[:3]})")
 
 
 def train_once(argv, cli="train_dp"):
@@ -1760,7 +2033,8 @@ def train_phase(argv=TRAIN_ARGS) -> dict:
     )
 
     torch.cuda.reset_peak_memory_stats()
-    trainer, counts, wall = train_once(argv)
+    with no_mask_tensor("train run"):
+        trainer, counts, wall = train_once(argv)
     peak = torch.cuda.max_memory_allocated()
     tc, mc = trainer.tcfg, trainer.mcfg
     micro = trainer.state.step * tc.grad_accum_steps
@@ -2439,11 +2713,10 @@ def two_pass_phase(device, shape=FLASH_BLOCKWISE) -> dict:
 def expected_lm_launches(*, micro: int, eval_batches: int, layers: int,
                          whole: bool, two_pass: bool = False) -> dict:
     """Launches of a counted LM run: per microbatch forward the LNs (2 a
-    block + ln_f), the hidden-dropout masks (embeddings + 2 a block) and
-    one flash forward a block; per backward the LN and flash backwards
-    (the masks are saved, not redrawn; ``two_pass``: flash_dq and
-    flash_dkv for flash_bwd); per eval batch the forwards,
-    deterministic."""
+    block + ln_f), the hidden dropouts (embeddings + 2 a block) and one
+    flash forward a block; per backward the LN, dropout (the mask drawn
+    again) and flash backwards (``two_pass``: flash_dq and flash_dkv for
+    flash_bwd); per eval batch the forwards, deterministic."""
     fwd, bwd = (("flash_whole_fwd", "flash_whole_bwd") if whole
                 else ("flash_fwd", "flash_bwd"))
     lns = 2 * layers + 1
@@ -2451,7 +2724,7 @@ def expected_lm_launches(*, micro: int, eval_batches: int, layers: int,
         fwd: layers * (micro + eval_batches),
         "layer_norm": lns * (micro + eval_batches),
         "layer_norm_bwd": lns * micro,
-        "mask_scale": lns * micro,
+        "mask_scale_apply": 2 * lns * micro,
     }
     for name in (("flash_dq", "flash_dkv") if two_pass else (bwd,)):
         out[name] = layers * micro
@@ -2487,7 +2760,8 @@ def lm_phase(argv, *, steps, rerun, tag) -> dict:
     )
 
     torch.cuda.reset_peak_memory_stats()
-    trainer, counts, wall = train_once(argv, "train_lm")
+    with no_mask_tensor(f"{tag} run"):
+        trainer, counts, wall = train_once(argv, "train_lm")
     peak = torch.cuda.max_memory_allocated()
     tc, mc = trainer.tcfg, trainer.mcfg
     seq = tc.max_seq_length
@@ -2610,8 +2884,8 @@ def main() -> int:
     lap("build")
     res = {"layer_norm": layer_norm_phase(device),
            "paged_attention": paged_phase(device),
-           "layer_norm_bwd": ln_bwd_phase(device),
-           "mask_scale": mask_scale_phase(device)}
+           "layer_norm_bwd": ln_bwd_phase(device)}
+    res["mask_scale"], res["mask_scale_apply"] = mask_scale_phase(device)
     res["dropout_add_layer_norm"], res["dropout_add_layer_norm_bwd"] = (
         dal_phase(device))
     lap("kernels")

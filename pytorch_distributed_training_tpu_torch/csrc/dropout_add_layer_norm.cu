@@ -20,9 +20,11 @@
 // (4 x 2 MiB at 1024 x 1024 bf16, 2.5 us at 3.35 TB/s); the backward
 // reads s and dy and writes dh and dx (the same 8.4 MB); the eval forward
 // (rate 0, no s) reads h and x and writes y. The mask never touches
-// memory; its Philox4x32-10 rounds (~25 integer operations an element)
-// are few beside the bytes at the card's rate, but they lengthen each
-// thread's chain, so they run while the thread's loads are in flight.
+// memory; its Philox4x32-10 rounds (in the SASS of the mask loop, 5.1
+// instructions an element on the FMA-heavy pipe and 7.8 on the ALU pipe
+// forward, 4.9 and 8.0 backward, at 64 a clock per SM each) are few
+// beside the bytes at the card's rate, but they lengthen each thread's
+// chain, so they run while the thread's loads are in flight.
 //
 // Design: the LayerNorm kernels' (layer_norm.cu), on the row machinery of
 // layer_norm_rows.cuh.

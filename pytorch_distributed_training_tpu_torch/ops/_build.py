@@ -15,7 +15,9 @@ all started together.
 A library may hold several kernels (``KERNELS`` names each kernel's
 library): the LayerNorm forward and backward share ``layer_norm.cu``, the
 flash-attention kernels ``flash_attention.cu``, and each paged kernel's
-float and int8-pool instantiations their ``paged_attention*.cu``.
+float and int8-pool instantiations their ``paged_attention*.cu``, and the
+dropout kernel's two modes (the mask-scale alone, and the mask applied to
+an activation) ``dropout.cu``.
 
 Launch counts: every kernel wrapper adds one to ``LAUNCH_COUNTS[name]``
 where it launches its kernel and nowhere else, so a run can show that the
@@ -56,6 +58,7 @@ KERNELS = {
     "dropout_add_layer_norm": "dropout_add_layer_norm",
     "dropout_add_layer_norm_bwd": "dropout_add_layer_norm",
     "mask_scale": "dropout",
+    "mask_scale_apply": "dropout",
     "paged_attention": "paged_attention",
     "paged_attention_mq": "paged_attention_mq",
     "paged_attention_int8": "paged_attention",

@@ -23,8 +23,14 @@ Seeds are 32-bit Python ints. ``fold_in`` derives one from another and an
 integer (the counterpart of ``jax.random.fold_in``): the train step folds
 in the step, microbatch and rank, the model folds in the layer.
 
-``mask_scale`` on a CPU tensor runs ``reference_mask_scale``; on a CUDA
-device it launches ``csrc/dropout.cu`` (built at first use) or raises.
+``raw_dropout`` is one ``torch.autograd.Function``: its forward is ``x *
+mask-scale`` and its backward ``dy * mask-scale`` with the mask drawn
+again from the same ``(seed, site, rate)``, so no mask is saved. On a CPU
+tensor both are the plain ``x * reference_mask_scale(...)``; on a CUDA
+tensor both launch the apply mode of ``csrc/dropout.cu`` (built at first
+use), one pass that reads x and writes the product, or raise.
+``mask_scale``, the TPU kernel's own function, launches its mask-only
+mode on a CUDA device and runs ``reference_mask_scale`` on the CPU.
 """
 
 from __future__ import annotations
@@ -46,8 +52,6 @@ _PHILOX_M1 = 0xCD9E8D57
 _PHILOX_W0 = 0x9E3779B9
 _PHILOX_W1 = 0xBB67AE85
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_THREADS = 256
-_MAX_BLOCKS = 4096
 
 
 def mask_threshold(rate: float) -> int:
@@ -138,64 +142,124 @@ def check_seed(seed: int, site: int) -> None:
 
 @functools.cache
 def _kernel():
-    """(library, C entry point) of the mask-scale kernel, built on first
-    use."""
+    """The library of both modes, with its two C entry points typed."""
     lib = _build.load("dropout")
-    fn = lib.pdt_mask_scale
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    common = [ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+              ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.pdt_mask_scale.argtypes = [ctypes.c_void_p] + common
+    lib.pdt_dropout_apply.argtypes = [ctypes.c_void_p] * 2 + common
+    lib.pdt_mask_scale.restype = lib.pdt_dropout_apply.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_in(dtype, rate: float) -> float:
+    """The mask-scale's kept value in ``dtype``: 1/(1-rate) rounded to
+    float32, then to ``dtype`` (bf16 1.109375 at rate 0.1), as
+    ``reference_mask_scale`` rounds it."""
+    return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).to(
+        dtype).item()
+
+
+def _check_dtype(dtype, what):
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"{what} kernel takes float32/bfloat16, got {dtype}")
 
 
 def _mask_scale_cuda(shape, rate, dtype, seed, site, device):
-    if dtype not in _DTYPE_CODES:
-        raise ValueError(f"mask_scale kernel writes float32/bfloat16, got "
-                         f"{dtype}")
+    _check_dtype(dtype, "mask_scale")
     out = torch.empty(shape, dtype=dtype, device=device)
     n = out.numel()
     if n == 0:
         return out
-    groups = (n + 3) // 4
-    blocks = min(-(-groups // _THREADS), _MAX_BLOCKS)
-    lib, fn = _kernel()
-    code = fn(out.data_ptr(), n, seed, site, mask_threshold(rate),
-              1.0 / (1.0 - rate), _DTYPE_CODES[dtype], blocks,
-              _build.stream_ptr(out))
+    lib = _kernel()
+    code = lib.pdt_mask_scale(
+        out.data_ptr(), n, seed, site, mask_threshold(rate),
+        _scale_in(dtype, rate), _DTYPE_CODES[dtype], _build.stream_ptr(out))
     _build.check_launch(lib, "mask_scale", code)
     return out
+
+
+def _apply_cuda(x, rate, seed, site):
+    """``x * mask-scale`` in one pass of the apply mode."""
+    _check_dtype(x.dtype, "dropout apply")
+    if not x.is_contiguous():
+        raise ValueError(f"dropout apply kernel takes a contiguous x, got "
+                         f"strides {x.stride()} for shape {tuple(x.shape)}")
+    y = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return y
+    lib = _kernel()
+    code = lib.pdt_dropout_apply(
+        x.data_ptr(), y.data_ptr(), n, seed, site, mask_threshold(rate),
+        _scale_in(x.dtype, rate), _DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+    _build.check_launch(lib, "mask_scale_apply", code)
+    return y
+
+
+def _device_type(device) -> str:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dropout runs on cpu or cuda, got {device}")
+    return device.type
 
 
 def mask_scale(shape, rate: float, dtype, *, seed: int, site: int = 0,
                device=None) -> torch.Tensor:
     """[shape] tensor of 0 / 1/(1-rate) in ``dtype`` for 0 < rate < 1.
 
-    On the CPU the plain version; on a CUDA device the kernel."""
+    On the CPU the plain version; on a CUDA device the kernel's mask-only
+    mode."""
     if not 0.0 < rate < 1.0:
         raise ValueError(f"mask_scale needs 0 < rate < 1, got {rate}")
     check_seed(seed, site)
     device = torch.device(device if device is not None else "cpu")
     shape = tuple(shape)
-    if device.type == "cpu":
+    if _device_type(device) == "cpu":
         return reference_mask_scale(shape, rate, dtype, seed=seed, site=site,
                                     device=device)
-    if device.type != "cuda":
-        raise ValueError(f"mask_scale runs on cpu or cuda, got {device}")
     return _mask_scale_cuda(shape, rate, dtype, seed, site, device)
+
+
+def apply_mask(x: torch.Tensor, rate: float, seed: int,
+               site: int) -> torch.Tensor:
+    """``x * mask_scale(x.shape, rate, x.dtype, ...)`` for 0 < rate < 1:
+    the plain product on the CPU, one pass of the kernel's apply mode on a
+    CUDA device (float32 or bf16, contiguous)."""
+    if _device_type(x.device) == "cpu":
+        return x * reference_mask_scale(x.shape, rate, x.dtype, seed=seed,
+                                        site=site, device=x.device)
+    return _apply_cuda(x, rate, seed, site)
+
+
+class _RawDropout(torch.autograd.Function):
+    """``x * mask-scale``; the backward is ``dy * mask-scale`` with the mask
+    drawn again from the same ``(rate, seed, site)``: nothing is saved."""
+
+    @staticmethod
+    def forward(ctx, x, rate, seed, site):
+        ctx.mask = (rate, seed, site)
+        return apply_mask(x, rate, seed, site)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # dy may arrive strided (an einsum's backward); the kernel takes it
+        # contiguous
+        return _RawDropout.apply(dy.contiguous(), *ctx.mask), None, None, None
 
 
 def raw_dropout(x: torch.Tensor, rate: float, seed: int,
                 site: int = 0) -> torch.Tensor:
     """Inverted dropout (train mode) of ``x``: ``x * mask_scale``, as the
-    JAX package's ``"kernel"`` impl. A non-finite ``x`` stays non-finite
-    where it is dropped (NaN * 0), as there."""
+    JAX package's ``"kernel"`` impl, in one pass each way (``_RawDropout``).
+    A non-finite ``x`` stays non-finite where it is dropped (NaN * 0), as
+    there."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:  # everything dropped, no infinite scale
         return torch.zeros_like(x)
-    return x * mask_scale(x.shape, rate, x.dtype, seed=seed, site=site,
-                          device=x.device)
+    check_seed(seed, site)
+    return _RawDropout.apply(x, rate, seed, site)
 
 
 class Dropout(nn.Module):

@@ -102,7 +102,7 @@ def run_one(tree: str) -> dict:
     res[f"4 rows={DAL_ROWS}"] = dict(
         ms=c.time_ms(lambda: _dal_bwd_cuda(s, dy, scale, **kw)),
         bound_ms=c.dal_bound(DAL_ROWS, HIDDEN, n_rows_io=4, params=3,
-                             rate=0.1)[0])
+                             rate=0.1, kernel="dal_bwd_dx")[0])
     x, _, scale, bias = c._ln_train_inputs(g, DAL_EVAL_ROWS, HIDDEN, device)
     h = torch.randn(DAL_EVAL_ROWS, HIDDEN, generator=g,
                     device=device).to(bf16)

@@ -385,7 +385,8 @@ def test_kernel_modules_build_nothing_at_import():
     }
     assert set(_build.KERNELS) == {
         "layer_norm", "layer_norm_bwd", "dropout_add_layer_norm",
-        "dropout_add_layer_norm_bwd", "mask_scale", "paged_attention",
+        "dropout_add_layer_norm_bwd", "mask_scale", "mask_scale_apply",
+        "paged_attention",
         "paged_attention_mq", "paged_attention_int8",
         "paged_attention_mq_int8", "flash_fwd", "flash_bwd",
         "flash_whole_fwd", "flash_whole_bwd", "flash_dq", "flash_dkv",
