@@ -45,12 +45,20 @@ the JAX package), in phases that each raise on failure:
    (no plain mask-scale tensor made: every dropout site applies its mask
    in the kernel);
    finite losses, moved parameters, bit-identical per-step losses in a
-   second run; a third run under ``torch.profiler``;
+   second run; a third run, of one step and the eval, under
+   ``torch.profiler``; then the same for
+   ``train_mp``'s main path, the TriBert ensemble of bert-base-cased x 3
+   branches (the launches of every branch's layers counted, the three
+   branches started unlike each other and every one moved);
 5. cpu-vs-card: the ``tiny`` preset with dropout on, trained 2 steps on
    the CPU (plain versions) and on the card (kernels) from one seed: the
    per-step losses agree, so the card's masks are the plain generator's;
-   then the same for ``gpt2-tiny`` through ``train_lm`` (the
-   whole-sequence flash kernels);
+   then the same for 3 tiny branches through ``train_mp`` on the
+   whole-sequence flash kernels (the card runs' launches counted), and
+   ``train_mp --mp-mode stage`` at world size 1 against ``train_dp`` on
+   the card (the same per-step losses, bit for bit); later the same for
+   ``gpt2-tiny`` through ``train_lm`` (the whole-sequence flash
+   kernels);
 6. lm: runs the port's ``train_lm`` on gpt2-medium at full width and
    depth, at seq 1024 (3 optimizer steps of 32 = 4 x 8, then a 64-row
    eval: the blockwise flash kernels) and at seq 128 (1 step of 96 = 8 x
@@ -281,6 +289,19 @@ TINY_ARGS = ["--model", "tiny", "--task", "synthetic", "--train-size", "32",
              "--no-bf16", "--warmup-steps", "1", "--learning-rate", "1e-3",
              "--log-every", "0"]
 CPU_CARD_RTOL = 1e-4
+# train_mp's main path: the reference MP script's bert-base-cased x 3
+# branches (test_model_parallelism.py:230-238; train_mp's defaults, branch
+# mode) on the reference recipe, 3 steps of 96 = 8 x 12, the full eval
+TRAIN_MP_ARGS = ["--model", "bert-base-cased", "--task", "synthetic",
+                 "--train-size", "288", "--eval-size", "408",
+                 "--num-epochs", "1", "--device", "cuda", "--seed", "42",
+                 "--log-every", "0"]
+# the BERT profile phases run one step of the recipe's 96 and the full
+# eval (three steps took 136-212 s under the profiler)
+PROFILE_TRAIN_SIZE = "96"
+# cpu-vs-card through train_mp: 3 tiny branches on the whole-sequence
+# flash kernels (7, 8; float32, head_dim 16)
+TINY_MP_ARGS = TINY_ARGS + ["--n-branches", "3", "--attention", "flash"]
 
 # flash attention at the LM paths' shapes: gpt2-medium at seq 1024, micro
 # 4 (blockwise pair) and at seq 128, micro 8 (whole-sequence pair)
@@ -1953,21 +1974,76 @@ def mask_scale_phase(device, shapes=MASK_PARITY_SHAPES, timed=APPLY_SHAPES,
 
 
 def expected_train_launches(*, micro: int, eval_batches: int,
-                            layers: int) -> dict:
-    """Launches of a counted train run: per microbatch forward the
-    embeddings LN, 2 tails per layer and 2 + layers dropouts (embeddings,
-    classifier, the probs of each layer); per backward the LN and tail
-    backwards, the probs dropouts again (attention_remat recomputes the
-    core) and each dropout's backward (the mask drawn again, applied to
-    dy); per eval batch the forwards, deterministic. No mask-scale tensor
-    is made."""
-    return {
+                            layers: int, flash: bool = False) -> dict:
+    """Launches of a counted train run, ``layers`` the trunk layers a
+    forward runs (the branch ensemble's: every branch's): per microbatch
+    forward the embeddings LN, 2 tails per layer and 2 + layers dropouts
+    (embeddings, classifier, the probs of each layer); per backward the LN
+    and tail backwards, the probs dropouts again (attention_remat
+    recomputes the core) and each dropout's backward (the mask drawn
+    again, applied to dy); per eval batch the forwards, deterministic.
+    ``flash`` (seq <= 256): the whole-sequence flash pair a layer instead,
+    with the probs dropout inside, so 2 dropouts a forward. No mask-scale
+    tensor is made."""
+    out = {
         "layer_norm": micro + eval_batches,
         "layer_norm_bwd": micro,
         "dropout_add_layer_norm": 2 * layers * (micro + eval_batches),
         "dropout_add_layer_norm_bwd": 2 * layers * micro,
         "mask_scale_apply": (4 + 3 * layers) * micro,
     }
+    if flash:
+        out.update(flash_whole_fwd=layers * (micro + eval_batches),
+                   flash_whole_bwd=layers * micro, mask_scale_apply=4 * micro)
+    return out
+
+
+def train_launches(trainer) -> dict:
+    """``expected_train_launches`` of a finished classification run."""
+    tc, mc = trainer.tcfg, trainer.mcfg
+    return expected_train_launches(
+        micro=trainer.state.step * tc.grad_accum_steps,
+        eval_batches=trainer.eval_loader.steps_per_epoch,
+        layers=mc.num_layers * getattr(trainer.state.module, "n_branches", 1),
+        flash=mc.attention_impl == "flash")
+
+
+def initial_weights(trainer) -> dict:
+    """The weights of step 0 of a classification run, made again from the
+    seed on the CPU."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.models.bert import (
+        BertForSequenceClassification,
+    )
+    from pytorch_distributed_training_tpu_torch.models.branch import (
+        BranchEnsembleClassifier,
+    )
+
+    tc, mc, module = trainer.tcfg, trainer.mcfg, trainer.state.module
+    if isinstance(module, BranchEnsembleClassifier):
+        return BranchEnsembleClassifier(mc, module.n_branches,
+                                        seed=tc.seed).state_dict()
+    return BertForSequenceClassification(
+        mc, generator=torch.Generator().manual_seed(tc.seed)).state_dict()
+
+
+def check_branches_differ(start: dict, n_branches: int) -> None:
+    """Every tensor of every branch starts unlike the same tensor of each
+    other branch."""
+    import torch
+
+    names = [k[len("branches.0."):] for k in start
+             if k.startswith("branches.0.")]
+    for a in range(n_branches):
+        for b in range(a + 1, n_branches):
+            same = [n for n in names
+                    if torch.equal(start[f"branches.{a}.{n}"],
+                                   start[f"branches.{b}.{n}"])
+                    and start[f"branches.{a}.{n}"].std() > 0]
+            if same:
+                raise AssertionError(f"branches {a} and {b} start alike: "
+                                     f"{same[:5]}")
 
 
 @contextlib.contextmanager
@@ -2023,49 +2099,43 @@ def train_metrics(trainer, wall) -> dict:
     )
 
 
-def train_phase(argv=TRAIN_ARGS) -> dict:
-    """The training main path, counted (first run, cold), then a second
-    run from the same seed that must give bit-identical per-step losses."""
+def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train") -> dict:
+    """A classification main path (``train_dp``, or ``train_mp``'s branch
+    ensemble), counted (first run, cold), then a second run from the same
+    seed that must give bit-identical per-step losses."""
     import torch
 
-    from pytorch_distributed_training_tpu_torch.models.bert import (
-        BertForSequenceClassification,
-    )
-
     torch.cuda.reset_peak_memory_stats()
-    with no_mask_tensor("train run"):
-        trainer, counts, wall = train_once(argv)
+    with no_mask_tensor(f"{tag} run"):
+        trainer, counts, wall = train_once(argv, cli)
     peak = torch.cuda.max_memory_allocated()
     tc, mc = trainer.tcfg, trainer.mcfg
-    micro = trainer.state.step * tc.grad_accum_steps
+    branches = getattr(trainer.state.module, "n_branches", 1)
     check_launches(
-        f"train run ({trainer.state.step} steps x {tc.grad_accum_steps} "
-        f"microbatches, {trainer.eval_loader.steps_per_epoch} eval batches)",
-        counts, expected_train_launches(
-            micro=micro, eval_batches=trainer.eval_loader.steps_per_epoch,
-            layers=mc.num_layers),
-    )
+        f"{tag} run ({trainer.state.step} steps x {tc.grad_accum_steps} "
+        f"microbatches, {trainer.eval_loader.steps_per_epoch} eval batches, "
+        f"{branches} branch(es))", counts, train_launches(trainer))
     cold = train_metrics(trainer, wall)
     if cold["steps"] != 3 or not all(
             map(math.isfinite, cold["losses"] + cold["grad_norms"])):
-        raise AssertionError(f"train run: {cold}")
-    # the weights of step 0, made again from the seed on the CPU
-    start = BertForSequenceClassification(
-        mc, generator=torch.Generator().manual_seed(tc.seed)
-    ).state_dict()
+        raise AssertionError(f"{tag} run: {cold}")
+    start = initial_weights(trainer)
+    if branches > 1:
+        check_branches_differ(start, branches)
     now = trainer.state.module.state_dict()
     unmoved = [k for k in start
                if torch.equal(now[k].cpu(), start[k])]
     if unmoved:
-        raise AssertionError(f"parameters unchanged after 3 steps: "
+        raise AssertionError(f"{tag}: parameters unchanged after 3 steps: "
                              f"{unmoved[:5]}")
     del trainer, start, now
     gc.collect()
     torch.cuda.empty_cache()
     cold.update(peak_mem_bytes=peak, launches=counts,
-                layers=mc.num_layers, hidden=mc.hidden_size)
-    say("[train] cold run: " + json.dumps(cold))
-    trainer, _, wall = train_once(argv)
+                layers=mc.num_layers, hidden=mc.hidden_size,
+                branches=branches)
+    say(f"[{tag}] cold run: " + json.dumps(cold))
+    trainer, _, wall = train_once(argv, cli)
     warm = train_metrics(trainer, wall)
     # the eval alone once more, timed: the profile's busy share needs the
     # warm run's device-side seconds (steps + eval)
@@ -2076,12 +2146,20 @@ def train_phase(argv=TRAIN_ARGS) -> dict:
     warm["eval_s"] = time.perf_counter() - t0
     warm["train_s"] = warm["steps"] * warm["ms_per_step"] / 1e3
     del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
     if warm["losses"] != cold["losses"]:
-        raise AssertionError(f"per-step losses differ between two runs: "
-                             f"{cold['losses']} vs {warm['losses']}")
-    say("[train] warm run: " + json.dumps(warm))
-    say("[train] per-step losses bit-identical across two runs")
+        raise AssertionError(f"{tag}: per-step losses differ between two "
+                             f"runs: {cold['losses']} vs {warm['losses']}")
+    say(f"[{tag}] warm run: " + json.dumps(warm))
+    say(f"[{tag}] per-step losses bit-identical across two runs")
     return dict(cold, warm=warm)
+
+
+def one_step(argv):
+    """``argv`` with the train rows cut to one step (the profile depth)."""
+    at = argv.index("--train-size") + 1
+    return argv[:at] + [PROFILE_TRAIN_SIZE] + argv[at + 1:]
 
 
 def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
@@ -2089,10 +2167,10 @@ def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
     """Device kernel time of the steps and the eval under
     ``torch.profiler``, by kernel class (the trainer is built first, so
     the weight copy to the card is outside the window), and its share of
-    the warm run's step and eval seconds (``warm`` None: of the profiled
-    wall, which the profiler's host cost inflates); ``env`` is set in the
-    environment around the run; a device kernel whose name holds a
-    ``forbid`` symbol fails the phase."""
+    the warm run's seconds for as many steps and its eval (``warm`` None:
+    of the profiled wall, which the profiler's host cost inflates);
+    ``env`` is set in the environment around the run; a device kernel
+    whose name holds a ``forbid`` symbol fails the phase."""
     import importlib
 
     from torch.profiler import ProfilerActivity, profile
@@ -2114,6 +2192,7 @@ def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    steps = len(trainer.step_log)
     del trainer
     from torch.autograd import DeviceType
 
@@ -2122,10 +2201,13 @@ def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
                   and any(sym in e.key for sym in forbid)})
     if bad:
         raise AssertionError(f"{tag}: launched {bad}, none wanted")
-    base = "warm run's steps + eval" if warm else "profiled wall"
+    base = (f"warm run's ms a step x {steps} + eval" if warm
+            else "profiled wall")
     res = dict(device_time_by_class(
-        prof, warm["train_s"] + warm["eval_s"] if warm else wall),
-        busy_share_of=base, profiled_wall_s=wall, host=host_time_by_op(prof))
+        prof, warm["ms_per_step"] * steps / 1e3 + warm["eval_s"] if warm
+        else wall),
+        busy_share_of=base, profiled_wall_s=wall, profiled_steps=steps,
+        host=host_time_by_op(prof))
     say(f"[{tag}] " + json.dumps(res))
     return res
 
@@ -2153,14 +2235,18 @@ def host_time_by_op(prof, top_n=12) -> dict:
 
 def cpu_vs_card_phase(argv=TINY_ARGS, cli="train_dp") -> dict:
     """The tiny preset with dropout on, 2 steps of accumulation 2 from one
-    seed, on the CPU (plain versions) and on the card (kernels)."""
+    seed, on the CPU (plain versions) and on the card (kernels; a
+    classification run's launches counted)."""
     metrics = lm_metrics if cli == "train_lm" else train_metrics
     runs = {}
     for device in ("cpu", "cuda"):
-        trainer, _, _ = train_once(argv + ["--device", device], cli)
+        trainer, counts, _ = train_once(argv + ["--device", device], cli)
         runs[device] = metrics(trainer, 0.0)
         if trainer.mcfg.hidden_dropout <= 0 or len(trainer.step_log) != 2:
             raise AssertionError("cpu-vs-card wants dropout on and 2 steps")
+        if device == "cuda" and cli != "train_lm":
+            check_launches(f"cpu-vs-card {cli} run", counts,
+                           train_launches(trainer))
     cpu, card = runs["cpu"], runs["cuda"]
     for key in ("losses", "grad_norms"):
         for a, b in zip(cpu[key], card[key]):
@@ -2173,11 +2259,30 @@ def cpu_vs_card_phase(argv=TINY_ARGS, cli="train_dp") -> dict:
                card_grad_norms=card["grad_norms"],
                max_rel_diff=max(abs(a - b) / abs(a) for a, b in zip(
                    cpu["losses"] + cpu["grad_norms"],
-                   card["losses"] + card["grad_norms"])))
+                   card["losses"] + card["grad_norms"])), launches=counts)
     say(f"[cpu-vs-card] {trainer.mcfg.num_layers}-layer "
         f"{argv[argv.index('--model') + 1]} ({cli}), dropout on, float32: "
         + json.dumps(res) + f" (rtol {CPU_CARD_RTOL})")
     return res
+
+
+def stage_phase(argv=TINY_ARGS) -> dict:
+    """``train_mp --mp-mode stage`` at world size 1 (one stage: BERT
+    itself) against ``train_dp`` from the same seed on the card, dropout
+    on: the same per-step losses and grad norms, bit for bit."""
+    card = argv + ["--device", "cuda"]
+    runs = {}
+    for cli, extra in (("train_mp", ["--mp-mode", "stage"]),
+                       ("train_dp", [])):
+        trainer, _, _ = train_once(card + extra, cli)
+        runs[cli] = trainer.step_log
+        del trainer
+    if runs["train_mp"] != runs["train_dp"]:
+        raise AssertionError(f"stage mode {runs['train_mp']} against "
+                             f"train_dp {runs['train_dp']}")
+    say("[stage] train_mp --mp-mode stage at world 1 equals train_dp bit for "
+        "bit: " + json.dumps(runs["train_mp"]))
+    return runs["train_mp"]
 
 
 # ------------------------------------------------- phase 3, flash kernels
@@ -2897,9 +3002,17 @@ def main() -> int:
     lap("flash kernels")
     train = train_phase()
     lap("train")
-    train_profile_phase(train["warm"])
+    train_profile_phase(train["warm"], one_step(TRAIN_ARGS))
     lap("train-profile")
+    train_mp = train_phase(TRAIN_MP_ARGS, "train_mp", tag="train-mp")
+    lap("train-mp")
+    train_profile_phase(train_mp["warm"], one_step(TRAIN_MP_ARGS),
+                        "train_mp", tag="train-mp-profile")
+    lap("train-mp-profile")
     cpu_vs_card_phase()
+    cpu_vs_card_phase(TINY_MP_ARGS, "train_mp")
+    stage_phase()
+    lap("cpu-vs-card + stage")
     lm = lm_phase(LM_1024_ARGS, steps=3, rerun=True, tag="lm-1024")
     lap("lm-1024")
     train_profile_phase(lm["warm"], LM_1024_ARGS, "train_lm",

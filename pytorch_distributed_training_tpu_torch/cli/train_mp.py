@@ -1,0 +1,166 @@
+"""Hybrid data × model parallel trainer entry point (counterpart: the JAX
+package's ``cli/train_mp.py``): fine-tune under data parallelism wrapping
+a model split over ranks, the reference's second script (reference
+test_model_parallelism.py). Two model-parallel modes, the reference's two
+custom modules:
+
+- ``--mp-mode branch`` (default): the TriBert ensemble (:92-163), shared
+  embeddings, ``--n-branches`` BERT encoders mean-fused, BERT's head
+  (``models/branch.py``); the branches split over the mesh's ``model``
+  axis, each rank running its own one after another;
+- ``--mp-mode stage``: ConcatBert's layer split (:40-89) over the mesh's
+  ``stage`` axis, the activation and its gradient passed between stages
+  one microbatch at a time (``models/stage.py``); one stage is
+  ``BertForSequenceClassification`` itself.
+
+    python -m pytorch_distributed_training_tpu_torch.cli.train_mp \\
+        --model bert-base-cased --task synthetic
+
+Runs on the GPU (``--device cuda``, the default; it raises when no GPU is
+visible; one card is world size 1, every axis of the mesh 1) or on the CPU
+with ``--device cpu``, where every kernel takes its plain PyTorch version.
+Over several processes under ``torch.distributed.run``, one per card (NCCL)
+or per CPU worker (gloo), the mesh flags lay them out (ranks row-major in
+the order data, fsdp, stage, model, seq; ``-1`` takes what is left)::
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m pytorch_distributed_training_tpu_torch.cli.train_mp \\
+        --model tiny --task synthetic --mesh-data 2 --mesh-model 2 \\
+        --n-branches 2 --device cpu
+
+The reference's MP script has no fp16 (:320-321); bf16 is on by default as
+in every entry point (``--no-bf16`` for float32). ``--history-out`` writes
+the per-epoch records as JSON (rank 0). Not ported yet (each raises
+``NotImplementedError``; ROADMAP.md, queue 1, slice 5): ``--mp-mode
+pipeline|1f1b`` (item 3), ``--fsdp`` and ``--mesh-fsdp`` > 1 (item 2),
+``--mesh-seq`` > 1 and ring attention (item 4), ``--matmul-impl
+int8|int8_full`` and ``--quant-delayed`` (item 6). The JAX CLI's restart
+flags wait with ``train_dp``'s (slice 2 leftovers).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from pytorch_distributed_training_tpu_torch.cli.train_dp import run
+from pytorch_distributed_training_tpu_torch.utils.config import (
+    MeshConfig,
+    TrainConfig,
+    add_dataclass_args,
+    dataclass_from_args,
+    model_preset,
+)
+
+_ITEM = "is not ported yet (ROADMAP.md, queue 1, slice 5 item {})"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model", default="bert-base-cased",
+                   help="model preset (the reference MP script uses "
+                        "bert-base-cased x 3, test_model_parallelism.py:"
+                        "230-238)")
+    p.add_argument("--task", default="auto",
+                   help="mrpc | mnli | synthetic | auto (mrpc with the "
+                        "synthetic fallback)")
+    p.add_argument("--mp-mode", default="branch",
+                   choices=["branch", "stage", "pipeline", "1f1b"],
+                   help="branch = TriBert-style ensemble over the model "
+                        "axis; stage = ConcatBert-style layer split over "
+                        "the stage axis; pipeline, 1f1b = the schedules "
+                        "(not ported yet)")
+    p.add_argument("--n-branches", type=int, default=3)
+    p.add_argument("--attention", default=None,
+                   choices=("reference", "flash", "ring"),
+                   help="attention implementation (default: the preset's)")
+    p.add_argument("--matmul-impl", default="native",
+                   choices=("native", "int8", "int8_full"))
+    p.add_argument("--quant-delayed", action=argparse.BooleanOptionalAction,
+                   default=False)
+    p.add_argument("--fsdp", action=argparse.BooleanOptionalAction,
+                   default=False)
+    p.add_argument("--mesh-data", type=int, default=-1)
+    p.add_argument("--mesh-fsdp", type=int, default=1)
+    p.add_argument("--mesh-stage", type=int, default=1)
+    p.add_argument("--mesh-model", type=int, default=1)
+    p.add_argument("--mesh-seq", type=int, default=1,
+                   help="context-parallel degree (ring attention)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the run goes (cuda raises when no GPU is "
+                        "visible)")
+    p.add_argument("--history-out", default=None,
+                   help="write the per-epoch metric history as JSON here")
+    add_dataclass_args(p, TrainConfig)
+    return p
+
+
+def _not_ported(args) -> None:
+    checks = (
+        (args.mp_mode in ("pipeline", "1f1b"), f"--mp-mode {args.mp_mode}",
+         3),
+        (args.fsdp, "--fsdp", 2),
+        (args.mesh_fsdp > 1, f"--mesh-fsdp {args.mesh_fsdp}", 2),
+        (args.mesh_seq > 1, f"--mesh-seq {args.mesh_seq}", 4),
+        (args.attention == "ring", "--attention ring", 4),
+        (args.matmul_impl != "native", f"--matmul-impl {args.matmul_impl}",
+         6),
+        (args.quant_delayed, "--quant-delayed", 6),
+    )
+    for bad, flag, item in checks:
+        if bad:
+            raise NotImplementedError(f"{flag} {_ITEM.format(item)}")
+
+
+def build_trainer(args):
+    """The ``Trainer`` that parsed ``args`` describe (process group joined,
+    mesh built, data loaded, this rank's part of the model on its device),
+    not yet run."""
+    _not_ported(args)
+    from pytorch_distributed_training_tpu_torch.models.branch import (
+        BranchEnsembleClassifier,
+    )
+    from pytorch_distributed_training_tpu_torch.train.loop import Trainer
+
+    tcfg = dataclass_from_args(TrainConfig, args)
+    overrides = dict(compute_dtype="bfloat16" if tcfg.bf16 else "float32")
+    if args.attention is not None:
+        overrides["attention_impl"] = args.attention
+    mcfg = model_preset(args.model, **overrides)
+    if mcfg.causal:
+        raise SystemExit(f"--model {args.model} is a causal preset; train_mp "
+                         f"fine-tunes an encoder classifier")
+    model = None
+    if args.mp_mode == "branch":
+        if args.mesh_model > 1 and args.n_branches % args.mesh_model:
+            raise SystemExit(
+                f"--n-branches {args.n_branches} must be divisible by "
+                f"--mesh-model {args.mesh_model} for branch parallelism "
+                f"(each model-axis slice holds n_branches/mesh_model "
+                f"branches)")
+
+        def model(cfg, *, seed, mesh, n=args.n_branches):
+            return BranchEnsembleClassifier(cfg, n, seed=seed, mesh=mesh)
+
+    elif args.mesh_stage > 1 and mcfg.num_layers % args.mesh_stage:
+        raise SystemExit(
+            f"model has {mcfg.num_layers} layers, not divisible by "
+            f"--mesh-stage {args.mesh_stage} — the layer split would "
+            f"silently replicate instead of sharding")
+    mesh = MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
+                      stage=args.mesh_stage, model=args.mesh_model,
+                      seq=args.mesh_seq)
+    return Trainer(mcfg, tcfg, task=args.task, device=args.device,
+                   mesh_config=mesh, mp_mode=args.mp_mode, model=model)
+
+
+def train(argv=None):
+    """Parse ``argv``, run the trainer to its end and return it."""
+    return run(build_parser().parse_args(argv), build_trainer)
+
+
+def main(argv=None) -> list[dict]:
+    return train(argv).history
+
+
+if __name__ == "__main__":
+    main()

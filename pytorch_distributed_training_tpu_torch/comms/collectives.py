@@ -1,11 +1,33 @@
-"""Host-side collectives of the trainer (counterpart: the JAX package's
-``comms/collectives.py``, the part the data-parallel path uses).
+"""Collectives of the trainer (counterpart: the JAX package's
+``comms/collectives.py``, and the collectives GSPMD inserts for the branch
+axis).
 
-Gradients need no call here: DDP all-reduces them. What is left is summing
-a few scalars across ranks: the eval counts and the step loss. Each is
-one ``all_reduce`` of a small float tensor on this process's device (NCCL
-reduces CUDA tensors, gloo CPU ones); with no process group both are the
-identity.
+Each takes the process group of one mesh axis (``comms/mesh.py``); an axis
+of one process has the group ``None``, and the collective is then the
+identity. Data-parallel gradients need no call here: DDP all-reduces them
+over the ``data`` group.
+
+- ``all_reduce_sum``/``all_reduce_mean``/``host_sum_counts``: small
+  tensors summed or averaged over a group on this process's device (NCCL
+  reduces CUDA tensors, gloo CPU ones): the step loss, the grad norm's
+  squares, the eval counts.
+- ``reduce_from_model``/``copy_to_model``: the differentiable pair of the
+  branch ensemble (Megatron's g and f). ``reduce_from_model`` sums its
+  input over the group and passes the gradient through unchanged, since
+  what consumes the sum (the head) runs replicated on every rank of the
+  group and so already holds the whole gradient; ``copy_to_model`` passes
+  its input through and sums the gradient over the group, so what feeds
+  every rank's branches (the shared embeddings) gets the gradient of all
+  of them. (``torch.distributed.nn.functional.all_reduce`` sums in its
+  backward too, which would scale the branches' gradients by the group's
+  size.)
+- ``stage_send``/``stage_recv``: the activation of the layer split going
+  forward to the next stage and its gradient coming back, as autograd
+  Functions over ``dist.send``/``dist.recv``: ``stage_send`` sends its
+  input and returns a scalar token whose backward receives the input's
+  gradient; ``stage_recv`` receives the input of this stage and, in the
+  backward, sends its gradient back. Tensors travel as a same-size integer
+  view (gloo's point-to-point refuses bf16).
 """
 
 from __future__ import annotations
@@ -14,30 +36,120 @@ import torch
 import torch.distributed as dist
 
 
-def _group_size() -> int:
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks (a copy; ``t`` is left as it is)."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over ``group`` (a copy; ``t`` is left as it is)."""
     out = t.clone()
-    if _group_size() > 1:
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    if _size(group) > 1:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
-def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
-    """Mean of ``t`` over the ranks."""
-    n = _group_size()
-    return all_reduce_sum(t) / n if n > 1 else t.clone()
+def all_reduce_mean(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean of ``t`` over ``group``."""
+    n = _size(group)
+    return all_reduce_sum(t, group) / n if n > 1 else t.clone()
 
 
-def host_sum_counts(counts: dict[str, torch.Tensor]) -> dict[str, float]:
-    """Sum a dict of scalar counts over the ranks in one all-reduce and
-    bring the totals to the host."""
+def host_sum_counts(counts: dict[str, torch.Tensor],
+                    groups=(None,)) -> dict[str, float]:
+    """Sum a dict of scalar counts over each of ``groups`` in turn (one
+    all-reduce a group) and bring the totals to the host."""
     keys = sorted(counts)
-    stacked = torch.stack([counts[k].float() for k in keys])
-    total = all_reduce_sum(stacked).cpu().tolist()
-    return dict(zip(keys, total))
+    total = torch.stack([counts[k].float() for k in keys])
+    for group in groups:
+        total = all_reduce_sum(total, group)
+    return dict(zip(keys, total.cpu().tolist()))
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = dy.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(dx, op=dist.ReduceOp.SUM, group=ctx.group)
+        return dx, None
+
+
+def reduce_from_model(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Forward: the sum of ``x`` over ``group``; backward: the identity."""
+    return x if _size(group) == 1 else _ReduceFromModel.apply(x, group)
+
+
+def copy_to_model(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Forward: the identity; backward: the gradient summed over
+    ``group``."""
+    return x if _size(group) == 1 else _CopyToModel.apply(x, group)
+
+
+# integer dtypes by element size (bf16 and float32 activations): what goes
+# over point-to-point
+_WIRE = {2: torch.int16, 4: torch.int32}
+
+
+def _send(t: torch.Tensor, dst: int) -> None:
+    dist.send(t.detach().contiguous().view(_WIRE[t.element_size()]), dst)
+
+
+def _recv(shape, dtype, device, src: int) -> torch.Tensor:
+    buf = torch.empty(shape, dtype=dtype, device=device)
+    dist.recv(buf.view(_WIRE[buf.element_size()]), src)
+    return buf
+
+
+class _StageSend(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dst):
+        ctx.meta = (x.shape, x.dtype, x.device, dst)
+        _send(x, dst)
+        return x.new_zeros((), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, _):
+        return _recv(*ctx.meta), None
+
+
+class _SendGradBack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src):
+        ctx.src = src
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        _send(dy, ctx.src)
+        return None, None
+
+
+def stage_send(x: torch.Tensor, dst: int) -> torch.Tensor:
+    """Send ``x`` to rank ``dst``; a scalar token whose ``backward()``
+    receives ``x``'s gradient from ``dst`` and carries it on into ``x``."""
+    return _StageSend.apply(x, dst)
+
+
+def stage_recv(shape, dtype, device, src: int) -> torch.Tensor:
+    """This stage's input, received from rank ``src``; under autograd its
+    gradient is sent back to ``src`` in the backward."""
+    x = _recv(shape, dtype, device, src)
+    if not torch.is_grad_enabled():
+        return x
+    return _SendGradBack.apply(x.requires_grad_(), src)

@@ -409,14 +409,16 @@ def default_position_ids(cfg: ModelConfig, input_ids):
     )
 
 
-def _child_seed(seed: Optional[int], index: int) -> Optional[int]:
+def child_seed(seed: Optional[int], index: int) -> Optional[int]:
     return None if seed is None else fold_in(seed, index)
 
 
-def run_layers(layers, x, attention_bias, dropout_seed=None):
-    """The trunk: layer i draws its dropout from ``fold_in(seed, i + 1)``."""
-    for i, layer in enumerate(layers):
-        x = layer(x, attention_bias, _child_seed(dropout_seed, i + 1))
+def run_layers(layers, x, attention_bias, dropout_seed=None, first=0):
+    """The trunk: layer i draws its dropout from ``fold_in(seed, i + 1)``;
+    ``layers`` may be a run of the trunk's layers starting at layer
+    ``first`` (a stage of the layer split)."""
+    for i, layer in enumerate(layers, first):
+        x = layer(x, attention_bias, child_seed(dropout_seed, i + 1))
     return x
 
 
@@ -453,7 +455,7 @@ class BertEncoderModel(nn.Module):
         if position_ids is None:
             position_ids = default_position_ids(cfg, input_ids)
         x = self.embeddings(input_ids, token_type_ids.long(), position_ids,
-                            _child_seed(dropout_seed, 0))
+                            child_seed(dropout_seed, 0))
         bias = make_attention_bias(attention_mask)
         x = run_layers(self.layers, x, bias, dropout_seed)
         return x, pool_cls(self.pooler, x)
@@ -482,4 +484,4 @@ class BertForSequenceClassification(nn.Module):
         _, pooled = self.bert(input_ids, attention_mask, token_type_ids,
                               position_ids, dropout_seed)
         return classify(self.dropout, self.classifier, pooled,
-                        _child_seed(dropout_seed, self.config.num_layers + 1))
+                        child_seed(dropout_seed, self.config.num_layers + 1))

@@ -16,8 +16,11 @@ out_shape``, ``Embed`` tables as ``embedding``, LayerNorm ``scale`` and
 A scanned trunk (``layers_scan/block/...`` for GPT-2, the ``train_lm``
 default, or ``bert/layers_scan/layer/...`` for BERT, each leaf with a
 leading [num_layers] axis; see the JAX package's ``models/relayout.py``
-and ``models/bert.py``) is unstacked into per-layer entries. Leaves are
-numpy arrays on the flax side, so this module needs no JAX.
+and ``models/bert.py``) is unstacked into per-layer entries. The branch
+ensemble's (``models/branch.py``) ``branches/layer_i/...`` leaves carry a
+leading [n_branches] axis: branch b becomes ``branches.b.layers.i...``,
+and ``params_to_jax`` stacks the branches back. Leaves are numpy arrays on
+the flax side, so this module needs no JAX.
 
 The weight-only int8 serving variant (the JAX package's
 ``quantize_serve_params``: int8 ``kernel`` leaves beside fp32
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 _SCAN = "layers_scan"
+_BRANCHES = "branches"  # the ensemble's stacked axis (models/branch.py)
 # flax per-layer prefix -> the port's list attribute
 _LISTS = {"block": "blocks", "layer": "layers"}
 _PREFIXES = {v: k for k, v in _LISTS.items()}
@@ -48,9 +52,22 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return out
 
 
-def _unstack(flat: dict[tuple, np.ndarray]) -> dict[tuple, np.ndarray]:
+def _unstack_branches(flat: dict[tuple, np.ndarray]
+                      ) -> dict[tuple, np.ndarray]:
     out = {}
     for path, leaf in flat.items():
+        if _BRANCHES not in path:
+            out[path] = leaf
+            continue
+        at = path.index(_BRANCHES) + 1
+        for b in range(leaf.shape[0]):
+            out[path[:at] + (str(b),) + path[at:]] = leaf[b]
+    return out
+
+
+def _unstack(flat: dict[tuple, np.ndarray]) -> dict[tuple, np.ndarray]:
+    out = {}
+    for path, leaf in _unstack_branches(flat).items():
         if _SCAN not in path:
             out[path] = leaf
             continue
@@ -88,9 +105,33 @@ def params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]:
     }
 
 
+def _stack_branches(tree: dict) -> dict:
+    """``branches/{"0", "1", ...}/...`` -> ``branches/...`` with a leading
+    [n_branches] axis on every leaf."""
+    for key, node in tree.items():
+        if key != _BRANCHES:
+            if isinstance(node, dict):
+                _stack_branches(node)
+            continue
+        ids = sorted(node, key=int)
+        if ids != [str(b) for b in range(len(ids))]:
+            raise ValueError(f"branches {ids} are not 0..{len(ids) - 1} "
+                             f"(merge every rank's state dict first)")
+        flats = [_flatten(node[b]) for b in ids]
+        stacked: dict = {}
+        for path in flats[0]:
+            at = stacked
+            for p in path[:-1]:
+                at = at.setdefault(p, {})
+            at[path[-1]] = np.stack([f[path] for f in flats])
+        tree[key] = stacked
+    return tree
+
+
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """Inverse of ``params_from_jax`` (unscanned trunk): nested dict of
-    numpy arrays in the flax tree layout, float32 but for int8 kernels."""
+    """Inverse of ``params_from_jax`` (unscanned trunk; the ensemble's
+    branches stacked back): nested dict of numpy arrays in the flax tree
+    layout, float32 but for int8 kernels."""
     tree: dict = {}
     for name, tensor in state_dict.items():
         parts, flax_parts = name.split("."), []
@@ -110,4 +151,4 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         if leaf.dtype != torch.int8:
             leaf = leaf.float()
         node[flax_parts[-1]] = leaf.numpy()
-    return tree
+    return _stack_branches(tree)

@@ -45,7 +45,7 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     DenseGeneral,
     Embed,
     PagedKV,
-    _child_seed,
+    child_seed,
     compute_dtype,
     dense,
     layer_norm_module,
@@ -153,11 +153,11 @@ class GPT2LMModel(nn.Module):
                 seq, device=input_ids.device
             )[None, :].expand(batch, seq)
         x = self.wte(input_ids) + self.wpe(position_ids)
-        x = self.dropout(x, _child_seed(dropout_seed, 0))
+        x = self.dropout(x, child_seed(dropout_seed, 0))
         bias = make_attention_bias(attention_mask)
         for i, block in enumerate(self.blocks):
             layer = None if paged is None else paged.layer(i)
-            x = block(x, bias, layer, _child_seed(dropout_seed, i + 1))
+            x = block(x, bias, layer, child_seed(dropout_seed, i + 1))
         x = self.ln_f(x)
         head = self.head_weight
         if head is None:

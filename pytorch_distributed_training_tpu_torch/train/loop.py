@@ -1,12 +1,25 @@
 """The Trainer: data, model, optimizer, DDP, epochs, eval and the metric
 history (counterpart: the JAX package's ``train/loop.py`` ``Trainer``, its
-data-parallel classification and causal-LM paths).
+data-parallel classification and causal-LM paths and its hybrid data ×
+model parallel path).
 
 The task picks the objective, as in the JAX trainer: ``lm`` trains a
 causal preset (``GPT2LMModel``) on next-token cross-entropy
 (``"causal_lm"``), every other task an encoder preset
 (``BertForSequenceClassification``) on classification; a preset whose
 ``causal`` disagrees raises.
+
+The ranks form a mesh (``comms/mesh.py``; ``mesh_config`` None: every
+rank on the ``data`` axis). ``mp_mode`` splits the model over an axis of
+it: ``"branch"`` the branch ensemble (``models/branch.py``, or what
+``model(model_config, seed=, mesh=)`` builds) over ``model``, ``"stage"``
+BERT's layers over ``stage`` (``models/stage.py``); a mesh axis of more
+than one rank that no mode splits raises. The ranks of one data slice
+read the same rows and draw the same dropout (the data coordinate stands
+for the rank), DDP averages gradients over the ``data`` group only, the
+grad norm is the whole model's, and the eval counts are summed over the
+``stage`` group (the last stage's) and then the ``data`` group.
+``samples_per_sec_per_chip`` divides by every rank.
 
 Per epoch: every optimizer step over ``[accum, micro, ...]`` batches, then
 a masked eval pass over the whole validation split and one history record
@@ -18,13 +31,15 @@ loss and grad norm, fetched from the device once per epoch.
 
 Not ported here (ROADMAP.md, queue 1): checkpoints and resume, the
 watchdog, preemption handling, telemetry sinks, runtime guards, the
-native loader and prefetch, chained steps, FSDP and the mesh flags.
+native loader and prefetch, chained steps, FSDP, tensor and context
+parallelism, the pipeline schedules.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -33,6 +48,12 @@ from torch.nn.parallel import DistributedDataParallel
 from pytorch_distributed_training_tpu_torch.comms.bootstrap import initialize
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     host_sum_counts,
+)
+from pytorch_distributed_training_tpu_torch.comms.mesh import (
+    AXIS_DATA,
+    AXIS_MODEL,
+    AXIS_STAGE,
+    build_mesh,
 )
 from pytorch_distributed_training_tpu_torch.data import synthetic
 from pytorch_distributed_training_tpu_torch.data.glue import (
@@ -44,7 +65,12 @@ from pytorch_distributed_training_tpu_torch.data.pipeline import ShardedLoader
 from pytorch_distributed_training_tpu_torch.models.bert import (
     BertForSequenceClassification,
 )
+from pytorch_distributed_training_tpu_torch.models.branch import (
+    BRANCH_MODULE,
+    BranchEnsembleClassifier,
+)
 from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2LMModel
+from pytorch_distributed_training_tpu_torch.models.stage import BertStage
 from pytorch_distributed_training_tpu_torch.train.metrics import (
     LMMetricAccumulator,
     MetricAccumulator,
@@ -52,6 +78,8 @@ from pytorch_distributed_training_tpu_torch.train.metrics import (
 from pytorch_distributed_training_tpu_torch.train.optim import (
     AdamW,
     linear_warmup_schedule,
+    plain_grad_norm,
+    sharded_grad_norm,
 )
 from pytorch_distributed_training_tpu_torch.train.state import (
     create_train_state,
@@ -61,6 +89,7 @@ from pytorch_distributed_training_tpu_torch.train.step import (
     make_train_step,
 )
 from pytorch_distributed_training_tpu_torch.utils.config import (
+    MeshConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -68,12 +97,34 @@ from pytorch_distributed_training_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_training_tpu_torch.utils.logging import log0
 
 
+# the mesh axis each model-parallel mode splits the model over
+SPLIT_AXIS = {"branch": AXIS_MODEL, "stage": AXIS_STAGE}
+MP_MODES = (None, *SPLIT_AXIS)
+
+
 class Trainer:
     def __init__(self, model_config: ModelConfig, train_config: TrainConfig,
-                 *, task: str = "auto", device="cuda"):
+                 *, task: str = "auto", device="cuda",
+                 mesh_config: Optional[MeshConfig] = None,
+                 mp_mode: Optional[str] = None,
+                 model: Optional[Callable] = None):
         tcfg = self.tcfg = train_config
+        if mp_mode not in MP_MODES:
+            raise ValueError(f"mp_mode must be one of {MP_MODES}, got "
+                             f"{mp_mode!r}")
+        if mp_mode is not None and model_config.causal:
+            raise ValueError(f"mp_mode={mp_mode!r} splits an encoder "
+                             f"classifier; the config is causal")
         self.info = initialize(resolve_device(device))
         self.device = self.info.device
+        mesh = self.mesh = build_mesh(mesh_config, rank=self.info.rank,
+                                      world_size=self.info.world_size)
+        split = SPLIT_AXIS.get(mp_mode)
+        for mode, axis in SPLIT_AXIS.items():
+            if mesh.shape[axis] > 1 and mode != mp_mode:
+                raise ValueError(
+                    f"mesh axis {axis}={mesh.shape[axis]} needs "
+                    f"mp_mode={mode!r} (got {mp_mode!r})")
         # float32 matmuls and the float32 classifier stay float32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -106,8 +157,9 @@ class Trainer:
             model_config = dataclasses.replace(model_config,
                                                num_labels=num_labels)
         self.mcfg = model_config
-        shard = dict(seed=tcfg.seed, rank=self.info.rank,
-                     world_size=self.info.world_size, device=self.device)
+        # the ranks of one data slice read the same rows
+        shard = dict(seed=tcfg.seed, rank=mesh.coord(AXIS_DATA),
+                     world_size=mesh.shape[AXIS_DATA], device=self.device)
         self.train_loader = ShardedLoader(
             train_data, global_batch_size=tcfg.global_batch_size,
             grad_accum_steps=tcfg.grad_accum_steps, train=True, **shard,
@@ -120,11 +172,27 @@ class Trainer:
 
         # ----------------------------------------------------------- model
         # made on the CPU from the seed, so every device starts alike
-        model_cls = (GPT2LMModel if model_config.causal
-                     else BertForSequenceClassification)
-        model = model_cls(
-            model_config, generator=torch.Generator().manual_seed(tcfg.seed),
-        ).to(self.device)
+        if model is None and mp_mode == "branch":
+            model = BranchEnsembleClassifier
+        if model is not None:
+            module = model(model_config, seed=tcfg.seed, mesh=mesh)
+        else:
+            model_cls = (GPT2LMModel if model_config.causal
+                         else BertForSequenceClassification)
+            module = model_cls(
+                model_config,
+                generator=torch.Generator().manual_seed(tcfg.seed))
+        if mp_mode == "stage" and mesh.shape[AXIS_STAGE] > 1:
+            module = BertStage(module, mesh)
+        model = module.to(self.device)
+        # the grad norm of a model split over ranks: the branches over the
+        # model axis, every stage's parameters over the stage axis
+        grad_norm = plain_grad_norm
+        if split is not None and mesh.group(split) is not None:
+            grad_norm = sharded_grad_norm(
+                {id(p) for name, p in model.named_parameters()
+                 if split == AXIS_STAGE or name.startswith(BRANCH_MODULE)},
+                mesh.group(split))
         total_updates = self.train_loader.steps_per_epoch * tcfg.num_epochs
         self.schedule = linear_warmup_schedule(
             tcfg.learning_rate, tcfg.warmup_steps, total_updates
@@ -133,21 +201,25 @@ class Trainer:
             model.parameters(), self.schedule, b1=tcfg.adam_b1,
             b2=tcfg.adam_b2, eps=tcfg.adam_eps,
             weight_decay=tcfg.weight_decay, max_grad_norm=tcfg.max_grad_norm,
+            grad_norm=grad_norm,
         )
         wrapped = None
-        if self.info.world_size > 1:
+        if mesh.group(AXIS_DATA) is not None:
+            # DDP over this rank's data slice only: the ranks of another
+            # model or stage coordinate hold other weights
             wrapped = DistributedDataParallel(
                 model,
                 device_ids=[self.device.index] if self.device.type == "cuda"
                 else None,
+                process_group=mesh.group(AXIS_DATA),
             )
         self.state = create_train_state(model, optimizer, tcfg.seed,
                                         wrapped=wrapped)
         self.train_step = make_train_step(
-            grad_accum_steps=tcfg.grad_accum_steps, rank=self.info.rank,
-            objective=self.objective,
+            grad_accum_steps=tcfg.grad_accum_steps, objective=self.objective,
+            mesh=mesh, grad_norm=grad_norm,
         )
-        self.eval_step = make_eval_step(self.objective)
+        self.eval_step = make_eval_step(self.objective, mesh)
         self.history: list[dict] = []
         self.step_log: list[dict] = []
 
@@ -161,7 +233,8 @@ class Trainer:
         log0(f"training: {cfg.num_epochs} epochs x {spe} updates (global "
              f"batch {cfg.global_batch_size} = {cfg.grad_accum_steps} x "
              f"{cfg.global_batch_size // cfg.grad_accum_steps}), "
-             f"{self.info.world_size} process(es) on {self.device}")
+             f"{self.info.world_size} process(es) on {self.device}, mesh "
+             f"{self.mesh.shape}")
         for epoch in range(cfg.num_epochs):
             self._sync()
             t0 = time.perf_counter()
@@ -221,7 +294,10 @@ class Trainer:
                     k: totals[k] + counts[k] for k in counts
                 }
             if totals is not None:
-                acc.update(host_sum_counts(totals))
+                # the counts live on the last stage; each data slice's
+                # model ranks hold the same ones
+                acc.update(host_sum_counts(totals, (
+                    self.mesh.group(AXIS_STAGE), self.mesh.group(AXIS_DATA))))
             raw = acc.compute()
             if not out and suffix:
                 out.update(raw)

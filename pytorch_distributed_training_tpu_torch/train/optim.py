@@ -12,7 +12,9 @@
   (1-b2)*(g*g)``, ``upd = (mu/b1c) / (sqrt(nu/b2c) + eps)``, then ``upd +=
   weight_decay * p`` before the learning-rate scale, ``p += -lr * upd``.
   Moments are float32. Optional global-norm clipping first, as optax's
-  ``clip_by_global_norm`` (off by default, as in the reference).
+  ``clip_by_global_norm`` (off by default, as in the reference); the norm
+  is ``grad_norm``'s, which for a model split over ranks
+  (``sharded_grad_norm``) is the whole model's.
 
 A plain PyTorch optimizer over ``torch._foreach_*`` ops: the update is no
 Pallas kernel in the JAX package, so it has no CUDA kernel here.
@@ -24,6 +26,10 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from pytorch_distributed_training_tpu_torch.comms.collectives import (
+    all_reduce_sum,
+)
 
 
 def _linear(init: float, end: float, steps: int, count: int) -> np.float32:
@@ -53,6 +59,32 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
+def plain_grad_norm(params, grads) -> torch.Tensor:
+    """The global norm of ``grads`` (the gradients of ``params``), all
+    held whole by this rank."""
+    return global_norm(grads)
+
+
+def sharded_grad_norm(sharded, group) -> Callable:
+    """A grad-norm function for a model of which the parameters in
+    ``sharded`` (a set of ``id``s) are this rank's part of a model split
+    over ``group`` (each rank of it holds others), and the rest are
+    replicated on every rank of it: the squares of the replicated
+    gradients counted once, those of the split ones summed over the
+    group."""
+
+    def norm(params, grads) -> torch.Tensor:
+        zero = grads[0].new_zeros((), dtype=torch.float32)
+        own = sum((torch.sum(torch.square(g.float()))
+                   for p, g in zip(params, grads) if id(p) in sharded), zero)
+        rep = sum((torch.sum(torch.square(g.float()))
+                   for p, g in zip(params, grads) if id(p) not in sharded),
+                  zero)
+        return torch.sqrt(rep + all_reduce_sum(own, group))
+
+    return norm
+
+
 class AdamW(torch.optim.Optimizer):
     """optax-ordered AdamW with a schedule (see the module docstring).
 
@@ -62,11 +94,13 @@ class AdamW(torch.optim.Optimizer):
 
     def __init__(self, params, schedule: Callable[[int], float], *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0, max_grad_norm: float = 0.0):
+                 weight_decay: float = 0.0, max_grad_norm: float = 0.0,
+                 grad_norm: Callable = plain_grad_norm):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
+        self.grad_norm = grad_norm
         self.count = 0
 
     @torch.no_grad()
@@ -81,7 +115,7 @@ class AdamW(torch.optim.Optimizer):
                 continue
             grads = [p.grad.float() for p in params]
             if self.max_grad_norm > 0:
-                norm = global_norm(grads)
+                norm = self.grad_norm(params, grads)
                 clip = norm >= self.max_grad_norm
                 grads = [torch.where(clip, g / norm * self.max_grad_norm, g)
                          for g in grads]

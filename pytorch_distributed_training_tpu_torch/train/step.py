@@ -6,11 +6,19 @@ package's ``train/step.py`` ``make_train_step`` / ``make_eval_step``).
   before its backward, so the accumulated gradient IS the mean gradient
   (the JAX step folds the scale into the loss the same way). Under DDP,
   every microbatch but the last runs in ``no_sync()``, so gradients cross
-  the ranks once per optimizer step. Then ``grad_norm`` over the float32
-  gradients and one optimizer update. The loss returned is the sum of the
-  scaled microbatch losses (= the mean), averaged over the ranks.
+  the ranks of the ``data`` axis once per optimizer step. Then
+  ``grad_norm`` over the float32 gradients (over the whole model when it
+  is split over ranks, ``train/optim.py``) and one optimizer update. The
+  loss returned is the sum of the scaled microbatch losses (= the mean),
+  averaged over the ``data`` axis.
 - ``eval_step(state, batch)``: forward and argmax; the masked counts
   ``correct/total/tp/fp/fn`` under ``valid`` (positive label 1).
+
+Both take the rank's ``mesh`` (``comms/mesh.py``). Under the layer split
+(``models/stage.py``) only the last stage has logits: the earlier stages'
+forward returns a token whose ``backward()`` runs theirs, and they count
+a loss and eval counts of zero, which the sums over the ``stage`` axis
+leave exact.
 
 ``make_train_step`` and ``make_eval_step`` take ``objective``:
 ``"classification"`` (the above) or ``"causal_lm"``, where the loss is the
@@ -18,11 +26,12 @@ mean next-token cross-entropy over the positions ``lm_shift_and_mask``
 keeps and the eval step returns ``nll_sum``, ``token_count`` and
 ``token_correct``.
 
-Dropout: microbatch m of update ``step`` on ``rank`` draws from
-``fold_in(fold_in(fold_in(state.dropout_seed, step), m), rank)``, the
-counterpart of ``fold_in(fold_in(dropout_rng, step), m)`` and of the JAX
-kernels' per-shard seed offset. The forward saves what its backward needs;
-the model's kernels regenerate masks from the same seeds.
+Dropout: microbatch m of update ``step`` on data coordinate ``rank``
+draws from ``fold_in(fold_in(fold_in(state.dropout_seed, step), m),
+rank)``, the counterpart of ``fold_in(fold_in(dropout_rng, step), m)`` and
+of the JAX kernels' per-shard seed offset; the ranks of one data slice
+(its model and stage ranks) draw alike. The forward saves what its
+backward needs; the model's kernels regenerate masks from the same seeds.
 """
 
 from __future__ import annotations
@@ -36,10 +45,20 @@ from torch.nn.parallel import DistributedDataParallel
 
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     all_reduce_mean,
+    all_reduce_sum,
+)
+from pytorch_distributed_training_tpu_torch.comms.mesh import (
+    AXIS_DATA,
+    AXIS_STAGE,
+    Mesh,
+    build_mesh,
 )
 from pytorch_distributed_training_tpu_torch.ops.dropout import fold_in
-from pytorch_distributed_training_tpu_torch.train.optim import global_norm
+from pytorch_distributed_training_tpu_torch.train.optim import plain_grad_norm
 from pytorch_distributed_training_tpu_torch.train.state import TrainState
+
+
+CLASSIFICATION_COUNTS = ("correct", "total", "tp", "fp", "fn")
 
 
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -96,10 +115,20 @@ def _forward(model, micro, dropout_seed=None):
                  micro.get("token_type_ids"), dropout_seed=dropout_seed)
 
 
-def make_train_step(*, grad_accum_steps: int, rank: int = 0,
-                    objective: str = "classification") -> Callable:
-    """Build the train step for this rank."""
+def _last_stage(mesh: Mesh) -> bool:
+    return mesh.coord(AXIS_STAGE) == mesh.shape[AXIS_STAGE] - 1
+
+
+def make_train_step(*, grad_accum_steps: int,
+                    objective: str = "classification",
+                    mesh: Optional[Mesh] = None,
+                    grad_norm: Callable = plain_grad_norm) -> Callable:
+    """Build the train step for this rank of ``mesh`` (None: one
+    process). ``grad_norm(params, grads)`` is the reported norm
+    (``train/optim.py``)."""
     inv_accum = 1.0 / grad_accum_steps
+    mesh = mesh or build_mesh()
+    data_rank, last = mesh.coord(AXIS_DATA), _last_stage(mesh)
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
@@ -108,26 +137,38 @@ def make_train_step(*, grad_accum_steps: int, rank: int = 0,
         loss_sum = None
         for m in range(grad_accum_steps):
             micro = {k: v[m] for k, v in batch.items()}
-            seed = microbatch_seed(state.dropout_seed, state.step, m, rank)
+            seed = microbatch_seed(state.dropout_seed, state.step, m,
+                                   data_rank)
             sync = not ddp or m == grad_accum_steps - 1
             with contextlib.nullcontext() if sync else model.no_sync():
-                logits = _forward(model, micro, seed)
-                loss = _loss(objective, logits, micro) * inv_accum
-                loss.backward()
+                out = _forward(model, micro, seed)
+                if last:
+                    loss = _loss(objective, out, micro) * inv_accum
+                    loss.backward()
+                else:  # the token of an earlier stage (models/stage.py)
+                    out.backward()
+                    loss = torch.zeros_like(out)
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-        grads = [p.grad for p in state.module.parameters()
-                 if p.grad is not None]
-        grad_norm = global_norm(grads)
+        params = [p for p in state.module.parameters() if p.grad is not None]
+        norm = grad_norm(params, [p.grad for p in params])
         state.optimizer.step()
         state.step += 1
-        return {"loss": all_reduce_mean(loss_sum), "grad_norm": grad_norm}
+        # the loss lives on the last stage (the others add zeros) and is
+        # the same on every rank of the model axis
+        loss = all_reduce_mean(
+            all_reduce_sum(loss_sum, mesh.group(AXIS_STAGE)),
+            mesh.group(AXIS_DATA))
+        return {"loss": loss, "grad_norm": norm}
 
     return train_step
 
 
-def make_eval_step(objective: str = "classification") -> Callable:
-    """Build the eval step -> scalar count tensors on the device."""
+def make_eval_step(objective: str = "classification",
+                   mesh: Optional[Mesh] = None) -> Callable:
+    """Build the eval step -> scalar count tensors on the device (zeros on
+    a stage of ``mesh`` before the last, which hands its activations on)."""
+    last = _last_stage(mesh or build_mesh())
 
     @torch.no_grad()
     def lm_eval_step(state: TrainState, batch: dict) -> dict:
@@ -145,6 +186,9 @@ def make_eval_step(objective: str = "classification") -> Callable:
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         logits = _forward(state.module, batch)
+        if not last:
+            return {k: torch.zeros((), device=logits.device)
+                    for k in CLASSIFICATION_COUNTS}
         preds = torch.argmax(logits.float(), dim=-1)
         labels = batch["labels"].long()
         valid = batch.get("valid")

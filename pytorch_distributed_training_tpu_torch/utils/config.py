@@ -1,6 +1,7 @@
-"""Model and training configuration for the port (counterpart: the JAX
-package's ``utils/config.py`` ``ModelConfig``, ``model_preset``,
-``TrainConfig``, ``add_dataclass_args`` and ``dataclass_from_args``).
+"""Model, mesh and training configuration for the port (counterpart: the
+JAX package's ``utils/config.py`` ``MeshConfig``, ``ModelConfig``,
+``model_preset``, ``TrainConfig``, ``add_dataclass_args`` and
+``dataclass_from_args``).
 
 The fields are those the ported paths read (GPT-2 serving, BERT
 data-parallel fine-tuning, GPT-2 causal-LM training), with the JAX package's defaults, so
@@ -16,6 +17,55 @@ import dataclasses
 from typing import Any
 
 _ROADMAP = "see ROADMAP.md, queue 1"
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """Logical mesh shape over the processes, axes in the order
+    ``(data, fsdp, stage, model, seq)``:
+
+    - ``data``: data parallelism (each data slice reads its own rows; DDP
+      averages the gradients over it);
+    - ``fsdp``: data parallelism with sharded parameters (ZeRO-3);
+    - ``stage``: the layer split (ConcatBert's stages);
+    - ``model``: the branch axis (TriBert's branches);
+    - ``seq``: context parallelism (ring attention).
+
+    Any axis set to ``-1`` absorbs all remaining processes (at most one).
+    """
+
+    data: int = -1
+    fsdp: int = 1
+    stage: int = 1
+    model: int = 1
+    seq: int = 1
+
+    AXIS_NAMES = ("data", "fsdp", "stage", "model", "seq")
+
+    def resolved_shape(self, n_devices: int) -> tuple[int, int, int, int, int]:
+        sizes = [self.data, self.fsdp, self.stage, self.model, self.seq]
+        n_fill = sum(1 for s in sizes if s == -1)
+        if n_fill > 1:
+            raise ValueError(f"at most one mesh axis may be -1, got {sizes}")
+        fixed = 1
+        for s in sizes:
+            if s != -1:
+                if s < 1:
+                    raise ValueError(f"invalid mesh axis size {s}")
+                fixed *= s
+        if n_fill:
+            if n_devices % fixed:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes "
+                    f"product {fixed}"
+                )
+            sizes = [n_devices // fixed if s == -1 else s for s in sizes]
+        elif fixed != n_devices:
+            raise ValueError(
+                f"mesh shape {sizes} (={fixed} devices) != available "
+                f"devices {n_devices}"
+            )
+        return tuple(sizes)  # type: ignore[return-value]
 
 
 @dataclasses.dataclass
@@ -61,7 +111,9 @@ class ModelConfig:
     remat_policy: str = "nothing"  # what per-layer remat saves: not ported
     remat_mlp: bool = False  # remat of each block's MLP tail: not ported
     scan_layers: bool = False  # stacked trunk: not ported (models/convert.py
-    #                            reads a scanned checkpoint all the same)
+    #                            reads a scanned checkpoint all the same;
+    #                            train_mp's stage mode keeps per-layer
+    #                            modules)
     # paged serving: a chunk of more than one token is appended at
     # context_len of an EXISTING context and attends through the 4-D-query
     # paged kernel (speculative verify, chunked prefill, prefix-hit tails);
@@ -75,7 +127,7 @@ class ModelConfig:
                 f"{self.attention_impl!r}"
             )
         not_ported = (
-            ("matmul_impl", "native", "int8 matmuls, slice 5"),
+            ("matmul_impl", "native", "int8 matmuls, slice 5 item 6"),
             ("dropout_impl", "kernel", "the exact/bits32/bits8 dropout "
                                        "streams, slice 2 leftovers"),
             ("layernorm_impl", "fused", "the jnp-math LayerNorm switch, "
@@ -83,7 +135,7 @@ class ModelConfig:
             ("remat", False, "per-layer remat, slice 3 leftovers"),
             ("remat_policy", "nothing", "per-layer remat, slice 3 leftovers"),
             ("remat_mlp", False, "MLP remat, slice 3 leftovers"),
-            ("scan_layers", False, "the scanned trunk, slice 5"),
+            ("scan_layers", False, "the scanned trunk, slice 5 item 2"),
         )
         for name, ported, item in not_ported:
             if getattr(self, name) != ported:
