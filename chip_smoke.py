@@ -69,9 +69,21 @@ the JAX package), in phases that each raise on failure:
    ``torch.profiler``; then the seq-1024 run again with
    ``PDT_FLASH_TWO_PASS=1`` (the two-pass backward kernels counted, step
    1's loss bit-identical to the fused run's, later steps within 1e-3),
-   and once more under ``torch.profiler``; the seq-128 run also once more
-   under ``torch.profiler``; no LM profile may hold an FMA flash kernel
-   (they take float32 only);
+   and once more, one step, under ``torch.profiler``; the seq-128 run
+   also once more under ``torch.profiler``; no LM profile may hold an FMA
+   flash kernel (they take float32 only). Every LM run takes
+   ``train_lm``'s defaults: the scanned trunk, FSDP over an fsdp axis of
+   one process (unwrapped). Then ``lm-scan-equal``: the tiny LM with
+   dropout on, scanned and ``--no-scan-layers``, the same per-step losses
+   bit for bit and the same launches, grad norms and weights within
+   1e-6; and ``lm-fsdp``: in a process of its own with a one-process
+   NCCL group, gpt2-medium at seq 1024 for 2 steps + the eval, unwrapped,
+   then sharded with FSDP2 by the placements of an fsdp axis of 2 on a
+   one-rank device mesh (FSDP2's unshard and reshard of every unit, at
+   one rank device copies in place of the all-gather and reduce-scatter,
+   and AdamW on DTensor shards, on the card), counted, its losses within
+   1e-4 of the unwrapped run's, and once more under ``torch.profiler``
+   (the device time of FSDP's ranges and of any collective);
 7. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
    (random weights from ``--seed 0``) over a JSONL request stream, with the
    kernels' launch counters reset just before and read just after; checks
@@ -357,6 +369,16 @@ LM_1024_ARGS = ["--model", "gpt2-medium", "--task", "lm",
 LM_128_ARGS = ["--model", "gpt2-medium", "--task", "lm", "--train-size", "96",
                "--eval-size", "32", "--num-epochs", "1", "--seed", "42",
                "--log-every", "0", "--device", "cuda"]
+# lm-fsdp: lm-1024's shape cut to 2 steps, sharded by the placements of
+# this fsdp size on a one-rank device mesh (one card is world size 1)
+_AT = LM_1024_ARGS.index("--train-size") + 1
+LM_FSDP_ARGS = LM_1024_ARGS[:_AT] + ["64"] + LM_1024_ARGS[_AT + 1:]
+LM_FSDP_SIZE = 2
+# the lm-1024 two-pass profile's rows: 1 step of 32
+LM_PROFILE_TRAIN_SIZE = "32"
+# scanned against unscanned: the grad norm sums the stacked squares in
+# another order, so it and the weights after it agree to this
+SCAN_RTOL = 1e-6
 # gpt2-tiny keeps "reference" attention as its preset; --attention flash
 # puts the whole-sequence kernels (head_dim 16, float32) on the path
 TINY_LM_ARGS = ["--model", "gpt2-tiny", "--attention", "flash", "--task", "lm",
@@ -1383,6 +1405,8 @@ def _kernel_class(name: str) -> str:
                 kernel += "_int8"   # the int8-pool instantiation
             return f"{kernel} (port kernel)"
     low = name.lower()
+    if "nccl" in low:
+        return "collective (nccl)"
     if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
         return "matmul"
     if "softmax" in low:
@@ -2156,10 +2180,11 @@ def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train") -> dict:
     return dict(cold, warm=warm)
 
 
-def one_step(argv):
-    """``argv`` with the train rows cut to one step (the profile depth)."""
+def one_step(argv, rows=PROFILE_TRAIN_SIZE):
+    """``argv`` with the train rows cut to one step (the profile depth):
+    ``rows`` = the global batch."""
     at = argv.index("--train-size") + 1
-    return argv[:at] + [PROFILE_TRAIN_SIZE] + argv[at + 1:]
+    return argv[:at] + [rows] + argv[at + 1:]
 
 
 def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
@@ -2960,6 +2985,241 @@ def two_pass_lm_phase(fused, argv=LM_1024_ARGS, tag="lm-1024-two-pass"):
     return m
 
 
+def lm_scan_equal_phase(argv=TINY_LM_ARGS) -> dict:
+    """``train_lm`` on the tiny LM with dropout on, on the card, with the
+    scanned trunk (the default) and ``--no-scan-layers``: the per-step
+    losses bit for bit, the grad norms and the weights within SCAN_RTOL,
+    the same launches."""
+    import numpy as np
+
+    from pytorch_distributed_training_tpu_torch.models.convert import (
+        params_to_jax,
+    )
+
+    runs = {}
+    for flag in ("--scan-layers", "--no-scan-layers"):
+        trainer, counts, _ = train_once(argv + ["--device", "cuda", flag],
+                                        "train_lm")
+        if trainer.mcfg.scan_layers != (flag == "--scan-layers"):
+            raise AssertionError(f"lm-scan-equal: {flag} not taken")
+        runs[flag] = (trainer.step_log, counts, params_to_jax(
+            trainer.state.module.state_dict(), scan_layers=False))
+        del trainer
+    (scan, scan_counts, scan_w), (loop, loop_counts, loop_w) = (
+        runs["--scan-layers"], runs["--no-scan-layers"])
+    if [s["loss"] for s in scan] != [s["loss"] for s in loop]:
+        raise AssertionError(f"lm-scan-equal: losses {scan} against {loop}")
+    if scan_counts != loop_counts:
+        raise AssertionError(f"lm-scan-equal: launches {scan_counts} "
+                             f"against {loop_counts}")
+    worst = {"grad_norm": max(abs(a["grad_norm"] - b["grad_norm"])
+                              / abs(b["grad_norm"])
+                              for a, b in zip(scan, loop))}
+
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            yield from (leaves(v, path + (k,)) if isinstance(v, dict)
+                        else [(path + (k,), v)])
+
+    want = dict(leaves(loop_w))
+    weight_rel = 0.0
+    for path, got in leaves(scan_w):
+        ref = want[path]
+        np.testing.assert_allclose(got, ref, rtol=SCAN_RTOL, atol=0,
+                                   err_msg="/".join(path))
+        nz = ref != 0
+        if nz.any():
+            weight_rel = max(weight_rel, float(np.max(
+                np.abs(got[nz] - ref[nz]) / np.abs(ref[nz]))))
+    worst["weights"] = weight_rel
+    if worst["grad_norm"] > SCAN_RTOL:
+        raise AssertionError(f"lm-scan-equal: grad norms {scan} against "
+                             f"{loop} (rtol {SCAN_RTOL})")
+    res = dict(losses=[s["loss"] for s in scan],
+               grad_norms=[s["grad_norm"] for s in scan],
+               unscanned_grad_norms=[s["grad_norm"] for s in loop],
+               max_rel_diff=worst, launches=scan_counts)
+    say("[lm-scan-equal] scanned and unscanned tiny LM on the card, dropout "
+        "on: losses bit for bit, launches equal: " + json.dumps(res)
+        + f" (rtol {SCAN_RTOL})")
+    return res
+
+
+def _sharded_lm_trainer(argv):
+    """``train_lm``'s trainer of ``argv``, then sharded with FSDP on a
+    one-rank device mesh by the placements of an fsdp axis of
+    LM_FSDP_SIZE."""
+    from pytorch_distributed_training_tpu_torch.cli import train_lm
+    from pytorch_distributed_training_tpu_torch.comms.mesh import (
+        fsdp_device_mesh,
+    )
+    from pytorch_distributed_training_tpu_torch.parallel import (
+        ShardingPolicy,
+        param_placements,
+    )
+
+    trainer = train_lm.build_trainer(train_lm.build_parser().parse_args(argv))
+    placements = param_placements(
+        {n: tuple(p.shape) for n, p in trainer.state.module.named_parameters()},
+        ShardingPolicy(fsdp=True), dict(trainer.mesh.shape, fsdp=LM_FSDP_SIZE))
+    trainer.shard(placements, fsdp_device_mesh(trainer.mesh, "cuda"))
+    return trainer, placements
+
+
+# FSDP2's ranges that hold its device work (the all-gather with its
+# copy-in and copy-out, the reduce-scatter); the others nest in these or
+# hold none
+_FSDP_WORK = re.compile(r"FSDP::(pre_forward|pre_backward|post_backward_"
+                        r"reduce)")
+
+
+def collective_time(prof) -> dict:
+    """Calls and device ms of FSDP2's ranges (``FSDP::*``) and of the
+    collectives (``c10d::*`` ops and the ``nccl:*``/``gloo:*`` ranges
+    inside them, with the device work each launched) of a
+    ``torch.profiler`` run; ``fsdp_ms``: the ranges that hold FSDP's
+    device work, ``collectives_ms``: the ``c10d::*`` ops'."""
+    from torch.autograd import DeviceType
+
+    ops = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key.startswith(
+                ("nccl:", "gloo:", "c10d::", "FSDP::")):
+            ops[e.key] = dict(calls=e.count, device_ms=float(getattr(
+                e, "device_time_total", 0.0)) / 1e3)
+    return dict(
+        ops=ops,
+        fsdp_ms=sum(v["device_ms"] for k, v in ops.items()
+                    if _FSDP_WORK.match(k)),
+        collectives_ms=sum(v["device_ms"] for k, v in ops.items()
+                           if k.startswith("c10d::")))
+
+
+def lm_fsdp_child(port: int) -> dict:
+    """The lm-fsdp phase's process: a one-process NCCL group, then the
+    LM_FSDP_ARGS run unwrapped (the losses' reference), the same run
+    sharded (``_sharded_lm_trainer``) and counted, the unwrapped run
+    again (warm, for its ms a step), and the sharded run once more under
+    ``torch.profiler``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_training_tpu_torch.cli import train_lm
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        def run(trainer):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer.run()
+            torch.cuda.synchronize()
+            m = lm_metrics(trainer, time.perf_counter() - t0)
+            m.update(peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                     launches=dict(_build.LAUNCH_COUNTS))
+            return m
+
+        def unwrapped():
+            m = run(train_lm.build_trainer(
+                train_lm.build_parser().parse_args(LM_FSDP_ARGS)))
+            gc.collect()
+            torch.cuda.empty_cache()
+            return m
+
+        plain = unwrapped()
+        trainer, placements = _sharded_lm_trainer(LM_FSDP_ARGS)
+        module = trainer.state.module
+        sharded = [n for n, p in module.named_parameters()
+                   if isinstance(p, DTensor)]
+        if not isinstance(trainer.state.model, FSDPModule) or sorted(
+                sharded) != sorted(n for n, pl in placements.items()
+                                   if isinstance(pl, Shard)):
+            raise AssertionError(f"lm-fsdp: not sharded as placed: "
+                                 f"{sharded[:5]}")
+        tc, mc = trainer.tcfg, trainer.mcfg
+        fsdp = run(trainer)
+        check_launches(
+            f"lm-fsdp run ({trainer.state.step} steps)", fsdp["launches"],
+            expected_lm_launches(
+                micro=trainer.state.step * tc.grad_accum_steps,
+                eval_batches=trainer.eval_loader.steps_per_epoch,
+                layers=mc.num_layers, whole=False))
+        if trainer.state.step != 2 or not mc.scan_layers:
+            raise AssertionError(f"lm-fsdp: {trainer.state.step} steps, "
+                                 f"scan_layers {mc.scan_layers}")
+        del trainer, module
+        gc.collect()
+        torch.cuda.empty_cache()
+        for key in ("losses", "grad_norms"):
+            for a, b in zip(plain[key], fsdp[key]):
+                if not math.isclose(a, b, rel_tol=CPU_CARD_RTOL):
+                    raise AssertionError(
+                        f"lm-fsdp {key}: unwrapped {plain[key]} sharded "
+                        f"{fsdp[key]} (rtol {CPU_CARD_RTOL})")
+        plain["warm"] = unwrapped()
+        trainer, _ = _sharded_lm_trainer(LM_FSDP_ARGS)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.run()
+        wall = time.perf_counter() - t0
+        del trainer
+        prof_res = device_time_by_class(prof, wall)
+        collectives = collective_time(prof)
+    finally:
+        dist.destroy_process_group()
+    if not any(k.startswith("FSDP::") for k in collectives["ops"]):
+        raise AssertionError(f"lm-fsdp: no FSDP range in the profile: "
+                             f"{collectives}")
+    return dict(
+        plain=plain, fsdp=fsdp, fsdp_size=LM_FSDP_SIZE,
+        sharded_params=len(sharded), params=len(placements),
+        max_rel_diff=max(abs(a - b) / abs(a) for a, b in zip(
+            plain["losses"] + plain["grad_norms"],
+            fsdp["losses"] + fsdp["grad_norms"])),
+        ms_per_step_vs_warm_unwrapped=(
+            fsdp["ms_per_step"] / plain["warm"]["ms_per_step"]),
+        profile=dict(prof_res, profiled_wall_s=wall), **collectives)
+
+
+def lm_fsdp_phase() -> dict:
+    """FSDP on the card: ``lm_fsdp_child`` in a process of its own (the
+    NCCL group stays out of this one); its lines relayed, its result
+    read back."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
+            f"import chip_smoke; "
+            f"print('LM_FSDP ' + json.dumps(chip_smoke.lm_fsdp_child({port})))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("LM_FSDP "):
+            result = json.loads(line[len("LM_FSDP "):])
+        else:
+            say(f"[lm-fsdp] {line}")
+    if proc.returncode != 0 or result is None:
+        raise AssertionError(f"lm-fsdp: exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    result["profile"].pop("port_us_per_launch", None)
+    say("[lm-fsdp] gpt2-medium at seq 1024, 2 steps + eval, sharded by the "
+        f"fsdp-{LM_FSDP_SIZE} placements on a one-rank device mesh against "
+        "unwrapped: " + json.dumps(result) + f" (rtol {CPU_CARD_RTOL})")
+    return result
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3019,8 +3279,8 @@ def main() -> int:
                         tag="lm-1024-profile", forbid=FMA_FLASH_SYMBOLS)
     lap("lm-1024-profile")
     two_pass = two_pass_lm_phase(lm)
-    train_profile_phase(None, LM_1024_ARGS, "train_lm",
-                        tag="lm-1024-two-pass-profile",
+    train_profile_phase(None, one_step(LM_1024_ARGS, LM_PROFILE_TRAIN_SIZE),
+                        "train_lm", tag="lm-1024-two-pass-profile",
                         env={"PDT_FLASH_TWO_PASS": "1"},
                         forbid=FMA_FLASH_SYMBOLS)
     lap("lm-1024-two-pass")
@@ -3029,6 +3289,10 @@ def main() -> int:
                         tag="lm-128-profile", forbid=FMA_FLASH_SYMBOLS)
     cpu_vs_card_phase(TINY_LM_ARGS, "train_lm")
     lap("lm-128 + cpu-vs-card")
+    lm_scan_equal_phase()
+    lap("lm-scan-equal")
+    lm_fsdp_phase()
+    lap("lm-fsdp")
     serve = serve_phase()
     plain = serve.pop("streams")
     profile_phase(serve["warm"])

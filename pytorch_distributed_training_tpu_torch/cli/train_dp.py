@@ -18,9 +18,22 @@ process per card (NCCL) or per CPU worker (gloo)::
 Without GLUE data (no ``datasets`` package or no cache) ``--task auto``
 falls back to the synthetic MRPC-shaped task; the model starts from random
 weights made from ``--seed``. ``--history-out`` writes the per-epoch
-records as JSON (rank 0). The JAX CLI's ``--attention``, ``--matmul-impl``,
-``--hf-checkpoint``, mesh, FSDP and restart flags wait for their slices
-(ROADMAP.md, queue 1).
+records as JSON (rank 0).
+
+The JAX CLI's mesh flags, with its defaults: the processes lay out as
+``--mesh-data`` (-1: what is left) × ``--mesh-fsdp`` (1) × ``--mesh-seq``
+(1), the batch sharded over data × fsdp; ``--fsdp`` (off) shards the
+parameters and optimizer state over the fsdp axis (FSDP2,
+``parallel/sharding.py``), else DDP keeps them replicated::
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m pytorch_distributed_training_tpu_torch.cli.train_dp \\
+        --model tiny --task synthetic --device cpu --fsdp --mesh-fsdp 2
+
+Not ported yet (each raises ``NotImplementedError``; ROADMAP.md, queue 1,
+slice 5 item 4): ``--mesh-seq`` > 1 and ``--attention ring``. The JAX
+CLI's ``--matmul-impl``, ``--hf-checkpoint`` and restart flags wait for
+their slices (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -28,7 +41,13 @@ from __future__ import annotations
 import argparse
 import json
 
+from pytorch_distributed_training_tpu_torch.cli import (
+    parallel_checks,
+    raise_not_ported,
+    resolve_attention,
+)
 from pytorch_distributed_training_tpu_torch.utils.config import (
+    MeshConfig,
     TrainConfig,
     add_dataclass_args,
     dataclass_from_args,
@@ -44,6 +63,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--task", default="auto",
                    help="mrpc | mnli | sst2 | qnli | synthetic | auto (mrpc "
                         "with the synthetic fallback)")
+    p.add_argument("--attention", default=None,
+                   choices=("reference", "flash", "ring"),
+                   help="attention implementation (default: the preset's; "
+                        "ring, when --mesh-seq > 1, is not ported yet)")
+    p.add_argument("--fsdp", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="shard params/opt state over the fsdp axis")
+    p.add_argument("--mesh-data", type=int, default=-1)
+    p.add_argument("--mesh-fsdp", type=int, default=1)
+    p.add_argument("--mesh-seq", type=int, default=1,
+                   help="context-parallel degree (ring attention)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the run goes (cuda raises when no GPU is "
                         "visible)")
@@ -56,13 +86,21 @@ def build_parser() -> argparse.ArgumentParser:
 def build_trainer(args):
     """The ``Trainer`` that parsed ``args`` describe (process group joined,
     data loaded, model on its device), not yet run."""
+    from pytorch_distributed_training_tpu_torch.parallel import (
+        ShardingPolicy,
+    )
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
 
+    raise_not_ported(parallel_checks(args))
     tcfg = dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
+        **resolve_attention(args.attention, args.mesh_seq),
     )
-    return Trainer(mcfg, tcfg, task=args.task, device=args.device)
+    mesh = MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
+                      seq=args.mesh_seq)
+    return Trainer(mcfg, tcfg, task=args.task, device=args.device,
+                   mesh_config=mesh, policy=ShardingPolicy(fsdp=args.fsdp))
 
 
 def train(argv=None):

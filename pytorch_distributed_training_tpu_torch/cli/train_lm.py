@@ -25,17 +25,37 @@ card (NCCL) or per CPU worker (gloo)::
 ``--task lm`` (the only task) is the synthetic Markov-chain corpus of
 ``data/synthetic.py``; the model starts from random weights made from
 ``--seed``. ``--history-out`` writes the per-epoch records as JSON (rank
-0). The JAX CLI's FSDP, TP, mesh and scan-layers flags wait for slice 5,
-its remat, int8-matmul and restart flags for the slice 2 and slice 3
-leftovers (ROADMAP.md).
+0).
+
+The JAX CLI's defaults: ``--fsdp`` on over ``--mesh-fsdp -1`` (every
+process), ``--mesh-data 1``, and ``--scan-layers`` on (the stacked trunk,
+``layers_scan``). FSDP2 shards each parameter and its Adam moments on
+one dim over the fsdp axis (``parallel/sharding.py``); with ``--no-fsdp``
+DDP keeps them replicated. One process (one card) is an fsdp axis of 1:
+nothing to shard, the model runs unwrapped. Over four gloo workers::
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m pytorch_distributed_training_tpu_torch.cli.train_lm \\
+        --model gpt2-tiny --device cpu --mesh-data 2 --mesh-fsdp 2
+
+Not ported yet (each raises ``NotImplementedError``; ROADMAP.md, queue 1,
+slice 5 item 4): ``--tp``, ``--mesh-model`` > 1, ``--mesh-seq`` > 1 and
+``--attention ring``. The JAX CLI's remat, int8-matmul and restart flags
+wait for the slice 2 and slice 3 leftovers.
 """
 
 from __future__ import annotations
 
 import argparse
 
+from pytorch_distributed_training_tpu_torch.cli import (
+    parallel_checks,
+    raise_not_ported,
+    resolve_attention,
+)
 from pytorch_distributed_training_tpu_torch.cli.train_dp import run
 from pytorch_distributed_training_tpu_torch.utils.config import (
+    MeshConfig,
     TrainConfig,
     add_dataclass_args,
     dataclass_from_args,
@@ -50,8 +70,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--task", default="lm",
                    help="lm (the synthetic causal-LM corpus)")
     p.add_argument("--attention", default=None,
-                   choices=("reference", "flash"),
-                   help="attention implementation (default: the preset's)")
+                   choices=("reference", "flash", "ring"),
+                   help="attention implementation (default: the preset's; "
+                        "ring, when --mesh-seq > 1, is not ported yet)")
+    p.add_argument("--fsdp", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="shard params/opt state over the fsdp axis")
+    p.add_argument("--tp", action=argparse.BooleanOptionalAction,
+                   default=False, help="tensor parallelism (not ported yet)")
+    p.add_argument("--scan-layers", action=argparse.BooleanOptionalAction,
+                   default=True, help="the stacked trunk (layers_scan)")
+    p.add_argument("--mesh-data", type=int, default=1)
+    p.add_argument("--mesh-fsdp", type=int, default=-1)
+    p.add_argument("--mesh-model", type=int, default=1)
+    p.add_argument("--mesh-seq", type=int, default=1,
+                   help="context-parallel degree (ring attention)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the run goes (cuda raises when no GPU is "
                         "visible)")
@@ -64,19 +97,27 @@ def build_parser() -> argparse.ArgumentParser:
 def build_trainer(args):
     """The ``Trainer`` that parsed ``args`` describe (process group joined,
     data made, model on its device), not yet run."""
+    from pytorch_distributed_training_tpu_torch.parallel import (
+        ShardingPolicy,
+    )
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
 
+    raise_not_ported(parallel_checks(args))
     tcfg = dataclass_from_args(TrainConfig, args)
-    overrides = dict(compute_dtype="bfloat16" if tcfg.bf16 else "float32")
-    if args.attention is not None:
-        overrides["attention_impl"] = args.attention
-    mcfg = model_preset(args.model, **overrides)
+    mcfg = model_preset(
+        args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
+        scan_layers=args.scan_layers,
+        **resolve_attention(args.attention, args.mesh_seq))
     if not mcfg.causal:
         raise SystemExit(
             f"--model {args.model} is not a causal/decoder preset; use "
             f"gpt2-medium or gpt2-tiny"
         )
-    return Trainer(mcfg, tcfg, task=args.task, device=args.device)
+    mesh = MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
+                      model=args.mesh_model, seq=args.mesh_seq)
+    return Trainer(mcfg, tcfg, task=args.task, device=args.device,
+                   mesh_config=mesh,
+                   policy=ShardingPolicy(fsdp=args.fsdp, tp=args.tp))
 
 
 def train(argv=None):

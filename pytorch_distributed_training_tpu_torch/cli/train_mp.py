@@ -30,18 +30,26 @@ the order data, fsdp, stage, model, seq; ``-1`` takes what is left)::
 
 The reference's MP script has no fp16 (:320-321); bf16 is on by default as
 in every entry point (``--no-bf16`` for float32). ``--history-out`` writes
-the per-epoch records as JSON (rank 0). Not ported yet (each raises
+the per-epoch records as JSON (rank 0). The batch shards over data ×
+fsdp; ``--fsdp`` shards each rank's part of the model over the fsdp axis
+(FSDP2 on the (data, fsdp) sub-mesh at its model and stage coordinates,
+``parallel/sharding.py``), judged as JAX judges the stacked branches and
+layers. Both modes keep per-layer modules (JAX's stage mode scans the
+trunk; the port's does not). Not ported yet (each raises
 ``NotImplementedError``; ROADMAP.md, queue 1, slice 5): ``--mp-mode
-pipeline|1f1b`` (item 3), ``--fsdp`` and ``--mesh-fsdp`` > 1 (item 2),
-``--mesh-seq`` > 1 and ring attention (item 4), ``--matmul-impl
-int8|int8_full`` and ``--quant-delayed`` (item 6). The JAX CLI's restart
-flags wait with ``train_dp``'s (slice 2 leftovers).
+pipeline|1f1b`` (item 3), ``--mesh-seq`` > 1 and ring attention (item
+4), ``--matmul-impl int8|int8_full`` and ``--quant-delayed`` (item 6). The
+JAX CLI's restart flags wait with ``train_dp``'s (slice 2 leftovers).
 """
 
 from __future__ import annotations
 
 import argparse
 
+from pytorch_distributed_training_tpu_torch.cli import (
+    raise_not_ported,
+    resolve_attention,
+)
 from pytorch_distributed_training_tpu_torch.cli.train_dp import run
 from pytorch_distributed_training_tpu_torch.utils.config import (
     MeshConfig,
@@ -50,9 +58,6 @@ from pytorch_distributed_training_tpu_torch.utils.config import (
     dataclass_from_args,
     model_preset,
 )
-
-_ITEM = "is not ported yet (ROADMAP.md, queue 1, slice 5 item {})"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -95,20 +100,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _not_ported(args) -> None:
-    checks = (
+    raise_not_ported((
         (args.mp_mode in ("pipeline", "1f1b"), f"--mp-mode {args.mp_mode}",
          3),
-        (args.fsdp, "--fsdp", 2),
-        (args.mesh_fsdp > 1, f"--mesh-fsdp {args.mesh_fsdp}", 2),
         (args.mesh_seq > 1, f"--mesh-seq {args.mesh_seq}", 4),
         (args.attention == "ring", "--attention ring", 4),
         (args.matmul_impl != "native", f"--matmul-impl {args.matmul_impl}",
          6),
         (args.quant_delayed, "--quant-delayed", 6),
-    )
-    for bad, flag, item in checks:
-        if bad:
-            raise NotImplementedError(f"{flag} {_ITEM.format(item)}")
+    ))
 
 
 def build_trainer(args):
@@ -119,13 +119,15 @@ def build_trainer(args):
     from pytorch_distributed_training_tpu_torch.models.branch import (
         BranchEnsembleClassifier,
     )
+    from pytorch_distributed_training_tpu_torch.parallel import (
+        ShardingPolicy,
+    )
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
 
     tcfg = dataclass_from_args(TrainConfig, args)
-    overrides = dict(compute_dtype="bfloat16" if tcfg.bf16 else "float32")
-    if args.attention is not None:
-        overrides["attention_impl"] = args.attention
-    mcfg = model_preset(args.model, **overrides)
+    mcfg = model_preset(
+        args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
+        **resolve_attention(args.attention, args.mesh_seq))
     if mcfg.causal:
         raise SystemExit(f"--model {args.model} is a causal preset; train_mp "
                          f"fine-tunes an encoder classifier")
@@ -150,7 +152,8 @@ def build_trainer(args):
                       stage=args.mesh_stage, model=args.mesh_model,
                       seq=args.mesh_seq)
     return Trainer(mcfg, tcfg, task=args.task, device=args.device,
-                   mesh_config=mesh, mp_mode=args.mp_mode, model=model)
+                   mesh_config=mesh, mp_mode=args.mp_mode, model=model,
+                   policy=ShardingPolicy(fsdp=args.fsdp))
 
 
 def train(argv=None):

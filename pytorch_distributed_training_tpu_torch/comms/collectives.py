@@ -5,7 +5,8 @@ axis).
 Each takes the process group of one mesh axis (``comms/mesh.py``); an axis
 of one process has the group ``None``, and the collective is then the
 identity. Data-parallel gradients need no call here: DDP all-reduces them
-over the ``data`` group.
+over the batch group, FSDP reduce-scatters those it shards; ``average_``
+averages the rest (FSDP's replicated parameters) over the batch group.
 
 - ``all_reduce_sum``/``all_reduce_mean``/``host_sum_counts``: small
   tensors summed or averaged over a group on this process's device (NCCL
@@ -52,6 +53,19 @@ def all_reduce_mean(t: torch.Tensor, group=None) -> torch.Tensor:
     """Mean of ``t`` over ``group``."""
     n = _size(group)
     return all_reduce_sum(t, group) / n if n > 1 else t.clone()
+
+
+def average_(tensors: list, group=None) -> None:
+    """Average ``tensors`` over ``group`` in place, through one flat
+    buffer (one all-reduce)."""
+    if _size(group) == 1 or not tensors:
+        return
+    flat = torch._utils._flatten_dense_tensors(tensors)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat /= _size(group)
+    for t, avg in zip(tensors, torch._utils._unflatten_dense_tensors(
+            flat, tensors)):
+        t.copy_(avg)
 
 
 def host_sum_counts(counts: dict[str, torch.Tensor],

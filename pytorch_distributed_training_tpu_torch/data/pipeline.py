@@ -1,7 +1,9 @@
 """Rank-sharded batching: dataset arrays -> device batches (counterpart: the
 JAX package's ``data/pipeline.py`` ``resolve_batch_geometry`` and
-``ShardedLoader``, with the rank and world size of ``torch.distributed`` in
-place of ``process_index`` and ``process_count``).
+``ShardedLoader``, and of ``comms/ingest.py`` ``make_global_batch``: the
+trainer passes the batch shard, ``comms/mesh.batch_index`` over (data,
+fsdp), and their count as ``rank`` and ``world_size``, in place of
+``process_index`` and ``process_count``).
 
 - One seeded permutation per epoch, ``np.random.default_rng((seed,
   epoch))``, identical on every rank; each rank takes its contiguous slice

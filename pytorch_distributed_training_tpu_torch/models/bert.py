@@ -43,6 +43,11 @@
 - ``BertForSequenceClassification``: embeddings (word + position + token
   type, LayerNorm, dropout) -> layers -> CLS pooler (dense, tanh) ->
   dropout -> float32 classifier on the float32 pooled output.
+- ``ScannedLayers``: with ``scan_layers`` the trunk (``bert.layers_scan``,
+  and GPT-2's ``layers_scan``) holds one layer module whose parameters
+  stack every layer's on a leading [num_layers] dim, the JAX ``nn.scan``
+  trunk's layout and names; it computes what the per-layer trunk does,
+  bit for bit.
 
 Dropout seeds: ``forward(..., dropout_seed=None)`` is deterministic; a
 seed gives the embeddings ``fold_in(seed, 0)``, layer i ``fold_in(seed,
@@ -422,6 +427,63 @@ def run_layers(layers, x, attention_bias, dropout_seed=None, first=0):
     return x
 
 
+class ScannedLayers(nn.Module):
+    """The stacked trunk (counterpart: the JAX package's ``nn.scan`` trunk,
+    ``layers_scan``): one layer module, ``inner`` (``"layer"`` for BERT,
+    ``"block"`` for GPT-2), whose every parameter stacks the ``layers``'
+    on a leading [num_layers] dim, so the names are the flax tree's
+    (``layers_scan.layer.attention.query.kernel`` <->
+    ``layers_scan/layer/attention/query/kernel``).
+
+    The forward takes each stacked parameter apart once (``unbind(0)``,
+    whose backward is one ``stack``) and runs the inner module on layer
+    i's slices, the parameters swapped in for the call and put back after;
+    layer i draws its dropout from ``fold_in(seed, i + 1)``, as
+    ``run_layers``, so a scanned and an unscanned model made from one
+    generator compute the same values bit for bit."""
+
+    def __init__(self, layers: list, inner: str):
+        super().__init__()
+        template = layers[0]
+        self.num_layers = len(layers)
+        self.inner = inner
+        self._slots = []  # (module, parameter name) of every stacked leaf
+        for name, _ in list(template.named_parameters()):
+            path, _, leaf = name.rpartition(".")
+            mod = template.get_submodule(path)
+            stacked = torch.stack([layer.get_parameter(name).detach()
+                                   for layer in layers])
+            setattr(mod, leaf, nn.Parameter(stacked))
+            self._slots.append((mod, leaf))
+        self.add_module(inner, template)
+
+    def forward(self, x, attention_bias=None, dropout_seed=None, paged=None):
+        layer = getattr(self, self.inner)
+        stacks = [mod._parameters[leaf] for mod, leaf in self._slots]
+        slices = [w.unbind(0) for w in stacks]
+        try:
+            for i in range(self.num_layers):
+                for (mod, leaf), ws in zip(self._slots, slices):
+                    mod._parameters[leaf] = ws[i]
+                kw = {} if paged is None else {"paged": paged.layer(i)}
+                x = layer(x, attention_bias,
+                          dropout_seed=child_seed(dropout_seed, i + 1), **kw)
+        finally:
+            for (mod, leaf), w in zip(self._slots, stacks):
+                mod._parameters[leaf] = w
+        return x
+
+
+def make_trunk(cfg: ModelConfig, make_layer, name: str):
+    """``cfg.num_layers`` layers from ``make_layer()``, made in order (so
+    from one generator the same values either way): an ``nn.ModuleList``,
+    or with ``cfg.scan_layers`` their ``ScannedLayers`` under ``name``."""
+    layers = [make_layer() for _ in range(cfg.num_layers)]
+    if cfg.scan_layers:
+        return ScannedLayers(layers, name)
+    return nn.ModuleList(layers)
+
+
 def pool_cls(pooler: "DenseGeneral", x):
     """CLS pooling head: dense('pooler') -> tanh on the first token."""
     return torch.tanh(pooler(x[:, 0]))
@@ -441,9 +503,12 @@ class BertEncoderModel(nn.Module):
         self.config = cfg
         h = cfg.hidden_size
         self.embeddings = BertEmbeddings(cfg, device, generator)
-        self.layers = nn.ModuleList(
-            BertLayer(cfg, device, generator) for _ in range(cfg.num_layers)
-        )
+        trunk = make_trunk(cfg, lambda: BertLayer(cfg, device, generator),
+                           "layer")
+        if cfg.scan_layers:
+            self.layers_scan = trunk
+        else:
+            self.layers = trunk
         self.pooler = dense(cfg, (h,), (h,), device, generator)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
@@ -457,7 +522,10 @@ class BertEncoderModel(nn.Module):
         x = self.embeddings(input_ids, token_type_ids.long(), position_ids,
                             child_seed(dropout_seed, 0))
         bias = make_attention_bias(attention_mask)
-        x = run_layers(self.layers, x, bias, dropout_seed)
+        if self.config.scan_layers:
+            x = self.layers_scan(x, bias, dropout_seed)
+        else:
+            x = run_layers(self.layers, x, bias, dropout_seed)
         return x, pool_cls(self.pooler, x)
 
 

@@ -16,11 +16,17 @@ out_shape``, ``Embed`` tables as ``embedding``, LayerNorm ``scale`` and
 A scanned trunk (``layers_scan/block/...`` for GPT-2, the ``train_lm``
 default, or ``bert/layers_scan/layer/...`` for BERT, each leaf with a
 leading [num_layers] axis; see the JAX package's ``models/relayout.py``
-and ``models/bert.py``) is unstacked into per-layer entries. The branch
-ensemble's (``models/branch.py``) ``branches/layer_i/...`` leaves carry a
-leading [n_branches] axis: branch b becomes ``branches.b.layers.i...``,
-and ``params_to_jax`` stacks the branches back. Leaves are numpy arrays on
-the flax side, so this module needs no JAX.
+and ``models/bert.py``) is the port's ``ScannedLayers`` under the same
+names. Both directions take either trunk and give the one ``scan_layers``
+asks for: per-layer entries (False) or the stacked trunk (True), layer i
+of the one slice i of the other. The branch ensemble's
+(``models/branch.py``) ``branches/layer_i/...`` leaves carry a leading
+[n_branches] axis: branch b becomes ``branches.b.layers.i...``, and
+``params_to_jax`` stacks the branches back (the branches keep per-layer
+entries). A model sharded by FSDP (``parallel/sharding.py``) bridges
+through its full tensors: ``params_to_jax`` gathers each ``DTensor``
+leaf (``full_tensor()``); load a converted dict before sharding. Leaves
+are numpy arrays on the flax side, so this module needs no JAX.
 
 The weight-only int8 serving variant (the JAX package's
 ``quantize_serve_params``: int8 ``kernel`` leaves beside fp32
@@ -65,9 +71,22 @@ def _unstack_branches(flat: dict[tuple, np.ndarray]
     return out
 
 
-def _unstack(flat: dict[tuple, np.ndarray]) -> dict[tuple, np.ndarray]:
+def _trunk_index(path: tuple):
+    """(position, kind, layer) of a trunk layer entry ``block_i`` /
+    ``layer_i`` in ``path`` (not a branch's), else None."""
+    if _BRANCHES in path:
+        return None
+    for at, p in enumerate(path):
+        kind, _, idx = p.rpartition("_")
+        if kind in _LISTS and idx.isdigit():
+            return at, kind, int(idx)
+    return None
+
+
+def _unstack_scan(flat: dict[tuple, np.ndarray]) -> dict[tuple, np.ndarray]:
+    """``layers_scan/<kind>/...`` [L, ...] -> ``<kind>_i/...``."""
     out = {}
-    for path, leaf in _unstack_branches(flat).items():
+    for path, leaf in flat.items():
         if _SCAN not in path:
             out[path] = leaf
             continue
@@ -83,6 +102,30 @@ def _unstack(flat: dict[tuple, np.ndarray]) -> dict[tuple, np.ndarray]:
     return out
 
 
+def _stack_scan(flat: dict[tuple, np.ndarray]) -> dict[tuple, np.ndarray]:
+    """``<kind>_i/...`` -> ``layers_scan/<kind>/...`` [L, ...]."""
+    out, layers = {}, {}
+    for path, leaf in flat.items():
+        found = _trunk_index(path)
+        if found is None:
+            out[path] = leaf
+            continue
+        at, kind, i = found
+        key = path[:at] + (_SCAN, kind) + path[at + 1:]
+        layers.setdefault(key, {})[i] = leaf
+    for key, by_layer in layers.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"layers {sorted(by_layer)} of {'/'.join(key)} "
+                             f"are not 0..{len(by_layer) - 1}")
+        out[key] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    return out
+
+
+def _relayout(flat: dict[tuple, np.ndarray], scan_layers: bool
+              ) -> dict[tuple, np.ndarray]:
+    return _stack_scan(flat) if scan_layers else _unstack_scan(flat)
+
+
 def _torch_name(path: tuple) -> str:
     parts = []
     for p in path:
@@ -94,11 +137,13 @@ def _torch_name(path: tuple) -> str:
     return ".".join(parts)
 
 
-def params_from_jax(flax_params: Mapping) -> dict[str, torch.Tensor]:
+def params_from_jax(flax_params: Mapping, *,
+                    scan_layers: bool = False) -> dict[str, torch.Tensor]:
     """flax params (nested dict of arrays; GPT-2 LM or BERT classifier,
     unscanned or scanned trunk, float or with int8 serving kernels) -> the
-    port's ``state_dict`` (CPU tensors of the leaves' dtypes)."""
-    flat = _unstack(_flatten(flax_params))
+    port's ``state_dict`` (CPU tensors of the leaves' dtypes) for a model
+    whose trunk is scanned (``scan_layers``) or not."""
+    flat = _relayout(_unstack_branches(_flatten(flax_params)), scan_layers)
     return {
         _torch_name(path): torch.from_numpy(np.array(leaf, copy=True))
         for path, leaf in flat.items()
@@ -128,11 +173,13 @@ def _stack_branches(tree: dict) -> dict:
     return tree
 
 
-def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """Inverse of ``params_from_jax`` (unscanned trunk; the ensemble's
-    branches stacked back): nested dict of numpy arrays in the flax tree
-    layout, float32 but for int8 kernels."""
-    tree: dict = {}
+def params_to_jax(state_dict: Mapping[str, torch.Tensor], *,
+                  scan_layers: bool = False) -> dict:
+    """Inverse of ``params_from_jax``: nested dict of numpy arrays in the
+    flax tree layout, the trunk per layer or scanned (``scan_layers``), the
+    ensemble's branches stacked back, float32 but for int8 kernels;
+    ``DTensor`` leaves (an FSDP model's) gathered whole first."""
+    flat: dict[tuple, np.ndarray] = {}
     for name, tensor in state_dict.items():
         parts, flax_parts = name.split("."), []
         i = 0
@@ -144,11 +191,16 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             else:
                 flax_parts.append(p)
                 i += 1
-        node = tree
-        for p in flax_parts[:-1]:
-            node = node.setdefault(p, {})
+        if hasattr(tensor, "full_tensor"):
+            tensor = tensor.full_tensor()
         leaf = tensor.detach().cpu()
         if leaf.dtype != torch.int8:
             leaf = leaf.float()
-        node[flax_parts[-1]] = leaf.numpy()
+        flat[tuple(flax_parts)] = leaf.numpy()
+    tree: dict = {}
+    for path, leaf in _relayout(flat, scan_layers).items():
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = leaf
     return _stack_branches(tree)

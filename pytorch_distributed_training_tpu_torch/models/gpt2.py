@@ -8,7 +8,10 @@ softmax statistics in float32; logits float32, computed as the float32
 product of the compute-dtype-rounded operands (the JAX head is a bf16 x
 bf16 product with float32 accumulation; ``torch.matmul`` on bf16 would
 round the logits to bf16). Parameter names follow the flax tree with
-``block_i`` as ``blocks.i`` (``models/convert.py``).
+``block_i`` as ``blocks.i`` (``models/convert.py``); with ``scan_layers``
+the blocks are one ``ScannedLayers`` (``layers_scan.block...``, each
+parameter stacked on a leading [num_layers] dim, as flax's ``nn.scan``
+trunk; ``models/bert.py``).
 
 ``forward(..., paged=PagedKV(...))`` runs the serving engine's paged
 prefill, decode and (with ``PagedKV.multiquery`` or
@@ -49,6 +52,7 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     compute_dtype,
     dense,
     layer_norm_module,
+    make_trunk,
     param_dtype,
 )
 from pytorch_distributed_training_tpu_torch.ops.attention import (
@@ -99,9 +103,12 @@ class GPT2LMModel(nn.Module):
                   device=device, generator=generator)
         self.wte = Embed(cfg.vocab_size, cfg.hidden_size, **kw)
         self.wpe = Embed(cfg.max_position_embeddings, cfg.hidden_size, **kw)
-        self.blocks = nn.ModuleList(
-            GPT2Block(cfg, device, generator) for _ in range(cfg.num_layers)
-        )
+        trunk = make_trunk(cfg, lambda: GPT2Block(cfg, device, generator),
+                           "block")
+        if cfg.scan_layers:
+            self.layers_scan = trunk
+        else:
+            self.blocks = trunk
         self.ln_f = layer_norm_module(cfg, device)
         self.dropout = Dropout(cfg.hidden_dropout)
         # float32 copy of the compute-dtype head, set by cast_for_serving
@@ -124,6 +131,9 @@ class GPT2LMModel(nn.Module):
         if weights_dtype not in ("float32", "int8"):
             raise ValueError(
                 f"weights_dtype must be float32/int8, got {weights_dtype!r}")
+        if weights_dtype == "int8" and self.config.scan_layers:
+            raise ValueError("int8 serving weights take the unscanned trunk "
+                             "(scan_layers=False)")
         cdt = compute_dtype(self.config)
         for name, mod in self.named_modules():
             if isinstance(mod, DenseGeneral):
@@ -155,9 +165,12 @@ class GPT2LMModel(nn.Module):
         x = self.wte(input_ids) + self.wpe(position_ids)
         x = self.dropout(x, child_seed(dropout_seed, 0))
         bias = make_attention_bias(attention_mask)
-        for i, block in enumerate(self.blocks):
-            layer = None if paged is None else paged.layer(i)
-            x = block(x, bias, layer, child_seed(dropout_seed, i + 1))
+        if cfg.scan_layers:
+            x = self.layers_scan(x, bias, dropout_seed, paged)
+        else:
+            for i, block in enumerate(self.blocks):
+                layer = None if paged is None else paged.layer(i)
+                x = block(x, bias, layer, child_seed(dropout_seed, i + 1))
         x = self.ln_f(x)
         head = self.head_weight
         if head is None:

@@ -1,0 +1,9 @@
+"""Parameter sharding (counterpart: the JAX package's ``parallel/``)."""
+
+from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+    ShardingPolicy,
+    apply_fsdp,
+    param_placements,
+)
+
+__all__ = ["ShardingPolicy", "apply_fsdp", "param_placements"]

@@ -13,13 +13,19 @@ The ranks form a mesh (``comms/mesh.py``; ``mesh_config`` None: every
 rank on the ``data`` axis). ``mp_mode`` splits the model over an axis of
 it: ``"branch"`` the branch ensemble (``models/branch.py``, or what
 ``model(model_config, seed=, mesh=)`` builds) over ``model``, ``"stage"``
-BERT's layers over ``stage`` (``models/stage.py``); a mesh axis of more
-than one rank that no mode splits raises. The ranks of one data slice
-read the same rows and draw the same dropout (the data coordinate stands
-for the rank), DDP averages gradients over the ``data`` group only, the
-grad norm is the whole model's, and the eval counts are summed over the
-``stage`` group (the last stage's) and then the ``data`` group.
-``samples_per_sec_per_chip`` divides by every rank.
+BERT's layers over ``stage`` (``models/stage.py``, per-layer modules, so
+not with ``scan_layers``); a ``model`` or ``stage`` axis of more than one
+rank that no mode splits raises. The batch shards over ``(data, fsdp)``:
+the ranks of one batch shard read the same rows and draw the same dropout
+(``batch_index`` stands for the rank). ``policy`` (``parallel/
+sharding.py``; None: off) with ``fsdp`` on and an ``fsdp`` axis of more
+than one rank shards the model with FSDP over the (data, fsdp) sub-mesh
+at this rank's stage and model coordinates (``shard``); otherwise DDP
+averages the gradients over the batch axes (the params replicated, as
+JAX replicates them with the policy off). The grad norm is the whole
+model's, and the eval counts are summed over the ``stage`` group (the
+last stage's) and then the batch group. ``samples_per_sec_per_chip``
+divides by every rank.
 
 Per epoch: every optimizer step over ``[accum, micro, ...]`` batches, then
 a masked eval pass over the whole validation split and one history record
@@ -31,7 +37,7 @@ loss and grad norm, fetched from the device once per epoch.
 
 Not ported here (ROADMAP.md, queue 1): checkpoints and resume, the
 watchdog, preemption handling, telemetry sinks, runtime guards, the
-native loader and prefetch, chained steps, FSDP, tensor and context
+native loader and prefetch, chained steps, tensor and context
 parallelism, the pipeline schedules.
 """
 
@@ -50,10 +56,13 @@ from pytorch_distributed_training_tpu_torch.comms.collectives import (
     host_sum_counts,
 )
 from pytorch_distributed_training_tpu_torch.comms.mesh import (
-    AXIS_DATA,
+    AXIS_FSDP,
     AXIS_MODEL,
     AXIS_STAGE,
+    batch_index,
     build_mesh,
+    dp_degree,
+    fsdp_device_mesh,
 )
 from pytorch_distributed_training_tpu_torch.data import synthetic
 from pytorch_distributed_training_tpu_torch.data.glue import (
@@ -71,6 +80,11 @@ from pytorch_distributed_training_tpu_torch.models.branch import (
 )
 from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2LMModel
 from pytorch_distributed_training_tpu_torch.models.stage import BertStage
+from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+    ShardingPolicy,
+    apply_fsdp,
+    param_placements,
+)
 from pytorch_distributed_training_tpu_torch.train.metrics import (
     LMMetricAccumulator,
     MetricAccumulator,
@@ -107,7 +121,8 @@ class Trainer:
                  *, task: str = "auto", device="cuda",
                  mesh_config: Optional[MeshConfig] = None,
                  mp_mode: Optional[str] = None,
-                 model: Optional[Callable] = None):
+                 model: Optional[Callable] = None,
+                 policy: Optional[ShardingPolicy] = None):
         tcfg = self.tcfg = train_config
         if mp_mode not in MP_MODES:
             raise ValueError(f"mp_mode must be one of {MP_MODES}, got "
@@ -115,6 +130,13 @@ class Trainer:
         if mp_mode is not None and model_config.causal:
             raise ValueError(f"mp_mode={mp_mode!r} splits an encoder "
                              f"classifier; the config is causal")
+        if mp_mode is not None and model_config.scan_layers:
+            raise ValueError(f"mp_mode={mp_mode!r} keeps per-layer modules; "
+                             f"the config scans the trunk")
+        # the mode's stacked axis, as the JAX CLI sets it
+        self.policy = dataclasses.replace(
+            policy or ShardingPolicy(), branch=mp_mode == "branch",
+            stage=mp_mode == "stage")
         self.info = initialize(resolve_device(device))
         self.device = self.info.device
         mesh = self.mesh = build_mesh(mesh_config, rank=self.info.rank,
@@ -157,9 +179,9 @@ class Trainer:
             model_config = dataclasses.replace(model_config,
                                                num_labels=num_labels)
         self.mcfg = model_config
-        # the ranks of one data slice read the same rows
-        shard = dict(seed=tcfg.seed, rank=mesh.coord(AXIS_DATA),
-                     world_size=mesh.shape[AXIS_DATA], device=self.device)
+        # the ranks of one batch shard read the same rows
+        shard = dict(seed=tcfg.seed, rank=batch_index(mesh),
+                     world_size=dp_degree(mesh), device=self.device)
         self.train_loader = ShardedLoader(
             train_data, global_batch_size=tcfg.global_batch_size,
             grad_accum_steps=tcfg.grad_accum_steps, train=True, **shard,
@@ -184,19 +206,52 @@ class Trainer:
                 generator=torch.Generator().manual_seed(tcfg.seed))
         if mp_mode == "stage" and mesh.shape[AXIS_STAGE] > 1:
             module = BertStage(module, mesh)
-        model = module.to(self.device)
-        # the grad norm of a model split over ranks: the branches over the
-        # model axis, every stage's parameters over the stage axis
-        grad_norm = plain_grad_norm
-        if split is not None and mesh.group(split) is not None:
-            grad_norm = sharded_grad_norm(
-                {id(p) for name, p in model.named_parameters()
-                 if split == AXIS_STAGE or name.startswith(BRANCH_MODULE)},
-                mesh.group(split))
+        self.split = split
         total_updates = self.train_loader.steps_per_epoch * tcfg.num_epochs
         self.schedule = linear_warmup_schedule(
             tcfg.learning_rate, tcfg.warmup_steps, total_updates
         )
+        model = module.to(self.device)
+        if self.policy.tp or (self.policy.fsdp
+                              and mesh.shape[AXIS_FSDP] > 1):
+            # (tp raises, naming its ROADMAP item)
+            placements = param_placements(
+                {n: tuple(p.shape) for n, p in model.named_parameters()},
+                self.policy, mesh.shape)
+            self.shard(placements, fsdp_device_mesh(mesh, self.device.type),
+                       model)
+        else:
+            self._make_state(model, sharded=False)
+        self.eval_step = make_eval_step(self.objective, mesh)
+        self.history: list[dict] = []
+        self.step_log: list[dict] = []
+
+    def shard(self, placements: dict, device_mesh, model=None) -> None:
+        """Shard the model (``model``, else the state's) with FSDP on
+        ``device_mesh`` by ``placements`` (``parallel/sharding.py``) and
+        start its optimizer afresh. The Trainer calls it when the policy
+        shards over an ``fsdp`` axis of more than one rank; a one-rank
+        ``device_mesh`` runs the same collectives and optimizer on one
+        card."""
+        model = self.state.module if model is None else model
+        self._make_state(apply_fsdp(model, placements, device_mesh),
+                         sharded=True)
+
+    def _make_state(self, model, *, sharded: bool) -> None:
+        """The grad norm, optimizer, DDP (unless ``sharded``), train state
+        and train step of ``model``."""
+        tcfg, mesh, split = self.tcfg, self.mesh, self.split
+        # the grad norm of a model split over ranks (the branches over the
+        # model axis, every stage's parameters over the stage axis) or
+        # sharded over fsdp
+        grad_norm = plain_grad_norm
+        split_group = None if split is None else mesh.group(split)
+        if split_group is not None or sharded:
+            grad_norm = sharded_grad_norm(
+                {id(p) for name, p in model.named_parameters()
+                 if split_group is not None and (
+                     split == AXIS_STAGE or name.startswith(BRANCH_MODULE))},
+                split_group, mesh.group(AXIS_FSDP))
         optimizer = AdamW(
             model.parameters(), self.schedule, b1=tcfg.adam_b1,
             b2=tcfg.adam_b2, eps=tcfg.adam_eps,
@@ -204,14 +259,14 @@ class Trainer:
             grad_norm=grad_norm,
         )
         wrapped = None
-        if mesh.group(AXIS_DATA) is not None:
-            # DDP over this rank's data slice only: the ranks of another
+        if not sharded and mesh.batch_group is not None:
+            # DDP over this rank's batch shards only: the ranks of another
             # model or stage coordinate hold other weights
             wrapped = DistributedDataParallel(
                 model,
                 device_ids=[self.device.index] if self.device.type == "cuda"
                 else None,
-                process_group=mesh.group(AXIS_DATA),
+                process_group=mesh.batch_group,
             )
         self.state = create_train_state(model, optimizer, tcfg.seed,
                                         wrapped=wrapped)
@@ -219,9 +274,6 @@ class Trainer:
             grad_accum_steps=tcfg.grad_accum_steps, objective=self.objective,
             mesh=mesh, grad_norm=grad_norm,
         )
-        self.eval_step = make_eval_step(self.objective, mesh)
-        self.history: list[dict] = []
-        self.step_log: list[dict] = []
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -294,10 +346,10 @@ class Trainer:
                     k: totals[k] + counts[k] for k in counts
                 }
             if totals is not None:
-                # the counts live on the last stage; each data slice's
+                # the counts live on the last stage; each batch shard's
                 # model ranks hold the same ones
                 acc.update(host_sum_counts(totals, (
-                    self.mesh.group(AXIS_STAGE), self.mesh.group(AXIS_DATA))))
+                    self.mesh.group(AXIS_STAGE), self.mesh.batch_group)))
             raw = acc.compute()
             if not out and suffix:
                 out.update(raw)

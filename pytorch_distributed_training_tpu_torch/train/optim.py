@@ -13,8 +13,17 @@
   weight_decay * p`` before the learning-rate scale, ``p += -lr * upd``.
   Moments are float32. Optional global-norm clipping first, as optax's
   ``clip_by_global_norm`` (off by default, as in the reference); the norm
-  is ``grad_norm``'s, which for a model split over ranks
+  is ``grad_norm``'s, which for a model split or sharded over ranks
   (``sharded_grad_norm``) is the whole model's.
+
+Under FSDP (``parallel/sharding.py``) a parameter and its gradient are
+``DTensor``s sharded over the mesh's ``fsdp`` axis, beside plain tensors
+(the replicated parameters). The norm and the update run on each
+``DTensor``'s local shard (``to_local()``, a view of it: the update
+writes the shard in place) and the plain tensors alike, so every
+``_foreach_*`` list holds plain tensors only; the moments of a sharded
+parameter are plain tensors of its shard's shape; the clip factor is a
+0-dim tensor. A shard's squares are summed over ``fsdp``.
 
 A plain PyTorch optimizer over ``torch._foreach_*`` ops: the update is no
 Pallas kernel in the JAX package, so it has no CUDA kernel here.
@@ -26,6 +35,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     all_reduce_sum,
@@ -54,9 +64,26 @@ def linear_warmup_schedule(peak_lr: float, warmup_steps: int,
     return schedule
 
 
+def is_sharded(t) -> bool:
+    """Whether ``t`` is a ``DTensor`` (an FSDP-sharded parameter or its
+    gradient)."""
+    return isinstance(t, DTensor)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor`` (a view), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _squares(tensors, zero) -> torch.Tensor:
+    return sum((torch.sum(torch.square(local(t).float())) for t in tensors),
+               zero)
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+    """sqrt of the sum of squares of every element, in float32, of
+    tensors held whole by this rank (a ``DTensor``: of its shard)."""
+    return torch.sqrt(_squares(tensors, 0))
 
 
 def plain_grad_norm(params, grads) -> torch.Tensor:
@@ -65,22 +92,28 @@ def plain_grad_norm(params, grads) -> torch.Tensor:
     return global_norm(grads)
 
 
-def sharded_grad_norm(sharded, group) -> Callable:
+def sharded_grad_norm(split=frozenset(), group=None,
+                      fsdp_group=None) -> Callable:
     """A grad-norm function for a model of which the parameters in
-    ``sharded`` (a set of ``id``s) are this rank's part of a model split
-    over ``group`` (each rank of it holds others), and the rest are
-    replicated on every rank of it: the squares of the replicated
-    gradients counted once, those of the split ones summed over the
-    group."""
+    ``split`` (a set of ``id``s) are this rank's part of a model split
+    over ``group`` (each rank of it holds others), the rest replicated on
+    every rank of it, and whose ``DTensor`` gradients are this rank's
+    shards over ``fsdp_group``: the squares of the replicated gradients
+    counted once, a shard's summed over ``fsdp_group``, then the split
+    ones' over ``group``."""
 
     def norm(params, grads) -> torch.Tensor:
-        zero = grads[0].new_zeros((), dtype=torch.float32)
-        own = sum((torch.sum(torch.square(g.float()))
-                   for p, g in zip(params, grads) if id(p) in sharded), zero)
-        rep = sum((torch.sum(torch.square(g.float()))
-                   for p, g in zip(params, grads) if id(p) not in sharded),
-                  zero)
-        return torch.sqrt(rep + all_reduce_sum(own, group))
+        zero = local(grads[0]).new_zeros((), dtype=torch.float32)
+
+        def part(in_split, sharded):
+            return _squares([g for p, g in zip(params, grads)
+                             if (id(p) in split) == in_split
+                             and is_sharded(g) == sharded], zero)
+
+        shards = all_reduce_sum(torch.stack([part(False, True),
+                                             part(True, True)]), fsdp_group)
+        return torch.sqrt(part(False, False) + shards[0] + all_reduce_sum(
+            part(True, False) + shards[1], group))
 
     return norm
 
@@ -110,22 +143,25 @@ class AdamW(torch.optim.Optimizer):
         lr = self.schedule(self.count)
         self.count += 1
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
+            held = [p for p in group["params"] if p.grad is not None]
+            if not held:
                 continue
-            grads = [p.grad.float() for p in params]
             if self.max_grad_norm > 0:
-                norm = self.grad_norm(params, grads)
+                norm = self.grad_norm(held, [p.grad for p in held])
                 clip = norm >= self.max_grad_norm
+            # each shard and each whole tensor: plain tensors only
+            params = [local(p) for p in held]
+            grads = [local(p.grad).float() for p in held]
+            if self.max_grad_norm > 0:
                 grads = [torch.where(clip, g / norm * self.max_grad_norm, g)
                          for g in grads]
             b1, b2, eps = group["b1"], group["b2"], group["eps"]
             mus, nus = [], []
-            for p in params:
+            for p, w in zip(held, params):
                 st = self.state[p]
                 if not st:
-                    st["mu"] = torch.zeros_like(p, dtype=torch.float32)
-                    st["nu"] = torch.zeros_like(p, dtype=torch.float32)
+                    st["mu"] = torch.zeros_like(w, dtype=torch.float32)
+                    st["nu"] = torch.zeros_like(w, dtype=torch.float32)
                 mus.append(st["mu"])
                 nus.append(st["nu"])
             # float32 integer-exponent powers, as optax's bias correction

@@ -4,7 +4,8 @@
 The JAX state is one immutable pytree (params, optimizer state, step, the
 base dropout key) threaded through a jitted step. Here the parameters live
 in the model, which the step updates in place, so the state holds the
-model (DDP-wrapped when data-parallel), the bare module for evaluation,
+model (DDP-wrapped when data-parallel; under FSDP the module itself,
+sharded in place), the bare module for evaluation,
 the optimizer (moments and its update count), the optimizer step counter
 and the base dropout seed.
 """
@@ -23,7 +24,7 @@ _DROPOUT_STREAM = 1  # fold_in(seed, .) of the base dropout seed
 
 @dataclasses.dataclass
 class TrainState:
-    model: nn.Module      # what the train step calls (DDP when data-parallel)
+    model: nn.Module      # what the train step calls (DDP, or FSDP's module)
     module: nn.Module     # the bare model (eval, weights)
     optimizer: AdamW
     dropout_seed: int

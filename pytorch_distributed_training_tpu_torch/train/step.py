@@ -5,12 +5,16 @@ package's ``train/step.py`` ``make_train_step`` / ``make_eval_step``).
   Each microbatch's mean masked cross-entropy is scaled by ``1/accum``
   before its backward, so the accumulated gradient IS the mean gradient
   (the JAX step folds the scale into the loss the same way). Under DDP,
-  every microbatch but the last runs in ``no_sync()``, so gradients cross
-  the ranks of the ``data`` axis once per optimizer step. Then
-  ``grad_norm`` over the float32 gradients (over the whole model when it
-  is split over ranks, ``train/optim.py``) and one optimizer update. The
+  every microbatch but the last runs in ``no_sync()``, and under FSDP
+  (``parallel/sharding.py``) with ``set_requires_gradient_sync(False)``,
+  so gradients cross the ranks of the batch axes ``(data, fsdp)`` once per
+  optimizer step: DDP's all-reduce, or FSDP's reduce-scatter of each
+  sharded parameter's gradient, with the replicated parameters' (FSDP's
+  ignored ones) averaged over the batch group here. Then ``grad_norm``
+  over the float32 gradients (over the whole model when it is split or
+  sharded over ranks, ``train/optim.py``) and one optimizer update. The
   loss returned is the sum of the scaled microbatch losses (= the mean),
-  averaged over the ``data`` axis.
+  averaged over the batch axes.
 - ``eval_step(state, batch)``: forward and argmax; the masked counts
   ``correct/total/tp/fp/fn`` under ``valid`` (positive label 1).
 
@@ -26,10 +30,11 @@ mean next-token cross-entropy over the positions ``lm_shift_and_mask``
 keeps and the eval step returns ``nll_sum``, ``token_count`` and
 ``token_correct``.
 
-Dropout: microbatch m of update ``step`` on data coordinate ``rank``
-draws from ``fold_in(fold_in(fold_in(state.dropout_seed, step), m),
-rank)``, the counterpart of ``fold_in(fold_in(dropout_rng, step), m)`` and
-of the JAX kernels' per-shard seed offset; the ranks of one data slice
+Dropout: microbatch m of update ``step`` on batch shard ``rank``
+(``comms/mesh.batch_index``) draws from ``fold_in(fold_in(fold_in(
+state.dropout_seed, step), m), rank)``, the counterpart of
+``fold_in(fold_in(dropout_rng, step), m)`` and of the JAX kernels'
+per-shard seed offset (``ops/dispatch.py``); the ranks of one batch shard
 (its model and stage ranks) draw alike. The forward saves what its
 backward needs; the model's kernels regenerate masks from the same seeds.
 """
@@ -41,20 +46,25 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.fsdp import FSDPModule
 from torch.nn.parallel import DistributedDataParallel
 
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     all_reduce_mean,
     all_reduce_sum,
+    average_,
 )
 from pytorch_distributed_training_tpu_torch.comms.mesh import (
-    AXIS_DATA,
     AXIS_STAGE,
     Mesh,
+    batch_index,
     build_mesh,
 )
 from pytorch_distributed_training_tpu_torch.ops.dropout import fold_in
-from pytorch_distributed_training_tpu_torch.train.optim import plain_grad_norm
+from pytorch_distributed_training_tpu_torch.train.optim import (
+    is_sharded,
+    plain_grad_norm,
+)
 from pytorch_distributed_training_tpu_torch.train.state import TrainState
 
 
@@ -128,19 +138,22 @@ def make_train_step(*, grad_accum_steps: int,
     (``train/optim.py``)."""
     inv_accum = 1.0 / grad_accum_steps
     mesh = mesh or build_mesh()
-    data_rank, last = mesh.coord(AXIS_DATA), _last_stage(mesh)
+    shard, last = batch_index(mesh), _last_stage(mesh)
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
         ddp = isinstance(model, DistributedDataParallel)
+        fsdp = isinstance(model, FSDPModule)
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = None
         for m in range(grad_accum_steps):
             micro = {k: v[m] for k, v in batch.items()}
-            seed = microbatch_seed(state.dropout_seed, state.step, m,
-                                   data_rank)
-            sync = not ddp or m == grad_accum_steps - 1
-            with contextlib.nullcontext() if sync else model.no_sync():
+            seed = microbatch_seed(state.dropout_seed, state.step, m, shard)
+            sync = m == grad_accum_steps - 1
+            if fsdp:
+                model.set_requires_gradient_sync(sync)
+            with (model.no_sync() if ddp and not sync
+                  else contextlib.nullcontext()):
                 out = _forward(model, micro, seed)
                 if last:
                     loss = _loss(objective, out, micro) * inv_accum
@@ -151,6 +164,9 @@ def make_train_step(*, grad_accum_steps: int,
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
         params = [p for p in state.module.parameters() if p.grad is not None]
+        if fsdp:  # FSDP's ignored parameters: replicated, reduced here
+            average_([p.grad for p in params if not is_sharded(p)],
+                     mesh.batch_group)
         norm = grad_norm(params, [p.grad for p in params])
         state.optimizer.step()
         state.step += 1
@@ -158,7 +174,7 @@ def make_train_step(*, grad_accum_steps: int,
         # the same on every rank of the model axis
         loss = all_reduce_mean(
             all_reduce_sum(loss_sum, mesh.group(AXIS_STAGE)),
-            mesh.group(AXIS_DATA))
+            mesh.batch_group)
         return {"loss": loss, "grad_norm": norm}
 
     return train_step

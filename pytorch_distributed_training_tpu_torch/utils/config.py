@@ -110,10 +110,9 @@ class ModelConfig:
     remat: bool = False  # per-layer remat: not ported
     remat_policy: str = "nothing"  # what per-layer remat saves: not ported
     remat_mlp: bool = False  # remat of each block's MLP tail: not ported
-    scan_layers: bool = False  # stacked trunk: not ported (models/convert.py
-    #                            reads a scanned checkpoint all the same;
-    #                            train_mp's stage mode keeps per-layer
-    #                            modules)
+    # the stacked trunk (models/bert.py ScannedLayers, ``layers_scan``);
+    # train_mp's branch and stage modes keep per-layer modules
+    scan_layers: bool = False
     # paged serving: a chunk of more than one token is appended at
     # context_len of an EXISTING context and attends through the 4-D-query
     # paged kernel (speculative verify, chunked prefill, prefix-hit tails);
@@ -135,7 +134,6 @@ class ModelConfig:
             ("remat", False, "per-layer remat, slice 3 leftovers"),
             ("remat_policy", "nothing", "per-layer remat, slice 3 leftovers"),
             ("remat_mlp", False, "MLP remat, slice 3 leftovers"),
-            ("scan_layers", False, "the scanned trunk, slice 5 item 2"),
         )
         for name, ported, item in not_ported:
             if getattr(self, name) != ported:

@@ -100,7 +100,7 @@ def test_mesh_errors_match_jax_meshconfig(kw, world):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("axis,item", [("fsdp", "item 2"), ("seq", "item 4")])
+@pytest.mark.parametrize("axis,item", [("seq", "item 4")])
 def test_mesh_fsdp_and_seq_not_ported(axis, item):
     with pytest.raises(NotImplementedError, match=item):
         build_mesh(MeshConfig(data=1, **{axis: 2}), world_size=2)
@@ -111,7 +111,6 @@ def test_mesh_fsdp_and_seq_not_ported(axis, item):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mp-mode", "pipeline"], "item 3"), (["--mp-mode", "1f1b"], "item 3"),
-    (["--fsdp"], "item 2"), (["--mesh-fsdp", "2"], "item 2"),
     (["--mesh-seq", "2"], "item 4"), (["--attention", "ring"], "item 4"),
     (["--matmul-impl", "int8"], "item 6"),
     (["--matmul-impl", "int8_full"], "item 6"),

@@ -601,4 +601,5 @@ def test_model_config_defaults_match_jax():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model_preset("tiny", dropout_impl="exact")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_preset("tiny", scan_layers=True)
+        model_preset("tiny", remat=True)
+    assert model_preset("tiny", scan_layers=True).scan_layers
