@@ -56,7 +56,17 @@ the JAX package), in phases that each raise on failure:
    then the same for 3 tiny branches through ``train_mp`` on the
    whole-sequence flash kernels (the card runs' launches counted), and
    ``train_mp --mp-mode stage`` at world size 1 against ``train_dp`` on
-   the card (the same per-step losses, bit for bit); later the same for
+   the card (the same per-step losses, bit for bit), and ``--mp-mode
+   pipeline`` and ``--mp-mode 1f1b`` at micro 8 in 4 pipeline
+   microbatches against ``--mp-mode stage`` at micro 2 (the same per-step
+   losses and grad norms, bit for bit); then ``train-pipeline``:
+   ``train_mp`` on bert-base-cased at full width, 2 steps of the recipe's
+   96 = 8 x 12 and a 96-row eval, through ``--mp-mode pipeline`` and
+   ``--mp-mode 1f1b`` (4 pipeline microbatches of 2 rows an accumulation
+   microbatch: 48 a step) and ``--mp-mode stage``, each counted against
+   the launches its microbatches derive, its losses finite and every
+   parameter moved, its ms a step, the peak memory of its train steps and
+   its ``pipeline_bubble`` printed; later the same for
    ``gpt2-tiny`` through ``train_lm`` (the whole-sequence flash
    kernels);
 6. lm: runs the port's ``train_lm`` on gpt2-medium at full width and
@@ -65,8 +75,8 @@ the JAX package), in phases that each raise on failure:
    12, then a 32-row eval: the whole-sequence pair), the launch counters
    reset just before each and read just after and checked against the
    counts the step derives; finite losses, moved parameters, bit-identical
-   per-step losses in a second seq-1024 run, and a third under
-   ``torch.profiler``; then the seq-1024 run again with
+   per-step losses in a second seq-1024 run, and a third, of one step
+   and the eval, under ``torch.profiler``; then the seq-1024 run again with
    ``PDT_FLASH_TWO_PASS=1`` (the two-pass backward kernels counted, step
    1's loss bit-identical to the fused run's, later steps within 1e-3),
    and once more, one step, under ``torch.profiler``; the seq-128 run
@@ -311,6 +321,14 @@ TRAIN_MP_ARGS = ["--model", "bert-base-cased", "--task", "synthetic",
 # the BERT profile phases run one step of the recipe's 96 and the full
 # eval (three steps took 136-212 s under the profiler)
 PROFILE_TRAIN_SIZE = "96"
+# train-pipeline: train_mp's preset (bert-base-cased, JAX cli/train_mp.py:
+# 44-46) at the recipe, through the schedules and stage mode at world size
+# 1; two steps, since the first's learning rate is 0 (warmup), and a 96-row
+# eval
+PIPELINE_ARGS = ["--model", "bert-base-cased", "--task", "synthetic",
+                 "--train-size", "192", "--eval-size", "96", "--num-epochs",
+                 "1", "--device", "cuda", "--seed", "42", "--log-every", "0"]
+PIPELINE_MODES = ("pipeline", "1f1b", "stage")
 # cpu-vs-card through train_mp: 3 tiny branches on the whole-sequence
 # flash kernels (7, 8; float32, head_dim 16)
 TINY_MP_ARGS = TINY_ARGS + ["--n-branches", "3", "--attention", "flash"]
@@ -374,7 +392,7 @@ LM_128_ARGS = ["--model", "gpt2-medium", "--task", "lm", "--train-size", "96",
 _AT = LM_1024_ARGS.index("--train-size") + 1
 LM_FSDP_ARGS = LM_1024_ARGS[:_AT] + ["64"] + LM_1024_ARGS[_AT + 1:]
 LM_FSDP_SIZE = 2
-# the lm-1024 two-pass profile's rows: 1 step of 32
+# the lm-1024 profiles' rows: 1 step of 32
 LM_PROFILE_TRAIN_SIZE = "32"
 # scanned against unscanned: the grad norm sums the stacked squares in
 # another order, so it and the weights after it agree to this
@@ -1450,13 +1468,15 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
         server.close(drain=True)
     events = [json.loads(line) for line in out.getvalue().splitlines()]
     streams(events, prompts, new_tokens)
-    bad = sorted({e.key[:90] for e in prof.key_averages()
+    # aggregated once: each call walks every event again (seconds)
+    averages = prof.key_averages()
+    bad = sorted({e.key[:90] for e in averages
                   if e.device_type == DeviceType.CUDA
                   and any(sym in e.key for sym in forbid)})
     if bad:
         raise AssertionError(f"{tag}: launched {bad}, none wanted")
     engine_s = warm["prefill_s"] + warm["decode_s"]
-    res = device_time_by_class(prof, engine_s)
+    res = device_time_by_class(averages, engine_s)
     mq = sum(v for k, v in res["by_class_ms"].items()
              if k.startswith("paged_attention_mq"))
     res.update(paged_mq_ms=mq, paged_mq_share=(
@@ -1465,15 +1485,16 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
     return res
 
 
-def device_time_by_class(prof, wall_s, top_n=10) -> dict:
-    """Device kernel time of a ``torch.profiler`` run by kernel class, and
-    its share of ``wall_s`` (the host seconds of the profiled work)."""
+def device_time_by_class(averages, wall_s, top_n=10) -> dict:
+    """Device kernel time of a ``torch.profiler`` run (its
+    ``key_averages()``) by kernel class, and its share of ``wall_s`` (the
+    host seconds of the profiled work)."""
     from torch.autograd import DeviceType
 
     by_class: dict[str, float] = {}
     launches: dict[str, int] = {}
     top = []
-    for e in prof.key_averages():
+    for e in averages:
         # a user range on the device (the optimizer's "Optimizer.step#..."
         # annotation) spans kernels counted on their own: skip it
         if (e.device_type != DeviceType.CUDA or "#" in e.key
@@ -2023,10 +2044,11 @@ def expected_train_launches(*, micro: int, eval_batches: int,
 
 
 def train_launches(trainer) -> dict:
-    """``expected_train_launches`` of a finished classification run."""
+    """``expected_train_launches`` of a finished classification run (its
+    microbatches: each pipeline microbatch under the schedules)."""
     tc, mc = trainer.tcfg, trainer.mcfg
     return expected_train_launches(
-        micro=trainer.state.step * tc.grad_accum_steps,
+        micro=trainer.state.step * tc.grad_accum_steps * trainer.n_micro,
         eval_batches=trainer.eval_loader.steps_per_epoch,
         layers=mc.num_layers * getattr(trainer.state.module, "n_branches", 1),
         flash=mc.attention_impl == "flash")
@@ -2221,7 +2243,9 @@ def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
     del trainer
     from torch.autograd import DeviceType
 
-    bad = sorted({e.key[:90] for e in prof.key_averages()
+    # aggregated once: each call walks every event again (seconds)
+    averages = prof.key_averages()
+    bad = sorted({e.key[:90] for e in averages
                   if e.device_type == DeviceType.CUDA
                   and any(sym in e.key for sym in forbid)})
     if bad:
@@ -2229,21 +2253,22 @@ def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
     base = (f"warm run's ms a step x {steps} + eval" if warm
             else "profiled wall")
     res = dict(device_time_by_class(
-        prof, warm["ms_per_step"] * steps / 1e3 + warm["eval_s"] if warm
+        averages, warm["ms_per_step"] * steps / 1e3 + warm["eval_s"] if warm
         else wall),
         busy_share_of=base, profiled_wall_s=wall, profiled_steps=steps,
-        host=host_time_by_op(prof))
+        host=host_time_by_op(averages))
     say(f"[{tag}] " + json.dumps(res))
     return res
 
 
-def host_time_by_op(prof, top_n=12) -> dict:
-    """Host self time of a ``torch.profiler`` run by operator (the main
-    thread and autograd's backward thread together), the largest first,
-    and the number of kernel launches the host issued."""
+def host_time_by_op(averages, top_n=12) -> dict:
+    """Host self time of a ``torch.profiler`` run (its ``key_averages()``)
+    by operator (the main thread and autograd's backward thread together),
+    the largest first, and the number of kernel launches the host
+    issued."""
     from torch.autograd import DeviceType
 
-    ops = [e for e in prof.key_averages()
+    ops = [e for e in averages
            if e.device_type == DeviceType.CPU and "#" not in e.key]
     ops.sort(key=lambda e: -e.self_cpu_time_total)
     launches = sum(e.count for e in ops
@@ -2294,20 +2319,101 @@ def cpu_vs_card_phase(argv=TINY_ARGS, cli="train_dp") -> dict:
 def stage_phase(argv=TINY_ARGS) -> dict:
     """``train_mp --mp-mode stage`` at world size 1 (one stage: BERT
     itself) against ``train_dp`` from the same seed on the card, dropout
-    on: the same per-step losses and grad norms, bit for bit."""
+    on: the same per-step losses and grad norms, bit for bit; then
+    ``--mp-mode pipeline`` and ``--mp-mode 1f1b`` at micro 8 in 4
+    pipeline microbatches against ``--mp-mode stage`` at micro 2, bit for
+    bit."""
     card = argv + ["--device", "cuda"]
+    stage = ["--mp-mode", "stage"]
     runs = {}
-    for cli, extra in (("train_mp", ["--mp-mode", "stage"]),
-                       ("train_dp", [])):
+    for name, cli, extra in (
+            ("stage", "train_mp", stage), ("train_dp", "train_dp", []),
+            ("stage-micro-2", "train_mp", stage + ["--micro-batch-size", "2"]),
+            *((mode, "train_mp", ["--mp-mode", mode,
+                                  "--pipeline-microbatches", "4"])
+              for mode in ("pipeline", "1f1b"))):
         trainer, _, _ = train_once(card + extra, cli)
-        runs[cli] = trainer.step_log
+        runs[name] = [(s["loss"], s["grad_norm"]) for s in trainer.step_log]
         del trainer
-    if runs["train_mp"] != runs["train_dp"]:
-        raise AssertionError(f"stage mode {runs['train_mp']} against "
-                             f"train_dp {runs['train_dp']}")
+    for name, want in (("stage", "train_dp"), ("pipeline", "stage-micro-2"),
+                       ("1f1b", "stage-micro-2")):
+        if runs[name] != runs[want]:
+            raise AssertionError(f"{name} {runs[name]} against {want} "
+                                 f"{runs[want]}")
     say("[stage] train_mp --mp-mode stage at world 1 equals train_dp bit for "
-        "bit: " + json.dumps(runs["train_mp"]))
-    return runs["train_mp"]
+        "bit: " + json.dumps(runs["stage"]) + "; --mp-mode pipeline and "
+        "1f1b (4 pipeline microbatches of 2 rows) equal --mp-mode stage at "
+        "micro 2 bit for bit: " + json.dumps(runs["pipeline"]))
+    return runs
+
+
+def train_pipeline_phase(argv=PIPELINE_ARGS) -> dict:
+    """``train_mp`` at full width through the GPipe and 1F1B schedules and
+    stage mode, at world size 1 (one stage: the schedules are
+    microbatching), each run counted from the trainer's first step to its
+    eval's end against the launches its microbatches derive (4x stage
+    mode's under the schedules), with finite losses and every parameter
+    moved; the peak memory of the train steps alone (reset before them,
+    read before the eval), beside what the run holds at its start (its
+    weights)."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.cli import train_mp
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    out = {}
+    for mode in PIPELINE_MODES:
+        trainer = train_mp.build_trainer(train_mp.build_parser().parse_args(
+            argv + ["--mp-mode", mode]))
+        peak, evaluate = {}, trainer.evaluate
+
+        def train_peak_then_evaluate(evaluate=evaluate, peak=peak):
+            torch.cuda.synchronize()
+            peak["train"] = torch.cuda.max_memory_allocated()
+            return evaluate()
+
+        trainer.evaluate = train_peak_then_evaluate
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        _build.reset_launch_counts()
+        with no_mask_tensor(f"train-pipeline {mode} run"):
+            t0 = time.perf_counter()
+            trainer.run()
+            wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCH_COUNTS)
+        tc = trainer.tcfg
+        micro = trainer.state.step * tc.grad_accum_steps * trainer.n_micro
+        check_launches(
+            f"train-pipeline {mode} run ({micro} microbatches of "
+            f"{tc.micro_batch_size // trainer.n_micro} rows, "
+            f"{trainer.eval_loader.steps_per_epoch} eval batches)", counts,
+            train_launches(trainer))
+        res = train_metrics(trainer, wall)
+        if res["steps"] != 2 or not all(
+                map(math.isfinite, res["losses"] + res["grad_norms"])):
+            raise AssertionError(f"train-pipeline {mode}: {res}")
+        start = initial_weights(trainer)
+        now = trainer.state.module.state_dict()
+        unmoved = [k for k in start if torch.equal(now[k].cpu(), start[k])]
+        if unmoved:
+            raise AssertionError(f"train-pipeline {mode}: parameters "
+                                 f"unchanged: {unmoved[:5]}")
+        res.update(mode=mode, n_micro=trainer.n_micro, microbatches=micro,
+                   train_peak_mem_bytes=peak["train"],
+                   resident_mem_bytes=resident,
+                   pipeline_bubble=trainer.step_log[-1].get(
+                       "pipeline_bubble"), launches=counts)
+        # the next run's peak starts with nothing of this one's held
+        del trainer, start, now, evaluate, train_peak_then_evaluate
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"[train-pipeline] {mode}: " + json.dumps(res))
+        out[mode] = res
+    if [out[m]["n_micro"] for m in PIPELINE_MODES] != [4, 4, 1]:
+        raise AssertionError(f"train-pipeline: n_micro "
+                             f"{[out[m]['n_micro'] for m in PIPELINE_MODES]}")
+    return out
 
 
 # ------------------------------------------------- phase 3, flash kernels
@@ -3073,16 +3179,16 @@ _FSDP_WORK = re.compile(r"FSDP::(pre_forward|pre_backward|post_backward_"
                         r"reduce)")
 
 
-def collective_time(prof) -> dict:
+def collective_time(averages) -> dict:
     """Calls and device ms of FSDP2's ranges (``FSDP::*``) and of the
     collectives (``c10d::*`` ops and the ``nccl:*``/``gloo:*`` ranges
     inside them, with the device work each launched) of a
-    ``torch.profiler`` run; ``fsdp_ms``: the ranges that hold FSDP's
+    ``torch.profiler`` run's ``key_averages()``; ``fsdp_ms``: the ranges that hold FSDP's
     device work, ``collectives_ms``: the ``c10d::*`` ops'."""
     from torch.autograd import DeviceType
 
     ops = {}
-    for e in prof.key_averages():
+    for e in averages:
         if e.device_type == DeviceType.CPU and e.key.startswith(
                 ("nccl:", "gloo:", "c10d::", "FSDP::")):
             ops[e.key] = dict(calls=e.count, device_ms=float(getattr(
@@ -3172,8 +3278,9 @@ def lm_fsdp_child(port: int) -> dict:
             trainer.run()
         wall = time.perf_counter() - t0
         del trainer
-        prof_res = device_time_by_class(prof, wall)
-        collectives = collective_time(prof)
+        averages = prof.key_averages()
+        prof_res = device_time_by_class(averages, wall)
+        collectives = collective_time(averages)
     finally:
         dist.destroy_process_group()
     if not any(k.startswith("FSDP::") for k in collectives["ops"]):
@@ -3273,10 +3380,14 @@ def main() -> int:
     cpu_vs_card_phase(TINY_MP_ARGS, "train_mp")
     stage_phase()
     lap("cpu-vs-card + stage")
+    train_pipeline_phase()
+    lap("train-pipeline")
     lm = lm_phase(LM_1024_ARGS, steps=3, rerun=True, tag="lm-1024")
     lap("lm-1024")
-    train_profile_phase(lm["warm"], LM_1024_ARGS, "train_lm",
-                        tag="lm-1024-profile", forbid=FMA_FLASH_SYMBOLS)
+    train_profile_phase(lm["warm"],
+                        one_step(LM_1024_ARGS, LM_PROFILE_TRAIN_SIZE),
+                        "train_lm", tag="lm-1024-profile",
+                        forbid=FMA_FLASH_SYMBOLS)
     lap("lm-1024-profile")
     two_pass = two_pass_lm_phase(lm)
     train_profile_phase(None, one_step(LM_1024_ARGS, LM_PROFILE_TRAIN_SIZE),

@@ -1,8 +1,8 @@
 """Hybrid data × model parallel trainer entry point (counterpart: the JAX
 package's ``cli/train_mp.py``): fine-tune under data parallelism wrapping
 a model split over ranks, the reference's second script (reference
-test_model_parallelism.py). Two model-parallel modes, the reference's two
-custom modules:
+test_model_parallelism.py). Its model-parallel modes split the reference's
+two custom modules:
 
 - ``--mp-mode branch`` (default): the TriBert ensemble (:92-163), shared
   embeddings, ``--n-branches`` BERT encoders mean-fused, BERT's head
@@ -11,7 +11,11 @@ custom modules:
 - ``--mp-mode stage``: ConcatBert's layer split (:40-89) over the mesh's
   ``stage`` axis, the activation and its gradient passed between stages
   one microbatch at a time (``models/stage.py``); one stage is
-  ``BertForSequenceClassification`` itself.
+  ``BertForSequenceClassification`` itself;
+- ``--mp-mode pipeline`` and ``--mp-mode 1f1b``: the same split trained
+  through the GPipe and the 1F1B schedule (``parallel/pipeline.py``), each
+  micro-batch in ``--pipeline-microbatches`` pipeline microbatches (0:
+  ``resolve_n_micro``'s choice); the eval runs stage mode's forward.
 
     python -m pytorch_distributed_training_tpu_torch.cli.train_mp \\
         --model bert-base-cased --task synthetic
@@ -28,23 +32,29 @@ the order data, fsdp, stage, model, seq; ``-1`` takes what is left)::
         --model tiny --task synthetic --mesh-data 2 --mesh-model 2 \\
         --n-branches 2 --device cpu
 
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m pytorch_distributed_training_tpu_torch.cli.train_mp \\
+        --model tiny --task synthetic --mesh-data 1 --mesh-stage 2 \\
+        --mp-mode 1f1b --device cpu
+
 The reference's MP script has no fp16 (:320-321); bf16 is on by default as
 in every entry point (``--no-bf16`` for float32). ``--history-out`` writes
 the per-epoch records as JSON (rank 0). The batch shards over data ×
 fsdp; ``--fsdp`` shards each rank's part of the model over the fsdp axis
 (FSDP2 on the (data, fsdp) sub-mesh at its model and stage coordinates,
 ``parallel/sharding.py``), judged as JAX judges the stacked branches and
-layers. Both modes keep per-layer modules (JAX's stage mode scans the
-trunk; the port's does not). Not ported yet (each raises
-``NotImplementedError``; ROADMAP.md, queue 1, slice 5): ``--mp-mode
-pipeline|1f1b`` (item 3), ``--mesh-seq`` > 1 and ring attention (item
-4), ``--matmul-impl int8|int8_full`` and ``--quant-delayed`` (item 6). The
-JAX CLI's restart flags wait with ``train_dp``'s (slice 2 leftovers).
+layers. Every mode keeps per-layer modules (JAX's stage and pipeline
+modes scan the trunk; the port's do not). Not ported yet (each raises
+``NotImplementedError``; ROADMAP.md, queue 1, slice 5): ``--mesh-seq`` >
+1 and ring attention (item 4), ``--matmul-impl int8|int8_full`` and
+``--quant-delayed`` (item 6). The JAX CLI's restart flags wait with
+``train_dp``'s (slice 2 leftovers).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 
 from pytorch_distributed_training_tpu_torch.cli import (
     raise_not_ported,
@@ -72,9 +82,19 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["branch", "stage", "pipeline", "1f1b"],
                    help="branch = TriBert-style ensemble over the model "
                         "axis; stage = ConcatBert-style layer split over "
-                        "the stage axis; pipeline, 1f1b = the schedules "
-                        "(not ported yet)")
+                        "the stage axis, one microbatch at a time; "
+                        "pipeline = the same layer split run through the "
+                        "GPipe schedule (microbatches stream through "
+                        "stages concurrently); 1f1b = one-forward-one-"
+                        "backward schedule (same split, backward "
+                        "interleaved with forward, stage-bounded "
+                        "activation memory)")
     p.add_argument("--n-branches", type=int, default=3)
+    p.add_argument("--pipeline-microbatches", type=int, default=0,
+                   help="GPipe microbatches per train microbatch (pipeline "
+                        "mode; 0 = auto: deepest of 4x/2x/1x the stage "
+                        "count that divides the micro-batch size with "
+                        "per-microbatch batches divisible over data*fsdp)")
     p.add_argument("--attention", default=None,
                    choices=("reference", "flash", "ring"),
                    help="attention implementation (default: the preset's)")
@@ -99,10 +119,33 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def resolve_n_micro(mesh, n: int, batch: int, what: str) -> int:
+    """The pipeline-microbatch count for a batch of ``batch`` rows (JAX
+    ``cli/train_mp.py:114-136``): ``n``, checked, or for ``n`` <= 0 the
+    deepest of {4, 2, 1} × the stages that divides ``batch`` with the
+    rows of each pipeline microbatch divisible over data × fsdp."""
+    stages = mesh.shape["stage"]
+    dshard = mesh.shape["data"] * mesh.shape["fsdp"]
+    if n <= 0:
+        for cand in (4 * stages, 2 * stages, stages):
+            if batch % cand == 0 and (batch // cand) % dshard == 0:
+                return cand
+        raise SystemExit(
+            f"no pipeline microbatch count in {{4,2,1}}x{stages} "
+            f"divides {what} {batch} with per-microbatch rows "
+            f"divisible by data*fsdp={dshard}; pick sizes explicitly"
+        )
+    if batch % n or (batch // n) % dshard:
+        raise SystemExit(
+            f"--pipeline-microbatches {n}: {what} {batch} must split "
+            f"into {n} microbatches whose size divides "
+            f"data*fsdp={dshard}"
+        )
+    return n
+
+
 def _not_ported(args) -> None:
     raise_not_ported((
-        (args.mp_mode in ("pipeline", "1f1b"), f"--mp-mode {args.mp_mode}",
-         3),
         (args.mesh_seq > 1, f"--mesh-seq {args.mesh_seq}", 4),
         (args.attention == "ring", "--attention ring", 4),
         (args.matmul_impl != "native", f"--matmul-impl {args.matmul_impl}",
@@ -151,9 +194,16 @@ def build_trainer(args):
     mesh = MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
                       stage=args.mesh_stage, model=args.mesh_model,
                       seq=args.mesh_seq)
+    n_micro = None
+    if args.mp_mode in ("pipeline", "1f1b"):
+        # only the train micro-batch is split: the eval runs stage mode's
+        # forward, one batch at a time
+        n_micro = functools.partial(
+            resolve_n_micro, n=args.pipeline_microbatches,
+            batch=tcfg.micro_batch_size, what="micro-batch")
     return Trainer(mcfg, tcfg, task=args.task, device=args.device,
                    mesh_config=mesh, mp_mode=args.mp_mode, model=model,
-                   policy=ShardingPolicy(fsdp=args.fsdp))
+                   policy=ShardingPolicy(fsdp=args.fsdp), n_micro=n_micro)
 
 
 def train(argv=None):

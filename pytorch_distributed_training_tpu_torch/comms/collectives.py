@@ -29,6 +29,12 @@ averages the rest (FSDP's replicated parameters) over the batch group.
   gradient; ``stage_recv`` receives the input of this stage and, in the
   backward, sends its gradient back. Tensors travel as a same-size integer
   view (gloo's point-to-point refuses bf16).
+- ``exchange``: the pipeline schedules' point-to-point
+  (``parallel/pipeline.py``): the sends and receives of one step of a
+  schedule posted together (``dist.batch_isend_irecv``) and waited for,
+  so a send of an activation and the receive of a gradient from the same
+  neighbour pair up rather than block each other (NCCL's blocking pairs
+  would deadlock, gloo's might); the same integer view on the wire.
 """
 
 from __future__ import annotations
@@ -120,8 +126,12 @@ def copy_to_model(x: torch.Tensor, group=None) -> torch.Tensor:
 _WIRE = {2: torch.int16, 4: torch.int32}
 
 
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().view(_WIRE[t.element_size()])
+
+
 def _send(t: torch.Tensor, dst: int) -> None:
-    dist.send(t.detach().contiguous().view(_WIRE[t.element_size()]), dst)
+    dist.send(_wire(t), dst)
 
 
 def _recv(shape, dtype, device, src: int) -> torch.Tensor:
@@ -167,3 +177,18 @@ def stage_recv(shape, dtype, device, src: int) -> torch.Tensor:
     if not torch.is_grad_enabled():
         return x
     return _SendGradBack.apply(x.requires_grad_(), src)
+
+
+def exchange(sends=(), recvs=()) -> list[torch.Tensor]:
+    """Send each ``(tensor, dst)`` of ``sends`` and receive each ``(shape,
+    dtype, device, src)`` of ``recvs``, all posted in one batch and waited
+    for; returns the received tensors in the order of ``recvs``."""
+    ops = [dist.P2POp(dist.isend, _wire(t), dst) for t, dst in sends]
+    out = []
+    for shape, dtype, device, src in recvs:
+        out.append(torch.empty(shape, dtype=dtype, device=device))
+        ops.append(dist.P2POp(dist.irecv, _wire(out[-1]), src))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out

@@ -15,10 +15,13 @@ A forward on stage s > 0 receives its input from stage s - 1
 output to stage s + 1 and returns the scalar token of ``stage_send``,
 whose ``backward()`` brings the gradient back. The last stage returns the
 logits. Microbatches pass one at a time, forward then backward, as in
-ConcatBert (GPipe and 1F1B wait for ROADMAP.md queue 1, slice 5 item 3).
-Layer i draws its dropout from ``fold_in(seed, i + 1)`` by its global
-index, the embeddings and classifier as in the whole model, so any S is
-the same model as S = 1.
+ConcatBert (``--mp-mode stage``, and every eval). With ``wire=False`` a
+forward runs one pipeline microbatch with no point-to-point inside, the
+wire left to the GPipe and 1F1B schedules (``parallel/pipeline.py``): a
+stage s > 0 takes its input as ``hidden`` and a stage before the last
+returns its output. Layer i draws its dropout from ``fold_in(seed, i +
+1)`` by its global index, the embeddings and classifier as in the whole
+model, so any S is the same model as S = 1.
 """
 
 from __future__ import annotations
@@ -75,7 +78,8 @@ class BertStage(nn.Module):
         self.classifier = full.classifier if self.last else None
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                position_ids=None, dropout_seed=None):
+                position_ids=None, dropout_seed=None, *, hidden=None,
+                wire=True):
         cfg = self.config
         input_ids = input_ids.long()
         if self.first:
@@ -86,14 +90,16 @@ class BertStage(nn.Module):
             x = self.bert.embeddings(input_ids, token_type_ids.long(),
                                      position_ids,
                                      child_seed(dropout_seed, 0))
-        else:
+        elif wire:
             x = stage_recv((*input_ids.shape, cfg.hidden_size),
                            compute_dtype(cfg), input_ids.device, self.prev)
+        else:
+            x = hidden
         bias = make_attention_bias(attention_mask)
         x = run_layers(self.bert.layers[self.lo:self.hi], x, bias,
                        dropout_seed, first=self.lo)
         if not self.last:
-            return stage_send(x, self.next)
+            return stage_send(x, self.next) if wire else x
         return classify(self.dropout, self.classifier,
                         pool_cls(self.bert.pooler, x),
                         child_seed(dropout_seed, cfg.num_layers + 1))

@@ -1,4 +1,5 @@
-"""Parameter sharding (counterpart: the JAX package's ``parallel/``)."""
+"""Parameter sharding and the pipeline schedules (counterpart: the JAX
+package's ``parallel/``: ``sharding.py``, ``pipeline.py``)."""
 
 from pytorch_distributed_training_tpu_torch.parallel.sharding import (
     ShardingPolicy,

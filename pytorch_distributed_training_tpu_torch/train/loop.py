@@ -14,18 +14,24 @@ rank on the ``data`` axis). ``mp_mode`` splits the model over an axis of
 it: ``"branch"`` the branch ensemble (``models/branch.py``, or what
 ``model(model_config, seed=, mesh=)`` builds) over ``model``, ``"stage"``
 BERT's layers over ``stage`` (``models/stage.py``, per-layer modules, so
-not with ``scan_layers``); a ``model`` or ``stage`` axis of more than one
-rank that no mode splits raises. The batch shards over ``(data, fsdp)``:
-the ranks of one batch shard read the same rows and draw the same dropout
-(``batch_index`` stands for the rank). ``policy`` (``parallel/
-sharding.py``; None: off) with ``fsdp`` on and an ``fsdp`` axis of more
-than one rank shards the model with FSDP over the (data, fsdp) sub-mesh
-at this rank's stage and model coordinates (``shard``); otherwise DDP
-averages the gradients over the batch axes (the params replicated, as
-JAX replicates them with the policy off). The grad norm is the whole
-model's, and the eval counts are summed over the ``stage`` group (the
-last stage's) and then the batch group. ``samples_per_sec_per_chip``
-divides by every rank.
+not with ``scan_layers``), ``"pipeline"`` and ``"1f1b"`` the same split
+trained through the GPipe and 1F1B schedules (``parallel/pipeline.py``)
+in ``n_micro`` pipeline microbatches an accumulation microbatch (an int,
+or a function of the mesh such as ``train_mp``'s ``resolve_n_micro``):
+the train loader then cuts each step into ``grad_accum_steps × n_micro``
+microbatches, and the eval runs stage mode's forward; a ``model`` or
+``stage`` axis of more than one rank that no mode splits raises. The
+batch shards over ``(data, fsdp)``: the ranks of one batch shard read the
+same rows and draw the same dropout (``batch_index`` stands for the
+rank). ``policy`` (``parallel/sharding.py``; None: off) with ``fsdp`` on
+and an ``fsdp`` axis of more than one rank shards the model with FSDP
+over the (data, fsdp) sub-mesh at this rank's stage and model
+coordinates (``shard``); otherwise DDP averages the gradients over the
+batch axes (the params replicated, as JAX replicates them with the
+policy off), or, under the schedules, their train step does once a step.
+The grad norm is the whole model's, and the eval counts are summed over
+the ``stage`` group (the last stage's) and then the batch group.
+``samples_per_sec_per_chip`` divides by every rank.
 
 Per epoch: every optimizer step over ``[accum, micro, ...]`` batches, then
 a masked eval pass over the whole validation split and one history record
@@ -33,12 +39,13 @@ with the JAX trainer's keys (``epoch``, ``train_loss``,
 ``samples_per_sec``, ``samples_per_sec_per_chip``, then the eval metrics:
 ``accuracy`` and, for binary tasks, ``f1``; for ``lm``, ``eval_loss``,
 ``perplexity`` and ``token_accuracy``). ``step_log`` keeps each step's
-loss and grad norm, fetched from the device once per epoch.
+loss and grad norm (and, under the schedules, ``pipeline_bubble``),
+fetched from the device once per epoch.
 
 Not ported here (ROADMAP.md, queue 1): checkpoints and resume, the
 watchdog, preemption handling, telemetry sinks, runtime guards, the
 native loader and prefetch, chained steps, tensor and context
-parallelism, the pipeline schedules.
+parallelism.
 """
 
 from __future__ import annotations
@@ -80,6 +87,11 @@ from pytorch_distributed_training_tpu_torch.models.branch import (
 )
 from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2LMModel
 from pytorch_distributed_training_tpu_torch.models.stage import BertStage
+from pytorch_distributed_training_tpu_torch.parallel.pipeline import (
+    SCHEDULES,
+    check_micro_batch,
+    make_pipeline_train_step,
+)
 from pytorch_distributed_training_tpu_torch.parallel.sharding import (
     ShardingPolicy,
     apply_fsdp,
@@ -112,7 +124,8 @@ from pytorch_distributed_training_tpu_torch.utils.logging import log0
 
 
 # the mesh axis each model-parallel mode splits the model over
-SPLIT_AXIS = {"branch": AXIS_MODEL, "stage": AXIS_STAGE}
+SPLIT_AXIS = {"branch": AXIS_MODEL, "stage": AXIS_STAGE,
+              **{mode: AXIS_STAGE for mode in SCHEDULES}}
 MP_MODES = (None, *SPLIT_AXIS)
 
 
@@ -122,7 +135,8 @@ class Trainer:
                  mesh_config: Optional[MeshConfig] = None,
                  mp_mode: Optional[str] = None,
                  model: Optional[Callable] = None,
-                 policy: Optional[ShardingPolicy] = None):
+                 policy: Optional[ShardingPolicy] = None,
+                 n_micro=None):
         tcfg = self.tcfg = train_config
         if mp_mode not in MP_MODES:
             raise ValueError(f"mp_mode must be one of {MP_MODES}, got "
@@ -134,16 +148,16 @@ class Trainer:
             raise ValueError(f"mp_mode={mp_mode!r} keeps per-layer modules; "
                              f"the config scans the trunk")
         # the mode's stacked axis, as the JAX CLI sets it
+        split = SPLIT_AXIS.get(mp_mode)
         self.policy = dataclasses.replace(
-            policy or ShardingPolicy(), branch=mp_mode == "branch",
-            stage=mp_mode == "stage")
+            policy or ShardingPolicy(), branch=split == AXIS_MODEL,
+            stage=split == AXIS_STAGE)
         self.info = initialize(resolve_device(device))
         self.device = self.info.device
         mesh = self.mesh = build_mesh(mesh_config, rank=self.info.rank,
                                       world_size=self.info.world_size)
-        split = SPLIT_AXIS.get(mp_mode)
         for mode, axis in SPLIT_AXIS.items():
-            if mesh.shape[axis] > 1 and mode != mp_mode:
+            if mesh.shape[axis] > 1 and axis != split:
                 raise ValueError(
                     f"mesh axis {axis}={mesh.shape[axis]} needs "
                     f"mp_mode={mode!r} (got {mp_mode!r})")
@@ -182,9 +196,18 @@ class Trainer:
         # the ranks of one batch shard read the same rows
         shard = dict(seed=tcfg.seed, rank=batch_index(mesh),
                      world_size=dp_degree(mesh), device=self.device)
+        self.schedule_mode = mp_mode if mp_mode in SCHEDULES else None
+        self.n_micro = 1
+        if self.schedule_mode:
+            if n_micro is None:
+                raise ValueError(f"mp_mode={mp_mode!r} needs n_micro")
+            self.n_micro = n_micro(mesh) if callable(n_micro) else n_micro
+            check_micro_batch(tcfg.micro_batch_size, self.n_micro,
+                              dp_degree(mesh))
         self.train_loader = ShardedLoader(
             train_data, global_batch_size=tcfg.global_batch_size,
-            grad_accum_steps=tcfg.grad_accum_steps, train=True, **shard,
+            grad_accum_steps=tcfg.grad_accum_steps * self.n_micro,
+            train=True, **shard,
         )
         self.eval_loaders = {
             suffix: ShardedLoader(d, global_batch_size=tcfg.eval_batch_size,
@@ -204,7 +227,7 @@ class Trainer:
             module = model_cls(
                 model_config,
                 generator=torch.Generator().manual_seed(tcfg.seed))
-        if mp_mode == "stage" and mesh.shape[AXIS_STAGE] > 1:
+        if split == AXIS_STAGE and mesh.shape[AXIS_STAGE] > 1:
             module = BertStage(module, mesh)
         self.split = split
         total_updates = self.train_loader.steps_per_epoch * tcfg.num_epochs
@@ -259,7 +282,8 @@ class Trainer:
             grad_norm=grad_norm,
         )
         wrapped = None
-        if not sharded and mesh.batch_group is not None:
+        if (not sharded and not self.schedule_mode
+                and mesh.batch_group is not None):
             # DDP over this rank's batch shards only: the ranks of another
             # model or stage coordinate hold other weights
             wrapped = DistributedDataParallel(
@@ -270,10 +294,16 @@ class Trainer:
             )
         self.state = create_train_state(model, optimizer, tcfg.seed,
                                         wrapped=wrapped)
-        self.train_step = make_train_step(
-            grad_accum_steps=tcfg.grad_accum_steps, objective=self.objective,
-            mesh=mesh, grad_norm=grad_norm,
-        )
+        if self.schedule_mode:
+            self.train_step = make_pipeline_train_step(
+                self.mcfg, mesh, schedule=self.schedule_mode,
+                n_micro=self.n_micro, grad_accum_steps=tcfg.grad_accum_steps,
+                grad_norm=grad_norm)
+        else:
+            self.train_step = make_train_step(
+                grad_accum_steps=tcfg.grad_accum_steps,
+                objective=self.objective, mesh=mesh, grad_norm=grad_norm,
+            )
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -284,7 +314,9 @@ class Trainer:
         spe = self.train_loader.steps_per_epoch
         log0(f"training: {cfg.num_epochs} epochs x {spe} updates (global "
              f"batch {cfg.global_batch_size} = {cfg.grad_accum_steps} x "
-             f"{cfg.global_batch_size // cfg.grad_accum_steps}), "
+             f"{cfg.global_batch_size // cfg.grad_accum_steps}"
+             + (f" in {self.n_micro} pipeline microbatches"
+                if self.schedule_mode else "") + "), "
              f"{self.info.world_size} process(es) on {self.device}, mesh "
              f"{self.mesh.shape}")
         for epoch in range(cfg.num_epochs):
@@ -322,7 +354,10 @@ class Trainer:
         host = torch.stack([torch.stack([m["loss"], m["grad_norm"]])
                             for m in metrics]).cpu().tolist()
         first = self.state.step - len(host)
-        self.step_log += [dict(step=first + i + 1, loss=loss, grad_norm=norm)
+        bubble = ({"pipeline_bubble": metrics[0]["pipeline_bubble"]}
+                  if "pipeline_bubble" in metrics[0] else {})
+        self.step_log += [dict(step=first + i + 1, loss=loss, grad_norm=norm,
+                               **bubble)
                           for i, (loss, norm) in enumerate(host)]
         return host
 

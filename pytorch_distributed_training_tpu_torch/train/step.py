@@ -163,21 +163,36 @@ def make_train_step(*, grad_accum_steps: int,
                     loss = torch.zeros_like(out)
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-        params = [p for p in state.module.parameters() if p.grad is not None]
-        if fsdp:  # FSDP's ignored parameters: replicated, reduced here
-            average_([p.grad for p in params if not is_sharded(p)],
-                     mesh.batch_group)
-        norm = grad_norm(params, [p.grad for p in params])
-        state.optimizer.step()
-        state.step += 1
-        # the loss lives on the last stage (the others add zeros) and is
-        # the same on every rank of the model axis
-        loss = all_reduce_mean(
-            all_reduce_sum(loss_sum, mesh.group(AXIS_STAGE)),
-            mesh.batch_group)
-        return {"loss": loss, "grad_norm": norm}
+        # FSDP's ignored parameters: replicated, reduced here
+        return finish_step(state, loss_sum, mesh, grad_norm,
+                           average=is_replicated if fsdp else None)
 
     return train_step
+
+
+def is_replicated(p) -> bool:
+    return not is_sharded(p)
+
+
+def finish_step(state: TrainState, loss_sum: torch.Tensor, mesh: Mesh,
+                grad_norm: Callable, *,
+                average: Optional[Callable] = None) -> dict:
+    """The rest of a train step once its backwards have run: the
+    gradients of the parameters ``average`` picks averaged over the batch
+    group, the grad norm, one optimizer update, and the step's loss
+    (``loss_sum``, this rank's) summed over the stage axis and averaged
+    over the batch axes."""
+    params = [p for p in state.module.parameters() if p.grad is not None]
+    if average is not None:
+        average_([p.grad for p in params if average(p)], mesh.batch_group)
+    norm = grad_norm(params, [p.grad for p in params])
+    state.optimizer.step()
+    state.step += 1
+    # the loss lives on the last stage (the others add zeros) and is the
+    # same on every rank of the model axis
+    loss = all_reduce_mean(all_reduce_sum(loss_sum, mesh.group(AXIS_STAGE)),
+                           mesh.batch_group)
+    return {"loss": loss, "grad_norm": norm}
 
 
 def make_eval_step(objective: str = "classification",

@@ -1,8 +1,10 @@
 """Port parity, hybrid parallel training: the PyTorch package's process mesh
 (``comms/mesh.py``) against the JAX package's ``MeshConfig``, ``cli/
-train_mp`` (its errors and the flags not ported yet), and runs over several
-gloo processes (branch and stage splits, data × model) against one
-process, on the CPU."""
+train_mp`` (its errors, the flags not ported yet, and its modes at world
+1), and runs over several gloo processes (branch and stage splits, data ×
+model) against one process, on the CPU. ``tests/test_torch_pipeline.py``
+runs the pipeline schedules on the same harness (``_MP_SCRIPT``,
+``_run``)."""
 
 import json
 import os
@@ -110,7 +112,6 @@ def test_mesh_fsdp_and_seq_not_ported(axis, item):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mp-mode", "pipeline"], "item 3"), (["--mp-mode", "1f1b"], "item 3"),
     (["--mesh-seq", "2"], "item 4"), (["--attention", "ring"], "item 4"),
     (["--matmul-impl", "int8"], "item 6"),
     (["--matmul-impl", "int8_full"], "item 6"),
@@ -167,6 +168,23 @@ def test_train_mp_cli_runs_branch_mode_with_the_jax_history_keys(tmp_path):
         for s in trainer.step_log)
 
 
+@pytest.mark.parametrize("mode", ["pipeline", "1f1b"])
+def test_train_mp_cli_runs_the_schedules_with_the_jax_history_keys(mode):
+    # at world 1 (one stage) both schedules are microbatching: auto n_micro
+    # 4 of 2 rows each, the same steps as stage mode at micro 2, bit for bit
+    with open(os.path.join(REPO, "HISTORY_bert_large_recipe_seed42.json")) as f:
+        jax_keys = list(json.load(f)[0])
+    trainer = train_mp.train(TINY + ["--mp-mode", mode])
+    assert trainer.n_micro == 4 and trainer.train_loader.accum == 8
+    assert list(trainer.history[0]) == jax_keys
+    assert [s["pipeline_bubble"] for s in trainer.step_log] == [0.0, 0.0]
+    stage = train_mp.train(TINY + ["--mp-mode", "stage",
+                                   "--micro-batch-size", "2"])
+    assert [(s["loss"], s["grad_norm"]) for s in trainer.step_log] == [
+        (s["loss"], s["grad_norm"]) for s in stage.step_log]
+    assert trainer.history[0]["accuracy"] == stage.history[0]["accuracy"]
+
+
 def test_train_mp_stage_mode_at_world_one_equals_train_dp():
     # dropout on: the same model, the same masks, the same steps
     stage = train_mp.train(TINY + ["--mp-mode", "stage"])
@@ -191,6 +209,10 @@ _MP_SCRIPT = textwrap.dedent("""
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
     from pytorch_distributed_training_tpu_torch.utils.config import (
         MeshConfig, TrainConfig, model_preset)
+    from pytorch_distributed_training_tpu_torch.parallel import (
+        ShardingPolicy)
+    from pytorch_distributed_training_tpu_torch.train.step import (
+        _forward, _loss, microbatch_seed)
     out, spec = sys.argv[1], json.loads(sys.argv[2])
     rate = spec["dropout"]
     model = None
@@ -200,23 +222,58 @@ _MP_SCRIPT = textwrap.dedent("""
                                             mesh=mesh)
     t = Trainer(
         model_preset("tiny", compute_dtype="float32", hidden_dropout=rate,
-                     attention_dropout=rate),
+                     attention_dropout=rate,
+                     num_layers=spec.get("layers", 2)),
         TrainConfig(num_epochs=1, train_size=32, eval_size=24,
-                    global_batch_size=16, micro_batch_size=8,
+                    global_batch_size=16,
+                    micro_batch_size=spec.get("micro", 8),
                     eval_batch_size=8, warmup_steps=1, learning_rate=1e-3,
                     max_grad_norm=spec["clip"], log_every=0),
         task="synthetic", device="cpu",
         mesh_config=MeshConfig(**spec["mesh"]), mp_mode=spec["mode"],
-        model=model)
+        model=model, n_micro=spec.get("n_micro"),
+        policy=ShardingPolicy(fsdp=spec.get("fsdp", False),
+                              fsdp_min_size=128))
+    n = spec.get("shards", 1)
+    if n > 1:  # one process standing for n batch shards: shard r of each
+        def step(state, batch):  # microbatch seeded as rank r
+            accum = len(batch["input_ids"])
+            state.optimizer.zero_grad(set_to_none=True)
+            total = torch.zeros(())
+            for m in range(accum):
+                micro = {k: v[m] for k, v in batch.items()}
+                rows = micro["input_ids"].shape[0] // n
+                for r in range(n):
+                    part = {k: v[r * rows:(r + 1) * rows]
+                            for k, v in micro.items()}
+                    seed = microbatch_seed(state.dropout_seed, state.step,
+                                           m, r)
+                    loss = _loss(t.objective, _forward(state.model, part,
+                                                       seed), part)
+                    loss = loss / (accum * n)
+                    loss.backward()
+                    total = total + loss.detach()
+            params = [p for p in state.module.parameters()
+                      if p.grad is not None]
+            norm = state.optimizer.grad_norm(params,
+                                             [p.grad for p in params])
+            state.optimizer.step()
+            state.step += 1
+            return {"loss": total, "grad_norm": norm}
+        t.train_step = step
     t.run()
     rank = t.info.rank
-    torch.save(t.state.module.state_dict(), f"{out}.{rank}.pt")
+    sd = t.state.module.state_dict()
+    torch.save({k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                for k, v in sd.items()}, f"{out}.{rank}.pt")
     groups = {a: None if g is None else dist.get_process_group_ranks(g)
               for a, g in t.mesh.groups.items()}
     with open(f"{out}.{rank}.json", "w") as f:
         json.dump({"steps": t.step_log, "history": t.history,
                    "world": t.info.world_size, "coords": t.mesh.coords,
-                   "groups": groups}, f)
+                   "groups": groups,
+                   "sharded": [k for k, v in sd.items()
+                               if hasattr(v, "full_tensor")]}, f)
     shutdown()
 """)
 
@@ -227,9 +284,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run(tmp_path, runs: dict) -> dict:
-    """Start every run (name -> (world size, spec)) at once, one process a
-    rank, and read back each run's per-rank records and state dicts."""
+def _run(tmp_path, runs: dict, script: str = _MP_SCRIPT) -> dict:
+    """Start every run (name -> (world size, spec)) of ``script`` at once,
+    one process a rank, and read back each run's per-rank records and
+    state dicts."""
     base = dict(os.environ, CUDA_VISIBLE_DEVICES="", MASTER_ADDR="127.0.0.1",
                 GLOO_SOCKET_IFNAME="lo", PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_PORT"):
@@ -243,7 +301,7 @@ def _run(tmp_path, runs: dict) -> dict:
                 env.update(MASTER_PORT=port, WORLD_SIZE=str(world),
                            RANK=str(r), LOCAL_RANK=str(r))
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", _MP_SCRIPT, str(tmp_path / name),
+                [sys.executable, "-c", script, str(tmp_path / name),
                  json.dumps(spec)],
                 cwd=REPO, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True,
@@ -273,13 +331,13 @@ def _run(tmp_path, runs: dict) -> dict:
     return out
 
 
-def _assert_same_run(got, want):
+def _assert_same_run(got, want, rtol=1e-5):
     a, b = want["recs"][0], got["recs"][0]
     assert len(a["steps"]) == len(b["steps"]) == 2
     for sa, sb in zip(a["steps"], b["steps"]):
-        np.testing.assert_allclose(sb["loss"], sa["loss"], rtol=1e-5)
+        np.testing.assert_allclose(sb["loss"], sa["loss"], rtol=rtol)
         np.testing.assert_allclose(sb["grad_norm"], sa["grad_norm"],
-                                   rtol=1e-5)
+                                   rtol=rtol)
     for rec in got["recs"]:  # every rank reports the same run
         assert rec["steps"] == b["steps"]
         for k in ("train_loss", "accuracy", "f1"):
