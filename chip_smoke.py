@@ -92,8 +92,27 @@ the JAX package), in phases that each raise on failure:
    one-rank device mesh (FSDP2's unshard and reshard of every unit, at
    one rank device copies in place of the all-gather and reduce-scatter,
    and AdamW on DTensor shards, on the card), counted, its losses within
-   1e-4 of the unwrapped run's, and once more under ``torch.profiler``
-   (the device time of FSDP's ranges and of any collective);
+   1e-4 of the unwrapped run's, and its first step and the eval once
+   more under ``torch.profiler`` (the device time of FSDP's ranges and of
+   any collective). Then
+   tensor and context parallelism (one card is world size 1, so their
+   collectives run only over gloo on the CPU): ``tp-split``, one
+   gpt2-medium block at lm-1024's shape in bf16 with the flash kernels,
+   cut by ``parallel/sharding.tensor_parallel`` into model-2 and model-4
+   slices, each slice's forward and backward run in this process with
+   the row-parallel partials summed as the all-reduce sums them, output,
+   input gradient and every weight gradient (re-assembled) against the
+   whole block's, and a slice's ms beside the whole block's; ``ring``,
+   ring attention at lm-1024's attention shape in bf16, causal, the
+   sequence cut into 2 and 4 shards driven in turn in this process,
+   forward and q/k/v gradients against ``reference_attention``, rate 0.1
+   finite, alike twice and keeping 0.9 of the probabilities within 1%,
+   its ms beside kernels 6 + 9 and reference attention at that shape;
+   ``tp-cp-equal``, ``train_lm`` on the tiny LM with ``--tp
+   --no-scan-layers`` against without ``--tp``, with ``--attention
+   ring`` against ``--attention reference`` (JAX's fallback at a seq axis
+   of 1), and ``train_dp --attention ring`` against ``reference``, the
+   steps and eval metrics bit for bit and the launches equal;
 7. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
    (random weights from ``--seed 0``) over a JSONL request stream, with the
    kernels' launch counters reset just before and read just after; checks
@@ -1365,7 +1384,7 @@ def tick_phase(reps=20) -> dict:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 engine._decode(*args)
-        return sum(e.count for e in prof.key_averages()
+        return sum(e.count for e in profile_averages(prof)
                    if e.device_type == DeviceType.CUDA
                    and _kernel_class(e.key) != "copy")
 
@@ -1469,7 +1488,7 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
     events = [json.loads(line) for line in out.getvalue().splitlines()]
     streams(events, prompts, new_tokens)
     # aggregated once: each call walks every event again (seconds)
-    averages = prof.key_averages()
+    averages = profile_averages(prof)
     bad = sorted({e.key[:90] for e in averages
                   if e.device_type == DeviceType.CUDA
                   and any(sym in e.key for sym in forbid)})
@@ -1485,9 +1504,176 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
     return res
 
 
+class _Event:
+    """One event of a profile, as torch's ``FunctionEvent`` sees it."""
+
+    __slots__ = ("name", "device_type", "start", "end", "thread", "is_async",
+                 "is_user_annotation", "is_legacy", "kernels", "children",
+                 "parent")
+
+    def __init__(self, name, device_type, start, end, thread, is_async,
+                 is_user_annotation):
+        self.name, self.device_type = name, device_type
+        self.start, self.end, self.thread = start, end, thread
+        self.is_async, self.is_user_annotation = is_async, is_user_annotation
+        self.is_legacy = False
+        self.kernels, self.children, self.parent = [], [], None
+
+
+class _Average:
+    """``FunctionEventAvg``'s fields the profile phases read."""
+
+    __slots__ = ("key", "device_type", "is_user_annotation", "count",
+                 "self_cpu_time_total", "device_time_total",
+                 "self_device_time_total")
+
+    def __init__(self, key, device_type, is_user_annotation):
+        self.key, self.device_type = key, device_type
+        self.is_user_annotation = is_user_annotation
+        self.count = 0
+        self.self_cpu_time_total = self.device_time_total = 0.0
+        self.self_device_time_total = 0.0
+
+
+def profile_averages(prof) -> list:
+    """``profile_averages(prof)`` (its counts, host self times, device times
+    and device self times, grouped as it groups them) computed from the
+    profiler's raw events with torch's own rules (``autograd/profiler.py``
+    ``_parse_kineto_results``, ``profiler_util.py`` ``EventList.
+    _build_tree``): the names filtered and demangled, device kernels and
+    runtime calls linked to the op that launched them, the CPU events
+    nested by thread, a parent's only child of its own name folded into
+    it. torch builds a Python object a raw event on the way, which takes
+    tens of seconds for a training step's trace; this takes a second."""
+    gc.disable()  # the events' parent links are cycles: no scans midway
+    try:
+        return _profile_averages(prof)
+    finally:
+        gc.enable()
+
+
+def _profile_averages(prof) -> list:
+    import itertools
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+
+    result = prof.profiler.kineto_results
+    use_device = prof.profiler.use_device
+    origin = result.trace_start_ns()
+    names: dict = {}
+    events, frontend, linked = [], [], {}
+    for raw in result.events():
+        name = raw.name()
+        if _filter_name(name) or raw.is_hidden_event():
+            continue
+        if name not in names:
+            shown = torch._C._demangle(name) if len(name) > 1 else name
+            names[name] = ("ProfilerStep*" if shown.startswith(
+                "ProfilerStep#") else shown)
+        dev = raw.device_type()
+        e = _Event(names[name], dev, (raw.start_ns() - origin) / 1000,
+                   (raw.end_ns() - origin) / 1000, raw.start_thread_id(),
+                   raw.is_async() or (raw.start_thread_id()
+                                      != raw.end_thread_id()),
+                   raw.is_user_annotation())
+        if dev == DeviceType.CPU and not e.is_async and use_device == "cuda":
+            legacy_us = raw.cuda_elapsed_us()
+            if legacy_us > 0:
+                e.kernels.append(legacy_us)
+                e.is_legacy = True
+        events.append(e)
+        corr = raw.linked_correlation_id()
+        if corr > 0:
+            linked.setdefault(corr, []).append(e)
+        elif corr == 0:
+            frontend.append((raw.correlation_id(), e))
+    for corr, e in frontend:
+        if e.device_type != DeviceType.CPU or e.is_async:
+            continue
+        for f in linked.get(corr, ()):
+            if f.device_type == DeviceType.CUDA:
+                e.kernels.append(f.end - f.start)
+            elif f.device_type == DeviceType.CPU:
+                f.thread = e.thread
+    sync = sorted((e for e in events
+                   if not e.is_async and e.device_type == DeviceType.CPU),
+                  key=lambda e: e.thread)
+    for _, run in itertools.groupby(sync, key=lambda e: e.thread):
+        stack: list = []
+        for e in sorted(run, key=lambda e: (e.start, -e.end)):
+            while stack:
+                top = stack[-1]
+                if e.start >= top.end or e.end > top.end:
+                    stack.pop()
+                else:
+                    top.children.append(e)
+                    e.parent = top
+                    break
+            stack.append(e)
+    while True:
+        folded = set()
+        for e in events:
+            p = e.parent
+            if p is not None and p.name == e.name and len(p.children) == 1:
+                p.children, p.kernels = e.children, e.kernels
+                for c in e.children:
+                    c.parent = p
+                folded.add(id(e))
+        if not folded:
+            break
+        events = [e for e in events if id(e) not in folded]
+
+    device_total: dict = {}
+
+    def device_time(e) -> float:
+        if e.is_async or not use_device:
+            return 0.0
+        if e.device_type != DeviceType.CPU:
+            return e.end - e.start
+        if id(e) not in device_total:
+            total = sum(e.kernels)
+            if not e.is_legacy:
+                # children first, deepest last: no recursion limit
+                pending = [c for c in e.children if id(c) not in device_total]
+                while pending:
+                    c = pending[-1]
+                    todo = [g for g in c.children if id(g) not in device_total]
+                    if todo:
+                        pending += todo
+                        continue
+                    pending.pop()
+                    device_time(c)
+                total += sum(device_total[id(c)] for c in e.children)
+            device_total[id(e)] = total
+        return device_total[id(e)]
+
+    out: dict = {}
+    for e in events:
+        key = (e.name, e.device_type, e.is_legacy, e.is_user_annotation)
+        avg = out.get(key)
+        if avg is None:
+            avg = out[key] = _Average(e.name, e.device_type,
+                                      e.is_user_annotation)
+        avg.count += 1
+        dt = device_time(e)
+        avg.device_time_total += dt
+        if e.is_async:
+            continue
+        if e.device_type == DeviceType.CPU:
+            avg.self_cpu_time_total += (e.end - e.start) - sum(
+                c.end - c.start for c in e.children)
+            avg.self_device_time_total += dt - sum(
+                device_time(c) for c in e.children)
+        elif use_device:
+            avg.self_device_time_total += dt
+    return list(out.values())
+
+
 def device_time_by_class(averages, wall_s, top_n=10) -> dict:
     """Device kernel time of a ``torch.profiler`` run (its
-    ``key_averages()``) by kernel class, and its share of ``wall_s`` (the
+    ``profile_averages``) by kernel class, and its share of ``wall_s`` (the
     host seconds of the profiled work)."""
     from torch.autograd import DeviceType
 
@@ -2244,7 +2430,7 @@ def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
     from torch.autograd import DeviceType
 
     # aggregated once: each call walks every event again (seconds)
-    averages = prof.key_averages()
+    averages = profile_averages(prof)
     bad = sorted({e.key[:90] for e in averages
                   if e.device_type == DeviceType.CUDA
                   and any(sym in e.key for sym in forbid)})
@@ -2262,7 +2448,7 @@ def train_profile_phase(warm, argv=TRAIN_ARGS, cli="train_dp",
 
 
 def host_time_by_op(averages, top_n=12) -> dict:
-    """Host self time of a ``torch.profiler`` run (its ``key_averages()``)
+    """Host self time of a ``torch.profiler`` run (its ``profile_averages``)
     by operator (the main thread and autograd's backward thread together),
     the largest first, and the number of kernel launches the host
     issued."""
@@ -2690,7 +2876,7 @@ def kernel_ms_by_symbol(fn, reps=20) -> dict:
             fn()
         torch.cuda.synchronize()
     out: dict[str, float] = {}
-    for e in prof.key_averages():
+    for e in profile_averages(prof):
         if e.device_type != DeviceType.CUDA:
             continue
         m = re.search(r"(\w+)<", e.key) or re.search(r"(\w+)\(", e.key)
@@ -3183,7 +3369,7 @@ def collective_time(averages) -> dict:
     """Calls and device ms of FSDP2's ranges (``FSDP::*``) and of the
     collectives (``c10d::*`` ops and the ``nccl:*``/``gloo:*`` ranges
     inside them, with the device work each launched) of a
-    ``torch.profiler`` run's ``key_averages()``; ``fsdp_ms``: the ranges that hold FSDP's
+    ``torch.profiler`` run's ``profile_averages``; ``fsdp_ms``: the ranges that hold FSDP's
     device work, ``collectives_ms``: the ``c10d::*`` ops'."""
     from torch.autograd import DeviceType
 
@@ -3205,8 +3391,8 @@ def lm_fsdp_child(port: int) -> dict:
     """The lm-fsdp phase's process: a one-process NCCL group, then the
     LM_FSDP_ARGS run unwrapped (the losses' reference), the same run
     sharded (``_sharded_lm_trainer``) and counted, the unwrapped run
-    again (warm, for its ms a step), and the sharded run once more under
-    ``torch.profiler``."""
+    again (warm, for its ms a step), and the sharded run's first step and
+    eval under ``torch.profiler``."""
     import torch
     import torch.distributed as dist
     from torch.distributed.fsdp import FSDPModule
@@ -3271,14 +3457,16 @@ def lm_fsdp_child(port: int) -> dict:
                         f"lm-fsdp {key}: unwrapped {plain[key]} sharded "
                         f"{fsdp[key]} (rtol {CPU_CARD_RTOL})")
         plain["warm"] = unwrapped()
-        trainer, _ = _sharded_lm_trainer(LM_FSDP_ARGS)
+        # the profile: one step + the eval, as lm-1024's
+        trainer, _ = _sharded_lm_trainer(
+            one_step(LM_FSDP_ARGS, LM_PROFILE_TRAIN_SIZE))
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             trainer.run()
         wall = time.perf_counter() - t0
         del trainer
-        averages = prof.key_averages()
+        averages = profile_averages(prof)
         prof_res = device_time_by_class(averages, wall)
         collectives = collective_time(averages)
     finally:
@@ -3325,6 +3513,308 @@ def lm_fsdp_phase() -> dict:
         f"fsdp-{LM_FSDP_SIZE} placements on a one-rank device mesh against "
         "unwrapped: " + json.dumps(result) + f" (rtol {CPU_CARD_RTOL})")
     return result
+
+
+# tp-split: one gpt2-medium block at lm-1024's shape (micro 4 x seq 1024),
+# bf16, flash, probs dropout off (the flash kernels draw by the global
+# head, which a slice renumbers) and hidden dropout at the preset's 0.1;
+# each slice's bf16 partials are rounded before their sum, so the errors,
+# max |got - want| over max |want| a tensor, stay within a few bf16 ulps
+TP_SPLIT_SIZES = (2, 4)
+TP_SPLIT_ROWS = (4, 1024)
+TP_SPLIT_TOL = 3e-2
+# ring: lm-1024's attention, [micro 4, seq 1024, 16 heads, head_dim 64],
+# bf16, causal, against the plain reference on the card (the probabilities
+# rounded to bf16 against another running max: a few bf16 ulps of the
+# largest magnitude); the keep share of rate 0.1 on float32 uniform scores
+RING_SHAPE = (4, 1024, 16, 64)
+RING_SHARDS = (2, 4)
+RING_TOL = 2e-2
+RING_RATE = 0.1
+RING_KEEP_SHAPE = (2, 1024, 16, 64)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in float32."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def call_ms(fn) -> dict:
+    """ms of ``fn`` called back to back (CUDA events around eager calls,
+    the host's launches included) and device ms a call (the kernels'
+    sum, ``torch.profiler``; None when the profile caught no kernel)."""
+    device = sum(kernel_ms_by_symbol(fn, reps=3).values())
+    # a profile that caught no kernel is no measurement
+    return dict(ms=eager_ms(fn, reps=10, inner=3), device_ms=device or None)
+
+
+def tp_split_check(cfg, m: int, *, device, batch: int, seq: int,
+                   tol: float, timed: bool = True, seed: int = 0) -> dict:
+    """One GPT-2 block of ``cfg``, whole and cut into ``m`` model-axis
+    slices (``tensor_parallel`` with an in-process ``AxisShard``: no
+    group, so each slice's collectives are the identity): each slice runs
+    its attention on its heads and its MLP on its columns, the row-parallel
+    partials summed here as the all-reduce sums them (the replicated biases
+    on slice 0 alone, added once), the LayerNorms and dropouts once;
+    output, input gradient and every weight gradient (the slices
+    re-assembled on their split dims) against the whole block's, within
+    ``tol``. ``timed``: a slice's forward + backward and the whole
+    block's, ms a call back to back (CUDA events) and device ms a call
+    (``torch.profiler``, the kernels' sum)."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.comms.mesh import (
+        AXIS_NAMES,
+        AxisShard,
+    )
+    from pytorch_distributed_training_tpu_torch.models.bert import (
+        _SITE_ATTENTION_NORM,
+        _SITE_MLP_NORM,
+        compute_dtype,
+    )
+    from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2Block
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        ShardingPolicy,
+        model_dims,
+        param_specs,
+        tensor_parallel,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    whole = GPT2Block(cfg, generator=gen)
+    with torch.no_grad():  # biases off zero: the replicated ones count
+        for name, p in whole.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=gen)
+    specs = param_specs(
+        {n: tuple(p.shape) for n, p in whole.named_parameters()},
+        ShardingPolicy(tp=True), {a: m if a == "model" else 1
+                                  for a in AXIS_NAMES})
+    dims = model_dims(specs)
+    slices = []
+    for r in range(m):
+        part = copy.deepcopy(whole)
+        shard = AxisShard(group=None, index=r, size=m,
+                          ranks=tuple(range(m)))
+        tensor_parallel(part, specs, shard)
+        if not part.tp_shard is part.attention.tp_shard is shard:
+            raise AssertionError("tp-split: the model axis not handed to "
+                                 "the block's attention and MLP")
+        if r:
+            with torch.no_grad():
+                part.attention.out.bias.zero_()
+                part.mlp_down.bias.zero_()
+        slices.append(part.to(device))
+    whole = whole.to(device)
+    dtype = compute_dtype(cfg)
+    shape = (batch, seq, cfg.hidden_size)
+    x = torch.randn(shape, generator=gen).to(device, dtype).requires_grad_()
+    dy = torch.randn(shape, generator=gen).to(device, dtype)
+    layer_seed = 1234
+
+    def split_forward(x):
+        first = slices[0]
+        a = first.ln_1(x)
+        h = sum(s.attention(a, None, dropout_seed=layer_seed)
+                for s in slices)
+        x = x + first.dropout(h, layer_seed, _SITE_ATTENTION_NORM)
+        c = first.ln_2(x)
+        h = sum(s.mlp_down(F.gelu(s.mlp_up(c), approximate="tanh"))
+                for s in slices)
+        return x + first.dropout(h, layer_seed, _SITE_MLP_NORM)
+
+    def run(forward):
+        x.grad = None
+        y = forward(x)
+        y.backward(dy)
+        return y.detach(), x.grad.detach()
+
+    want_y, want_dx = run(lambda x: whole(x, None, dropout_seed=layer_seed))
+    got_y, got_dx = run(split_forward)
+    params = [dict(s.named_parameters()) for s in slices]
+    wants = dict(whole.named_parameters())
+    errors = {"out": rel_err(got_y, want_y), "dx": rel_err(got_dx, want_dx)}
+    for name, p in wants.items():
+        got = (torch.cat([q[name].grad for q in params], dims[name])
+               if name in dims else params[0][name].grad)
+        if name.endswith("key.bias"):
+            # zero but for rounding (it shifts a row's scores alike): its
+            # error is taken at the query bias's scale
+            scale = wants[name.replace("key", "query")].grad
+            errors[name] = float((got - p.grad).float().abs().max()
+                                 / scale.float().abs().max())
+        else:
+            errors[name] = rel_err(got, p.grad)
+    worst = max(errors.values())
+    if not (torch.isfinite(got_y).all() and worst <= tol):
+        raise AssertionError(f"tp-split: model {m}: errors {errors} (tol "
+                             f"{tol})")
+    res = dict(model=m, heads=cfg.num_heads // m,
+               mlp_columns=cfg.intermediate_size // m, max_rel_err=worst,
+               out_err=errors["out"], dx_err=errors["dx"],
+               leaves=len(errors) - 2)
+    if timed:
+        one = slices[0]
+        for net, key in ((one, "slice"), (whole, "whole")):
+            def step(net=net):
+                net(x, None, dropout_seed=layer_seed).backward(dy)
+
+            res[f"{key}_ms"] = eager_ms(step, reps=10, inner=5)
+            res[f"{key}_device_ms"] = sum(kernel_ms_by_symbol(
+                step, reps=5).values()) or None
+    return res
+
+
+def tp_split_phase(device, sizes=TP_SPLIT_SIZES, rows=TP_SPLIT_ROWS) -> list:
+    """``tp_split_check`` on one gpt2-medium block (bf16, flash) at each
+    model-axis size of ``sizes``."""
+    from pytorch_distributed_training_tpu_torch.utils.config import (
+        model_preset,
+    )
+
+    cfg = model_preset("gpt2-medium", attention_dropout=0.0)
+    out = []
+    for m in sizes:
+        res = tp_split_check(cfg, m, device=device, batch=rows[0],
+                             seq=rows[1], tol=TP_SPLIT_TOL)
+        say(f"[tp-split] gpt2-medium block at [{rows[0]}, {rows[1]}], bf16, "
+            f"flash, cut into {m} model-axis slices ({res['heads']} heads, "
+            f"{res['mlp_columns']} MLP columns a slice), partials summed in "
+            f"this process, against the whole block: " + json.dumps(res)
+            + f" (tol {TP_SPLIT_TOL})")
+        out.append(res)
+    return out
+
+
+def ring_phase(device, shape=RING_SHAPE, shards=RING_SHARDS,
+               tol=RING_TOL, keep_shape=RING_KEEP_SHAPE,
+               timed: bool = True) -> dict:
+    """Ring attention on the card, the sequence of ``shape`` (bf16,
+    causal) cut into each count of ``shards`` shards driven in turn in
+    this process (``ops/ring_attention.ring_attention``): forward and
+    q/k/v gradients against ``reference_attention`` within ``tol``; rate
+    RING_RATE finite, alike twice, and keeping 1 - rate of the
+    probabilities within 1% (float32 q = k = 0, v = 1 at ``keep_shape``,
+    not causal: each output is the kept share / (1 - rate)); ``timed``:
+    ms of forward + backward (``call_ms``) beside reference attention's
+    and kernels 6 + 9's (``flash_attention``, rate 0: its eager call, and
+    the kernels alone by CUDA graph replay), for the record."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from pytorch_distributed_training_tpu_torch.ops.attention import (
+        reference_attention,
+    )
+    from pytorch_distributed_training_tpu_torch.ops.ring_attention import (
+        ring_attention,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, dy = (torch.randn(shape, generator=gen).to(device,
+                                                        torch.bfloat16)
+                   for _ in range(4))
+
+    def fwd_bwd(fn):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(dy)
+        return out.detach(), [t.grad for t in leaves]
+
+    def ring(n):
+        return lambda q, k, v: ring_attention(q, k, v, n_shards=n,
+                                              causal=True)
+
+    def reference(q, k, v):
+        return reference_attention(q, k, v, causal=True)
+
+    want, want_g = fwd_bwd(reference)
+    res = {}
+    for n in shards:
+        out, grads = fwd_bwd(ring(n))
+        errors = {"out": rel_err(out, want), **{
+            f"d{name}": rel_err(g, w)
+            for name, g, w in zip("qkv", grads, want_g)}}
+        if not (torch.isfinite(out).all() and max(errors.values()) <= tol):
+            raise AssertionError(f"ring: {n} shards: errors {errors} (tol "
+                                 f"{tol})")
+        res[f"shards_{n}"] = dict(errors)
+        if timed:
+            res[f"shards_{n}"].update(call_ms(lambda n=n: fwd_bwd(ring(n))))
+    zeros = torch.zeros(keep_shape, device=device)
+    ones = torch.ones(keep_shape, device=device)
+    drops = [ring_attention(zeros, zeros, ones, n_shards=max(shards),
+                            dropout_rate=RING_RATE, dropout_seed=11,
+                            dropout_site=2) for _ in range(2)]
+    keep = float(drops[0].double().mean()) * (1.0 - RING_RATE)
+    if not (torch.isfinite(drops[0]).all()
+            and torch.equal(drops[0], drops[1])
+            and abs(keep - (1.0 - RING_RATE)) <= 0.01 * (1.0 - RING_RATE)):
+        raise AssertionError(f"ring: rate {RING_RATE}: keep share {keep}, "
+                             f"finite and alike twice required")
+    res["keep_share"] = keep
+    if timed:
+        # kernels 6 + 9 alone, [B, N, S, D], CUDA graph replay (the
+        # kernel table's method), beside the eager autograd call
+        qt, kt, vt, dyt = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, dy))
+        none = torch.zeros((shape[0], 1, 1, shape[1]), device=device)
+        o, lse = fa.flash_fwd(qt, kt, vt, none, causal=True)
+        res["flash"] = dict(
+            ms=eager_ms(lambda: fwd_bwd(lambda q, k, v: fa.flash_attention(
+                q, k, v, causal=True)), reps=10, inner=3),
+            kernels_ms=time_ms(lambda: fa.flash_fwd(
+                qt, kt, vt, none, causal=True)) + time_ms(
+                lambda: fa.flash_bwd(qt, kt, vt, none, o, lse, dyt,
+                                     causal=True)))
+        res["reference"] = call_ms(lambda: fwd_bwd(reference))
+    say(f"[ring] ring attention at {list(shape)} bf16 causal, the sequence "
+        f"in {list(shards)} shards driven in turn, against "
+        f"reference_attention, forward + backward (flash: kernels 6 + 9 "
+        f"at rate 0, for the record): " + json.dumps(res)
+        + f" (tol {tol})")
+    return res
+
+
+def tp_cp_equal_phase(lm_argv=TINY_LM_ARGS, dp_argv=TINY_ARGS) -> dict:
+    """At world size 1 on the card: ``train_lm --tp --no-scan-layers``
+    against ``--no-scan-layers`` alone, ``train_lm --attention ring``
+    against ``--attention reference`` and ``train_dp --attention ring``
+    against ``--attention reference``: the steps and eval metrics bit for
+    bit and the launches equal."""
+    pairs = (
+        ("train_lm --tp", "train_lm", lm_argv + ["--no-scan-layers"],
+         ["--tp"]),
+        ("train_lm --attention ring", "train_lm",
+         lm_argv + ["--attention", "reference"], ["--attention", "ring"]),
+        ("train_dp --attention ring", "train_dp",
+         dp_argv + ["--attention", "reference"], ["--attention", "ring"]),
+    )
+    res = {}
+    for what, cli, argv, flags in pairs:
+        runs = []
+        for extra in ([], flags):
+            trainer, counts, _ = train_once(argv + extra
+                                            + ["--device", "cuda"], cli)
+            record = {k: v for k, v in trainer.history[0].items()
+                      if not k.startswith("samples")}
+            runs.append((trainer.step_log, record, counts))
+            del trainer
+        (steps, record, counts), (steps_b, record_b, counts_b) = runs
+        if steps != steps_b or record != record_b or counts != counts_b:
+            raise AssertionError(f"tp-cp-equal: {what}: {runs[1]} against "
+                                 f"{runs[0]}")
+        res[what] = dict(losses=[s["loss"] for s in steps],
+                         launches=counts)
+    say("[tp-cp-equal] at world size 1: bit for bit, launches equal: "
+        + json.dumps(res))
+    return res
 
 
 # ------------------------------------------------------------------- main
@@ -3404,6 +3894,12 @@ def main() -> int:
     lap("lm-scan-equal")
     lm_fsdp_phase()
     lap("lm-fsdp")
+    tp_split_phase(device)
+    lap("tp-split")
+    ring_phase(device)
+    lap("ring")
+    tp_cp_equal_phase()
+    lap("tp-cp-equal")
     serve = serve_phase()
     plain = serve.pop("streams")
     profile_phase(serve["warm"])

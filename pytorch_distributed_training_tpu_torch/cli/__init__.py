@@ -18,18 +18,3 @@ def raise_not_ported(checks) -> None:
     for asked, flag, item in checks:
         if asked:
             raise NotImplementedError(f"{flag} {NOT_PORTED.format(item)}")
-
-
-def parallel_checks(args) -> tuple:
-    """Tensor and context parallelism (slice 5 item 4), from whichever of
-    ``--tp``, ``--mesh-model``, ``--mesh-seq`` and ``--attention`` the
-    parser has (``--mesh-model`` only where no model-parallel mode takes
-    it)."""
-    tp = getattr(args, "tp", False)
-    model = getattr(args, "mesh_model", 1)
-    return (
-        (tp, "--tp", 4),
-        (model > 1, f"--mesh-model {model}", 4),
-        (args.mesh_seq > 1, f"--mesh-seq {args.mesh_seq}", 4),
-        (args.attention == "ring", "--attention ring", 4),
-    )

@@ -30,10 +30,17 @@ parameters and optimizer state over the fsdp axis (FSDP2,
         -m pytorch_distributed_training_tpu_torch.cli.train_dp \\
         --model tiny --task synthetic --device cpu --fsdp --mesh-fsdp 2
 
-Not ported yet (each raises ``NotImplementedError``; ROADMAP.md, queue 1,
-slice 5 item 4): ``--mesh-seq`` > 1 and ``--attention ring``. The JAX
-CLI's ``--matmul-impl``, ``--hf-checkpoint`` and restart flags wait for
-their slices (ROADMAP.md, queue 1).
+``--mesh-seq P`` is context parallelism: each rank holds S/P columns of
+every row, attention is the ring (``--attention ring``, the default there;
+at a seq axis of 1 it is reference attention, JAX's fallback) and the
+pooler reads the CLS row of the first seq shard::
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m pytorch_distributed_training_tpu_torch.cli.train_dp \\
+        --model tiny --task synthetic --device cpu --mesh-seq 2
+
+The JAX CLI's ``--matmul-impl``, ``--hf-checkpoint`` and restart flags
+wait for their slices (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -41,11 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from pytorch_distributed_training_tpu_torch.cli import (
-    parallel_checks,
-    raise_not_ported,
-    resolve_attention,
-)
+from pytorch_distributed_training_tpu_torch.cli import resolve_attention
 from pytorch_distributed_training_tpu_torch.utils.config import (
     MeshConfig,
     TrainConfig,
@@ -66,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attention", default=None,
                    choices=("reference", "flash", "ring"),
                    help="attention implementation (default: the preset's; "
-                        "ring, when --mesh-seq > 1, is not ported yet)")
+                        "ring when --mesh-seq > 1)")
     p.add_argument("--fsdp", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="shard params/opt state over the fsdp axis")
@@ -91,7 +94,6 @@ def build_trainer(args):
     )
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
 
-    raise_not_ported(parallel_checks(args))
     tcfg = dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",

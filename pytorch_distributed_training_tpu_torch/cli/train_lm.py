@@ -38,21 +38,31 @@ nothing to shard, the model runs unwrapped. Over four gloo workers::
         -m pytorch_distributed_training_tpu_torch.cli.train_lm \\
         --model gpt2-tiny --device cpu --mesh-data 2 --mesh-fsdp 2
 
-Not ported yet (each raises ``NotImplementedError``; ROADMAP.md, queue 1,
-slice 5 item 4): ``--tp``, ``--mesh-model`` > 1, ``--mesh-seq`` > 1 and
-``--attention ring``. The JAX CLI's remat, int8-matmul and restart flags
-wait for the slice 2 and slice 3 leftovers.
+``--tp`` with ``--mesh-model M`` is Megatron tensor parallelism over the
+model axis (``parallel/sharding.py``): each rank holds N/M heads of every
+attention and intermediate/M columns of every MLP, and FSDP shards that
+slice. As in JAX, the policy splits only per-layer leaves: under the
+default ``--scan-layers`` the stacked trunk has no leaf it splits, and the
+model ranks train alike, so pass ``--no-scan-layers`` to split the
+trunk. ``--mesh-seq P`` is context parallelism: each rank holds S/P
+columns of every row and attention is the ring (``--attention ring``,
+the default there; at a seq axis of 1 it is reference attention, JAX's
+fallback). The axes compose: over four gloo workers, ``--mesh-model 2``
+or ``--mesh-seq 2`` leaves fsdp 2 by ``--mesh-fsdp -1``::
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m pytorch_distributed_training_tpu_torch.cli.train_lm \\
+        --model gpt2-tiny --device cpu --tp --no-scan-layers --mesh-model 2
+
+The JAX CLI's remat, int8-matmul and restart flags wait for the slice 2
+and slice 3 leftovers.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from pytorch_distributed_training_tpu_torch.cli import (
-    parallel_checks,
-    raise_not_ported,
-    resolve_attention,
-)
+from pytorch_distributed_training_tpu_torch.cli import resolve_attention
 from pytorch_distributed_training_tpu_torch.cli.train_dp import run
 from pytorch_distributed_training_tpu_torch.utils.config import (
     MeshConfig,
@@ -72,12 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attention", default=None,
                    choices=("reference", "flash", "ring"),
                    help="attention implementation (default: the preset's; "
-                        "ring, when --mesh-seq > 1, is not ported yet)")
+                        "ring when --mesh-seq > 1)")
     p.add_argument("--fsdp", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="shard params/opt state over the fsdp axis")
     p.add_argument("--tp", action=argparse.BooleanOptionalAction,
-                   default=False, help="tensor parallelism (not ported yet)")
+                   default=False,
+                   help="Megatron tensor parallelism over the model axis")
     p.add_argument("--scan-layers", action=argparse.BooleanOptionalAction,
                    default=True, help="the stacked trunk (layers_scan)")
     p.add_argument("--mesh-data", type=int, default=1)
@@ -102,7 +113,6 @@ def build_trainer(args):
     )
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
 
-    raise_not_ported(parallel_checks(args))
     tcfg = dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",

@@ -44,9 +44,11 @@ fsdp; ``--fsdp`` shards each rank's part of the model over the fsdp axis
 (FSDP2 on the (data, fsdp) sub-mesh at its model and stage coordinates,
 ``parallel/sharding.py``), judged as JAX judges the stacked branches and
 layers. Every mode keeps per-layer modules (JAX's stage and pipeline
-modes scan the trunk; the port's do not). Not ported yet (each raises
-``NotImplementedError``; ROADMAP.md, queue 1, slice 5): ``--mesh-seq`` >
-1 and ring attention (item 4), ``--matmul-impl int8|int8_full`` and
+modes scan the trunk; the port's do not). ``--attention ring`` at a seq
+axis of 1 is reference attention (JAX's fallback). Not ported yet (each
+raises ``NotImplementedError``; ROADMAP.md, queue 1, slice 5):
+``--mesh-seq`` > 1, context parallelism under the branch, stage and
+pipeline modes (item 4b), ``--matmul-impl int8|int8_full`` and
 ``--quant-delayed`` (item 6). The JAX CLI's restart flags wait with
 ``train_dp``'s (slice 2 leftovers).
 """
@@ -146,8 +148,7 @@ def resolve_n_micro(mesh, n: int, batch: int, what: str) -> int:
 
 def _not_ported(args) -> None:
     raise_not_ported((
-        (args.mesh_seq > 1, f"--mesh-seq {args.mesh_seq}", 4),
-        (args.attention == "ring", "--attention ring", 4),
+        (args.mesh_seq > 1, f"--mesh-seq {args.mesh_seq}", "4b"),
         (args.matmul_impl != "native", f"--matmul-impl {args.matmul_impl}",
          6),
         (args.quant_delayed, "--quant-delayed", 6),

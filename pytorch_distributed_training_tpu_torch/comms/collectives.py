@@ -35,6 +35,15 @@ averages the rest (FSDP's replicated parameters) over the batch group.
   so a send of an activation and the receive of a gradient from the same
   neighbour pair up rather than block each other (NCCL's blocking pairs
   would deadlock, gloo's might); the same integer view on the wire.
+- ``ring_hop``: ring attention's hop (``ops/ring_attention.py``) over
+  the ``seq`` axis, one ``exchange`` a step: K, V and the key-padding bias
+  go to coordinate ``index - 1`` and arrive from ``index + 1``; in the
+  backward K's and V's gradients travel the other way (JAX's transposed
+  ``ppermute``).
+- ``broadcast_first``: the one row that crosses the seq shards (BERT's
+  CLS, on seq coordinate 0) broadcast to every seq rank; its backward sums
+  the gradients over the axis into coordinate 0 (the transpose of a
+  broadcast).
 """
 
 from __future__ import annotations
@@ -179,16 +188,77 @@ def stage_recv(shape, dtype, device, src: int) -> torch.Tensor:
     return _SendGradBack.apply(x.requires_grad_(), src)
 
 
-def exchange(sends=(), recvs=()) -> list[torch.Tensor]:
+def exchange(sends=(), recvs=(), group=None) -> list[torch.Tensor]:
     """Send each ``(tensor, dst)`` of ``sends`` and receive each ``(shape,
-    dtype, device, src)`` of ``recvs``, all posted in one batch and waited
-    for; returns the received tensors in the order of ``recvs``."""
-    ops = [dist.P2POp(dist.isend, _wire(t), dst) for t, dst in sends]
+    dtype, device, src)`` of ``recvs`` (global ranks, over ``group``, None
+    the default group), all posted in one batch and waited for; returns
+    the received tensors in the order of ``recvs``."""
+    ops = [dist.P2POp(dist.isend, _wire(t), dst, group) for t, dst in sends]
     out = []
     for shape, dtype, device, src in recvs:
         out.append(torch.empty(shape, dtype=dtype, device=device))
-        ops.append(dist.P2POp(dist.irecv, _wire(out[-1]), src))
+        ops.append(dist.P2POp(dist.irecv, _wire(out[-1]), src, group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return out
+
+
+def _shift(tensors, shard, to: int, src: int) -> list[torch.Tensor]:
+    """``tensors`` to seq coordinate ``to``, as many of the same shapes
+    from ``src``, in one ``exchange`` over the axis's group."""
+    return exchange(
+        [(t, shard.rank(to)) for t in tensors],
+        [(t.shape, t.dtype, t.device, shard.rank(src)) for t in tensors],
+        shard.group)
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, k, v, *rest):
+        ctx.shard, ctx.meta = shard, [(t.shape, t.dtype, t.device)
+                                      for t in (k, v)]
+        out = _shift((k, v) + rest, shard, shard.index - 1, shard.index + 1)
+        ctx.mark_non_differentiable(*out[2:])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, dk, dv, *_):
+        shard = ctx.shard
+        grads = [torch.zeros(shape, dtype=dtype, device=device)
+                 if g is None else g
+                 for g, (shape, dtype, device) in zip((dk, dv), ctx.meta)]
+        dk, dv = _shift(grads, shard, shard.index + 1, shard.index - 1)
+        return (None, dk, dv) + (None,) * len(_)
+
+
+def ring_hop(k: torch.Tensor, v: torch.Tensor, bias=None, *, shard):
+    """K, V and ``bias`` (None: none) one hop left along ``shard`` (an
+    ``AxisShard`` of the seq axis): this rank's go to coordinate
+    ``index - 1``, and those of ``index + 1`` come back; differentiable in
+    K and V."""
+    extra = () if bias is None else (bias,)
+    out = _RingHop.apply(shard, k, v, *extra)
+    return out[0], out[1], (out[2] if extra else None)
+
+
+class _BroadcastFirst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.broadcast(out, shard.rank(0), group=shard.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = dy.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(dx, op=dist.ReduceOp.SUM, group=ctx.shard.group)
+        return (dx if ctx.shard.index == 0 else torch.zeros_like(dx)), None
+
+
+def broadcast_first(x: torch.Tensor, shard=None) -> torch.Tensor:
+    """Forward: coordinate 0's ``x`` on every rank of ``shard`` (an
+    ``AxisShard``; None: ``x``); backward: the gradients summed over the
+    axis, into coordinate 0 (zeros elsewhere)."""
+    return x if shard is None else _BroadcastFirst.apply(x, shard)

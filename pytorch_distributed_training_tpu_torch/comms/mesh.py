@@ -6,25 +6,31 @@ collectives. Here the mesh is the same named axes over the processes of
 fsdp, stage, model, seq)`` (the last axis varies fastest), this rank's
 coordinate on each axis, and one process group per axis holding the ranks
 that differ from this one on that axis only, plus one over the batch axes
-``(data, fsdp)`` jointly (``batch_group``). The callers place the
-collectives themselves: DDP (or FSDP's gradient reduction) and the loss
-mean over the batch axes, FSDP's all-gathers and reduce-scatters over
-``fsdp`` (``parallel/sharding.py``, on ``fsdp_device_mesh``), the branch
-fuse over ``model``, the activations of the layer split over ``stage``.
+``(data, fsdp)`` jointly (``batch_group``) and one over the gradient axes
+``(data, fsdp, seq)`` jointly (``grad_group``). The callers place the
+collectives themselves: DDP (or FSDP's gradient reduction) over the
+gradient axes, the loss mean and the loader over the batch axes, FSDP's
+all-gathers and reduce-scatters over ``fsdp`` (``parallel/sharding.py``,
+on ``fsdp_device_mesh``), the branch fuse and tensor parallelism's pair
+over ``model``, the activations of the layer split over ``stage``, the
+ring attention's hops and BERT's CLS row over ``seq`` (``seq_ring``).
 
 The batch shards over ``(data, fsdp)``: shard ``batch_index`` (``data``
 major) of ``dp_degree``, the JAX package's ``linear_device_index`` over
 the batch axes (``ops/dispatch.py``), which also offsets each shard's
-dropout seed; the ranks of one batch shard at other stage and model
-coordinates read the same rows.
+dropout seed; the ranks of one batch shard at other stage, model and seq
+coordinates read the same rows (the seq ranks each its own columns, the
+model ranks the same dropout masks, so their replicated activations
+agree). Each seq rank's gradient covers only its own tokens, so gradients
+are reduced over the seq axis too (``grad_group``), and FSDP's replicate
+dimension spans data × seq.
 
 An axis of one process has no group (``None``), and every collective over
 it is the identity (``comms/collectives.py``). One process, as on a single
 card, joins no process group at all (``comms/bootstrap.py``), so its mesh
 is all ones. An axis (or the batch axes) spanning every process is the
-world group.
-
-``seq`` above 1 waits for its port (ROADMAP.md, queue 1, slice 5 item 4).
+world group; the ring's group (``seq_ring``) is always a group of its own,
+so its point-to-point never shares a group with DDP's all-reduces.
 """
 
 from __future__ import annotations
@@ -42,22 +48,41 @@ AXIS_NAMES = MeshConfig.AXIS_NAMES
 AXIS_DATA, AXIS_FSDP, AXIS_STAGE, AXIS_MODEL, AXIS_SEQ = AXIS_NAMES
 # the batch shards over both flavours of data parallelism
 BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
+# gradients are reduced over the batch axes and the sequence's shards
+GRAD_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ)
 
-_NOT_PORTED = {
-    AXIS_SEQ: "context parallelism (ring attention), slice 5 item 4",
-}
+
+@dataclasses.dataclass(frozen=True)
+class AxisShard:
+    """This rank's place on one mesh axis of more than one rank: the
+    axis's process group, this rank's coordinate on it, its size and the
+    global ranks along it (by coordinate)."""
+
+    group: dist.ProcessGroup
+    index: int
+    size: int
+    ranks: tuple
+
+    def rank(self, index: int) -> int:
+        """The global rank at coordinate ``index % size`` of the axis."""
+        return self.ranks[index % self.size]
 
 
 @dataclasses.dataclass
 class Mesh:
     """This rank's view of the mesh: each axis's size, this rank's
-    coordinate on it, its process group (None for an axis of one), and
-    the group over the batch axes jointly (None for one batch shard)."""
+    coordinate on it, its process group (None for an axis of one), the
+    groups over the batch axes and over the gradient axes jointly, the
+    group of FSDP's replicate dimension (data × seq), and the seq axis's
+    ring group (each None where it would hold one rank)."""
 
     shape: dict
     coords: dict
     groups: dict
     batch_group: Optional[dist.ProcessGroup] = None
+    grad_group: Optional[dist.ProcessGroup] = None
+    rep_group: Optional[dist.ProcessGroup] = None
+    seq_ring: Optional[dist.ProcessGroup] = None
 
     def coord(self, axis: str) -> int:
         return self.coords[axis]
@@ -73,6 +98,17 @@ class Mesh:
             rank = rank * self.shape[axis] + coords.get(axis,
                                                         self.coords[axis])
         return rank
+
+    def shard(self, axis: str) -> Optional[AxisShard]:
+        """This rank's ``AxisShard`` of ``axis`` (the ``seq`` axis on its
+        ring group), or None for an axis of one rank."""
+        size = self.shape[axis]
+        if size == 1:
+            return None
+        group = self.seq_ring if axis == AXIS_SEQ else self.groups[axis]
+        return AxisShard(group=group, index=self.coords[axis], size=size,
+                         ranks=tuple(self.rank_at(**{axis: i})
+                                     for i in range(size)))
 
 
 def axis_size(mesh: Mesh, *axes: str) -> int:
@@ -93,14 +129,15 @@ def batch_index(mesh: Mesh) -> int:
     return index
 
 
-def _line_groups(mesh: Mesh, axes: tuple, rank: int):
+def _line_groups(mesh: Mesh, axes: tuple, rank: int, own: bool = False):
     """One ``dist.new_group`` over ``axes`` jointly for every coordinate
     of the other axes, made on every rank in the same order; this rank's,
-    or the world group when ``axes`` span every process."""
+    or the world group when ``axes`` span every process (unless ``own``:
+    then a group of its own all the same)."""
     size = axis_size(mesh, *axes)
     if size == 1:
         return None
-    if size == math.prod(mesh.shape.values()):
+    if size == math.prod(mesh.shape.values()) and not own:
         return dist.group.WORLD
     others = [a for a in AXIS_NAMES if a not in axes]
     mine = None
@@ -114,29 +151,42 @@ def _line_groups(mesh: Mesh, axes: tuple, rank: int):
     return mine
 
 
+def _joint_group(mesh: Mesh, axes: tuple, rank: int):
+    """The group over ``axes`` jointly: None, the one axis's group when
+    only one of them is more than 1, else a group of lines of its own."""
+    big = [a for a in axes if mesh.shape[a] > 1]
+    if len(big) <= 1:
+        return mesh.groups[big[0]] if big else None
+    return _line_groups(mesh, tuple(big), rank)
+
+
 def fsdp_device_mesh(mesh: Mesh, device_type: str):
     """The ``DeviceMesh`` FSDP shards over at this rank's stage and model
     coordinates, on the mesh's own process groups: 1-D over ``fsdp`` when
-    ``data`` is 1, else 2-D (replicate over ``data``, shard over
-    ``fsdp``: HSDP), ranks row-major as the mesh lays them out. A world of
-    one process (a process group of one rank) gives a one-rank mesh."""
+    ``data`` and ``seq`` are 1, else 2-D (replicate over ``data`` × ``seq``,
+    shard over ``fsdp``: HSDP, so FSDP's reduce-scatter and the replicate
+    all-reduce together reduce over every gradient axis), ranks row-major
+    as the mesh lays them out. A world of one process (a process group of
+    one rank) gives a one-rank mesh."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    data, fsdp = mesh.shape[AXIS_DATA], mesh.shape[AXIS_FSDP]
-    if data == fsdp == 1 and dist.is_initialized() and (
+    fsdp = mesh.shape[AXIS_FSDP]
+    rep = [a for a in (AXIS_DATA, AXIS_SEQ) if mesh.shape[a] > 1]
+    if not rep and fsdp == 1 and dist.is_initialized() and (
             dist.get_world_size() == 1):
         return DeviceMesh.from_group(dist.group.WORLD, device_type,
                                      mesh_dim_names=(AXIS_FSDP,))
     if fsdp == 1:
         raise ValueError("an fsdp axis of 1 shards nothing")
-    if data == 1:
+    if not rep:
         return DeviceMesh.from_group(mesh.group(AXIS_FSDP), device_type,
                                      mesh_dim_names=(AXIS_FSDP,))
-    ranks = [[mesh.rank_at(data=d, fsdp=f) for f in range(fsdp)]
-             for d in range(data)]
+    lines = itertools.product(*(range(mesh.shape[a]) for a in rep))
+    ranks = [[mesh.rank_at(**dict(zip(rep, at)), fsdp=f)
+              for f in range(fsdp)] for at in lines]
     return DeviceMesh.from_group(
-        [mesh.group(AXIS_DATA), mesh.group(AXIS_FSDP)], device_type,
-        mesh=ranks, mesh_dim_names=BATCH_AXES)
+        [mesh.rep_group, mesh.group(AXIS_FSDP)], device_type, mesh=ranks,
+        mesh_dim_names=("_".join(rep), AXIS_FSDP))
 
 
 def build_mesh(config: MeshConfig | None = None, *, rank: int = 0,
@@ -148,11 +198,6 @@ def build_mesh(config: MeshConfig | None = None, *, rank: int = 0,
     keeps those it belongs to."""
     config = config or MeshConfig()
     shape = dict(zip(AXIS_NAMES, config.resolved_shape(world_size)))
-    for axis, item in _NOT_PORTED.items():
-        if shape[axis] > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={shape[axis]} is not ported yet ({item}; "
-                f"see ROADMAP.md, queue 1)")
     coords, rest = {}, rank
     for axis in reversed(AXIS_NAMES):
         coords[axis] = rest % shape[axis]
@@ -162,8 +207,13 @@ def build_mesh(config: MeshConfig | None = None, *, rank: int = 0,
                 groups={a: None for a in AXIS_NAMES})
     for axis in AXIS_NAMES:
         mesh.groups[axis] = _line_groups(mesh, (axis,), rank)
-    # batch axes of which one alone is > 1: that axis's group
-    batch = [a for a in BATCH_AXES if shape[a] > 1]
-    mesh.batch_group = (mesh.groups[batch[0]] if len(batch) == 1
-                        else _line_groups(mesh, BATCH_AXES, rank))
+    mesh.batch_group = _joint_group(mesh, BATCH_AXES, rank)
+    # the gradient axes, and FSDP's replicate dimension (fsdp_device_mesh)
+    if shape[AXIS_SEQ] == 1:
+        mesh.grad_group, mesh.rep_group = mesh.batch_group, mesh.groups[
+            AXIS_DATA]
+    else:
+        mesh.grad_group = _joint_group(mesh, GRAD_AXES, rank)
+        mesh.rep_group = _joint_group(mesh, (AXIS_DATA, AXIS_SEQ), rank)
+    mesh.seq_ring = _line_groups(mesh, (AXIS_SEQ,), rank, own=True)
     return mesh

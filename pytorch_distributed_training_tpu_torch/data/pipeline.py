@@ -14,6 +14,13 @@ fsdp), and their count as ``rank`` and ``world_size``, in place of
 - Eval keeps every example exactly once: the last batch is padded with
   the last row and carries a ``valid`` mask that zeroes the pad rows out
   of every metric.
+- Context parallelism (``seq_index``/``seq_size``, the rank's place on
+  the mesh's ``seq`` axis; ``comms/ingest.py``'s ``_leaf_spec``): every
+  sequence-bearing leaf (``[..., batch, S]``, one dim more than the
+  labels) keeps this rank's ``S / seq_size`` columns; the labels and
+  ``valid`` stay whole. ``whole_rows`` (a function of the batch dict, as
+  tensors on the CPU) runs on each batch before the cut: the LM step's
+  targets are shifted on the whole row (``train/step.py``).
 """
 
 from __future__ import annotations
@@ -43,11 +50,6 @@ def resolve_batch_geometry(*, global_batch_size: int, grad_accum_steps: int,
             global_batch_size // world_size)
 
 
-def _to_device(batch: dict, device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
-
-
 class ShardedLoader:
     """Iterates this rank's batches from numpy arrays holding the FULL
     dataset (GLUE scale) on every rank."""
@@ -55,8 +57,16 @@ class ShardedLoader:
     def __init__(self, data: dict[str, np.ndarray], *, global_batch_size: int,
                  grad_accum_steps: int = 1, train: bool = True,
                  seed: int = 42, rank: int = 0, world_size: int = 1,
-                 device=None):
+                 device=None, seq_index: int = 0, seq_size: int = 1,
+                 whole_rows=None):
         self.data = data
+        self.seq_index, self.seq_size = seq_index, seq_size
+        self.whole_rows = whole_rows
+        for k, v in data.items():
+            if v.ndim > 1 and v.shape[-1] % seq_size:
+                raise ValueError(
+                    f"{k}: sequence length {v.shape[-1]} is not divisible "
+                    f"by the seq axis of {seq_size}")
         self.train = train
         self.seed = seed
         self.device = torch.device(device if device is not None else "cpu")
@@ -92,8 +102,8 @@ class ShardedLoader:
             idx = perm[step * self.global_batch:(step + 1) * self.global_batch]
             idx = idx.reshape(self.accum, micro_global)
             local = idx[:, lo_r:lo_r + micro_local]
-            yield _to_device({k: v[local] for k, v in self.data.items()},
-                             self.device)
+            yield self._ship({k: v[local] for k, v in self.data.items()},
+                             rank=2)
 
     def _eval_epoch(self) -> Iterator[dict]:
         per_rank = self.local_per_step
@@ -110,4 +120,19 @@ class ShardedLoader:
             batch = {k: v[local_sel] for k, v in self.data.items()}
             valid = (np.arange(self.global_batch) < valid_n).astype(np.int32)
             batch["valid"] = valid[lo_r:lo_r + per_rank]
-            yield _to_device(batch, self.device)
+            yield self._ship(batch, rank=1)
+
+    def _ship(self, batch: dict, rank: int) -> dict:
+        """``batch`` (rows of rank ``rank``: [accum, micro] or [batch]) to
+        the device, through ``whole_rows`` and this rank's columns."""
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+                 for k, v in batch.items()}
+        if self.whole_rows is not None:
+            batch = self.whole_rows(batch)
+        cols = {}
+        for k, v in batch.items():
+            if v.dim() > rank:  # [..., S]: this rank's S / seq_size
+                width = v.shape[-1] // self.seq_size
+                v = v.narrow(-1, self.seq_index * width, width)
+            cols[k] = v.contiguous().to(self.device)
+        return cols

@@ -54,6 +54,26 @@ seed gives the embeddings ``fold_in(seed, 0)``, layer i ``fold_in(seed,
 i + 1)`` and the classifier ``fold_in(seed, num_layers + 1)``, the
 counterpart of the distinct flax ``make_rng("dropout")`` keys per module.
 
+Tensor parallelism (``parallel/sharding.tensor_parallel`` sets
+``tp_shard``, the model axis's ``AxisShard``, on the modules whose
+weights it cut, Megatron's layout as JAX ``_tp_spec`` implies): the
+attention runs on its rank's heads and the MLP on its rank's
+``intermediate / M`` columns; ``copy_to_model`` before the
+column-parallel projections (query/key/value, ``mlp_up``), the
+row-parallel ones (``out``, ``mlp_down``) sum their partial products with
+``reduce_from_model`` and add their replicated bias once, after the sum.
+The probabilities' dropout seed folds in the model coordinate, so the
+ranks' heads draw their own masks; every other site sees replicated
+activations and draws alike on every model rank.
+
+Context parallelism (``parallel/sharding.context_parallel`` sets
+``seq_shard``, the seq axis's ``AxisShard``): each rank holds the columns
+``index * S/P ...`` of every row; position ids start there, attention is
+``"ring"`` (``ops/ring_attention.py``), the embeddings' and layers' seeds
+fold in the seq coordinate (the shards draw their own masks), and BERT's
+pooler reads the CLS row of seq coordinate 0 on every seq rank
+(``comms/collectives.broadcast_first``), the classifier's seed unfolded.
+
 The page pools are tensors the serving engine owns and passes in; the
 scatter writes them in place (the JAX package returns new pools, which
 XLA updates in place through donation). int8 pools quantize on write
@@ -73,6 +93,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from pytorch_distributed_training_tpu_torch.comms.collectives import (
+    broadcast_first,
+    copy_to_model,
+    reduce_from_model,
+)
 from pytorch_distributed_training_tpu_torch.ops.attention import (
     dot_product_attention,
     make_attention_bias,
@@ -171,6 +196,9 @@ class DenseGeneral(nn.Module):
             torch.zeros(self.out_shape, dtype=param_dtype, device=device)
         )
         self.register_parameter("kernel_scale", None)
+        # row-parallel (tensor parallelism): the model axis's group the
+        # partial products are summed over before the bias
+        self.reduce_group = None
 
     @torch.no_grad()
     def quantize(self) -> None:
@@ -213,6 +241,8 @@ class DenseGeneral(nn.Module):
                 device=self.kernel.device))
         w = w.reshape(math.prod(self.in_shape), math.prod(self.out_shape))
         y = torch.matmul(x.to(self.dtype).reshape(*lead, w.shape[0]), w)
+        if self.reduce_group is not None:
+            y = reduce_from_model(y, self.reduce_group)
         # bias added after the product's rounding, as flax does
         y = y + self.bias.to(self.dtype).reshape(-1)
         return y.reshape(*lead, *self.out_shape)
@@ -235,6 +265,8 @@ class BertSelfAttention(nn.Module):
         self.key = dense(cfg, (h,), heads, device, generator)
         self.value = dense(cfg, (h,), heads, device, generator)
         self.out = dense(cfg, heads, (h,), device, generator)
+        self.tp_shard = None  # the model axis, under tensor parallelism
+        self.seq_shard = None  # the seq axis, under context parallelism
 
     def forward(self, x, attention_bias=None, paged=None, dropout_seed=None):
         """``paged``: None for full-sequence attention, else ``(k_pages,
@@ -243,21 +275,28 @@ class BertSelfAttention(nn.Module):
         ``dropout_seed``: the layer's seed for probs dropout (None is
         deterministic)."""
         cfg = self.config
+        if self.tp_shard is not None:
+            x = copy_to_model(x, self.tp_shard.group)
+            dropout_seed = child_seed(dropout_seed, self.tp_shard.index)
         q = self.query(x)
         k = self.key(x)
         v = self.value(x)
         if paged is not None:
             out = self._paged_attend(q, k, v, attention_bias, *paged)
         else:
+            seq = self.seq_shard
+
             def core(q, k, v, bias, seed):
                 return dot_product_attention(
                     q, k, v, bias, impl=cfg.attention_impl,
                     causal=cfg.causal, dropout_rate=cfg.attention_dropout,
-                    dropout_seed=seed, dropout_site=_SITE_PROBS,
+                    dropout_seed=seed, dropout_site=_SITE_PROBS, seq=seq,
                 )
 
-            if (cfg.attention_remat and cfg.attention_impl == "reference"
-                    and torch.is_grad_enabled()):
+            # the ring at a seq axis of one rank is reference attention
+            plain = cfg.attention_impl == "reference" or (
+                cfg.attention_impl == "ring" and seq is None)
+            if cfg.attention_remat and plain and torch.is_grad_enabled():
                 # recompute scores, softmax and the probs mask in the
                 # backward instead of saving the [B, N, S, S] probs
                 out = checkpoint(core, q, k, v, attention_bias, dropout_seed,
@@ -388,34 +427,54 @@ class BertLayer(nn.Module):
         self.mlp_down = dense(cfg, (cfg.intermediate_size,), (h,), device,
                               generator)
         self.mlp_norm = _dal(cfg, _SITE_MLP_NORM, device)
+        self.tp_shard = None  # the model axis, under tensor parallelism
 
     def forward(self, x, attention_bias=None, dropout_seed=None):
         attn_out = self.attention(x, attention_bias,
                                   dropout_seed=dropout_seed)
         x = self.attention_norm(attn_out, x, dropout_seed)
-        h = self.mlp_up(x)
+        h = self.mlp_up(model_input(x, self.tp_shard))
         h = F.gelu(h, approximate="tanh" if self.config.gelu_approximate
                    else "none")
         h = self.mlp_down(h)
         return self.mlp_norm(h, x, dropout_seed)
 
 
-def default_position_ids(cfg: ModelConfig, input_ids):
-    """BERT position ids: arange over the sequence, checked against the
+def model_input(x, tp_shard):
+    """The input of a column-parallel projection: ``copy_to_model`` over
+    the model axis under tensor parallelism, else ``x``."""
+    return x if tp_shard is None else copy_to_model(x, tp_shard.group)
+
+
+def seq_offset(input_ids, seq_shard) -> int:
+    """The global position of this rank's first column: its seq
+    coordinate times the local length (0 without context parallelism)."""
+    return 0 if seq_shard is None else seq_shard.index * input_ids.shape[1]
+
+
+def default_position_ids(cfg: ModelConfig, input_ids, offset: int = 0):
+    """BERT position ids: arange over the sequence from ``offset`` (the
+    rank's first column under context parallelism), checked against the
     position table."""
     batch, seq = input_ids.shape
-    if seq > cfg.max_position_embeddings:
+    if offset + seq > cfg.max_position_embeddings:
         raise ValueError(
-            f"sequence length {seq} needs position ids up to {seq - 1} "
-            f"but max_position_embeddings is {cfg.max_position_embeddings}"
+            f"sequence length {offset + seq} needs position ids up to "
+            f"{offset + seq - 1} but max_position_embeddings is "
+            f"{cfg.max_position_embeddings}"
         )
-    return torch.arange(seq, device=input_ids.device)[None, :].expand(
-        batch, seq
-    )
+    return torch.arange(offset, offset + seq, device=input_ids.device)[
+        None, :].expand(batch, seq)
 
 
 def child_seed(seed: Optional[int], index: int) -> Optional[int]:
     return None if seed is None else fold_in(seed, index)
+
+
+def trunk_seed(seed: Optional[int], seq_shard) -> Optional[int]:
+    """The seed of the embeddings and layers: under context parallelism
+    folded with the seq coordinate, so the shards draw their own masks."""
+    return seed if seq_shard is None else child_seed(seed, seq_shard.index)
 
 
 def run_layers(layers, x, attention_bias, dropout_seed=None, first=0):
@@ -484,9 +543,10 @@ def make_trunk(cfg: ModelConfig, make_layer, name: str):
     return nn.ModuleList(layers)
 
 
-def pool_cls(pooler: "DenseGeneral", x):
-    """CLS pooling head: dense('pooler') -> tanh on the first token."""
-    return torch.tanh(pooler(x[:, 0]))
+def pool_cls(pooler: "DenseGeneral", x, seq_shard=None):
+    """CLS pooling head: dense('pooler') -> tanh on the first token (under
+    context parallelism, seq coordinate 0's on every seq rank)."""
+    return torch.tanh(pooler(broadcast_first(x[:, 0], seq_shard)))
 
 
 def classify(dropout: Dropout, classifier: "DenseGeneral", pooled,
@@ -510,6 +570,7 @@ class BertEncoderModel(nn.Module):
         else:
             self.layers = trunk
         self.pooler = dense(cfg, (h,), (h,), device, generator)
+        self.seq_shard = None  # the seq axis, under context parallelism
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 position_ids=None, dropout_seed=None):
@@ -518,7 +579,9 @@ class BertEncoderModel(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         if position_ids is None:
-            position_ids = default_position_ids(cfg, input_ids)
+            position_ids = default_position_ids(
+                cfg, input_ids, seq_offset(input_ids, self.seq_shard))
+        dropout_seed = trunk_seed(dropout_seed, self.seq_shard)
         x = self.embeddings(input_ids, token_type_ids.long(), position_ids,
                             child_seed(dropout_seed, 0))
         bias = make_attention_bias(attention_mask)
@@ -526,7 +589,7 @@ class BertEncoderModel(nn.Module):
             x = self.layers_scan(x, bias, dropout_seed)
         else:
             x = run_layers(self.layers, x, bias, dropout_seed)
-        return x, pool_cls(self.pooler, x)
+        return x, pool_cls(self.pooler, x, self.seq_shard)
 
 
 class BertForSequenceClassification(nn.Module):

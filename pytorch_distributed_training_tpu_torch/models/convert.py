@@ -25,8 +25,14 @@ of the one slice i of the other. The branch ensemble's
 ``params_to_jax`` stacks the branches back (the branches keep per-layer
 entries). A model sharded by FSDP (``parallel/sharding.py``) bridges
 through its full tensors: ``params_to_jax`` gathers each ``DTensor``
-leaf (``full_tensor()``); load a converted dict before sharding. Leaves
-are numpy arrays on the flax side, so this module needs no JAX.
+leaf (``full_tensor()``); load a converted dict before sharding. A model
+cut by tensor parallelism (``parallel/sharding.tensor_parallel``) bridges
+through ``tp``, ``(dims, shard)``: the name -> dim of every leaf split
+over the model axis (``parallel/sharding.model_dims``) and the axis's
+``AxisShard``. ``params_from_jax`` then keeps this rank's slice of each,
+and ``params_to_jax`` gathers the slices over the axis (a collective:
+every rank of it calls), so the trees compare whole. Leaves are numpy
+arrays on the flax side, so this module needs no JAX.
 
 The weight-only int8 serving variant (the JAX package's
 ``quantize_serve_params``: int8 ``kernel`` leaves beside fp32
@@ -137,17 +143,36 @@ def _torch_name(path: tuple) -> str:
     return ".".join(parts)
 
 
-def params_from_jax(flax_params: Mapping, *,
-                    scan_layers: bool = False) -> dict[str, torch.Tensor]:
+def params_from_jax(flax_params: Mapping, *, scan_layers: bool = False,
+                    tp=None) -> dict[str, torch.Tensor]:
     """flax params (nested dict of arrays; GPT-2 LM or BERT classifier,
     unscanned or scanned trunk, float or with int8 serving kernels) -> the
     port's ``state_dict`` (CPU tensors of the leaves' dtypes) for a model
-    whose trunk is scanned (``scan_layers``) or not."""
+    whose trunk is scanned (``scan_layers``) or not; with ``tp``, this
+    rank's slice of the leaves it splits."""
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        cut_model_slice,
+    )
+
     flat = _relayout(_unstack_branches(_flatten(flax_params)), scan_layers)
-    return {
+    out = {
         _torch_name(path): torch.from_numpy(np.array(leaf, copy=True))
         for path, leaf in flat.items()
     }
+    if tp is not None:
+        dims, shard = tp
+        out.update({name: cut_model_slice(out[name], dim, shard)
+                    for name, dim in dims.items()})
+    return out
+
+
+def _gather_model(t: torch.Tensor, dim: int, shard) -> torch.Tensor:
+    """The whole leaf from every model rank's slice of it on ``dim``."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(shard.size)]
+    dist.all_gather(parts, t.contiguous(), group=shard.group)
+    return torch.cat(parts, dim=dim)
 
 
 def _stack_branches(tree: dict) -> dict:
@@ -174,11 +199,13 @@ def _stack_branches(tree: dict) -> dict:
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor], *,
-                  scan_layers: bool = False) -> dict:
+                  scan_layers: bool = False, tp=None) -> dict:
     """Inverse of ``params_from_jax``: nested dict of numpy arrays in the
     flax tree layout, the trunk per layer or scanned (``scan_layers``), the
     ensemble's branches stacked back, float32 but for int8 kernels;
-    ``DTensor`` leaves (an FSDP model's) gathered whole first."""
+    ``DTensor`` leaves (an FSDP model's) gathered whole first, then, with
+    ``tp``, the model axis's slices."""
+    dims, shard = tp if tp is not None else ({}, None)
     flat: dict[tuple, np.ndarray] = {}
     for name, tensor in state_dict.items():
         parts, flax_parts = name.split("."), []
@@ -193,6 +220,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], *,
                 i += 1
         if hasattr(tensor, "full_tensor"):
             tensor = tensor.full_tensor()
+        if name in dims:
+            tensor = _gather_model(tensor.detach(), dims[name], shard)
         leaf = tensor.detach().cpu()
         if leaf.dtype != torch.int8:
             leaf = leaf.float()

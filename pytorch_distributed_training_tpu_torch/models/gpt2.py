@@ -53,7 +53,10 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     dense,
     layer_norm_module,
     make_trunk,
+    model_input,
     param_dtype,
+    seq_offset,
+    trunk_seed,
 )
 from pytorch_distributed_training_tpu_torch.ops.attention import (
     make_attention_bias,
@@ -79,12 +82,13 @@ class GPT2Block(nn.Module):
         self.mlp_down = dense(cfg, (cfg.intermediate_size,), (h,), device,
                               generator)
         self.dropout = Dropout(cfg.hidden_dropout)
+        self.tp_shard = None  # the model axis, under tensor parallelism
 
     def forward(self, x, attention_bias=None, paged=None, dropout_seed=None):
         h = self.attention(self.ln_1(x), attention_bias, paged,
                            dropout_seed=dropout_seed)
         x = x + self.dropout(h, dropout_seed, _SITE_ATTENTION_NORM)
-        h = self.mlp_up(self.ln_2(x))
+        h = self.mlp_up(model_input(self.ln_2(x), self.tp_shard))
         h = F.gelu(h, approximate="tanh")  # GPT-2's tanh approximation
         return x + self.dropout(self.mlp_down(h), dropout_seed,
                                 _SITE_MLP_NORM)
@@ -113,6 +117,7 @@ class GPT2LMModel(nn.Module):
         self.dropout = Dropout(cfg.hidden_dropout)
         # float32 copy of the compute-dtype head, set by cast_for_serving
         self.head_weight: Optional[torch.Tensor] = None
+        self.seq_shard = None  # the seq axis, under context parallelism
 
     @torch.no_grad()
     def cast_for_serving(self, weights_dtype: str = "float32") -> None:
@@ -153,15 +158,18 @@ class GPT2LMModel(nn.Module):
         cfg = self.config
         input_ids = input_ids.long()
         batch, seq = input_ids.shape
-        if seq > cfg.max_position_embeddings:
+        # under context parallelism this rank's columns start at offset
+        offset = seq_offset(input_ids, self.seq_shard)
+        if offset + seq > cfg.max_position_embeddings:
             raise ValueError(
-                f"sequence length {seq} exceeds max_position_embeddings "
-                f"{cfg.max_position_embeddings}"
+                f"sequence length {offset + seq} exceeds "
+                f"max_position_embeddings {cfg.max_position_embeddings}"
             )
         if position_ids is None:
             position_ids = torch.arange(
-                seq, device=input_ids.device
+                offset, offset + seq, device=input_ids.device
             )[None, :].expand(batch, seq)
+        dropout_seed = trunk_seed(dropout_seed, self.seq_shard)
         x = self.wte(input_ids) + self.wpe(position_ids)
         x = self.dropout(x, child_seed(dropout_seed, 0))
         bias = make_attention_bias(attention_mask)

@@ -8,7 +8,9 @@ the JAX package. Probability dropout follows the JAX package's order for
 the ``"kernel"`` dropout impl: cast the fp32 probs to the V dtype first,
 then multiply by the mask-scale tensor (``ops/dropout.py``), so the mask
 saved for the backward is half-width. ``"flash"`` goes to
-``ops/flash_attention.flash_attention`` (the flash kernels).
+``ops/flash_attention.flash_attention`` (the flash kernels), ``"ring"``
+to ``ops/ring_attention.ring_attention_shard`` over the seq axis ``seq``
+(reference attention when it is None, JAX's fallback at a seq axis of 1).
 """
 
 from __future__ import annotations
@@ -60,8 +62,10 @@ def reference_attention(q, k, v, bias=None, *, causal: bool = False,
 def dot_product_attention(q, k, v, bias=None, *, impl: str = "reference",
                           causal: bool = False, dropout_rate: float = 0.0,
                           dropout_seed: Optional[int] = None,
-                          dropout_site: int = 0):
-    """Dispatch to the configured attention implementation."""
+                          dropout_site: int = 0, seq=None):
+    """Dispatch to the configured attention implementation (``seq``: the
+    ``AxisShard`` of the seq axis the sequence is cut over, for
+    ``"ring"``)."""
     if impl == "reference":
         return reference_attention(
             q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
@@ -74,6 +78,15 @@ def dot_product_attention(q, k, v, bias=None, *, impl: str = "reference",
 
         return flash_attention(
             q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed, dropout_site=dropout_site,
+        )
+    if impl == "ring":
+        from pytorch_distributed_training_tpu_torch.ops.ring_attention import (
+            ring_attention_shard,
+        )
+
+        return ring_attention_shard(
+            q, k, v, bias, seq=seq, causal=causal, dropout_rate=dropout_rate,
             dropout_seed=dropout_seed, dropout_site=dropout_site,
         )
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -4,7 +4,11 @@ package's ``parallel/``: ``sharding.py``, ``pipeline.py``)."""
 from pytorch_distributed_training_tpu_torch.parallel.sharding import (
     ShardingPolicy,
     apply_fsdp,
+    context_parallel,
     param_placements,
+    param_specs,
+    tensor_parallel,
 )
 
-__all__ = ["ShardingPolicy", "apply_fsdp", "param_placements"]
+__all__ = ["ShardingPolicy", "apply_fsdp", "context_parallel",
+           "param_placements", "param_specs", "tensor_parallel"]

@@ -19,19 +19,29 @@ trained through the GPipe and 1F1B schedules (``parallel/pipeline.py``)
 in ``n_micro`` pipeline microbatches an accumulation microbatch (an int,
 or a function of the mesh such as ``train_mp``'s ``resolve_n_micro``):
 the train loader then cuts each step into ``grad_accum_steps × n_micro``
-microbatches, and the eval runs stage mode's forward; a ``model`` or
-``stage`` axis of more than one rank that no mode splits raises. The
-batch shards over ``(data, fsdp)``: the ranks of one batch shard read the
-same rows and draw the same dropout (``batch_index`` stands for the
-rank). ``policy`` (``parallel/sharding.py``; None: off) with ``fsdp`` on
-and an ``fsdp`` axis of more than one rank shards the model with FSDP
-over the (data, fsdp) sub-mesh at this rank's stage and model
-coordinates (``shard``); otherwise DDP averages the gradients over the
-batch axes (the params replicated, as JAX replicates them with the
-policy off), or, under the schedules, their train step does once a step.
-The grad norm is the whole model's, and the eval counts are summed over
-the ``stage`` group (the last stage's) and then the batch group.
-``samples_per_sec_per_chip`` divides by every rank.
+microbatches, and the eval runs stage mode's forward; a ``stage`` axis
+of more than one rank that no mode splits raises, and with no mode a
+``model`` axis is tensor parallelism's (``policy.tp``: the model is made
+whole, then cut to this rank's Megatron slice, ``parallel/sharding.
+tensor_parallel``, before FSDP or DDP) or, without it, replicas that
+compute alike, as JAX replicates the parameters there. A ``seq`` axis of
+more than one rank is context parallelism (no mode; ``"ring"``
+attention): the loader cuts each row's columns over it (the LM targets
+shifted on the whole rows first, ``train/step.lm_whole_rows``) and the
+model reads its coordinate (``context_parallel``). The batch shards over
+``(data, fsdp)``: the ranks of one batch shard read the same rows and
+draw the same dropout (``batch_index`` stands for the rank), and the
+gradients are reduced over ``(data, fsdp, seq)``. ``policy``
+(``parallel/sharding.py``; None: off) with ``fsdp`` on and an ``fsdp``
+axis of more than one rank shards the model with FSDP over the (data ×
+seq, fsdp) sub-mesh at this rank's stage and model coordinates
+(``shard``); otherwise DDP averages the gradients over the gradient axes
+(the params replicated, as JAX replicates them with the policy off), or,
+under the schedules, their train step does once a step. The grad norm is
+the whole model's (a TP slice's squares summed over ``model``), and the
+eval counts are summed over the ``stage`` group (the last stage's), the
+``seq`` group and then the batch group. ``samples_per_sec_per_chip``
+divides by every rank.
 
 Per epoch: every optimizer step over ``[accum, micro, ...]`` batches, then
 a masked eval pass over the whole validation split and one history record
@@ -44,8 +54,8 @@ fetched from the device once per epoch.
 
 Not ported here (ROADMAP.md, queue 1): checkpoints and resume, the
 watchdog, preemption handling, telemetry sinks, runtime guards, the
-native loader and prefetch, chained steps, tensor and context
-parallelism.
+native loader and prefetch, chained steps, and context parallelism under
+a model-parallel mode (slice 5 item 4b).
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from pytorch_distributed_training_tpu_torch.comms.collectives import (
 from pytorch_distributed_training_tpu_torch.comms.mesh import (
     AXIS_FSDP,
     AXIS_MODEL,
+    AXIS_SEQ,
     AXIS_STAGE,
     batch_index,
     build_mesh,
@@ -95,7 +106,10 @@ from pytorch_distributed_training_tpu_torch.parallel.pipeline import (
 from pytorch_distributed_training_tpu_torch.parallel.sharding import (
     ShardingPolicy,
     apply_fsdp,
-    param_placements,
+    context_parallel,
+    param_specs,
+    placements_of,
+    tensor_parallel,
 )
 from pytorch_distributed_training_tpu_torch.train.metrics import (
     LMMetricAccumulator,
@@ -111,6 +125,7 @@ from pytorch_distributed_training_tpu_torch.train.state import (
     create_train_state,
 )
 from pytorch_distributed_training_tpu_torch.train.step import (
+    lm_whole_rows,
     make_eval_step,
     make_train_step,
 )
@@ -157,10 +172,24 @@ class Trainer:
         mesh = self.mesh = build_mesh(mesh_config, rank=self.info.rank,
                                       world_size=self.info.world_size)
         for mode, axis in SPLIT_AXIS.items():
-            if mesh.shape[axis] > 1 and axis != split:
+            # with no mode, a model axis is tensor parallelism's (or
+            # replicas that compute alike)
+            if mesh.shape[axis] > 1 and axis != split and (
+                    mp_mode is not None or axis != AXIS_MODEL):
                 raise ValueError(
                     f"mesh axis {axis}={mesh.shape[axis]} needs "
                     f"mp_mode={mode!r} (got {mp_mode!r})")
+        if mesh.shape[AXIS_SEQ] > 1:
+            if mp_mode is not None:
+                raise NotImplementedError(
+                    f"context parallelism under mp_mode={mp_mode!r} is not "
+                    f"ported yet (ROADMAP.md, queue 1, slice 5 item 4b)")
+            if model_config.attention_impl != "ring":
+                raise ValueError(
+                    f"mesh axis seq={mesh.shape[AXIS_SEQ]} cuts the "
+                    f"sequence; attention_impl "
+                    f"{model_config.attention_impl!r} attends within a "
+                    f"shard: use 'ring'")
         # float32 matmuls and the float32 classifier stay float32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -193,9 +222,14 @@ class Trainer:
             model_config = dataclasses.replace(model_config,
                                                num_labels=num_labels)
         self.mcfg = model_config
-        # the ranks of one batch shard read the same rows
+        # the ranks of one batch shard read the same rows, each seq rank
+        # its columns (the LM's targets shifted on the whole rows first)
         shard = dict(seed=tcfg.seed, rank=batch_index(mesh),
-                     world_size=dp_degree(mesh), device=self.device)
+                     world_size=dp_degree(mesh), device=self.device,
+                     seq_index=mesh.coord(AXIS_SEQ),
+                     seq_size=mesh.shape[AXIS_SEQ])
+        if mesh.shape[AXIS_SEQ] > 1 and self.objective == "causal_lm":
+            shard["whole_rows"] = lm_whole_rows
         self.schedule_mode = mp_mode if mp_mode in SCHEDULES else None
         self.n_micro = 1
         if self.schedule_mode:
@@ -235,14 +269,18 @@ class Trainer:
             tcfg.learning_rate, tcfg.warmup_steps, total_updates
         )
         model = module.to(self.device)
-        if self.policy.tp or (self.policy.fsdp
-                              and mesh.shape[AXIS_FSDP] > 1):
-            # (tp raises, naming its ROADMAP item)
-            placements = param_placements(
-                {n: tuple(p.shape) for n, p in model.named_parameters()},
-                self.policy, mesh.shape)
-            self.shard(placements, fsdp_device_mesh(mesh, self.device.type),
-                       model)
+        # the specs of the whole model, then this rank's TP slice of it
+        specs = self.specs = param_specs(
+            {n: tuple(p.shape) for n, p in model.named_parameters()},
+            self.policy, mesh.shape)
+        self.tp_split = set()
+        if self.policy.tp and mesh.shape[AXIS_MODEL] > 1:
+            self.tp_split = tensor_parallel(model, specs,
+                                            mesh.shard(AXIS_MODEL))
+        context_parallel(model, mesh.shard(AXIS_SEQ))
+        if self.policy.fsdp and mesh.shape[AXIS_FSDP] > 1:
+            self.shard(placements_of(specs),
+                       fsdp_device_mesh(mesh, self.device.type), model)
         else:
             self._make_state(model, sharded=False)
         self.eval_step = make_eval_step(self.objective, mesh)
@@ -264,16 +302,19 @@ class Trainer:
         """The grad norm, optimizer, DDP (unless ``sharded``), train state
         and train step of ``model``."""
         tcfg, mesh, split = self.tcfg, self.mesh, self.split
-        # the grad norm of a model split over ranks (the branches over the
-        # model axis, every stage's parameters over the stage axis) or
-        # sharded over fsdp
+        # the grad norm of a model split over ranks (the branches or the
+        # TP slices over the model axis, every stage's parameters over the
+        # stage axis) or sharded over fsdp
         grad_norm = plain_grad_norm
+        if self.tp_split:
+            split = AXIS_MODEL
         split_group = None if split is None else mesh.group(split)
         if split_group is not None or sharded:
             grad_norm = sharded_grad_norm(
                 {id(p) for name, p in model.named_parameters()
                  if split_group is not None and (
-                     split == AXIS_STAGE or name.startswith(BRANCH_MODULE))},
+                     split == AXIS_STAGE or name.startswith(BRANCH_MODULE)
+                     or name in self.tp_split)},
                 split_group, mesh.group(AXIS_FSDP))
         optimizer = AdamW(
             model.parameters(), self.schedule, b1=tcfg.adam_b1,
@@ -283,14 +324,14 @@ class Trainer:
         )
         wrapped = None
         if (not sharded and not self.schedule_mode
-                and mesh.batch_group is not None):
-            # DDP over this rank's batch shards only: the ranks of another
-            # model or stage coordinate hold other weights
+                and mesh.grad_group is not None):
+            # DDP over this rank's batch and seq shards only: the ranks of
+            # another model or stage coordinate hold other weights
             wrapped = DistributedDataParallel(
                 model,
                 device_ids=[self.device.index] if self.device.type == "cuda"
                 else None,
-                process_group=mesh.batch_group,
+                process_group=mesh.grad_group,
             )
         self.state = create_train_state(model, optimizer, tcfg.seed,
                                         wrapped=wrapped)
@@ -381,10 +422,11 @@ class Trainer:
                     k: totals[k] + counts[k] for k in counts
                 }
             if totals is not None:
-                # the counts live on the last stage; each batch shard's
-                # model ranks hold the same ones
+                # the counts live on the last stage, in parts over the seq
+                # shards; each batch shard's model ranks hold the same ones
                 acc.update(host_sum_counts(totals, (
-                    self.mesh.group(AXIS_STAGE), self.mesh.batch_group)))
+                    self.mesh.group(AXIS_STAGE), self.mesh.group(AXIS_SEQ),
+                    self.mesh.batch_group)))
             raw = acc.compute()
             if not out and suffix:
                 out.update(raw)

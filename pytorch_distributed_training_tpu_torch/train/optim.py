@@ -14,7 +14,9 @@
   Moments are float32. Optional global-norm clipping first, as optax's
   ``clip_by_global_norm`` (off by default, as in the reference); the norm
   is ``grad_norm``'s, which for a model split or sharded over ranks
-  (``sharded_grad_norm``) is the whole model's.
+  (``sharded_grad_norm``: the branches or tensor parallelism's slices
+  over ``model``, the layers over ``stage``, the FSDP shards) is the whole
+  model's, replicated gradients counted once.
 
 Under FSDP (``parallel/sharding.py``) a parameter and its gradient are
 ``DTensor``s sharded over the mesh's ``fsdp`` axis, beside plain tensors

@@ -30,6 +30,20 @@ mean next-token cross-entropy over the positions ``lm_shift_and_mask``
 keeps and the eval step returns ``nll_sum``, ``token_count`` and
 ``token_correct``.
 
+Context parallelism (a ``seq`` axis of P ranks, each holding S/P columns
+of every row): the LM targets and their mask are shifted on the whole row
+before the loader cuts it (``lm_whole_rows``, the loader's
+``whole_rows``), so the last column of each shard keeps its target, and
+this shard's loss is its sum over the microbatch's count of kept targets
+on the whole row; the classification head runs on every seq rank from
+the CLS row of seq coordinate 0 (``models/bert.py``), each rank counting
+1/P of its loss. The shards' losses sum over ``seq`` to the microbatch's;
+the gradients are reduced over ``(data, fsdp, seq)`` (``grad_group``), so
+each backward runs on P times its share. The eval counts are summed over
+``seq`` (the classification counts taken at seq coordinate 0 only).
+Tensor parallelism changes nothing here: every model rank computes the
+same loss.
+
 Dropout: microbatch m of update ``step`` on batch shard ``rank``
 (``comms/mesh.batch_index``) draws from ``fold_in(fold_in(fold_in(
 state.dropout_seed, step), m), rank)``, the counterpart of
@@ -55,6 +69,7 @@ from pytorch_distributed_training_tpu_torch.comms.collectives import (
     average_,
 )
 from pytorch_distributed_training_tpu_torch.comms.mesh import (
+    AXIS_SEQ,
     AXIS_STAGE,
     Mesh,
     batch_index,
@@ -82,28 +97,52 @@ def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def lm_shift_and_mask(micro: dict):
-    """Next-token targets and per-position weights of a causal-LM batch:
-    position t predicts token t + 1. A roll by -1 keeps the [B, S] shape;
-    the rolled-in last position is masked, as are pad targets (the rolled
-    ``attention_mask``) and padded eval rows (``valid``)."""
+    """Next-token targets and per-position weights of a causal-LM batch
+    (leaves [..., B, S]): position t predicts token t + 1. A roll by -1
+    keeps the shape; the rolled-in last position is masked, as are pad
+    targets (the rolled ``attention_mask``) and padded eval rows
+    (``valid``)."""
     ids = micro["input_ids"].long()
-    targets = torch.roll(ids, -1, dims=1)
+    targets = torch.roll(ids, -1, dims=-1)
     mask = micro.get("attention_mask")
     mask = (torch.ones_like(ids, dtype=torch.float32) if mask is None
-            else torch.roll(mask, -1, dims=1).float())
-    mask[:, -1] = 0.0
+            else torch.roll(mask, -1, dims=-1).float())
+    mask[..., -1] = 0.0
     valid = micro.get("valid")
     if valid is not None:
-        mask = mask * valid.float()[:, None]
+        mask = mask * valid.float()[..., None]
     return targets, mask
 
 
-def causal_lm_loss(logits: torch.Tensor, micro: dict) -> torch.Tensor:
-    """Mean next-token cross-entropy per kept target position, in fp32."""
+def lm_whole_rows(batch: dict) -> dict:
+    """``batch`` with its targets shifted on the whole rows, before the
+    loader cuts the columns over ``seq``: ``lm_targets`` and ``lm_mask``
+    ([..., B, S], cut with the ids) and ``lm_count``, each row's kept
+    targets ([..., B], kept whole)."""
+    targets, mask = lm_shift_and_mask(batch)
+    return dict(batch, lm_targets=targets, lm_mask=mask,
+                lm_count=mask.sum(-1))
+
+
+def lm_targets(micro: dict):
+    """(targets, mask, count): the next-token targets of this rank's
+    columns, their weights, and the microbatch's count of kept targets
+    (on the whole rows)."""
+    if "lm_targets" in micro:
+        return (micro["lm_targets"].long(), micro["lm_mask"],
+                micro["lm_count"].sum())
     targets, mask = lm_shift_and_mask(micro)
+    return targets, mask, mask.sum()
+
+
+def causal_lm_loss(logits: torch.Tensor, micro: dict) -> torch.Tensor:
+    """Next-token cross-entropy of this rank's kept target positions over
+    the microbatch's count of them, in fp32: the mean on one rank, this
+    shard's part of it under context parallelism."""
+    targets, mask, count = lm_targets(micro)
     ce = F.cross_entropy(logits.float().flatten(0, 1), targets.flatten(),
                          reduction="none").view_as(mask)
-    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (ce * mask).sum() / torch.clamp(count, min=1.0)
 
 
 def _loss(objective: str, logits, micro):
@@ -139,6 +178,9 @@ def make_train_step(*, grad_accum_steps: int,
     inv_accum = 1.0 / grad_accum_steps
     mesh = mesh or build_mesh()
     shard, last = batch_index(mesh), _last_stage(mesh)
+    # the gradients are averaged over the seq shards, whose losses sum
+    n_seq = mesh.shape[AXIS_SEQ]
+    head_share = 1.0 / n_seq if objective == "classification" else 1.0
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
@@ -156,8 +198,9 @@ def make_train_step(*, grad_accum_steps: int,
                   else contextlib.nullcontext()):
                 out = _forward(model, micro, seed)
                 if last:
-                    loss = _loss(objective, out, micro) * inv_accum
-                    loss.backward()
+                    loss = _loss(objective, out, micro) * head_share
+                    loss = loss * inv_accum
+                    (loss * n_seq if n_seq > 1 else loss).backward()
                 else:  # the token of an earlier stage (models/stage.py)
                     out.backward()
                     loss = torch.zeros_like(out)
@@ -178,33 +221,37 @@ def finish_step(state: TrainState, loss_sum: torch.Tensor, mesh: Mesh,
                 grad_norm: Callable, *,
                 average: Optional[Callable] = None) -> dict:
     """The rest of a train step once its backwards have run: the
-    gradients of the parameters ``average`` picks averaged over the batch
-    group, the grad norm, one optimizer update, and the step's loss
-    (``loss_sum``, this rank's) summed over the stage axis and averaged
-    over the batch axes."""
+    gradients of the parameters ``average`` picks averaged over the
+    gradient axes (``grad_group``), the grad norm, one optimizer update,
+    and the step's loss (``loss_sum``, this rank's) summed over the stage
+    and seq axes and averaged over the batch axes."""
     params = [p for p in state.module.parameters() if p.grad is not None]
     if average is not None:
-        average_([p.grad for p in params if average(p)], mesh.batch_group)
+        average_([p.grad for p in params if average(p)], mesh.grad_group)
     norm = grad_norm(params, [p.grad for p in params])
     state.optimizer.step()
     state.step += 1
-    # the loss lives on the last stage (the others add zeros) and is the
-    # same on every rank of the model axis
-    loss = all_reduce_mean(all_reduce_sum(loss_sum, mesh.group(AXIS_STAGE)),
-                           mesh.batch_group)
+    # the loss lives on the last stage (the others add zeros), in parts
+    # over the seq shards, and is the same on every rank of the model axis
+    for axis in (AXIS_STAGE, AXIS_SEQ):
+        loss_sum = all_reduce_sum(loss_sum, mesh.group(axis))
+    loss = all_reduce_mean(loss_sum, mesh.batch_group)
     return {"loss": loss, "grad_norm": norm}
 
 
 def make_eval_step(objective: str = "classification",
                    mesh: Optional[Mesh] = None) -> Callable:
     """Build the eval step -> scalar count tensors on the device (zeros on
-    a stage of ``mesh`` before the last, which hands its activations on)."""
-    last = _last_stage(mesh or build_mesh())
+    a stage of ``mesh`` before the last, which hands its activations on,
+    and, for classification, on a seq coordinate after the first, whose
+    head computes the first's counts again)."""
+    mesh = mesh or build_mesh()
+    last = _last_stage(mesh) and mesh.coord(AXIS_SEQ) == 0
 
     @torch.no_grad()
     def lm_eval_step(state: TrainState, batch: dict) -> dict:
         logits = _forward(state.module, batch).float()
-        targets, mask = lm_shift_and_mask(batch)
+        targets, mask, _ = lm_targets(batch)
         ce = F.cross_entropy(logits.flatten(0, 1), targets.flatten(),
                              reduction="none").view_as(mask)
         preds = torch.argmax(logits, dim=-1)

@@ -90,7 +90,8 @@ class ModelConfig:
     layer_norm_eps: float = 1e-12
     num_labels: int = 2
     # full-sequence (non-paged) attention: "reference" is the plain einsum
-    # path, "flash" the flash kernels (ops/flash_attention.py)
+    # path, "flash" the flash kernels (ops/flash_attention.py), "ring" the
+    # ring over the seq axis (ops/ring_attention.py; reference at seq 1)
     attention_impl: str = "reference"
     # only "native" matmuls are ported (int8 waits for its slice)
     matmul_impl: str = "native"
@@ -120,9 +121,9 @@ class ModelConfig:
     paged_multiquery: bool = False
 
     def __post_init__(self):
-        if self.attention_impl not in ("reference", "flash"):
+        if self.attention_impl not in ("reference", "flash", "ring"):
             raise ValueError(
-                f"attention_impl must be reference/flash, got "
+                f"attention_impl must be reference/flash/ring, got "
                 f"{self.attention_impl!r}"
             )
         not_ported = (

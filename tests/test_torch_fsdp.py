@@ -165,7 +165,7 @@ def test_placements_match_jax_leaf_spec(case, fsdp, min_size):
 
 
 def test_placements_off_policy_and_tp():
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Replicate, Shard
 
     shapes = {"a.kernel": (1024, 4096)}
     mesh = {a: 1 for a in AXIS_NAMES} | {"fsdp": 4}
@@ -173,8 +173,16 @@ def test_placements_off_policy_and_tp():
         "a.kernel": Replicate()}
     assert param_placements(shapes, ShardingPolicy(fsdp=True),
                             mesh | {"fsdp": 1}) == {"a.kernel": Replicate()}
-    with pytest.raises(NotImplementedError, match="slice 5 item 4"):
-        param_placements(shapes, ShardingPolicy(tp=True), mesh)
+    # tp: the model dim first (the heads), then fsdp on the largest other
+    qkv = {"attention.query.kernel": (1024, 16, 64)}
+    assert param_placements(qkv, ShardingPolicy(tp=True, fsdp=True),
+                            mesh | {"model": 2}) == {
+        "attention.query.kernel": Shard(0)}
+    up = {"mlp_up.kernel": (64, 4096)}
+    for tp, dim in ((True, 0), (False, 1)):
+        assert param_placements(up, ShardingPolicy(tp=tp, fsdp=True),
+                                mesh | {"model": 2}) == {
+            "mlp_up.kernel": Shard(dim)}
 
 
 # --------------------------------------------- the batch axes and the seeds
@@ -254,17 +262,6 @@ def test_cli_mesh_flags_default_as_jax(port, jax_cli):
 TINY = ["--task", "synthetic", "--device", "cpu", "--train-size", "32",
         "--eval-size", "16", "--global-batch-size", "16",
         "--num-epochs", "1", "--log-every", "0"]
-
-
-@pytest.mark.parametrize("cli,flags", [
-    (train_lm, ["--tp"]), (train_lm, ["--mesh-model", "2"]),
-    (train_lm, ["--mesh-seq", "2"]), (train_lm, ["--attention", "ring"]),
-    (train_dp, ["--mesh-seq", "2"]), (train_dp, ["--attention", "ring"]),
-])
-def test_cli_tensor_and_context_parallel_flags_raise(cli, flags):
-    model = "gpt2-tiny" if cli is train_lm else "tiny"
-    with pytest.raises(NotImplementedError, match="slice 5 item 4"):
-        cli.train(["--model", model] + TINY + flags)
 
 
 def test_train_lm_defaults_scan_and_shard_policy():

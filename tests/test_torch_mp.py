@@ -102,17 +102,11 @@ def test_mesh_errors_match_jax_meshconfig(kw, world):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("axis,item", [("seq", "item 4")])
-def test_mesh_fsdp_and_seq_not_ported(axis, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_mesh(MeshConfig(data=1, **{axis: 2}), world_size=2)
-
-
 # ------------------------------------------------------------- the CLI
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh-seq", "2"], "item 4"), (["--attention", "ring"], "item 4"),
+    (["--mesh-seq", "2"], "item 4b"),
     (["--matmul-impl", "int8"], "item 6"),
     (["--matmul-impl", "int8_full"], "item 6"),
     (["--quant-delayed"], "item 6"),
