@@ -112,7 +112,15 @@ the JAX package), in phases that each raise on failure:
    --no-scan-layers`` against without ``--tp``, with ``--attention
    ring`` against ``--attention reference`` (JAX's fallback at a seq axis
    of 1), and ``train_dp --attention ring`` against ``reference``, the
-   steps and eval metrics bit for bit and the launches equal;
+   steps and eval metrics bit for bit and the launches equal; then
+   ``serve-tp-block``: one gpt2-medium serving block (bf16, and int8
+   weights quantized whole with int8 pools) cut by
+   ``serve_param_specs`` into model-2 and model-4 slices, each on its own
+   pools at 8 or 4 heads, one decode tick of 8 slots at the serve
+   contexts (the decode kernel) and one verify of 5 rows (the multi-query
+   kernel), the row-parallel partials summed here: the output and every
+   slice's pool writes against the whole block's, the slices' launches,
+   and the device ms of a slice's dispatch beside the whole block's;
 7. serve: runs the port's ``serve_lm`` main on gpt2-medium at full width
    (random weights from ``--seed 0``) over a JSONL request stream, with the
    kernels' launch counters reset just before and read just after; checks
@@ -134,7 +142,15 @@ the JAX package), in phases that each raise on failure:
    ``--weights-dtype int8`` alone, each counted (the int8-pool kernels
    only) and checked against a full-sequence forward on the same
    dequantized weights; one decode dispatch of the float and the int8
-   engine, its kernels counted and its host time taken in turns.
+   engine, its kernels counted and its host time taken in turns; then
+   ``serve-tp``: ``serve_lm --tp 2``, plain and with int8 weights and KV,
+   as two processes on the one card (each makes its own gloo group, as
+   NCCL takes one rank a device), the serve phase's requests: rank 0's
+   streams (counted against tp=1's, and checked against the
+   full-sequence forward with the others), ``stats()["tp"]``, the page
+   count of tp=1, 8 heads in each rank's pools, each rank's launches
+   against the leader's dispatch counts, the follower's calls, both
+   exits 0.
 
 Prints one ``kernels`` JSON line (16 kernels; kernel 5's mask-only mode,
 ``mask_scale``, is on no main path since its apply mode,
@@ -3817,6 +3833,339 @@ def tp_cp_equal_phase(lm_argv=TINY_LM_ARGS, dp_argv=TINY_ARGS) -> dict:
     return res
 
 
+# serve-tp-block: one gpt2-medium serving block (bf16 weights and pools, or
+# int8 weights quantized whole then cut and int8 pools with fp32 scales) at
+# the serve phase's decode tick (8 slots at SERVE_CONTEXTS) and a verify
+# of VERIFY_Q rows, cut into model 2 and 4 slices in one process: each
+# slice's bf16 partials rounded before their sum, as tp-split's
+SERVE_TP_SIZES = (2, 4)
+SERVE_TP_TOL = 3e-2
+# serve-tp: serve_lm --tp 2 as two gloo processes on the one card, the
+# serve phase's requests, plain and int8
+SERVE_TP_RUNS = (("serve-tp", []), ("serve-tp-int8", INT8))
+
+
+def _serve_block(weights: str, seed: int = 0):
+    """One gpt2-medium block cast for serving as the engine casts it
+    (``cast_for_serving``: bf16, or int8 projections quantized whole),
+    its biases off zero."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.models.gpt2 import (
+        GPT2LMModel,
+    )
+    from pytorch_distributed_training_tpu_torch.utils.config import (
+        model_preset,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    model = GPT2LMModel(model_preset("gpt2-medium", num_layers=1),
+                        generator=gen)
+    with torch.no_grad():  # the replicated row-parallel biases count
+        for name, p in model.blocks[0].named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=gen)
+    model.cast_for_serving(weights)
+    return model.blocks[0].eval().requires_grad_(False)
+
+
+def _block_pools(device, *, int8, heads, head_dim, page_size, pages,
+                 seed=0):
+    """A block's K and V pools filled with noise (bf16, or int8 values
+    with fp32 scales), as ``(k, v, k_scales, v_scales)``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (pages, page_size, heads, head_dim)
+    if not int8:
+        return tuple(torch.randn(shape, generator=g, device=device).to(
+            torch.bfloat16) for _ in range(2)) + (None, None)
+    vals = tuple(torch.randint(-127, 128, shape, generator=g, device=device,
+                               dtype=torch.int8) for _ in range(2))
+    scales = tuple(torch.rand(shape[:3], generator=g, device=device) * 0.015
+                   + 0.005 for _ in range(2))
+    return vals + scales
+
+
+def _pool_values(pools):
+    """The pools' values in float32 (int8 ones times their scales)."""
+    k, v, ks, vs = pools
+    if ks is None:
+        return k.float(), v.float()
+    return k.float() * ks[..., None], v.float() * vs[..., None]
+
+
+def serve_tp_block_check(device, m: int, *, int8: bool, q_len: int,
+                         contexts=SERVE_CONTEXTS, windows=VERIFY_WINDOWS,
+                         tol=SERVE_TP_TOL, timed=True, seed=0) -> dict:
+    """One serving block (``_serve_block``), whole and cut into ``m``
+    model-axis slices by ``serve_param_specs`` and ``tensor_parallel``
+    with an in-process ``AxisShard`` (no group: each slice's collectives
+    are the identity), each slice on its own pools at ``heads / m``
+    (``serve_pool_shape``; the whole pools' heads), one paged dispatch of
+    ``q_len`` rows a slot at ``contexts`` (1: the decode kernel, more: the
+    multi-query kernel): the row-parallel partials summed here as the
+    all-reduce sums them (the replicated biases on slice 0 alone), the
+    block's output and each slice's pools after its writes against the
+    whole's within ``tol`` (max |err| / max |want|; int8 pools
+    dequantized), bit-equality of the writes recorded, the slices'
+    launches counted; ``timed``: device ms of one slice's dispatch and of
+    the whole block's (``kernel_ms_by_symbol``)."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.comms.mesh import AxisShard
+    from pytorch_distributed_training_tpu_torch.ops import _build
+    from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+        serve_param_specs,
+        serve_pool_shape,
+        tensor_parallel,
+    )
+
+    whole = _serve_block("int8" if int8 else "float32", seed)
+    cfg = whole.attention.config
+    heads, head_dim, page_size = cfg.num_heads, cfg.head_dim, 16
+    specs = serve_param_specs(
+        {n: tuple(p.shape) for n, p in whole.named_parameters()}, m)
+    slices = []
+    for r in range(m):
+        part = copy.deepcopy(whole)
+        tensor_parallel(part, specs, AxisShard(group=None, index=r, size=m,
+                                               ranks=tuple(range(m))))
+        if r:
+            part.attention.out.bias.zero_()
+            part.mlp_down.bias.zero_()
+        slices.append(part.to(device))
+    whole = whole.to(device)
+    batch = len(contexts)
+    pages = batch * windows + 1
+    pools = _block_pools(device, int8=int8, heads=heads, head_dim=head_dim,
+                         page_size=page_size, pages=pages, seed=seed)
+    bt = (torch.arange(batch * windows, dtype=torch.int32, device=device)
+          .reshape(batch, windows) + 1)
+    ctx = torch.tensor(contexts, dtype=torch.int32, device=device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn(batch, q_len, cfg.hidden_size, generator=g,
+                    device=device).to(torch.bfloat16)
+    mq = q_len > 1
+
+    def own(pools, r):
+        """Slice ``r``'s copy of ``pools``' heads."""
+        per = heads // m
+        out = tuple(None if t is None else
+                    t[:, :, r * per:(r + 1) * per].contiguous()
+                    for t in pools)
+        want = serve_pool_shape(tuple(pools[0].shape), m)
+        if tuple(out[0].shape) != want:
+            raise AssertionError(f"serve-tp-block: pool {out[0].shape}, "
+                                 f"want {want}")
+        return out
+
+    def layer(p):
+        return (*p, bt, ctx, mq)
+
+    whole_pools = tuple(None if t is None else t.clone() for t in pools)
+    slice_pools = [own(pools, r) for r in range(m)]
+
+    def whole_step():
+        return whole(x, None, layer(whole_pools))
+
+    def split_step():
+        first = slices[0]
+        a = first.ln_1(x)
+        h = sum(s.attention(a, None, layer(p))
+                for s, p in zip(slices, slice_pools))
+        y = x + h
+        c = first.ln_2(y)
+        h = sum(s.mlp_down(F.gelu(s.mlp_up(c), approximate="tanh"))
+                for s in slices)
+        return y + h
+
+    def one_slice_step():
+        """Slice 0's share of the block (its dispatch on one rank, the
+        all-reduces' inputs on the replicated residual stream)."""
+        s, p = slices[0], slice_pools[0]
+        y = x + s.attention(s.ln_1(x), None, layer(p))
+        return y + s.mlp_down(F.gelu(s.mlp_up(s.ln_2(y)), approximate="tanh"))
+
+    with torch.inference_mode():
+        want = whole_step()
+        _build.reset_launch_counts()
+        got = split_step()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCH_COUNTS)
+        out_err = rel_err(got, want)
+        pool_err, bit_equal = 0.0, True
+        per = heads // m
+        for r, p in enumerate(slice_pools):
+            wants = tuple(None if t is None else t[:, :, r * per:(r + 1) * per]
+                          for t in whole_pools)
+            bit_equal &= all(a is None or torch.equal(a, b)
+                             for a, b in zip(p, wants))
+            for a, b in zip(_pool_values(p), _pool_values(wants)):
+                pool_err = max(pool_err, rel_err(a, b))
+        if not (torch.isfinite(got).all() and out_err <= tol
+                and pool_err <= tol):
+            raise AssertionError(
+                f"serve-tp-block: model {m}, q_len {q_len}, int8 {int8}: "
+                f"out {out_err}, pools {pool_err} (tol {tol})")
+        kernel = ("paged_attention_mq" if mq else "paged_attention") + (
+            "_int8" if int8 else "")
+        if launches.get(kernel) != m:
+            raise AssertionError(f"serve-tp-block: {kernel} launched "
+                                 f"{launches.get(kernel)} times, want {m}")
+        res = dict(model=m, heads=per, q_len=q_len, int8=int8, kernel=kernel,
+                   out_err=out_err, pool_err=pool_err,
+                   pool_writes_bit_equal=bool(bit_equal), launches=launches)
+        if timed:
+            res["slice_device_ms"] = sum(kernel_ms_by_symbol(
+                one_slice_step, reps=10).values()) or None
+            res["whole_device_ms"] = sum(kernel_ms_by_symbol(
+                whole_step, reps=10).values()) or None
+            res["slice_kernel_ms"] = kernel_ms_by_symbol(
+                one_slice_step, reps=10)
+    return res
+
+
+def serve_tp_block_phase(device, sizes=SERVE_TP_SIZES) -> list:
+    """``serve_tp_block_check`` at each model-axis size, on float and int8
+    pools, at the decode tick (kernel 12 or 12-int8) and the verify
+    (kernel 13 or 13-int8)."""
+    out = []
+    for m in sizes:
+        for int8 in (False, True):
+            for q_len in (1, VERIFY_Q):
+                res = serve_tp_block_check(device, m, int8=int8, q_len=q_len)
+                say(f"[serve-tp-block] gpt2-medium serving block, "
+                    f"{'int8 weights and pools' if int8 else 'bf16'}, "
+                    f"{len(SERVE_CONTEXTS)} slots x {q_len} rows, cut into "
+                    f"{m} model-axis slices ({res['heads']} heads a slice): "
+                    + json.dumps(res) + f" (tol {SERVE_TP_TOL})")
+                out.append(res)
+    return out
+
+
+def serve_tp_child(rank: int, ports: list, argv=SERVE_ARGS, prompts=PROMPTS,
+                   new_tokens=NEW_TOKENS) -> dict:
+    """One rank of the serve-tp phase: for each of SERVE_TP_RUNS, a gloo
+    group of two processes on this card (NCCL takes one rank a device),
+    then ``serve_lm.main`` with ``--tp 2`` (its ``initialize`` joins the
+    group made here; rank 0 serves the requests); this rank's events,
+    stats, launches and wall seconds by run."""
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.cli import serve_lm
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    out = {}
+    for (name, flags), port in zip(SERVE_TP_RUNS, ports):
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=2)
+        text = request_lines(prompts, new_tokens) if rank == 0 else ""
+        buf = io.StringIO()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = serve_lm.main(argv + flags + ["--tp", "2"],
+                              in_stream=io.StringIO(text), out_stream=buf)
+        out[name] = dict(stats=stats, launches=dict(_build.LAUNCH_COUNTS),
+                         wall_s=time.perf_counter() - t0,
+                         events=[json.loads(line) for line in
+                                 buf.getvalue().splitlines()])
+        if dist.is_initialized():
+            raise AssertionError("serve_lm --tp left its group up")
+    return out
+
+
+def serve_tp_phase(plain_streams, int8_streams, argv=SERVE_ARGS,
+                   prompts=PROMPTS, new_tokens=NEW_TOKENS, n_layers=24,
+                   heads=16) -> dict:
+    """``serve_lm --tp 2`` on the card as two processes (``serve_tp_child``,
+    gloo: its all-reduces and broadcasts take the card's tensors through
+    the host), plain and int8: rank 0's streams, each request's token
+    count, ``stats()["tp"]``, the page count of tp=1's engine, half the
+    heads in each rank's pools, each rank's launches against the leader's
+    dispatch counts, the follower's calls, both exits 0; how many streams
+    equal tp=1's (``plain_streams``, ``int8_streams``). ``argv``,
+    ``prompts``, ``new_tokens``: the serve phase's."""
+    import socket
+
+    from pytorch_distributed_training_tpu_torch.cli import serve_lm
+
+    ports = []
+    for _ in SERVE_TP_RUNS:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            ports.append(sock.getsockname()[1])
+    procs = []
+    for rank in range(2):
+        code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
+                f"import chip_smoke; print('SERVE_TP ' + json.dumps("
+                f"chip_smoke.serve_tp_child({rank}, *json.loads(sys.argv[1]))"
+                f"))")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code,
+             json.dumps([ports, list(argv), list(prompts), new_tokens])],
+            cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    ranks = []
+    try:
+        for rank, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            result = None
+            for line in stdout.splitlines():
+                if line.startswith("SERVE_TP "):
+                    result = json.loads(line[len("SERVE_TP "):])
+                else:
+                    say(f"[serve-tp] rank {rank}: {line}")
+            if proc.returncode != 0 or result is None:
+                raise AssertionError(f"serve-tp: rank {rank} exit "
+                                     f"{proc.returncode}: {stderr[-3000:]}")
+            ranks.append(result)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    pages = serve_lm.engine_config(
+        serve_lm.build_parser().parse_args(argv)).total_pages - 1
+    res = {}
+    for (name, _), tp1 in zip(SERVE_TP_RUNS, (plain_streams, int8_streams)):
+        leader, follower = ranks[0][name], ranks[1][name]
+        stats, fstats = leader["stats"], follower["stats"]
+        toks = streams(leader["events"], prompts, new_tokens)
+        if follower["events"]:
+            raise AssertionError(f"{name}: the follower wrote events")
+        if (stats["tp"] != 2 or fstats["tp"] != 2
+                or stats["kv_pages_total"] != pages
+                or not stats["kv_heads"] == fstats["kv_heads"] == heads // 2):
+            raise AssertionError(f"{name}: stats {stats} follower {fstats}")
+        want = serve_option_launches(stats, n_layers)
+        for rank, r in ((0, leader), (1, follower)):
+            check_launches(f"{name} rank {rank}", r["launches"], want)
+        calls = (stats["prefill_dispatches"] + stats["prefill_chunks"]
+                 + stats["decode_dispatches"])
+        if fstats["calls"] != calls:
+            raise AssertionError(f"{name}: follower ran {fstats['calls']} "
+                                 f"calls, the leader dispatched {calls}")
+        m = dict(
+            serve_metrics(leader["events"], stats, leader["wall_s"]),
+            follower_wall_s=follower["wall_s"], calls=calls,
+            kv_heads=stats["kv_heads"], kv_pages_total=pages,
+            weight_bytes=stats["weight_bytes"],
+            follower_weight_bytes=fstats["weight_bytes"],
+            kv_bytes_per_token=stats["kv_bytes_per_token"],
+            launches=leader["launches"],
+            follower_launches=follower["launches"],
+            streams_equal_tp1=sum(toks[r] == tp1[r] for r in toks))
+        say(f"[{name}] serve_lm --tp 2, two gloo processes on one card: "
+            + json.dumps(m))
+        res[name] = dict(m, streams=toks)
+    return res
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3900,12 +4249,17 @@ def main() -> int:
     lap("ring")
     tp_cp_equal_phase()
     lap("tp-cp-equal")
+    serve_tp_block_phase(device)
+    lap("serve-tp-block")
     serve = serve_phase()
     plain = serve.pop("streams")
     profile_phase(serve["warm"])
     lap("serve")
     options = serve_options_phase(plain)
     tick_phase()
+    lap("serve options")
+    serve_tp = serve_tp_phase(plain, options["int8"]["streams"])
+    lap("serve-tp")
     checks = {"serve": (plain, PROMPTS, "float32", MARGIN_TOL)}
     for k, v in options.items():
         int8_kv = v["kv_dtype"] == "int8"
@@ -3913,8 +4267,13 @@ def main() -> int:
             v.pop("streams"), v.pop("prompts"),
             "int8" if v["variant"] == "int8" else "float32",
             INT8_KV_MARGIN_TOL if int8_kv else MARGIN_TOL)
+    for name, v in serve_tp.items():
+        int8 = name.endswith("int8")
+        checks[name] = (v.pop("streams"), PROMPTS,
+                        "int8" if int8 else "float32",
+                        INT8_KV_MARGIN_TOL if int8 else MARGIN_TOL)
     full_sequence_phase(device, checks)
-    lap("serve options")
+    lap("full-sequence checks")
     say("[done] seconds by phase " + json.dumps(laps))
 
     kernels = []

@@ -17,6 +17,18 @@ drafts), ``--prefill-chunk`` and ``--prefill-concurrency`` chunked prefill,
 ``--prefix-cache`` the shared-KV prefix cache, ``--weights-dtype int8``
 weight-only int8 projections, ``--kv-dtype int8`` int8 KV pools. Events go
 to stdout, logs to stderr.
+
+``--tp N`` serves one replica over N processes, one a card, launched by
+``torch.distributed.run`` (NCCL on cards, gloo with ``--device cpu``)::
+
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m pytorch_distributed_training_tpu_torch.cli.serve_lm \\
+        --model gpt2-medium --tp 2 < requests.jsonl
+
+``--tp`` must equal the world size. Every rank builds the model from the
+same ``--seed``; rank 0, the leader, reads the requests on stdin and
+writes the events, and the other ranks run their slice of every device
+call (``serve/tp_worker.py``). Every rank exits 0 at EOF.
 """
 
 from __future__ import annotations
@@ -87,36 +99,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "and dequantized in the paged kernels ((head_dim + "
                         "4) bytes a head and token; the page count and "
                         "admission are unchanged)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism: shard THIS replica's engine "
+                        "over N processes, one a card (attention heads + "
+                        "MLP hidden on a model-axis mesh, paged KV pools "
+                        "split on the head dim; page counts are tp=1's). "
+                        "Requires a model whose num_heads/intermediate_size "
+                        "divide by N and a launch of N processes "
+                        "(torch.distributed.run --nproc-per-node N)")
     p.add_argument("--deadline-s", type=float, default=0.0,
                    help="default per-request deadline (0 = none)")
     return p
 
 
-def build_server(args):
-    """``(server, tokenizer)`` for parsed ``args``: the model on its device
-    behind an unstarted ``InferenceServer``."""
-    import torch
+def engine_config(args):
+    """The ``EngineConfig`` of parsed ``args`` (the leader's and every
+    follower's)."""
+    from pytorch_distributed_training_tpu_torch.serve import EngineConfig
 
-    from pytorch_distributed_training_tpu_torch.cli.generate_lm import (
-        build_tokenizer,
-        load_model_and_params,
-    )
-    from pytorch_distributed_training_tpu_torch.serve import (
-        EngineConfig,
-        InferenceServer,
-    )
-    from pytorch_distributed_training_tpu_torch.utils.device import (
-        resolve_device,
-    )
-
-    device = resolve_device(args.device)   # before any weights are built
-    # the float32 logits product must stay float32 (no TF32 rounding)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    tok = build_tokenizer(args)
-    model, _step = load_model_and_params(args, tok)
-    config = EngineConfig(
+    return EngineConfig(
         num_slots=args.num_slots,
         prompt_buckets=tuple(
             int(b) for b in args.prompt_buckets.split(",") if b.strip()
@@ -128,24 +129,57 @@ def build_server(args):
         prefill_chunk=args.prefill_chunk,
         prefill_concurrency=args.prefill_concurrency,
         prefix_cache=args.prefix_cache,
+        tp=args.tp,
         weights_dtype=args.weights_dtype,
         kv_dtype=args.kv_dtype,
     )
+
+
+def _model(args):
+    """``(model, tokenizer)`` of parsed ``args`` on the CPU, float32, from
+    ``--seed`` (the same on every rank)."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.cli.generate_lm import (
+        build_tokenizer,
+        load_model_and_params,
+    )
+
+    # the float32 logits product must stay float32 (no TF32 rounding)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tok = build_tokenizer(args)
+    model, _step = load_model_and_params(args, tok)
+    return model, tok
+
+
+def build_server(args, *, device=None, shard=None):
+    """``(server, tokenizer)`` for parsed ``args``: the model on its device
+    behind an unstarted ``InferenceServer`` (``device``: ``--device``'s
+    when None; ``shard``: the model axis under ``--tp``, this rank the
+    leader)."""
+    from pytorch_distributed_training_tpu_torch.serve import InferenceServer
+    from pytorch_distributed_training_tpu_torch.utils.device import (
+        resolve_device,
+    )
+
+    if device is None:
+        device = resolve_device(args.device)  # before any weights are built
+    model, tok = _model(args)
     # the engine serves its own cast copy of the model
     server = InferenceServer(
-        model, config, device=device, queue_depth=args.queue_depth,
-        default_deadline_s=args.deadline_s or None,
+        model, engine_config(args), device=device,
+        queue_depth=args.queue_depth,
+        default_deadline_s=args.deadline_s or None, shard=shard,
     )
     return server, tok
 
 
-def main(argv=None, in_stream=None, out_stream=None) -> dict:
-    """Serve until EOF on the input stream; returns the engine's final
-    stats dict."""
+def _serve(server, tok, in_stream, out_stream) -> dict:
+    """Serve stdio until EOF; the engine's final stats."""
     from pytorch_distributed_training_tpu_torch.serve import serve_stdio
     from pytorch_distributed_training_tpu_torch.utils.logging import log0
 
-    server, tok = build_server(build_parser().parse_args(argv))
     server.start()
     try:
         served = serve_stdio(
@@ -157,6 +191,61 @@ def main(argv=None, in_stream=None, out_stream=None) -> dict:
     finally:
         server.close(drain=True)
     return server.stats()
+
+
+def _main_tp(args, in_stream, out_stream) -> dict:
+    """``--tp N``: join the launcher's process group, one model group of N
+    ranks; rank 0 serves stdio as the leader, the others follow until its
+    stop message. Rank 0 returns the engine's stats, a follower its own."""
+    from pytorch_distributed_training_tpu_torch.comms.bootstrap import (
+        initialize,
+        shutdown,
+    )
+    from pytorch_distributed_training_tpu_torch.comms.collectives import (
+        broadcast_call,
+    )
+    from pytorch_distributed_training_tpu_torch.comms.mesh import build_mesh
+    from pytorch_distributed_training_tpu_torch.serve import run_follower
+    from pytorch_distributed_training_tpu_torch.serve.engine import CALL_STOP
+    from pytorch_distributed_training_tpu_torch.utils.config import (
+        MeshConfig,
+    )
+    from pytorch_distributed_training_tpu_torch.utils.device import (
+        resolve_device,
+    )
+
+    info = initialize(resolve_device(args.device))
+    try:
+        if info.world_size != args.tp:
+            raise ValueError(
+                f"--tp {args.tp} must equal the world size "
+                f"{info.world_size} (launch --nproc-per-node {args.tp})")
+        shard = build_mesh(MeshConfig(data=1, model=args.tp),
+                           rank=info.rank,
+                           world_size=info.world_size).shard("model")
+        if shard.index:
+            model, _ = _model(args)
+            return run_follower(model, engine_config(args),
+                                device=info.device, shard=shard)
+        try:
+            server, tok = build_server(args, device=info.device, shard=shard)
+        except BaseException:
+            broadcast_call(shard, CALL_STOP)  # the followers wait on a call
+            raise
+        return _serve(server, tok, in_stream, out_stream)
+    finally:
+        shutdown()
+
+
+def main(argv=None, in_stream=None, out_stream=None) -> dict:
+    """Serve until EOF on the input stream; returns the engine's final
+    stats dict (under ``--tp``, a follower's own stats on ranks above
+    0)."""
+    args = build_parser().parse_args(argv)
+    if args.tp > 1:
+        return _main_tp(args, in_stream, out_stream)
+    server, tok = build_server(args)
+    return _serve(server, tok, in_stream, out_stream)
 
 
 if __name__ == "__main__":

@@ -44,10 +44,22 @@ averages the rest (FSDP's replicated parameters) over the batch group.
   CLS, on seq coordinate 0) broadcast to every seq rank; its backward sums
   the gradients over the axis into coordinate 0 (the transpose of a
   broadcast).
+- ``broadcast_call``/``receive_call``: tensor-parallel serving's control
+  channel (``serve/engine.py``, ``serve/tp_worker.py``; the JAX engine is
+  one process under GSPMD and needs none): the leader, model coordinate 0,
+  sends each device call to its followers before it runs the call itself,
+  as a fixed header (the call's kind, a flag, each operand's dtype and
+  shape) and one int64 buffer of the operands (token ids, positions,
+  block-table rows, context lengths, page numbers: integers all). Two
+  broadcasts a call over the model group, on the device under NCCL and on
+  the host under gloo.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -262,3 +274,74 @@ def broadcast_first(x: torch.Tensor, shard=None) -> torch.Tensor:
     ``AxisShard``; None: ``x``); backward: the gradients summed over the
     axis, into coordinate 0 (zeros elsewhere)."""
     return x if shard is None else _BroadcastFirst.apply(x, shard)
+
+
+# a call's header: kind, flag, operand count, then a dtype code, a rank
+# and _CALL_DIMS dims for each of at most _CALL_OPERANDS operands
+_CALL_OPERANDS = 6
+_CALL_DIMS = 4
+_CALL_HEADER = 3 + _CALL_OPERANDS * (2 + _CALL_DIMS)
+_CALL_DTYPES = (np.dtype(np.int64), np.dtype(np.int32))
+
+
+def _call_device(shard) -> torch.device:
+    """Where the call's tensors travel: the card under NCCL, the host
+    under gloo."""
+    if dist.get_backend(shard.group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def broadcast_call(shard, kind: int, operands=(), flag: int = 0) -> None:
+    """Send one call (``kind``, ``flag`` and the integer numpy arrays
+    ``operands``) from the model axis's coordinate 0 to every other rank
+    of ``shard`` (its ``AxisShard``); a no-op without a group."""
+    if shard is None or shard.group is None:
+        return
+    if len(operands) > _CALL_OPERANDS:
+        raise ValueError(f"a call takes at most {_CALL_OPERANDS} operands, "
+                         f"got {len(operands)}")
+    header = np.zeros(_CALL_HEADER, np.int64)
+    header[:3] = kind, flag, len(operands)
+    for i, a in enumerate(operands):
+        if a.dtype not in _CALL_DTYPES or a.ndim > _CALL_DIMS:
+            raise ValueError(f"operand {i}: {a.dtype} of rank {a.ndim}")
+        at = 3 + i * (2 + _CALL_DIMS)
+        header[at:at + 2] = _CALL_DTYPES.index(a.dtype), a.ndim
+        header[at + 2:at + 2 + a.ndim] = a.shape
+    device, src = _call_device(shard), shard.rank(0)
+    dist.broadcast(torch.from_numpy(header).to(device), src,
+                   group=shard.group)
+    if operands:
+        payload = np.concatenate([a.astype(np.int64).reshape(-1)
+                                  for a in operands])
+        dist.broadcast(torch.from_numpy(payload).to(device), src,
+                       group=shard.group)
+
+
+def receive_call(shard) -> tuple[int, int, list]:
+    """On a follower (model coordinate > 0): the next call of
+    ``broadcast_call``, as ``(kind, flag, operands)``, the operands numpy
+    arrays of their dtypes and shapes."""
+    device, src = _call_device(shard), shard.rank(0)
+    header = torch.empty(_CALL_HEADER, dtype=torch.int64, device=device)
+    dist.broadcast(header, src, group=shard.group)
+    header = header.cpu().numpy()
+    kind, flag, count = (int(v) for v in header[:3])
+    metas = []
+    for i in range(count):
+        at = 3 + i * (2 + _CALL_DIMS)
+        code, ndim = (int(v) for v in header[at:at + 2])
+        metas.append((_CALL_DTYPES[code],
+                      tuple(int(d) for d in header[at + 2:at + 2 + ndim])))
+    if not metas:
+        return kind, flag, []
+    payload = torch.empty(sum(math.prod(shape) for _, shape in metas),
+                          dtype=torch.int64, device=device)
+    dist.broadcast(payload, src, group=shard.group)
+    flat, operands, at = payload.cpu().numpy(), [], 0
+    for dtype, shape in metas:
+        n = math.prod(shape)
+        operands.append(flat[at:at + n].astype(dtype).reshape(shape))
+        at += n
+    return kind, flag, operands

@@ -35,6 +35,7 @@ deterministic (eval and serving).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -184,3 +185,27 @@ class GPT2LMModel(nn.Module):
         if head is None:
             head = self.wte.embedding.to(compute_dtype(cfg)).float()
         return torch.matmul(x.float(), head.t())
+
+
+def unscanned(model: GPT2LMModel) -> GPT2LMModel:
+    """``model`` with a stacked trunk (``layers_scan``) laid out a block a
+    module, on the same values (counterpart: JAX
+    ``models/relayout.unstack_scanned_params``, which the JAX engine runs
+    before it serves); a model whose trunk is per block comes back as it
+    is. Tensor-parallel serving cuts the per-block leaves: the JAX policy
+    splits no ``layers_scan`` leaf."""
+    cfg = model.config
+    if not cfg.scan_layers:
+        return model
+    flat = GPT2LMModel(dataclasses.replace(cfg, scan_layers=False),
+                       device="meta")
+    state = {}
+    for name, t in model.state_dict().items():
+        _, scanned, rest = name.partition("layers_scan.block.")
+        if not scanned:
+            state[name] = t
+            continue
+        for i, leaf in enumerate(t.unbind(0)):
+            state[f"blocks.{i}.{rest}"] = leaf.clone()
+    flat.load_state_dict(state, assign=True)
+    return flat

@@ -7,8 +7,11 @@ from pytorch_distributed_training_tpu_torch.parallel.sharding import (
     context_parallel,
     param_placements,
     param_specs,
+    serve_param_specs,
+    serve_pool_shape,
     tensor_parallel,
 )
 
 __all__ = ["ShardingPolicy", "apply_fsdp", "context_parallel",
-           "param_placements", "param_specs", "tensor_parallel"]
+           "param_placements", "param_specs", "serve_param_specs",
+           "serve_pool_shape", "tensor_parallel"]

@@ -41,6 +41,10 @@ module cuts each rank's model-axis slice (``tensor_parallel``) and FSDP2
   leaf split over ``model`` and hands the model axis to the modules whose
   weights it cut (``models/bert.py``); ``context_parallel`` hands the seq
   axis to the modules that read it.
+- Serving (``serve/engine.py`` under ``tp > 1``): ``serve_param_specs`` is
+  JAX ``serve_param_shardings``, ``_tp_spec`` on a ``model``-only mesh and
+  no fsdp, and ``serve_pool_shape`` a rank's share of a paged pool, the
+  shard shape of JAX ``serve_pool_pspec`` (heads split, pages whole).
 - ``apply_fsdp`` wraps the model: one ``fully_shard`` unit per trunk layer
   (a BERT layer, a GPT-2 block, each branch's layers, a stage's layers),
   or the whole stacked trunk as one unit when it is scanned, then the
@@ -199,6 +203,28 @@ def param_specs(named_shapes: dict, policy: ShardingPolicy,
             spec = spec[1:]
         out[name] = tuple(spec)
     return out
+
+
+def serve_param_specs(named_shapes: dict, tp: int) -> dict:
+    """Each serving parameter's spec on a tensor-parallel replica of ``tp``
+    ranks (counterpart: JAX ``serve_param_shardings``): ``param_specs``
+    under ``ShardingPolicy(tp=True)`` on a mesh of ``{model: tp}`` and
+    every other axis 1. Megatron on the heads and the MLP's hidden dim,
+    everything else (embeddings, LayerNorms, the tied head) replicated; no
+    fsdp: a serve replica keeps its layers resident."""
+    mesh_shape = {axis: 1 for axis in ("data", "fsdp", "stage", "seq")}
+    mesh_shape["model"] = tp
+    return param_specs(named_shapes, ShardingPolicy(tp=True), mesh_shape)
+
+
+def serve_pool_shape(shape: tuple, tp: int) -> tuple:
+    """One rank's shape of a paged-KV pool leaf (counterpart: the shard
+    shape of JAX ``serve_pool_pspec``): a value pool ``[num_pages,
+    page_size, heads, head_dim]`` or an int8 pool's scale pool
+    ``[num_pages, page_size, heads]`` with its heads divided by ``tp``;
+    the page axis stays whole, so page indices, block tables and the
+    allocator are those of one rank."""
+    return tuple(shape[:2]) + (shape[2] // tp,) + tuple(shape[3:])
 
 
 def placements_of(specs: dict) -> dict:

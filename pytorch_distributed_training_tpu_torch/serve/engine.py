@@ -50,13 +50,34 @@ cast_for_serving``), which gives the values flax's per-call cast gives.
   kernels dequantize in place (their int8-pool entries). The allocator is
   dtype-blind: the same pages whatever the pool dtype.
 
+- **Tensor parallelism** (``tp > 1``): one replica over the ``model``
+  axis of ``tp`` processes, one a card (``comms/mesh.build_mesh(MeshConfig(
+  model=tp))``, its ``shard("model")``); the JAX engine is one process
+  driving ``tp`` devices under GSPMD. Each rank serves its Megatron slice
+  (``parallel/sharding.serve_param_specs``: the heads of every attention,
+  the columns of every MLP, the rest replicated), cut after the cast for
+  serving, so int8 weights quantize whole first (a row-parallel
+  projection's per-output-channel scale is a max over the input dim the
+  cut splits), and pools at ``heads / tp`` (``serve_pool_shape``: the page
+  axis whole, so the allocator and block tables are tp=1's). Rank 0, the
+  leader, is this engine: it owns the queue, the allocator, the prefix
+  cache, the sampler and every host decision, and broadcasts each device
+  call (a forward, a page copy) to the model group before it runs the call
+  itself (``_dispatch``, ``comms/collectives.broadcast_call``); the other
+  ranks, the followers (``serve/tp_worker.py``), run each call on their
+  slice and pools. The row-parallel all-reduces leave the same logits on
+  every rank, so the leader alone samples. ``shutdown`` sends the stop
+  message that ends the followers.
+
 Ported options: ``kv_layout="paged"``, ``sampling="device"``, ``spec_k``
 with ``spec_draft="ngram"``, ``prefill_chunk``, ``prefill_concurrency``,
-``prefix_cache``, ``tp=1``, ``weights_dtype`` and ``kv_dtype`` float32 or
-int8 (every option on int8 pools too). Every other value raises
-``NotImplementedError`` naming its ROADMAP.md item. Telemetry records,
-spans, the flight recorder, brownout, hot-swap (between float32 and int8
-among others) and the runtime guards of the JAX engine are not ported yet.
+``prefix_cache``, ``tp``, ``weights_dtype`` and ``kv_dtype`` float32 or
+int8 (every option on int8 pools and under ``tp`` too). Every other value
+raises ``NotImplementedError`` naming its ROADMAP.md item: the dense KV
+layout, host sampling, the draft-model lane and tenant page quotas (queue
+1, slice 4b). Telemetry records, spans, the flight recorder, brownout,
+hot-swap (slice 4c; sharded hot-swap under ``tp`` too) and the runtime
+guards of the JAX engine are not ported yet.
 """
 
 from __future__ import annotations
@@ -69,9 +90,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pytorch_distributed_training_tpu_torch.comms.collectives import (
+    broadcast_call,
+)
 from pytorch_distributed_training_tpu_torch.models.bert import PagedKV
+from pytorch_distributed_training_tpu_torch.models.gpt2 import unscanned
 from pytorch_distributed_training_tpu_torch.ops.quant import (
     serve_params_variant,
+)
+from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+    serve_param_specs,
+    serve_pool_shape,
+    tensor_parallel,
 )
 from pytorch_distributed_training_tpu_torch.serve.paged_cache import (
     PageAllocator,
@@ -99,8 +129,13 @@ _NOT_PORTED = {
     "spec_draft": ("ngram", "the draft-model lane (queue 1, slice 4b; it "
                             "waits for a draft checkpoint in the repository)"),
     "tenant_page_quota": (0.0, "tenant page quotas (queue 1, slice 4b)"),
-    "tp": (1, "tensor-parallel serving (queue 1, slice 5)"),
 }
+
+# the device calls a tensor-parallel leader broadcasts to its followers:
+# the stop message that ends them, a forward of the served model (ids,
+# positions, block-table rows, context lengths; the flag: multiquery) and
+# a page copy (src, dst)
+CALL_STOP, CALL_FORWARD, CALL_PAGE_COPY = 0, 1, 2
 
 
 @dataclasses.dataclass
@@ -161,6 +196,8 @@ class EngineConfig:
             )
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {self.tp}")
         if self.weights_dtype not in ("float32", "int8"):
             raise ValueError(
                 f"weights_dtype must be float32/int8, got "
@@ -220,17 +257,31 @@ class _Slot:
     spec: bool = False          # in the speculative lane (fixed at admit)
 
 
-class DecodeEngine:
-    """Slotted continuous-batching decode over a causal LM.
+def _check_tp_divisible(cfg, tp: int, role: str) -> None:
+    """JAX ``_check_tp_divisible``: the model axis splits the attention
+    heads and the MLP's hidden dim into equal slices, so both must
+    divide."""
+    for axis, size in (("num_heads", cfg.num_heads),
+                       ("intermediate_size", cfg.intermediate_size)):
+        if size % tp:
+            raise ValueError(
+                f"tp={tp} does not divide {role} model's {axis}={size} — "
+                f"attention heads and the MLP hidden dim shard over the "
+                f"model axis, so each shard needs an equal slice"
+            )
 
-    Single-threaded by contract: ``tick``/``cancel_all`` run on the serve
-    loop thread (serve/server.py); construction may happen anywhere.
-    ``model`` is a ``models.gpt2.GPT2LMModel``; the engine serves a copy
-    of it on ``device`` with its weights cast once to the compute dtype.
-    """
 
-    def __init__(self, model, config: EngineConfig, queue: RequestQueue, *,
-                 device="cuda"):
+class ServeSlice:
+    """The device half of a serve replica on one rank: the served copy of
+    the model (cast for serving and, under ``tp > 1``, cut to this rank's
+    slice) and its paged pools at ``heads / tp``, with the device calls
+    that run on them (``_run``). The leader's ``DecodeEngine`` and each
+    follower (``serve/tp_worker.py``) build one from the same
+    ``EngineConfig``. ``shard``: the model axis's ``AxisShard`` (its size
+    must be ``config.tp``); None at ``tp=1``."""
+
+    def __init__(self, model, config: EngineConfig, *, device="cuda",
+                 shard=None):
         cfg = model.config
         if not cfg.causal:
             raise ValueError("DecodeEngine needs a causal model")
@@ -241,10 +292,27 @@ class DecodeEngine:
                 f"{config.max_new_tokens}) + spec_k {config.spec_k} exceeds "
                 f"max_position_embeddings {cfg.max_position_embeddings}"
             )
+        tp = config.tp
+        if tp > 1:
+            _check_tp_divisible(cfg, tp, "model")
+            size = 1 if shard is None else shard.size
+            if size != tp:
+                raise ValueError(
+                    f"tp={tp} needs a model group of {tp} ranks, got {size}")
         self.config = config
         self.device = resolve_device(device)
-        serving = copy.deepcopy(model).to(self.device)
+        self._shard = shard if tp > 1 else None
+        serving = copy.deepcopy(model)
+        if tp > 1:
+            serving = unscanned(serving)
+        serving = serving.to(self.device)
+        # quantize whole, then cut: a row-parallel kernel's scale is a max
+        # over the input dim the cut splits
         serving.cast_for_serving(config.weights_dtype)
+        if tp > 1:
+            tensor_parallel(serving, serve_param_specs(
+                {n: tuple(p.shape) for n, p in serving.named_parameters()},
+                tp), shard)
         serving.eval().requires_grad_(False)
         self._model = serving
         self.variant = serve_params_variant(serving.state_dict())
@@ -254,8 +322,8 @@ class DecodeEngine:
         quant_kv = config.kv_dtype == "int8"
         pool_dtype = (torch.int8 if quant_kv
                       else getattr(torch, cfg.compute_dtype))
-        shape = (config.total_pages, config.page_size, cfg.num_heads,
-                 cfg.head_dim)
+        shape = serve_pool_shape((config.total_pages, config.page_size,
+                                  cfg.num_heads, cfg.head_dim), tp)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -267,6 +335,60 @@ class DecodeEngine:
             (zeros(shape[:3], torch.float32), zeros(shape[:3], torch.float32))
             for _ in range(cfg.num_layers)
         ] if quant_kv else None
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def _paged(self, block_table, context_len, multiquery=False) -> PagedKV:
+        return PagedKV(self._pools, block_table, context_len,
+                       multiquery=multiquery, scales=self._scales)
+
+    def _run(self, kind: int, operands: list, flag: int = 0):
+        """Run one device call on this rank's slice and pools: a forward
+        (``operands``: ids, positions, block-table rows, context lengths;
+        ``flag``: multiquery), its logits; or a page copy (``operands``:
+        ``[[src, dst]]``) of every layer's pools and, for int8 pools, its
+        scale pools."""
+        if kind == CALL_FORWARD:
+            ids, pos, bt, ctx = (self._to_device(a) for a in operands)
+            return self._model(ids, position_ids=pos,
+                               paged=self._paged(bt, ctx, bool(flag)))
+        if kind == CALL_PAGE_COPY:
+            src, dst = (int(v) for v in operands[0])
+            for pool in self._pools + (self._scales or []):
+                for leaf in pool:
+                    leaf[dst].copy_(leaf[src])
+            return None
+        raise ValueError(f"unknown device call {kind}")
+
+    def _kv_bytes_per_token(self) -> int:
+        """Pool bytes one token occupies on this rank across every layer
+        (K and V): ``head_dim`` values a head at the pool dtype, plus one
+        fp32 scale a head for int8 pools."""
+        k_pages = self._pools[0][0]
+        _, _, heads, head_dim = k_pages.shape
+        per_head = head_dim * k_pages.element_size()
+        if self._scales is not None:
+            per_head += 4
+        return 2 * len(self._pools) * heads * per_head
+
+
+class DecodeEngine(ServeSlice):
+    """Slotted continuous-batching decode over a causal LM.
+
+    Single-threaded by contract: ``tick``/``cancel_all``/``shutdown`` run
+    on the serve loop thread (serve/server.py), or after it has stopped;
+    construction may happen anywhere. ``model`` is a
+    ``models.gpt2.GPT2LMModel``; the engine serves a copy of it on
+    ``device`` with its weights cast once to the compute dtype (under
+    ``tp > 1``: this rank's slice of it, and the engine is the leader of
+    the model group of ``shard``).
+    """
+
+    def __init__(self, model, config: EngineConfig, queue: RequestQueue, *,
+                 device="cuda", shard=None):
+        super().__init__(model, config, device=device, shard=shard)
+        self._stopped = False
         self._pages = PageAllocator(
             config.total_pages, config.page_size, config.pages_per_slot,
             config.num_slots,
@@ -306,12 +428,21 @@ class DecodeEngine:
 
     # ------------------------------------------------------------- programs
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+    def _dispatch(self, kind: int, operands: list, flag: int = 0):
+        """Every device call: under ``tp > 1`` broadcast to the model
+        group's followers first, then run on this rank's slice."""
+        if self._shard is not None:
+            if self._stopped:
+                raise RuntimeError("the model group was stopped")
+            broadcast_call(self._shard, kind, operands, flag)
+        return self._run(kind, operands, flag)
 
-    def _paged(self, block_table, context_len, multiquery=False) -> PagedKV:
-        return PagedKV(self._pools, block_table, context_len,
-                       multiquery=multiquery, scales=self._scales)
+    def _forward(self, ids, pos, bt, ctx, multiquery=False) -> torch.Tensor:
+        """The served model's forward over the slots' pages (numpy
+        operands: int64 ids and positions, int32 block-table rows and
+        context lengths); float32 logits on the device."""
+        return self._dispatch(CALL_FORWARD, [ids, pos, bt, ctx],
+                              int(multiquery))
 
     def _prefill(self, req: GenRequest, slot: int) -> int:
         """Prefill ``req`` into ``slot``'s pages; its first token."""
@@ -320,14 +451,10 @@ class DecodeEngine:
         padded[0, : req.prompt_len] = req.prompt_ids
         # fresh sequence: context_len 0, K/V scattered straight into the
         # slot's pages through its block-table row
-        paged = self._paged(
-            self._to_device(self._pages.block_table[slot : slot + 1]),
-            torch.zeros((1,), dtype=torch.int32, device=self.device),
-        )
-        logits = self._model(
-            self._to_device(padded),
-            position_ids=torch.arange(bucket, device=self.device)[None],
-            paged=paged,
+        logits = self._forward(
+            padded, np.arange(bucket, dtype=np.int64)[None],
+            self._pages.block_table[slot : slot + 1],
+            np.zeros((1,), np.int32),
         )
         last = logits[0, req.prompt_len - 1][None]
         token = device_sample(last, [req.seed], [0], [req.temperature],
@@ -349,14 +476,11 @@ class DecodeEngine:
         ids[0, : end - start] = req.prompt_ids[start:end]
         # pad lanes past the position table read its last row (dead lanes)
         pos = np.minimum(start + np.arange(C), self._max_pos - 1)
-        paged = self._paged(
-            self._to_device(self._pages.block_table[slot : slot + 1]),
-            self._to_device(np.asarray([start], np.int32)),
-            multiquery=True,
+        logits = self._forward(
+            ids, pos[None].astype(np.int64),
+            self._pages.block_table[slot : slot + 1],
+            np.asarray([start], np.int32), multiquery=True,
         )
-        logits = self._model(self._to_device(ids),
-                             position_ids=self._to_device(pos[None]),
-                             paged=paged)
         if sample_row is None:
             return None
         token = device_sample(logits[0, sample_row][None], [req.seed], [0],
@@ -366,12 +490,8 @@ class DecodeEngine:
     def _decode(self, tokens, bt, ctx, seeds, steps, temps,
                 top_ks) -> np.ndarray:
         """Advance every slot one token; [slots] sampled ids on the host."""
-        paged = self._paged(self._to_device(bt), self._to_device(ctx))
-        logits = self._model(
-            self._to_device(tokens[:, None].astype(np.int64)),
-            position_ids=self._to_device(ctx[:, None].astype(np.int64)),
-            paged=paged,
-        )
+        logits = self._forward(tokens[:, None].astype(np.int64),
+                               ctx[:, None].astype(np.int64), bt, ctx)
         sampled = device_sample(logits[:, 0], seeds, steps, temps, top_ks)
         return sampled.cpu().numpy()   # the tick's one device-to-host copy
 
@@ -382,17 +502,13 @@ class DecodeEngine:
         k + 2] on the host: the k + 1 per-position samples, then the
         accepted-draft count."""
         q_len = tokens.shape[1]
-        paged = self._paged(self._to_device(bt), self._to_device(ctx),
-                            multiquery=True)
-        dev_tokens = self._to_device(tokens.astype(np.int64))
-        logits = self._model(
-            dev_tokens,
-            position_ids=self._to_device(
-                (ctx[:, None] + np.arange(q_len)).astype(np.int64)),
-            paged=paged,
+        tokens = tokens.astype(np.int64)
+        logits = self._forward(
+            tokens, (ctx[:, None] + np.arange(q_len)).astype(np.int64), bt,
+            ctx, multiquery=True,
         )
-        target, accept = spec_accept(logits, dev_tokens[:, 1:], seeds,
-                                     steps0, temps, top_ks)
+        target, accept = spec_accept(logits, self._to_device(tokens[:, 1:]),
+                                     seeds, steps0, temps, top_ks)
         # the tick's one device-to-host copy
         return torch.cat([target, accept[:, None]], dim=1).cpu().numpy()
 
@@ -400,9 +516,7 @@ class DecodeEngine:
         """Copy page ``src`` onto page ``dst`` in every layer's pools and,
         for int8 pools, its scale pools (the copy-on-write of a partly
         matched prefix page)."""
-        for pool in self._pools + (self._scales or []):
-            for leaf in pool:
-                leaf[dst].copy_(leaf[src])
+        self._dispatch(CALL_PAGE_COPY, [np.asarray([src, dst], np.int64)])
 
     # ---------------------------------------------------------- accounting
 
@@ -859,18 +973,20 @@ class DecodeEngine:
         for req in self._queue.drain_pending():
             self._finish(req, "cancelled", "cancelled")
 
-    def _kv_bytes_per_token(self) -> int:
-        """Pool bytes one token occupies across every layer (K and V):
-        ``head_dim`` values a head at the pool dtype, plus one fp32 scale a
-        head for int8 pools."""
-        k_pages = self._pools[0][0]
-        _, _, heads, head_dim = k_pages.shape
-        per_head = head_dim * k_pages.element_size()
-        if self._scales is not None:
-            per_head += 4
-        return 2 * len(self._pools) * heads * per_head
+    def shutdown(self) -> None:
+        """End the model group's followers (``tp > 1``): send them the stop
+        message, once; the engine dispatches nothing after. A no-op at
+        ``tp=1``."""
+        if self._shard is None or self._stopped:
+            return
+        self._stopped = True
+        broadcast_call(self._shard, CALL_STOP)
 
     def stats(self) -> dict:
+        """The engine's counts. Under ``tp > 1``, ``weight_bytes``,
+        ``kv_bytes_per_token`` and ``kv_heads`` are this rank's (its slice
+        and its pools); the page counts are the replica's, equal to
+        tp=1's."""
         prefix = None
         if self._prefix is not None:
             prefix = dict(self._prefix.stats(), cow_copies=self.cow_copies,
@@ -891,9 +1007,11 @@ class DecodeEngine:
             "sampling": self.config.sampling,
             "weights_dtype": self.config.weights_dtype,
             "kv_dtype": self.config.kv_dtype,
+            "tp": self.config.tp,
             "variant": self.variant,
             "weight_bytes": self.weight_bytes,
             "kv_bytes_per_token": self._kv_bytes_per_token(),
+            "kv_heads": self._pools[0][0].shape[2],
             "kv_page_size": self.config.page_size,
             "kv_pages_total": self._pages.num_pages - 1,
             "kv_pages_used": self._pages.pages_used,

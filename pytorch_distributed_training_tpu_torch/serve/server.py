@@ -11,6 +11,13 @@ Shutdown: ``close(drain=True)`` stops admissions and runs the engine until
 in-flight work completes; ``close(drain=False)`` cancels it. Either way
 every waiter's ``done`` event fires. The HTTP front-end, health endpoint
 and hot-swap are not ported yet.
+
+Tensor parallelism (``EngineConfig.tp > 1``): the server runs on the model
+group's rank 0, its engine the leader (``shard``: the model axis's
+``AxisShard``); every other rank runs ``serve/tp_worker.run_follower``
+instead, which returns at the leader's stop message. ``close`` and the
+serve loop's failure path send that message (``DecodeEngine.shutdown``),
+so no follower waits on a leader that has stopped.
 """
 
 from __future__ import annotations
@@ -43,13 +50,14 @@ class InferenceServer:
 
     def __init__(self, model, config: EngineConfig, *, device="cuda",
                  queue_depth: int = 16,
-                 default_deadline_s: Optional[float] = None):
+                 default_deadline_s: Optional[float] = None, shard=None):
         self.queue = RequestQueue(
             max_depth=queue_depth,
             prompt_buckets=config.prompt_buckets,
             max_new_tokens=config.max_new_tokens,
         )
-        self.engine = DecodeEngine(model, config, self.queue, device=device)
+        self.engine = DecodeEngine(model, config, self.queue, device=device,
+                                   shard=shard)
         self.default_deadline_s = default_deadline_s
         self._ids = itertools.count()
         self._thread: Optional[threading.Thread] = None
@@ -92,6 +100,11 @@ class InferenceServer:
                 self.engine.cancel_all()
             except Exception:  # best-effort cleanup after a failed loop
                 logger.exception("cancel_all after serve-loop failure failed")
+            try:
+                self.engine.shutdown()
+            except Exception:  # best-effort: the followers' group may be gone
+                logger.exception("stopping the followers after serve-loop "
+                                 "failure failed")
 
     def close(self, *, drain: bool = True, timeout: float = 60.0) -> None:
         """Stop serving. ``drain=True`` finishes in-flight and queued work
@@ -114,6 +127,7 @@ class InferenceServer:
                 return
         if not drain:
             self.engine.cancel_all()
+        self.engine.shutdown()
 
     # ------------------------------------------------------------ submission
 

@@ -200,7 +200,7 @@ def test_engine_eot_and_backpressure(lms):
 
 @pytest.mark.parametrize("option,value", [
     ("kv_layout", "dense"), ("sampling", "host"), ("spec_draft", "model"),
-    ("tenant_page_quota", 0.5), ("tp", 2),
+    ("tenant_page_quota", 0.5),
 ])
 def test_engine_config_unported_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
