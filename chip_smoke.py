@@ -37,7 +37,12 @@ the JAX package), in phases that each raise on failure:
    two calls bit-identical, timed at the verify and chunk shapes against
    SDPA on the gathered K/V; both paged kernels again on int8 pools with
    bf16 and float32 q; the two-pass flash backward also against the fused
-   kernel's gradients);
+   kernel's gradients); then ``int8-gemm``: ``ops/quant.int8_mm``
+   (``torch._int_mm``, the int8 training's products; a library call, as
+   XLA's int8 ``dot_general`` is no Pallas kernel) at bert-large's six
+   dense sites at 1024 tokens and a shape it pads (5 x 60 x 36), forward,
+   dgrad and wgrad, bit-equal to the exact (float64) product, timed
+   beside the bf16 ``torch.matmul``;
 4. train: runs the port's ``train_dp`` on bert-large-cased at full width
    and depth (3 optimizer steps of 96 = 8 x 12 on the synthetic MRPC task,
    then the full 408-row eval), with the launch counters reset just before
@@ -49,7 +54,14 @@ the JAX package), in phases that each raise on failure:
    ``torch.profiler``; then the same for
    ``train_mp``'s main path, the TriBert ensemble of bert-base-cased x 3
    branches (the launches of every branch's layers counted, the three
-   branches started unlike each other and every one moved);
+   branches started unlike each other and every one moved); then
+   ``train-int8``: ``train_dp`` on bert-large at full width and depth, 2
+   steps of 96 = 8 x 12 and a 96-row eval, native and with
+   ``--matmul-impl int8``, ``int8_full`` and ``int8_full --quant-delayed
+   --quant-delayed-grads`` (the calibration's forwards and backwards
+   counted with the rest), each counted, finite, every parameter moved,
+   step 1's loss within INT8_LOSS_ATOL of native's, its ms a step beside
+   native's, the last variant run twice with bit-identical losses;
 5. cpu-vs-card: the ``tiny`` preset with dropout on, trained 2 steps on
    the CPU (plain versions) and on the card (kernels) from one seed: the
    per-step losses agree, so the card's masks are the plain generator's;
@@ -59,7 +71,10 @@ the JAX package), in phases that each raise on failure:
    the card (the same per-step losses, bit for bit), and ``--mp-mode
    pipeline`` and ``--mp-mode 1f1b`` at micro 8 in 4 pipeline
    microbatches against ``--mp-mode stage`` at micro 2 (the same per-step
-   losses and grad norms, bit for bit); then ``train-pipeline``:
+   losses and grad norms, bit for bit); ``cpu-vs-card-int8``: the tiny
+   preset at ``int8_full --quant-delayed --quant-delayed-grads`` on the
+   CPU and the card, the losses within INT8_CPU_CARD_RTOL; then
+   ``train-pipeline``:
    ``train_mp`` on bert-base-cased at full width, 2 steps of the recipe's
    96 = 8 x 12 and a 96-row eval, through ``--mp-mode pipeline`` and
    ``--mp-mode 1f1b`` (4 pipeline microbatches of 2 rows an accumulation
@@ -81,7 +96,9 @@ the JAX package), in phases that each raise on failure:
    1's loss bit-identical to the fused run's, later steps within 1e-3),
    and once more, one step, under ``torch.profiler``; the seq-128 run
    also once more under ``torch.profiler``; no LM profile may hold an FMA
-   flash kernel (they take float32 only). Every LM run takes
+   flash kernel (they take float32 only); ``lm-1024-int8``: the seq-1024
+   run at ``--matmul-impl int8_full``, 1 step and the eval, counted. Every
+   LM run takes
    ``train_lm``'s defaults: the scanned trunk, FSDP over an fsdp axis of
    one process (unwrapped). Then ``lm-scan-equal``: the tiny LM with
    dropout on, scanned and ``--no-scan-layers``, the same per-step losses
@@ -112,7 +129,12 @@ the JAX package), in phases that each raise on failure:
    --no-scan-layers`` against without ``--tp``, with ``--attention
    ring`` against ``--attention reference`` (JAX's fallback at a seq axis
    of 1), and ``train_dp --attention ring`` against ``reference``, the
-   steps and eval metrics bit for bit and the launches equal; then
+   steps and eval metrics bit for bit and the launches equal;
+   ``mp-cp``, ``train_mp --mesh-seq 2`` under the branch and pipeline
+   modes as two gloo processes on the card (tiny, float32, dropout off),
+   both exiting 0 with the losses and grad norms of one process at seq 1
+   (reference attention) within MP_CP_RTOL, and the host µs of one
+   gloo ``all_reduce_max`` of a scalar on the card; then
    ``serve-tp-block``: one gpt2-medium serving block (bf16, and int8
    weights quantized whole with int8 pools) cut by
    ``serve_param_specs`` into model-2 and model-4 slices, each on its own
@@ -440,6 +462,49 @@ TINY_LM_ARGS = ["--model", "gpt2-tiny", "--attention", "flash", "--task", "lm",
                 "--micro-batch-size", "8", "--num-epochs", "1", "--seed", "7",
                 "--no-bf16", "--warmup-steps", "1", "--learning-rate", "1e-3",
                 "--log-every", "0"]
+
+# int8-gemm: bert-large's six dense sites at the recipe's 1024 tokens a
+# microbatch (8 x 128): (site, tokens, in features, out features)
+INT8_GEMM_SITES = (("query", 1024, 1024, 1024), ("key", 1024, 1024, 1024),
+                   ("value", 1024, 1024, 1024), ("out", 1024, 1024, 1024),
+                   ("mlp_up", 1024, 1024, 4096),
+                   ("mlp_down", 1024, 4096, 1024))
+# ... and a product _int_mm cannot take as it is (5 rows, k and n off 8),
+# which int8_mm pads with zero rows and columns
+INT8_GEMM_PADDED = (("padded", 5, 60, 36),)
+# NVIDIA H100 SXM data sheet: dense int8 tensor-core rate
+INT8_OPS_PER_S = 1979e12
+# train-int8: bert-large at the recipe, 2 steps (the first's learning rate
+# is 0) and a 96-row eval, native and each int8 variant
+INT8_TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
+                   "--train-size", "192", "--eval-size", "96",
+                   "--num-epochs", "1", "--device", "cuda", "--seed", "42",
+                   "--log-every", "0"]
+INT8_VARIANTS = (
+    ("int8", ["--matmul-impl", "int8"]),
+    ("int8_full", ["--matmul-impl", "int8_full"]),
+    ("int8_full-delayed", ["--matmul-impl", "int8_full", "--quant-delayed",
+                           "--quant-delayed-grads"]))
+# step 1 (the initial weights) of an int8 variant against native bf16: the
+# int8 grid's error on random-init logits, whose CE sits near ln 2
+INT8_LOSS_ATOL = 2e-2
+# lm-1024 at int8_full: 1 step of 32 = 4 x 8 and the 64-row eval
+LM_INT8_ARGS = (LM_1024_ARGS[:_AT] + [LM_PROFILE_TRAIN_SIZE]
+                + LM_1024_ARGS[_AT + 1:] + ["--matmul-impl", "int8_full"])
+# cpu-vs-card at int8_full with delayed scales on both passes: float32
+# inputs a ulp apart can round to int8 one step apart
+TINY_INT8_ARGS = TINY_ARGS + ["--matmul-impl", "int8_full", "--quant-delayed",
+                              "--quant-delayed-grads"]
+INT8_CPU_CARD_RTOL = 1e-3
+# mp-cp: train_mp at (seq 2) as two gloo processes on the card against one
+# process at seq 1 (reference attention), tiny, float32, dropout off;
+# the gloo tests' tolerances
+MP_CP_MODES = ("branch", "pipeline")
+MP_CP_TRAIN = dict(num_epochs=1, train_size=32, eval_size=24,
+                   global_batch_size=16, micro_batch_size=8,
+                   eval_batch_size=8, warmup_steps=1, learning_rate=1e-3,
+                   log_every=0, seed=7)
+MP_CP_RTOL = 1e-5
 
 _PKG = "pytorch_distributed_training_tpu"
 REPLACES = {
@@ -2221,7 +2286,8 @@ def mask_scale_phase(device, shapes=MASK_PARITY_SHAPES, timed=APPLY_SHAPES,
 
 
 def expected_train_launches(*, micro: int, eval_batches: int,
-                            layers: int, flash: bool = False) -> dict:
+                            layers: int, flash: bool = False,
+                            calibration: tuple = (0, 0)) -> dict:
     """Launches of a counted train run, ``layers`` the trunk layers a
     forward runs (the branch ensemble's: every branch's): per microbatch
     forward the embeddings LN, 2 tails per layer and 2 + layers dropouts
@@ -2231,18 +2297,30 @@ def expected_train_launches(*, micro: int, eval_batches: int,
     again, applied to dy); per eval batch the forwards, deterministic.
     ``flash`` (seq <= 256): the whole-sequence flash pair a layer instead,
     with the probs dropout inside, so 2 dropouts a forward. No mask-scale
-    tensor is made."""
+    tensor is made. ``calibration``: the deterministic (forwards,
+    backwards) of the delayed-int8 calibration before step 0."""
+    fwd, bwd = micro + eval_batches + calibration[0], micro + calibration[1]
     out = {
-        "layer_norm": micro + eval_batches,
-        "layer_norm_bwd": micro,
-        "dropout_add_layer_norm": 2 * layers * (micro + eval_batches),
-        "dropout_add_layer_norm_bwd": 2 * layers * micro,
+        "layer_norm": fwd,
+        "layer_norm_bwd": bwd,
+        "dropout_add_layer_norm": 2 * layers * fwd,
+        "dropout_add_layer_norm_bwd": 2 * layers * bwd,
         "mask_scale_apply": (4 + 3 * layers) * micro,
     }
     if flash:
-        out.update(flash_whole_fwd=layers * (micro + eval_batches),
-                   flash_whole_bwd=layers * micro, mask_scale_apply=4 * micro)
+        out.update(flash_whole_fwd=layers * fwd, flash_whole_bwd=layers * bwd,
+                   mask_scale_apply=4 * micro)
     return out
+
+
+def calibration_passes(mc) -> tuple:
+    """(forwards, backwards) of the Trainer's delayed-int8 calibration
+    (``train/loop.py``): two passes, each a forward and, with delayed dy
+    scales, one more forward and its backward."""
+    if mc.matmul_impl == "native" or not mc.quant_delayed:
+        return (0, 0)
+    grads = int(mc.quant_delayed_grads)
+    return (2 * (1 + grads), 2 * grads)
 
 
 def train_launches(trainer) -> dict:
@@ -2253,7 +2331,8 @@ def train_launches(trainer) -> dict:
         micro=trainer.state.step * tc.grad_accum_steps * trainer.n_micro,
         eval_batches=trainer.eval_loader.steps_per_epoch,
         layers=mc.num_layers * getattr(trainer.state.module, "n_branches", 1),
-        flash=mc.attention_impl == "flash")
+        flash=mc.attention_impl == "flash",
+        calibration=calibration_passes(mc))
 
 
 def initial_weights(trainer) -> dict:
@@ -2485,10 +2564,11 @@ def host_time_by_op(averages, top_n=12) -> dict:
                              for e in ops[:top_n]})
 
 
-def cpu_vs_card_phase(argv=TINY_ARGS, cli="train_dp") -> dict:
+def cpu_vs_card_phase(argv=TINY_ARGS, cli="train_dp",
+                      rtol=CPU_CARD_RTOL) -> dict:
     """The tiny preset with dropout on, 2 steps of accumulation 2 from one
     seed, on the CPU (plain versions) and on the card (kernels; a
-    classification run's launches counted)."""
+    classification run's launches counted), within ``rtol``."""
     metrics = lm_metrics if cli == "train_lm" else train_metrics
     runs = {}
     for device in ("cpu", "cuda"):
@@ -2502,10 +2582,10 @@ def cpu_vs_card_phase(argv=TINY_ARGS, cli="train_dp") -> dict:
     cpu, card = runs["cpu"], runs["cuda"]
     for key in ("losses", "grad_norms"):
         for a, b in zip(cpu[key], card[key]):
-            if not math.isclose(a, b, rel_tol=CPU_CARD_RTOL):
+            if not math.isclose(a, b, rel_tol=rtol):
                 raise AssertionError(
                     f"cpu-vs-card {key}: cpu {cpu[key]} card {card[key]} "
-                    f"(rtol {CPU_CARD_RTOL})")
+                    f"(rtol {rtol})")
     res = dict(cpu_losses=cpu["losses"], card_losses=card["losses"],
                cpu_grad_norms=cpu["grad_norms"],
                card_grad_norms=card["grad_norms"],
@@ -2514,7 +2594,7 @@ def cpu_vs_card_phase(argv=TINY_ARGS, cli="train_dp") -> dict:
                    card["losses"] + card["grad_norms"])), launches=counts)
     say(f"[cpu-vs-card] {trainer.mcfg.num_layers}-layer "
         f"{argv[argv.index('--model') + 1]} ({cli}), dropout on, float32: "
-        + json.dumps(res) + f" (rtol {CPU_CARD_RTOL})")
+        + json.dumps(res) + f" (rtol {rtol})")
     return res
 
 
@@ -4166,6 +4246,237 @@ def serve_tp_phase(plain_streams, int8_streams, argv=SERVE_ARGS,
     return res
 
 
+# ------------------------------------------------------------- int8 training
+
+
+def int8_gemm_phase(device,
+                    sites=INT8_GEMM_SITES + INT8_GEMM_PADDED) -> dict:
+    """``ops/quant.int8_mm`` (``torch._int_mm``) at bert-large's six dense
+    sites and a padded shape, forward, dgrad and wgrad, each bit-equal to
+    the float64 product of the same int8 operands (exact: every sum is
+    under 2^53), timed beside the bf16 ``torch.matmul`` of the same shape,
+    with the bound at the int8 rate."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops.quant import int8_mm
+
+    g = torch.Generator(device=device).manual_seed(0)
+    res = {}
+    for site, tokens, k, n in sites:
+        for kind, (m, kk, nn) in (("fwd", (tokens, k, n)),
+                                  ("dgrad", (tokens, n, k)),
+                                  ("wgrad", (k, tokens, n))):
+            a = torch.randint(-127, 128, (m, kk), dtype=torch.int8,
+                              device=device, generator=g)
+            bt = torch.randint(-127, 128, (nn, kk), dtype=torch.int8,
+                               device=device, generator=g)
+            got = int8_mm(a, bt)
+            want = torch.matmul(a.double(), bt.double().t()).to(torch.int32)
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                raise AssertionError(f"int8-gemm {site} {kind}: not the "
+                                     f"exact product")
+            af, bf = a.bfloat16(), bt.t().contiguous().bfloat16()
+            ms = time_ms(lambda: int8_mm(a, bt))
+            bf16_ms = time_ms(lambda: torch.matmul(af, bf))
+            b_ms, by = bound(m * kk + nn * kk + 4 * m * nn, 2 * m * kk * nn,
+                             INT8_OPS_PER_S)
+            res[f"{site}-{kind}"] = dict(
+                m=m, k=kk, n=nn, ms=ms, bf16_ms=bf16_ms,
+                ratio=ms / bf16_ms, bound_ms=b_ms, bound_by=by,
+                tops=2 * m * kk * nn / ms / 1e9)
+    say("[int8-gemm] torch._int_mm bit-equal to the exact product at "
+        "bert-large's six sites (fwd, dgrad, wgrad), ms beside the bf16 "
+        "matmul: " + json.dumps(res))
+    return res
+
+
+def train_int8_phase(argv=INT8_TRAIN_ARGS, variants=INT8_VARIANTS) -> dict:
+    """``train_dp`` on bert-large at full width and depth, native and each
+    int8 variant: 2 steps and the eval, counted as the train phase counts,
+    finite losses, every parameter moved, step 1's loss within
+    INT8_LOSS_ATOL of native's, ms a step beside native's; the last variant
+    again, its losses bit-identical."""
+    import torch
+
+    runs = {}
+    for name, flags in (("native", []), *variants, ("rerun", variants[-1][1])):
+        with no_mask_tensor(f"train-int8 {name} run"):
+            trainer, counts, wall = train_once(argv + flags)
+        check_launches(f"train-int8 {name} run", counts,
+                       train_launches(trainer))
+        m = train_metrics(trainer, wall)
+        m["launches"] = counts
+        if m["steps"] != 2 or not all(
+                map(math.isfinite, m["losses"] + m["grad_norms"])):
+            raise AssertionError(f"train-int8 {name}: {m}")
+        if name != "rerun":
+            start = initial_weights(trainer)
+            now = trainer.state.module.state_dict()
+            unmoved = [k for k in start
+                       if torch.equal(now[k].cpu(), start[k])]
+            if unmoved:
+                raise AssertionError(f"train-int8 {name}: unchanged after 2 "
+                                     f"steps: {unmoved[:5]}")
+            del start, now
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[name] = m
+        if name not in ("native", "rerun"):
+            d = abs(m["losses"][0] - runs["native"]["losses"][0])
+            m["step1_loss_diff"] = d
+            m["ms_per_step_vs_native"] = (m["ms_per_step"]
+                                          / runs["native"]["ms_per_step"])
+            if d > INT8_LOSS_ATOL:
+                raise AssertionError(
+                    f"train-int8 {name}: step 1 loss {m['losses'][0]} vs "
+                    f"native {runs['native']['losses'][0]} (atol "
+                    f"{INT8_LOSS_ATOL})")
+        say(f"[train-int8] {name}: " + json.dumps(m))
+    if runs["rerun"]["losses"] != runs[variants[-1][0]]["losses"]:
+        raise AssertionError("train-int8: the rerun's losses differ: "
+                             f"{runs['rerun']['losses']}")
+    say(f"[train-int8] {variants[-1][0]} per-step losses bit-identical "
+        "across two runs")
+    return runs
+
+
+def mp_cp_child(rank: int, port: int, mode: str, seq: int,
+                device: str = "cuda") -> dict:
+    """One rank of ``train_mp``'s ``mode`` on the tiny preset at a seq axis
+    of ``seq`` (ring attention; 1: reference attention, no group): with
+    ``seq`` > 1 a gloo group of that many processes on this card (NCCL
+    takes one rank a device) is made first and the Trainer joins it.
+    Float32, dropout off; the per-step losses and grad norms."""
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.comms.bootstrap import (
+        shutdown,
+    )
+    from pytorch_distributed_training_tpu_torch.models.branch import (
+        BranchEnsembleClassifier,
+    )
+    from pytorch_distributed_training_tpu_torch.train.loop import Trainer
+    from pytorch_distributed_training_tpu_torch.utils.config import (
+        MeshConfig,
+        TrainConfig,
+        model_preset,
+    )
+
+    if seq > 1:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(seq),
+                          LOCAL_RANK="0")
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=seq)
+    try:
+        mcfg = model_preset(
+            "tiny", compute_dtype="float32", hidden_dropout=0.0,
+            attention_dropout=0.0,
+            attention_impl="ring" if seq > 1 else "reference")
+        model = None
+        if mode == "branch":
+            def model(cfg, *, seed, mesh):
+                return BranchEnsembleClassifier(cfg, 2, seed=seed, mesh=mesh)
+        trainer = Trainer(mcfg, TrainConfig(**MP_CP_TRAIN), task="synthetic",
+                          device=device, mesh_config=MeshConfig(data=1,
+                                                                seq=seq),
+                          mp_mode=mode, model=model,
+                          n_micro=2 if mode in ("pipeline", "1f1b") else None)
+        trainer.run()
+        out = dict(steps=[(s["loss"], s["grad_norm"])
+                          for s in trainer.step_log],
+                   accuracy=trainer.history[-1]["accuracy"])
+        if seq > 1:
+            out["all_reduce_max_us"] = scalar_max_us(trainer.device)
+        return out
+    finally:
+        shutdown()
+
+
+def scalar_max_us(device, calls: int = 200) -> float:
+    """Host microseconds of one ``all_reduce_max`` of a float32 scalar on
+    ``device`` over the world group (an int8 site's amax collective), the
+    mean of ``calls`` back to back."""
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tpu_torch.comms.collectives import (
+        all_reduce_max,
+    )
+
+    t = torch.ones((), device=device)
+    for _ in range(10):
+        all_reduce_max(t, dist.group.WORLD)
+    if t.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        all_reduce_max(t, dist.group.WORLD)
+    if t.is_cuda:
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def mp_cp_phase(modes=MP_CP_MODES, device="cuda") -> dict:
+    """``train_mp --mesh-seq 2`` under each of ``modes`` as two gloo
+    processes on the card (``mp_cp_child``): both exit 0, and the losses
+    and grad norms equal one process's at seq 1 (reference attention)
+    within MP_CP_RTOL."""
+    import socket
+
+    res = {}
+    for mode in modes:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = []
+        for rank in range(2):
+            code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
+                    f"import chip_smoke; print('MP_CP ' + json.dumps("
+                    f"chip_smoke.mp_cp_child({rank}, {port}, {mode!r}, 2, "
+                    f"{device!r})))")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        ranks = []
+        try:
+            for rank, proc in enumerate(procs):
+                stdout, stderr = proc.communicate(timeout=600)
+                found = [json.loads(line[len("MP_CP "):])
+                         for line in stdout.splitlines()
+                         if line.startswith("MP_CP ")]
+                if proc.returncode != 0 or not found:
+                    raise AssertionError(f"mp-cp {mode}: rank {rank} exit "
+                                         f"{proc.returncode}: "
+                                         f"{stderr[-3000:]}")
+                ranks.append(found[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        one = mp_cp_child(0, 0, mode, 1, device)
+        us = [r.pop("all_reduce_max_us") for r in ranks]
+        if ranks[0] != ranks[1] or len(one["steps"]) != len(
+                ranks[0]["steps"]):
+            raise AssertionError(f"mp-cp {mode}: ranks {ranks} one {one}")
+        for got, want in zip(ranks[0]["steps"], one["steps"]):
+            for a, b in zip(got, want):
+                if not math.isclose(a, b, rel_tol=MP_CP_RTOL):
+                    raise AssertionError(
+                        f"mp-cp {mode}: seq 2 {ranks[0]['steps']} against "
+                        f"seq 1 {one['steps']} (rtol {MP_CP_RTOL})")
+        res[mode] = dict(seq2=ranks[0], seq1=one, all_reduce_max_us=us,
+                         max_rel_diff=max(
+            abs(a - b) / abs(b) for got, want in zip(ranks[0]["steps"],
+                                                     one["steps"])
+            for a, b in zip(got, want)))
+        say(f"[mp-cp] train_mp --mp-mode {mode} --mesh-seq 2, two gloo "
+            "processes on one card, against --mesh-seq 1: "
+            + json.dumps(res[mode]))
+    return res
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -4206,8 +4517,12 @@ def main() -> int:
     res.update(flash_phase(device))
     res.update(two_pass_phase(device))
     lap("flash kernels")
+    int8_gemm_phase(device)
+    lap("int8-gemm")
     train = train_phase()
     lap("train")
+    train_int8_phase()
+    lap("train-int8")
     train_profile_phase(train["warm"], one_step(TRAIN_ARGS))
     lap("train-profile")
     train_mp = train_phase(TRAIN_MP_ARGS, "train_mp", tag="train-mp")
@@ -4239,6 +4554,9 @@ def main() -> int:
                         tag="lm-128-profile", forbid=FMA_FLASH_SYMBOLS)
     cpu_vs_card_phase(TINY_LM_ARGS, "train_lm")
     lap("lm-128 + cpu-vs-card")
+    lm_phase(LM_INT8_ARGS, steps=1, rerun=False, tag="lm-1024-int8")
+    cpu_vs_card_phase(TINY_INT8_ARGS, rtol=INT8_CPU_CARD_RTOL)
+    lap("lm-1024-int8 + cpu-vs-card-int8")
     lm_scan_equal_phase()
     lap("lm-scan-equal")
     lm_fsdp_phase()
@@ -4249,6 +4567,8 @@ def main() -> int:
     lap("ring")
     tp_cp_equal_phase()
     lap("tp-cp-equal")
+    mp_cp_phase()
+    lap("mp-cp")
     serve_tp_block_phase(device)
     lap("serve-tp-block")
     serve = serve_phase()

@@ -1,8 +1,7 @@
 """The port's entry points, and what the trainers share (counterpart: the
 JAX package's ``cli/__init__.py``)."""
 
-NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, slice 5 item {})"
-
+import argparse
 
 def resolve_attention(attention, mesh_seq: int) -> dict:
     """The JAX CLIs' rule: an explicit ``--attention`` wins, else ring
@@ -12,9 +11,40 @@ def resolve_attention(attention, mesh_seq: int) -> dict:
     return {"attention_impl": attention} if attention else {}
 
 
-def raise_not_ported(checks) -> None:
-    """``checks``: (asked, flag, slice 5 item) triples; the first asked
-    raises ``NotImplementedError`` naming its ROADMAP item."""
-    for asked, flag, item in checks:
-        if asked:
-            raise NotImplementedError(f"{flag} {NOT_PORTED.format(item)}")
+def add_quant_args(p, *, delayed: bool = True,
+                   delayed_grads: bool = True) -> None:
+    """The JAX CLIs' int8-matmul flags (``train_dp`` all three,
+    ``train_mp`` no ``--quant-delayed-grads``, ``train_lm``
+    ``--matmul-impl`` only)."""
+    p.add_argument("--matmul-impl", default="native",
+                   choices=("native", "int8", "int8_full"),
+                   help="dense-matmul path (ops/quant.py): int8 runs the "
+                        "int8 x int8 -> int32 products with dynamic "
+                        "quantization; int8_full the backward's too")
+    if delayed:
+        p.add_argument("--quant-delayed",
+                       action=argparse.BooleanOptionalAction, default=False,
+                       help="delayed (previous-microbatch) int8 activation "
+                            "scaling: amaxes carried in the model, "
+                            "calibrated on the first batch (ops/quant.py)")
+    if delayed_grads:
+        p.add_argument("--quant-delayed-grads",
+                       action=argparse.BooleanOptionalAction, default=False,
+                       help="extend delayed scaling to the backward's dy "
+                            "quantization (int8_full only)")
+
+
+def quant_overrides(args) -> dict:
+    """The JAX CLIs' checks of the int8 flags (``SystemExit``), then the
+    ``model_preset`` overrides they ask for."""
+    delayed = getattr(args, "quant_delayed", False)
+    delayed_grads = getattr(args, "quant_delayed_grads", False)
+    if delayed and args.matmul_impl == "native":
+        raise SystemExit(
+            "--quant-delayed requires --matmul-impl int8|int8_full")
+    if delayed_grads and not (delayed and args.matmul_impl == "int8_full"):
+        raise SystemExit(
+            "--quant-delayed-grads requires --quant-delayed and "
+            "--matmul-impl int8_full")
+    return dict(matmul_impl=args.matmul_impl, quant_delayed=delayed,
+                quant_delayed_grads=delayed_grads)

@@ -39,8 +39,19 @@ pooler reads the CLS row of the first seq shard::
         -m pytorch_distributed_training_tpu_torch.cli.train_dp \\
         --model tiny --task synthetic --device cpu --mesh-seq 2
 
-The JAX CLI's ``--matmul-impl``, ``--hf-checkpoint`` and restart flags
-wait for their slices (ROADMAP.md, queue 1).
+``--matmul-impl int8|int8_full`` runs the six projections of every layer
+on int8 products (``ops/quant.py``: int8 forward and float backward, or
+int8 dgrad and wgrad too); ``--quant-delayed`` quantizes each site's
+input on the previous microbatch's amax, observed on the first batch
+before step 0, and ``--quant-delayed-grads`` (with ``int8_full``) the
+backward's dy too::
+
+    python -m pytorch_distributed_training_tpu_torch.cli.train_dp \
+        --model tiny --task synthetic --device cpu \
+        --matmul-impl int8_full --quant-delayed --quant-delayed-grads
+
+The JAX CLI's ``--hf-checkpoint`` and restart flags wait for their
+slices (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -48,7 +59,11 @@ from __future__ import annotations
 import argparse
 import json
 
-from pytorch_distributed_training_tpu_torch.cli import resolve_attention
+from pytorch_distributed_training_tpu_torch.cli import (
+    add_quant_args,
+    quant_overrides,
+    resolve_attention,
+)
 from pytorch_distributed_training_tpu_torch.utils.config import (
     MeshConfig,
     TrainConfig,
@@ -70,6 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("reference", "flash", "ring"),
                    help="attention implementation (default: the preset's; "
                         "ring when --mesh-seq > 1)")
+    add_quant_args(p)
     p.add_argument("--fsdp", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="shard params/opt state over the fsdp axis")
@@ -94,10 +110,11 @@ def build_trainer(args):
     )
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
 
+    quant = quant_overrides(args)
     tcfg = dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
-        **resolve_attention(args.attention, args.mesh_seq),
+        **quant, **resolve_attention(args.attention, args.mesh_seq),
     )
     mesh = MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
                       seq=args.mesh_seq)

@@ -54,15 +54,21 @@ or ``--mesh-seq 2`` leaves fsdp 2 by ``--mesh-fsdp -1``::
         -m pytorch_distributed_training_tpu_torch.cli.train_lm \\
         --model gpt2-tiny --device cpu --tp --no-scan-layers --mesh-model 2
 
-The JAX CLI's remat, int8-matmul and restart flags wait for the slice 2
-and slice 3 leftovers.
+``--matmul-impl int8|int8_full`` runs the six projections of every block
+on int8 products (``ops/quant.py``); the JAX LM CLI has no delayed
+scaling flags. The JAX CLI's remat and restart flags wait for the slice
+2 and slice 3 leftovers.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from pytorch_distributed_training_tpu_torch.cli import resolve_attention
+from pytorch_distributed_training_tpu_torch.cli import (
+    add_quant_args,
+    quant_overrides,
+    resolve_attention,
+)
 from pytorch_distributed_training_tpu_torch.cli.train_dp import run
 from pytorch_distributed_training_tpu_torch.utils.config import (
     MeshConfig,
@@ -91,6 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Megatron tensor parallelism over the model axis")
     p.add_argument("--scan-layers", action=argparse.BooleanOptionalAction,
                    default=True, help="the stacked trunk (layers_scan)")
+    add_quant_args(p, delayed=False, delayed_grads=False)
     p.add_argument("--mesh-data", type=int, default=1)
     p.add_argument("--mesh-fsdp", type=int, default=-1)
     p.add_argument("--mesh-model", type=int, default=1)
@@ -116,7 +123,7 @@ def build_trainer(args):
     tcfg = dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
-        scan_layers=args.scan_layers,
+        scan_layers=args.scan_layers, **quant_overrides(args),
         **resolve_attention(args.attention, args.mesh_seq))
     if not mcfg.causal:
         raise SystemExit(

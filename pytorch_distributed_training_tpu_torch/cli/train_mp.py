@@ -45,12 +45,22 @@ fsdp; ``--fsdp`` shards each rank's part of the model over the fsdp axis
 ``parallel/sharding.py``), judged as JAX judges the stacked branches and
 layers. Every mode keeps per-layer modules (JAX's stage and pipeline
 modes scan the trunk; the port's do not). ``--attention ring`` at a seq
-axis of 1 is reference attention (JAX's fallback). Not ported yet (each
-raises ``NotImplementedError``; ROADMAP.md, queue 1, slice 5):
-``--mesh-seq`` > 1, context parallelism under the branch, stage and
-pipeline modes (item 4b), ``--matmul-impl int8|int8_full`` and
-``--quant-delayed`` (item 6). The JAX CLI's restart flags wait with
-``train_dp``'s (slice 2 leftovers).
+axis of 1 is reference attention (JAX's fallback). ``--mesh-seq P`` is
+context parallelism under every mode: each rank holds S/P columns of
+every row, each branch's and stage's layers attend through the ring
+(the default there; ``--attention reference|flash`` raise), the stage
+wire joins the stages of one seq coordinate and the pooler reads the
+CLS row of seq coordinate 0::
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m pytorch_distributed_training_tpu_torch.cli.train_mp \\
+        --model tiny --task synthetic --mesh-data 1 --mesh-stage 2 \\
+        --mesh-seq 2 --mp-mode pipeline --device cpu
+
+``--matmul-impl int8|int8_full`` and ``--quant-delayed`` are
+``train_dp``'s (``ops/quant.py``); under the pipeline and 1f1b schedules
+the delayed amaxes stream through the pipeline microbatches. The JAX
+CLI's restart flags wait with ``train_dp``'s (slice 2 leftovers).
 """
 
 from __future__ import annotations
@@ -59,7 +69,8 @@ import argparse
 import functools
 
 from pytorch_distributed_training_tpu_torch.cli import (
-    raise_not_ported,
+    add_quant_args,
+    quant_overrides,
     resolve_attention,
 )
 from pytorch_distributed_training_tpu_torch.cli.train_dp import run
@@ -100,10 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attention", default=None,
                    choices=("reference", "flash", "ring"),
                    help="attention implementation (default: the preset's)")
-    p.add_argument("--matmul-impl", default="native",
-                   choices=("native", "int8", "int8_full"))
-    p.add_argument("--quant-delayed", action=argparse.BooleanOptionalAction,
-                   default=False)
+    add_quant_args(p, delayed_grads=False)
     p.add_argument("--fsdp", action=argparse.BooleanOptionalAction,
                    default=False)
     p.add_argument("--mesh-data", type=int, default=-1)
@@ -146,20 +154,11 @@ def resolve_n_micro(mesh, n: int, batch: int, what: str) -> int:
     return n
 
 
-def _not_ported(args) -> None:
-    raise_not_ported((
-        (args.mesh_seq > 1, f"--mesh-seq {args.mesh_seq}", "4b"),
-        (args.matmul_impl != "native", f"--matmul-impl {args.matmul_impl}",
-         6),
-        (args.quant_delayed, "--quant-delayed", 6),
-    ))
-
-
 def build_trainer(args):
     """The ``Trainer`` that parsed ``args`` describe (process group joined,
     mesh built, data loaded, this rank's part of the model on its device),
     not yet run."""
-    _not_ported(args)
+    quant = quant_overrides(args)
     from pytorch_distributed_training_tpu_torch.models.branch import (
         BranchEnsembleClassifier,
     )
@@ -171,7 +170,7 @@ def build_trainer(args):
     tcfg = dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
-        **resolve_attention(args.attention, args.mesh_seq))
+        **quant, **resolve_attention(args.attention, args.mesh_seq))
     if mcfg.causal:
         raise SystemExit(f"--model {args.model} is a causal preset; train_mp "
                          f"fine-tunes an encoder classifier")

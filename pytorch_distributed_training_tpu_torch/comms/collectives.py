@@ -12,6 +12,9 @@ averages the rest (FSDP's replicated parameters) over the batch group.
   tensors summed or averaged over a group on this process's device (NCCL
   reduces CUDA tensors, gloo CPU ones): the step loss, the grad norm's
   squares, the eval counts.
+- ``all_reduce_max``: the int8 sites' amaxes (``ops/quant.py``) maxed
+  over every group the quantized tensor is cut over, in place: one scalar
+  (or a weight's channels) a collective.
 - ``reduce_from_model``/``copy_to_model``: the differentiable pair of the
   branch ensemble (Megatron's g and f). ``reduce_from_model`` sums its
   input over the group and passes the gradient through unchanged, since
@@ -35,6 +38,9 @@ averages the rest (FSDP's replicated parameters) over the batch group.
   so a send of an activation and the receive of a gradient from the same
   neighbour pair up rather than block each other (NCCL's blocking pairs
   would deadlock, gloo's might); the same integer view on the wire.
+  gloo sends and receives host tensors only, so a CUDA tensor under gloo
+  (several processes sharing one card) goes through host memory, there
+  and in ``stage_send``/``stage_recv``.
 - ``ring_hop``: ring attention's hop (``ops/ring_attention.py``) over
   the ``seq`` axis, one ``exchange`` a step: K, V and the key-padding bias
   go to coordinate ``index - 1`` and arrive from ``index + 1``; in the
@@ -80,6 +86,14 @@ def all_reduce_mean(t: torch.Tensor, group=None) -> torch.Tensor:
     """Mean of ``t`` over ``group``."""
     n = _size(group)
     return all_reduce_sum(t, group) / n if n > 1 else t.clone()
+
+
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group``, in place; ``t``. A
+    no-op when the group is None or of one rank."""
+    if _size(group) > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
 
 
 def average_(tensors: list, group=None) -> None:
@@ -151,14 +165,22 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.detach().contiguous().view(_WIRE[t.element_size()])
 
 
+def _via_host(device, group=None) -> bool:
+    """Whether a tensor on ``device`` travels point to point through host
+    memory: a CUDA tensor under gloo."""
+    return (torch.device(device).type == "cuda"
+            and dist.get_backend(group) == "gloo")
+
+
 def _send(t: torch.Tensor, dst: int) -> None:
-    dist.send(_wire(t), dst)
+    dist.send(_wire(t.cpu() if _via_host(t.device) else t), dst)
 
 
 def _recv(shape, dtype, device, src: int) -> torch.Tensor:
-    buf = torch.empty(shape, dtype=dtype, device=device)
+    host = _via_host(device)
+    buf = torch.empty(shape, dtype=dtype, device="cpu" if host else device)
     dist.recv(buf.view(_WIRE[buf.element_size()]), src)
-    return buf
+    return buf.to(device) if host else buf
 
 
 class _StageSend(torch.autograd.Function):
@@ -205,15 +227,19 @@ def exchange(sends=(), recvs=(), group=None) -> list[torch.Tensor]:
     dtype, device, src)`` of ``recvs`` (global ranks, over ``group``, None
     the default group), all posted in one batch and waited for; returns
     the received tensors in the order of ``recvs``."""
-    ops = [dist.P2POp(dist.isend, _wire(t), dst, group) for t, dst in sends]
-    out = []
+    ops = [dist.P2POp(dist.isend,
+                      _wire(t.cpu() if _via_host(t.device, group) else t),
+                      dst, group) for t, dst in sends]
+    out, devices = [], []
     for shape, dtype, device, src in recvs:
-        out.append(torch.empty(shape, dtype=dtype, device=device))
+        devices.append(device)
+        out.append(torch.empty(shape, dtype=dtype, device="cpu" if _via_host(
+            device, group) else device))
         ops.append(dist.P2POp(dist.irecv, _wire(out[-1]), src, group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return out
+    return [t.to(device) for t, device in zip(out, devices)]
 
 
 def _shift(tensors, shard, to: int, src: int) -> list[torch.Tensor]:

@@ -86,6 +86,17 @@ class ShardedLoader:
             return self.n // self.global_batch
         return math.ceil(self.n / self.global_batch)
 
+    def first_micro(self, micro_global: int) -> dict:
+        """This rank's rows of the dataset's first ``micro_global`` rows in
+        order (wrapped on a tiny dataset), shipped as an eval batch is:
+        the delayed-int8 calibration batch (JAX ``train/loop.py:255-296``
+        builds it from the dataset arrays too, not from the loader)."""
+        micro_local = micro_global // self.world_size
+        take = np.arange(micro_global) % self.n
+        local = take[self.rank * micro_local:(self.rank + 1) * micro_local]
+        return self._ship({k: v[local] for k, v in self.data.items()},
+                          rank=1)
+
     def epoch(self, epoch_index: int = 0) -> Iterator[dict]:
         if self.train:
             yield from self._train_epoch(epoch_index)

@@ -12,6 +12,24 @@
   ``kernel`` beside its fp32 per-output-channel ``kernel_scale``,
   dequantized per call (``kernel.float() * kernel_scale`` cast to the
   compute dtype, one op), so only the int8 bytes stay resident.
+  int8 training (``matmul_impl`` int8/int8_full, the counterpart of JAX
+  ``QuantDenseGeneral``), a different path: the float32 ``kernel`` and
+  ``bias`` of the native layer, names and shapes unchanged, contracted
+  through ``ops/quant.int8_dense`` (``int8_dense_delayed`` with
+  ``quant_delayed``, ``int8_dense_delayed_grads`` with
+  ``quant_delayed_grads``). The delayed sites hold persistent float32
+  buffers, ``amax`` (a scalar) and ``dy_amax`` [2], JAX's ``"quant"``
+  leaves: a forward with grad enabled (training) or inside
+  ``dy_calibration_mode`` (calibration) carries the amax it observed on
+  in ``amax``; any other forward under ``torch.no_grad()`` (eval) reads
+  them and leaves them as they are. Only the six projections
+  of a layer take this path (``dense(..., int8=True)``); the pooler, the
+  classifier and GPT-2's tied head stay native, as in JAX. Their amaxes
+  are maxed over ``batch_group`` (the gradient axes: data, fsdp, seq),
+  and under tensor parallelism over the model axis where the tensor is
+  cut there (``reduce_group`` of a row-parallel site, whose int32 partial
+  products are summed before the rescale; ``feature_group`` of a
+  column-parallel one).
 - ``BertSelfAttention``: separate ``query``/``key``/``value`` projections
   to [heads, head_dim] and an ``out`` projection back; full-sequence
   attention through ``ops/attention.py``, or the PAGED branch when the
@@ -47,7 +65,8 @@
   and GPT-2's ``layers_scan``) holds one layer module whose parameters
   stack every layer's on a leading [num_layers] dim, the JAX ``nn.scan``
   trunk's layout and names; it computes what the per-layer trunk does,
-  bit for bit.
+  bit for bit. The int8 sites' amax buffers stack alike ([num_layers],
+  [num_layers, 2]), each layer reading and writing its row.
 
 Dropout seeds: ``forward(..., dropout_seed=None)`` is deterministic; a
 seed gives the embeddings ``fold_in(seed, 0)``, layer i ``fold_in(seed,
@@ -111,6 +130,11 @@ from pytorch_distributed_training_tpu_torch.ops.paged_attention import (
     paged_attention,
 )
 from pytorch_distributed_training_tpu_torch.ops.quant import (
+    QuantGroups,
+    calibrating,
+    int8_dense,
+    int8_dense_delayed,
+    int8_dense_delayed_grads,
     quantize_kernel,
     quantize_kv,
 )
@@ -183,7 +207,9 @@ class DenseGeneral(nn.Module):
 
     def __init__(self, in_shape: tuple, out_shape: tuple, *,
                  dtype: torch.dtype, param_dtype: torch.dtype, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 int8_mode: Optional[str] = None, delayed: bool = False,
+                 delayed_grads: bool = False):
         super().__init__()
         self.in_shape = tuple(in_shape)
         self.out_shape = tuple(out_shape)
@@ -199,6 +225,18 @@ class DenseGeneral(nn.Module):
         # row-parallel (tensor parallelism): the model axis's group the
         # partial products are summed over before the bias
         self.reduce_group = None
+        # int8 training: None (native), "fwd" or "full" (ops/quant.py)
+        self.int8_mode = int8_mode
+        if int8_mode is not None and delayed:
+            self.register_buffer("amax", torch.zeros(
+                (), dtype=torch.float32, device=device))
+            if delayed_grads:
+                self.register_buffer("dy_amax", torch.zeros(
+                    2, dtype=torch.float32, device=device))
+        # int8 amaxes: the gradient axes' group (the rows and tokens are cut
+        # over it) and, column-parallel, the model group of the features
+        self.batch_group = None
+        self.feature_group = None
 
     @torch.no_grad()
     def quantize(self) -> None:
@@ -227,8 +265,30 @@ class DenseGeneral(nn.Module):
                 requires_grad=False)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
+    def _int8_forward(self, x):
+        n_in = len(self.in_shape)
+        amax = getattr(self, "amax", None)
+        dy_amax = getattr(self, "dy_amax", None)
+        row = self.reduce_group
+        groups = QuantGroups(x=(self.batch_group, row), w=(row,),
+                             dy=(self.batch_group, self.feature_group),
+                             sum=row)
+        if dy_amax is not None:
+            y, new = int8_dense_delayed_grads(x, self.kernel, amax, dy_amax,
+                                              n_in, groups)
+        elif amax is not None:
+            y, new = int8_dense_delayed(x, self.kernel, amax, n_in,
+                                        self.int8_mode, groups)
+        else:
+            y = int8_dense(x, self.kernel, n_in, self.int8_mode, groups)
+        if amax is not None and (torch.is_grad_enabled() or calibrating()):
+            amax.copy_(new)  # what the next microbatch quantizes with
+        return y.to(self.dtype) + self.bias.to(self.dtype)
+
     def forward(self, x):
         n_in = len(self.in_shape)
+        if self.int8_mode is not None and self.kernel_scale is None:
+            return self._int8_forward(x.to(self.dtype))
         lead = x.shape[: x.dim() - n_in]
         if self.kernel_scale is None:
             w = self.kernel.to(self.dtype)
@@ -248,10 +308,21 @@ class DenseGeneral(nn.Module):
         return y.reshape(*lead, *self.out_shape)
 
 
-def dense(cfg: ModelConfig, in_shape, out_shape, device=None, generator=None):
+def dense(cfg: ModelConfig, in_shape, out_shape, device=None, generator=None,
+          int8: bool = False):
+    """A ``DenseGeneral`` in the compute dtype; ``int8``: one of a layer's
+    six projections, which ``cfg.matmul_impl`` may make int8 (JAX
+    ``dense_general``)."""
+    quant = {}
+    if int8 and cfg.matmul_impl != "native":
+        quant = dict(
+            int8_mode="full" if cfg.matmul_impl == "int8_full" else "fwd",
+            delayed=cfg.quant_delayed,
+            delayed_grads=cfg.quant_delayed_grads)
     return DenseGeneral(
         in_shape, out_shape, dtype=compute_dtype(cfg),
         param_dtype=param_dtype(cfg), device=device, generator=generator,
+        **quant,
     )
 
 
@@ -261,10 +332,10 @@ class BertSelfAttention(nn.Module):
         self.config = cfg
         h = cfg.hidden_size
         heads = (cfg.num_heads, cfg.head_dim)
-        self.query = dense(cfg, (h,), heads, device, generator)
-        self.key = dense(cfg, (h,), heads, device, generator)
-        self.value = dense(cfg, (h,), heads, device, generator)
-        self.out = dense(cfg, heads, (h,), device, generator)
+        self.query = dense(cfg, (h,), heads, device, generator, int8=True)
+        self.key = dense(cfg, (h,), heads, device, generator, int8=True)
+        self.value = dense(cfg, (h,), heads, device, generator, int8=True)
+        self.out = dense(cfg, heads, (h,), device, generator, int8=True)
         self.tp_shard = None  # the model axis, under tensor parallelism
         self.seq_shard = None  # the seq axis, under context parallelism
 
@@ -423,9 +494,9 @@ class BertLayer(nn.Module):
         self.attention = BertSelfAttention(cfg, device, generator)
         self.attention_norm = _dal(cfg, _SITE_ATTENTION_NORM, device)
         self.mlp_up = dense(cfg, (h,), (cfg.intermediate_size,), device,
-                            generator)
+                            generator, int8=True)
         self.mlp_down = dense(cfg, (cfg.intermediate_size,), (h,), device,
-                              generator)
+                              generator, int8=True)
         self.mlp_norm = _dal(cfg, _SITE_MLP_NORM, device)
         self.tp_shard = None  # the model axis, under tensor parallelism
 
@@ -514,22 +585,37 @@ class ScannedLayers(nn.Module):
                                    for layer in layers])
             setattr(mod, leaf, nn.Parameter(stacked))
             self._slots.append((mod, leaf))
+        # the int8 sites' amax buffers stack alike (JAX's variable_axes
+        # {"quant": 0}); layer i reads and writes its row in place
+        self._buffer_slots = []
+        for name, _ in list(template.named_buffers()):
+            path, _, leaf = name.rpartition(".")
+            mod = template.get_submodule(path)
+            mod._buffers[leaf] = torch.stack(
+                [layer.get_buffer(name) for layer in layers])
+            self._buffer_slots.append((mod, leaf))
         self.add_module(inner, template)
 
     def forward(self, x, attention_bias=None, dropout_seed=None, paged=None):
         layer = getattr(self, self.inner)
         stacks = [mod._parameters[leaf] for mod, leaf in self._slots]
         slices = [w.unbind(0) for w in stacks]
+        buffers = [mod._buffers[leaf] for mod, leaf in self._buffer_slots]
+        rows = [b.unbind(0) for b in buffers]
         try:
             for i in range(self.num_layers):
                 for (mod, leaf), ws in zip(self._slots, slices):
                     mod._parameters[leaf] = ws[i]
+                for (mod, leaf), bs in zip(self._buffer_slots, rows):
+                    mod._buffers[leaf] = bs[i]
                 kw = {} if paged is None else {"paged": paged.layer(i)}
                 x = layer(x, attention_bias,
                           dropout_seed=child_seed(dropout_seed, i + 1), **kw)
         finally:
             for (mod, leaf), w in zip(self._slots, stacks):
                 mod._parameters[leaf] = w
+            for (mod, leaf), b in zip(self._buffer_slots, buffers):
+                mod._buffers[leaf] = b
         return x
 
 

@@ -25,6 +25,12 @@ them on one device:
 - ``pooler``, ``dropout``, ``classifier``: BERT's head (``pool_cls``,
   ``classify``), replicated on every rank of the group.
 
+Context parallelism (``parallel/sharding.context_parallel`` sets
+``seq_shard``): as in ``models/bert.py``, the position ids start at this
+rank's first column, the embeddings' and branches' seeds fold in the seq
+coordinate, every branch's layers attend through the ring, and the
+pooler reads the fused CLS row of seq coordinate 0 (``broadcast_first``).
+
 Branch b's initial weights come from a generator seeded by (seed, b) and
 its dropout from ``fold_in(seed, b + 1)`` (layer i of it from
 ``fold_in(that, i + 1)``), so neither depends on the rank that holds it
@@ -60,6 +66,8 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     param_dtype,
     pool_cls,
     run_layers,
+    seq_offset,
+    trunk_seed,
 )
 from pytorch_distributed_training_tpu_torch.ops.attention import (
     make_attention_bias,
@@ -125,6 +133,7 @@ class BranchEnsembleClassifier(nn.Module):
             (h,), (cfg.num_labels,), dtype=torch.float32,
             param_dtype=param_dtype(cfg), device=device, generator=shared,
         )
+        self.seq_shard = None  # the seq axis, under context parallelism
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 position_ids=None, dropout_seed=None):
@@ -133,16 +142,19 @@ class BranchEnsembleClassifier(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         if position_ids is None:
-            position_ids = default_position_ids(cfg, input_ids)
+            position_ids = default_position_ids(
+                cfg, input_ids, seq_offset(input_ids, self.seq_shard))
+        seed = trunk_seed(dropout_seed, self.seq_shard)
         x = self.embeddings(input_ids, token_type_ids.long(), position_ids,
-                            child_seed(dropout_seed, 0))
+                            child_seed(seed, 0))
         x = copy_to_model(x, self.group)
         bias = make_attention_bias(attention_mask)
         total = None
         for b, stack in self.branches.items():
-            h = stack(x, bias, child_seed(dropout_seed, int(b) + 1)).float()
+            h = stack(x, bias, child_seed(seed, int(b) + 1)).float()
             total = h if total is None else total + h
         fused = reduce_from_model(total, self.group) / self.n_branches
-        pooled = pool_cls(self.pooler, fused.to(compute_dtype(cfg)))
+        pooled = pool_cls(self.pooler, fused.to(compute_dtype(cfg)),
+                          self.seq_shard)
         return classify(self.dropout, self.classifier, pooled,
                         child_seed(dropout_seed, self.n_branches + 1))

@@ -34,6 +34,14 @@ and ``params_to_jax`` gathers the slices over the axis (a collective:
 every rank of it calls), so the trees compare whole. Leaves are numpy
 arrays on the flax side, so this module needs no JAX.
 
+The delayed-int8 amaxes (JAX's ``"quant"`` collection, ``amax`` and
+``dy_amax`` leaves in the params tree's layout: per layer, stacked on
+``layers_scan`` and on ``branches``) are the int8 sites' buffers of the
+same names (``models/bert.py``): ``params_from_jax(..., quant=tree)``
+adds them to the ``state_dict``, ``params_to_jax`` leaves them out and
+``quant_to_jax`` gives them alone, each trunk layout and the branches
+handled as for the parameters.
+
 The weight-only int8 serving variant (the JAX package's
 ``quantize_serve_params``: int8 ``kernel`` leaves beside fp32
 ``kernel_scale`` ones) bridges as it is, dtypes kept both ways; a
@@ -43,6 +51,7 @@ The weight-only int8 serving variant (the JAX package's
 from __future__ import annotations
 
 from collections.abc import Mapping
+from typing import Optional
 
 import numpy as np
 import torch
@@ -143,18 +152,31 @@ def _torch_name(path: tuple) -> str:
     return ".".join(parts)
 
 
+_QUANT_LEAVES = ("amax", "dy_amax")  # the "quant" collection's leaves
+
+
+def is_quant_name(name: str) -> bool:
+    """Whether a ``state_dict`` name is an int8 site's amax buffer."""
+    return name.rpartition(".")[2] in _QUANT_LEAVES
+
+
 def params_from_jax(flax_params: Mapping, *, scan_layers: bool = False,
-                    tp=None) -> dict[str, torch.Tensor]:
+                    tp=None, quant: Optional[Mapping] = None
+                    ) -> dict[str, torch.Tensor]:
     """flax params (nested dict of arrays; GPT-2 LM or BERT classifier,
     unscanned or scanned trunk, float or with int8 serving kernels) -> the
     port's ``state_dict`` (CPU tensors of the leaves' dtypes) for a model
     whose trunk is scanned (``scan_layers``) or not; with ``tp``, this
-    rank's slice of the leaves it splits."""
+    rank's slice of the leaves it splits; with ``quant``, the ``"quant"``
+    collection's amaxes too."""
     from pytorch_distributed_training_tpu_torch.parallel.sharding import (
         cut_model_slice,
     )
 
-    flat = _relayout(_unstack_branches(_flatten(flax_params)), scan_layers)
+    flat = _flatten(flax_params)
+    if quant is not None:
+        flat.update(_flatten(quant))
+    flat = _relayout(_unstack_branches(flat), scan_layers)
     out = {
         _torch_name(path): torch.from_numpy(np.array(leaf, copy=True))
         for path, leaf in flat.items()
@@ -204,7 +226,21 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], *,
     flax tree layout, the trunk per layer or scanned (``scan_layers``), the
     ensemble's branches stacked back, float32 but for int8 kernels;
     ``DTensor`` leaves (an FSDP model's) gathered whole first, then, with
-    ``tp``, the model axis's slices."""
+    ``tp``, the model axis's slices. The amax buffers are left out
+    (``quant_to_jax``)."""
+    return _to_jax({n: t for n, t in state_dict.items()
+                    if not is_quant_name(n)}, scan_layers, tp)
+
+
+def quant_to_jax(state_dict: Mapping[str, torch.Tensor], *,
+                 scan_layers: bool = False) -> Optional[dict]:
+    """The ``"quant"`` collection of a ``state_dict``'s amax buffers, in
+    the layout of ``params_to_jax``; None when it has none."""
+    quant = {n: t for n, t in state_dict.items() if is_quant_name(n)}
+    return _to_jax(quant, scan_layers, None) if quant else None
+
+
+def _to_jax(state_dict, scan_layers, tp) -> dict:
     dims, shard = tp if tp is not None else ({}, None)
     flat: dict[tuple, np.ndarray] = {}
     for name, tensor in state_dict.items():

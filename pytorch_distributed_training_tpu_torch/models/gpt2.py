@@ -13,6 +13,12 @@ the blocks are one ``ScannedLayers`` (``layers_scan.block...``, each
 parameter stacked on a leading [num_layers] dim, as flax's ``nn.scan``
 trunk; ``models/bert.py``).
 
+int8 training (``matmul_impl`` int8/int8_full, ``quant_delayed``): each
+block's four attention projections and its ``mlp_up`` and ``mlp_down``
+take ``DenseGeneral``'s int8 path (``models/bert.py``; the amax buffers
+stack on ``layers_scan`` as the parameters do); the tied head stays
+native, as in JAX.
+
 ``forward(..., paged=PagedKV(...))`` runs the serving engine's paged
 prefill, decode and (with ``PagedKV.multiquery`` or
 ``cfg.paged_multiquery``) multi-token query;
@@ -79,9 +85,9 @@ class GPT2Block(nn.Module):
         self.attention = BertSelfAttention(cfg, device, generator)
         self.ln_2 = layer_norm_module(cfg, device)
         self.mlp_up = dense(cfg, (h,), (cfg.intermediate_size,), device,
-                            generator)
+                            generator, int8=True)
         self.mlp_down = dense(cfg, (cfg.intermediate_size,), (h,), device,
-                              generator)
+                              generator, int8=True)
         self.dropout = Dropout(cfg.hidden_dropout)
         self.tp_shard = None  # the model axis, under tensor parallelism
 

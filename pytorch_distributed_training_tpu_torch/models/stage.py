@@ -22,6 +22,14 @@ stage s > 0 takes its input as ``hidden`` and a stage before the last
 returns its output. Layer i draws its dropout from ``fold_in(seed, i +
 1)`` by its global index, the embeddings and classifier as in the whole
 model, so any S is the same model as S = 1.
+
+Context parallelism (the ``seq_shard`` of the whole model's encoder,
+set by ``parallel/sharding.context_parallel``): each stage holds its seq
+coordinate's columns, stage s of seq shard j passing to stage s + 1 of
+seq shard j (``mesh.rank_at`` keeps every other coordinate); stage 0's
+position ids start at the shard's first column, the trunk's seeds fold
+in the seq coordinate, the layers attend through the ring, and the last
+stage's pooler reads seq coordinate 0's CLS row (``broadcast_first``).
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     default_position_ids,
     pool_cls,
     run_layers,
+    seq_offset,
+    trunk_seed,
 )
 from pytorch_distributed_training_tpu_torch.ops.attention import (
     make_attention_bias,
@@ -82,24 +92,26 @@ class BertStage(nn.Module):
                 wire=True):
         cfg = self.config
         input_ids = input_ids.long()
+        seq_shard = self.bert.seq_shard
+        seed = trunk_seed(dropout_seed, seq_shard)
         if self.first:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
             if position_ids is None:
-                position_ids = default_position_ids(cfg, input_ids)
+                position_ids = default_position_ids(
+                    cfg, input_ids, seq_offset(input_ids, seq_shard))
             x = self.bert.embeddings(input_ids, token_type_ids.long(),
-                                     position_ids,
-                                     child_seed(dropout_seed, 0))
+                                     position_ids, child_seed(seed, 0))
         elif wire:
             x = stage_recv((*input_ids.shape, cfg.hidden_size),
                            compute_dtype(cfg), input_ids.device, self.prev)
         else:
             x = hidden
         bias = make_attention_bias(attention_mask)
-        x = run_layers(self.bert.layers[self.lo:self.hi], x, bias,
-                       dropout_seed, first=self.lo)
+        x = run_layers(self.bert.layers[self.lo:self.hi], x, bias, seed,
+                       first=self.lo)
         if not self.last:
             return stage_send(x, self.next) if wire else x
         return classify(self.dropout, self.classifier,
-                        pool_cls(self.bert.pooler, x),
+                        pool_cls(self.bert.pooler, x, seq_shard),
                         child_seed(dropout_seed, cfg.num_layers + 1))

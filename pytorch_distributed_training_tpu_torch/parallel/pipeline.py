@@ -55,8 +55,24 @@ forward, one microbatch at a time (JAX's ``serial_apply``).
 ``GPipeClassifier`` is the GPipe forward of one micro-batch: logits of its
 rows on the last stage.
 
-Not ported: the delayed-int8 amax streaming (JAX :38-46), with the
-training half of ``ops/quant.py`` (ROADMAP.md queue 1, slice 5 item 6).
+Delayed int8 (``quant_delayed``, JAX :38-46): the amaxes live in the
+stages' int8 sites (``models/bert.py``), so they stream through the
+schedules as they ride stage mode's accumulation loop: pipeline
+microbatch j of a stage quantizes with the amaxes microbatch j - 1
+observed at that site (forwards run in microbatch order under both
+schedules), and every amax is maxed over the batch shards as it is
+observed, so the one carried out is the max across them. JAX's 1F1B
+stashes the scales each forward used for its backward's recompute; here
+the graphs are kept and each backward reads its scales from its autograd
+context. Both schedules refuse ``quant_delayed_grads`` with JAX's
+reasons.
+
+Context parallelism (a ``seq`` axis): each stage's layers attend through
+the ring on its seq coordinate's columns, the wire joins the stages of one
+(data, fsdp, model, seq) coordinate (``mesh.rank_at``), the last stage's
+loss is its share of the head's (``train/step.micro_loss``), and the
+gradients and the loss are reduced over (data, fsdp, seq) as
+``finish_step`` does for stage mode.
 """
 
 from __future__ import annotations
@@ -68,6 +84,7 @@ from torch.distributed.fsdp import FSDPModule
 
 from pytorch_distributed_training_tpu_torch.comms.collectives import exchange
 from pytorch_distributed_training_tpu_torch.comms.mesh import (
+    AXIS_SEQ,
     AXIS_STAGE,
     BATCH_AXES,
     Mesh,
@@ -78,9 +95,9 @@ from pytorch_distributed_training_tpu_torch.models.bert import compute_dtype
 from pytorch_distributed_training_tpu_torch.train.optim import plain_grad_norm
 from pytorch_distributed_training_tpu_torch.train.state import TrainState
 from pytorch_distributed_training_tpu_torch.train.step import (
-    classification_loss,
     finish_step,
     is_replicated,
+    micro_loss,
     microbatch_seed,
 )
 from pytorch_distributed_training_tpu_torch.utils.config import ModelConfig
@@ -89,6 +106,23 @@ from pytorch_distributed_training_tpu_torch.utils.config import ModelConfig
 # JAX's refusal of a causal config, by schedule (:749-750, :973-974)
 _CAUSAL = {"pipeline": "GPipeClassifier is an encoder-classifier trunk",
            "1f1b": "make_1f1b_train_step is an encoder-classifier step"}
+# ... and of delayed dy scales (:756-761, :975-980)
+_DELAYED_GRADS = {
+    "pipeline": "quant_delayed_grads is unsupported under the GPipe "
+                "schedule (the sink-gradient channel is not threaded "
+                "through jax.grad of the pipeline); use plain quant_delayed",
+    "1f1b": "quant_delayed_grads is unsupported under the 1F1B schedule "
+            "(the sink-gradient channel is not threaded through the tick "
+            "vjp); use plain quant_delayed",
+}
+
+
+def check_config(config: ModelConfig, schedule: str) -> None:
+    """JAX's refusals of a config under ``schedule``."""
+    if config.causal:
+        raise ValueError(_CAUSAL[schedule])
+    if config.quant_delayed_grads:
+        raise ValueError(_DELAYED_GRADS[schedule])
 
 
 def check_layers(num_layers: int, n_stages: int) -> None:
@@ -257,8 +291,7 @@ def make_pipeline_train_step(config: ModelConfig, mesh: Mesh, *,
     """The train step of ``schedule`` ("pipeline": GPipe, "1f1b") for this
     rank's stage of ``mesh``: batch leaves are ``[grad_accum_steps ×
     n_micro, rows, ...]`` (see the module docstring)."""
-    if config.causal:
-        raise ValueError(_CAUSAL[schedule])
+    check_config(config, schedule)
     n_stages = mesh.shape[AXIS_STAGE]
     check_layers(config.num_layers, n_stages)
     check_n_micro(n_micro, n_stages)
@@ -266,6 +299,7 @@ def make_pipeline_train_step(config: ModelConfig, mesh: Mesh, *,
     idle = bubble(schedule, n_stages, n_micro)
     inv = 1.0 / (grad_accum_steps * n_micro)
     shard = batch_index(mesh)
+    n_seq = mesh.shape[AXIS_SEQ]
     act_dtype = compute_dtype(config)
 
     def train_step(state: TrainState, batch: dict) -> dict:
@@ -287,8 +321,8 @@ def make_pipeline_train_step(config: ModelConfig, mesh: Mesh, *,
                 out = _stage_forward(model, micro, seed, x, n_stages)
                 if not wire.last:
                     return out
-                return classification_loss(out, micro["labels"],
-                                           micro.get("valid")) * inv
+                return micro_loss("classification", out, micro, mesh,
+                                  inv)[0]
 
             sync = None
             if fsdp and m == grad_accum_steps - 1:
@@ -298,6 +332,8 @@ def make_pipeline_train_step(config: ModelConfig, mesh: Mesh, *,
                 loss_sum = loss if loss_sum is None else loss_sum + loss
         if loss_sum is None:  # a stage before the last
             loss_sum = torch.zeros((), device=ids.device)
+        elif n_seq > 1:  # the backwards ran on P times the shard's share
+            loss_sum = loss_sum / n_seq
         out = finish_step(state, loss_sum, mesh, grad_norm,
                           average=is_replicated if fsdp else _every)
         out["pipeline_bubble"] = idle
@@ -320,8 +356,7 @@ class GPipeClassifier:
 
     def __init__(self, config: ModelConfig, mesh: Mesh, n_micro: int,
                  module=None):
-        if config.causal:
-            raise ValueError(_CAUSAL["pipeline"])
+        check_config(config, "pipeline")
         self.n_stages = mesh.shape[AXIS_STAGE]
         check_layers(config.num_layers, self.n_stages)
         check_n_micro(n_micro, self.n_stages)

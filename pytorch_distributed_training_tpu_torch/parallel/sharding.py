@@ -39,8 +39,11 @@ module cuts each rank's model-axis slice (``tensor_parallel``) and FSDP2
 - ``tensor_parallel`` cuts a model made whole (from one generator, so
   every rank starts from the same weights) to this rank's slice of each
   leaf split over ``model`` and hands the model axis to the modules whose
-  weights it cut (``models/bert.py``); ``context_parallel`` hands the seq
-  axis to the modules that read it.
+  weights it cut (``models/bert.py``; a column-parallel int8 site also
+  gets the model group its output features span); ``context_parallel``
+  hands the seq axis to the modules that read it, and ``int8_groups`` the
+  gradient axes' group to every int8 site, whose amaxes are maxed over
+  it.
 - Serving (``serve/engine.py`` under ``tp > 1``): ``serve_param_specs`` is
   JAX ``serve_param_shardings``, ``_tp_spec`` on a ``model``-only mesh and
   no fsdp, and ``serve_pool_shape`` a rank's share of a paged pool, the
@@ -292,6 +295,8 @@ def tensor_parallel(model: nn.Module, specs: dict, shard) -> set:
             mod.out_shape = tuple(mod.kernel.shape[n_in:])
             if name.rpartition(".")[2] in ("out", "mlp_down"):
                 mod.reduce_group = shard.group  # row-parallel
+            else:  # column-parallel: int8 dy amaxes span the features
+                mod.feature_group = shard.group
         elif {f"{name}.query".lstrip("."),
               f"{name}.mlp_up".lstrip(".")} & cut:
             mod.tp_shard = shard  # an attention, or a layer's MLP
@@ -305,6 +310,20 @@ def context_parallel(model: nn.Module, shard) -> None:
     for mod in model.modules():
         if hasattr(mod, "seq_shard"):
             mod.seq_shard = shard
+
+
+def int8_groups(model: nn.Module, group) -> None:
+    """Hand the gradient axes' group (``Mesh.grad_group``: data, fsdp,
+    seq, over which the activations' rows and tokens are cut) to every
+    int8 site of ``model`` (``models/bert.py``), whose amaxes are maxed
+    over it."""
+    from pytorch_distributed_training_tpu_torch.models.bert import (
+        DenseGeneral,
+    )
+
+    for mod in model.modules():
+        if isinstance(mod, DenseGeneral) and mod.int8_mode is not None:
+            mod.batch_group = group
 
 
 def _fsdp_units(model: nn.Module) -> list:

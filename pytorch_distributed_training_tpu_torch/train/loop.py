@@ -25,10 +25,13 @@ of more than one rank that no mode splits raises, and with no mode a
 whole, then cut to this rank's Megatron slice, ``parallel/sharding.
 tensor_parallel``, before FSDP or DDP) or, without it, replicas that
 compute alike, as JAX replicates the parameters there. A ``seq`` axis of
-more than one rank is context parallelism (no mode; ``"ring"``
-attention): the loader cuts each row's columns over it (the LM targets
-shifted on the whole rows first, ``train/step.lm_whole_rows``) and the
-model reads its coordinate (``context_parallel``). The batch shards over
+more than one rank is context parallelism (``"ring"`` attention), with
+no mode or under any of them: the loader cuts each row's columns over it
+(the LM targets shifted on the whole rows first,
+``train/step.lm_whole_rows``) and the model reads its coordinate
+(``context_parallel``): each branch's and stage's layers attend through
+the ring, the stage wire joins the stages of one seq coordinate, and the
+pooler reads seq coordinate 0's CLS row. The batch shards over
 ``(data, fsdp)``: the ranks of one batch shard read the same rows and
 draw the same dropout (``batch_index`` stands for the rank), and the
 gradients are reduced over ``(data, fsdp, seq)``. ``policy``
@@ -52,10 +55,20 @@ with the JAX trainer's keys (``epoch``, ``train_loss``,
 loss and grad norm (and, under the schedules, ``pipeline_bubble``),
 fetched from the device once per epoch.
 
+int8 training (``matmul_impl`` int8/int8_full, ``ops/quant.py``): every
+int8 site maxes its amaxes over the gradient axes' group
+(``parallel/sharding.int8_groups``), so the ranks quantize on the same
+scales, and, with ``quant_delayed``, the amax buffers are observed before
+step 0 on this rank's rows of the dataset's first global microbatch
+(``train/step.calibrate_quant``; JAX ``train/loop.py:255-296``). The
+buffers start at zero where JAX's init observed a dummy batch, so a
+first calibration pass stands for that one. DDP broadcasts no buffers:
+the amaxes agree on every rank by construction, and a broadcast from rank
+0 at each forward would cost a collective a microbatch for nothing.
+
 Not ported here (ROADMAP.md, queue 1): checkpoints and resume, the
 watchdog, preemption handling, telemetry sinks, runtime guards, the
-native loader and prefetch, chained steps, and context parallelism under
-a model-parallel mode (slice 5 item 4b).
+native loader and prefetch, and chained steps.
 """
 
 from __future__ import annotations
@@ -107,6 +120,7 @@ from pytorch_distributed_training_tpu_torch.parallel.sharding import (
     ShardingPolicy,
     apply_fsdp,
     context_parallel,
+    int8_groups,
     param_specs,
     placements_of,
     tensor_parallel,
@@ -125,9 +139,11 @@ from pytorch_distributed_training_tpu_torch.train.state import (
     create_train_state,
 )
 from pytorch_distributed_training_tpu_torch.train.step import (
+    calibrate_quant,
     lm_whole_rows,
     make_eval_step,
     make_train_step,
+    quant_buffers,
 )
 from pytorch_distributed_training_tpu_torch.utils.config import (
     MeshConfig,
@@ -180,10 +196,6 @@ class Trainer:
                     f"mesh axis {axis}={mesh.shape[axis]} needs "
                     f"mp_mode={mode!r} (got {mp_mode!r})")
         if mesh.shape[AXIS_SEQ] > 1:
-            if mp_mode is not None:
-                raise NotImplementedError(
-                    f"context parallelism under mp_mode={mp_mode!r} is not "
-                    f"ported yet (ROADMAP.md, queue 1, slice 5 item 4b)")
             if model_config.attention_impl != "ring":
                 raise ValueError(
                     f"mesh axis seq={mesh.shape[AXIS_SEQ]} cuts the "
@@ -278,12 +290,20 @@ class Trainer:
             self.tp_split = tensor_parallel(model, specs,
                                             mesh.shard(AXIS_MODEL))
         context_parallel(model, mesh.shard(AXIS_SEQ))
+        int8_groups(model, mesh.grad_group)
         if self.policy.fsdp and mesh.shape[AXIS_FSDP] > 1:
             self.shard(placements_of(specs),
                        fsdp_device_mesh(mesh, self.device.type), model)
         else:
             self._make_state(model, sharded=False)
         self.eval_step = make_eval_step(self.objective, mesh)
+        if quant_buffers(self.state.module):
+            micro0 = self.train_loader.first_micro(
+                tcfg.global_batch_size // tcfg.grad_accum_steps)
+            for _ in range(2):
+                calibrate_quant(self.state, micro0, objective=self.objective,
+                                loss_scale=1.0 / tcfg.grad_accum_steps,
+                                mesh=mesh)
         self.history: list[dict] = []
         self.step_log: list[dict] = []
 
@@ -332,6 +352,7 @@ class Trainer:
                 device_ids=[self.device.index] if self.device.type == "cuda"
                 else None,
                 process_group=mesh.grad_group,
+                broadcast_buffers=False,
             )
         self.state = create_train_state(model, optimizer, tcfg.seed,
                                         wrapped=wrapped)

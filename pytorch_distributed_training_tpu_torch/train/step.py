@@ -44,6 +44,11 @@ each backward runs on P times its share. The eval counts are summed over
 Tensor parallelism changes nothing here: every model rank computes the
 same loss.
 
+Delayed int8 (``ops/quant.py``): the amaxes ride the accumulation loop
+in the int8 sites' buffers (``models/bert.py``), as JAX's scan carry
+holds them: microbatch m quantizes on m - 1's, the first of step n on
+step n - 1's last. ``calibrate_quant`` observes them before step 0.
+
 Dropout: microbatch m of update ``step`` on batch shard ``rank``
 (``comms/mesh.batch_index``) draws from ``fold_in(fold_in(fold_in(
 state.dropout_seed, step), m), rank)``, the counterpart of
@@ -75,7 +80,13 @@ from pytorch_distributed_training_tpu_torch.comms.mesh import (
     batch_index,
     build_mesh,
 )
+from pytorch_distributed_training_tpu_torch.models.convert import (
+    is_quant_name,
+)
 from pytorch_distributed_training_tpu_torch.ops.dropout import fold_in
+from pytorch_distributed_training_tpu_torch.ops.quant import (
+    dy_calibration_mode,
+)
 from pytorch_distributed_training_tpu_torch.train.optim import (
     is_sharded,
     plain_grad_norm,
@@ -154,6 +165,59 @@ def _loss(objective: str, logits, micro):
     raise ValueError(f"unknown objective {objective!r}")
 
 
+def micro_loss(objective: str, out, micro, mesh: Mesh, scale: float):
+    """The loss a microbatch's backward starts from on the last stage:
+    this rank's part of the mean times ``scale`` (1/accumulation), and
+    under context parallelism the classification head's 1/P share, all
+    times P, as the gradients are averaged over the seq shards. Returns
+    (what to backward, the loss to report)."""
+    n_seq = mesh.shape[AXIS_SEQ]
+    share = 1.0 / n_seq if objective == "classification" else 1.0
+    loss = _loss(objective, out, micro) * share * scale
+    return (loss * n_seq if n_seq > 1 else loss), loss
+
+
+def quant_buffers(module) -> dict:
+    """The delayed-int8 amax buffers of ``module`` by name."""
+    return {n: b for n, b in module.named_buffers() if is_quant_name(n)}
+
+
+def calibrate_quant(state: TrainState, micro: dict, *,
+                    objective: str = "classification",
+                    loss_scale: float = 1.0,
+                    mesh: Optional[Mesh] = None) -> TrainState:
+    """Observe the delayed-int8 amaxes on one microbatch before step 0
+    (JAX ``train/step.py:118-169``): one deterministic forward whose sites
+    carry the amaxes they observe; with ``quant_delayed_grads`` one more
+    forward and a backward of the loss times ``loss_scale`` (the train
+    step's 1/accumulation) inside ``dy_calibration_mode``, whose dy
+    observations are kept, and the forward amaxes put back to the first
+    pass's. No optimizer update; the gradients are dropped. A no-op for a
+    model without delayed sites."""
+    module = state.module
+    buffers = quant_buffers(module)
+    if not buffers:
+        return state
+    mesh = mesh or build_mesh()
+    with dy_calibration_mode():
+        with torch.no_grad():  # the sites observe in calibration mode
+            _forward(module, micro)
+        if any(n.endswith("dy_amax") for n in buffers):
+            kept = {n: b.clone() for n, b in buffers.items()
+                    if not n.endswith("dy_amax")}
+            out = _forward(module, micro)
+            if _last_stage(mesh):
+                micro_loss(objective, out, micro, mesh, loss_scale)[0] \
+                    .backward()
+            else:  # the token of an earlier stage (models/stage.py)
+                out.backward()
+            for n, v in kept.items():
+                buffers[n].copy_(v)
+            for p in module.parameters():
+                p.grad = None
+    return state
+
+
 def microbatch_seed(dropout_seed: int, step: int, micro: int,
                     rank: int) -> int:
     return fold_in(fold_in(fold_in(dropout_seed, step), micro), rank)
@@ -178,9 +242,6 @@ def make_train_step(*, grad_accum_steps: int,
     inv_accum = 1.0 / grad_accum_steps
     mesh = mesh or build_mesh()
     shard, last = batch_index(mesh), _last_stage(mesh)
-    # the gradients are averaged over the seq shards, whose losses sum
-    n_seq = mesh.shape[AXIS_SEQ]
-    head_share = 1.0 / n_seq if objective == "classification" else 1.0
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
@@ -198,9 +259,9 @@ def make_train_step(*, grad_accum_steps: int,
                   else contextlib.nullcontext()):
                 out = _forward(model, micro, seed)
                 if last:
-                    loss = _loss(objective, out, micro) * head_share
-                    loss = loss * inv_accum
-                    (loss * n_seq if n_seq > 1 else loss).backward()
+                    grad_loss, loss = micro_loss(objective, out, micro,
+                                                 mesh, inv_accum)
+                    grad_loss.backward()
                 else:  # the token of an earlier stage (models/stage.py)
                     out.backward()
                     loss = torch.zeros_like(out)

@@ -93,8 +93,17 @@ class ModelConfig:
     # path, "flash" the flash kernels (ops/flash_attention.py), "ring" the
     # ring over the seq axis (ops/ring_attention.py; reference at seq 1)
     attention_impl: str = "reference"
-    # only "native" matmuls are ported (int8 waits for its slice)
+    # dense matmuls (ops/quant.py): "native" in the compute dtype; "int8"
+    # an int8 forward with a float straight-through backward; "int8_full"
+    # int8 dgrad and wgrad too
     matmul_impl: str = "native"
+    # int8: each site quantizes its input on the amax the previous
+    # microbatch observed there (a buffer carried in the model), calibrated
+    # before step 0 (train/step.calibrate_quant); read only by int8
+    quant_delayed: bool = False
+    # ... and the backward's dy on the previous microbatch's dy amaxes
+    # (int8_full and quant_delayed only; not under the pipeline schedules)
+    quant_delayed_grads: bool = False
     # only the "kernel" mask generator is ported (ops/dropout.py)
     dropout_impl: str = "kernel"
     compute_dtype: str = "bfloat16"
@@ -126,8 +135,19 @@ class ModelConfig:
                 f"attention_impl must be reference/flash/ring, got "
                 f"{self.attention_impl!r}"
             )
+        if self.matmul_impl not in ("native", "int8", "int8_full"):
+            raise ValueError(
+                f"matmul_impl must be native/int8/int8_full, got "
+                f"{self.matmul_impl!r}"
+            )
+        if (self.quant_delayed and self.quant_delayed_grads
+                and self.matmul_impl == "int8"):
+            # JAX's QuantDenseGeneral check
+            raise ValueError(
+                "delayed_grads implements the 'full' backward layout only "
+                "(got mode='fwd')"
+            )
         not_ported = (
-            ("matmul_impl", "native", "int8 matmuls, slice 5 item 6"),
             ("dropout_impl", "kernel", "the exact/bits32/bits8 dropout "
                                        "streams, slice 2 leftovers"),
             ("layernorm_impl", "fused", "the jnp-math LayerNorm switch, "

@@ -1,6 +1,6 @@
 """Port parity, hybrid parallel training: the PyTorch package's process mesh
 (``comms/mesh.py``) against the JAX package's ``MeshConfig``, ``cli/
-train_mp`` (its errors, the flags not ported yet, and its modes at world
+train_mp`` (its errors, the int8 and seq flags, and its modes at world
 1), and runs over several gloo processes (branch and stage splits, data ×
 model) against one process, on the CPU. ``tests/test_torch_pipeline.py``
 runs the pipeline schedules on the same harness (``_MP_SCRIPT``,
@@ -112,8 +112,19 @@ def test_mesh_errors_match_jax_meshconfig(kw, world):
     (["--quant-delayed"], "item 6"),
 ])
 def test_train_mp_flags_not_ported_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_mp.train(TINY + flags)
+    # the flags of slice 5 items 4b and 6 are ported: none raises
+    # NotImplementedError; at world 1 a seq axis of 2 is JAX's mesh
+    # ValueError, --quant-delayed alone JAX's SystemExit, int8 runs
+    if item == "item 4b":
+        with pytest.raises(ValueError, match="not divisible by fixed axes"):
+            train_mp.train(TINY + flags)
+    elif flags == ["--quant-delayed"]:
+        with pytest.raises(SystemExit, match="requires --matmul-impl"):
+            train_mp.train(TINY + flags)
+    else:
+        t = train_mp.train(TINY + flags + ["--train-size", "16"])
+        assert t.mcfg.matmul_impl == flags[1]
+        assert all(np.isfinite(s["loss"]) for s in t.step_log)
 
 
 @pytest.mark.parametrize("flags,error,match", [
@@ -217,17 +228,28 @@ _MP_SCRIPT = textwrap.dedent("""
     t = Trainer(
         model_preset("tiny", compute_dtype="float32", hidden_dropout=rate,
                      attention_dropout=rate,
-                     num_layers=spec.get("layers", 2)),
+                     num_layers=spec.get("layers", 2),
+                     attention_impl=spec.get("attention", "reference"),
+                     **spec.get("quant", {})),
         TrainConfig(num_epochs=1, train_size=32, eval_size=24,
                     global_batch_size=16,
                     micro_batch_size=spec.get("micro", 8),
                     eval_batch_size=8, warmup_steps=1, learning_rate=1e-3,
-                    max_grad_norm=spec["clip"], log_every=0),
+                    max_grad_norm=spec["clip"], log_every=0,
+                    max_seq_length=spec.get("seq_len", 128)),
         task="synthetic", device="cpu",
         mesh_config=MeshConfig(**spec["mesh"]), mp_mode=spec["mode"],
         model=model, n_micro=spec.get("n_micro"),
         policy=ShardingPolicy(fsdp=spec.get("fsdp", False),
                               fsdp_min_size=128))
+    if "calibrate_rows" in spec:  # calibrate on these first rows
+        from pytorch_distributed_training_tpu_torch.train.step import (
+            calibrate_quant, quant_buffers)
+        for b in quant_buffers(t.state.module).values():
+            b.zero_()
+        micro0 = t.train_loader.first_micro(spec["calibrate_rows"])
+        for _ in range(2):
+            calibrate_quant(t.state, micro0, mesh=t.mesh)
     n = spec.get("shards", 1)
     if n > 1:  # one process standing for n batch shards: shard r of each
         def step(state, batch):  # microbatch seeded as rank r

@@ -390,7 +390,7 @@ def test_cli_mesh_errors_as_jax(cli, flags, mesh):
 
 def test_train_mp_ring_at_seq_one_is_reference():
     # --attention ring at a seq axis of 1: reference attention, bit for bit
-    # (--mesh-seq 2 raises, naming slice 5 item 4b: tests/test_torch_mp.py)
+    # (--mesh-seq 2 under train_mp's modes: tests/test_torch_cp_mp.py)
     argv = ["--model", "tiny", "--task", "synthetic", "--device", "cpu",
             "--train-size", "32", "--eval-size", "16",
             "--global-batch-size", "16", "--num-epochs", "1",

@@ -196,7 +196,7 @@ _SCRIPT = textwrap.dedent("""
     from pytorch_distributed_training_tpu_torch.comms.bootstrap import (
         shutdown)
     from pytorch_distributed_training_tpu_torch.models.convert import (
-        params_to_jax)
+        params_to_jax, quant_to_jax)
     from pytorch_distributed_training_tpu_torch.parallel import (
         ShardingPolicy)
     from pytorch_distributed_training_tpu_torch.parallel.sharding import (
@@ -218,7 +218,8 @@ _SCRIPT = textwrap.dedent("""
         t = Trainer(
             model_preset(spec["preset"], compute_dtype="float32",
                          hidden_dropout=rate, attention_dropout=rate,
-                         attention_impl=spec.get("attention", "reference")),
+                         attention_impl=spec.get("attention", "reference"),
+                         **spec.get("quant", {})),
             TrainConfig(**spec["train"]), task=spec["task"], device="cpu",
             mesh_config=MeshConfig(**spec["mesh"]),
             policy=ShardingPolicy(tp=spec.get("tp", False),
@@ -227,14 +228,16 @@ _SCRIPT = textwrap.dedent("""
     t.run()
     sd = t.state.module.state_dict()
     tp = (model_dims(t.specs), t.mesh.shard("model")) if t.tp_split else None
-    flat = {}
-    def walk(node, path=()):
+    def walk(node, flat, path=()):
         for k, v in node.items():
             if isinstance(v, dict):
-                walk(v, path + (k,))
+                walk(v, flat, path + (k,))
             else:
                 flat["/".join(path + (k,))] = torch.from_numpy(v)
-    walk(params_to_jax(sd, scan_layers=t.mcfg.scan_layers, tp=tp))
+        return flat
+    flat = walk(params_to_jax(sd, scan_layers=t.mcfg.scan_layers, tp=tp), {})
+    quant = quant_to_jax(sd, scan_layers=t.mcfg.scan_layers)
+    quant = {k: v.tolist() for k, v in walk(quant or {}, {}).items()}
     local = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
              for k, v in sd.items()}
     rank = t.info.rank
@@ -242,6 +245,7 @@ _SCRIPT = textwrap.dedent("""
     with open(f"{out}.{rank}.json", "w") as f:
         json.dump({"steps": t.step_log, "history": t.history,
                    "coords": t.mesh.coords, "tp_split": sorted(t.tp_split),
+                   "quant": quant,
                    "sharded": [k for k, v in sd.items()
                                if hasattr(v, "full_tensor")]}, f)
     shutdown()
