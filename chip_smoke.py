@@ -61,7 +61,11 @@ the JAX package), in phases that each raise on failure:
    --quant-delayed-grads`` (the calibration's forwards and backwards
    counted with the rest), each counted, finite, every parameter moved,
    step 1's loss within INT8_LOSS_ATOL of native's, its ms a step beside
-   native's, the last variant run twice with bit-identical losses;
+   native's, the last variant run twice with bit-identical losses, the
+   second time with a checkpoint a step (in a temporary directory,
+   removed after), then resumed from its step 1: step 1's amaxes
+   restored, no calibration launch, step 2's loss, grad norm and every
+   weight bit-equal;
 5. cpu-vs-card: the ``tiny`` preset with dropout on, trained 2 steps on
    the CPU (plain versions) and on the card (kernels) from one seed: the
    per-step losses agree, so the card's masks are the plain generator's;
@@ -172,7 +176,29 @@ the JAX package), in phases that each raise on failure:
    full-sequence forward with the others), ``stats()["tp"]``, the page
    count of tp=1, 8 heads in each rank's pools, each rank's launches
    against the leader's dispatch counts, the follower's calls, both
-   exits 0.
+   exits 0;
+9. checkpoints and generation (in a temporary directory, removed after):
+   ``ckpt-resume``, ``train_lm`` on gpt2-medium at full width and depth,
+   seq 128, 2 steps with ``--checkpoint-every-steps 1``, then with step
+   2 taken away a run resumed from step 1 (counted) whose step 2 loss,
+   grad norm and every weight equal the uninterrupted run's bit for bit
+   (the bytes a step, save and restore seconds printed); ``ckpt-int8``,
+   the tiny preset at ``int8_full`` with delayed scales on both passes
+   resumed the same way, counted from its construction (no calibration
+   launch), bit-equal; ``generate``, ``generate_lm --checkpoint-dir`` on
+   that checkpoint (scanned, so re-laid out) over the serve phase's 12
+   prompts and 32 greedy tokens, the library call counted (kernel 1 at
+   2 a block + ln_f a forward, one prefill and 31 decode steps) and
+   timed (ms a decode step: its wall less a 1-token call's, over the 31
+   decode steps), and ``--hf-checkpoint`` on a ``pytorch_model.bin`` of
+   the same weights under GPT-2's HF names giving the same streams;
+   ``serve-ckpt``, ``serve_lm --checkpoint-dir`` on it, counted, with
+   ``stats()["weights_step"]`` 2; every generated and served token within
+   the margin gate of a full-sequence forward of the checkpoint's
+   weights; then the newest step's largest file damaged (same length)
+   and a digest restore falling back to step 1. ``lm-fsdp`` (phase 6)
+   also saves its sharded state and restores it into the unwrapped
+   model, bit-equal.
 
 Prints one ``kernels`` JSON line (16 kernels; kernel 5's mask-only mode,
 ``mask_scale``, is on no main path since its apply mode,
@@ -193,9 +219,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1812,7 +1840,6 @@ def full_sequence_phase(device, runs, model_name="gpt2-medium",
 
     import torch
 
-    from pytorch_distributed_training_tpu_torch.data.bpe import ByteTokenizer
     from pytorch_distributed_training_tpu_torch.models.gpt2 import (
         GPT2LMModel,
     )
@@ -1830,37 +1857,47 @@ def full_sequence_phase(device, runs, model_name="gpt2-medium",
         models[weights].cast_for_serving(weights)
         models[weights].eval()
     del base
-    tok = ByteTokenizer()
-    out = {}
-    with torch.inference_mode():
-        for name, (toks, prompts, weights, tol) in runs.items():
-            model = models[weights]
-            agree = total = 0
-            worst = 0.0
-            for i, p in enumerate(prompts):
-                served = toks[f"r{i}"]
-                ids = tok.text_ids(p) + served[:-1]
-                logits = model(torch.tensor([ids], device=device))[0]
-                if not torch.isfinite(logits).all():
-                    raise AssertionError(f"{name} r{i}: non-finite logits")
-                rows = logits[len(ids) - len(served):]
-                picked = rows.gather(
-                    1, torch.tensor(served, device=device)[:, None])
-                margin = (rows.max(dim=1).values - picked[:, 0]).float()
-                worst = max(worst, float(margin.max()))
-                agree += int((margin == 0).sum())
-                total += len(served)
-            if worst > tol:
-                raise AssertionError(
-                    f"{name}: a served token trails the full-sequence "
-                    f"maximum by {worst} (> {tol})"
-                )
-            out[name] = dict(tokens=total, argmax_agree=agree,
-                             worst_margin=worst, tolerance=tol,
-                             weights=weights)
-            say(f"[check] {name}: served vs full-sequence forward: "
-                + json.dumps(out[name]))
+    out = {name: margin_check(models[weights], name, toks, prompts, tol,
+                              device, weights=weights)
+           for name, (toks, prompts, weights, tol) in runs.items()}
     del models
+    return out
+
+
+def margin_check(model, name, toks, prompts, tol, device, **extra) -> dict:
+    """Each token of ``toks`` (request id -> token ids, greedy) against a
+    full-sequence forward of ``model`` on its prompt and the tokens before
+    it: it must trail that forward's maximum logit by at most ``tol``."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.data.bpe import ByteTokenizer
+
+    tok = ByteTokenizer()
+    agree = total = 0
+    worst = 0.0
+    with torch.inference_mode():
+        for i, p in enumerate(prompts):
+            served = toks[f"r{i}"]
+            ids = tok.text_ids(p) + served[:-1]
+            logits = model(torch.tensor([ids], device=device))[0]
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"{name} r{i}: non-finite logits")
+            rows = logits[len(ids) - len(served):]
+            picked = rows.gather(
+                1, torch.tensor(served, device=device)[:, None])
+            margin = (rows.max(dim=1).values - picked[:, 0]).float()
+            worst = max(worst, float(margin.max()))
+            agree += int((margin == 0).sum())
+            total += len(served)
+    if worst > tol:
+        raise AssertionError(
+            f"{name}: a served token trails the full-sequence "
+            f"maximum by {worst} (> {tol})"
+        )
+    out = dict(tokens=total, argmax_agree=agree, worst_margin=worst,
+               tolerance=tol, **extra)
+    say(f"[check] {name}: served vs full-sequence forward: "
+        + json.dumps(out))
     return out
 
 
@@ -3483,6 +3520,44 @@ def collective_time(averages) -> dict:
                            if k.startswith("c10d::")))
 
 
+def fsdp_checkpoint_check(trainer) -> dict:
+    """Save the sharded trainer's state (every DTensor shard written),
+    then restore it into an unwrapped ``train_lm`` trainer of the same
+    run: every weight, moment, ``count``, ``step`` and ``dropout_seed``
+    bit-equal."""
+    import torch
+    from torch.distributed.fsdp import FSDPModule
+
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+
+    def whole(state):
+        return {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                .detach().cpu().clone()
+                for k, v in checkpoint._saveable(state).items()}
+
+    root = tempfile.mkdtemp(prefix="pdt_lm_fsdp_")
+    try:
+        saver = checkpoint.Checkpointer(root)
+        saver.save(trainer.state)
+        want = whole(trainer.state)
+        sharded = sum(hasattr(v, "full_tensor") for v in
+                      checkpoint._saveable(trainer.state).values())
+        plain = _lm_trainer(LM_FSDP_ARGS + ["--checkpoint-dir", root,
+                                            "--resume"])
+        got = whole(plain.state)
+        restore = plain.checkpointer.restores[-1]
+        if isinstance(plain.state.model, FSDPModule) or sorted(got) != sorted(
+                want) or any(not torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError("lm-fsdp: the unwrapped restore differs "
+                                 "from the sharded save")
+        del plain, got, want
+        _free_cuda()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(save=saver.saves[0], restore=restore,
+                sharded_tensors=sharded)
+
+
 def lm_fsdp_child(port: int) -> dict:
     """The lm-fsdp phase's process: a one-process NCCL group, then the
     LM_FSDP_ARGS run unwrapped (the losses' reference), the same run
@@ -3543,6 +3618,7 @@ def lm_fsdp_child(port: int) -> dict:
         if trainer.state.step != 2 or not mc.scan_layers:
             raise AssertionError(f"lm-fsdp: {trainer.state.step} steps, "
                                  f"scan_layers {mc.scan_layers}")
+        ckpt_res = fsdp_checkpoint_check(trainer)
         del trainer, module
         gc.collect()
         torch.cuda.empty_cache()
@@ -3571,7 +3647,7 @@ def lm_fsdp_child(port: int) -> dict:
         raise AssertionError(f"lm-fsdp: no FSDP range in the profile: "
                              f"{collectives}")
     return dict(
-        plain=plain, fsdp=fsdp, fsdp_size=LM_FSDP_SIZE,
+        plain=plain, fsdp=fsdp, fsdp_size=LM_FSDP_SIZE, checkpoint=ckpt_res,
         sharded_params=len(sharded), params=len(placements),
         max_rel_diff=max(abs(a - b) / abs(a) for a, b in zip(
             plain["losses"] + plain["grad_norms"],
@@ -4290,16 +4366,22 @@ def int8_gemm_phase(device,
     return res
 
 
-def train_int8_phase(argv=INT8_TRAIN_ARGS, variants=INT8_VARIANTS) -> dict:
+def train_int8_phase(root: str, argv=INT8_TRAIN_ARGS,
+                     variants=INT8_VARIANTS) -> dict:
     """``train_dp`` on bert-large at full width and depth, native and each
     int8 variant: 2 steps and the eval, counted as the train phase counts,
     finite losses, every parameter moved, step 1's loss within
     INT8_LOSS_ATOL of native's, ms a step beside native's; the last variant
-    again, its losses bit-identical."""
+    (delayed scales) again with a checkpoint a step under ``root``, its
+    losses bit-identical, then resumed from its step 1
+    (``int8_resume_phase``)."""
     import torch
 
+    ck = os.path.join(root, "int8-large")
+    rerun = variants[-1][1] + ["--checkpoint-every-steps", "1",
+                               "--checkpoint-dir", ck]
     runs = {}
-    for name, flags in (("native", []), *variants, ("rerun", variants[-1][1])):
+    for name, flags in (("native", []), *variants, ("rerun", rerun)):
         with no_mask_tensor(f"train-int8 {name} run"):
             trainer, counts, wall = train_once(argv + flags)
         check_launches(f"train-int8 {name} run", counts,
@@ -4309,7 +4391,9 @@ def train_int8_phase(argv=INT8_TRAIN_ARGS, variants=INT8_VARIANTS) -> dict:
         if m["steps"] != 2 or not all(
                 map(math.isfinite, m["losses"] + m["grad_norms"])):
             raise AssertionError(f"train-int8 {name}: {m}")
-        if name != "rerun":
+        if name == "rerun":
+            m["digest"] = weights_digest(trainer.state.module)
+        else:
             start = initial_weights(trainer)
             now = trainer.state.module.state_dict()
             unmoved = [k for k in start
@@ -4338,7 +4422,62 @@ def train_int8_phase(argv=INT8_TRAIN_ARGS, variants=INT8_VARIANTS) -> dict:
                              f"{runs['rerun']['losses']}")
     say(f"[train-int8] {variants[-1][0]} per-step losses bit-identical "
         "across two runs")
+    runs["resumed"] = int8_resume_phase(argv + rerun, runs["rerun"])
     return runs
+
+
+def int8_resume_phase(argv, want: dict) -> dict:
+    """The delayed-int8 rerun's checkpoint at full width (bert-large's
+    padded ``_int_mm`` shapes and its amax count): step 2 taken away, a
+    run resumed from step 1, counted from its construction: the amaxes step
+    1 saved restored, no calibration launch, and step 2's loss, grad norm
+    and every weight and amax bit-equal to the rerun's (``want``)."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.cli import train_dp
+    from pytorch_distributed_training_tpu_torch.ops import _build
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+
+    ck = argv[argv.index("--checkpoint-dir") + 1]
+    saved = {k: v for k, v in checkpoint.restore_params(ck, step=1).items()
+             if k.endswith("amax")}
+    shutil.rmtree(checkpoint.step_path(ck, 2))
+    _build.reset_launch_counts()
+    with no_mask_tensor("train-int8 resumed run"):
+        resumed = train_dp.build_trainer(
+            train_dp.build_parser().parse_args(argv + ["--resume"]))
+        live = resumed.state.module.state_dict()
+        if not saved or any(not torch.equal(live[k].cpu(), v)
+                            for k, v in saved.items()):
+            raise AssertionError("train-int8 resume: the amaxes differ "
+                                 "from step 1's")
+        del live
+        resumed.run()
+    counts = dict(_build.LAUNCH_COUNTS)
+    tc, mc = resumed.tcfg, resumed.mcfg
+    restore = resumed.checkpointer.restores[-1]
+    if not mc.quant_delayed_grads or restore["step"] != 1:
+        raise AssertionError(f"train-int8 resume: restored {restore}")
+    check_launches("train-int8 resumed run (1 step, no calibration)", counts,
+                   expected_train_launches(
+                       micro=tc.grad_accum_steps,
+                       eval_batches=resumed.eval_loader.steps_per_epoch,
+                       layers=mc.num_layers))
+    got = [[s["loss"], s["grad_norm"]] for s in resumed.step_log]
+    if (got != [[want["losses"][1], want["grad_norms"][1]]]
+            or weights_digest(resumed.state.module) != want["digest"]):
+        raise AssertionError(f"train-int8 resume: step 2 {got} against "
+                             f"{want['losses']}, {want['grad_norms']}")
+    del resumed
+    _free_cuda()
+    shutil.rmtree(ck, ignore_errors=True)
+    res = dict(step2=got[0], amax_buffers=len(saved), restore=restore,
+               launches=counts)
+    say("[train-int8] bert-large, int8_full, delayed scales on both passes, "
+        "resumed from step 1: step 1's amaxes restored, no calibration "
+        "launch, step 2's loss, grad norm and every weight bit-equal to the "
+        "rerun's: " + json.dumps(res))
+    return res
 
 
 def mp_cp_child(rank: int, port: int, mode: str, seq: int,
@@ -4480,6 +4619,382 @@ def mp_cp_phase(modes=MP_CP_MODES, device="cuda") -> dict:
 # ------------------------------------------------------------------- main
 
 
+# ------------------------------------------- checkpoints and generation
+
+# ckpt-resume: gpt2-medium at full width and depth and train_lm's seq 128,
+# 2 steps of 16 = 2 x 8 and a 16-row eval, a checkpoint every step
+CKPT_LM_ARGS = ["--model", "gpt2-medium", "--task", "lm", "--train-size", "32",
+                "--eval-size", "16", "--global-batch-size", "16",
+                "--micro-batch-size", "8", "--num-epochs", "1", "--seed", "42",
+                "--warmup-steps", "1", "--log-every", "0", "--device", "cuda",
+                "--checkpoint-every-steps", "1"]
+# ckpt-int8: the tiny preset at int8_full with delayed scales on both
+# passes, 2 steps, a checkpoint every step
+CKPT_INT8_ARGS = TINY_INT8_ARGS + ["--device", "cuda",
+                                   "--checkpoint-every-steps", "1"]
+# generate and serve-ckpt: the serve phase's prompts and new tokens, greedy
+GENERATE_ARGS = ["--model", "gpt2-medium", "--device", "cuda",
+                 "--no-stop-at-eot"]
+SERVE_CKPT_ARGS = ["--model", "gpt2-medium", "--device", "cuda",
+                   "--num-slots", "8", "--prompt-buckets", "16,32,64,128",
+                   "--max-new-tokens-cap", "64"]
+
+
+def corrupt_step_dir(step_path: str, flip_bytes: int = 64) -> str:
+    """Flip the first ``flip_bytes`` of a committed step's largest data file
+    in place, its length kept (the JAX package's fault injection of a torn
+    publish, which only a digest sees); the file's path."""
+    victim, size = None, -1
+    for root, _, files in os.walk(step_path):
+        for name in files:
+            path = os.path.join(root, name)
+            if name != "pdt_manifest.json" and os.path.getsize(path) > size:
+                victim, size = path, os.path.getsize(path)
+    n = min(flip_bytes, size)
+    with open(victim, "r+b") as f:
+        head = f.read(n)
+        f.seek(0)
+        f.write(bytes(b ^ 0xFF for b in head))
+    return victim
+
+
+def weights_digest(module) -> str:
+    """sha256 of every tensor of ``module``'s ``state_dict``, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in module.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _lm_trainer(argv):
+    from pytorch_distributed_training_tpu_torch.cli import train_lm
+
+    return train_lm.build_trainer(train_lm.build_parser().parse_args(argv))
+
+
+def _free_cuda():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ckpt_resume_phase(root: str) -> dict:
+    """``train_lm`` on gpt2-medium with a checkpoint every step: 2 steps
+    uninterrupted, then, with step 2 taken away, a run resumed from step 1
+    (counted) that takes step 2: its loss and grad norm and every weight
+    bit-equal to the uninterrupted run's; the bytes, save and restore
+    seconds. Returns the directory (steps 1 and the resumed run's 2)."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.ops import _build
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+
+    ck = os.path.join(root, "lm")
+    argv = CKPT_LM_ARGS + ["--checkpoint-dir", ck]
+    full, _, wall = train_once(argv, "train_lm")
+    saves = full.checkpointer.saves
+    if ([s["step"] for s in saves] != [1, 2]
+            or checkpoint.all_steps(ck) != [1, 2]):
+        raise AssertionError(f"ckpt-resume: saves {saves}, steps "
+                             f"{checkpoint.all_steps(ck)}")
+    want_log = full.step_log
+    want = {k: v.detach().cpu().clone()
+            for k, v in full.state.module.state_dict().items()}
+    del full
+    _free_cuda()
+    # the run stopped after step 1's save
+    shutil.rmtree(checkpoint.step_path(ck, 2))
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = _lm_trainer(argv + ["--resume"])
+    restore = resumed.checkpointer.restores[-1]
+    if resumed.state.step != 1 or restore["step"] != 1:
+        raise AssertionError(f"ckpt-resume: restored {restore}")
+    digest = weights_digest(resumed.state.module)
+    resumed.run()
+    torch.cuda.synchronize()
+    resumed_wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCH_COUNTS)
+    tc, mc = resumed.tcfg, resumed.mcfg
+    check_launches(
+        "ckpt-resume resumed run (1 step)", counts, expected_lm_launches(
+            micro=tc.grad_accum_steps,
+            eval_batches=resumed.eval_loader.steps_per_epoch,
+            layers=mc.num_layers, whole=True))
+    if resumed.step_log != want_log[1:]:
+        raise AssertionError(f"ckpt-resume: resumed step {resumed.step_log} "
+                             f"against {want_log[1:]}")
+    got = resumed.state.module.state_dict()
+    differ = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+    if differ:
+        raise AssertionError(f"ckpt-resume: weights differ {differ[:5]}")
+    resave = resumed.checkpointer.saves[0]
+    del resumed, got, want
+    _free_cuda()
+    res = dict(
+        steps=want_log, save=saves, resave=resave, restore=restore,
+        bytes_a_step=saves[0]["bytes"], uninterrupted_wall_s=wall,
+        resumed_wall_s=resumed_wall, launches=counts,
+        scanned=mc.scan_layers)
+    say("[ckpt-resume] gpt2-medium, seq 128, 2 steps of 16, a checkpoint a "
+        "step: resumed from step 1, step 2's loss, grad norm and every "
+        "weight bit-equal to the uninterrupted run's: " + json.dumps(res))
+    return dict(res, dir=ck, restored_digest=digest)
+
+
+def ckpt_fallback_phase(resume: dict) -> dict:
+    """The newest step's largest file damaged (same length), a restore at
+    ``--checkpoint-verify digest`` falls back to step 1: the weights of
+    the resumed run's restore, by digest."""
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+
+    ck = resume["dir"]
+    victim = corrupt_step_dir(checkpoint.step_path(ck, 2))
+    trainer = _lm_trainer(CKPT_LM_ARGS + [
+        "--checkpoint-dir", ck, "--resume", "--checkpoint-verify", "digest"])
+    restore = trainer.checkpointer.restores[-1]
+    if (trainer.state.step != 1 or weights_digest(trainer.state.module)
+            != resume["restored_digest"]):
+        raise AssertionError(f"ckpt-fallback: restored {restore}")
+    del trainer
+    _free_cuda()
+    res = dict(damaged=os.path.relpath(victim, ck), restore=restore)
+    say("[ckpt-resume] step 2 damaged, the digest restore fell back to step "
+        "1: " + json.dumps(res))
+    return res
+
+
+def ckpt_int8_phase(root: str, argv=CKPT_INT8_ARGS) -> dict:
+    """The tiny preset at int8_full with delayed scales on both passes: 2
+    steps with a checkpoint each, then a run resumed from step 1 counted
+    from its construction: no calibration launch, step 2's loss and grad
+    norm and the amaxes bit-equal to the uninterrupted run's."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+
+    ck = os.path.join(root, "int8")
+    argv = argv + ["--checkpoint-dir", ck]
+    full, _, _ = train_once(argv)
+    want_log = full.step_log
+    want = {k: v.detach().cpu().clone()
+            for k, v in full.state.module.state_dict().items()}
+    del full
+    shutil.rmtree(checkpoint.step_path(ck, 2))
+    resumed, counts, _ = train_once(argv + ["--resume"])
+    tc, mc = resumed.tcfg, resumed.mcfg
+    if not mc.quant_delayed_grads or resumed.checkpointer.restores[-1][
+            "step"] != 1:
+        raise AssertionError(f"ckpt-int8: {resumed.checkpointer.restores}")
+    check_launches("ckpt-int8 resumed run (1 step, no calibration)", counts,
+                   expected_train_launches(
+                       micro=tc.grad_accum_steps,
+                       eval_batches=resumed.eval_loader.steps_per_epoch,
+                       layers=mc.num_layers))
+    got = resumed.state.module.state_dict()
+    amaxes = [k for k in want if k.endswith("amax")]
+    if resumed.step_log != want_log[1:] or not amaxes or any(
+            not torch.equal(got[k].cpu(), want[k]) for k in want):
+        raise AssertionError(f"ckpt-int8: resumed {resumed.step_log} "
+                             f"against {want_log[1:]}")
+    del resumed
+    res = dict(steps=want_log, amax_buffers=len(amaxes), launches=counts)
+    say("[ckpt-int8] tiny, int8_full, delayed scales on both passes, resumed "
+        "from step 1 with no calibration launch: step 2 and every weight and "
+        "amax bit-equal: " + json.dumps(res))
+    return res
+
+
+def hf_gpt2_state(state: dict, cfg) -> dict:
+    """The port's GPT-2 ``state_dict`` (per-layer trunk) under the HF
+    ``GPT2LMHeadModel`` names and ``Conv1D`` layouts (the inverse of
+    ``models/hf_loader.load_gpt2_lm``), CPU tensors."""
+    import torch
+
+    h = cfg.hidden_size
+    out = {"transformer.wte.weight": state["wte.embedding"],
+           "transformer.wpe.weight": state["wpe.embedding"],
+           "lm_head.weight": state["wte.embedding"]}
+
+    def norm(dst, src):
+        out[dst + ".weight"] = state[src + ".scale"]
+        out[dst + ".bias"] = state[src + ".bias"]
+
+    for i in range(cfg.num_layers):
+        p, q = f"blocks.{i}.", f"transformer.h.{i}."
+        norm(q + "ln_1", p + "ln_1")
+        qkv = ("query", "key", "value")
+        out[q + "attn.c_attn.weight"] = torch.cat(
+            [state[p + f"attention.{n}.kernel"].reshape(h, h) for n in qkv],
+            dim=1)
+        out[q + "attn.c_attn.bias"] = torch.cat(
+            [state[p + f"attention.{n}.bias"].reshape(h) for n in qkv])
+        out[q + "attn.c_proj.weight"] = state[
+            p + "attention.out.kernel"].reshape(h, h)
+        out[q + "attn.c_proj.bias"] = state[p + "attention.out.bias"]
+        norm(q + "ln_2", p + "ln_2")
+        for mine, theirs in (("mlp_up", "c_fc"), ("mlp_down", "c_proj")):
+            out[q + f"mlp.{theirs}.weight"] = state[p + mine + ".kernel"]
+            out[q + f"mlp.{theirs}.bias"] = state[p + mine + ".bias"]
+    norm("transformer.ln_f", "ln_f")
+    return {k: v.detach().cpu().contiguous() for k, v in out.items()}
+
+
+def _generate_rows(tok, prompts):
+    import numpy as np
+
+    rows = [tok.text_ids(p) for p in prompts]
+    lengths = np.asarray([len(r) for r in rows])
+    ids = np.zeros((len(rows), int(lengths.max())), np.int64)
+    for i, r in enumerate(rows):
+        ids[i, :len(r)] = r
+    return ids, lengths
+
+
+def generate_phase(ck: str, root: str, prompts=PROMPTS,
+                   new_tokens=NEW_TOKENS, device="cuda") -> dict:
+    """``generate_lm --checkpoint-dir`` on ckpt-resume's checkpoint
+    (scanned, so re-laid out) over the serve phase's prompts, greedy; the
+    library path counted (kernel 1: 2 a block + ln_f a forward, one prefill
+    and ``new_tokens`` - 1 decode steps) and timed; then ``--hf-checkpoint``
+    on a ``pytorch_model.bin`` of the same weights under GPT-2's HF names:
+    the same streams. Returns the streams and the model for the margin
+    gate."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.cli import generate_lm
+    from pytorch_distributed_training_tpu_torch.models.generate import (
+        generate,
+    )
+    from pytorch_distributed_training_tpu_torch.models.gpt2 import unscanned
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    pf = os.path.join(root, "prompts.txt")
+    with open(pf, "w") as f:
+        f.write("\n".join(prompts) + "\n")
+    argv = GENERATE_ARGS + ["--checkpoint-dir", ck, "--prompt-file", pf,
+                            "--max-new-tokens", str(new_tokens)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        texts = generate_lm.main(argv)
+    args = generate_lm.build_parser().parse_args(argv)
+    tok = generate_lm.build_tokenizer(args)
+    t0 = time.perf_counter()
+    model, step = generate_lm.load_model_and_params(args, tok)
+    load_s = time.perf_counter() - t0
+    if step != 2 or not model.config.scan_layers:
+        raise AssertionError(f"generate: step {step}, scanned "
+                             f"{model.config.scan_layers}")
+    model = model.to(device).eval()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = unscanned(model)
+    torch.cuda.synchronize()
+    relayout_s = time.perf_counter() - t0
+    del model
+    ids, lengths = _generate_rows(tok, prompts)
+    width = ids.shape[1]
+
+    def run(m, n=new_tokens):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate(m, ids, max_new_tokens=n,
+                       prompt_lengths=lengths).cpu().numpy()
+        wall = time.perf_counter() - t0
+        return out, wall, dict(_build.LAUNCH_COUNTS)
+
+    out, wall, counts = run(flat)
+    # the prefill, its sampling and the copy to the host alone
+    _, prefill_wall, _ = run(flat, 1)
+    layers = flat.config.num_layers
+    check_launches(f"generate run (1 prefill, {new_tokens - 1} decode steps)",
+                   counts, {"layer_norm": (2 * layers + 1) * new_tokens})
+    streams = {f"r{i}": out[i, width:].tolist() for i in range(len(prompts))}
+    if [tok.decode(out[i, width:]) for i in range(len(prompts))] != texts:
+        raise AssertionError("generate: the CLI's texts differ from the "
+                             "library's streams")
+    hf = os.path.join(root, "hf")
+    os.makedirs(hf)
+    torch.save(hf_gpt2_state(flat.state_dict(), flat.config),
+               os.path.join(hf, "pytorch_model.bin"))
+    hf_args = generate_lm.build_parser().parse_args(
+        GENERATE_ARGS + ["--hf-checkpoint", hf])
+    hf_model, _ = generate_lm.load_model_and_params(hf_args, tok)
+    hf_out, _, _ = run(hf_model.to(device).eval())
+    del hf_model
+    if not (hf_out == out).all():
+        raise AssertionError("generate: --hf-checkpoint streams differ from "
+                             "--checkpoint-dir's")
+    res = dict(rows=len(prompts), new_tokens=new_tokens, launches=counts,
+               wall_s=wall, prefill_wall_s=prefill_wall,
+               ms_a_forward=1e3 * wall / new_tokens,
+               ms_a_decode_step=1e3 * (wall - prefill_wall)
+               / (new_tokens - 1),
+               ms_a_token=1e3 * wall / (new_tokens * len(prompts)),
+               load_s=load_s, relayout_s=relayout_s)
+    say("[generate] gpt2-medium from ckpt-resume's step 2 (re-laid out), "
+        f"{len(prompts)} prompts x {new_tokens} greedy tokens, dense cache; "
+        "--hf-checkpoint's streams equal: " + json.dumps(res))
+    return dict(res, streams=streams, model=flat)
+
+
+def serve_ckpt_phase(ck: str, prompts=PROMPTS, new_tokens=NEW_TOKENS,
+                     n_layers=24) -> dict:
+    """``serve_lm --checkpoint-dir`` on ckpt-resume's checkpoint, counted:
+    ``stats()["weights_step"]`` is 2. Returns the streams for the margin
+    gate."""
+    events, stats, counts, wall = serve_once(
+        SERVE_CKPT_ARGS + ["--checkpoint-dir", ck], prompts, new_tokens)
+    toks = streams(events, prompts, new_tokens)
+    prefills, ticks = stats["admitted"], stats["decode_dispatches"]
+    check_launches(
+        f"serve-ckpt run ({prefills} prefills, {ticks} ticks)", counts,
+        {"layer_norm": (2 * n_layers + 1) * (prefills + ticks),
+         "paged_attention": n_layers * ticks})
+    if stats["weights_step"] != 2:
+        raise AssertionError(f"serve-ckpt: weights_step "
+                             f"{stats['weights_step']}")
+    res = dict(weights_step=stats["weights_step"], launches=counts,
+               **serve_metrics(events, stats, wall))
+    say("[serve-ckpt] serve_lm from ckpt-resume's checkpoint: "
+        + json.dumps(res))
+    return dict(res, streams=toks)
+
+
+def ckpt_margin_phase(gen: dict, serve: dict, device,
+                      prompts=PROMPTS) -> dict:
+    """Every generated and served token of the checkpoint's weights
+    against a full-sequence forward (reference attention) of them."""
+    import dataclasses
+
+    from pytorch_distributed_training_tpu_torch.models.gpt2 import (
+        GPT2LMModel,
+    )
+
+    flat = gen.pop("model")
+    check = GPT2LMModel(dataclasses.replace(flat.config,
+                                            attention_impl="reference"),
+                        device="meta")
+    check.load_state_dict(flat.state_dict(), assign=True)
+    check.cast_for_serving("float32")
+    check.eval()
+    del flat
+    out = {name: margin_check(check, name, run.pop("streams"), prompts,
+                              MARGIN_TOL, device)
+           for name, run in (("generate", gen), ("serve-ckpt", serve))}
+    del check
+    _free_cuda()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4521,7 +5036,11 @@ def main() -> int:
     lap("int8-gemm")
     train = train_phase()
     lap("train")
-    train_int8_phase()
+    int8_root = tempfile.mkdtemp(prefix="pdt_chip_smoke_")
+    try:
+        train_int8_phase(int8_root)
+    finally:
+        shutil.rmtree(int8_root, ignore_errors=True)
     lap("train-int8")
     train_profile_phase(train["warm"], one_step(TRAIN_ARGS))
     lap("train-profile")
@@ -4580,6 +5099,21 @@ def main() -> int:
     lap("serve options")
     serve_tp = serve_tp_phase(plain, options["int8"]["streams"])
     lap("serve-tp")
+    root = tempfile.mkdtemp(prefix="pdt_chip_smoke_")
+    try:
+        resume = ckpt_resume_phase(root)
+        lap("ckpt-resume")
+        ckpt_int8_phase(root)
+        lap("ckpt-int8")
+        gen = generate_phase(resume["dir"], root)
+        lap("generate")
+        serve_ckpt = serve_ckpt_phase(resume["dir"])
+        lap("serve-ckpt")
+        ckpt_margin_phase(gen, serve_ckpt, device)
+        ckpt_fallback_phase(resume)
+        lap("ckpt checks")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     checks = {"serve": (plain, PROMPTS, "float32", MARGIN_TOL)}
     for k, v in options.items():
         int8_kv = v["kv_dtype"] == "int8"

@@ -15,8 +15,11 @@ paged KV pool, ``--queue-depth`` backpressure, ``--deadline-s`` default
 deadline. Serving options: ``--spec-k`` speculative decoding (n-gram
 drafts), ``--prefill-chunk`` and ``--prefill-concurrency`` chunked prefill,
 ``--prefix-cache`` the shared-KV prefix cache, ``--weights-dtype int8``
-weight-only int8 projections, ``--kv-dtype int8`` int8 KV pools. Events go
-to stdout, logs to stderr.
+weight-only int8 projections (quantized after loading), ``--kv-dtype int8``
+int8 KV pools. Weights: ``--checkpoint-dir`` (a trainer checkpoint, the
+newest verified step; the engine reports it as ``stats()["weights_step"]``),
+``--hf-checkpoint`` or random from ``--seed`` (``cli/generate_lm.py``'s
+``load_model_and_params``). Events go to stdout, logs to stderr.
 
 ``--tp N`` serves one replica over N processes, one a card, launched by
 ``torch.distributed.run`` (NCCL on cards, gloo with ``--device cpu``)::
@@ -25,8 +28,8 @@ to stdout, logs to stderr.
         -m pytorch_distributed_training_tpu_torch.cli.serve_lm \\
         --model gpt2-medium --tp 2 < requests.jsonl
 
-``--tp`` must equal the world size. Every rank builds the model from the
-same ``--seed``; rank 0, the leader, reads the requests on stdin and
+``--tp`` must equal the world size. Every rank builds the whole model from the
+same ``--seed`` (or loads the same checkpoint) and cuts its slice; rank 0, the leader, reads the requests on stdin and
 writes the events, and the other ranks run their slice of every device
 call (``serve/tp_worker.py``). Every rank exits 0 at EOF.
 """
@@ -136,8 +139,9 @@ def engine_config(args):
 
 
 def _model(args):
-    """``(model, tokenizer)`` of parsed ``args`` on the CPU, float32, from
-    ``--seed`` (the same on every rank)."""
+    """``(model, tokenizer, ckpt_step)`` of parsed ``args``: the model on
+    the CPU, float32, from ``--checkpoint-dir``, ``--hf-checkpoint`` or
+    ``--seed`` (the same on every rank; ``cli/generate_lm.py``)."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.cli.generate_lm import (
@@ -149,8 +153,8 @@ def _model(args):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tok = build_tokenizer(args)
-    model, _step = load_model_and_params(args, tok)
-    return model, tok
+    model, step = load_model_and_params(args, tok)
+    return model, tok, step
 
 
 def build_server(args, *, device=None, shard=None):
@@ -165,12 +169,13 @@ def build_server(args, *, device=None, shard=None):
 
     if device is None:
         device = resolve_device(args.device)  # before any weights are built
-    model, tok = _model(args)
+    model, tok, step = _model(args)
     # the engine serves its own cast copy of the model
     server = InferenceServer(
         model, engine_config(args), device=device,
         queue_depth=args.queue_depth,
         default_deadline_s=args.deadline_s or None, shard=shard,
+        weights_step=step,
     )
     return server, tok
 
@@ -224,7 +229,7 @@ def _main_tp(args, in_stream, out_stream) -> dict:
                            rank=info.rank,
                            world_size=info.world_size).shard("model")
         if shard.index:
-            model, _ = _model(args)
+            model, _, _ = _model(args)
             return run_follower(model, engine_config(args),
                                 device=info.device, shard=shard)
         try:

@@ -50,8 +50,15 @@ backward's dy too::
         --model tiny --task synthetic --device cpu \
         --matmul-impl int8_full --quant-delayed --quant-delayed-grads
 
-The JAX CLI's ``--hf-checkpoint`` and restart flags wait for their
-slices (ROADMAP.md, queue 1).
+Checkpoints (``train/checkpoint.py``): ``--checkpoint-dir`` saves every
+epoch's end and every ``--checkpoint-every-steps`` updates (0: per epoch
+only); ``--resume`` starts from the newest step there that verifies at
+``--checkpoint-verify`` (``size``, ``digest`` or ``off``), mid-epoch
+included; ``python -m
+pytorch_distributed_training_tpu_torch.cli.verify_checkpoint DIR``
+checks a directory offline. ``--hf-checkpoint DIR`` starts the model from
+an HF BERT checkpoint (``models/hf_loader.py``). The JAX CLI's restart
+flags wait for their slice (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -96,6 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the run goes (cuda raises when no GPU is "
                         "visible)")
+    p.add_argument("--hf-checkpoint", default=None,
+                   help="HF torch checkpoint directory to start from "
+                        "(model.safetensors or pytorch_model.bin)")
     p.add_argument("--history-out", default=None,
                    help="write the per-epoch metric history as JSON here")
     add_dataclass_args(p, TrainConfig)
@@ -119,7 +129,8 @@ def build_trainer(args):
     mesh = MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
                       seq=args.mesh_seq)
     return Trainer(mcfg, tcfg, task=args.task, device=args.device,
-                   mesh_config=mesh, policy=ShardingPolicy(fsdp=args.fsdp))
+                   mesh_config=mesh, policy=ShardingPolicy(fsdp=args.fsdp),
+                   hf_checkpoint=args.hf_checkpoint)
 
 
 def train(argv=None):

@@ -56,8 +56,11 @@ or ``--mesh-seq 2`` leaves fsdp 2 by ``--mesh-fsdp -1``::
 
 ``--matmul-impl int8|int8_full`` runs the six projections of every block
 on int8 products (``ops/quant.py``); the JAX LM CLI has no delayed
-scaling flags. The JAX CLI's remat and restart flags wait for the slice
-2 and slice 3 leftovers.
+scaling flags. ``--checkpoint-dir``, ``--checkpoint-every-steps``,
+``--resume`` and ``--checkpoint-verify`` are ``train_dp``'s
+(``train/checkpoint.py``); a checkpoint of the scanned trunk generates and
+serves as it is (``cli/generate_lm.py``, ``cli/serve_lm.py``). The JAX
+CLI's remat and restart flags wait for the slice 2 and slice 3 leftovers.
 """
 
 from __future__ import annotations

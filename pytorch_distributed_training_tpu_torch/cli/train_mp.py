@@ -59,8 +59,11 @@ CLS row of seq coordinate 0::
 
 ``--matmul-impl int8|int8_full`` and ``--quant-delayed`` are
 ``train_dp``'s (``ops/quant.py``); under the pipeline and 1f1b schedules
-the delayed amaxes stream through the pipeline microbatches. The JAX
-CLI's restart flags wait with ``train_dp``'s (slice 2 leftovers).
+the delayed amaxes stream through the pipeline microbatches. The
+checkpoint flags are ``train_dp``'s (``train/checkpoint.py``): each stage
+or branch rank writes its own layers under the whole model's names, so a
+checkpoint of one mode and mesh resumes under another. The JAX CLI's
+restart flags wait with ``train_dp``'s (slice 2 leftovers).
 """
 
 from __future__ import annotations

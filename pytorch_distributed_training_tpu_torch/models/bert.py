@@ -48,7 +48,16 @@
     chunk > 1): the chunk is
     appended at ``context_len`` of an existing context (speculative
     verify, chunked prefill, a prefix-hit tail) and attends causally over
-    the earlier pages and itself through the 4-D-query ``paged_attention``.
+    the earlier pages and itself through the 4-D-query ``paged_attention``;
+
+  or the DENSE decode cache when it passes the layer's ``DenseKV.layer``
+  (``models/generate.py``; JAX ``BertSelfAttention._cached_attend``): a
+  [batch, max_len, heads, head_dim] K and V a layer in the compute dtype,
+  the chunk written at the cache's index, scores over the whole buffer in
+  float32 with the causal-over-cache mask (key t visible to chunk row i iff
+  t <= index + i) and the pad bias, probabilities in the cache's dtype;
+  multi-token prefill and one-token steps alike, no dropout. Its products
+  are ``einsum``s, as JAX's are outside any Pallas kernel.
 
   Full-sequence attention takes a dropout seed (probs dropout, site 2 of
   the layer's seed) and, with ``attention_remat``, recomputes its core in
@@ -98,7 +107,9 @@ scatter writes them in place (the JAX package returns new pools, which
 XLA updates in place through donation). int8 pools quantize on write
 (``ops/quant.quantize_kv``, one fp32 scale per token and head) and their
 scales scatter through the same (page, offset) indices into the layer's
-scale pools (``PagedKV.scales``). The dense cache is not ported yet.
+scale pools (``PagedKV.scales``). The dense cache is an explicit
+``DenseKV`` the caller makes and passes to each forward; the forward
+writes it in place and advances its ``index``.
 """
 
 from __future__ import annotations
@@ -200,6 +211,39 @@ class PagedKV:
             self.scales[i])
         return (*self.pools[i], k_scales, v_scales, self.block_table,
                 self.context_len, self.multiquery)
+
+
+class DenseLayerKV(tuple):
+    """One layer's dense-cache operands, ``(keys, values, index)``
+    (``DenseKV.layer``)."""
+
+
+@dataclasses.dataclass
+class DenseKV:
+    """The dense decode cache of a causal model (counterpart: JAX's flax
+    ``"cache"`` collection of ``cached_key``/``cached_value`` and
+    ``cache_index``): per layer a [batch, max_len, heads, head_dim] K and
+    V buffer, and ``index``, the tokens written so far (every layer's, as
+    one forward writes them all)."""
+
+    keys: list
+    values: list
+    index: int = 0
+
+    @classmethod
+    def zeros(cls, cfg: ModelConfig, batch: int, max_len: int,
+              device=None) -> "DenseKV":
+        shape = (batch, max_len, cfg.num_heads, cfg.head_dim)
+
+        def buf():
+            return torch.zeros(shape, dtype=compute_dtype(cfg),
+                               device=device)
+
+        return cls([buf() for _ in range(cfg.num_layers)],
+                   [buf() for _ in range(cfg.num_layers)])
+
+    def layer(self, i: int) -> DenseLayerKV:
+        return DenseLayerKV((self.keys[i], self.values[i], self.index))
 
 
 class DenseGeneral(nn.Module):
@@ -342,7 +386,8 @@ class BertSelfAttention(nn.Module):
     def forward(self, x, attention_bias=None, paged=None, dropout_seed=None):
         """``paged``: None for full-sequence attention, else ``(k_pages,
         v_pages, k_scales, v_scales, block_table, context_len,
-        multiquery)`` for this layer (``PagedKV.layer``).
+        multiquery)`` for this layer (``PagedKV.layer``), or its dense
+        cache (``DenseKV.layer``).
         ``dropout_seed``: the layer's seed for probs dropout (None is
         deterministic)."""
         cfg = self.config
@@ -352,7 +397,9 @@ class BertSelfAttention(nn.Module):
         q = self.query(x)
         k = self.key(x)
         v = self.value(x)
-        if paged is not None:
+        if isinstance(paged, DenseLayerKV):
+            out = self._cached_attend(q, k, v, attention_bias, *paged)
+        elif paged is not None:
             out = self._paged_attend(q, k, v, attention_bias, *paged)
         else:
             seq = self.seq_shard
@@ -375,6 +422,26 @@ class BertSelfAttention(nn.Module):
             else:
                 out = core(q, k, v, attention_bias, dropout_seed)
         return self.out(out)
+
+    def _cached_attend(self, q, k, v, attention_bias, keys, values, index):
+        """The dense-cache attention (JAX ``_cached_attend``): this chunk's
+        K/V written at ``index``, then rows ``index .. index + chunk - 1``
+        attend over the buffer up to themselves."""
+        if not self.config.causal:
+            raise ValueError("a dense decode cache requires a causal model")
+        chunk, head_dim = q.shape[1], q.shape[3]
+        max_len = keys.shape[1]
+        keys[:, index:index + chunk] = k.to(keys.dtype)
+        values[:, index:index + chunk] = v.to(values.dtype)
+        scores = torch.einsum("bsnd,btnd->bnst", q.float(),
+                              keys.float()) * head_dim ** -0.5
+        q_pos = index + torch.arange(chunk, device=q.device)[:, None]
+        k_pos = torch.arange(max_len, device=q.device)[None, :]
+        scores = torch.where((k_pos <= q_pos)[None, None], scores, _NEG)
+        if attention_bias is not None:
+            scores = scores + attention_bias.float()
+        probs = torch.softmax(scores, dim=-1).to(values.dtype)
+        return torch.einsum("bnst,btnd->bsnd", probs, values)
 
     def _paged_attend(self, q, k, v, attention_bias, k_pages, v_pages,
                       k_scales, v_scales, block_table, context_len,

@@ -21,9 +21,12 @@ native, as in JAX.
 
 ``forward(..., paged=PagedKV(...))`` runs the serving engine's paged
 prefill, decode and (with ``PagedKV.multiquery`` or
-``cfg.paged_multiquery``) multi-token query;
-without it, full-sequence causal attention through ``cfg.attention_impl``
-(the flash kernels for ``gpt2-medium``).
+``cfg.paged_multiquery``) multi-token query; ``forward(...,
+cache=DenseKV(...))`` the dense decode cache of ``models/generate.py``
+(position ids from the cache's index unless given, the index advanced by
+the chunk after the forward);
+without either, full-sequence causal attention through
+``cfg.attention_impl`` (the flash kernels for ``gpt2-medium``).
 
 Training: ``forward(input_ids, attention_mask=None, token_type_ids=None,
 position_ids=None, dropout_seed=None)``, the JAX model's uniform signature
@@ -53,6 +56,7 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     _SITE_MLP_NORM,
     BertSelfAttention,
     DenseGeneral,
+    DenseKV,
     Embed,
     PagedKV,
     child_seed,
@@ -161,12 +165,15 @@ class GPT2LMModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 position_ids=None, dropout_seed: Optional[int] = None, *,
-                paged: Optional[PagedKV] = None):
+                paged: Optional[PagedKV] = None,
+                cache: Optional[DenseKV] = None):
         cfg = self.config
         input_ids = input_ids.long()
         batch, seq = input_ids.shape
-        # under context parallelism this rank's columns start at offset
-        offset = seq_offset(input_ids, self.seq_shard)
+        # under context parallelism this rank's columns start at offset;
+        # a dense cache's chunk at its index
+        offset = (cache.index if cache is not None
+                  else seq_offset(input_ids, self.seq_shard))
         if offset + seq > cfg.max_position_embeddings:
             raise ValueError(
                 f"sequence length {offset + seq} exceeds "
@@ -180,12 +187,15 @@ class GPT2LMModel(nn.Module):
         x = self.wte(input_ids) + self.wpe(position_ids)
         x = self.dropout(x, child_seed(dropout_seed, 0))
         bias = make_attention_bias(attention_mask)
+        kv = paged if cache is None else cache  # either has .layer(i)
         if cfg.scan_layers:
-            x = self.layers_scan(x, bias, dropout_seed, paged)
+            x = self.layers_scan(x, bias, dropout_seed, kv)
         else:
             for i, block in enumerate(self.blocks):
-                layer = None if paged is None else paged.layer(i)
+                layer = None if kv is None else kv.layer(i)
                 x = block(x, bias, layer, child_seed(dropout_seed, i + 1))
+        if cache is not None:
+            cache.index += seq
         x = self.ln_f(x)
         head = self.head_weight
         if head is None:
@@ -195,23 +205,22 @@ class GPT2LMModel(nn.Module):
 
 def unscanned(model: GPT2LMModel) -> GPT2LMModel:
     """``model`` with a stacked trunk (``layers_scan``) laid out a block a
-    module, on the same values (counterpart: JAX
-    ``models/relayout.unstack_scanned_params``, which the JAX engine runs
-    before it serves); a model whose trunk is per block comes back as it
-    is. Tensor-parallel serving cuts the per-block leaves: the JAX policy
-    splits no ``layers_scan`` leaf."""
+    module, on the same values (``models/relayout.unstack_scanned_params``,
+    which the JAX engine and ``generate`` run too); a model whose trunk is
+    per block comes back as it is. Tensor-parallel serving cuts the
+    per-block leaves: the JAX policy splits no ``layers_scan`` leaf."""
+    from pytorch_distributed_training_tpu_torch.models.relayout import (
+        unstack_scanned_params,
+    )
+
     cfg = model.config
     if not cfg.scan_layers:
         return model
     flat = GPT2LMModel(dataclasses.replace(cfg, scan_layers=False),
                        device="meta")
-    state = {}
-    for name, t in model.state_dict().items():
-        _, scanned, rest = name.partition("layers_scan.block.")
-        if not scanned:
-            state[name] = t
-            continue
-        for i, leaf in enumerate(t.unbind(0)):
-            state[f"blocks.{i}.{rest}"] = leaf.clone()
+    whole = model.state_dict()
+    # the trunk's slices copied out of their stacks, the rest as they are
+    state = {name: t if name in whole else t.clone() for name, t in
+             unstack_scanned_params(whole).items()}
     flat.load_state_dict(state, assign=True)
     return flat

@@ -382,12 +382,16 @@ class DecodeEngine(ServeSlice):
     ``models.gpt2.GPT2LMModel``; the engine serves a copy of it on
     ``device`` with its weights cast once to the compute dtype (under
     ``tp > 1``: this rank's slice of it, and the engine is the leader of
-    the model group of ``shard``).
+    the model group of ``shard``). ``weights_step``: the checkpoint step
+    the weights came from (None for HF or random ones), reported as
+    ``stats()["weights_step"]``.
     """
 
     def __init__(self, model, config: EngineConfig, queue: RequestQueue, *,
-                 device="cuda", shard=None):
+                 device="cuda", shard=None,
+                 weights_step: Optional[int] = None):
         super().__init__(model, config, device=device, shard=shard)
+        self.weights_step = weights_step
         self._stopped = False
         self._pages = PageAllocator(
             config.total_pages, config.page_size, config.pages_per_slot,
@@ -1009,6 +1013,7 @@ class DecodeEngine(ServeSlice):
             "kv_dtype": self.config.kv_dtype,
             "tp": self.config.tp,
             "variant": self.variant,
+            "weights_step": self.weights_step,
             "weight_bytes": self.weight_bytes,
             "kv_bytes_per_token": self._kv_bytes_per_token(),
             "kv_heads": self._pools[0][0].shape[2],

@@ -50,14 +50,15 @@ class InferenceServer:
 
     def __init__(self, model, config: EngineConfig, *, device="cuda",
                  queue_depth: int = 16,
-                 default_deadline_s: Optional[float] = None, shard=None):
+                 default_deadline_s: Optional[float] = None, shard=None,
+                 weights_step: Optional[int] = None):
         self.queue = RequestQueue(
             max_depth=queue_depth,
             prompt_buckets=config.prompt_buckets,
             max_new_tokens=config.max_new_tokens,
         )
         self.engine = DecodeEngine(model, config, self.queue, device=device,
-                                   shard=shard)
+                                   shard=shard, weights_step=weights_step)
         self.default_deadline_s = default_deadline_s
         self._ids = itertools.count()
         self._thread: Optional[threading.Thread] = None

@@ -66,9 +66,21 @@ first calibration pass stands for that one. DDP broadcasts no buffers:
 the amaxes agree on every rank by construction, and a broadcast from rank
 0 at each forward would cost a collective a microbatch for nothing.
 
-Not ported here (ROADMAP.md, queue 1): checkpoints and resume, the
-watchdog, preemption handling, telemetry sinks, runtime guards, the
-native loader and prefetch, and chained steps.
+Checkpoints (``train/checkpoint.py``; JAX ``train/loop.py:240-254``):
+with ``checkpoint_dir`` the run saves at every epoch's end and every
+``checkpoint_every_steps`` updates (every rank its shards; rank 0 commits,
+seals and prunes), and with ``resume`` it starts from the newest verified
+step there, before the delayed-int8 calibration, which a restored run
+skips (its amaxes are the checkpoint's). ``run`` then starts at
+``divmod(step, steps_per_epoch)``: the first ``skip`` batches of the
+restored epoch are drawn and dropped, not trained, and every later step
+draws the dropout seeds of ``(dropout_seed, step)``, so the resumed run is
+the uninterrupted one. ``hf_checkpoint`` starts the model from an HF
+checkpoint (``models/hf_loader.py``) before any split or shard.
+
+Not ported here (ROADMAP.md, queue 1): the watchdog, preemption
+handling, telemetry sinks, runtime guards, the native loader and
+prefetch, and chained steps.
 """
 
 from __future__ import annotations
@@ -109,6 +121,9 @@ from pytorch_distributed_training_tpu_torch.models.branch import (
     BRANCH_MODULE,
     BranchEnsembleClassifier,
 )
+from pytorch_distributed_training_tpu_torch.models.convert import (
+    is_quant_name,
+)
 from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2LMModel
 from pytorch_distributed_training_tpu_torch.models.stage import BertStage
 from pytorch_distributed_training_tpu_torch.parallel.pipeline import (
@@ -121,9 +136,13 @@ from pytorch_distributed_training_tpu_torch.parallel.sharding import (
     apply_fsdp,
     context_parallel,
     int8_groups,
+    model_dims,
     param_specs,
     placements_of,
     tensor_parallel,
+)
+from pytorch_distributed_training_tpu_torch.train.checkpoint import (
+    Checkpointer,
 )
 from pytorch_distributed_training_tpu_torch.train.metrics import (
     LMMetricAccumulator,
@@ -167,7 +186,7 @@ class Trainer:
                  mp_mode: Optional[str] = None,
                  model: Optional[Callable] = None,
                  policy: Optional[ShardingPolicy] = None,
-                 n_micro=None):
+                 n_micro=None, hf_checkpoint=None):
         tcfg = self.tcfg = train_config
         if mp_mode not in MP_MODES:
             raise ValueError(f"mp_mode must be one of {MP_MODES}, got "
@@ -273,6 +292,21 @@ class Trainer:
             module = model_cls(
                 model_config,
                 generator=torch.Generator().manual_seed(tcfg.seed))
+        if hf_checkpoint is not None:
+            from pytorch_distributed_training_tpu_torch.models import (
+                hf_loader,
+            )
+
+            load = (hf_loader.load_gpt2_lm if model_config.causal
+                    else hf_loader.load_bert_classifier)
+            # the HF weights replace the parameters only: the delayed-int8
+            # amaxes stay and are calibrated below, as JAX keeps its quant
+            missing, unexpected = module.load_state_dict(
+                load(hf_checkpoint, model_config), strict=False)
+            missing = [n for n in missing if not is_quant_name(n)]
+            if missing or unexpected:
+                raise KeyError(f"{hf_checkpoint}: missing {missing[:5]}, "
+                               f"unexpected {unexpected[:5]}")
         if split == AXIS_STAGE and mesh.shape[AXIS_STAGE] > 1:
             module = BertStage(module, mesh)
         self.split = split
@@ -297,7 +331,15 @@ class Trainer:
         else:
             self._make_state(model, sharded=False)
         self.eval_step = make_eval_step(self.objective, mesh)
-        if quant_buffers(self.state.module):
+        self.checkpointer = (
+            Checkpointer(tcfg.checkpoint_dir, verify=tcfg.checkpoint_verify)
+            if tcfg.checkpoint_dir else None)
+        restored = False
+        if (tcfg.resume and self.checkpointer
+                and self.checkpointer.latest_step() is not None):
+            self.checkpointer.restore(self.state)
+            restored = True
+        if quant_buffers(self.state.module) and not restored:
             micro0 = self.train_loader.first_micro(
                 tcfg.global_batch_size // tcfg.grad_accum_steps)
             for _ in range(2):
@@ -356,6 +398,8 @@ class Trainer:
             )
         self.state = create_train_state(model, optimizer, tcfg.seed,
                                         wrapped=wrapped)
+        if self.tp_split:
+            self.state.tp = (model_dims(self.specs), mesh.shard(AXIS_MODEL))
         if self.schedule_mode:
             self.train_step = make_pipeline_train_step(
                 self.mcfg, mesh, schedule=self.schedule_mode,
@@ -374,39 +418,61 @@ class Trainer:
     def run(self) -> list[dict]:
         cfg = self.tcfg
         spe = self.train_loader.steps_per_epoch
+        # mid-epoch resume: the loader's epoch order comes from (seed,
+        # epoch), so dropping the restored epoch's first `skip` batches
+        # continues the same data and schedule
+        start_epoch, skip = divmod(self.state.step, max(spe, 1))
         log0(f"training: {cfg.num_epochs} epochs x {spe} updates (global "
              f"batch {cfg.global_batch_size} = {cfg.grad_accum_steps} x "
              f"{cfg.global_batch_size // cfg.grad_accum_steps}"
              + (f" in {self.n_micro} pipeline microbatches"
                 if self.schedule_mode else "") + "), "
              f"{self.info.world_size} process(es) on {self.device}, mesh "
-             f"{self.mesh.shape}")
-        for epoch in range(cfg.num_epochs):
-            self._sync()
-            t0 = time.perf_counter()
-            metrics = []
-            for batch in self.train_loader.epoch(epoch):
-                metrics.append(self.train_step(self.state, batch))
-                step = self.state.step
-                if cfg.log_every and step % cfg.log_every == 0:
-                    log0(f"step {step}: loss={float(metrics[-1]['loss']):.4f} "
-                         f"lr={self.schedule(step - 1):.2e}")
-            self._sync()
-            train_time = time.perf_counter() - t0
-            host = self._log_steps(metrics)
-            samples = cfg.global_batch_size * len(metrics)
-            record = {
-                "epoch": epoch,
-                "train_loss": (float(np.mean([h[0] for h in host]))
-                               if host else float("nan")),
-                "samples_per_sec": samples / train_time,
-                "samples_per_sec_per_chip":
-                    samples / train_time / self.info.world_size,
-                **self.evaluate(),
-            }
-            self.history.append(record)
-            log0(f"epoch {epoch}: {record}")
+             f"{self.mesh.shape}"
+             + (f", from step {self.state.step}" if self.state.step else ""))
+        # close() joins nothing while saves are synchronous; it stays in
+        # the finally for the day they are not (JAX API)
+        try:
+            for epoch in range(start_epoch, cfg.num_epochs):
+                self._run_epoch(epoch, skip if epoch == start_epoch else 0)
+        finally:
+            if self.checkpointer:
+                self.checkpointer.close()
         return self.history
+
+    def _run_epoch(self, epoch: int, skip: int) -> None:
+        cfg = self.tcfg
+        self._sync()
+        t0 = time.perf_counter()
+        metrics = []
+        for i, batch in enumerate(self.train_loader.epoch(epoch)):
+            if i < skip:
+                continue
+            metrics.append(self.train_step(self.state, batch))
+            step = self.state.step
+            if cfg.log_every and step % cfg.log_every == 0:
+                log0(f"step {step}: loss={float(metrics[-1]['loss']):.4f} "
+                     f"lr={self.schedule(step - 1):.2e}")
+            if (self.checkpointer and cfg.checkpoint_every_steps
+                    and step % cfg.checkpoint_every_steps == 0):
+                self.checkpointer.save(self.state)
+        self._sync()
+        train_time = time.perf_counter() - t0
+        host = self._log_steps(metrics)
+        samples = cfg.global_batch_size * len(metrics)
+        record = {
+            "epoch": epoch,
+            "train_loss": (float(np.mean([h[0] for h in host]))
+                           if host else float("nan")),
+            "samples_per_sec": samples / train_time,
+            "samples_per_sec_per_chip":
+                samples / train_time / self.info.world_size,
+            **self.evaluate(),
+        }
+        self.history.append(record)
+        log0(f"epoch {epoch}: {record}")
+        if self.checkpointer:
+            self.checkpointer.save(self.state)
 
     def _log_steps(self, metrics: list[dict]) -> list[list[float]]:
         """Append the epoch's steps to ``step_log``, fetching every step's

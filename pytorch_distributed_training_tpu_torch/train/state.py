@@ -7,12 +7,15 @@ in the model, which the step updates in place, so the state holds the
 model (DDP-wrapped when data-parallel; under FSDP the module itself,
 sharded in place), the bare module for evaluation,
 the optimizer (moments and its update count), the optimizer step counter
-and the base dropout seed.
+and the base dropout seed; under tensor parallelism, ``tp``: the dim each
+parameter cut over the model axis is cut on, and the axis, which a
+checkpoint reads to save those slices whole (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from torch import nn
 
@@ -29,6 +32,7 @@ class TrainState:
     optimizer: AdamW
     dropout_seed: int
     step: int = 0         # optimizer updates applied
+    tp: Optional[tuple] = None  # ({name: dim}, AxisShard) of the TP cut
 
 
 def create_train_state(model: nn.Module, optimizer: AdamW, seed: int, *,

@@ -220,9 +220,10 @@ class TrainConfig:
     8 x accumulation 12, eval batch 32, linear warmup 100, AdamW with bias
     correction, bf16 compute, sequences of 128.
 
-    The fields are those the ported trainer reads; checkpoints, resume,
-    the native loader, prefetch, telemetry, guards and chained steps wait
-    in ROADMAP.md (queue 1, slice 2 leftovers).
+    The fields are those the ported trainer reads, checkpoints and resume
+    among them (``train/checkpoint.py``); the native loader, prefetch,
+    telemetry, guards and chained steps wait in ROADMAP.md (queue 1,
+    slice 2 leftovers).
     """
 
     learning_rate: float = 2e-5
@@ -244,8 +245,18 @@ class TrainConfig:
     train_size: int = 0
     eval_size: int = 0
     log_every: int = 50
+    # sharded checkpoints (train/checkpoint.py): saved at each epoch's end
+    # and every checkpoint_every_steps updates (0 = per epoch only); with
+    # resume, a run starts from the newest verified step there
+    checkpoint_dir: str | None = None
+    checkpoint_every_steps: int = 0
+    resume: bool = False
     # a WordPiece vocab.txt for real GLUE text; None = the hash tokenizer
     vocab_path: str | None = None
+    # integrity level a restore verifies each step at (train/manifest.py):
+    # "size" (file sizes), "digest" (sha256 of every file) or "off"; a
+    # latest step that fails falls back to the newest verified one
+    checkpoint_verify: str = "size"
 
     @property
     def grad_accum_steps(self) -> int:
