@@ -56,7 +56,7 @@ the JAX package), in phases that each raise on failure:
    branches (the launches of every branch's layers counted, the three
    branches started unlike each other and every one moved); then
    ``train-int8``: ``train_dp`` on bert-large at full width and depth, 2
-   steps of 96 = 8 x 12 and a 96-row eval, native and with
+   steps of 48 = 8 x 6 and a 32-row eval, native and with
    ``--matmul-impl int8``, ``int8_full`` and ``int8_full --quant-delayed
    --quant-delayed-grads`` (the calibration's forwards and backwards
    counted with the rest), each counted, finite, every parameter moved,
@@ -115,7 +115,13 @@ the JAX package), in phases that each raise on failure:
    and AdamW on DTensor shards, on the card), counted, its losses within
    1e-4 of the unwrapped run's, and its first step and the eval once
    more under ``torch.profiler`` (the device time of FSDP's ranges and of
-   any collective). Then
+   any collective); ``remat``: gpt2-medium at lm-1024's shape, 2 steps
+   without remat, with ``--remat`` under each ``--remat-policy`` and with
+   ``--remat-mlp``, each counted (the recomputed forwards' launches
+   included), the losses bit-equal to no remat's and the grad norms
+   within TWO_PASS_RTOL, the ms a step and the train steps' own peak
+   memory (reset after the trainer is built, read before the eval), then
+   micro 8 without remat and with ``--remat-mlp``. Then
    tensor and context parallelism (one card is world size 1, so their
    collectives run only over gloo on the CPU): ``tp-split``, one
    gpt2-medium block at lm-1024's shape in bf16 with the flash kernels,
@@ -135,7 +141,8 @@ the JAX package), in phases that each raise on failure:
    of 1), and ``train_dp --attention ring`` against ``reference``, the
    steps and eval metrics bit for bit and the launches equal;
    ``mp-cp``, ``train_mp --mesh-seq 2`` under the branch and pipeline
-   modes as two gloo processes on the card (tiny, float32, dropout off),
+   modes, one after the other in two gloo processes on the card (tiny,
+   float32, dropout off),
    both exiting 0 with the losses and grad norms of one process at seq 1
    (reference attention) within MP_CP_RTOL, and the host µs of one
    gloo ``all_reduce_max`` of a scalar on the card; then
@@ -155,9 +162,11 @@ the JAX package), in phases that each raise on failure:
    each served token against a full-sequence forward of the same model;
    a further run under ``torch.profiler`` breaks the device time down by
    kernel class;
-8. serve options: ``serve_lm`` again with ``--spec-k 4`` (a second run
+8. serve options (the first 8 prompts, 16 new tokens a request, from
+   here on to serve-tp): ``serve_lm``
+   again with ``--spec-k 4`` (a second run
    must give the same greedy streams), ``--prefill-chunk 32`` and
-   ``--prefix-cache`` (12 prompts sharing a 4-page prefix, two of them
+   ``--prefix-cache`` (8 prompts sharing a 4-page prefix, two of them
    copying a page on write), each counted against the engine's verify,
    chunk and decode dispatches, the pages left equal to those the prefix
    cache holds, every served token checked against the full-sequence
@@ -171,12 +180,23 @@ the JAX package), in phases that each raise on failure:
    engine, its kernels counted and its host time taken in turns; then
    ``serve-tp``: ``serve_lm --tp 2``, plain and with int8 weights and KV,
    as two processes on the one card (each makes its own gloo group, as
-   NCCL takes one rank a device), the serve phase's requests: rank 0's
+   NCCL takes one rank a device), the option runs' requests: rank 0's
    streams (counted against tp=1's, and checked against the
    full-sequence forward with the others), ``stats()["tp"]``, the page
    count of tp=1, 8 heads in each rank's pools, each rank's launches
    against the leader's dispatch counts, the follower's calls, both
-   exits 0;
+   exits 0; ``serve-dense-host``: ``serve_lm --kv-layout dense --sampling
+   host`` on the serve phase's prompts (kernel 1 only, counted; greedy
+   streams through the margin gate) and one fixed-seed sampled request,
+   the same through the dense layout with device sampling and through
+   the paged layout, all three equal, each sampled stream through the
+   sampled margin gate (``sampled_margin_check``);
+   ``serve-tenant``: two tenants at a quarter of the pool each behind the
+   prefix cache, 16 long prompts on a shared prefix in the batch lane and
+   16 short ones in the interactive lane, queued at once: every request
+   done, no page exhaustion, the quota holding the flood, the first lane
+   cycle 4 interactive then 1 batch and at least 4/5 of the contended
+   admissions interactive, counted, the streams through the margin gate;
 9. checkpoints and generation (in a temporary directory, removed after):
    ``ckpt-resume``, ``train_lm`` on gpt2-medium at full width and depth,
    seq 128, 2 steps with ``--checkpoint-every-steps 1``, then with step
@@ -193,7 +213,12 @@ the JAX package), in phases that each raise on failure:
    decode steps), and ``--hf-checkpoint`` on a ``pytorch_model.bin`` of
    the same weights under GPT-2's HF names giving the same streams;
    ``serve-ckpt``, ``serve_lm --checkpoint-dir`` on it, counted, with
-   ``stats()["weights_step"]`` 2; every generated and served token within
+   ``stats()["weights_step"]`` 2; ``serve-draft``, ``serve_lm
+   --checkpoint-dir --spec-k 4`` on it with the n-gram drafter and with
+   ``--draft-checkpoint`` on the same checkpoint (``--draft-model
+   gpt2-medium``: the draft lane, the base as its own draft), counted
+   (the draft chains' kernel-12 and kernel-1 launches), acceptance above
+   0.9, the ms a tick of both; every generated and served token within
    the margin gate of a full-sequence forward of the checkpoint's
    weights; then the newest step's largest file damaged (same length)
    and a digest restore falling back to step 1. ``lm-fsdp`` (phase 6)
@@ -310,6 +335,10 @@ SERVE_ARGS = ["--model", "gpt2-medium", "--device", "cuda", "--seed", "0",
               "--num-slots", "8", "--prompt-buckets", "16,32,64,128",
               "--max-new-tokens-cap", "64"]
 NEW_TOKENS = 32
+# the serve-option, serve-tp and later serve runs: the first 16 tokens of
+# each request (their streams held against the first 16 of the plain
+# run's, where those are compared)
+OPTION_NEW_TOKENS = 16
 PROMPTS = tuple(
     ("The quick brown fox jumps over the lazy dog. " * 3)[:n]
     for n in (5, 12, 16, 23, 31, 40, 57, 64, 77, 96, 110, 120)
@@ -336,17 +365,22 @@ PREFIX_PROMPTS = tuple(SHARED_PREFIX + t for t in (
     "What year did the first moon landing happen?",
 ))
 INT8 = ["--weights-dtype", "int8", "--kv-dtype", "int8"]
+# the serve-option and serve-tp runs: the first 8 of each prompt set (one
+# wave of the 8 slots; the prefix set's two mid-page divergences, prompts
+# 2 and 3 from prompt 0, included)
+OPTION_PROMPTS = PROMPTS[:8]
+OPTION_PREFIX_PROMPTS = PREFIX_PROMPTS[:8]
 SERVE_OPTIONS = (
-    ("spec", ["--spec-k", "4"], PROMPTS),
-    ("chunked", ["--prefill-chunk", "32"], PROMPTS),
-    ("prefix", ["--prefix-cache"], PREFIX_PROMPTS),
+    ("spec", ["--spec-k", "4"], OPTION_PROMPTS),
+    ("chunked", ["--prefill-chunk", "32"], OPTION_PROMPTS),
+    ("prefix", ["--prefix-cache"], OPTION_PREFIX_PROMPTS),
     # int8 serving: weights and KV pools (kernels 12 and 13 on int8 pools),
     # plain, speculative and with the prefix cache (its COW copies carry
     # the scale pools); then weights only, on float pools
-    ("int8", INT8, PROMPTS),
-    ("int8-spec", INT8 + ["--spec-k", "4"], PROMPTS),
-    ("int8-prefix", INT8 + ["--prefix-cache"], PREFIX_PROMPTS),
-    ("int8-weights", ["--weights-dtype", "int8"], PROMPTS),
+    ("int8", INT8, OPTION_PROMPTS),
+    ("int8-spec", INT8 + ["--spec-k", "4"], OPTION_PROMPTS),
+    ("int8-prefix", INT8 + ["--prefix-cache"], OPTION_PREFIX_PROMPTS),
+    ("int8-weights", ["--weights-dtype", "int8"], OPTION_PROMPTS),
 )
 # two-pass LM run against the fused one: step 1's loss is the same
 # forward, so bit-identical; later steps carry the gradients' other
@@ -475,7 +509,8 @@ LM_128_ARGS = ["--model", "gpt2-medium", "--task", "lm", "--train-size", "96",
 # lm-fsdp: lm-1024's shape cut to 2 steps, sharded by the placements of
 # this fsdp size on a one-rank device mesh (one card is world size 1)
 _AT = LM_1024_ARGS.index("--train-size") + 1
-LM_FSDP_ARGS = LM_1024_ARGS[:_AT] + ["64"] + LM_1024_ARGS[_AT + 1:]
+LM_FSDP_ARGS = (LM_1024_ARGS[:_AT] + ["64", "--eval-size", "16"]
+                + LM_1024_ARGS[_AT + 3:])
 LM_FSDP_SIZE = 2
 # the lm-1024 profiles' rows: 1 step of 32
 LM_PROFILE_TRAIN_SIZE = "32"
@@ -490,6 +525,20 @@ TINY_LM_ARGS = ["--model", "gpt2-tiny", "--attention", "flash", "--task", "lm",
                 "--micro-batch-size", "8", "--num-epochs", "1", "--seed", "7",
                 "--no-bf16", "--warmup-steps", "1", "--learning-rate", "1e-3",
                 "--log-every", "0"]
+# remat: lm-1024's shape (gpt2-medium, seq 1024, micro 4, flash), 2 steps
+# of 16 = 4 x 4 and an 8-row eval, under each setting; then micro 8 (2
+# steps of 32 = 8 x 4) without remat and with --remat-mlp
+_GB = LM_1024_ARGS.index("--global-batch-size") + 1
+REMAT_ARGS = (LM_1024_ARGS[:_GB] + ["16"] + LM_1024_ARGS[_GB + 1:_AT]
+              + ["32", "--eval-size", "8"] + LM_1024_ARGS[_AT + 3:])
+REMAT_MICRO8_ARGS = (LM_1024_ARGS[:_AT] + ["64", "--eval-size", "8"]
+                     + LM_1024_ARGS[_AT + 3:])
+REMAT_SETTINGS = (
+    ("none", []), ("remat", ["--remat"]),
+    ("remat-dots", ["--remat", "--remat-policy", "dots"]),
+    ("remat-weight-dots", ["--remat", "--remat-policy", "weight_dots"]),
+    ("remat-mlp", ["--remat-mlp"]))
+REMAT_MICRO8 = ("none", "remat-mlp")
 
 # int8-gemm: bert-large's six dense sites at the recipe's 1024 tokens a
 # microbatch (8 x 128): (site, tokens, in features, out features)
@@ -502,10 +551,12 @@ INT8_GEMM_SITES = (("query", 1024, 1024, 1024), ("key", 1024, 1024, 1024),
 INT8_GEMM_PADDED = (("padded", 5, 60, 36),)
 # NVIDIA H100 SXM data sheet: dense int8 tensor-core rate
 INT8_OPS_PER_S = 1979e12
-# train-int8: bert-large at the recipe, 2 steps (the first's learning rate
-# is 0) and a 96-row eval, native and each int8 variant
+# train-int8: bert-large at the recipe's micro batch, 2 steps of 48 = 8 x 6
+# (the first's learning rate is 0) and a 32-row eval, native and each int8
+# variant
 INT8_TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
-                   "--train-size", "192", "--eval-size", "96",
+                   "--train-size", "96", "--global-batch-size", "48",
+                   "--eval-size", "32",
                    "--num-epochs", "1", "--device", "cuda", "--seed", "42",
                    "--log-every", "0"]
 INT8_VARIANTS = (
@@ -1274,21 +1325,24 @@ def paged_int8_phase(device, lengths=PAGED_LENGTHS, q_lens=PAGED_MQ_QLENS,
 # ---------------------------------------------------------------- phase 6
 
 
-def request_lines(prompts, new_tokens) -> str:
+def request_lines(prompts, new_tokens, extra=()) -> str:
+    """The JSONL requests ``r0``, ``r1``, ... of ``prompts`` (greedy), then
+    the request dicts of ``extra`` as they are."""
     return "".join(
         json.dumps({"id": f"r{i}", "prompt": p,
                     "max_new_tokens": new_tokens}) + "\n"
         for i, p in enumerate(prompts)
-    )
+    ) + "".join(json.dumps(m) + "\n" for m in extra)
 
 
-def serve_once(argv, prompts, new_tokens):
-    """One run of the port's serve_lm over a JSONL stream; returns (events,
-    stats, launch counts of this run, wall seconds)."""
+def serve_once(argv, prompts, new_tokens, extra=()):
+    """One run of the port's serve_lm over a JSONL stream (``extra``: more
+    request lines, ``request_lines``); returns (events, stats, launch
+    counts of this run, wall seconds)."""
     from pytorch_distributed_training_tpu_torch.cli import serve_lm
     from pytorch_distributed_training_tpu_torch.ops import _build
 
-    text = request_lines(prompts, new_tokens)
+    text = request_lines(prompts, new_tokens, extra)
     out = io.StringIO()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1299,10 +1353,12 @@ def serve_once(argv, prompts, new_tokens):
     return events, stats, counts, wall
 
 
-def streams(events, prompts, new_tokens) -> dict:
-    """Per-request token ids; raises unless every request ended ``done``
-    with ``new_tokens`` tokens."""
+def streams(events, prompts, new_tokens, extra=()) -> dict:
+    """Per-request token ids; raises unless every request (``r<i>`` of
+    ``prompts`` and those of ``extra``) ended ``done`` with
+    ``new_tokens`` tokens."""
     toks = {f"r{i}": [] for i in range(len(prompts))}
+    toks.update({m["id"]: [] for m in extra})
     done = {}
     for e in events:
         if e["event"] == "token":
@@ -1381,7 +1437,7 @@ def serve_option_launches(stats, n_layers) -> dict:
     return want
 
 
-def serve_options_phase(plain_streams, new_tokens=NEW_TOKENS,
+def serve_options_phase(plain_streams, new_tokens=OPTION_NEW_TOKENS,
                         n_layers=24) -> dict:
     """``serve_lm`` with each serving option on gpt2-medium at full width,
     counted: every request's token count, the launch counts against the
@@ -1389,7 +1445,7 @@ def serve_options_phase(plain_streams, new_tokens=NEW_TOKENS,
     holds), peak memory, a second speculative run with the same greedy
     streams, one more run of each of ``PROFILED_OPTIONS`` under the
     profiler (no kernel of ``FMA_PAGED_SYMBOLS``), and how many streams
-    equal the plain run's."""
+    equal the plain run's first ``new_tokens``."""
     import torch
 
     res = {}
@@ -1450,13 +1506,188 @@ def serve_options_phase(plain_streams, new_tokens=NEW_TOKENS,
                      cached_pages=pc["prefix_cached_pages"])
             if pc["cow_copies"] < 2 or pc["prefix_hits"] < len(prompts) - 1:
                 raise AssertionError(f"prefix run: {pc}")
-        if prompts is PROMPTS:
+        if prompts is OPTION_PROMPTS:
             m["streams_equal_plain"] = sum(
-                toks[r] == plain_streams[r] for r in toks)
+                toks[r] == plain_streams[r][:new_tokens] for r in toks)
         say(f"[serve-{name}] " + json.dumps(m))
         res[name] = dict(m, streams=toks, prompts=prompts)
     say("[serve-spec] greedy streams identical across two runs")
     return res
+
+
+def sampled_margin_check(model, name, toks, prompt, req, tol,
+                         device) -> dict:
+    """The greedy margin gate for a sampled stream (``req``: its
+    temperature, top_k and seed): each token against the full-sequence
+    forward of ``model`` on its context, divided by the temperature, cut
+    to the top k and perturbed by the request's own Gumbel noise at that
+    step (``serve/sampling.gumbel_noise``): its perturbed score must trail
+    the maximum by at most ``tol`` / temperature."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.data.bpe import ByteTokenizer
+    from pytorch_distributed_training_tpu_torch.serve.sampling import (
+        gumbel_noise,
+    )
+
+    temp, top_k = req["temperature"], req["top_k"]
+    ids = ByteTokenizer().text_ids(prompt) + toks[:-1]
+    with torch.inference_mode():
+        rows = model(torch.tensor([ids], device=device))[0].float()
+    rows = rows[len(ids) - len(toks):] / torch.tensor(temp, device=device)
+    kth = torch.topk(rows, top_k, dim=1).values[:, -1:]
+    rows = torch.where(rows < kth, torch.finfo(torch.float32).min, rows)
+    noise = torch.stack([gumbel_noise(req["seed"], step, rows.shape[1])
+                         for step in range(len(toks))]).to(device)
+    rows = rows + noise
+    picked = rows.gather(1, torch.tensor(toks, device=device)[:, None])[:, 0]
+    margin = rows.max(dim=1).values - picked
+    worst = float(margin.max())
+    if worst > tol / temp:
+        raise AssertionError(f"{name}: a sampled token trails the perturbed "
+                             f"maximum by {worst} (> {tol} / {temp})")
+    out = dict(tokens=len(toks), argmax_agree=int((margin == 0).sum()),
+               worst_margin=worst, tolerance=tol / temp)
+    say(f"[check] {name}: sampled tokens vs the full-sequence forward: "
+        + json.dumps(out))
+    return out
+
+
+# the serve-dense-host phase's fixed-seed sampled request
+SAMPLED_REQUEST = dict(id="s0", prompt=PROMPTS[6], max_new_tokens=16,
+                       temperature=0.8, top_k=40, seed=7)
+
+
+def serve_dense_host_phase(plain_streams, prompts=PROMPTS,
+                           new_tokens=OPTION_NEW_TOKENS, n_layers=24,
+                           argv=SERVE_ARGS, sample=SAMPLED_REQUEST) -> dict:
+    """``serve_lm --kv-layout dense --sampling host`` (the dense per-slot
+    cache, float32 logits sampled on the host) on the serve phase's
+    prompts and one fixed-seed sampled request, counted (kernel 1 only: the
+    dense cache attends by ``einsum``), the page counts None; then the
+    sampled request alone through ``--kv-layout dense`` (device sampling)
+    and through the paged layout and device sampling: the three streams
+    equal (the host and the device sampler pick alike on the same logits;
+    the two layouts' bf16 logits could part only at a near tie, which the
+    sampled margin gate each stream passes would show). Returns the greedy
+    streams (margin-gated in main) and the checks."""
+    events, stats, counts, wall = serve_once(
+        argv + ["--kv-layout", "dense", "--sampling", "host"], prompts,
+        new_tokens, [sample])
+    toks = streams(events, prompts, new_tokens, [sample])
+    prefills, ticks = stats["admitted"], stats["decode_dispatches"]
+    check_launches(f"serve-dense-host run ({prefills} prefills, {ticks} "
+                   f"ticks)", counts,
+                   {"layer_norm": (2 * n_layers + 1) * (prefills + ticks)})
+    if (stats["kv_layout"], stats["sampling"], stats["kv_pages_total"]) != (
+            "dense", "host", None):
+        raise AssertionError(f"serve-dense-host: stats {stats}")
+    sampled = {"dense-host": toks.pop("s0")}
+    for name, flags in (("dense-device", ["--kv-layout", "dense"]),
+                        ("paged-device", [])):
+        ev, _, _, _ = serve_once(argv + flags, (), None, [sample])
+        sampled[name] = streams(ev, (), sample["max_new_tokens"],
+                                [sample])["s0"]
+    if not (sampled["dense-host"] == sampled["dense-device"]
+            == sampled["paged-device"]):
+        raise AssertionError(f"serve-dense-host: the sampled streams "
+                             f"differ: {sampled}")
+    m = dict(serve_metrics(events, stats, wall), launches=counts,
+             requests=len(prompts) + 1,
+             streams_equal_plain=sum(toks[r] == plain_streams[r][:new_tokens]
+                                     for r in toks),
+             sampled=sampled)
+    say("[serve-dense-host] " + json.dumps(m))
+    return dict(m, streams=toks)
+
+
+# serve-tenant: two tenants behind the prefix cache at a quarter of the
+# pool each: "flood" sends long prompts on the shared prefix in the batch
+# lane, "light" short ones in the interactive lane, all queued at once
+TENANT_ARGS = SERVE_ARGS + ["--prefix-cache", "--tenant-page-quota", "0.25",
+                            "--queue-depth", "64"]
+TENANT_FLOOD = tuple(p[:110] for p in PREFIX_PROMPTS + PREFIX_PROMPTS[:4])
+TENANT_LIGHT = tuple(p[:n] for p, n in zip(
+    PROMPTS * 2, (5, 9, 12, 16, 20, 23, 27, 31) * 2))
+
+
+def serve_tenant_phase(new_tokens=OPTION_NEW_TOKENS, n_layers=24,
+                       argv=TENANT_ARGS, flood=TENANT_FLOOD,
+                       light=TENANT_LIGHT) -> dict:
+    """Tenant page quotas and the tier lanes through ``serve_lm``'s server
+    (``build_server``; requests submitted with ``tier`` and ``tenant``):
+    every request done with ``new_tokens`` tokens, no page exhaustion, the
+    quota holding the flood (``tenant_blocked`` > 0), the launches
+    against the engine's dispatch counts; the admission order read from
+    the queue: the first lane cycle 4 interactive then 1 batch, and of the
+    admissions while both lanes waited at least 4/5 interactive (the
+    weights 4:1; a held batch turn goes to the other lane). Returns the
+    greedy streams for the margin gate."""
+    from pytorch_distributed_training_tpu_torch.cli import serve_lm
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    args = serve_lm.build_parser().parse_args(argv)
+    server, tok = serve_lm.build_server(args)
+    queue, pops = server.queue, []
+    pop_ready = queue.pop_ready
+
+    def recorded(*a, **k):
+        depth = queue.depth_by_tier()
+        req = pop_ready(*a, **k)
+        if req is not None:
+            pops.append((req.tier, req.tenant, min(depth.values()) > 0))
+        return req
+
+    queue.pop_ready = recorded
+    prompts = flood + light
+    reqs = []
+    for i, p in enumerate(prompts):
+        in_flood = i < len(flood)
+        reqs.append(server.submit(
+            tok.text_ids(p), max_new_tokens=new_tokens, request_id=f"r{i}",
+            tier="batch" if in_flood else "interactive",
+            tenant="flood" if in_flood else "light"))
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    server.start()
+    server.close(drain=True, timeout=600)
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCH_COUNTS)
+    stats = server.stats()
+    bad = [(r.id, r.status, len(r.tokens)) for r in reqs
+           if r.status != "done" or len(r.tokens) != new_tokens]
+    pc = stats["prefix_cache"]
+    if bad or stats["page_exhausted"] or not pc["tenant_blocked"]:
+        raise AssertionError(f"serve-tenant: unfinished {bad}, "
+                             f"page_exhausted {stats['page_exhausted']}, "
+                             f"tenant_blocked {pc['tenant_blocked']}")
+    check_launches("serve-tenant run", counts,
+                   serve_option_launches(stats, n_layers))
+    contended = [tier for tier, _, both in pops if both]
+    share = contended.count("interactive") / len(contended)
+    if [t for t, _, _ in pops[:5]] != ["interactive"] * 4 + ["batch"] or (
+            share < 0.8):
+        raise AssertionError(f"serve-tenant: admissions {pops}")
+    m = dict(wall_s=wall, requests=len(reqs), flood=len(flood),
+             light=len(light), admissions=len(pops),
+             contended_admissions=len(contended),
+             contended_interactive_share=share,
+             first_cycle=[t for t, _, _ in pops[:5]],
+             tenant_blocked=pc["tenant_blocked"],
+             tenant_page_quota=pc["tenant_page_quota"],
+             page_exhausted=stats["page_exhausted"],
+             prefix_hits=pc["prefix_hits"], cow_copies=pc["cow_copies"],
+             kv_pages_total=stats["kv_pages_total"],
+             kv_pages_peak=stats["kv_pages_peak"],
+             decode_dispatches=stats["decode_dispatches"],
+             decode_tok_per_s=stats["decode_tokens"] / stats["decode_s"],
+             ttft_p50_s={t: statistics.median(
+                 r.first_token_t - r.submit_t for r in reqs if r.tier == t)
+                 for t in ("interactive", "batch")},
+             launches=counts)
+    say("[serve-tenant] " + json.dumps(m))
+    return dict(m, streams={r.id: [int(t) for t in r.tokens] for r in reqs},
+                prompts=prompts)
 
 
 def tick_phase(reps=20) -> dict:
@@ -1829,13 +2060,14 @@ def device_time_by_class(averages, wall_s, top_n=10) -> dict:
 
 
 def full_sequence_phase(device, runs, model_name="gpt2-medium",
-                        seed=0) -> dict:
+                        seed=0, sampled=()) -> dict:
     """Each served greedy token against a full-sequence forward (plain
     attention, no pages) of the same model on the served context; ``runs``
     maps a run's name to its (streams, prompts, weights dtype, margin
     tolerance): the model's float32 weights cast for serving as the run's
     engine casts them (int8: the same quantized projections, dequantized
-    per call)."""
+    per call). ``sampled``: (name, tokens, prompt, request) of sampled
+    streams on the float32 weights, through ``sampled_margin_check``."""
     import copy
 
     import torch
@@ -1860,6 +2092,9 @@ def full_sequence_phase(device, runs, model_name="gpt2-medium",
     out = {name: margin_check(models[weights], name, toks, prompts, tol,
                               device, weights=weights)
            for name, (toks, prompts, weights, tol) in runs.items()}
+    for name, toks, prompt, req in sampled:
+        out[name] = sampled_margin_check(models["float32"], name, toks,
+                                         prompt, req, MARGIN_TOL, device)
     del models
     return out
 
@@ -3266,20 +3501,27 @@ def two_pass_phase(device, shape=FLASH_BLOCKWISE) -> dict:
 
 
 def expected_lm_launches(*, micro: int, eval_batches: int, layers: int,
-                         whole: bool, two_pass: bool = False) -> dict:
+                         whole: bool, two_pass: bool = False,
+                         remat: bool = False) -> dict:
     """Launches of a counted LM run: per microbatch forward the LNs (2 a
     block + ln_f), the hidden dropouts (embeddings + 2 a block) and one
     flash forward a block; per backward the LN, dropout (the mask drawn
     again) and flash backwards (``two_pass``: flash_dq and flash_dkv for
-    flash_bwd); per eval batch the forwards, deterministic."""
+    flash_bwd); per eval batch the forwards, deterministic. ``remat``
+    (per-layer remat, any policy): each block's forward runs again in the
+    backward up to its last tensor the backward needs (``mlp_down``'s
+    input), so per microbatch 2 LNs, the attention output's dropout and
+    the flash forward a block more. ``--remat-mlp`` adds none of these
+    (its recompute stops at ``mlp_down``)."""
     fwd, bwd = (("flash_whole_fwd", "flash_whole_bwd") if whole
                 else ("flash_fwd", "flash_bwd"))
     lns = 2 * layers + 1
+    again = layers * micro if remat else 0
     out = {
-        fwd: layers * (micro + eval_batches),
-        "layer_norm": lns * (micro + eval_batches),
+        fwd: layers * (micro + eval_batches) + again,
+        "layer_norm": lns * (micro + eval_batches) + 2 * again,
         "layer_norm_bwd": lns * micro,
-        "mask_scale_apply": 2 * lns * micro,
+        "mask_scale_apply": 2 * lns * micro + again,
     }
     for name in (("flash_dq", "flash_dkv") if two_pass else (bwd,)):
         out[name] = layers * micro
@@ -3373,6 +3615,94 @@ def lm_phase(argv, *, steps, rerun, tag) -> dict:
     say(f"[{tag}] warm run: " + json.dumps(warm))
     say(f"[{tag}] per-step losses bit-identical across two runs")
     return dict(cold, warm=warm)
+
+
+def remat_run(what: str, argv) -> dict:
+    """One counted ``train_lm`` run of ``argv``: its metrics, launches
+    (checked against ``expected_lm_launches`` with the recomputed
+    forwards of ``--remat``) and the peak memory of its train steps alone:
+    reset after the trainer is built, read before its eval."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.cli import train_lm
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    trainer = train_lm.build_trainer(train_lm.build_parser().parse_args(argv))
+    evaluate, peak = trainer.evaluate, {}
+
+    def evaluate_after_peak():
+        torch.cuda.synchronize()
+        peak["train"] = torch.cuda.max_memory_allocated()
+        return evaluate()
+
+    trainer.evaluate = evaluate_after_peak
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with no_mask_tensor(f"{what} run"):
+        trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCH_COUNTS)
+    tc, mc = trainer.tcfg, trainer.mcfg
+    check_launches(f"{what} run ({trainer.state.step} steps)", counts,
+                   expected_lm_launches(
+                       micro=trainer.state.step * tc.grad_accum_steps,
+                       eval_batches=trainer.eval_loader.steps_per_epoch,
+                       layers=mc.num_layers, whole=False, remat=mc.remat))
+    m = lm_metrics(trainer, wall)
+    m.update(train_peak_bytes=peak["train"], micro=tc.micro_batch_size,
+             remat=mc.remat, remat_policy=mc.remat_policy,
+             remat_mlp=mc.remat_mlp, launches=counts)
+    if m["steps"] != 2 or not all(map(math.isfinite,
+                                      m["losses"] + m["grad_norms"])):
+        raise AssertionError(f"{what}: {m}")
+    del trainer
+    _free_cuda()
+    return m
+
+
+def remat_phase(argv=REMAT_ARGS, settings=REMAT_SETTINGS,
+                micro8=REMAT_MICRO8, argv8=REMAT_MICRO8_ARGS) -> dict:
+    """``train_lm`` at lm-1024's shape under each remat setting, 2 steps
+    each, counted (the recomputed forwards included): the ms a step and
+    the train steps' peak memory beside no remat's; the losses bit-equal
+    to no remat's (the forward does not change) and the grad norms within
+    TWO_PASS_RTOL (whether bit-equal printed). Then micro 8 (``argv8``,
+    global 32 = 8 x 4) without remat and with ``--remat-mlp``: the same
+    losses, and each peak."""
+    runs = {name: remat_run(f"remat {name}", argv + flags)
+            for name, flags in settings}
+    base = runs["none"]
+    for name, m in runs.items():
+        if m["losses"] != base["losses"] or not all(
+                math.isclose(a, b, rel_tol=TWO_PASS_RTOL)
+                for a, b in zip(m["grad_norms"], base["grad_norms"])):
+            raise AssertionError(
+                f"remat {name}: losses {m['losses']}, grad norms "
+                f"{m['grad_norms']} against no remat's {base['losses']}, "
+                f"{base['grad_norms']} (rtol {TWO_PASS_RTOL})")
+        m.update(grad_norms_bit_equal=m["grad_norms"] == base["grad_norms"],
+                 ms_per_step_vs_none=m["ms_per_step"] / base["ms_per_step"],
+                 train_peak_vs_none=(m["train_peak_bytes"]
+                                     / base["train_peak_bytes"]))
+        say(f"[remat] {name}, micro {m['micro']}: " + json.dumps(m))
+    at = argv8.index("--micro-batch-size") + 1
+    argv8 = argv8[:at] + ["8"] + argv8[at + 1:]
+    flags = dict(settings)
+    big = {name: remat_run(f"remat {name} micro 8", argv8 + flags[name])
+           for name in micro8}
+    first = big[micro8[0]]
+    for name, m in big.items():
+        if m["losses"] != first["losses"]:
+            raise AssertionError(f"remat micro 8 {name}: losses "
+                                 f"{m['losses']} against {first['losses']}")
+        m["train_peak_vs_none"] = (m["train_peak_bytes"]
+                                   / first["train_peak_bytes"])
+        say(f"[remat] {name}, micro 8: " + json.dumps(m))
+    return dict(micro4=runs, micro8=big)
 
 
 def two_pass_lm_phase(fused, argv=LM_1024_ARGS, tag="lm-1024-two-pass"):
@@ -3997,7 +4327,7 @@ def tp_cp_equal_phase(lm_argv=TINY_LM_ARGS, dp_argv=TINY_ARGS) -> dict:
 SERVE_TP_SIZES = (2, 4)
 SERVE_TP_TOL = 3e-2
 # serve-tp: serve_lm --tp 2 as two gloo processes on the one card, the
-# serve phase's requests, plain and int8
+# option runs' requests, plain and int8
 SERVE_TP_RUNS = (("serve-tp", []), ("serve-tp-int8", INT8))
 
 
@@ -4203,8 +4533,9 @@ def serve_tp_block_phase(device, sizes=SERVE_TP_SIZES) -> list:
     return out
 
 
-def serve_tp_child(rank: int, ports: list, argv=SERVE_ARGS, prompts=PROMPTS,
-                   new_tokens=NEW_TOKENS) -> dict:
+def serve_tp_child(rank: int, ports: list, argv=SERVE_ARGS,
+                   prompts=OPTION_PROMPTS,
+                   new_tokens=OPTION_NEW_TOKENS) -> dict:
     """One rank of the serve-tp phase: for each of SERVE_TP_RUNS, a gloo
     group of two processes on this card (NCCL takes one rank a device),
     then ``serve_lm.main`` with ``--tp 2`` (its ``initialize`` joins the
@@ -4236,16 +4567,16 @@ def serve_tp_child(rank: int, ports: list, argv=SERVE_ARGS, prompts=PROMPTS,
 
 
 def serve_tp_phase(plain_streams, int8_streams, argv=SERVE_ARGS,
-                   prompts=PROMPTS, new_tokens=NEW_TOKENS, n_layers=24,
-                   heads=16) -> dict:
+                   prompts=OPTION_PROMPTS, new_tokens=OPTION_NEW_TOKENS,
+                   n_layers=24, heads=16) -> dict:
     """``serve_lm --tp 2`` on the card as two processes (``serve_tp_child``,
     gloo: its all-reduces and broadcasts take the card's tensors through
     the host), plain and int8: rank 0's streams, each request's token
     count, ``stats()["tp"]``, the page count of tp=1's engine, half the
     heads in each rank's pools, each rank's launches against the leader's
     dispatch counts, the follower's calls, both exits 0; how many streams
-    equal tp=1's (``plain_streams``, ``int8_streams``). ``argv``,
-    ``prompts``, ``new_tokens``: the serve phase's."""
+    equal tp=1's first ``new_tokens`` (``plain_streams``,
+    ``int8_streams``). ``argv``: the serve phase's."""
     import socket
 
     from pytorch_distributed_training_tpu_torch.cli import serve_lm
@@ -4315,7 +4646,8 @@ def serve_tp_phase(plain_streams, int8_streams, argv=SERVE_ARGS,
             kv_bytes_per_token=stats["kv_bytes_per_token"],
             launches=leader["launches"],
             follower_launches=follower["launches"],
-            streams_equal_tp1=sum(toks[r] == tp1[r] for r in toks))
+            streams_equal_tp1=sum(toks[r] == tp1[r][:new_tokens]
+                                  for r in toks))
         say(f"[{name}] serve_lm --tp 2, two gloo processes on one card: "
             + json.dumps(m))
         res[name] = dict(m, streams=toks)
@@ -4532,6 +4864,14 @@ def mp_cp_child(rank: int, port: int, mode: str, seq: int,
         shutdown()
 
 
+def mp_cp_modes_child(rank: int, ports: list, modes: list, seq: int,
+                      device: str = "cuda") -> dict:
+    """One rank of every mode of ``modes`` in turn (``mp_cp_child``, a
+    gloo group a mode on its port of ``ports``), in one process."""
+    return {mode: mp_cp_child(rank, port, mode, seq, device)
+            for mode, port in zip(modes, ports)}
+
+
 def scalar_max_us(device, calls: int = 200) -> float:
     """Host microseconds of one ``all_reduce_max`` of a float32 scalar on
     ``device`` over the world group (an int8 site's amax collective), the
@@ -4558,56 +4898,58 @@ def scalar_max_us(device, calls: int = 200) -> float:
 
 def mp_cp_phase(modes=MP_CP_MODES, device="cuda") -> dict:
     """``train_mp --mesh-seq 2`` under each of ``modes`` as two gloo
-    processes on the card (``mp_cp_child``): both exit 0, and the losses
-    and grad norms equal one process's at seq 1 (reference attention)
-    within MP_CP_RTOL."""
+    processes on the card, the modes one after another in the same two
+    processes (``mp_cp_modes_child``): both exit 0, and the losses and
+    grad norms equal one process's at seq 1 (reference attention) within
+    MP_CP_RTOL."""
     import socket
 
-    res = {}
-    for mode in modes:
+    ports = []
+    for _ in modes:
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        procs = []
-        for rank in range(2):
-            code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
-                    f"import chip_smoke; print('MP_CP ' + json.dumps("
-                    f"chip_smoke.mp_cp_child({rank}, {port}, {mode!r}, 2, "
-                    f"{device!r})))")
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", code], cwd=ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        ranks = []
-        try:
-            for rank, proc in enumerate(procs):
-                stdout, stderr = proc.communicate(timeout=600)
-                found = [json.loads(line[len("MP_CP "):])
-                         for line in stdout.splitlines()
-                         if line.startswith("MP_CP ")]
-                if proc.returncode != 0 or not found:
-                    raise AssertionError(f"mp-cp {mode}: rank {rank} exit "
-                                         f"{proc.returncode}: "
-                                         f"{stderr[-3000:]}")
-                ranks.append(found[0])
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.communicate()
+            ports.append(sock.getsockname()[1])
+    procs = []
+    for rank in range(2):
+        code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
+                f"import chip_smoke; print('MP_CP ' + json.dumps("
+                f"chip_smoke.mp_cp_modes_child({rank}, {ports!r}, "
+                f"{list(modes)!r}, 2, {device!r})))")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    ranks = []
+    try:
+        for rank, proc in enumerate(procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            found = [json.loads(line[len("MP_CP "):])
+                     for line in stdout.splitlines()
+                     if line.startswith("MP_CP ")]
+            if proc.returncode != 0 or not found:
+                raise AssertionError(f"mp-cp: rank {rank} exit "
+                                     f"{proc.returncode}: {stderr[-3000:]}")
+            ranks.append(found[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    res = {}
+    for mode in modes:
+        seq2 = [r[mode] for r in ranks]
         one = mp_cp_child(0, 0, mode, 1, device)
-        us = [r.pop("all_reduce_max_us") for r in ranks]
-        if ranks[0] != ranks[1] or len(one["steps"]) != len(
-                ranks[0]["steps"]):
-            raise AssertionError(f"mp-cp {mode}: ranks {ranks} one {one}")
-        for got, want in zip(ranks[0]["steps"], one["steps"]):
+        us = [r.pop("all_reduce_max_us") for r in seq2]
+        if seq2[0] != seq2[1] or len(one["steps"]) != len(seq2[0]["steps"]):
+            raise AssertionError(f"mp-cp {mode}: ranks {seq2} one {one}")
+        for got, want in zip(seq2[0]["steps"], one["steps"]):
             for a, b in zip(got, want):
                 if not math.isclose(a, b, rel_tol=MP_CP_RTOL):
                     raise AssertionError(
-                        f"mp-cp {mode}: seq 2 {ranks[0]['steps']} against "
+                        f"mp-cp {mode}: seq 2 {seq2[0]['steps']} against "
                         f"seq 1 {one['steps']} (rtol {MP_CP_RTOL})")
-        res[mode] = dict(seq2=ranks[0], seq1=one, all_reduce_max_us=us,
+        res[mode] = dict(seq2=seq2[0], seq1=one, all_reduce_max_us=us,
                          max_rel_diff=max(
-            abs(a - b) / abs(b) for got, want in zip(ranks[0]["steps"],
+            abs(a - b) / abs(b) for got, want in zip(seq2[0]["steps"],
                                                      one["steps"])
             for a, b in zip(got, want)))
         say(f"[mp-cp] train_mp --mp-mode {mode} --mesh-seq 2, two gloo "
@@ -4969,10 +5311,65 @@ def serve_ckpt_phase(ck: str, prompts=PROMPTS, new_tokens=NEW_TOKENS,
     return dict(res, streams=toks)
 
 
-def ckpt_margin_phase(gen: dict, serve: dict, device,
-                      prompts=PROMPTS) -> dict:
+DRAFT_K = 4
+
+
+def serve_draft_phase(ck: str, prompts=PROMPTS, new_tokens=OPTION_NEW_TOKENS,
+                      n_layers=24, k=DRAFT_K, argv=SERVE_CKPT_ARGS,
+                      draft_model="gpt2-medium") -> dict:
+    """``serve_lm --checkpoint-dir ck --spec-k 4`` on ckpt-resume's
+    checkpoint with the n-gram drafter, then with ``--draft-checkpoint ck
+    --draft-model gpt2-medium`` (the draft lane; the base as its own
+    draft, loaded twice), each counted: the draft lane's chain of k + 1
+    greedy draft decodes a verify (kernel 12 on the draft's pools, kernel
+    1 in every draft forward) and its prompt mirrors beside the base
+    model's launches; acceptance above 0.9; the ms a tick of each. Returns
+    the streams for the margin gate."""
+    base = argv + ["--checkpoint-dir", ck, "--spec-k", str(k)]
+    runs = {}
+    for name, flags in (("ngram", []),
+                        ("draft", ["--draft-checkpoint", ck,
+                                   "--draft-model", draft_model])):
+        events, stats, counts, wall = serve_once(base + flags, prompts,
+                                                 new_tokens)
+        toks = streams(events, prompts, new_tokens)
+        want = serve_option_launches(stats, n_layers)
+        if name == "draft":
+            # the draft's prompt mirrors (bucket prefills and chunks) and
+            # its chains
+            chain = (k + 1) * stats["spec_dispatches"]
+            chunks = stats["prefill_chunks"]
+            want["layer_norm"] += (2 * n_layers + 1) * (
+                stats["prefill_dispatches"] + chunks + chain)
+            want["paged_attention"] = n_layers * chain
+            if chunks:
+                want["paged_attention_mq"] += n_layers * chunks
+        check_launches(f"serve-draft {name} run", counts, want)
+        if stats["spec_draft"] != ("model" if name == "draft" else "ngram"):
+            raise AssertionError(f"serve-draft {name}: stats {stats}")
+        runs[name] = dict(
+            serve_metrics(events, stats, wall),
+            verify_dispatches=stats["spec_dispatches"],
+            accept_rate=stats["spec_accept_rate"],
+            tokens_per_dispatch=stats["tokens_per_dispatch"],
+            weights_step=stats["weights_step"], launches=counts,
+            streams=toks)
+    draft = runs["draft"]
+    if draft["accept_rate"] <= 0.9 or draft["weights_step"] != 2:
+        raise AssertionError(f"serve-draft: {draft}")
+    draft["tick_ms_vs_ngram"] = (draft["decode_tick_ms"]
+                                 / runs["ngram"]["decode_tick_ms"])
+    for name, m in runs.items():
+        say(f"[serve-draft] {name}: " + json.dumps(
+            {k: v for k, v in m.items() if k != "streams"}))
+    return runs
+
+
+def ckpt_margin_phase(gen: dict, serve: dict, device, prompts=PROMPTS,
+                      extra=None) -> dict:
     """Every generated and served token of the checkpoint's weights
-    against a full-sequence forward (reference attention) of them."""
+    against a full-sequence forward (reference attention) of them;
+    ``extra``: more runs' streams on ``prompts`` (name -> streams)."""
     import dataclasses
 
     from pytorch_distributed_training_tpu_torch.models.gpt2 import (
@@ -4987,9 +5384,12 @@ def ckpt_margin_phase(gen: dict, serve: dict, device,
     check.cast_for_serving("float32")
     check.eval()
     del flat
-    out = {name: margin_check(check, name, run.pop("streams"), prompts,
-                              MARGIN_TOL, device)
-           for name, run in (("generate", gen), ("serve-ckpt", serve))}
+    runs = dict(generate=gen["streams"], **{"serve-ckpt": serve["streams"]},
+                **(extra or {}))
+    gen.pop("streams")
+    serve.pop("streams")
+    out = {name: margin_check(check, name, toks, prompts, MARGIN_TOL, device)
+           for name, toks in runs.items()}
     del check
     _free_cuda()
     return out
@@ -5015,6 +5415,7 @@ def main() -> int:
 
     def lap(name):
         laps[name] = round(time.perf_counter() - t0 - sum(laps.values()), 1)
+        say(f"[time] {name}: {laps[name]} s")
 
     smi = device_phase()
     build_phase()
@@ -5080,6 +5481,8 @@ def main() -> int:
     lap("lm-scan-equal")
     lm_fsdp_phase()
     lap("lm-fsdp")
+    remat_phase()
+    lap("remat")
     tp_split_phase(device)
     lap("tp-split")
     ring_phase(device)
@@ -5099,6 +5502,10 @@ def main() -> int:
     lap("serve options")
     serve_tp = serve_tp_phase(plain, options["int8"]["streams"])
     lap("serve-tp")
+    dense_host = serve_dense_host_phase(plain)
+    lap("serve-dense-host")
+    tenant = serve_tenant_phase()
+    lap("serve-tenant")
     root = tempfile.mkdtemp(prefix="pdt_chip_smoke_")
     try:
         resume = ckpt_resume_phase(root)
@@ -5109,12 +5516,20 @@ def main() -> int:
         lap("generate")
         serve_ckpt = serve_ckpt_phase(resume["dir"])
         lap("serve-ckpt")
-        ckpt_margin_phase(gen, serve_ckpt, device)
+        draft = serve_draft_phase(resume["dir"])
+        lap("serve-draft")
+        ckpt_margin_phase(gen, serve_ckpt, device, extra={
+            f"serve-draft-{name}": run.pop("streams")
+            for name, run in draft.items()})
         ckpt_fallback_phase(resume)
         lap("ckpt checks")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    checks = {"serve": (plain, PROMPTS, "float32", MARGIN_TOL)}
+    checks = {"serve": (plain, PROMPTS, "float32", MARGIN_TOL),
+              "serve-dense-host": (dense_host.pop("streams"), PROMPTS,
+                                   "float32", MARGIN_TOL),
+              "serve-tenant": (tenant.pop("streams"), tenant.pop("prompts"),
+                               "float32", MARGIN_TOL)}
     for k, v in options.items():
         int8_kv = v["kv_dtype"] == "int8"
         checks[f"serve-{k}"] = (
@@ -5123,10 +5538,12 @@ def main() -> int:
             INT8_KV_MARGIN_TOL if int8_kv else MARGIN_TOL)
     for name, v in serve_tp.items():
         int8 = name.endswith("int8")
-        checks[name] = (v.pop("streams"), PROMPTS,
+        checks[name] = (v.pop("streams"), OPTION_PROMPTS,
                         "int8" if int8 else "float32",
                         INT8_KV_MARGIN_TOL if int8 else MARGIN_TOL)
-    full_sequence_phase(device, checks)
+    full_sequence_phase(device, checks, sampled=[
+        (f"serve-sampled-{name}", toks, SAMPLED_REQUEST["prompt"],
+         SAMPLED_REQUEST) for name, toks in dense_host["sampled"].items()])
     lap("full-sequence checks")
     say("[done] seconds by phase " + json.dumps(laps))
 

@@ -71,18 +71,38 @@ def build_tokenizer(args):
     return ByteTokenizer()
 
 
+def boot_step(directory: str) -> int:
+    """The step an inference process boots from (JAX ``cli/generate_lm``'s
+    rule): the newest integrity-verified step, so it never boots on a torn
+    publish; when none verifies, the latest step, loaded unverified with a
+    log line (a legacy manifest-less save, or every manifest failing);
+    ``SystemExit`` when the directory holds no step. A training restore
+    refuses such a directory instead (``train/checkpoint.
+    restore_candidates``)."""
+    from pytorch_distributed_training_tpu_torch.train import (
+        checkpoint as ckpt,
+    )
+    from pytorch_distributed_training_tpu_torch.utils.logging import log0
+
+    step = ckpt.verified_latest_step(directory)
+    if step is None:
+        step = ckpt.latest_step(directory)
+        if step is None:
+            raise SystemExit(f"no checkpoint under {directory}")
+        log0(f"no integrity-verified checkpoint under {directory} (legacy "
+             f"save?); loading latest step {step} unverified")
+    return step
+
+
 def load_model_and_params(args, tok):
     """``(model, ckpt_step)``: a ``GPT2LMModel`` of ``--model`` on the CPU
     with float32 parameters, and the checkpoint step it was loaded from
     (None for HF or random weights; serving reports it as the boot
     ``weights_step``).
 
-    The step is resolved once, the newest verified step first (an
-    inference process never boots on a torn publish), else the latest of
-    a manifest-less legacy directory (``restore_candidates``; a directory
-    whose manifests all fail raises ``CheckpointCorruptError``); the model
-    takes the checkpoint's trunk layout (``saved_params_scanned``, the
-    metadata only), and only its tensors are read (``restore_params``: no
+    The step is resolved once (``boot_step``); the model takes the
+    checkpoint's trunk layout (``saved_params_scanned``, the metadata
+    only), and only its tensors are read (``restore_params``: no
     moments)."""
     from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2LMModel
     from pytorch_distributed_training_tpu_torch.utils.config import (
@@ -98,10 +118,7 @@ def load_model_and_params(args, tok):
             checkpoint as ckpt,
         )
 
-        try:
-            ckpt_step = ckpt.restore_candidates(args.checkpoint_dir)[0]
-        except FileNotFoundError as e:
-            raise SystemExit(str(e)) from None
+        ckpt_step = boot_step(args.checkpoint_dir)
         scanned = ckpt.saved_params_scanned(args.checkpoint_dir,
                                             step=ckpt_step)
     mcfg = model_preset(args.model, scan_layers=scanned)

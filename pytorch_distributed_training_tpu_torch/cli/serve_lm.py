@@ -13,10 +13,15 @@ Engine knobs as in the JAX package: ``--num-slots`` fixed decode slots,
 KV cache (largest bucket + cap), ``--page-size``/``--num-pages`` size the
 paged KV pool, ``--queue-depth`` backpressure, ``--deadline-s`` default
 deadline. Serving options: ``--spec-k`` speculative decoding (n-gram
-drafts), ``--prefill-chunk`` and ``--prefill-concurrency`` chunked prefill,
-``--prefix-cache`` the shared-KV prefix cache, ``--weights-dtype int8``
-weight-only int8 projections (quantized after loading), ``--kv-dtype int8``
-int8 KV pools. Weights: ``--checkpoint-dir`` (a trainer checkpoint, the
+drafts, or a draft model's with ``--draft-checkpoint DIR --draft-model
+PRESET``, loaded as the base model is), ``--prefill-chunk`` and
+``--prefill-concurrency`` chunked prefill, ``--prefix-cache`` the
+shared-KV prefix cache (``--tenant-page-quota F``: a tenant's private
+pages capped at a fraction of the pool; request lines carry ``tenant``
+and ``tier``), ``--weights-dtype int8`` weight-only int8 projections
+(quantized after loading), ``--kv-dtype int8`` int8 KV pools,
+``--kv-layout dense`` the dense per-slot cache and ``--sampling host``
+host-side sampling (the plain baselines). Weights: ``--checkpoint-dir`` (a trainer checkpoint, the
 newest verified step; the engine reports it as ``stats()["weights_step"]``),
 ``--hf-checkpoint`` or random from ``--seed`` (``cli/generate_lm.py``'s
 ``load_model_and_params``). Events go to stdout, logs to stderr.
@@ -61,17 +66,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--queue-depth", type=int, default=16,
                    help="admission-queue depth; submissions beyond it are "
                         "rejected with a backpressure error")
+    p.add_argument("--kv-layout", default="paged",
+                   choices=("paged", "dense"),
+                   help="KV-cache layout: paged (block-table pages, "
+                        "page-budget admission) or dense (one [slots, "
+                        "cache_len] buffer, the plain baseline)")
     p.add_argument("--page-size", type=int, default=16,
                    help="tokens per KV page")
     p.add_argument("--num-pages", type=int, default=0,
                    help="total KV pages incl. the reserved null page (0 = "
                         "auto-size so every slot fits a worst-case request)")
+    p.add_argument("--sampling", default="device",
+                   choices=("device", "host"),
+                   help="token selection: device ([slots] token ids to "
+                        "the host a tick) or host (float32 logits to the "
+                        "host, sampled in numpy: the reference path)")
     p.add_argument("--spec-k", type=int, default=0,
                    help="speculative decoding: draft tokens proposed per "
                         "slot per tick (0 = off); each verify dispatch "
                         "scores k+1 positions and commits every accepted "
                         "one — same token stream, fewer dispatches; drafts "
-                        "come from the n-gram (prompt-lookup) drafter")
+                        "come from the n-gram (prompt-lookup) drafter, or "
+                        "from --draft-checkpoint's model")
+    p.add_argument("--draft-checkpoint", default=None,
+                   help="trainer checkpoint dir of a small DRAFT model that "
+                        "proposes the speculative tokens (its newest "
+                        "verified step); without it --spec-k uses the "
+                        "n-gram drafter")
+    p.add_argument("--draft-model", default="gpt2-tiny",
+                   help="model preset of --draft-checkpoint (its vocab "
+                        "must match the base model's)")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="chunked prefill: stream prompts into the paged KV "
                         "cache this many tokens per tick (0 = one prefill "
@@ -88,6 +112,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "pages, copy-on-write at the divergence point) — "
                         "only the tail is prefilled, streams identical to "
                         "cold prefill")
+    p.add_argument("--tenant-page-quota", type=float, default=0.0,
+                   help="a tenant's PRIVATE-page ceiling as a fraction of "
+                        "the page pool (0 = none): a request of a tenant "
+                        "whose unshared pages would pass it waits at "
+                        "admission; shared prefix pages are free. Requires "
+                        "--prefix-cache")
     p.add_argument("--weights-dtype", default="float32",
                    choices=("float32", "int8"),
                    help="serving weight precision: int8 quantizes every "
@@ -126,22 +156,50 @@ def engine_config(args):
             int(b) for b in args.prompt_buckets.split(",") if b.strip()
         ),
         max_new_tokens=args.max_new_tokens_cap,
+        kv_layout=args.kv_layout,
         page_size=args.page_size,
         num_pages=args.num_pages,
+        sampling=args.sampling,
         spec_k=args.spec_k,
+        spec_draft=draft_lane(args),
         prefill_chunk=args.prefill_chunk,
         prefill_concurrency=args.prefill_concurrency,
         prefix_cache=args.prefix_cache,
+        tenant_page_quota=args.tenant_page_quota,
         tp=args.tp,
         weights_dtype=args.weights_dtype,
         kv_dtype=args.kv_dtype,
     )
 
 
+def draft_lane(args) -> str:
+    """The draft lane ``args`` ask for: "model" with ``--spec-k`` and
+    ``--draft-checkpoint``, else "ngram"."""
+    return "model" if args.spec_k > 0 and args.draft_checkpoint else "ngram"
+
+
+def _draft(args, tok):
+    """The draft lane's model (None for the n-gram lane): ``--draft-model``
+    loaded from ``--draft-checkpoint`` through ``load_model_and_params`` on
+    a copy of ``args``, so the boot step, trunk layout and vocabulary
+    checks are the base model's (JAX ``cli/serve_lm``)."""
+    from pytorch_distributed_training_tpu_torch.cli.generate_lm import (
+        load_model_and_params,
+    )
+
+    if draft_lane(args) != "model":
+        return None
+    draft_args = argparse.Namespace(**{
+        **vars(args), "model": args.draft_model,
+        "checkpoint_dir": args.draft_checkpoint, "hf_checkpoint": None})
+    return load_model_and_params(draft_args, tok)[0]
+
+
 def _model(args):
-    """``(model, tokenizer, ckpt_step)`` of parsed ``args``: the model on
-    the CPU, float32, from ``--checkpoint-dir``, ``--hf-checkpoint`` or
-    ``--seed`` (the same on every rank; ``cli/generate_lm.py``)."""
+    """``(model, tokenizer, ckpt_step, draft)`` of parsed ``args``: the
+    model on the CPU, float32, from ``--checkpoint-dir``,
+    ``--hf-checkpoint`` or ``--seed`` (the same on every rank;
+    ``cli/generate_lm.py``), and the draft lane's model or None."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.cli.generate_lm import (
@@ -154,7 +212,7 @@ def _model(args):
     torch.backends.cudnn.allow_tf32 = False
     tok = build_tokenizer(args)
     model, step = load_model_and_params(args, tok)
-    return model, tok, step
+    return model, tok, step, _draft(args, tok)
 
 
 def build_server(args, *, device=None, shard=None):
@@ -169,13 +227,13 @@ def build_server(args, *, device=None, shard=None):
 
     if device is None:
         device = resolve_device(args.device)  # before any weights are built
-    model, tok, step = _model(args)
-    # the engine serves its own cast copy of the model
+    model, tok, step, draft = _model(args)
+    # the engine serves its own cast copy of the model (and of the draft)
     server = InferenceServer(
         model, engine_config(args), device=device,
         queue_depth=args.queue_depth,
         default_deadline_s=args.deadline_s or None, shard=shard,
-        weights_step=step,
+        weights_step=step, draft_model=draft,
     )
     return server, tok
 
@@ -229,9 +287,10 @@ def _main_tp(args, in_stream, out_stream) -> dict:
                            rank=info.rank,
                            world_size=info.world_size).shard("model")
         if shard.index:
-            model, _, _ = _model(args)
+            model, _, _, draft = _model(args)
             return run_follower(model, engine_config(args),
-                                device=info.device, shard=shard)
+                                device=info.device, shard=shard,
+                                draft_model=draft)
         try:
             server, tok = build_server(args, device=info.device, shard=shard)
         except BaseException:

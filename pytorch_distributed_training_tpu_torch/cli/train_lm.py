@@ -59,8 +59,14 @@ on int8 products (``ops/quant.py``); the JAX LM CLI has no delayed
 scaling flags. ``--checkpoint-dir``, ``--checkpoint-every-steps``,
 ``--resume`` and ``--checkpoint-verify`` are ``train_dp``'s
 (``train/checkpoint.py``); a checkpoint of the scanned trunk generates and
-serves as it is (``cli/generate_lm.py``, ``cli/serve_lm.py``). The JAX
-CLI's remat and restart flags wait for the slice 2 and slice 3 leftovers.
+serves as it is (``cli/generate_lm.py``, ``cli/serve_lm.py``).
+
+``--remat`` checkpoints every block (its forward runs again in the
+backward; ``--remat-policy dots|weight_dots`` keeps every matmul output or
+only the projections), ``--remat-mlp`` only each block's MLP tail
+(``models/bert.remat_call``); losses and gradients equal those without
+remat. The JAX CLI's restart flags wait for the telemetry and fault
+core.
 """
 
 from __future__ import annotations
@@ -100,7 +106,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Megatron tensor parallelism over the model axis")
     p.add_argument("--scan-layers", action=argparse.BooleanOptionalAction,
                    default=True, help="the stacked trunk (layers_scan)")
+    p.add_argument("--remat", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="checkpoint each block: its forward runs again in "
+                        "the backward (bigger micro batches)")
     add_quant_args(p, delayed=False, delayed_grads=False)
+    p.add_argument("--remat-policy", default="nothing",
+                   choices=("nothing", "dots", "weight_dots"),
+                   help="what --remat saves: nothing = full recompute; "
+                        "dots = every matmul output; weight_dots = the "
+                        "projections, recomputing the attention products")
+    p.add_argument("--remat-mlp", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="recompute only each block's MLP tail (mlp_up -> "
+                        "gelu -> mlp_down -> dropout): drops the GELU "
+                        "activations without recomputing attention")
     p.add_argument("--mesh-data", type=int, default=1)
     p.add_argument("--mesh-fsdp", type=int, default=-1)
     p.add_argument("--mesh-model", type=int, default=1)
@@ -126,7 +146,9 @@ def build_trainer(args):
     tcfg = dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
-        scan_layers=args.scan_layers, **quant_overrides(args),
+        scan_layers=args.scan_layers, remat=args.remat,
+        remat_policy=args.remat_policy, remat_mlp=args.remat_mlp,
+        **quant_overrides(args),
         **resolve_attention(args.attention, args.mesh_seq))
     if not mcfg.causal:
         raise SystemExit(

@@ -63,6 +63,14 @@
   the layer's seed) and, with ``attention_remat``, recomputes its core in
   the backward under ``torch.utils.checkpoint``; the seed is an explicit
   input of the core, so the recomputed mask is the forward's.
+- Remat (``remat``, ``remat_policy``; JAX ``_layer_cls``, ``nn.remat``):
+  ``call_layer`` runs each layer of ``run_layers`` (the BERT trunk, the
+  TriBert branches, a stage's layers), of GPT-2's blocks and of the
+  scanned trunk under ``remat_call``, a non-reentrant
+  ``torch.utils.checkpoint`` whose selective policy keeps every matmul
+  output (``dots``), the unbatched ones (``weight_dots``) or nothing; the
+  layer's parameters (slices, in the scanned trunk) are checkpoint inputs
+  and its delayed-int8 amaxes advance once, in the first forward.
 - ``BertLayer``: the post-LN block. Attention, then the fused
   dropout-add-LayerNorm tail (``attention_norm``, site 0), the MLP with
   tanh GELU when ``gelu_approximate``, and the second tail (``mlp_norm``,
@@ -115,13 +123,18 @@ writes it in place and advances its ``index``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     broadcast_first,
@@ -224,11 +237,12 @@ class DenseKV:
     ``"cache"`` collection of ``cached_key``/``cached_value`` and
     ``cache_index``): per layer a [batch, max_len, heads, head_dim] K and
     V buffer, and ``index``, the tokens written so far (every layer's, as
-    one forward writes them all)."""
+    one forward writes them all): an int, or a [batch] tensor when each
+    row has its own (the serving engine's slots)."""
 
     keys: list
     values: list
-    index: int = 0
+    index: "int | torch.Tensor" = 0
 
     @classmethod
     def zeros(cls, cfg: ModelConfig, batch: int, max_len: int,
@@ -426,18 +440,28 @@ class BertSelfAttention(nn.Module):
     def _cached_attend(self, q, k, v, attention_bias, keys, values, index):
         """The dense-cache attention (JAX ``_cached_attend``): this chunk's
         K/V written at ``index``, then rows ``index .. index + chunk - 1``
-        attend over the buffer up to themselves."""
+        attend over the buffer up to themselves. ``index`` is an int, or a
+        [batch] tensor of each row's own index (the serving engine's
+        slots, the JAX engine's per-slot ``cache_index``)."""
         if not self.config.causal:
             raise ValueError("a dense decode cache requires a causal model")
-        chunk, head_dim = q.shape[1], q.shape[3]
+        batch, chunk, head_dim = q.shape[0], q.shape[1], q.shape[3]
         max_len = keys.shape[1]
-        keys[:, index:index + chunk] = k.to(keys.dtype)
-        values[:, index:index + chunk] = v.to(values.dtype)
+        steps = torch.arange(chunk, device=q.device)
+        if torch.is_tensor(index):
+            q_pos = index.long()[:, None] + steps[None, :]    # [batch, chunk]
+            rows = torch.arange(batch, device=q.device)[:, None]
+            keys[rows, q_pos] = k.to(keys.dtype)
+            values[rows, q_pos] = v.to(values.dtype)
+        else:
+            q_pos = (index + steps)[None, :]
+            keys[:, index:index + chunk] = k.to(keys.dtype)
+            values[:, index:index + chunk] = v.to(values.dtype)
         scores = torch.einsum("bsnd,btnd->bnst", q.float(),
                               keys.float()) * head_dim ** -0.5
-        q_pos = index + torch.arange(chunk, device=q.device)[:, None]
-        k_pos = torch.arange(max_len, device=q.device)[None, :]
-        scores = torch.where((k_pos <= q_pos)[None, None], scores, _NEG)
+        k_pos = torch.arange(max_len, device=q.device)
+        visible = k_pos[None, None, :] <= q_pos[:, :, None]  # [b|1, s, t]
+        scores = torch.where(visible[:, None], scores, _NEG)
         if attention_bias is not None:
             scores = scores + attention_bias.float()
         probs = torch.softmax(scores, dim=-1).to(values.dtype)
@@ -615,12 +639,112 @@ def trunk_seed(seed: Optional[int], seq_shard) -> Optional[int]:
     return seed if seq_shard is None else child_seed(seed, seq_shard.index)
 
 
+# the matmul ops each remat policy keeps (JAX ``remat_policy``, models/
+# bert.py): "dots" is ``dots_saveable``, every product; "weight_dots" is
+# ``dots_with_no_batch_dims_saveable``, the projections (2-D products) but
+# not the attention einsums (batched). Everything else is recomputed, and
+# so is every kernel bound through ctypes (flash attention, LayerNorm,
+# dropout-add-LayerNorm, dropout: ``ops/_build.py``), which no torch op
+# stands for, as JAX's policies recompute a ``pallas_call``.
+_aten = torch.ops.aten
+_REMAT_SAVED = {
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default, _aten._int_mm.default),
+    "weight_dots": (_aten.mm.default, _aten.addmm.default,
+                    _aten._int_mm.default),
+}
+
+
+def _remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``policy``."""
+    if policy == "nothing":
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts,
+                             list(_REMAT_SAVED[policy]))
+
+
+def remat_call(fn, args: tuple, modules, policy: str = "nothing"):
+    """``fn(*args)``, a forward of ``modules``, under
+    ``torch.utils.checkpoint`` (non-reentrant): the forward keeps only what
+    ``policy`` saves and runs again in the backward (JAX ``nn.remat`` /
+    ``jax.checkpoint``).
+
+    A recomputed forward must see the state the first one saw. The
+    tensors ``modules`` hold when the call starts (its parameters, inputs
+    of the checkpoint, and its buffers; in a stacked trunk, layer i's
+    slices and rows) are swapped in again for the recompute, which runs
+    after the caller has put other tensors back. Dropout draws from
+    explicit seeds (kernel 5 and the flash kernels key Philox by seed and
+    element index), so the masks repeat. The delayed-int8 activation
+    amaxes (``amax`` buffers of int8 ``DenseGeneral`` sites) are state the
+    forward reads and writes: ``fn`` runs on copies of their values as
+    they were before it, and the amaxes it observed are written home once,
+    after the first forward. So a recompute quantizes on the scales the
+    first forward used and advances nothing, as JAX's functional remat
+    carries its ``"quant"`` collection once a step. The delayed dy amaxes
+    are written by the backward, which runs once either way; as buffers
+    the backward writes, they are held by the recompute, not saved as
+    checkpoint inputs (whose versions the checkpoint checks)."""
+    subs = [m for module in modules for m in module.modules()]
+    params = [(m, name) for m in subs
+              for name, t in m._parameters.items() if t is not None]
+    bufs = [(m, name) for m in subs
+            for name, t in m._buffers.items() if t is not None]
+    amax = [j for j, (m, name) in enumerate(bufs)
+            if name == "amax" and isinstance(m, DenseGeneral)]
+    homes = [m._buffers[name] for m, name in bufs]
+    held = [t.detach().clone() if j in amax else t
+            for j, t in enumerate(homes)]
+    n = len(args)
+
+    def run(*inputs):
+        state = [*inputs[n:], *(t.clone() if j in amax else t
+                                for j, t in enumerate(held))]
+        slots = [(m, "_parameters", name) for m, name in params] + [
+            (m, "_buffers", name) for m, name in bufs]
+        before = [getattr(m, kind)[name] for m, kind, name in slots]
+        for (m, kind, name), t in zip(slots, state):
+            getattr(m, kind)[name] = t
+        try:
+            out = fn(*inputs[:n])
+        finally:
+            for (m, kind, name), t in zip(slots, before):
+                getattr(m, kind)[name] = t
+        # what this forward wrote into its amax copies
+        return (out, *(state[len(params) + j] for j in amax))
+
+    out, *seen = checkpoint(
+        run, *args, *(m._parameters[name] for m, name in params),
+        use_reentrant=False, context_fn=_remat_context(policy))
+    with torch.no_grad():
+        for j, t in zip(amax, seen):
+            homes[j].copy_(t)
+    return out
+
+
+def call_layer(layer, cfg: ModelConfig, x, attention_bias, seed, kv=None):
+    """One trunk layer: ``layer(x, attention_bias, dropout_seed=seed)``
+    (and ``paged=kv`` when given), under per-layer remat when ``cfg.remat``
+    and grad is on (JAX ``_layer_cls``: ``nn.remat(BertLayer)``, ``nn.remat
+    (GPT2Block)``)."""
+    kw = {} if kv is None else {"paged": kv}
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return layer(x, attention_bias, dropout_seed=seed, **kw)
+    return remat_call(
+        lambda x, bias: layer(x, bias, dropout_seed=seed, **kw),
+        (x, attention_bias), [layer], cfg.remat_policy)
+
+
 def run_layers(layers, x, attention_bias, dropout_seed=None, first=0):
     """The trunk: layer i draws its dropout from ``fold_in(seed, i + 1)``;
     ``layers`` may be a run of the trunk's layers starting at layer
-    ``first`` (a stage of the layer split)."""
+    ``first`` (a stage of the layer split). Each layer runs under remat
+    with ``config.remat`` (``call_layer``), which the pipeline schedules'
+    stage forwards reach too (JAX ``gpipe_trunk_fn``'s
+    ``jax.checkpoint(fn)``)."""
     for i, layer in enumerate(layers, first):
-        x = layer(x, attention_bias, child_seed(dropout_seed, i + 1))
+        x = call_layer(layer, layer.config, x, attention_bias,
+                       child_seed(dropout_seed, i + 1))
     return x
 
 
@@ -637,7 +761,9 @@ class ScannedLayers(nn.Module):
     i's slices, the parameters swapped in for the call and put back after;
     layer i draws its dropout from ``fold_in(seed, i + 1)``, as
     ``run_layers``, so a scanned and an unscanned model made from one
-    generator compute the same values bit for bit."""
+    generator compute the same values bit for bit. Under ``remat`` layer
+    i's call is checkpointed with its slices and rows as inputs
+    (``remat_call``; JAX's ``nn.scan`` of ``nn.remat(layer)``)."""
 
     def __init__(self, layers: list, inner: str):
         super().__init__()
@@ -675,9 +801,9 @@ class ScannedLayers(nn.Module):
                     mod._parameters[leaf] = ws[i]
                 for (mod, leaf), bs in zip(self._buffer_slots, rows):
                     mod._buffers[leaf] = bs[i]
-                kw = {} if paged is None else {"paged": paged.layer(i)}
-                x = layer(x, attention_bias,
-                          dropout_seed=child_seed(dropout_seed, i + 1), **kw)
+                x = call_layer(layer, layer.config, x, attention_bias,
+                               child_seed(dropout_seed, i + 1),
+                               None if paged is None else paged.layer(i))
         finally:
             for (mod, leaf), w in zip(self._slots, stacks):
                 mod._parameters[leaf] = w

@@ -28,6 +28,11 @@ the chunk after the forward);
 without either, full-sequence causal attention through
 ``cfg.attention_impl`` (the flash kernels for ``gpt2-medium``).
 
+Remat: ``remat`` checkpoints each block (``models/bert.call_layer``,
+JAX ``_gpt2_layer_cls``), ``remat_mlp`` only its MLP tail (mlp_up ->
+gelu -> mlp_down -> dropout; JAX ``nn.remat(_mlp_body)``); both through
+``models/bert.remat_call``, losses and gradients unchanged.
+
 Training: ``forward(input_ids, attention_mask=None, token_type_ids=None,
 position_ids=None, dropout_seed=None)``, the JAX model's uniform signature
 (``token_type_ids`` is taken and ignored), so the train and eval steps
@@ -59,6 +64,7 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     DenseKV,
     Embed,
     PagedKV,
+    call_layer,
     child_seed,
     compute_dtype,
     dense,
@@ -66,6 +72,7 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     make_trunk,
     model_input,
     param_dtype,
+    remat_call,
     seq_offset,
     trunk_seed,
 )
@@ -84,6 +91,7 @@ class GPT2Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None, generator=None):
         super().__init__()
+        self.config = cfg
         h = cfg.hidden_size
         self.ln_1 = layer_norm_module(cfg, device)
         self.attention = BertSelfAttention(cfg, device, generator)
@@ -99,10 +107,21 @@ class GPT2Block(nn.Module):
         h = self.attention(self.ln_1(x), attention_bias, paged,
                            dropout_seed=dropout_seed)
         x = x + self.dropout(h, dropout_seed, _SITE_ATTENTION_NORM)
-        h = self.mlp_up(model_input(self.ln_2(x), self.tp_shard))
+        h = model_input(self.ln_2(x), self.tp_shard)
+        if self.config.remat_mlp and torch.is_grad_enabled():
+            # JAX ``nn.remat(_mlp_body)``: a plain checkpoint of the tail,
+            # dropping the [B, S, 4 hidden] GELU input and output for one
+            # more ``mlp_up`` in the backward
+            return x + remat_call(lambda h: self._mlp(h, dropout_seed),
+                                  (h,), (self.mlp_up, self.mlp_down))
+        return x + self._mlp(h, dropout_seed)
+
+    def _mlp(self, h, dropout_seed):
+        """The MLP tail (JAX ``_mlp_body``): mlp_up -> tanh GELU ->
+        mlp_down -> dropout."""
+        h = self.mlp_up(h)
         h = F.gelu(h, approximate="tanh")  # GPT-2's tanh approximation
-        return x + self.dropout(self.mlp_down(h), dropout_seed,
-                                _SITE_MLP_NORM)
+        return self.dropout(self.mlp_down(h), dropout_seed, _SITE_MLP_NORM)
 
 
 class GPT2LMModel(nn.Module):
@@ -174,15 +193,17 @@ class GPT2LMModel(nn.Module):
         # a dense cache's chunk at its index
         offset = (cache.index if cache is not None
                   else seq_offset(input_ids, self.seq_shard))
-        if offset + seq > cfg.max_position_embeddings:
+        # a dense cache may hold an index a row (the serving engine's)
+        last = int(offset.max()) if torch.is_tensor(offset) else offset
+        if last + seq > cfg.max_position_embeddings:
             raise ValueError(
-                f"sequence length {offset + seq} exceeds "
+                f"sequence length {last + seq} exceeds "
                 f"max_position_embeddings {cfg.max_position_embeddings}"
             )
         if position_ids is None:
-            position_ids = torch.arange(
-                offset, offset + seq, device=input_ids.device
-            )[None, :].expand(batch, seq)
+            steps = torch.arange(seq, device=input_ids.device)[None, :]
+            position_ids = (offset[:, None] + steps if torch.is_tensor(offset)
+                            else (offset + steps).expand(batch, seq))
         dropout_seed = trunk_seed(dropout_seed, self.seq_shard)
         x = self.wte(input_ids) + self.wpe(position_ids)
         x = self.dropout(x, child_seed(dropout_seed, 0))
@@ -192,8 +213,9 @@ class GPT2LMModel(nn.Module):
             x = self.layers_scan(x, bias, dropout_seed, kv)
         else:
             for i, block in enumerate(self.blocks):
-                layer = None if kv is None else kv.layer(i)
-                x = block(x, bias, layer, child_seed(dropout_seed, i + 1))
+                x = call_layer(block, cfg, x, bias,
+                               child_seed(dropout_seed, i + 1),
+                               None if kv is None else kv.layer(i))
         if cache is not None:
             cache.index += seq
         x = self.ln_f(x)

@@ -67,6 +67,14 @@ the graphs are kept and each backward reads its scales from its autograd
 context. Both schedules refuse ``quant_delayed_grads`` with JAX's
 reasons.
 
+Remat (``remat``, JAX ``gpipe_trunk_fn``'s ``jax.checkpoint(fn)`` around
+the layer function the schedules call): each stage's forward (the ``run``
+closures below) runs its layers through ``models/bert.run_layers``,
+which checkpoints every layer under ``config.remat`` (``call_layer``), so
+a schedule keeps each microbatch's layer inputs and recomputes the layer
+in its backward; the delayed amaxes advance once, in the first forward
+(``remat_call``).
+
 Context parallelism (a ``seq`` axis): each stage's layers attend through
 the ring on its seq coordinate's columns, the wire joins the stages of one
 (data, fsdp, model, seq) coordinate (``mesh.rank_at``), the last stage's

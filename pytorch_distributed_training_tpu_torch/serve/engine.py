@@ -1,6 +1,5 @@
-"""Continuous-batching decode engine: paged KV cache + on-device sampling
-(counterpart: the JAX package's ``serve/engine.py``, the path
-``kv_layout="paged"``, ``sampling="device"``).
+"""Continuous-batching decode engine: paged or dense KV cache, device or
+host sampling (counterpart: the JAX package's ``serve/engine.py``).
 
 - **KV layout**: K/V lives in fixed-size pages, ``[num_pages, page_size,
   heads, head_dim]`` pools per attention layer, addressed through a
@@ -69,15 +68,36 @@ cast_for_serving``), which gives the values flax's per-call cast gives.
   every rank, so the leader alone samples. ``shutdown`` sends the stop
   message that ends the followers.
 
-Ported options: ``kv_layout="paged"``, ``sampling="device"``, ``spec_k``
-with ``spec_draft="ngram"``, ``prefill_chunk``, ``prefill_concurrency``,
-``prefix_cache``, ``tp``, ``weights_dtype`` and ``kv_dtype`` float32 or
-int8 (every option on int8 pools and under ``tp`` too). Every other value
-raises ``NotImplementedError`` naming its ROADMAP.md item: the dense KV
-layout, host sampling, the draft-model lane and tenant page quotas (queue
-1, slice 4b). Telemetry records, spans, the flight recorder, brownout,
-hot-swap (slice 4c; sharded hot-swap under ``tp`` too) and the runtime
-guards of the JAX engine are not ported yet.
+- **Draft-model lane** (``spec_k > 0``, ``spec_draft="model"``): a small
+  model (its vocabulary the base's) resident beside the served one, with
+  its own page pools at the same page geometry, so the allocator's block
+  tables address both. Every prompt write (prefill, chunk, a prefix hit's
+  tail) and COW page copy is mirrored into the draft pools; each verify
+  tick first runs ``spec_k + 1`` greedy draft decodes on the device (the
+  first re-feeds the last committed token, healing the one position a
+  fully accepted tick never fed the draft), and the k proposals come to
+  the host in one copy. Under int8 weights or KV the draft serves at the
+  same variant; under ``tp`` it is cut into head slices as the base.
+- **Dense KV layout** (``kv_layout="dense"``): one [num_slots, cache_len,
+  heads, head_dim] K and V buffer a layer (``models/bert.DenseKV``, a
+  view a slot at prefill, a per-slot write index at decode), admission by
+  slot alone; the plain baseline of the paged layout.
+- **Host sampling** (``sampling="host"``): the float32 logits come to the
+  host and ``serve/sampling.host_sample`` picks each token in numpy, the
+  same token ``device_sample`` picks (the JAX engine's pinned reference
+  sampler).
+- **Tenant page quotas** (``tenant_page_quota`` with ``prefix_cache``): a
+  tenant whose private (unshared) pages would pass ``quota × (num_pages -
+  1)`` is held at admission, without counting as page exhaustion; shared
+  prefix pages are free. The queue's tier and tenant lanes
+  (``serve/queue.py``) pick who is tried.
+
+Every option of the JAX engine's ``EngineConfig`` above is ported, with
+its cross-checks: speculation, chunked prefill, ``tp`` and the prefix cache
+need the paged layout and device sampling, int8 KV the paged layout, a
+quota the prefix cache. Telemetry records, spans, the flight recorder,
+brownout, hot-swap (slice 4c; sharded hot-swap under ``tp`` too) and the
+runtime guards of the JAX engine are not ported yet.
 """
 
 from __future__ import annotations
@@ -93,7 +113,10 @@ import torch
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     broadcast_call,
 )
-from pytorch_distributed_training_tpu_torch.models.bert import PagedKV
+from pytorch_distributed_training_tpu_torch.models.bert import (
+    DenseKV,
+    PagedKV,
+)
 from pytorch_distributed_training_tpu_torch.models.gpt2 import unscanned
 from pytorch_distributed_training_tpu_torch.ops.quant import (
     serve_params_variant,
@@ -115,6 +138,7 @@ from pytorch_distributed_training_tpu_torch.serve.queue import (
 )
 from pytorch_distributed_training_tpu_torch.serve.sampling import (
     device_sample,
+    host_sample,
     spec_accept,
 )
 from pytorch_distributed_training_tpu_torch.utils.device import resolve_device
@@ -122,20 +146,14 @@ from pytorch_distributed_training_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
-# ROADMAP.md items for the options this slice does not port
-_NOT_PORTED = {
-    "kv_layout": ("paged", "the dense KV layout (queue 1, slice 4b)"),
-    "sampling": ("device", "host sampling (queue 1, slice 4b)"),
-    "spec_draft": ("ngram", "the draft-model lane (queue 1, slice 4b; it "
-                            "waits for a draft checkpoint in the repository)"),
-    "tenant_page_quota": (0.0, "tenant page quotas (queue 1, slice 4b)"),
-}
-
 # the device calls a tensor-parallel leader broadcasts to its followers:
-# the stop message that ends them, a forward of the served model (ids,
-# positions, block-table rows, context lengths; the flag: multiquery) and
-# a page copy (src, dst)
-CALL_STOP, CALL_FORWARD, CALL_PAGE_COPY = 0, 1, 2
+# the stop message that ends them, a forward (ids, positions, block-table
+# rows, context lengths; flag bits: FLAG_MULTIQUERY, FLAG_DRAFT), a page
+# copy (src, dst) of the base pools and any draft pools, and the draft
+# lane's chain of greedy decodes (last committed tokens, pending tokens,
+# block table, context lengths, increments; the flag: spec_k)
+CALL_STOP, CALL_FORWARD, CALL_PAGE_COPY, CALL_DRAFT_CHAIN = 0, 1, 2, 3
+FLAG_MULTIQUERY, FLAG_DRAFT = 1, 2
 
 
 @dataclasses.dataclass
@@ -153,14 +171,17 @@ class EngineConfig:
     num_slots: int = 4
     prompt_buckets: tuple = (16, 32, 64)
     max_new_tokens: int = 64
+    # "paged" (block-table pages) or "dense" (one [slots, cache_len] buffer)
     kv_layout: str = "paged"
     page_size: int = 16
     num_pages: int = 0          # total pages incl. null page; 0 = auto
+    # "device" ([slots] token ids to the host a tick) or "host" (float32
+    # logits to the host, ``sampling.host_sample``)
     sampling: str = "device"
     # speculative decoding: draft tokens proposed per slot per tick (0 off)
     spec_k: int = 0
-    # draft lane: "ngram" drafts from the slot's own history; "model" (a
-    # small draft model) is not ported
+    # draft lane: "ngram" drafts from the slot's own history; "model" from
+    # a draft model passed to the engine
     spec_draft: str = "ngram"
     # chunked prefill: prompt tokens streamed per tick per slot (0 off)
     prefill_chunk: int = 0
@@ -168,18 +189,13 @@ class EngineConfig:
     prefill_concurrency: int = 1
     # shared-KV prefix cache over finished prompts' full pages
     prefix_cache: bool = False
+    # a tenant's private-page ceiling, a fraction of the pool (0: none)
     tenant_page_quota: float = 0.0
     tp: int = 1
     weights_dtype: str = "float32"
     kv_dtype: str = "float32"
 
     def __post_init__(self):
-        for name, (ported, item) in _NOT_PORTED.items():
-            if getattr(self, name) != ported:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet: "
-                    f"{item} in ROADMAP.md"
-                )
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {self.num_slots}")
         if self.max_new_tokens < 1:
@@ -194,8 +210,38 @@ class EngineConfig:
                 f"prompt_buckets must be positive lengths, got "
                 f"{self.prompt_buckets!r}"
             )
+        if self.kv_layout not in ("dense", "paged"):
+            raise ValueError(
+                f"kv_layout must be dense/paged, got {self.kv_layout!r}")
+        if self.sampling not in ("host", "device"):
+            raise ValueError(
+                f"sampling must be host/device, got {self.sampling!r}")
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
+        if self.spec_draft not in ("ngram", "model"):
+            raise ValueError(
+                f"spec_draft must be ngram/model, got {self.spec_draft!r}")
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {self.prefill_chunk}"
+            )
+        if self.prefill_concurrency < 1:
+            raise ValueError(
+                f"prefill_concurrency must be >= 1, got "
+                f"{self.prefill_concurrency}"
+            )
+        # JAX's cross-checks: the options that ride the 4-D-query paged
+        # path and on-device sampling refuse the dense/host baselines
+        for on, what in ((self.spec_k > 0 or self.prefill_chunk > 0,
+                          "spec_k/prefill_chunk"),
+                         (self.tp > 1, "tp > 1"),
+                         (self.prefix_cache, "prefix_cache")):
+            if on and self.kv_layout != "paged":
+                raise ValueError(f"{what} requires kv_layout='paged'")
+            if on and self.sampling != "device":
+                raise ValueError(f"{what} requires sampling='device'")
         if self.tp < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
         if self.weights_dtype not in ("float32", "int8"):
@@ -207,18 +253,20 @@ class EngineConfig:
             raise ValueError(
                 f"kv_dtype must be float32/int8, got {self.kv_dtype!r}"
             )
-        if self.spec_k < 0:
-            raise ValueError(f"spec_k must be >= 0, got {self.spec_k}")
-        if self.prefill_chunk < 0:
+        if self.kv_dtype == "int8" and self.kv_layout != "paged":
             raise ValueError(
-                f"prefill_chunk must be >= 0, got {self.prefill_chunk}"
-            )
-        if self.prefill_concurrency < 1:
+                "kv_dtype='int8' requires kv_layout='paged' (the dense "
+                "cache has no scale-pool layout)")
+        if not 0.0 <= self.tenant_page_quota <= 1.0:
             raise ValueError(
-                f"prefill_concurrency must be >= 1, got "
-                f"{self.prefill_concurrency}"
-            )
-        if self.num_pages > 0 and self.num_pages < self.pages_per_slot + 1:
+                f"tenant_page_quota must be in [0, 1], got "
+                f"{self.tenant_page_quota}")
+        if self.tenant_page_quota > 0.0 and not self.prefix_cache:
+            raise ValueError(
+                "tenant_page_quota requires prefix_cache=True (quota "
+                "accounting rides the prefix-cache admission path)")
+        if (self.kv_layout == "paged" and self.num_pages > 0
+                and self.num_pages < self.pages_per_slot + 1):
             raise ValueError(
                 f"num_pages {self.num_pages} cannot hold even one "
                 f"worst-case request ({self.pages_per_slot} pages + the "
@@ -271,17 +319,36 @@ def _check_tp_divisible(cfg, tp: int, role: str) -> None:
             )
 
 
+def _served(model, config: EngineConfig, device, shard):
+    """The copy of ``model`` a rank serves: on ``device``, cast for
+    serving at ``config.weights_dtype`` (int8 quantized whole, so a
+    row-parallel kernel's scale is a max over the input dim the cut
+    splits) and, under ``tp > 1``, laid out a block a module and cut to
+    this rank's heads and MLP columns."""
+    serving = copy.deepcopy(model)
+    if config.tp > 1:
+        serving = unscanned(serving)
+    serving = serving.to(device)
+    serving.cast_for_serving(config.weights_dtype)
+    if config.tp > 1:
+        tensor_parallel(serving, serve_param_specs(
+            {n: tuple(p.shape) for n, p in serving.named_parameters()},
+            config.tp), shard)
+    return serving.eval().requires_grad_(False)
+
+
 class ServeSlice:
     """The device half of a serve replica on one rank: the served copy of
     the model (cast for serving and, under ``tp > 1``, cut to this rank's
-    slice) and its paged pools at ``heads / tp``, with the device calls
-    that run on them (``_run``). The leader's ``DecodeEngine`` and each
-    follower (``serve/tp_worker.py``) build one from the same
-    ``EngineConfig``. ``shard``: the model axis's ``AxisShard`` (its size
-    must be ``config.tp``); None at ``tp=1``."""
+    slice), its KV state (paged pools at ``heads / tp``, or the dense
+    cache) and the draft model and pools of ``spec_draft="model"``, with
+    the device calls that run on them (``_run``). The leader's
+    ``DecodeEngine`` and each follower (``serve/tp_worker.py``) build one
+    from the same ``EngineConfig``. ``shard``: the model axis's
+    ``AxisShard`` (its size must be ``config.tp``); None at ``tp=1``."""
 
     def __init__(self, model, config: EngineConfig, *, device="cuda",
-                 shard=None):
+                 shard=None, draft_model=None):
         cfg = model.config
         if not cfg.causal:
             raise ValueError("DecodeEngine needs a causal model")
@@ -299,78 +366,141 @@ class ServeSlice:
             if size != tp:
                 raise ValueError(
                     f"tp={tp} needs a model group of {tp} ranks, got {size}")
+        draft = config.spec_k > 0 and config.spec_draft == "model"
+        if draft:
+            if draft_model is None:
+                raise ValueError(
+                    "spec_draft='model' needs a draft_model (pass "
+                    "spec_draft='ngram' for checkpoint-free self-drafting)")
+            dmc = draft_model.config
+            if dmc.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {dmc.vocab_size} != base vocab "
+                    f"{cfg.vocab_size}: draft tokens must be base tokens")
+            if config.cache_len + config.spec_k > dmc.max_position_embeddings:
+                raise ValueError(
+                    f"draft max_position_embeddings "
+                    f"{dmc.max_position_embeddings} cannot cover cache_len "
+                    f"{config.cache_len} + spec_k {config.spec_k}")
+            if tp > 1:
+                _check_tp_divisible(dmc, tp, "draft")
         self.config = config
         self.device = resolve_device(device)
         self._shard = shard if tp > 1 else None
-        serving = copy.deepcopy(model)
-        if tp > 1:
-            serving = unscanned(serving)
-        serving = serving.to(self.device)
-        # quantize whole, then cut: a row-parallel kernel's scale is a max
-        # over the input dim the cut splits
-        serving.cast_for_serving(config.weights_dtype)
-        if tp > 1:
-            tensor_parallel(serving, serve_param_specs(
-                {n: tuple(p.shape) for n, p in serving.named_parameters()},
-                tp), shard)
-        serving.eval().requires_grad_(False)
-        self._model = serving
-        self.variant = serve_params_variant(serving.state_dict())
+        self._model = _served(model, config, self.device, self._shard)
+        self.variant = serve_params_variant(self._model.state_dict())
         self.weight_bytes = sum(p.numel() * p.element_size()
-                                for p in serving.parameters())
+                                for p in self._model.parameters())
         self._max_pos = cfg.max_position_embeddings
+        self._pools = self._scales = self._dense = None
+        if config.kv_layout == "paged":
+            self._pools, self._scales = self._make_pools(cfg)
+        else:
+            # one [slots, cache_len] buffer a layer, K and V
+            self._dense = DenseKV.zeros(cfg, config.num_slots,
+                                        config.cache_len, self.device)
+        self._draft = self._draft_pools = self._draft_scales = None
+        if draft:
+            self._draft = _served(draft_model, config, self.device,
+                                  self._shard)
+            self._draft_pools, self._draft_scales = self._make_pools(
+                draft_model.config)
+
+    def _make_pools(self, cfg) -> tuple:
+        """``cfg``'s page pools, a ``(k_pages, v_pages)`` pair a layer at
+        ``heads / tp``, in the compute dtype or int8, and for int8 pools
+        the fp32 scale pools beside them (else None)."""
+        config = self.config
         quant_kv = config.kv_dtype == "int8"
-        pool_dtype = (torch.int8 if quant_kv
-                      else getattr(torch, cfg.compute_dtype))
+        dtype = torch.int8 if quant_kv else getattr(torch, cfg.compute_dtype)
         shape = serve_pool_shape((config.total_pages, config.page_size,
-                                  cfg.num_heads, cfg.head_dim), tp)
+                                  cfg.num_heads, cfg.head_dim), config.tp)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        self._pools = [(zeros(shape, pool_dtype), zeros(shape, pool_dtype))
-                       for _ in range(cfg.num_layers)]
+        pools = [(zeros(shape, dtype), zeros(shape, dtype))
+                 for _ in range(cfg.num_layers)]
         # int8 pools: one fp32 scale per (page, offset, head) beside them
-        self._scales = [
-            (zeros(shape[:3], torch.float32), zeros(shape[:3], torch.float32))
-            for _ in range(cfg.num_layers)
-        ] if quant_kv else None
+        scales = [(zeros(shape[:3], torch.float32),
+                   zeros(shape[:3], torch.float32))
+                  for _ in range(cfg.num_layers)] if quant_kv else None
+        return pools, scales
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
-    def _paged(self, block_table, context_len, multiquery=False) -> PagedKV:
-        return PagedKV(self._pools, block_table, context_len,
-                       multiquery=multiquery, scales=self._scales)
+    def _paged(self, block_table, context_len, multiquery=False,
+               draft=False) -> PagedKV:
+        """The paged operands of a forward of the served model (``draft``:
+        the draft's) over its pools."""
+        pools, scales = ((self._draft_pools, self._draft_scales) if draft
+                         else (self._pools, self._scales))
+        return PagedKV(pools, block_table, context_len,
+                       multiquery=multiquery, scales=scales)
 
     def _run(self, kind: int, operands: list, flag: int = 0):
         """Run one device call on this rank's slice and pools: a forward
-        (``operands``: ids, positions, block-table rows, context lengths;
-        ``flag``: multiquery), its logits; or a page copy (``operands``:
-        ``[[src, dst]]``) of every layer's pools and, for int8 pools, its
-        scale pools."""
+        of the served model or (``FLAG_DRAFT``) the draft (``operands``:
+        ids, positions, block-table rows, context lengths;
+        ``FLAG_MULTIQUERY``: a chunk over an existing context), its
+        logits; a page copy (``operands``: ``[[src, dst]]``) of every
+        layer's pools, base and draft, and for int8 pools their scale
+        pools; or the draft lane's chain (``_draft_chain``)."""
         if kind == CALL_FORWARD:
             ids, pos, bt, ctx = (self._to_device(a) for a in operands)
-            return self._model(ids, position_ids=pos,
-                               paged=self._paged(bt, ctx, bool(flag)))
+            draft = bool(flag & FLAG_DRAFT)
+            model = self._draft if draft else self._model
+            return model(ids, position_ids=pos, paged=self._paged(
+                bt, ctx, bool(flag & FLAG_MULTIQUERY), draft))
         if kind == CALL_PAGE_COPY:
             src, dst = (int(v) for v in operands[0])
-            for pool in self._pools + (self._scales or []):
-                for leaf in pool:
-                    leaf[dst].copy_(leaf[src])
+            for pools in (self._pools, self._scales, self._draft_pools,
+                          self._draft_scales):
+                for pair in pools or ():
+                    for leaf in pair:
+                        leaf[dst].copy_(leaf[src])
             return None
+        if kind == CALL_DRAFT_CHAIN:
+            return self._draft_chain(*operands, k=flag)
         raise ValueError(f"unknown device call {kind}")
 
-    def _kv_bytes_per_token(self) -> int:
+    def _draft_chain(self, last, pending, bt, ctx, inc, *, k: int):
+        """``k + 1`` greedy single-token decodes of the draft over its
+        pools (JAX ``_model_drafts``): the first re-writes the last
+        committed token at ``ctx`` (whose output is dropped), the second
+        feeds the pending token, then each proposal feeds the next, on the
+        device; ``inc`` is 1 for the slots in the lane (0 parks a row on
+        the null page). [slots, k] proposals on the device."""
+        bt, inc = self._to_device(bt), self._to_device(inc)
+        ctx, feed = self._to_device(ctx), self._to_device(last)
+        pending = self._to_device(pending)
+        outs = []
+        for j in range(k + 1):
+            logits = self._draft(feed[:, None], position_ids=ctx[:, None],
+                                 paged=self._paged(bt, ctx, draft=True))
+            out = torch.argmax(logits[:, 0], dim=-1)
+            outs.append(out)
+            feed = pending if j == 0 else out
+            ctx = ctx + inc
+        return torch.stack(outs[1:], dim=1)
+
+    def _kv_bytes_per_token(self) -> Optional[int]:
         """Pool bytes one token occupies on this rank across every layer
         (K and V): ``head_dim`` values a head at the pool dtype, plus one
-        fp32 scale a head for int8 pools."""
+        fp32 scale a head for int8 pools (None under the dense layout)."""
+        if self._pools is None:
+            return None
         k_pages = self._pools[0][0]
         _, _, heads, head_dim = k_pages.shape
         per_head = head_dim * k_pages.element_size()
         if self._scales is not None:
             per_head += 4
         return 2 * len(self._pools) * heads * per_head
+
+    def _kv_heads(self) -> int:
+        kv = self._dense.keys if self._pools is None else self._pools[0]
+        return kv[0].shape[2]
 
 
 class DecodeEngine(ServeSlice):
@@ -384,21 +514,27 @@ class DecodeEngine(ServeSlice):
     ``tp > 1``: this rank's slice of it, and the engine is the leader of
     the model group of ``shard``). ``weights_step``: the checkpoint step
     the weights came from (None for HF or random ones), reported as
-    ``stats()["weights_step"]``.
+    ``stats()["weights_step"]``. ``draft_model``: the draft lane's model
+    (``spec_draft="model"``), served as ``model`` is.
     """
 
     def __init__(self, model, config: EngineConfig, queue: RequestQueue, *,
                  device="cuda", shard=None,
-                 weights_step: Optional[int] = None):
-        super().__init__(model, config, device=device, shard=shard)
+                 weights_step: Optional[int] = None, draft_model=None):
+        super().__init__(model, config, device=device, shard=shard,
+                         draft_model=draft_model)
         self.weights_step = weights_step
         self._stopped = False
+        paged = config.kv_layout == "paged"
         self._pages = PageAllocator(
             config.total_pages, config.page_size, config.pages_per_slot,
             config.num_slots,
-        )
+        ) if paged else None
         self._prefix = (PrefixCache(self._pages) if config.prefix_cache
                         else None)
+        self.tenant_blocked = 0     # admissions held by a tenant's quota
+        self._tenant_pages: dict[str, int] = {}   # tenant -> private pages
+        self._slot_charge: dict[int, tuple] = {}  # slot -> (tenant, pages)
         # chunk width: prefill_chunk, or one page for prefix-hit tails when
         # only the cache is on
         self._chunk_size = (config.prefill_chunk if config.prefill_chunk > 0
@@ -441,31 +577,66 @@ class DecodeEngine(ServeSlice):
             broadcast_call(self._shard, kind, operands, flag)
         return self._run(kind, operands, flag)
 
-    def _forward(self, ids, pos, bt, ctx, multiquery=False) -> torch.Tensor:
-        """The served model's forward over the slots' pages (numpy
-        operands: int64 ids and positions, int32 block-table rows and
-        context lengths); float32 logits on the device."""
-        return self._dispatch(CALL_FORWARD, [ids, pos, bt, ctx],
-                              int(multiquery))
+    def _forward(self, ids, pos, bt, ctx, multiquery=False,
+                 draft=False) -> torch.Tensor:
+        """The served model's (``draft``: the draft's) forward over the
+        slots' pages (numpy operands: int64 ids and positions, int32
+        block-table rows and context lengths); float32 logits on the
+        device."""
+        flag = (FLAG_MULTIQUERY if multiquery else 0) | (
+            FLAG_DRAFT if draft else 0)
+        return self._dispatch(CALL_FORWARD, [ids, pos, bt, ctx], flag)
+
+    def _dense_forward(self, ids, pos, slot: Optional[int] = None):
+        """A forward over the dense cache: ``slot``'s prefill (its cache
+        rows from position 0) or, ``slot`` None, every slot's decode step,
+        each writing at its own index, its position (idle slots write
+        position 0 of their unused rows, which the next prefill
+        overwrites)."""
+        dense = self._dense
+        if slot is not None:
+            cache = DenseKV([k[slot:slot + 1] for k in dense.keys],
+                            [v[slot:slot + 1] for v in dense.values])
+        else:
+            cache = DenseKV(dense.keys, dense.values,
+                            index=self._to_device(pos[:, 0]))
+        return self._model(self._to_device(ids),
+                           position_ids=self._to_device(pos), cache=cache)
+
+    def _sample_one(self, req: GenRequest, logits: torch.Tensor) -> int:
+        """The first token from a prefill's last-position [vocab] logits:
+        on the device, or on the host (``sampling="host"``); either way
+        the prefill's one device-to-host copy."""
+        if self.config.sampling == "host":
+            return host_sample(logits.float().cpu().numpy(), req.seed, 0,
+                               req.temperature, req.top_k)
+        return int(device_sample(logits[None], [req.seed], [0],
+                                 [req.temperature], [req.top_k])[0])
 
     def _prefill(self, req: GenRequest, slot: int) -> int:
-        """Prefill ``req`` into ``slot``'s pages; its first token."""
+        """Prefill ``req`` into ``slot``'s pages (and the draft's) or its
+        dense cache rows; its first token."""
         bucket = req.bucket
         padded = np.zeros((1, bucket), np.int64)
         padded[0, : req.prompt_len] = req.prompt_ids
-        # fresh sequence: context_len 0, K/V scattered straight into the
-        # slot's pages through its block-table row
-        logits = self._forward(
-            padded, np.arange(bucket, dtype=np.int64)[None],
-            self._pages.block_table[slot : slot + 1],
-            np.zeros((1,), np.int32),
-        )
-        last = logits[0, req.prompt_len - 1][None]
-        token = device_sample(last, [req.seed], [0], [req.temperature],
-                              [req.top_k])
+        pos = np.arange(bucket, dtype=np.int64)[None]
+        if self._pages is None:
+            # right-padded prompt, no mask: the pads follow every real
+            # token, so the causal mask hides them, and decode writes over
+            # them from prompt_len on
+            logits = self._dense_forward(padded, pos, slot)
+        else:
+            # fresh sequence: context_len 0, K/V scattered straight into
+            # the slot's pages through its block-table row
+            operands = (padded, pos, self._pages.block_table[slot:slot + 1],
+                        np.zeros((1,), np.int32))
+            logits = self._forward(*operands)
+            if self._draft is not None:
+                # the draft lane shares the slot's committed context
+                self._forward(*operands, draft=True)
         self._prefill_buckets.add(bucket)
         self.prefill_dispatches += 1
-        return int(token[0])     # the prefill's one device-to-host copy
+        return self._sample_one(req, logits[0, req.prompt_len - 1])
 
     def _chunk(self, req: GenRequest, slot: int, start: int,
                sample_row: Optional[int]) -> Optional[int]:
@@ -480,11 +651,12 @@ class DecodeEngine(ServeSlice):
         ids[0, : end - start] = req.prompt_ids[start:end]
         # pad lanes past the position table read its last row (dead lanes)
         pos = np.minimum(start + np.arange(C), self._max_pos - 1)
-        logits = self._forward(
-            ids, pos[None].astype(np.int64),
-            self._pages.block_table[slot : slot + 1],
-            np.asarray([start], np.int32), multiquery=True,
-        )
+        operands = (ids, pos[None].astype(np.int64),
+                    self._pages.block_table[slot:slot + 1],
+                    np.asarray([start], np.int32))
+        logits = self._forward(*operands, multiquery=True)
+        if self._draft is not None:
+            self._forward(*operands, multiquery=True, draft=True)
         if sample_row is None:
             return None
         token = device_sample(logits[0, sample_row][None], [req.seed], [0],
@@ -493,11 +665,22 @@ class DecodeEngine(ServeSlice):
 
     def _decode(self, tokens, bt, ctx, seeds, steps, temps,
                 top_ks) -> np.ndarray:
-        """Advance every slot one token; [slots] sampled ids on the host."""
-        logits = self._forward(tokens[:, None].astype(np.int64),
-                               ctx[:, None].astype(np.int64), bt, ctx)
-        sampled = device_sample(logits[:, 0], seeds, steps, temps, top_ks)
-        return sampled.cpu().numpy()   # the tick's one device-to-host copy
+        """Advance every slot one token; [slots] sampled ids on the host.
+        The tick's one device-to-host copy is those ids, or under host
+        sampling the [slots, vocab] float32 logits."""
+        ids = tokens[:, None].astype(np.int64)
+        pos = ctx[:, None].astype(np.int64)
+        if self._pages is None:
+            logits = self._dense_forward(ids, pos)[:, 0]
+        else:
+            logits = self._forward(ids, pos, bt, ctx)[:, 0]
+        if self.config.sampling == "host":
+            host = logits.float().cpu().numpy()
+            return np.asarray([host_sample(host[i], seeds[i], steps[i],
+                                           temps[i], top_ks[i])
+                               for i in range(len(host))], np.int64)
+        sampled = device_sample(logits, seeds, steps, temps, top_ks)
+        return sampled.cpu().numpy()
 
     def _verify(self, tokens, bt, ctx, seeds, steps0, temps,
                 top_ks) -> np.ndarray:
@@ -517,9 +700,9 @@ class DecodeEngine(ServeSlice):
         return torch.cat([target, accept[:, None]], dim=1).cpu().numpy()
 
     def _page_copy(self, src: int, dst: int) -> None:
-        """Copy page ``src`` onto page ``dst`` in every layer's pools and,
-        for int8 pools, its scale pools (the copy-on-write of a partly
-        matched prefix page)."""
+        """Copy page ``src`` onto page ``dst`` in every layer's pools, the
+        draft's too, and for int8 pools their scale pools (the
+        copy-on-write of a partly matched prefix page)."""
         self._dispatch(CALL_PAGE_COPY, [np.asarray([src, dst], np.int64)])
 
     # ---------------------------------------------------------- accounting
@@ -570,10 +753,41 @@ class DecodeEngine(ServeSlice):
         return None
 
     def _evict(self, slot: int) -> None:
-        """Free ``slot`` and drop its page references (shared pages live on
-        in other rows or the prefix cache)."""
+        """Free ``slot`` and, paged, drop its page references (shared pages
+        live on in other rows or the prefix cache)."""
         self._slots[slot] = None
+        if self._pages is not None:
+            self._release_pages(slot)
+
+    def _release_pages(self, slot: int) -> None:
+        """Drop ``slot``'s page references and give its quota charge back
+        to its tenant: every release goes through here, so the tenant
+        ledger cannot drift from the allocator."""
         self._pages.release(slot)
+        charge = self._slot_charge.pop(slot, None)
+        if charge is not None:
+            tenant, n = charge
+            left = self._tenant_pages.get(tenant, 0) - n
+            if left > 0:
+                self._tenant_pages[tenant] = left
+            else:
+                self._tenant_pages.pop(tenant, None)
+
+    def _charge_tenant(self, slot: int, tenant: Optional[str],
+                       n: int) -> None:
+        """Charge ``n`` freshly allocated (private) pages to ``tenant`` for
+        the life of ``slot``'s reservation; shared prefix pages are
+        free."""
+        if self.config.tenant_page_quota <= 0.0 or tenant is None:
+            return
+        self._tenant_pages[tenant] = self._tenant_pages.get(tenant, 0) + n
+        self._slot_charge[slot] = (tenant, n)
+
+    def _tenant_quota_pages(self) -> int:
+        """A tenant's private-page ceiling (a fraction of the usable
+        pool)."""
+        return max(1, int(self.config.tenant_page_quota
+                          * (self._pages.num_pages - 1)))
 
     def _pages_for(self, req: GenRequest) -> int:
         """Up-front worst-case reservation: bucket + max_new_tokens + the
@@ -589,17 +803,26 @@ class DecodeEngine(ServeSlice):
         return [int(t) for t in req.prompt_ids[: req.prompt_len - 1]]
 
     def _admission_fits(self, req: GenRequest) -> bool:
-        """Page-budget admission predicate (``RequestQueue.pop_ready``).
-        With the prefix cache the trie match happens here (stashed for the
-        admission right after a True): only the pages beyond the fully
-        matched shared ones come from the free list, and page pressure
-        first LRU-evicts cache-only runs."""
+        """Page-budget admission predicate (``RequestQueue.pop_ready``);
+        the dense layout admits on a free slot alone. With the prefix
+        cache the trie match happens here (stashed for the admission right
+        after a True): only the pages beyond the fully matched shared ones
+        come from the free list, a tenant over its private-page quota is
+        held (not page exhaustion), and page pressure first LRU-evicts
+        cache-only runs."""
+        if self._pages is None:
+            return True
         need = self._pages_for(req)
         match = None
         if self._prefix is not None:
             match = self._prefix.match(self._prompt_head(req))
             self._match_scratch = (req.id, match)
             need -= len(match.pages)
+        if (self.config.tenant_page_quota > 0.0 and req.tenant is not None
+                and self._tenant_pages.get(req.tenant, 0) + need
+                > self._tenant_quota_pages()):
+            self.tenant_blocked += 1
+            return False
         if self._pages.can_alloc(need):
             return True
         if self._prefix is not None:
@@ -647,16 +870,25 @@ class DecodeEngine(ServeSlice):
         req.admit_t = time.monotonic()
         self.admitted += 1
 
+    def _reserve(self, req: GenRequest, slot: int) -> None:
+        """Reserve ``req``'s worst case of pages for ``slot`` (paged) and
+        charge them to its tenant."""
+        if self._pages is not None:
+            n = self._pages_for(req)
+            self._pages.admit(slot, n)
+            self._charge_tenant(slot, req.tenant, n)
+
     def _admit(self, req: GenRequest, slot: int) -> None:
         """Prefill ``req`` into ``slot`` and take its first token."""
         self._start(req)
-        self._pages.admit(slot, self._pages_for(req))
+        self._reserve(req, slot)
         t0 = time.perf_counter()
         try:
             token = self._prefill(req, slot)
         except BaseException:
             # failed admissions must not leak the pages just reserved
-            self._pages.release(slot)
+            if self._pages is not None:
+                self._release_pages(slot)
             raise
         self.prefill_s += time.perf_counter() - t0
         self.prefill_tokens += req.prompt_len
@@ -665,7 +897,8 @@ class DecodeEngine(ServeSlice):
         self._insert_prefix(slot, req)
         self._emit_token(req, token)
         if self._is_terminal(req, token):
-            self._pages.release(slot)
+            if self._pages is not None:
+                self._release_pages(slot)
             return
         self._slots[slot] = _Slot(request=req, pending_token=token,
                                   spec=self._slot_spec(req))
@@ -675,7 +908,7 @@ class DecodeEngine(ServeSlice):
         ``_advance_prefills`` streams the prompt in (its first chunk this
         very tick)."""
         self._start(req)
-        self._pages.admit(slot, self._pages_for(req))
+        self._reserve(req, slot)
         self._slots[slot] = _Slot(request=req, pending_token=-1,
                                   phase="prefill", spec=self._slot_spec(req))
 
@@ -693,6 +926,7 @@ class DecodeEngine(ServeSlice):
         if cow:
             shared.append(match.cow_src)
         self._pages.admit_shared(slot, shared, reserved - len(shared))
+        self._charge_tenant(slot, req.tenant, reserved - len(match.pages))
         try:
             if cow:
                 # private copy before the tail's first write: a slot never
@@ -702,7 +936,7 @@ class DecodeEngine(ServeSlice):
                 self._page_copy(old, new)
                 self.cow_copies += 1
         except BaseException:
-            self._pages.release(slot)
+            self._release_pages(slot)
             raise
         req.prefix_hit = True
         req.cached_tokens = match.cached_len
@@ -801,7 +1035,8 @@ class DecodeEngine(ServeSlice):
         steps = np.zeros((S,), np.int64)
         temps = np.zeros((S,), np.float32)
         top_ks = np.zeros((S,), np.int64)
-        bt = np.zeros_like(self._pages.block_table)
+        bt = (None if self._pages is None
+              else np.zeros_like(self._pages.block_table))
         for i in active:
             s = self._slots[i]
             r = s.request
@@ -810,7 +1045,8 @@ class DecodeEngine(ServeSlice):
             steps[i] = s.steps_done + 1   # == len(r.tokens) at sample
             temps[i] = r.temperature
             top_ks[i] = r.top_k
-            bt[i] = self._pages.block_table[i]
+            if bt is not None:
+                bt[i] = self._pages.block_table[i]
         return bt, ctx, seeds, steps, temps, top_ks
 
     def _decode_tick(self, active) -> None:
@@ -834,27 +1070,62 @@ class DecodeEngine(ServeSlice):
         self.decode_dispatches += 1
         self.decode_tokens += len(active)
 
+    def _last_committed_token(self, s: _Slot) -> int:
+        """The token whose K/V sits at position ctx - 1 (the last one fed):
+        the newest generated and fed token, or the prompt's last."""
+        r = s.request
+        if s.steps_done >= 1:
+            return int(r.tokens[s.steps_done - 1])
+        return int(r.prompt_ids[r.prompt_len - 1])
+
+    def _model_drafts(self, spec_slots) -> np.ndarray:
+        """The draft lane's [slots, k] proposals: one chain of ``k + 1``
+        greedy draft decodes on the device (``ServeSlice._draft_chain``),
+        one copy to the host. Only the spec slots get real block-table
+        rows; the rest park on the null page."""
+        S = self.config.num_slots
+        last = np.zeros((S,), np.int64)
+        pending = np.zeros((S,), np.int64)
+        ctx = np.zeros((S,), np.int32)
+        inc = np.zeros((S,), np.int32)
+        bt = np.zeros_like(self._pages.block_table)
+        for i in spec_slots:
+            s = self._slots[i]
+            last[i] = self._last_committed_token(s)
+            pending[i] = s.pending_token
+            ctx[i] = s.request.prompt_len + s.steps_done - 1
+            inc[i] = 1
+            bt[i] = self._pages.block_table[i]
+        return self._dispatch(CALL_DRAFT_CHAIN,
+                              [last, pending, bt, ctx, inc],
+                              self.config.spec_k).cpu().numpy()
+
     def _verify_tick(self, active) -> None:
         """ONE verify dispatch advancing every decode-phase slot 1..k+1
-        tokens: n-gram drafts for the spec slots, all k+1 positions scored,
-        the leading exact-match run accepted, the accepted drafts plus the
-        sample at the first divergence emitted. Non-spec slots ride along
-        with acceptance forced to 0 (the one token a decode step would
-        give). Rollback is the context cursor not moving past what was
-        accepted."""
+        tokens: drafts for the spec slots (n-gram on the host, or the
+        draft model's), all k+1 positions scored, the leading exact-match
+        run accepted, the accepted drafts plus the sample at the first
+        divergence emitted. Non-spec slots ride along with acceptance
+        forced to 0 (the one token a decode step would give). Rollback is
+        the context cursor not moving past what was accepted."""
         S, k = self.config.num_slots, self.config.spec_k
+        spec_slots = [i for i in active if self._slots[i].spec]
+        t0 = time.perf_counter()  # the draft chain is decode work too
+        drafts = (self._model_drafts(spec_slots)
+                  if self._draft is not None and spec_slots else None)
         tokens = np.zeros((S, k + 1), np.int64)
         for i in active:
             s = self._slots[i]
             r = s.request
             tokens[i, 0] = s.pending_token
-            if s.spec:
+            if not s.spec:
+                tokens[i, 1:] = s.pending_token
+            elif drafts is not None:
+                tokens[i, 1:] = drafts[i]
+            else:
                 hist = [int(t) for t in r.prompt_ids[: r.prompt_len]]
                 hist.extend(int(t) for t in r.tokens)
                 tokens[i, 1:] = self._ngram_draft(hist, k)
-            else:
-                tokens[i, 1:] = s.pending_token
-        t0 = time.perf_counter()
         out = self._verify(tokens, *self._slot_inputs(active))
         self.decode_s += time.perf_counter() - t0
         target, accept = out[:, : k + 1], out[:, k + 1]
@@ -910,6 +1181,7 @@ class DecodeEngine(ServeSlice):
         # prefix-cache hits (their tails stream from the cached boundary)
         self._page_blocked = False
         chunked = self.config.prefill_chunk > 0
+        streaming = chunked or self._prefix is not None
         while True:
             slot = self._free_slot()
             if slot is None:
@@ -942,7 +1214,7 @@ class DecodeEngine(ServeSlice):
         # prompt chunks after admissions (a new slot's first chunk this
         # tick) and before decode (its pages hold the prompt before any
         # other dispatch could read them)
-        if chunked or self._prefix is not None:
+        if streaming:
             worked = self._advance_prefills() or worked
 
         active = [i for i, s in enumerate(self._slots)
@@ -990,12 +1262,19 @@ class DecodeEngine(ServeSlice):
         """The engine's counts. Under ``tp > 1``, ``weight_bytes``,
         ``kv_bytes_per_token`` and ``kv_heads`` are this rank's (its slice
         and its pools); the page counts are the replica's, equal to
-        tp=1's."""
+        tp=1's. The page counts are None under the dense layout."""
+        pages = self._pages
         prefix = None
         if self._prefix is not None:
             prefix = dict(self._prefix.stats(), cow_copies=self.cow_copies,
-                          pages_shared=self._pages.pages_shared,
-                          prefill_tokens_skipped=self.cached_tokens)
+                          pages_shared=pages.pages_shared,
+                          prefill_tokens_skipped=self.cached_tokens,
+                          tenant_blocked=self.tenant_blocked,
+                          tenant_page_quota=self.config.tenant_page_quota)
+
+        def page(value):
+            return None if pages is None else value()
+
         return {
             "device": str(self.device),
             "ticks": self.ticks,
@@ -1003,6 +1282,7 @@ class DecodeEngine(ServeSlice):
             "admitted": self.admitted,
             "finished": self.finished,
             "queue_depth": self._queue.depth(),
+            "queue_depth_by_tier": self._queue.depth_by_tier(),
             "slot_occupancy": self.slot_occupancy(),
             "num_slots": self.config.num_slots,
             "prompt_buckets": list(self.config.prompt_buckets),
@@ -1016,13 +1296,13 @@ class DecodeEngine(ServeSlice):
             "weights_step": self.weights_step,
             "weight_bytes": self.weight_bytes,
             "kv_bytes_per_token": self._kv_bytes_per_token(),
-            "kv_heads": self._pools[0][0].shape[2],
-            "kv_page_size": self.config.page_size,
-            "kv_pages_total": self._pages.num_pages - 1,
-            "kv_pages_used": self._pages.pages_used,
-            "kv_pages_free": self._pages.pages_free,
-            "kv_pages_shared": self._pages.pages_shared,
-            "kv_pages_peak": self._pages.peak_used,
+            "kv_heads": self._kv_heads(),
+            "kv_page_size": page(lambda: self.config.page_size),
+            "kv_pages_total": page(lambda: pages.num_pages - 1),
+            "kv_pages_used": page(lambda: pages.pages_used),
+            "kv_pages_free": page(lambda: pages.pages_free),
+            "kv_pages_shared": page(lambda: pages.pages_shared),
+            "kv_pages_peak": page(lambda: pages.peak_used),
             "page_exhausted": self.page_exhausted,
             "prefill_tokens": self.prefill_tokens,
             "prefill_dispatches": self.prefill_dispatches,

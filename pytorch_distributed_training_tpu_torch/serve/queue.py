@@ -1,5 +1,6 @@
 """Admission queue for the serving engine (counterpart: the JAX package's
-``serve/queue.py``): backpressure, deadlines, prompt-length buckets.
+``serve/queue.py``): backpressure, deadlines, prompt-length buckets, tier
+lanes and tenants.
 
 - **Backpressure**: ``submit`` raises ``BackpressureError`` the moment the
   queue holds ``max_depth`` requests: rejected in O(1), never hung.
@@ -7,11 +8,20 @@
   sweeps queued requests past it, and the engine applies the same check
   to running slots between ticks.
 - **FIFO within bucket**: requests are grouped by prompt-length bucket;
-  across buckets the earliest-submitted head goes first. ``pop_ready``'s
-  ``accept`` predicate (the engine's page budget) is strict no-bypass: a
-  head that does not fit blocks the queue, so it is never starved.
+  across buckets the earliest-submitted head goes first.
+- **SLO tier lanes**: every request carries a tier (``interactive`` |
+  ``batch``) and each tier is its own lane of buckets. ``pop_ready``
+  picks a lane by deterministic weighted round-robin (default 4:1 for
+  interactive), falling through to the other lane when the scheduled one
+  is empty: a weighted share under contention, every pop to the busy lane
+  when the other is idle.
+- **No bypass, per (lane, tenant)**: ``pop_ready``'s ``accept`` predicate
+  (the engine's page budget and tenant quota) rejects a tenant's earliest
+  request in a lane, and no later request of that tenant in that lane is
+  tried; other tenants' heads, and the other lane, still get their turn.
+  Traffic without tenants is one candidate a lane, the lane's head.
 
-SLO tier lanes, tenants and the brownout ladder are not ported yet.
+The brownout ladder is not ported yet (ROADMAP.md, queue 1, slice 4c).
 """
 
 from __future__ import annotations
@@ -29,6 +39,14 @@ class BackpressureError(RuntimeError):
     """The queue is at ``max_depth``: resubmit later."""
 
 
+#: the service tiers the queue schedules as lanes
+TIERS = ("interactive", "batch")
+
+#: the default weighted-round-robin share a lane: under contention 4
+#: interactive requests pop for every batch request
+DEFAULT_TIER_WEIGHTS = {"interactive": 4, "batch": 1}
+
+
 @dataclasses.dataclass
 class GenRequest:
     """One generation request plus its runtime bookkeeping.
@@ -43,6 +61,10 @@ class GenRequest:
     max_new_tokens: int
     temperature: float = 0.0                # 0 = greedy
     top_k: int = 0
+    tier: str = "interactive"               # SLO lane: interactive | batch
+    # the tenant (None: single-tenant traffic): scopes the page quota and
+    # the queue's per-tenant no-bypass rule
+    tenant: Optional[str] = None
     eot_id: Optional[int] = None
     seed: int = 0                           # per-request sampling stream
     deadline_s: Optional[float] = None      # relative to submit
@@ -82,10 +104,11 @@ class GenRequest:
 
 
 class RequestQueue:
-    """Bounded, bucketed, deadline-aware FIFO feeding the decode engine."""
+    """Bounded, bucketed, deadline-aware FIFO feeding the decode engine,
+    one lane of buckets a tier."""
 
     def __init__(self, *, max_depth: int, prompt_buckets: tuple,
-                 max_new_tokens: int):
+                 max_new_tokens: int, tier_weights: Optional[dict] = None):
         if max_depth < 1:
             raise ValueError(f"max_depth must be >= 1, got {max_depth}")
         if not prompt_buckets or list(prompt_buckets) != sorted(
@@ -95,10 +118,25 @@ class RequestQueue:
                 f"prompt_buckets must be sorted unique positive lengths, "
                 f"got {prompt_buckets!r}"
             )
+        weights = dict(tier_weights or DEFAULT_TIER_WEIGHTS)
+        if set(weights) != set(TIERS) or any(
+                int(w) < 1 for w in weights.values()):
+            raise ValueError(
+                f"tier_weights needs a positive weight per tier {TIERS}, "
+                f"got {weights!r}"
+            )
         self.max_depth = max_depth
         self.prompt_buckets = tuple(int(b) for b in prompt_buckets)
         self.max_new_tokens = max_new_tokens
-        self._buckets: dict[int, deque] = {b: deque() for b in self.prompt_buckets}
+        self.tier_weights = {t: int(weights[t]) for t in TIERS}
+        self._lanes: dict[str, dict[int, deque]] = {
+            tier: {b: deque() for b in self.prompt_buckets} for tier in TIERS
+        }
+        # the round-robin schedule is the weights expanded (I,I,I,I,B at
+        # 4:1); the cursor moves one slot a successful pop
+        self._schedule = tuple(tier for tier in TIERS
+                               for _ in range(self.tier_weights[tier]))
+        self._cursor = 0
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._closed = False
@@ -129,6 +167,15 @@ class RequestQueue:
             raise ValueError(
                 f"temperature must be finite, got {request.temperature}"
             )
+        if request.tier not in TIERS:
+            raise ValueError(
+                f"tier must be one of {TIERS}, got {request.tier!r}")
+        if request.tenant is not None and (
+                not isinstance(request.tenant, str) or not request.tenant):
+            raise ValueError(
+                f"tenant must be None or a non-empty string, got "
+                f"{request.tenant!r}"
+            )
         bucket = self.bucket_for(request.prompt_len)
         with self._lock:
             if self._closed:
@@ -140,20 +187,28 @@ class RequestQueue:
             request.bucket = bucket
             request.status = "queued"
             request.submit_t = time.monotonic()
-            self._buckets[bucket].append(request)
+            self._lanes[request.tier][bucket].append(request)
             self._work.notify_all()
         return request
 
+    def _queues(self):
+        return (dq for lane in self._lanes.values() for dq in lane.values())
+
     def depth(self) -> int:
         """Queued-request count (deque lengths are atomic reads)."""
-        return sum(len(d) for d in self._buckets.values())
+        return sum(len(dq) for dq in self._queues())
+
+    def depth_by_tier(self) -> dict:
+        """Queued-request count a lane."""
+        return {tier: sum(len(dq) for dq in lane.values())
+                for tier, lane in self._lanes.items()}
 
     def expire_overdue(self, now: Optional[float] = None) -> list:
         """Remove and return every queued request past its deadline."""
         now = time.monotonic() if now is None else now
         expired = []
         with self._lock:
-            for dq in self._buckets.values():
+            for dq in self._queues():
                 keep = deque()
                 while dq:
                     req = dq.popleft()
@@ -161,27 +216,62 @@ class RequestQueue:
                 dq.extend(keep)
         return expired
 
-    def pop_ready(self, accept=None, defer=None) -> Optional[GenRequest]:
-        """The earliest-submitted bucket head, or None when idle, when
-        ``defer`` holds it or when ``accept`` rejects it.
+    def _lane_candidates(self, tier: str) -> list:
+        """``[(request, deque)]``, earliest first: each tenant's earliest
+        queued request in the lane (the first of that tenant in each
+        bucket, the earliest across buckets). Traffic without tenants is
+        one candidate, the lane's head."""
+        best: dict = {}
+        for dq in self._lanes[tier].values():
+            seen = set()
+            for req in dq:
+                if req.tenant in seen:
+                    continue  # FIFO within (bucket, tenant)
+                seen.add(req.tenant)
+                cur = best.get(req.tenant)
+                if cur is None or req.submit_t < cur[0].submit_t:
+                    best[req.tenant] = (req, dq)
+        return sorted(best.values(), key=lambda rd: rd[0].submit_t)
 
-        ``defer`` is a transient hold checked before ``accept``: True
-        leaves the head in place with no side effect (the engine holds
-        admissions while ``prefill_concurrency`` prompts stream in, and the
-        hold is not page exhaustion). ``accept`` is the engine's admission
-        predicate (the page budget)."""
+    def pop_ready(self, accept=None, defer=None) -> Optional[GenRequest]:
+        """A lane by weighted round-robin, then the earliest of its
+        tenants' candidates that ``accept`` takes; None when idle, when
+        ``defer`` holds the lane's first candidate, or when ``accept``
+        takes none.
+
+        The schedule advances only on a pop, so the share holds under
+        contention, and an empty lane takes no turn. ``defer`` is a
+        transient hold checked before ``accept``: True leaves everything in
+        place with no side effect (the engine holds admissions while
+        ``prefill_concurrency`` prompts stream in; the hold is not page
+        exhaustion). ``accept`` is the engine's admission predicate (the
+        page budget, the tenant quota); a rejected candidate blocks its
+        own tenant in its lane, not the others (see the module
+        docstring)."""
         with self._lock:
-            head = None
-            for dq in self._buckets.values():
-                if dq and (head is None or dq[0].submit_t < head[0].submit_t):
-                    head = dq
-            if head is None:
-                return None
-            if defer is not None and defer(head[0]):
-                return None
-            if accept is not None and not accept(head[0]):
-                return None
-            return head.popleft()
+            tried = set()
+            for offset in range(len(self._schedule)):
+                tier = self._schedule[
+                    (self._cursor + offset) % len(self._schedule)]
+                if tier in tried:
+                    continue
+                tried.add(tier)
+                candidates = self._lane_candidates(tier)
+                if not candidates:
+                    continue
+                if defer is not None and defer(candidates[0][0]):
+                    return None
+                for req, dq in candidates:
+                    if accept is not None and not accept(req):
+                        continue  # this tenant's head is held; the next
+                    self._cursor = (self._cursor + offset + 1) % len(
+                        self._schedule)
+                    if dq[0] is req:
+                        dq.popleft()
+                    else:  # past held heads of other tenants only
+                        dq.remove(req)
+                    return req
+            return None
 
     def wait_for_work(self, timeout: float) -> bool:
         """Engine-side idle wait; True when work may be available."""
@@ -200,7 +290,7 @@ class RequestQueue:
         """Remove and return every queued request."""
         with self._lock:
             out = []
-            for dq in self._buckets.values():
+            for dq in self._queues():
                 out.extend(dq)
                 dq.clear()
         return out

@@ -1,18 +1,27 @@
-"""On-device batched sampling for the decode engine (counterpart: the JAX
-package's ``serve/sampling.py`` ``device_sample`` and ``spec_accept``).
+"""Batched sampling for the decode engine (counterpart: the JAX package's
+``serve/sampling.py`` ``device_sample`` and ``spec_accept``, and the JAX
+engine's host ``_sample``).
 
 Greedy rows (temperature <= 0) take ``argmax`` over the float32 logits,
 which returns the FIRST maximum, exactly as the JAX sampler. Sampled rows
-scale by temperature, keep every logit >= the k-th largest (ties kept;
-``top_k`` 0 or >= vocab keeps all), and draw from the softmax with a
-``torch.Generator`` seeded from ``(seed, step)``, where ``step`` is the
-number of tokens already emitted for the request. Fixed-seed streams are
-reproducible within the port; they differ from the JAX package's, whose
-stream is ``fold_in(key(seed), step)`` threefry.
+divide by the temperature, keep every logit >= the k-th largest (ties
+kept; ``top_k`` 0 or >= vocab keeps all; the rest go to ``finfo.min``)
+and draw by Gumbel-max: the argmax of the kept logits plus Gumbel noise
+made on the host from a ``torch.Generator`` seeded from ``(seed, step)``,
+where ``step`` is the number of tokens already emitted for the request.
+Fixed-seed streams are reproducible within the port; they differ from
+the JAX package's, whose stream is ``fold_in(key(seed), step)``
+threefry.
 
-The per-row sampling parameters are host values (the engine builds them on
-the host each tick); the logits never leave the device. An all-greedy
-batch pays one argmax, as the JAX sampler's ``lax.cond`` arranges.
+``device_sample`` keeps the logits on the device (the noise goes up, one
+[rows, vocab] copy for the sampled rows; an all-greedy batch pays one
+argmax, as the JAX sampler's ``lax.cond`` arranges). ``host_sample`` is
+the engine's ``sampling="host"`` path on float32 logits already copied
+to the host, in numpy. Every step of the draw is one IEEE operation a
+element (a true division, a comparison, an addition) or exact (the sort,
+the argmax), and the noise is the same host tensor, so the two pick the
+same token on any device: the contract JAX pins between its in-jit
+sampler and its host ``_sample``.
 """
 
 from __future__ import annotations
@@ -37,6 +46,15 @@ def sample_seed(seed: int, step: int) -> int:
     return (z ^ (z >> 31)) & ((1 << 63) - 1)
 
 
+def gumbel_noise(seed: int, step: int, vocab: int) -> torch.Tensor:
+    """[vocab] float32 Gumbel(0, 1) noise of request ``seed`` at emission
+    ``step``, on the CPU: ``-log(-log(u))`` of uniforms from a
+    ``torch.Generator`` seeded with ``sample_seed(seed, step)``."""
+    gen = torch.Generator().manual_seed(sample_seed(seed, step))
+    u = torch.rand(vocab, generator=gen)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
 def device_sample(logits: torch.Tensor, seeds, steps, temps, top_ks):
     """Next tokens for a batch of slots.
 
@@ -55,17 +73,37 @@ def device_sample(logits: torch.Tensor, seeds, steps, temps, top_ks):
     rows = np.flatnonzero(temps > 0.0)
     if rows.size == 0:
         return out
-    for r in rows:
-        scaled = logits[r] / float(temps[r])
-        k = min(max(int(top_ks[r]), 0), vocab)
-        if k > 0:
-            kth = torch.sort(scaled).values[vocab - k]
-            scaled = torch.where(scaled < kth, _NEG, scaled)
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(sample_seed(seeds[r], steps[r]))
-        probs = torch.softmax(scaled, dim=-1)
-        out[r] = torch.multinomial(probs, 1, generator=gen)[0]
+    dev = logits.device
+    idx = torch.as_tensor(rows, device=dev)
+    # a tensor divisor: a true division a element, as numpy's (a host
+    # scalar would take the reciprocal's product on the card)
+    scaled = logits[idx] / torch.as_tensor(temps[rows], device=dev)[:, None]
+    keep = np.clip(np.asarray(top_ks, np.int64)[rows], 0, vocab)
+    if keep.any():
+        cut = torch.as_tensor(np.where(keep > 0, vocab - keep, 0),
+                              device=dev)
+        kth = torch.sort(scaled, dim=-1).values.gather(1, cut[:, None])
+        scaled = torch.where(scaled < kth, _NEG, scaled)
+    noise = torch.stack([gumbel_noise(seeds[r], steps[r], vocab)
+                         for r in rows]).to(dev)
+    out[idx] = torch.argmax(scaled + noise, dim=-1)
     return out
+
+
+def host_sample(logits: np.ndarray, seed: int, step: int,
+                temperature: float, top_k: int) -> int:
+    """One request's next token from its [vocab] float32 logits on the
+    host (the engine's ``sampling="host"``; JAX ``DecodeEngine._sample``):
+    ``device_sample``'s draw, in numpy."""
+    if temperature <= 0.0:
+        return int(np.argmax(logits))
+    vocab = logits.shape[-1]
+    scaled = logits / np.float32(temperature)
+    k = min(max(int(top_k), 0), vocab)
+    if k > 0:
+        kth = np.sort(scaled)[vocab - k]
+        scaled = np.where(scaled < kth, np.finfo(np.float32).min, scaled)
+    return int(np.argmax(scaled + gumbel_noise(seed, step, vocab).numpy()))
 
 
 def spec_accept(logits: torch.Tensor, draft: torch.Tensor, seeds, steps0,

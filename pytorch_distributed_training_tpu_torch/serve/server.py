@@ -51,14 +51,15 @@ class InferenceServer:
     def __init__(self, model, config: EngineConfig, *, device="cuda",
                  queue_depth: int = 16,
                  default_deadline_s: Optional[float] = None, shard=None,
-                 weights_step: Optional[int] = None):
+                 weights_step: Optional[int] = None, draft_model=None):
         self.queue = RequestQueue(
             max_depth=queue_depth,
             prompt_buckets=config.prompt_buckets,
             max_new_tokens=config.max_new_tokens,
         )
         self.engine = DecodeEngine(model, config, self.queue, device=device,
-                                   shard=shard, weights_step=weights_step)
+                                   shard=shard, weights_step=weights_step,
+                                   draft_model=draft_model)
         self.default_deadline_s = default_deadline_s
         self._ids = itertools.count()
         self._thread: Optional[threading.Thread] = None
@@ -135,13 +136,17 @@ class InferenceServer:
     def submit(self, prompt_ids, *, max_new_tokens: int,
                temperature: float = 0.0, top_k: int = 0,
                eot_id: Optional[int] = None, seed: int = 0,
-               deadline_s: Optional[float] = None, stream=None,
-               on_finish=None, request_id: Optional[str] = None,
+               deadline_s: Optional[float] = None,
+               tier: str = "interactive", tenant: Optional[str] = None,
+               stream=None, on_finish=None,
+               request_id: Optional[str] = None,
                spec: Optional[bool] = None) -> GenRequest:
         """Enqueue one request (any thread). Raises ``BackpressureError``
         when the queue is full; the request's ``done`` event fires at every
-        terminal state. ``spec`` opts the request in or out of speculative
-        decoding (None: the engine's default)."""
+        terminal state. ``tier``: its SLO lane (``interactive``,
+        ``batch``); ``tenant``: who it is charged to (None: nobody);
+        ``spec`` opts it in or out of speculative decoding (None: the
+        engine's default)."""
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         req = GenRequest(
@@ -150,6 +155,8 @@ class InferenceServer:
             max_new_tokens=max_new_tokens,
             temperature=temperature,
             top_k=top_k,
+            tier=tier,
+            tenant=tenant,
             eot_id=eot_id,
             seed=seed,
             deadline_s=deadline_s,
@@ -186,8 +193,11 @@ def serve_stdio(server: InferenceServer, tokenizer, in_stream,
 
     Input lines: ``{"prompt": str, "max_new_tokens"?: int,
     "temperature"?: float, "top_k"?: int, "seed"?: int, "deadline_s"?:
-    float, "id"?: str, "spec"?: bool}`` (``spec``: the request's
-    speculative-decoding opt-in/out). Output events (one JSON per line,
+    float, "id"?: str, "spec"?: bool, "tier"?: str, "tenant"?: str}``
+    (``spec``: the request's speculative-decoding opt-in/out; ``tier``:
+    ``interactive``, the default, or ``batch``; ``tenant``: a non-empty
+    string the page quota charges; the queue refuses other values with
+    an ``error`` event). Output events (one JSON per line,
     interleaved across requests): ``{"id", "event": "token", "token_id",
     "text"}``,
     ``{"id", "event": "done", "status", "finish_reason", "text",
@@ -253,6 +263,7 @@ def serve_stdio(server: InferenceServer, tokenizer, in_stream,
                 raise TypeError(
                     f"spec must be a boolean, got {type(spec).__name__}"
                 )
+
         except (json.JSONDecodeError, KeyError, TypeError) as e:
             write({"event": "error", "error": f"bad request line: {e}"})
             continue
@@ -272,6 +283,8 @@ def serve_stdio(server: InferenceServer, tokenizer, in_stream,
                 eot_id=eot_id,
                 seed=int(msg.get("seed", 0)),
                 deadline_s=msg.get("deadline_s"),
+                tier=msg.get("tier", "interactive"),
+                tenant=msg.get("tenant"),
                 stream=on_token,
                 on_finish=on_finish,
                 request_id=msg.get("id"),

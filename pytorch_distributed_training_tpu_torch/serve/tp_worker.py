@@ -7,11 +7,14 @@ follower on every other rank of the model group. ``run_follower`` builds
 the same served slice and pools as the leader, from the same model and
 ``EngineConfig`` (``serve/engine.ServeSlice``: cast for serving, int8
 quantized whole, then cut to this rank's heads and MLP columns, pools at
-``heads / tp``), then loops: receive a device call from the leader
+``heads / tp``; the draft model's slice and pools too under
+``spec_draft="model"``), then loops: receive a device call from the leader
 (``comms/collectives.receive_call``), run it on its slice and pools,
 repeat. It makes no host decision: admission, deadlines, sampling,
 speculation's acceptance and eviction are the leader's, so clocks cannot
-make the ranks part. A follower runs each forward whole, the replicated
+make the ranks part. The draft lane's chain of greedy decodes is one call:
+every rank runs it whole, feeding its own argmax forward, which the
+all-reduced logits make the same on every rank. A follower runs each forward whole, the replicated
 tied head included, and drops its logits: it joins every row-parallel
 all-reduce, and every rank launches the same kernels. The stop message
 (``DecodeEngine.shutdown``) ends the loop.
@@ -37,8 +40,9 @@ class TPFollower(ServeSlice):
     ``AxisShard``, this rank at a coordinate above 0)."""
 
     def __init__(self, model, config: EngineConfig, *, device="cuda",
-                 shard):
-        super().__init__(model, config, device=device, shard=shard)
+                 shard, draft_model=None):
+        super().__init__(model, config, device=device, shard=shard,
+                         draft_model=draft_model)
         self.calls = 0
 
     def run(self) -> int:
@@ -61,14 +65,16 @@ class TPFollower(ServeSlice):
             "variant": self.variant,
             "weight_bytes": self.weight_bytes,
             "kv_bytes_per_token": self._kv_bytes_per_token(),
-            "kv_heads": self._pools[0][0].shape[2],
+            "kv_heads": self._kv_heads(),
         }
 
 
 def run_follower(model, config: EngineConfig, *, device="cuda",
-                 shard) -> dict:
-    """Build this rank's follower and run it until the leader's stop
-    message; its ``stats()``."""
-    follower = TPFollower(model, config, device=device, shard=shard)
+                 shard, draft_model=None) -> dict:
+    """Build this rank's follower (with the draft lane's model under
+    ``spec_draft="model"``) and run it until the leader's stop message;
+    its ``stats()``."""
+    follower = TPFollower(model, config, device=device, shard=shard,
+                          draft_model=draft_model)
     follower.run()
     return follower.stats()

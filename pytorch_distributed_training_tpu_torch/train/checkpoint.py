@@ -41,7 +41,8 @@ the decisions every rank must share (skip a duplicate step, which steps
 to try) are rank 0's, broadcast. The format is the port's own; orbax
 checkpoints are not read (that needs the JAX stack). JAX's telemetry
 records and its watchdog around joins are not ported (ROADMAP.md, queue
-1, items 5 and 6): the events are logged with ``log0``.
+1, item 4, the telemetry and fault core): the events are logged with
+``log0``.
 """
 
 from __future__ import annotations

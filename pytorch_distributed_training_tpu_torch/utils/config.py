@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import warnings
 from typing import Any
 
 _ROADMAP = "see ROADMAP.md, queue 1"
@@ -117,9 +118,16 @@ class ModelConfig:
     attention_remat: bool = True
     # only "fused" (the LayerNorm kernels) is ported
     layernorm_impl: str = "fused"
-    remat: bool = False  # per-layer remat: not ported
-    remat_policy: str = "nothing"  # what per-layer remat saves: not ported
-    remat_mlp: bool = False  # remat of each block's MLP tail: not ported
+    # per-layer remat: each layer (BERT, GPT-2, the scanned trunk's layer
+    # i, a branch's or a stage's) recomputes its forward in the backward
+    # (``models/bert.remat_call``, ``torch.utils.checkpoint``)
+    remat: bool = False
+    # what per-layer remat saves: "nothing" (full recompute), "dots" (every
+    # matmul output), "weight_dots" (the unbatched projections only)
+    remat_policy: str = "nothing"
+    # recompute only each GPT-2 block's MLP tail (mlp_up -> gelu ->
+    # mlp_down -> dropout), a plain checkpoint
+    remat_mlp: bool = False
     # the stacked trunk (models/bert.py ScannedLayers, ``layers_scan``);
     # train_mp's branch and stage modes keep per-layer modules
     scan_layers: bool = False
@@ -152,9 +160,6 @@ class ModelConfig:
                                        "streams, slice 2 leftovers"),
             ("layernorm_impl", "fused", "the jnp-math LayerNorm switch, "
                                         "slice 2 leftovers"),
-            ("remat", False, "per-layer remat, slice 3 leftovers"),
-            ("remat_policy", "nothing", "per-layer remat, slice 3 leftovers"),
-            ("remat_mlp", False, "MLP remat, slice 3 leftovers"),
         )
         for name, ported, item in not_ported:
             if getattr(self, name) != ported:
@@ -162,6 +167,28 @@ class ModelConfig:
                     f"{name}={getattr(self, name)!r} is not ported yet "
                     f"({item}; {_ROADMAP})"
                 )
+        # JAX's remat checks, eagerly: a misspelt policy, or one set without
+        # remat, must not pass unnoticed
+        if self.remat_policy not in ("nothing", "dots", "weight_dots"):
+            raise ValueError(
+                f"remat_policy must be nothing/dots/weight_dots, got "
+                f"{self.remat_policy!r}"
+            )
+        if self.remat_policy != "nothing" and not self.remat:
+            warnings.warn(
+                f"remat_policy={self.remat_policy!r} has no effect without "
+                f"remat=True",
+                stacklevel=2,
+            )
+        if self.remat_mlp and self.remat:
+            # the layer checkpoint already recomputes the MLP; the nested
+            # one only recomputes it a second time
+            warnings.warn(
+                "remat_mlp=True is redundant under remat=True (the layer "
+                "checkpoint already recomputes the MLP); the nested "
+                "checkpoint only adds recompute",
+                stacklevel=2,
+            )
         if self.hidden_size % self.num_heads:
             raise ValueError(
                 f"hidden_size {self.hidden_size} is not a multiple of "

@@ -291,32 +291,89 @@ def test_generate_cli_scanned_checkpoint(lm_checkpoint):
 
 
 def test_generate_cli_step_resolution(lm_checkpoint, tmp_path):
-    """The boot step is the Checkpointer's first candidate: a legacy
-    (manifest-less) step loads, a step whose manifest fails raises
-    ``CheckpointCorruptError``, an empty directory exits."""
+    """The boot step is JAX ``cli/generate_lm``'s: the newest verified
+    step; when none verifies (a legacy manifest-less step, or every
+    manifest failing) the latest step, unverified, with JAX's log line; an
+    empty directory exits. ``serve_lm --checkpoint-dir`` boots the same
+    way. A torn copy (step 2's largest data file truncated) is tried
+    unverified and then fails to read; a copy whose data file grew (its
+    manifest fails on size, its tensors intact) boots step 2."""
+    import logging
     import os
     import shutil
 
+    from torch.distributed.checkpoint.api import CheckpointException
+
     from pytorch_distributed_training_tpu_torch.train import manifest
+    from pytorch_distributed_training_tpu_torch.utils.logging import (
+        get_logger,
+    )
 
     def load(d):
         args = generate_lm.build_parser().parse_args(
             _CPU + ["--checkpoint-dir", str(d)])
         return generate_lm.load_model_and_params(
-            args, generate_lm.build_tokenizer(args))[1]
+            args, generate_lm.build_tokenizer(args))
 
-    legacy = shutil.copytree(lm_checkpoint, tmp_path / "legacy")
-    os.remove(os.path.join(ckpt.step_path(str(legacy), 2),
-                           manifest.MANIFEST_NAME))
-    assert load(legacy) == 2
-    torn = shutil.copytree(lm_checkpoint, tmp_path / "torn")
-    step = ckpt.step_path(str(torn), 2)
-    data = max((os.path.join(step, f) for f in os.listdir(step)
-                if f != manifest.MANIFEST_NAME), key=os.path.getsize)
-    with open(data, "r+b") as f:
-        f.truncate(os.path.getsize(data) // 2)
-    with pytest.raises(ckpt.CheckpointCorruptError):
-        load(torn)
+    def damaged(name, damage):
+        copy = shutil.copytree(lm_checkpoint, tmp_path / name)
+        step = ckpt.step_path(str(copy), 2)
+        data = max((os.path.join(step, f) for f in os.listdir(step)
+                    if f != manifest.MANIFEST_NAME), key=os.path.getsize)
+        damage(data)
+        assert not manifest.verify_step(step)[0]
+        return copy
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    lines = Lines()
+    get_logger().addHandler(lines)
+    try:
+        legacy = shutil.copytree(lm_checkpoint, tmp_path / "legacy")
+        os.remove(os.path.join(ckpt.step_path(str(legacy), 2),
+                               manifest.MANIFEST_NAME))
+        assert load(legacy)[1] == 2
+
+        def truncate(path):
+            with open(path, "r+b") as f:
+                f.truncate(os.path.getsize(path) // 2)
+
+        torn = damaged("torn", truncate)
+        assert generate_lm.boot_step(str(torn)) == 2
+        want = (f"no integrity-verified checkpoint under {torn} (legacy "
+                f"save?); loading latest step 2 unverified")
+        assert lines.lines[-1] == want
+        with pytest.raises(CheckpointException):
+            load(torn)
+        assert lines.lines[-1] == want
+        with pytest.raises(CheckpointException):
+            serve_lm.main(_CPU + ["--checkpoint-dir", str(torn)],
+                          in_stream=io.StringIO(""),
+                          out_stream=io.StringIO())
+
+        def grow(path):
+            with open(path, "ab") as f:
+                f.write(b"\0" * 16)
+
+        grown = damaged("grown", grow)
+        model, step = load(grown)
+        assert step == 2
+        saved = ckpt.restore_params(lm_checkpoint)
+        assert all(torch.equal(model.state_dict()[k], saved[k])
+                   for k in saved)
+        stats = serve_lm.main(
+            _CPU + ["--checkpoint-dir", str(grown), "--prompt-buckets",
+                    "16", "--max-new-tokens-cap", "4"],
+            in_stream=io.StringIO(""), out_stream=io.StringIO())
+        assert stats["weights_step"] == 2
+    finally:
+        get_logger().removeHandler(lines)
     (tmp_path / "empty").mkdir()
     with pytest.raises(SystemExit, match="no checkpoint"):
         load(tmp_path / "empty")

@@ -600,6 +600,11 @@ def test_model_config_defaults_match_jax():
             assert getattr(p, f.name) == getattr(r, f.name), (name, f.name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model_preset("tiny", dropout_impl="exact")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_preset("tiny", remat=True)
+    # remat is ported: JAX's checks, an unknown policy refused, a policy
+    # without remat and remat_mlp under remat warned
+    assert model_preset("tiny", remat=True, remat_policy="dots").remat
+    with pytest.raises(ValueError, match="remat_policy"):
+        model_preset("tiny", remat=True, remat_policy="bogus")
+    with pytest.warns(UserWarning, match="no effect"):
+        model_preset("tiny", remat_policy="dots")
     assert model_preset("tiny", scan_layers=True).scan_layers

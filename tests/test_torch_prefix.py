@@ -368,5 +368,12 @@ def test_prefix_engine_builds_with_every_option_and_validates():
                            prefill_concurrency=2)
     assert cfg.pages_per_slot == jcfg.pages_per_slot
     assert cfg.total_pages == jcfg.total_pages
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(prefix_cache=True, tenant_page_quota=0.5)
+    # tenant quotas are ported: they need the prefix cache, as in JAX
+    assert EngineConfig(prefix_cache=True,
+                        tenant_page_quota=0.5).tenant_page_quota == 0.5
+    for bad in (dict(tenant_page_quota=0.5),
+                dict(prefix_cache=True, tenant_page_quota=1.5)):
+        with pytest.raises(ValueError):
+            JaxEngineConfig(**bad)
+        with pytest.raises(ValueError):
+            EngineConfig(**bad)

@@ -203,8 +203,19 @@ def test_engine_eot_and_backpressure(lms):
     ("tenant_page_quota", 0.5),
 ])
 def test_engine_config_unported_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(**{option: value})
+    """The options this test once pinned as unported now build, and raise
+    JAX's ValueError where JAX's cross-checks refuse them: the speculative
+    options need the paged layout and device sampling, a quota the prefix
+    cache."""
+    needs = {"spec_draft": dict(spec_k=2),
+             "tenant_page_quota": dict(prefix_cache=True)}.get(option, {})
+    assert getattr(EngineConfig(**{option: value}, **needs), option) == value
+    refused = {"kv_layout": dict(spec_k=2), "sampling": dict(prefix_cache=True),
+               "spec_draft": dict(spec_k=2, kv_layout="dense"),
+               "tenant_page_quota": {}}[option]
+    for cls in (JaxEngineConfig, EngineConfig):
+        with pytest.raises(ValueError):
+            cls(**{option: value}, **refused)
 
 
 # --------------------------------------------------------------- the parts
