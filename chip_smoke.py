@@ -37,7 +37,14 @@ the JAX package), in phases that each raise on failure:
    two calls bit-identical, timed at the verify and chunk shapes against
    SDPA on the gathered K/V; both paged kernels again on int8 pools with
    bf16 and float32 q; the two-pass flash backward also against the fused
-   kernel's gradients); then ``int8-gemm``: ``ops/quant.int8_mm``
+   kernel's gradients); ``dropout-modes``: kernel 5's bits8 and exact
+   modes (the ``"bits8"`` and ``"exact"`` streams) bit for bit against
+   their plain versions at the mask parity shapes, on x aligned and off
+   16 bytes holding NaN and infinities, bf16 and float32, two calls
+   bit-identical, the NaN contract (exact drops a NaN to 0, bits8 keeps
+   it), ``raw_dropout``'s output and gradient, each timed at the apply
+   shapes beside the plain version and ``F.dropout``, its bound from this
+   build's SASS; then ``int8-gemm``: ``ops/quant.int8_mm``
    (``torch._int_mm``, the int8 training's products; a library call, as
    XLA's int8 ``dot_general`` is no Pallas kernel) at bert-large's six
    dense sites at 1024 tokens and a shape it pads (5 x 60 x 36), forward,
@@ -65,7 +72,26 @@ the JAX package), in phases that each raise on failure:
    second time with a checkpoint a step (in a temporary directory,
    removed after), then resumed from its step 1: step 1's amaxes
    restored, no calibration launch, step 2's loss, grad norm and every
-   weight bit-equal;
+   weight bit-equal; ``roberta-mnli``: ``train_dp --model roberta-large
+   --task mnli`` at the recipe (96 = 8 x 12, seq 128, bf16, dropout 0.1,
+   seed 42; the synthetic 3-class fallback through a stand-in
+   ``datasets`` module that raises ``ConnectionError``, in this script
+   only), 2 steps and 96 rows of each validation split, the train
+   phase's checks (counted with the pooler's pre-dropout and both
+   splits' eval batches, a rerun bit-identical), its samples/s, ms a
+   step, peak memory and both accuracies; ``dropout-streams``:
+   roberta-large through ``model_preset`` overrides, 1 step of 96 and 32
+   rows a split, under ``bits32``, ``bits8`` and ``exact`` and under
+   ``layernorm_impl="reference"``: counted (``stream_launches``: no
+   kernel 3 or 4 in the train step, the stream's mode of kernel 5,
+   kernels 1 and 2 or none), finite losses bit-equal on a rerun;
+   ``telemetry-faults``: the roberta-mnli run with ``--metrics-dir``,
+   its stream read back (a record a step with its device block), ms a
+   step beside the run without, losses equal; then the tiny preset
+   under ``PDT_TPU_FAULT=crash_at_step:1`` and ``--max-restarts 1`` with
+   a fresh ``--checkpoint-dir``: one restart in the same process, the
+   resumed run's step 2 loss and every weight bit-equal to the
+   uninterrupted run's;
 5. cpu-vs-card: the ``tiny`` preset with dropout on, trained 2 steps on
    the CPU (plain versions) and on the card (kernels) from one seed: the
    per-step losses agree, so the card's masks are the plain generator's;
@@ -225,10 +251,11 @@ the JAX package), in phases that each raise on failure:
    also saves its sharded state and restores it into the unwrapped
    model, bit-equal.
 
-Prints one ``kernels`` JSON line (16 kernels; kernel 5's mask-only mode,
+Prints one ``kernels`` JSON line (18 kernels; kernel 5's mask-only mode,
 ``mask_scale``, is on no main path since its apply mode,
-``mask_scale_apply``, took every dropout site, so its launches are 0) and,
-last, ``{"ok": true,
+``mask_scale_apply``, took every dropout site, so its launches are 0;
+its bits8 and exact modes, ``dropout_bits8`` and ``dropout_exact``, with
+the dropout-streams runs' launches) and, last, ``{"ok": true,
 "device": ...}``.
 Exits non-zero, with no result, when no CUDA GPU is visible or any phase
 fails.
@@ -279,16 +306,27 @@ PHILOX_INT_PER_ELEMENT = {
     "dal_bwd_dx": (4.875, 8.0),
 }
 # (library, symbol pattern in cuobjdump's mangled names, elements an
-# iteration of the loop counted) of each entry above: the main path's
-# instantiations (bf16; rows of 1024 at H 1024 for kernels 3 and 4)
+# iteration of the loop counted[, an opcode the loop must hold]) of each
+# entry above: the main path's instantiations (bf16; rows of 1024 at H
+# 1024 for kernels 3 and 4)
 SASS_LOOPS = {
-    "mask_scale": ("dropout", r"dropout_kernelI13__nv_bfloat16jLb0E", 8),
-    "mask_scale_apply": ("dropout", r"dropout_kernelI13__nv_bfloat16jLb1E", 8),
+    "mask_scale": ("dropout", r"dropout_kernelI13__nv_bfloat16jLi0EE", 8),
+    "mask_scale_apply": ("dropout", r"dropout_kernelI13__nv_bfloat16jLi1EE",
+                         8),
+    # kernel 5's bits8 (a unit of 16, one Philox block) and exact modes,
+    # whose bounds take the counts of this run's build (SASS_MEASURED)
+    "dropout_bits8": ("dropout", r"dropout_kernelI13__nv_bfloat16jLi2EE", 16,
+                      "STG.E.128"),
+    "dropout_exact": ("dropout", r"dropout_kernelI13__nv_bfloat16jLi3EE", 8,
+                      "STG.E.128"),
     "dal_fwd": ("dropout_add_layer_norm",
                 r"dal_fwd_kernelI13__nv_bfloat16S\w*Li8ELi4ELb1E", 8),
     "dal_bwd_dx": ("dropout_add_layer_norm",
                    r"dal_bwd_dx_kernelI13__nv_bfloat16Li8ELi4ELb1E", 8),
 }
+# sass_per_element of each SASS_LOOPS entry in this run's build (the build
+# phase fills it); the bounds of entries PHILOX_INT_PER_ELEMENT lacks
+SASS_MEASURED: dict = {}
 # SASS opcodes (before the first dot) by pipe, as sass_per_element counts
 SASS_FMA_HEAVY = ("IMAD", "IMUL")
 SASS_ALU = ("LOP3", "ISETP", "SEL", "FSEL", "IADD3", "SHF", "LEA", "PRMT",
@@ -584,6 +622,23 @@ MP_CP_TRAIN = dict(num_epochs=1, train_size=32, eval_size=24,
                    eval_batch_size=8, warmup_steps=1, learning_rate=1e-3,
                    log_every=0, seed=7)
 MP_CP_RTOL = 1e-5
+# roberta-mnli: the repo's fourth recipe (BASELINE.json configs[3]; the JAX
+# preset utils/config.py:295-299) at the reference recipe (96 = 8 x 12,
+# seq 128, bf16, dropout 0.1, seed 42), 2 steps of 192 rows and 96 rows of
+# each MNLI validation split (the synthetic 3-class fallback)
+ROBERTA_ARGS = ["--model", "roberta-large", "--task", "mnli", "--train-size",
+                "192", "--eval-size", "96", "--num-epochs", "1", "--device",
+                "cuda", "--seed", "42", "--log-every", "0"]
+# dropout-streams: roberta-large, 1 step of 96 and 32 rows a split, under
+# each stream with the LayerNorm kernels, and the kernel stream with the
+# reference LayerNorm (model_preset overrides)
+STREAM_SETTINGS = (("bits32", "fused"), ("bits8", "fused"),
+                   ("exact", "fused"), ("kernel", "reference"))
+STREAM_TRAIN = dict(train_size=96, eval_size=32, num_epochs=1, seed=42,
+                    log_every=0)
+# the crash drill: the tiny preset, a checkpoint a step
+DRILL_ARGS = TINY_ARGS + ["--device", "cuda", "--checkpoint-every-steps",
+                          "1"]
 
 _PKG = "pytorch_distributed_training_tpu"
 REPLACES = {
@@ -593,6 +648,10 @@ REPLACES = {
     "dropout_add_layer_norm_bwd": f"{_PKG}/ops/layer_norm.py:345",
     "mask_scale": f"{_PKG}/ops/dropout.py:107",
     "mask_scale_apply": f"{_PKG}/ops/dropout.py:107",
+    # modes of kernel 5's template: JAX's bits8 and exact streams
+    # (raw_dropout, ops/dropout.py:241-262) are jax.random draws
+    "dropout_bits8": f"{_PKG}/ops/dropout.py:107",
+    "dropout_exact": f"{_PKG}/ops/dropout.py:107",
     "paged_attention": f"{_PKG}/ops/paged_attention.py:238",
     "paged_attention_mq": f"{_PKG}/ops/paged_attention.py:417",
     "paged_attention_int8": f"{_PKG}/ops/paged_attention.py:250",
@@ -696,8 +755,12 @@ def bound(n_bytes: float, flops: float,
 
 def philox_int(kernel: str, n: float) -> float:
     """Integer instructions of the busier pipe for ``n`` elements of
-    ``kernel``'s mask (PHILOX_INT_PER_ELEMENT)."""
-    return max(PHILOX_INT_PER_ELEMENT[kernel]) * n
+    ``kernel``'s mask (PHILOX_INT_PER_ELEMENT, else this run's SASS)."""
+    per = PHILOX_INT_PER_ELEMENT.get(kernel)
+    if per is None:
+        c = SASS_MEASURED[kernel]
+        per = (c["fma_heavy"], c["alu"])
+    return max(per) * n
 
 
 def sass_functions(lib_path: str) -> dict:
@@ -716,7 +779,7 @@ _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?"
                         r"([A-Z][A-Z0-9_]*)([.A-Z0-9_]*)")
 
 
-def sass_per_element(sass: str, elements: int) -> dict:
+def sass_per_element(sass: str, elements: int, need=None) -> dict:
     """Instructions an element, by pipe, of the loop in ``sass`` (one
     function of ``cuobjdump -sass``) that draws the most Philox groups (a
     backward branch and the address it jumps to bound a loop; the whole
@@ -744,9 +807,13 @@ def sass_per_element(sass: str, elements: int) -> dict:
         return sum(full == "IMAD.WIDE.U32" for _, _, full in b)
 
     # the loop with the most Philox products (IMAD.WIDE.U32), the
-    # innermost of equals
-    best = max((body(lo, hi) for lo, hi in loops),
-               key=lambda b: (philox(b), -len(b)))
+    # innermost of equals; with ``need``, among the loops holding that
+    # opcode (the vector path's 16-byte store, where a scalar loop's
+    # address products would outnumber its Philox ones)
+    cands = [body(lo, hi) for lo, hi in loops]
+    if need is not None:
+        cands = [b for b in cands if any(f == need for _, _, f in b)]
+    best = max(cands, key=lambda b: (philox(b), -len(b)))
     ops: dict[str, int] = {}
     for _, _, full in best:
         ops[full] = ops.get(full, 0) + 1
@@ -764,15 +831,15 @@ def sass_counts(loops=SASS_LOOPS) -> dict:
 
     funcs = {}
     out = {}
-    for key, (lib, pattern, elements) in loops.items():
+    for key, (lib, pattern, elements, *need) in loops.items():
         if lib not in funcs:
             funcs[lib] = sass_functions(str(_build._lib_path(lib)))
         hits = [n for n in funcs[lib] if re.search(pattern, n)]
         if len(hits) != 1:
             raise AssertionError(f"SASS of {key}: {len(hits)} functions "
                                  f"match {pattern!r} in lib{lib}: {hits}")
-        out[key] = dict(sass_per_element(funcs[lib][hits[0]], elements),
-                        function=hits[0])
+        out[key] = dict(sass_per_element(funcs[lib][hits[0]], elements,
+                                         *need), function=hits[0])
     return out
 
 
@@ -875,12 +942,13 @@ def build_phase() -> None:
             raise AssertionError(f"{name} spills: {spilling}")
     # the Philox mask's integer instructions an element, by pipe, beside
     # the counts the bounds take
-    for key, c in sass_counts().items():
+    SASS_MEASURED.update(sass_counts())
+    for key, c in SASS_MEASURED.items():
+        takes = PHILOX_INT_PER_ELEMENT.get(key, "these")
         say(f"[build] SASS {key}: {c['fma_heavy']:.3f} FMA-heavy + "
             f"{c['alu']:.3f} ALU integer instructions an element ("
             f"{c['loop_instructions']} in the loop over {c['elements']} "
-            f"elements; bounds take {PHILOX_INT_PER_ELEMENT[key]}) "
-            + json.dumps(c["opcodes"]))
+            f"elements; bounds take {takes}) " + json.dumps(c["opcodes"]))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2554,35 +2622,149 @@ def mask_scale_phase(device, shapes=MASK_PARITY_SHAPES, timed=APPLY_SHAPES,
                  shapes=applied))
 
 
+def dropout_modes_phase(device, shapes=MASK_PARITY_SHAPES, timed=APPLY_SHAPES,
+                        rate=DROPOUT_RATE) -> dict:
+    """Kernel 5's bits8 and exact modes against their plain versions
+    (``ops/dropout.reference_dropout``), bit for bit, at the mask parity
+    shapes (odd tails included), on x at its place and one element past 16
+    bytes, holding NaN and infinities, bf16 and float32, two calls
+    bit-identical; the NaN contract checked (exact: a dropped NaN is 0,
+    bits8: it stays NaN); ``raw_dropout``'s output and gradient against
+    autograd of the plain version. Timed at ``timed`` beside the plain
+    version and ``F.dropout``; the bound from this run's SASS."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_distributed_training_tpu_torch.ops import dropout as drop
+
+    g = torch.Generator(device=device).manual_seed(17)
+    bf16 = torch.bfloat16
+    res = {}
+    for impl in ("bits8", "exact"):
+        kernel = drop.STREAM_KERNELS[impl]
+        keep_fn = drop.bits8_keep if impl == "bits8" else drop.exact_keep
+        for i, shape in enumerate(shapes):
+            for dtype in (bf16, torch.float32):
+                seed, site, what = 700 + i, 2, f"{impl} {shape} {dtype}"
+                x = torch.randn(shape, generator=g, device=device).to(dtype)
+                flat = x.view(-1)
+                flat[::97] = float("nan")
+                flat[1::89] = float("inf")
+                flat[2::83] = -float("inf")
+                want = drop.reference_dropout(x, rate, seed, site, impl)
+                for xin, where in ((x, "aligned"), (_off16(x), "off 16 "
+                                                         "bytes")):
+                    for _ in range(2):
+                        same_bits_or_nan(f"{what} {where}", drop._apply_cuda(
+                            xin, rate, seed, site, impl), want)
+                keep = keep_fn(shape, rate, seed, site, device)
+                nan_in = torch.isnan(x)
+                nan_out = torch.isnan(want)
+                if impl == "exact" and not torch.equal(nan_out,
+                                                       nan_in & keep):
+                    raise AssertionError(f"{what}: a dropped NaN is not 0")
+                if impl == "bits8" and (nan_in & ~nan_out).any():
+                    raise AssertionError(f"{what}: a NaN was quenched")
+                x = torch.randn(shape, generator=g, device=device).to(dtype)
+                dy = torch.randn(shape, generator=g, device=device).to(dtype)
+                xk = x.clone().requires_grad_()
+                yk = drop.raw_dropout(xk, rate, seed, site, impl)
+                yk.backward(dy)
+                same_bits_or_nan(f"raw_dropout {what}", yk.detach(),
+                                 drop.reference_dropout(x, rate, seed, site,
+                                                        impl))
+                same_bits_or_nan(f"raw_dropout gradient {what}", xk.grad,
+                                 drop.reference_dropout(dy, rate, seed, site,
+                                                        impl))
+        say(f"[kernels] {kernel} parity ok: {list(shapes)} x {{bf16, f32}}: "
+            f"x aligned and off 16 bytes, with NaN and +-inf, identical to "
+            f"the plain version's bits, two calls bit-identical, the NaN "
+            f"contract held ({'select' if impl == 'exact' else 'multiply'}"
+            f"); raw_dropout's output and gradient identical to the plain "
+            f"version's")
+        applied = {}
+        for shape in timed:
+            x = torch.randn(shape, generator=g, device=device).to(bf16)
+            n = math.prod(shape)
+            t = dict(
+                ms=time_ms(lambda: drop._apply_cuda(x, rate, 9, 2, impl)),
+                plain_ms=time_ms(lambda: drop.reference_dropout(
+                    x, rate, 9, 2, impl)),
+                library_ms=time_ms(lambda: F.dropout(x, rate,
+                                                     training=True)),
+            )
+            # x read and y written once, a multiply (a division) an
+            # element, the mask's integer instructions
+            t["bound_ms"], t["bound_by"] = bound(
+                n * 4, float(n), int_instr=philox_int(kernel, n))
+            applied[str(list(shape))] = t
+            say(f"[kernels] {kernel} {list(shape)} bf16 rate {rate}: "
+                + json.dumps(t))
+        res[kernel] = dict(max_abs_err=0.0, **applied[str(list(timed[0]))],
+                           shapes=applied)
+    return res
+
+
 # ------------------------------------------------------------ phase 4, 5
 
 
 def expected_train_launches(*, micro: int, eval_batches: int,
                             layers: int, flash: bool = False,
-                            calibration: tuple = (0, 0)) -> dict:
+                            calibration: tuple = (0, 0),
+                            roberta: bool = False) -> dict:
     """Launches of a counted train run, ``layers`` the trunk layers a
     forward runs (the branch ensemble's: every branch's): per microbatch
     forward the embeddings LN, 2 tails per layer and 2 + layers dropouts
-    (embeddings, classifier, the probs of each layer); per backward the LN
-    and tail backwards, the probs dropouts again (attention_remat
-    recomputes the core) and each dropout's backward (the mask drawn
-    again, applied to dy); per eval batch the forwards, deterministic.
-    ``flash`` (seq <= 256): the whole-sequence flash pair a layer instead,
-    with the probs dropout inside, so 2 dropouts a forward. No mask-scale
-    tensor is made. ``calibration``: the deterministic (forwards,
-    backwards) of the delayed-int8 calibration before step 0."""
+    (embeddings, classifier, the probs of each layer; ``roberta``: the
+    pooler's pre-dropout too); per backward the LN and tail backwards, the
+    probs dropouts again (attention_remat recomputes the core) and each
+    dropout's backward (the mask drawn again, applied to dy); per eval
+    batch the forwards, deterministic. ``flash`` (seq <= 256): the
+    whole-sequence flash pair a layer instead, with the probs dropout
+    inside, so 2 dropouts a forward. No mask-scale tensor is made.
+    ``calibration``: the deterministic (forwards, backwards) of the
+    delayed-int8 calibration before step 0."""
     fwd, bwd = micro + eval_batches + calibration[0], micro + calibration[1]
+    head = 2 * (2 + roberta)  # the head's sites, each way
     out = {
         "layer_norm": fwd,
         "layer_norm_bwd": bwd,
         "dropout_add_layer_norm": 2 * layers * fwd,
         "dropout_add_layer_norm_bwd": 2 * layers * bwd,
-        "mask_scale_apply": (4 + 3 * layers) * micro,
+        "mask_scale_apply": (head + 3 * layers) * micro,
     }
     if flash:
         out.update(flash_whole_fwd=layers * fwd, flash_whole_bwd=layers * bwd,
-                   mask_scale_apply=4 * micro)
+                   mask_scale_apply=head * micro)
     return out
+
+
+def stream_launches(*, micro: int, eval_batches: int, layers: int,
+                    impl: str, ln: str) -> dict:
+    """Launches of a counted RoBERTa run (reference attention) under the
+    stream ``impl`` and ``layernorm_impl`` ``ln`` (``ops/layer_norm.py``):
+    a train step's tails are unfused (``raw_dropout`` in the stream, the
+    add, the LayerNorm: kernels 1 and 2 under ``"fused"``, none under
+    ``"reference"``), so kernels 3 and 4 launch only in the eval, where a
+    deterministic tail under ``"fused"`` takes kernel 3; every dropout
+    site (embeddings, pooler, classifier, the probs, the two tails)
+    launches the stream's mode each way, the probs once more in their
+    recompute."""
+    from pytorch_distributed_training_tpu_torch.ops.dropout import (
+        STREAM_KERNELS,
+    )
+
+    fused = ln == "fused"
+    fwd, bwd = micro + eval_batches, micro
+    # forward, the probs' recompute, backward
+    sites = (3 + 3 * layers) + layers + (3 + 3 * layers)
+    want = {
+        "layer_norm": (fwd + 2 * layers * micro) * fused,
+        "layer_norm_bwd": (1 + 2 * layers) * bwd * fused,
+        "dropout_add_layer_norm": 2 * layers * eval_batches * fused,
+        STREAM_KERNELS[impl]: sites * micro,
+    }
+    return {k: v for k, v in want.items() if v}
 
 
 def calibration_passes(mc) -> tuple:
@@ -2595,16 +2777,22 @@ def calibration_passes(mc) -> tuple:
     return (2 * (1 + grads), 2 * grads)
 
 
+def eval_batches(trainer) -> int:
+    """The eval batches of one evaluation, over every split (MNLI's
+    two)."""
+    return sum(lo.steps_per_epoch for lo in trainer.eval_loaders.values())
+
+
 def train_launches(trainer) -> dict:
     """``expected_train_launches`` of a finished classification run (its
     microbatches: each pipeline microbatch under the schedules)."""
     tc, mc = trainer.tcfg, trainer.mcfg
     return expected_train_launches(
         micro=trainer.state.step * tc.grad_accum_steps * trainer.n_micro,
-        eval_batches=trainer.eval_loader.steps_per_epoch,
+        eval_batches=eval_batches(trainer),
         layers=mc.num_layers * getattr(trainer.state.module, "n_branches", 1),
         flash=mc.attention_impl == "flash",
-        calibration=calibration_passes(mc))
+        calibration=calibration_passes(mc), roberta=mc.roberta_style)
 
 
 def initial_weights(trainer) -> dict:
@@ -2694,11 +2882,13 @@ def train_metrics(trainer, wall) -> dict:
         / rec["samples_per_sec"],
         losses=[s["loss"] for s in trainer.step_log],
         grad_norms=[s["grad_norm"] for s in trainer.step_log],
-        accuracy=rec["accuracy"], f1=rec["f1"],
+        **{k: v for k, v in rec.items()
+           if k.startswith("accuracy") or k == "f1"},
     )
 
 
-def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train") -> dict:
+def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train",
+                steps=3) -> dict:
     """A classification main path (``train_dp``, or ``train_mp``'s branch
     ensemble), counted (first run, cold), then a second run from the same
     seed that must give bit-identical per-step losses."""
@@ -2715,7 +2905,7 @@ def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train") -> dict:
         f"microbatches, {trainer.eval_loader.steps_per_epoch} eval batches, "
         f"{branches} branch(es))", counts, train_launches(trainer))
     cold = train_metrics(trainer, wall)
-    if cold["steps"] != 3 or not all(
+    if cold["steps"] != steps or not all(
             map(math.isfinite, cold["losses"] + cold["grad_norms"])):
         raise AssertionError(f"{tag} run: {cold}")
     start = initial_weights(trainer)
@@ -2725,8 +2915,8 @@ def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train") -> dict:
     unmoved = [k for k in start
                if torch.equal(now[k].cpu(), start[k])]
     if unmoved:
-        raise AssertionError(f"{tag}: parameters unchanged after 3 steps: "
-                             f"{unmoved[:5]}")
+        raise AssertionError(f"{tag}: parameters unchanged after {steps} "
+                             f"steps: {unmoved[:5]}")
     del trainer, start, now
     gc.collect()
     torch.cuda.empty_cache()
@@ -2834,6 +3024,186 @@ def host_time_by_op(averages, top_n=12) -> dict:
                 runtime_launches=launches,
                 top_self_ms={e.key[:60]: e.self_cpu_time_total / 1e3
                              for e in ops[:top_n]})
+
+
+@contextlib.contextmanager
+def offline_datasets():
+    """A stand-in ``datasets`` module in ``sys.modules`` whose
+    ``load_dataset`` raises ``ConnectionError``, as on an image without
+    network: the card's machine has no ``datasets`` package, and the
+    loader's own fallback then yields the synthetic task."""
+    import types
+
+    def load_dataset(*args, **kwargs):
+        raise ConnectionError("no network: GLUE is not reachable")
+
+    prev = sys.modules.get("datasets")
+    sys.modules["datasets"] = types.SimpleNamespace(
+        load_dataset=load_dataset)
+    try:
+        yield
+    finally:
+        if prev is None:
+            sys.modules.pop("datasets", None)
+        else:
+            sys.modules["datasets"] = prev
+
+
+def roberta_mnli_phase(argv=ROBERTA_ARGS) -> dict:
+    """``train_dp --model roberta-large --task mnli`` at the recipe: the
+    train phase's checks (counted with the pooler's pre-dropout, both
+    splits' eval batches; finite losses; every parameter moved; a rerun
+    bit-identical) at 2 steps; its samples/s, ms a step, peak memory and
+    both accuracies printed."""
+    with offline_datasets():
+        res = train_phase(argv, tag="roberta-mnli", steps=2)
+    keep = ("samples_per_s", "ms_per_step", "peak_mem_bytes", "accuracy",
+            "accuracy_matched", "accuracy_mismatched")
+    say("[roberta-mnli] " + json.dumps({k: res[k] for k in keep}))
+    return res
+
+
+def stream_run(impl: str, ln: str):
+    """One counted roberta-large run of ``STREAM_TRAIN`` on MNLI under the
+    stream ``impl`` and ``layernorm_impl`` ``ln``: (trainer, launches,
+    wall seconds)."""
+    from pytorch_distributed_training_tpu_torch.ops import _build
+    from pytorch_distributed_training_tpu_torch.train.loop import Trainer
+    from pytorch_distributed_training_tpu_torch.utils.config import (
+        TrainConfig,
+        model_preset,
+    )
+
+    mcfg = model_preset("roberta-large", dropout_impl=impl,
+                        layernorm_impl=ln)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with offline_datasets(), no_mask_tensor(f"dropout-streams {impl}"):
+        trainer = Trainer(mcfg, TrainConfig(**STREAM_TRAIN), task="mnli",
+                          device="cuda")
+        trainer.run()
+    return trainer, dict(_build.LAUNCH_COUNTS), time.perf_counter() - t0
+
+
+def dropout_streams_phase(settings=STREAM_SETTINGS) -> dict:
+    """roberta-large, 1 step and the eval, under each stream (fused
+    LayerNorm) and under the reference LayerNorm: counted
+    (``stream_launches``: no kernel 3 or 4 in the train step, the stream's
+    mode of kernel 5, kernels 1 and 2 or none), finite losses, a rerun
+    bit-equal; ms a step beside each other."""
+    out = {}
+    for impl, ln in settings:
+        tag = f"{impl}/{ln}"
+        trainer, counts, wall = stream_run(impl, ln)
+        check_launches(f"dropout-streams {tag} run", counts, stream_launches(
+            micro=trainer.state.step * trainer.tcfg.grad_accum_steps,
+            eval_batches=eval_batches(trainer),
+            layers=trainer.mcfg.num_layers, impl=impl, ln=ln))
+        m = train_metrics(trainer, wall)
+        del trainer
+        _free_cuda()
+        if m["steps"] != 1 or not all(
+                map(math.isfinite, m["losses"] + m["grad_norms"])):
+            raise AssertionError(f"dropout-streams {tag}: {m}")
+        again, _, _ = stream_run(impl, ln)
+        rerun = train_metrics(again, 0.0)["losses"]
+        del again
+        _free_cuda()
+        if rerun != m["losses"]:
+            raise AssertionError(f"dropout-streams {tag}: the rerun's "
+                                 f"losses differ: {rerun} vs {m['losses']}")
+        m["launches"] = counts
+        out[impl if ln == "fused" else f"{impl}-{ln}-ln"] = m
+        say(f"[dropout-streams] {tag}: losses bit-identical on a rerun; "
+            + json.dumps(m))
+    return out
+
+
+def _summarize_metrics():
+    """``scripts/summarize_metrics.py`` as a module, for its
+    ``load_records`` (its ``summarize`` imports the JAX package's span
+    helpers, which this script leaves alone; the CPU tests run it on the
+    port's stream)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "summarize_metrics", os.path.join(ROOT, "scripts",
+                                          "summarize_metrics.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def telemetry_faults_phase(root: str, plain: dict,
+                           argv=ROBERTA_ARGS) -> dict:
+    """The roberta-mnli run again with ``--metrics-dir``: its stream read
+    back (``summarize_metrics.load_records``; run_meta, a step record a
+    step with the device block, the epoch record with the straggler stats),
+    ms a step beside ``plain``'s (the same run without telemetry); then
+    the crash drill: the tiny preset under ``PDT_TPU_FAULT=
+    crash_at_step:1`` and ``--max-restarts 1`` with a fresh
+    ``--checkpoint-dir``, resumed in the same process, against the
+    uninterrupted run: step 2's loss and every weight bit-equal."""
+    from pytorch_distributed_training_tpu_torch.cli import train_dp
+    from pytorch_distributed_training_tpu_torch.faults import inject
+
+    mdir = os.path.join(root, "metrics")
+    with offline_datasets():
+        trainer, _, wall = train_once(argv + ["--metrics-dir", mdir])
+    with_t = train_metrics(trainer, wall)
+    del trainer
+    _free_cuda()
+    recs = _summarize_metrics().load_records(mdir)
+    kinds = [r["record"] for r in recs]
+    if kinds != ["run_meta", "step", "step", "epoch"] or not all(
+            r["device_block_s"] > 0 for r in recs if r["record"] == "step"):
+        raise AssertionError(f"telemetry stream: {kinds}")
+    meta, epoch = recs[0], recs[-1]
+    steps = [{k: r[k] for k in ("step", "data_wait_s", "dispatch_s",
+                                "device_block_s", "step_s",
+                                "compile_inclusive")}
+             for r in recs if r["record"] == "step"]
+    res = dict(ms_per_step=with_t["ms_per_step"],
+               ms_per_step_without=plain["ms_per_step"],
+               ratio=with_t["ms_per_step"] / plain["ms_per_step"],
+               losses_equal=with_t["losses"] == plain["losses"],
+               steps=steps, device_name=meta["device_name"],
+               straggler=epoch["straggler"])
+    if not res["losses_equal"]:
+        raise AssertionError(f"telemetry changed the losses: {with_t} vs "
+                             f"{plain}")
+    say("[telemetry-faults] roberta-mnli with --metrics-dir: "
+        + json.dumps(res))
+    base = train_dp.train(DRILL_ARGS + ["--checkpoint-dir",
+                                        os.path.join(root, "base")])
+    want = (weights_digest(base.state.module), base.step_log)
+    del base
+    drill_dir, drill_m = os.path.join(root, "drill"), os.path.join(root, "dm")
+    os.environ[inject.ENV_VAR] = "crash_at_step:1"
+    inject.set_plan(None)  # parsed from the environment at its first use
+    try:
+        t0 = time.perf_counter()
+        t = train_dp.train(DRILL_ARGS + [
+            "--checkpoint-dir", drill_dir, "--max-restarts", "1",
+            "--metrics-dir", drill_m])
+        drill_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop(inject.ENV_VAR)
+        inject.set_plan(None)
+    kinds = [r["record"] for r in _summarize_metrics().load_records(drill_m)]
+    restore = t.checkpointer.restores[-1]
+    got = (weights_digest(t.state.module), t.step_log)
+    if (got[0] != want[0] or restore["step"] != 1
+            or got[1] != want[1][1:] or kinds.count("restart") != 1
+            or kinds.count("run_meta") != 2):
+        raise AssertionError(f"crash drill: restored {restore}, steps "
+                             f"{got[1]} against {want[1]}, records {kinds}")
+    drill = dict(seconds=drill_s, restore=restore, step2=got[1][0],
+                 records=kinds)
+    say("[telemetry-faults] crash_at_step:1 under --max-restarts 1: one "
+        "restart, resumed from step 1, step 2's loss and every weight "
+        "bit-equal to the uninterrupted run: " + json.dumps(drill))
+    return dict(res, drill=drill)
 
 
 def cpu_vs_card_phase(argv=TINY_ARGS, cli="train_dp",
@@ -4982,24 +5352,6 @@ SERVE_CKPT_ARGS = ["--model", "gpt2-medium", "--device", "cuda",
                    "--max-new-tokens-cap", "64"]
 
 
-def corrupt_step_dir(step_path: str, flip_bytes: int = 64) -> str:
-    """Flip the first ``flip_bytes`` of a committed step's largest data file
-    in place, its length kept (the JAX package's fault injection of a torn
-    publish, which only a digest sees); the file's path."""
-    victim, size = None, -1
-    for root, _, files in os.walk(step_path):
-        for name in files:
-            path = os.path.join(root, name)
-            if name != "pdt_manifest.json" and os.path.getsize(path) > size:
-                victim, size = path, os.path.getsize(path)
-    n = min(flip_bytes, size)
-    with open(victim, "r+b") as f:
-        head = f.read(n)
-        f.seek(0)
-        f.write(bytes(b ^ 0xFF for b in head))
-    return victim
-
-
 def weights_digest(module) -> str:
     """sha256 of every tensor of ``module``'s ``state_dict``, in order."""
     import hashlib
@@ -5096,6 +5448,9 @@ def ckpt_fallback_phase(resume: dict) -> dict:
     """The newest step's largest file damaged (same length), a restore at
     ``--checkpoint-verify digest`` falls back to step 1: the weights of
     the resumed run's restore, by digest."""
+    from pytorch_distributed_training_tpu_torch.faults.inject import (
+        corrupt_step_dir,
+    )
     from pytorch_distributed_training_tpu_torch.train import checkpoint
 
     ck = resume["dir"]
@@ -5427,6 +5782,8 @@ def main() -> int:
     res["dropout_add_layer_norm"], res["dropout_add_layer_norm_bwd"] = (
         dal_phase(device))
     lap("kernels")
+    res.update(dropout_modes_phase(device))
+    lap("dropout-modes")
     res["paged_attention_mq"] = paged_mq_phase(device)
     res["paged_attention_int8"], res["paged_attention_mq_int8"] = (
         paged_int8_phase(device))
@@ -5445,6 +5802,16 @@ def main() -> int:
     lap("train-int8")
     train_profile_phase(train["warm"], one_step(TRAIN_ARGS))
     lap("train-profile")
+    roberta = roberta_mnli_phase()
+    lap("roberta-mnli")
+    streams = dropout_streams_phase()
+    lap("dropout-streams")
+    tel_root = tempfile.mkdtemp(prefix="pdt_chip_smoke_")
+    try:
+        telemetry_faults_phase(tel_root, roberta["warm"])
+    finally:
+        shutil.rmtree(tel_root, ignore_errors=True)
+    lap("telemetry-faults")
     train_mp = train_phase(TRAIN_MP_ARGS, "train_mp", tag="train-mp")
     lap("train-mp")
     train_profile_phase(train_mp["warm"], one_step(TRAIN_MP_ARGS),
@@ -5553,7 +5920,8 @@ def main() -> int:
                 flash_whole_fwd=lm_short, flash_whole_bwd=lm_short,
                 paged_attention_mq=options["spec"], flash_dq=two_pass,
                 flash_dkv=two_pass, paged_attention_int8=options["int8"],
-                paged_attention_mq_int8=options["int8-spec"])
+                paged_attention_mq_int8=options["int8-spec"],
+                dropout_bits8=streams["bits8"], dropout_exact=streams["exact"])
     for name in _build.KERNELS:
         r = res[name]
         launches = runs.get(name, train)["launches"].get(name, 0)

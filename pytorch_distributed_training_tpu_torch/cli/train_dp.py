@@ -57,8 +57,23 @@ only); ``--resume`` starts from the newest step there that verifies at
 included; ``python -m
 pytorch_distributed_training_tpu_torch.cli.verify_checkpoint DIR``
 checks a directory offline. ``--hf-checkpoint DIR`` starts the model from
-an HF BERT checkpoint (``models/hf_loader.py``). The JAX CLI's restart
-flags wait for their slice (ROADMAP.md, queue 1).
+an HF BERT or RoBERTa checkpoint (``models/hf_loader.py``).
+
+RoBERTa-large on MNLI, the repo's fourth recipe (``--task mnli`` falls back
+to the synthetic 3-class pair task without GLUE data)::
+
+    python -m pytorch_distributed_training_tpu_torch.cli.train_dp \
+        --model roberta-large --task mnli
+
+Telemetry and faults: ``--metrics-dir DIR`` writes the JSONL stream that
+``scripts/summarize_metrics.py DIR`` reads (every step then synchronizes
+on the device), ``--log-format json`` makes the log lines JSON;
+``--max-restarts N`` (with ``--checkpoint-dir``) retries a crashed run
+from its newest verified checkpoint, in the same process, ``N`` times
+(``--restart-window-s``: within a sliding window); ``PDT_TPU_FAULT``
+injects the faults of ``faults/inject.py`` (``crash_at_step:2`` and so
+on), ``--crash-at-step`` a hard exit. A SIGTERM stops the run with an
+emergency checkpoint and exit 75 (``--no-handle-preemption``: off).
 """
 
 from __future__ import annotations
@@ -68,8 +83,10 @@ import json
 
 from pytorch_distributed_training_tpu_torch.cli import (
     add_quant_args,
+    add_restart_args,
     quant_overrides,
     resolve_attention,
+    run_supervised,
 )
 from pytorch_distributed_training_tpu_torch.utils.config import (
     MeshConfig,
@@ -84,7 +101,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default="bert-large-cased",
                    help="model preset (bert-base-cased, bert-large-cased, "
-                        "tiny)")
+                        "roberta-large, tiny)")
     p.add_argument("--task", default="auto",
                    help="mrpc | mnli | sst2 | qnli | synthetic | auto (mrpc "
                         "with the synthetic fallback)")
@@ -103,25 +120,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the run goes (cuda raises when no GPU is "
                         "visible)")
+    add_restart_args(p)
     p.add_argument("--hf-checkpoint", default=None,
                    help="HF torch checkpoint directory to start from "
-                        "(model.safetensors or pytorch_model.bin)")
+                        "(model.safetensors or pytorch_model.bin; BERT or "
+                        "RoBERTa)")
     p.add_argument("--history-out", default=None,
                    help="write the per-epoch metric history as JSON here")
     add_dataclass_args(p, TrainConfig)
     return p
 
 
-def build_trainer(args):
+def build_trainer(args, tcfg=None):
     """The ``Trainer`` that parsed ``args`` describe (process group joined,
-    data loaded, model on its device), not yet run."""
+    data loaded, model on its device), not yet run; ``tcfg`` in place of
+    the flags' ``TrainConfig`` (a supervised retry's)."""
     from pytorch_distributed_training_tpu_torch.parallel import (
         ShardingPolicy,
     )
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
 
     quant = quant_overrides(args)
-    tcfg = dataclass_from_args(TrainConfig, args)
+    tcfg = tcfg or dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
         **quant, **resolve_attention(args.attention, args.mesh_seq),
@@ -139,14 +159,21 @@ def train(argv=None):
 
 
 def run(args, build):
-    """Build the trainer of ``args`` with ``build``, run it to its end,
-    write ``--history-out`` (rank 0) and leave the process group; the
-    trainer. Shared with ``cli/train_lm``."""
+    """Build the trainer of ``args`` with ``build(args, tcfg)`` and run it
+    to its end under the restart flags (``run_supervised``), write
+    ``--history-out`` (rank 0) and leave the process group once, after the
+    last attempt; the trainer. Shared with ``cli/train_lm`` and
+    ``cli/train_mp``."""
     from pytorch_distributed_training_tpu_torch.comms.bootstrap import shutdown
+    from pytorch_distributed_training_tpu_torch.utils.logging import (
+        set_log_format,
+    )
 
+    # before anything logs, so the bootstrap's lines take the format too
+    set_log_format(args.log_format)
     try:
-        trainer = build(args)
-        trainer.run()
+        trainer = run_supervised(args, dataclass_from_args(TrainConfig, args),
+                                 lambda cfg: build(args, cfg))
         if args.history_out and trainer.info.is_main:
             with open(args.history_out, "w") as f:
                 json.dump(trainer.history, f, indent=1)

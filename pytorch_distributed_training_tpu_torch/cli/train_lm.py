@@ -65,8 +65,8 @@ serves as it is (``cli/generate_lm.py``, ``cli/serve_lm.py``).
 backward; ``--remat-policy dots|weight_dots`` keeps every matmul output or
 only the projections), ``--remat-mlp`` only each block's MLP tail
 (``models/bert.remat_call``); losses and gradients equal those without
-remat. The JAX CLI's restart flags wait for the telemetry and fault
-core.
+remat. ``--metrics-dir``, ``--log-format``, ``--max-restarts``,
+``--restart-window-s`` and the fault flags are ``train_dp``'s.
 """
 
 from __future__ import annotations
@@ -75,6 +75,7 @@ import argparse
 
 from pytorch_distributed_training_tpu_torch.cli import (
     add_quant_args,
+    add_restart_args,
     quant_overrides,
     resolve_attention,
 )
@@ -129,21 +130,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the run goes (cuda raises when no GPU is "
                         "visible)")
+    add_restart_args(p)
     p.add_argument("--history-out", default=None,
                    help="write the per-epoch metric history as JSON here")
     add_dataclass_args(p, TrainConfig)
     return p
 
 
-def build_trainer(args):
+def build_trainer(args, tcfg=None):
     """The ``Trainer`` that parsed ``args`` describe (process group joined,
-    data made, model on its device), not yet run."""
+    data made, model on its device), not yet run; ``tcfg`` in place of the
+    flags' ``TrainConfig`` (a supervised retry's)."""
     from pytorch_distributed_training_tpu_torch.parallel import (
         ShardingPolicy,
     )
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
 
-    tcfg = dataclass_from_args(TrainConfig, args)
+    tcfg = tcfg or dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
         scan_layers=args.scan_layers, remat=args.remat,

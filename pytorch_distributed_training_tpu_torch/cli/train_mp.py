@@ -62,8 +62,9 @@ CLS row of seq coordinate 0::
 the delayed amaxes stream through the pipeline microbatches. The
 checkpoint flags are ``train_dp``'s (``train/checkpoint.py``): each stage
 or branch rank writes its own layers under the whole model's names, so a
-checkpoint of one mode and mesh resumes under another. The JAX CLI's
-restart flags wait with ``train_dp``'s (slice 2 leftovers).
+checkpoint of one mode and mesh resumes under another. ``--model
+roberta-large`` runs RoBERTa's trunk in every mode. The telemetry,
+restart and fault flags are ``train_dp``'s.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ import functools
 
 from pytorch_distributed_training_tpu_torch.cli import (
     add_quant_args,
+    add_restart_args,
     quant_overrides,
     resolve_attention,
 )
@@ -90,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="bert-base-cased",
                    help="model preset (the reference MP script uses "
                         "bert-base-cased x 3, test_model_parallelism.py:"
-                        "230-238)")
+                        "230-238; bert-large-cased, roberta-large, tiny)")
     p.add_argument("--task", default="auto",
                    help="mrpc | mnli | synthetic | auto (mrpc with the "
                         "synthetic fallback)")
@@ -126,6 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the run goes (cuda raises when no GPU is "
                         "visible)")
+    add_restart_args(p)
     p.add_argument("--history-out", default=None,
                    help="write the per-epoch metric history as JSON here")
     add_dataclass_args(p, TrainConfig)
@@ -157,10 +160,11 @@ def resolve_n_micro(mesh, n: int, batch: int, what: str) -> int:
     return n
 
 
-def build_trainer(args):
+def build_trainer(args, tcfg=None):
     """The ``Trainer`` that parsed ``args`` describe (process group joined,
     mesh built, data loaded, this rank's part of the model on its device),
-    not yet run."""
+    not yet run; ``tcfg`` in place of the flags' ``TrainConfig`` (a
+    supervised retry's)."""
     quant = quant_overrides(args)
     from pytorch_distributed_training_tpu_torch.models.branch import (
         BranchEnsembleClassifier,
@@ -170,7 +174,7 @@ def build_trainer(args):
     )
     from pytorch_distributed_training_tpu_torch.train.loop import Trainer
 
-    tcfg = dataclass_from_args(TrainConfig, args)
+    tcfg = tcfg or dataclass_from_args(TrainConfig, args)
     mcfg = model_preset(
         args.model, compute_dtype="bfloat16" if tcfg.bf16 else "float32",
         **quant, **resolve_attention(args.attention, args.mesh_seq))

@@ -12,6 +12,8 @@ averages the rest (FSDP's replicated parameters) over the batch group.
   tensors summed or averaged over a group on this process's device (NCCL
   reduces CUDA tensors, gloo CPU ones): the step loss, the grad norm's
   squares, the eval counts.
+- ``host_allgather``: a small float64 vector of every rank, to the host
+  (the straggler stats, ``telemetry/straggler.py``).
 - ``all_reduce_max``: the int8 sites' amaxes (``ops/quant.py``) maxed
   over every group the quantized tensor is cut over, in place: one scalar
   (or a weight's channels) a collective.
@@ -118,6 +120,21 @@ def host_sum_counts(counts: dict[str, torch.Tensor],
     for group in groups:
         total = all_reduce_sum(total, group)
     return dict(zip(keys, total.cpu().tolist()))
+
+
+def host_allgather(local: np.ndarray, group=None, device=None) -> np.ndarray:
+    """``local`` (a small float64 vector) of every rank of ``group``, in
+    rank order, stacked on the host: [ranks, len(local)]. NCCL gathers it
+    on ``device`` (the process's card), gloo on the host."""
+    local = np.asarray(local, np.float64)
+    if _size(group) == 1:
+        return local[None]
+    if dist.get_backend(group) != dist.Backend.NCCL:
+        device = "cpu"
+    t = torch.as_tensor(local, device=device)
+    parts = [torch.empty_like(t) for _ in range(_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.stack(parts).cpu().numpy()
 
 
 class _ReduceFromModel(torch.autograd.Function):

@@ -21,15 +21,25 @@ fsdp), and their count as ``rank`` and ``world_size``, in place of
   ``valid`` stay whole. ``whole_rows`` (a function of the batch dict, as
   tensors on the CPU) runs on each batch before the cut: the LM step's
   targets are shifted on the whole row (``train/step.py``).
+- Each batch's host assembly and device placement are timed into the
+  default registry (``data/host_assemble_s`` or ``data/eval_assemble_s``,
+  ``data/h2d_place_s``), and the ``slow_host`` fault (``faults/inject.py``)
+  stretches them.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Iterator
 
 import numpy as np
 import torch
+
+from pytorch_distributed_training_tpu_torch.faults.inject import get_plan
+from pytorch_distributed_training_tpu_torch.telemetry.registry import (
+    get_registry,
+)
 
 
 def resolve_batch_geometry(*, global_batch_size: int, grad_accum_steps: int,
@@ -110,16 +120,18 @@ class ShardedLoader:
         micro_local = micro_global // self.world_size
         lo_r = self.rank * micro_local
         for step in range(self.steps_per_epoch):
+            t0 = time.perf_counter()
             idx = perm[step * self.global_batch:(step + 1) * self.global_batch]
             idx = idx.reshape(self.accum, micro_global)
             local = idx[:, lo_r:lo_r + micro_local]
-            yield self._ship({k: v[local] for k, v in self.data.items()},
-                             rank=2)
+            yield self._placed({k: v[local] for k, v in self.data.items()},
+                               rank=2, t0=t0, timer="data/host_assemble_s")
 
     def _eval_epoch(self) -> Iterator[dict]:
         per_rank = self.local_per_step
         lo_r = self.rank * per_rank
         for step in range(self.steps_per_epoch):
+            t0 = time.perf_counter()
             lo = step * self.global_batch
             idx_global = np.arange(lo, min(lo + self.global_batch, self.n))
             valid_n = len(idx_global)
@@ -131,7 +143,21 @@ class ShardedLoader:
             batch = {k: v[local_sel] for k, v in self.data.items()}
             valid = (np.arange(self.global_batch) < valid_n).astype(np.int32)
             batch["valid"] = valid[lo_r:lo_r + per_rank]
-            yield self._ship(batch, rank=1)
+            yield self._placed(batch, rank=1, t0=t0,
+                               timer="data/eval_assemble_s")
+
+    def _placed(self, batch: dict, rank: int, t0: float, timer: str) -> dict:
+        """``_ship(batch, rank)``, the assembly since ``t0`` timed under
+        ``timer`` and the placement under ``data/h2d_place_s`` in the
+        default registry, then stretched by the ``slow_host`` fault when
+        one is armed."""
+        t1 = time.perf_counter()
+        out = self._ship(batch, rank)
+        reg = get_registry()
+        reg.observe(timer, t1 - t0)
+        reg.observe("data/h2d_place_s", time.perf_counter() - t1)
+        get_plan().slow_host_delay(time.perf_counter() - t0)
+        return out
 
     def _ship(self, batch: dict, rank: int) -> dict:
         """``batch`` (rows of rank ``rank``: [accum, micro] or [batch]) to

@@ -78,6 +78,17 @@
 - ``BertForSequenceClassification``: embeddings (word + position + token
   type, LayerNorm, dropout) -> layers -> CLS pooler (dense, tanh) ->
   dropout -> float32 classifier on the float32 pooled output.
+- RoBERTa (``roberta_style``, JAX ``default_position_ids`` and
+  ``pool_cls``): the same trunk; position ids ``cumsum(ids != pad) * (ids
+  != pad) + pad`` (counted over the ids, not the attention mask: a task
+  that pads with 0 where RoBERTa's pad is 1 counts every column, as JAX
+  does), a token-type table of one row, and a dropout of the CLS row
+  before the pooler (RobertaClassificationHead's order). Under context
+  parallelism a rank's positions add the non-pad ids of the columns left
+  of its shard, gathered over the seq axis (``shard_position_ids``).
+- The options of every ``Dropout`` site and LayerNorm: ``dropout_impl``
+  (the mask stream, ``ops/dropout.py``) and ``layernorm_impl``
+  (``ops/layer_norm.py``).
 - ``ScannedLayers``: with ``scan_layers`` the trunk (``bert.layers_scan``,
   and GPT-2's ``layers_scan``) holds one layer module whose parameters
   stack every layer's on a leading [num_layers] dim, the JAX ``nn.scan``
@@ -87,8 +98,9 @@
 
 Dropout seeds: ``forward(..., dropout_seed=None)`` is deterministic; a
 seed gives the embeddings ``fold_in(seed, 0)``, layer i ``fold_in(seed,
-i + 1)`` and the classifier ``fold_in(seed, num_layers + 1)``, the
-counterpart of the distinct flax ``make_rng("dropout")`` keys per module.
+i + 1)`` and the classifier ``fold_in(seed, num_layers + 1)`` (site 0; the
+RoBERTa pooler's pre-dropout site 1), the counterpart of the distinct flax
+``make_rng("dropout")`` keys per module.
 
 Tensor parallelism (``parallel/sharding.tensor_parallel`` sets
 ``tp_shard``, the model axis's ``AxisShard``, on the modules whose
@@ -137,6 +149,7 @@ from torch.utils.checkpoint import (
 )
 
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
+    all_reduce_sum,
     broadcast_first,
     copy_to_model,
     reduce_from_model,
@@ -167,6 +180,8 @@ from pytorch_distributed_training_tpu_torch.utils.config import ModelConfig
 _NEG = torch.finfo(torch.float32).min
 # dropout sites within one layer's seed: the two tails, then the probs
 _SITE_ATTENTION_NORM, _SITE_MLP_NORM, _SITE_PROBS = 0, 1, 2
+# within the classifier's seed: its dropout, then RoBERTa's pre-pooler one
+_SITE_CLASSIFIER, _SITE_POOL = 0, 1
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -181,8 +196,13 @@ def layer_norm_module(cfg: ModelConfig, device=None) -> FusedLayerNorm:
     """LayerNorm with fp32 stats emitting the compute dtype directly."""
     return FusedLayerNorm(
         cfg.hidden_size, eps=cfg.layer_norm_eps, out_dtype=compute_dtype(cfg),
-        param_dtype=param_dtype(cfg), device=device,
+        param_dtype=param_dtype(cfg), device=device, impl=cfg.layernorm_impl,
     )
+
+
+def dropout_module(cfg: ModelConfig) -> Dropout:
+    """A dropout site at ``hidden_dropout`` in the config's stream."""
+    return Dropout(cfg.hidden_dropout, cfg.dropout_impl)
 
 
 class Embed(nn.Module):
@@ -423,6 +443,7 @@ class BertSelfAttention(nn.Module):
                     q, k, v, bias, impl=cfg.attention_impl,
                     causal=cfg.causal, dropout_rate=cfg.attention_dropout,
                     dropout_seed=seed, dropout_site=_SITE_PROBS, seq=seq,
+                    dropout_impl=cfg.dropout_impl,
                 )
 
             # the ring at a seq axis of one rank is reference attention
@@ -542,7 +563,7 @@ def _dal(cfg: ModelConfig, site: int, device=None) -> FusedDropoutAddLayerNorm:
     return FusedDropoutAddLayerNorm(
         cfg.hidden_size, eps=cfg.layer_norm_eps, rate=cfg.hidden_dropout,
         site=site, out_dtype=compute_dtype(cfg), param_dtype=param_dtype(cfg),
-        device=device,
+        device=device, impl=cfg.layernorm_impl, dropout_impl=cfg.dropout_impl,
     )
 
 
@@ -562,7 +583,7 @@ class BertEmbeddings(nn.Module):
             if cfg.type_vocab_size else None
         )
         self.norm = layer_norm_module(cfg, device)
-        self.dropout = Dropout(cfg.hidden_dropout)
+        self.dropout = dropout_module(cfg)
 
     def forward(self, input_ids, token_type_ids, position_ids,
                 dropout_seed=None):
@@ -614,19 +635,48 @@ def seq_offset(input_ids, seq_shard) -> int:
     return 0 if seq_shard is None else seq_shard.index * input_ids.shape[1]
 
 
-def default_position_ids(cfg: ModelConfig, input_ids, offset: int = 0):
-    """BERT position ids: arange over the sequence from ``offset`` (the
-    rank's first column under context parallelism), checked against the
-    position table."""
+def default_position_ids(cfg: ModelConfig, input_ids, offset: int = 0,
+                         before=None):
+    """Position ids per model family (JAX ``default_position_ids``),
+    checked against the position table: BERT's arange over the sequence
+    from ``offset`` (the rank's first column under context parallelism);
+    RoBERTa's ``cumsum(ids != pad) * (ids != pad) + pad``, the count
+    starting after ``before`` ([batch], the non-pad ids of the columns
+    left of this shard; None: none)."""
     batch, seq = input_ids.shape
-    if offset + seq > cfg.max_position_embeddings:
+    total = offset + seq
+    # roberta positions run pad_token_id+1 .. seq+pad_token_id (HF offset)
+    max_pos = total + cfg.pad_token_id + 1 if cfg.roberta_style else total
+    if max_pos > cfg.max_position_embeddings:
         raise ValueError(
-            f"sequence length {offset + seq} needs position ids up to "
-            f"{offset + seq - 1} but max_position_embeddings is "
+            f"sequence length {total} needs position ids up to "
+            f"{max_pos - 1} but max_position_embeddings is "
             f"{cfg.max_position_embeddings}"
         )
+    if cfg.roberta_style:
+        mask = (input_ids != cfg.pad_token_id).long()
+        count = torch.cumsum(mask, dim=-1)
+        if before is not None:
+            count = count + before[:, None]
+        return count * mask + cfg.pad_token_id
     return torch.arange(offset, offset + seq, device=input_ids.device)[
         None, :].expand(batch, seq)
+
+
+def shard_position_ids(cfg: ModelConfig, input_ids, seq_shard=None):
+    """The default position ids of this rank's columns: under context
+    parallelism RoBERTa's count adds, for each row, the non-pad ids of the
+    seq ranks before this one (one all-reduce of a [seq, batch] tensor over
+    the seq axis), so the positions are one process's."""
+    before = None
+    if cfg.roberta_style and seq_shard is not None:
+        counts = torch.zeros(seq_shard.size, input_ids.shape[0],
+                             dtype=torch.long, device=input_ids.device)
+        counts[seq_shard.index] = (input_ids != cfg.pad_token_id).sum(-1)
+        counts = all_reduce_sum(counts, seq_shard.group)
+        before = counts[:seq_shard.index].sum(0)
+    return default_position_ids(cfg, input_ids,
+                                seq_offset(input_ids, seq_shard), before)
 
 
 def child_seed(seed: Optional[int], index: int) -> Optional[int]:
@@ -822,16 +872,28 @@ def make_trunk(cfg: ModelConfig, make_layer, name: str):
     return nn.ModuleList(layers)
 
 
-def pool_cls(pooler: "DenseGeneral", x, seq_shard=None):
-    """CLS pooling head: dense('pooler') -> tanh on the first token (under
-    context parallelism, seq coordinate 0's on every seq rank)."""
-    return torch.tanh(pooler(broadcast_first(x[:, 0], seq_shard)))
+def pool_cls(pooler: "DenseGeneral", x, seq_shard=None,
+             dropout: Optional[Dropout] = None, dropout_seed=None):
+    """CLS pooling head: [RoBERTa's pre-dropout ->] dense('pooler') -> tanh
+    on the first token (under context parallelism, seq coordinate 0's on
+    every seq rank). ``dropout`` (RoBERTa) draws from the classifier's
+    seed, site ``_SITE_POOL``."""
+    cls = broadcast_first(x[:, 0], seq_shard)
+    if dropout is not None:
+        # the kernel takes a contiguous row block, not x's strided column
+        cls = dropout(cls.contiguous(), dropout_seed, _SITE_POOL)
+    return torch.tanh(pooler(cls))
+
+
+def pool_dropout(cfg: ModelConfig) -> Optional[Dropout]:
+    """RoBERTa's pre-pooler dropout site (None for BERT)."""
+    return dropout_module(cfg) if cfg.roberta_style else None
 
 
 def classify(dropout: Dropout, classifier: "DenseGeneral", pooled,
              dropout_seed=None):
     """dropout -> float32 dense('classifier') -> logits."""
-    return classifier(dropout(pooled, dropout_seed).float())
+    return classifier(dropout(pooled, dropout_seed, _SITE_CLASSIFIER).float())
 
 
 class BertEncoderModel(nn.Module):
@@ -849,6 +911,7 @@ class BertEncoderModel(nn.Module):
         else:
             self.layers = trunk
         self.pooler = dense(cfg, (h,), (h,), device, generator)
+        self.pool_dropout = pool_dropout(cfg)
         self.seq_shard = None  # the seq axis, under context parallelism
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
@@ -858,17 +921,18 @@ class BertEncoderModel(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         if position_ids is None:
-            position_ids = default_position_ids(
-                cfg, input_ids, seq_offset(input_ids, self.seq_shard))
-        dropout_seed = trunk_seed(dropout_seed, self.seq_shard)
+            position_ids = shard_position_ids(cfg, input_ids,
+                                              self.seq_shard)
+        seed = trunk_seed(dropout_seed, self.seq_shard)
         x = self.embeddings(input_ids, token_type_ids.long(), position_ids,
-                            child_seed(dropout_seed, 0))
+                            child_seed(seed, 0))
         bias = make_attention_bias(attention_mask)
         if self.config.scan_layers:
-            x = self.layers_scan(x, bias, dropout_seed)
+            x = self.layers_scan(x, bias, seed)
         else:
-            x = run_layers(self.layers, x, bias, dropout_seed)
-        return x, pool_cls(self.pooler, x, self.seq_shard)
+            x = run_layers(self.layers, x, bias, seed)
+        return x, pool_cls(self.pooler, x, self.seq_shard, self.pool_dropout,
+                           child_seed(dropout_seed, cfg.num_layers + 1))
 
 
 class BertForSequenceClassification(nn.Module):
@@ -883,7 +947,7 @@ class BertForSequenceClassification(nn.Module):
                              "non-causal config")
         self.config = cfg
         self.bert = BertEncoderModel(cfg, device, generator)
-        self.dropout = Dropout(cfg.hidden_dropout)
+        self.dropout = dropout_module(cfg)
         self.classifier = DenseGeneral(
             (cfg.hidden_size,), (cfg.num_labels,), dtype=torch.float32,
             param_dtype=param_dtype(cfg), device=device, generator=generator,

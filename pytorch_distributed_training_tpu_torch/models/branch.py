@@ -61,18 +61,19 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     child_seed,
     classify,
     compute_dtype,
-    default_position_ids,
     dense,
+    dropout_module,
     param_dtype,
     pool_cls,
+    pool_dropout,
     run_layers,
-    seq_offset,
+    shard_position_ids,
     trunk_seed,
 )
 from pytorch_distributed_training_tpu_torch.ops.attention import (
     make_attention_bias,
 )
-from pytorch_distributed_training_tpu_torch.ops.dropout import Dropout, fold_in
+from pytorch_distributed_training_tpu_torch.ops.dropout import fold_in
 from pytorch_distributed_training_tpu_torch.utils.config import ModelConfig
 
 BRANCH_MODULE = "branches"
@@ -128,7 +129,8 @@ class BranchEnsembleClassifier(nn.Module):
         })
         h = cfg.hidden_size
         self.pooler = dense(cfg, (h,), (h,), device, shared)
-        self.dropout = Dropout(cfg.hidden_dropout)
+        self.pool_dropout = pool_dropout(cfg)
+        self.dropout = dropout_module(cfg)
         self.classifier = DenseGeneral(
             (h,), (cfg.num_labels,), dtype=torch.float32,
             param_dtype=param_dtype(cfg), device=device, generator=shared,
@@ -142,8 +144,7 @@ class BranchEnsembleClassifier(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         if position_ids is None:
-            position_ids = default_position_ids(
-                cfg, input_ids, seq_offset(input_ids, self.seq_shard))
+            position_ids = shard_position_ids(cfg, input_ids, self.seq_shard)
         seed = trunk_seed(dropout_seed, self.seq_shard)
         x = self.embeddings(input_ids, token_type_ids.long(), position_ids,
                             child_seed(seed, 0))
@@ -154,7 +155,7 @@ class BranchEnsembleClassifier(nn.Module):
             h = stack(x, bias, child_seed(seed, int(b) + 1)).float()
             total = h if total is None else total + h
         fused = reduce_from_model(total, self.group) / self.n_branches
+        head_seed = child_seed(dropout_seed, self.n_branches + 1)
         pooled = pool_cls(self.pooler, fused.to(compute_dtype(cfg)),
-                          self.seq_shard)
-        return classify(self.dropout, self.classifier, pooled,
-                        child_seed(dropout_seed, self.n_branches + 1))
+                          self.seq_shard, self.pool_dropout, head_seed)
+        return classify(self.dropout, self.classifier, pooled, head_seed)

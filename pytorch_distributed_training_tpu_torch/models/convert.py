@@ -11,7 +11,8 @@ out_shape``, ``Embed`` tables as ``embedding``, LayerNorm ``scale`` and
   ``blocks.0.attention.query.kernel``;
 - BERT classifier: ``bert/layer_0/attention_norm/scale`` <->
   ``bert.layers.0.attention_norm.scale``, with ``bert/embeddings/...``,
-  ``bert/pooler`` and ``classifier`` renamed alike.
+  ``bert/pooler`` and ``classifier`` renamed alike (RoBERTa,
+  ``roberta_style``, has BERT's names, its token-type table one row).
 
 A scanned trunk (``layers_scan/block/...`` for GPT-2, the ``train_lm``
 default, or ``bert/layers_scan/layer/...`` for BERT, each leaf with a

@@ -68,6 +68,7 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     child_seed,
     compute_dtype,
     dense,
+    dropout_module,
     layer_norm_module,
     make_trunk,
     model_input,
@@ -79,7 +80,6 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
 from pytorch_distributed_training_tpu_torch.ops.attention import (
     make_attention_bias,
 )
-from pytorch_distributed_training_tpu_torch.ops.dropout import Dropout
 from pytorch_distributed_training_tpu_torch.ops.quant import (
     _SERVE_QUANT_MODULES,
 )
@@ -100,7 +100,7 @@ class GPT2Block(nn.Module):
                             generator, int8=True)
         self.mlp_down = dense(cfg, (cfg.intermediate_size,), (h,), device,
                               generator, int8=True)
-        self.dropout = Dropout(cfg.hidden_dropout)
+        self.dropout = dropout_module(cfg)
         self.tp_shard = None  # the model axis, under tensor parallelism
 
     def forward(self, x, attention_bias=None, paged=None, dropout_seed=None):
@@ -144,7 +144,7 @@ class GPT2LMModel(nn.Module):
         else:
             self.blocks = trunk
         self.ln_f = layer_norm_module(cfg, device)
-        self.dropout = Dropout(cfg.hidden_dropout)
+        self.dropout = dropout_module(cfg)
         # float32 copy of the compute-dtype head, set by cast_for_serving
         self.head_weight: Optional[torch.Tensor] = None
         self.seq_shard = None  # the seq axis, under context parallelism

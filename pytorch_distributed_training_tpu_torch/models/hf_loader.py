@@ -13,13 +13,16 @@ one onto ``GPT2LMModel``, in the port's own names and layouts
   hidden];
 - GPT-2's ``Conv1D`` weights are already [in, out]: the fused ``c_attn``
   [hidden, 3 hidden] splits into query, key and value; the head is tied
-  to ``wte``, so only the embedding loads.
+  to ``wte``, so only the embedding loads;
+- RoBERTa (``roberta.*``, ``RobertaForSequenceClassification``) is BERT's
+  trunk: its classification head's ``classifier.dense`` goes into the
+  pooler slot (tanh pooling is RobertaClassificationHead's) and
+  ``classifier.out_proj`` into the classifier, as the JAX loader maps
+  them.
 
 Float tensors come out float32 (``param_dtype``), whatever the checkpoint
 was saved in; with ``scan_layers`` the layers stack into the
-``layers_scan`` trunk (``models/relayout.py``). An HF ``roberta.*``
-checkpoint raises ``NotImplementedError``: RoBERTa (``roberta_style``) is
-not ported (ROADMAP.md, queue 1, slice 2 leftovers). Nothing here downloads;
+``layers_scan`` trunk (``models/relayout.py``). Nothing here downloads;
 ``safetensors`` and ``transformers`` are imported only when a source needs
 them.
 """
@@ -74,16 +77,13 @@ def _stacked(state: dict, config: ModelConfig) -> dict:
 
 
 def load_bert_classifier(source: Any, config: ModelConfig) -> dict:
-    """``BertForSequenceClassification``'s ``state_dict`` from an HF BERT
-    sequence-classification checkpoint."""
+    """``BertForSequenceClassification``'s ``state_dict`` from an HF BERT or
+    RoBERTa sequence-classification checkpoint."""
     sd = state_dict_from(source)
-    if any(k.startswith("roberta.") for k in sd):
-        raise NotImplementedError(
-            "an HF roberta.* checkpoint: RoBERTa (roberta_style) is not "
-            "ported yet (RoBERTa, slice 2 leftovers; see ROADMAP.md, "
-            "queue 1)")
     n, d, h = config.num_heads, config.head_dim, config.hidden_size
-    prefix = "bert." if any(k.startswith("bert.") for k in sd) else ""
+    # HF prefixes: bert.* (BertForSequenceClassification) or roberta.*
+    prefix = "bert." if any(k.startswith("bert.") for k in sd) else (
+        "roberta." if any(k.startswith("roberta.") for k in sd) else "")
     out: dict[str, torch.Tensor] = {}
 
     def linear(dst, key, in_shape=None, out_shape=None):
@@ -117,8 +117,15 @@ def load_bert_classifier(source: Any, config: ModelConfig) -> dict:
         linear(dst + "mlp_up", src + "intermediate.dense")
         linear(dst + "mlp_down", src + "output.dense")
         norm(dst + "mlp_norm", src + "output.LayerNorm")
-    linear("bert.pooler", prefix + "pooler.dense")
-    linear("classifier", "classifier")
+    if prefix + "pooler.dense.weight" in sd:
+        linear("bert.pooler", prefix + "pooler.dense")
+    elif "classifier.dense.weight" in sd:
+        # RoBERTa's head carries its own dense: the pooler slot
+        linear("bert.pooler", "classifier.dense")
+    if "classifier.weight" in sd:
+        linear("classifier", "classifier")
+    elif "classifier.out_proj.weight" in sd:
+        linear("classifier", "classifier.out_proj")
     return _stacked({k: v.contiguous() for k, v in out.items()}, config)
 
 

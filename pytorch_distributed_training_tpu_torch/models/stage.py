@@ -47,10 +47,9 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
     child_seed,
     classify,
     compute_dtype,
-    default_position_ids,
     pool_cls,
     run_layers,
-    seq_offset,
+    shard_position_ids,
     trunk_seed,
 )
 from pytorch_distributed_training_tpu_torch.ops.attention import (
@@ -98,8 +97,7 @@ class BertStage(nn.Module):
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
             if position_ids is None:
-                position_ids = default_position_ids(
-                    cfg, input_ids, seq_offset(input_ids, seq_shard))
+                position_ids = shard_position_ids(cfg, input_ids, seq_shard)
             x = self.bert.embeddings(input_ids, token_type_ids.long(),
                                      position_ids, child_seed(seed, 0))
         elif wire:
@@ -112,6 +110,8 @@ class BertStage(nn.Module):
                        first=self.lo)
         if not self.last:
             return stage_send(x, self.next) if wire else x
+        head_seed = child_seed(dropout_seed, cfg.num_layers + 1)
         return classify(self.dropout, self.classifier,
-                        pool_cls(self.bert.pooler, x, seq_shard),
-                        child_seed(dropout_seed, cfg.num_layers + 1))
+                        pool_cls(self.bert.pooler, x, seq_shard,
+                                 self.bert.pool_dropout, head_seed),
+                        head_seed)

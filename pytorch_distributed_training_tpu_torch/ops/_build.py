@@ -16,8 +16,8 @@ A library may hold several kernels (``KERNELS`` names each kernel's
 library): the LayerNorm forward and backward share ``layer_norm.cu``, the
 flash-attention kernels ``flash_attention.cu``, and each paged kernel's
 float and int8-pool instantiations their ``paged_attention*.cu``, and the
-dropout kernel's two modes (the mask-scale alone, and the mask applied to
-an activation) ``dropout.cu``.
+dropout kernel's four modes (the mask-scale alone, the mask applied to
+an activation, and the bits8 and exact streams) ``dropout.cu``.
 
 Launch counts: every kernel wrapper adds one to ``LAUNCH_COUNTS[name]``
 where it launches its kernel and nowhere else, so a run can show that the
@@ -59,6 +59,8 @@ KERNELS = {
     "dropout_add_layer_norm_bwd": "dropout_add_layer_norm",
     "mask_scale": "dropout",
     "mask_scale_apply": "dropout",
+    "dropout_bits8": "dropout",
+    "dropout_exact": "dropout",
     "paged_attention": "paged_attention",
     "paged_attention_mq": "paged_attention_mq",
     "paged_attention_int8": "paged_attention",

@@ -5,12 +5,14 @@
 fp32 scores and softmax whatever the input dtype, ``finfo.min`` masking,
 probs cast to the V dtype. q/k/v are [batch, seq, heads, head_dim] as in
 the JAX package. Probability dropout follows the JAX package's order for
-the ``"kernel"`` dropout impl: cast the fp32 probs to the V dtype first,
-then multiply by the mask-scale tensor (``ops/dropout.py``), so the mask
-saved for the backward is half-width. ``"flash"`` goes to
+its stream (``dropout_impl``, ``ops/dropout.py``): ``"exact"`` masks the
+float32 probs and then casts them (flax's order); every other stream casts
+the probs to the V dtype first and then masks them. ``"flash"`` goes to
 ``ops/flash_attention.flash_attention`` (the flash kernels), ``"ring"``
 to ``ops/ring_attention.ring_attention_shard`` over the seq axis ``seq``
-(reference attention when it is None, JAX's fallback at a seq axis of 1).
+(reference attention when it is None, JAX's fallback at a seq axis of 1);
+the flash kernels keep their in-kernel mask whatever the stream, which
+reaches only their plain-attention fallback (as in JAX).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def causal_bias(q_len: int, kv_len: int, *, device=None,
 def reference_attention(q, k, v, bias=None, *, causal: bool = False,
                         dropout_rate: float = 0.0,
                         dropout_seed: Optional[int] = None,
-                        dropout_site: int = 0):
+                        dropout_site: int = 0, dropout_impl: str = "kernel"):
     """Plain einsum attention; softmax in fp32 regardless of input dtype.
     ``dropout_seed`` None is deterministic."""
     scale = q.shape[-1] ** -0.5
@@ -53,40 +55,41 @@ def reference_attention(q, k, v, bias=None, *, causal: bool = False,
     if causal:
         scores = scores + causal_bias(q.shape[-3], k.shape[-3],
                                       device=q.device)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = torch.softmax(scores, dim=-1)
     if dropout_seed is not None and dropout_rate > 0.0:
-        probs = raw_dropout(probs, dropout_rate, dropout_seed, dropout_site)
+        drop = (dropout_rate, dropout_seed, dropout_site, dropout_impl)
+        if dropout_impl == "exact":
+            probs = raw_dropout(probs, *drop).to(v.dtype)
+        else:
+            probs = raw_dropout(probs.to(v.dtype), *drop)
+    else:
+        probs = probs.to(v.dtype)
     return torch.einsum("bnst,btnd->bsnd", probs, v)
 
 
 def dot_product_attention(q, k, v, bias=None, *, impl: str = "reference",
                           causal: bool = False, dropout_rate: float = 0.0,
                           dropout_seed: Optional[int] = None,
-                          dropout_site: int = 0, seq=None):
+                          dropout_site: int = 0, seq=None,
+                          dropout_impl: str = "kernel"):
     """Dispatch to the configured attention implementation (``seq``: the
     ``AxisShard`` of the seq axis the sequence is cut over, for
-    ``"ring"``)."""
+    ``"ring"``) and ``dropout_impl`` its probabilities' mask stream."""
+    drop = dict(dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                dropout_site=dropout_site, dropout_impl=dropout_impl)
     if impl == "reference":
-        return reference_attention(
-            q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, dropout_site=dropout_site,
-        )
+        return reference_attention(q, k, v, bias, causal=causal, **drop)
     if impl == "flash":
         from pytorch_distributed_training_tpu_torch.ops.flash_attention import (
             flash_attention,
         )
 
-        return flash_attention(
-            q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, dropout_site=dropout_site,
-        )
+        return flash_attention(q, k, v, bias, causal=causal, **drop)
     if impl == "ring":
         from pytorch_distributed_training_tpu_torch.ops.ring_attention import (
             ring_attention_shard,
         )
 
-        return ring_attention_shard(
-            q, k, v, bias, seq=seq, causal=causal, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, dropout_site=dropout_site,
-        )
+        return ring_attention_shard(q, k, v, bias, seq=seq, causal=causal,
+                                    **drop)
     raise ValueError(f"unknown attention impl {impl!r}")

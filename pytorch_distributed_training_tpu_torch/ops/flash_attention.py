@@ -699,9 +699,11 @@ def pick_block(n: int, cap: int) -> int:
 def flash_attention(q, k, v, bias=None, *, causal: bool = False,
                     dropout_rate: float = 0.0,
                     dropout_seed: Optional[int] = None,
-                    dropout_site: int = 0):
+                    dropout_site: int = 0, dropout_impl: str = "kernel"):
     """The ``"flash"`` attention of ``ops/attention.py`` on [B, S, N, D],
-    dispatched as the JAX adapter does (module docstring)."""
+    dispatched as the JAX adapter does (module docstring). The kernels
+    keep their in-kernel mask whatever ``dropout_impl``; only the plain
+    attention fallback takes the stream, as in JAX."""
     _, q_len, _, head_dim = q.shape
     kv_len = k.shape[1]
     block_q = pick_block(q_len, DEFAULT_BLOCK_Q)
@@ -713,6 +715,7 @@ def flash_attention(q, k, v, bias=None, *, causal: bool = False,
         return reference_attention(
             q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
             dropout_seed=dropout_seed, dropout_site=dropout_site,
+            dropout_impl=dropout_impl,
         )
     o = flash_attention_base(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias,

@@ -33,6 +33,14 @@ the launch plan ``_row_plan``.
 
 On a CPU tensor every step runs its plain version (``reference_*``); on a
 CUDA tensor the kernels (built at first use) or an error.
+
+``impl="reference"`` (``ModelConfig.layernorm_impl``) is JAX's jnp path on
+every device: ``reference_layer_norm`` under autograd, no kernel. The
+dropout-add-LayerNorm tail fuses its mask into kernels 3 and 4 only under
+``impl="fused"`` and the ``"kernel"`` stream; with rate > 0 and another
+stream (JAX: "foreign mask streams can't regenerate in-kernel"), or under
+``impl="reference"``, it runs ``raw_dropout`` in the stream (kernel 5), the
+residual add and then ``layer_norm`` in ``impl``.
 """
 
 from __future__ import annotations
@@ -49,7 +57,10 @@ from pytorch_distributed_training_tpu_torch.ops.dropout import (
     check_seed,
     keep_mask,
     mask_threshold,
+    raw_dropout,
 )
+
+LAYERNORM_IMPLS = ("fused", "reference")
 
 # widest row the kernels take (csrc/layer_norm_rows.cuh kMaxRowWidth), the
 # widest that chip_smoke.py holds them against (the presets' is 1024)
@@ -394,12 +405,23 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _check_impl(impl: str) -> None:
+    if impl not in LAYERNORM_IMPLS:
+        raise ValueError(f"unknown layernorm impl {impl!r}; have "
+                         f"{LAYERNORM_IMPLS}")
+
+
 def layer_norm(x, scale, bias, *, eps: float = 1e-12,
-               out_dtype: Optional[torch.dtype] = None):
+               out_dtype: Optional[torch.dtype] = None, impl: str = "fused"):
     """LayerNorm over the last axis; fp32 stats; output in ``out_dtype``.
 
-    CPU tensors take the plain versions; CUDA tensors the kernels."""
+    ``impl="fused"``: CPU tensors take the plain versions, CUDA tensors the
+    kernels; ``"reference"``: the plain math under autograd anywhere."""
     out_dtype = out_dtype or x.dtype
+    _check_impl(impl)
+    if impl == "reference":
+        return reference_layer_norm(x, scale, bias, eps=eps,
+                                    out_dtype=out_dtype)
     use_kernel = _use_kernel(x, "layer_norm")
     if _needs_grad(x, scale, bias):
         return _LayerNormFn.apply(x, scale, bias, eps, out_dtype, use_kernel)
@@ -416,15 +438,24 @@ def _check_rate(rate: float) -> None:
 def dropout_add_layer_norm(h, x, scale, bias, *, rate: float,
                            seed: Optional[int] = None, site: int = 0,
                            eps: float = 1e-12,
-                           out_dtype: Optional[torch.dtype] = None):
+                           out_dtype: Optional[torch.dtype] = None,
+                           impl: str = "fused", dropout_impl: str = "kernel"):
     """``LayerNorm(x + Dropout(h))`` over the last axis. ``seed`` None is
-    deterministic (rate taken as 0). CPU tensors take the plain versions;
-    CUDA tensors the kernels."""
+    deterministic (rate taken as 0). Fused (kernels 3 and 4 on CUDA
+    tensors, their plain versions on the CPU) under ``impl="fused"`` and
+    the ``"kernel"`` stream, or at rate 0; else ``raw_dropout`` in
+    ``dropout_impl``, the add, and ``layer_norm`` in ``impl``."""
     out_dtype = out_dtype or x.dtype
     _check_rate(rate)
+    _check_impl(impl)
     if seed is None:
         rate, seed = 0.0, 0
     check_seed(seed, site)
+    if impl == "reference" or (rate > 0.0 and dropout_impl != "kernel"):
+        if rate > 0.0:
+            h = raw_dropout(h, rate, seed, site, dropout_impl)
+        return layer_norm(x + h, scale, bias, eps=eps, out_dtype=out_dtype,
+                          impl=impl)
     use_kernel = _use_kernel(x, "dropout_add_layer_norm")
     if _needs_grad(h, x, scale, bias):
         return _DropoutAddLayerNormFn.apply(h, x, scale, bias, rate, seed,
@@ -454,10 +485,12 @@ class FusedLayerNorm(nn.Module):
     ones, ``bias`` zeros), float32 parameters, output in ``out_dtype``."""
 
     def __init__(self, features: int, *, eps: float, out_dtype: torch.dtype,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None,
+                 impl: str = "fused"):
         super().__init__()
         self.eps = eps
         self.out_dtype = out_dtype
+        self.impl = impl
         self.scale = nn.Parameter(
             torch.ones(features, dtype=param_dtype, device=device)
         )
@@ -467,24 +500,28 @@ class FusedLayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.scale, self.bias, eps=self.eps,
-                          out_dtype=self.out_dtype)
+                          out_dtype=self.out_dtype, impl=self.impl)
 
 
 class FusedDropoutAddLayerNorm(FusedLayerNorm):
     """``LayerNorm(x + Dropout(h))`` as one module, the post-LN block tail.
     Parameter names as ``FusedLayerNorm``; ``site`` tells apart the two
-    tails of one block, which share the layer's seed."""
+    tails of one block, which share the layer's seed; ``dropout_impl`` is
+    the mask stream."""
 
     def __init__(self, features: int, *, eps: float, rate: float, site: int,
                  out_dtype: torch.dtype,
-                 param_dtype: torch.dtype = torch.float32, device=None):
+                 param_dtype: torch.dtype = torch.float32, device=None,
+                 impl: str = "fused", dropout_impl: str = "kernel"):
         super().__init__(features, eps=eps, out_dtype=out_dtype,
-                         param_dtype=param_dtype, device=device)
+                         param_dtype=param_dtype, device=device, impl=impl)
         self.rate = rate
         self.site = site
+        self.dropout_impl = dropout_impl
 
     def forward(self, h, x, seed: Optional[int] = None):
         return dropout_add_layer_norm(
             h, x, self.scale, self.bias, rate=self.rate, seed=seed,
             site=self.site, eps=self.eps, out_dtype=self.out_dtype,
+            impl=self.impl, dropout_impl=self.dropout_impl,
         )

@@ -59,7 +59,7 @@ _NEG_INF = -1e30
 
 
 def _local_block(q, k, v, bias, *, scale, q_offset, kv_offset, causal,
-                 dropout_seed, dropout_rate, dropout_site):
+                 dropout_seed, dropout_rate, dropout_site, dropout_impl):
     """Scores and online-softmax partials of one (local Q) × (one hop's
     K/V) block: q [B, Sq, N, D], k/v [B, Skv, N, D], bias [B, 1, 1, Skv]
     or None. Returns (m, l, pv): the row max [B, N, Sq], the denominator's
@@ -75,9 +75,11 @@ def _local_block(q, k, v, bias, *, scale, q_offset, kv_offset, causal,
     m = torch.amax(s, dim=-1)
     p = torch.exp(s - m[..., None])
     l = torch.sum(p, dim=-1)  # the denominator from the undropped p
-    p = p.to(v.dtype)  # cast before dropout, as reference_attention does
+    # cast before dropout whatever the stream, as JAX's ring does
+    p = p.to(v.dtype)
     if dropout_rate > 0.0:
-        p = raw_dropout(p, dropout_rate, dropout_seed, dropout_site)
+        p = raw_dropout(p, dropout_rate, dropout_seed, dropout_site,
+                        dropout_impl)
     pv = torch.einsum("bnst,btnd->bsnd", p.float(), v.float())
     return m, l, pv
 
@@ -85,7 +87,8 @@ def _local_block(q, k, v, bias, *, scale, q_offset, kv_offset, causal,
 def _ring_shard_body(q, k, v, bias, *, scale: float, n_shards: int, my: int,
                      causal: bool, hop: Callable,
                      dropout_seed: Optional[int] = None,
-                     dropout_rate: float = 0.0, dropout_site: int = 0):
+                     dropout_rate: float = 0.0, dropout_site: int = 0,
+                     dropout_impl: str = "kernel"):
     """Shard ``my``'s output: its query block stays, and ``hop(j, k, v,
     bias)`` returns the K/V/bias block it holds at step ``j + 1`` (the
     block of shard ``(my + j + 1) % n_shards``)."""
@@ -104,6 +107,7 @@ def _ring_shard_body(q, k, v, bias, *, scale: float, n_shards: int, my: int,
             dropout_seed=(fold_in(fold_in(dropout_seed, j), my)
                           if dropout_rate > 0.0 else None),
             dropout_rate=dropout_rate, dropout_site=dropout_site,
+            dropout_impl=dropout_impl,
         )
         m_new = torch.maximum(m_run, m_j)
         alpha = torch.exp(m_run - m_new)
@@ -131,7 +135,7 @@ def _key_padding(bias) -> bool:
 def ring_attention(q, k, v, bias=None, *, n_shards: int = 1,
                    causal: bool = False, dropout_rate: float = 0.0,
                    dropout_seed: Optional[int] = None,
-                   dropout_site: int = 0):
+                   dropout_site: int = 0, dropout_impl: str = "kernel"):
     """Ring attention over whole [B, S, N, D] tensors, the sequence cut
     into ``n_shards`` shards driven one after another in this process
     (what the ranks of a seq axis of ``n_shards`` compute, each shard's
@@ -139,7 +143,8 @@ def ring_attention(q, k, v, bias=None, *, n_shards: int = 1,
     if n_shards == 1 or not _key_padding(bias) or q.shape[1] % n_shards:
         return reference_attention(
             q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, dropout_site=dropout_site)
+            dropout_seed=dropout_seed, dropout_site=dropout_site,
+            dropout_impl=dropout_impl)
     ks, vs = k.chunk(n_shards, dim=1), v.chunk(n_shards, dim=1)
     bs = ([None] * n_shards if bias is None
           else bias.chunk(n_shards, dim=3))
@@ -154,14 +159,14 @@ def ring_attention(q, k, v, bias=None, *, n_shards: int = 1,
             n_shards=n_shards, my=my, causal=causal, hop=hop,
             dropout_seed=dropout_seed,
             dropout_rate=_rate(dropout_rate, dropout_seed),
-            dropout_site=dropout_site))
+            dropout_site=dropout_site, dropout_impl=dropout_impl))
     return torch.cat(outs, dim=1)
 
 
 def ring_attention_shard(q, k, v, bias=None, *, seq=None,
                          causal: bool = False, dropout_rate: float = 0.0,
                          dropout_seed: Optional[int] = None,
-                         dropout_site: int = 0):
+                         dropout_site: int = 0, dropout_impl: str = "kernel"):
     """Ring attention on this rank's shard of the sequence: q/k/v [B,
     S/P, N, D] and the key-padding bias [B, 1, 1, S/P] of coordinate
     ``seq.index`` of the seq axis ``seq`` (an ``AxisShard``; None: a seq
@@ -169,7 +174,8 @@ def ring_attention_shard(q, k, v, bias=None, *, seq=None,
     if seq is None:
         return reference_attention(
             q, k, v, bias, causal=causal, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, dropout_site=dropout_site)
+            dropout_seed=dropout_seed, dropout_site=dropout_site,
+            dropout_impl=dropout_impl)
     if not _key_padding(bias):
         raise ValueError(
             f"ring attention over a seq axis of {seq.size} takes a "
@@ -183,4 +189,4 @@ def ring_attention_shard(q, k, v, bias=None, *, seq=None,
         q, k, v, bias, scale=q.shape[-1] ** -0.5, n_shards=seq.size,
         my=seq.index, causal=causal, hop=hop, dropout_seed=dropout_seed,
         dropout_rate=_rate(dropout_rate, dropout_seed),
-        dropout_site=dropout_site)
+        dropout_site=dropout_site, dropout_impl=dropout_impl)

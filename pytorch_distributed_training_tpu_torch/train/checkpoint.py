@@ -39,10 +39,17 @@ newer one, and its manifest written only after the commit, hold with
 nothing to wait for. Only rank 0 renames, writes manifests and prunes;
 the decisions every rank must share (skip a duplicate step, which steps
 to try) are rank 0's, broadcast. The format is the port's own; orbax
-checkpoints are not read (that needs the JAX stack). JAX's telemetry
-records and its watchdog around joins are not ported (ROADMAP.md, queue
-1, item 4, the telemetry and fault core): the events are logged with
-``log0``.
+checkpoints are not read (that needs the JAX stack).
+
+Telemetry, as JAX's: each event is a record of the default registry's
+stream (``checkpoint_save``, ``checkpoint_skip_duplicate``,
+``checkpoint_resave``, ``checkpoint_fallback``, ``checkpoint_restore``)
+beside its ``log0`` line, with its counters and timers (a save's whole
+synchronous time stands in ``submit_s`` and ``checkpoint/save_submit_s``,
+the part of the step a save costs). A save runs under the watchdog
+(``checkpoint_save``; JAX guards its async joins). ``close()`` fires the
+``corrupt_ckpt`` fault (``faults/inject.py``): it damages a committed,
+sealed step so the next restore must detect it and fall back.
 """
 
 from __future__ import annotations
@@ -57,8 +64,18 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from pytorch_distributed_training_tpu_torch.faults.inject import (
+    corrupt_step_dir,
+    get_plan,
+)
+from pytorch_distributed_training_tpu_torch.faults.watchdog import (
+    watchdog_guard,
+)
 from pytorch_distributed_training_tpu_torch.models.convert import (
     is_quant_name,
+)
+from pytorch_distributed_training_tpu_torch.telemetry.registry import (
+    get_registry,
 )
 from pytorch_distributed_training_tpu_torch.train import (
     manifest as ckpt_manifest,
@@ -330,16 +347,27 @@ class Checkpointer:
         a corrupt step replaces it when it gets there again)."""
         step = int(state.step)
         path = self._step_path(step)
+        reg = get_registry()
         if step in self.all_steps():
             ok, reason = True, "ok"
             if self.verify != "off":
                 ok, reason = ckpt_manifest.verify_step(path, level=self.verify)
             ok, reason = _agree((ok, reason))
             if ok:
+                reg.inc("checkpoint/duplicate_skips")
+                reg.emit({"record": "checkpoint_skip_duplicate",
+                          "step": step})
                 log0(f"checkpoint skip: step {step} already saved")
                 return path
+            reg.inc("checkpoint/resaves")
+            reg.emit({"record": "checkpoint_resave", "step": step,
+                      "reason": reason})
             log0(f"checkpoint step {step} exists but fails verification "
                  f"({reason}); deleting and re-saving")
+        with watchdog_guard("checkpoint_save", step=step):
+            return self._save(state, step, path, reg)
+
+    def _save(self, state: TrainState, step: int, path: str, reg) -> str:
         import torch.distributed.checkpoint as dcp
 
         t0 = time.perf_counter()
@@ -367,6 +395,10 @@ class Checkpointer:
         _barrier()
         seconds = time.perf_counter() - t0
         self.saves.append(dict(step=step, seconds=seconds, bytes=written))
+        reg.inc("checkpoint/saves")
+        reg.observe("checkpoint/save_submit_s", seconds)
+        reg.emit({"record": "checkpoint_save", "step": step,
+                  "submit_s": seconds, "path": path, "bytes": written})
         log0(f"checkpoint saved: {path} ({written} bytes, {seconds:.2f} s)")
         return path
 
@@ -392,6 +424,7 @@ class Checkpointer:
             raise candidates
         from torch.distributed.checkpoint.api import CheckpointException
 
+        reg = get_registry()
         last_exc: BaseException | None = None
         for i, cand in enumerate(candidates):
             t0 = time.perf_counter()
@@ -402,6 +435,13 @@ class Checkpointer:
             except (Exception, CheckpointException) as e:
                 last_exc = e
                 if i + 1 < len(candidates):
+                    reg.inc("checkpoint/fallbacks")
+                    reg.emit({
+                        "record": "checkpoint_fallback",
+                        "latest_step": cand,
+                        "fallback_step": candidates[i + 1],
+                        "reason": f"restore failed: {type(e).__name__}",
+                    })
                     log0(
                         f"checkpoint restore of step {cand} failed "
                         f"({type(e).__name__}: {e}); trying step "
@@ -410,6 +450,9 @@ class Checkpointer:
                 continue
             seconds = time.perf_counter() - t0
             self.restores.append(dict(step=cand, seconds=seconds))
+            reg.observe("checkpoint/restore_s", seconds)
+            reg.emit({"record": "checkpoint_restore", "step": cand,
+                      "restore_s": seconds, "path": self._step_path(cand)})
             log0(f"checkpoint restored: {self._step_path(cand)} "
                  f"({seconds:.2f} s)")
             return state
@@ -417,7 +460,16 @@ class Checkpointer:
         raise last_exc
 
     def close(self) -> None:
-        """Release the manager (nothing is in flight; JAX API)."""
+        """Release the manager (nothing is in flight); then the
+        ``corrupt_ckpt`` fault, when armed: rank 0 damages the named (or
+        newest) committed step in place."""
+        target = get_plan().corrupt_checkpoint_target()
+        if target is not None and _is_main():
+            step = self.latest_step() if target == "latest" else int(target)
+            if step is not None:
+                corrupt_step_dir(self._step_path(step))
+                get_registry().emit({"record": "fault_injected",
+                                     "fault": "corrupt_ckpt", "step": step})
 
 
 def _call(fn):
@@ -478,6 +530,14 @@ def restore_candidates(directory: str, *,
             reasons[step] = reason
     if verified:
         if steps[0] not in verified:
+            reg = get_registry()
+            reg.inc("checkpoint/fallbacks")
+            reg.emit({
+                "record": "checkpoint_fallback",
+                "latest_step": steps[0],
+                "fallback_step": verified[0],
+                "reason": reasons.get(steps[0], "unverified"),
+            })
             log0(
                 f"checkpoint step {steps[0]} failed verification "
                 f"({reasons.get(steps[0])}); falling back to verified "

@@ -78,14 +78,34 @@ draws the dropout seeds of ``(dropout_seed, step)``, so the resumed run is
 the uninterrupted one. ``hf_checkpoint`` starts the model from an HF
 checkpoint (``models/hf_loader.py``) before any split or shard.
 
-Not ported here (ROADMAP.md, queue 1): the watchdog, preemption
-handling, telemetry sinks, runtime guards, the native loader and
-prefetch, and chained steps.
+Telemetry and faults (JAX ``train/loop.py``): the Trainer installs its
+``MetricsRegistry`` as the default (the loader, the checkpointer, the
+supervisor and the fault hooks record into it) and, with
+``metrics_dir``, a ``JsonlSink`` whose ``run_meta`` header it writes at
+the end of ``__init__``. With ``metrics_dir`` every step synchronizes on
+the device and emits a ``step`` record (data wait, dispatch, device
+block, loss; ``compile_inclusive`` on the first step, whose kernels
+build); without it no synchronize is added. Each epoch record gains the
+straggler stats (``telemetry/straggler.py``, gathered over the batch
+group) and the registry's snapshot. The watchdog (``watchdog``) guards
+every step but the first and the epoch's closing synchronize;
+``GracefulShutdown`` (``handle_preemption``) wraps the epochs, and a
+signal stops the run at the next step boundary with an emergency
+checkpoint and ``Preempted`` (exit 75). After each update the
+``crash_at_step`` / ``crash_rank`` fault ends the process with
+``os._exit(13)`` and the ``PDT_TPU_FAULT`` step faults fire. On a crash
+the stream stays open (flushed to disk) for the supervisor's ``restart``
+record; a clean run closes it.
+
+Not ported here (ROADMAP.md, queue 1): runtime guards, the native loader
+and prefetch, and chained steps.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Callable, Optional
 
@@ -114,6 +134,15 @@ from pytorch_distributed_training_tpu_torch.data.glue import (
     resolve_task,
 )
 from pytorch_distributed_training_tpu_torch.data.pipeline import ShardedLoader
+from pytorch_distributed_training_tpu_torch.faults.inject import get_plan
+from pytorch_distributed_training_tpu_torch.faults.preemption import (
+    GracefulShutdown,
+    Preempted,
+)
+from pytorch_distributed_training_tpu_torch.faults.watchdog import (
+    Watchdog,
+    set_watchdog,
+)
 from pytorch_distributed_training_tpu_torch.models.bert import (
     BertForSequenceClassification,
 )
@@ -140,6 +169,17 @@ from pytorch_distributed_training_tpu_torch.parallel.sharding import (
     param_specs,
     placements_of,
     tensor_parallel,
+)
+from pytorch_distributed_training_tpu_torch.telemetry.registry import (
+    MetricsRegistry,
+    set_registry,
+)
+from pytorch_distributed_training_tpu_torch.telemetry.sink import (
+    JsonlSink,
+    run_metadata,
+)
+from pytorch_distributed_training_tpu_torch.telemetry.straggler import (
+    epoch_straggler_stats,
 )
 from pytorch_distributed_training_tpu_torch.train.checkpoint import (
     Checkpointer,
@@ -170,7 +210,10 @@ from pytorch_distributed_training_tpu_torch.utils.config import (
     TrainConfig,
 )
 from pytorch_distributed_training_tpu_torch.utils.device import resolve_device
-from pytorch_distributed_training_tpu_torch.utils.logging import log0
+from pytorch_distributed_training_tpu_torch.utils.logging import (
+    log0,
+    set_log_format,
+)
 
 
 # the mesh axis each model-parallel mode splits the model over
@@ -204,6 +247,15 @@ class Trainer:
             stage=split == AXIS_STAGE)
         self.info = initialize(resolve_device(device))
         self.device = self.info.device
+        # telemetry first, so every layer records into this run's window
+        set_log_format(tcfg.log_format)
+        self.registry = MetricsRegistry()
+        set_registry(self.registry)
+        self.metrics_sink = None
+        if tcfg.metrics_dir:
+            self.metrics_sink = JsonlSink(tcfg.metrics_dir)
+            self.registry.attach_sink(self.metrics_sink)
+        self._first_step_done = False
         mesh = self.mesh = build_mesh(mesh_config, rank=self.info.rank,
                                       world_size=self.info.world_size)
         for mode, axis in SPLIT_AXIS.items():
@@ -348,6 +400,10 @@ class Trainer:
                                 mesh=mesh)
         self.history: list[dict] = []
         self.step_log: list[dict] = []
+        self.registry.emit(run_metadata(
+            mesh, self.device, self.mcfg, tcfg,
+            steps_per_epoch=self.train_loader.steps_per_epoch,
+            objective=self.objective))
 
     def shard(self, placements: dict, device_mesh, model=None) -> None:
         """Shard the model (``model``, else the state's) with FSDP on
@@ -430,36 +486,158 @@ class Trainer:
              f"{self.info.world_size} process(es) on {self.device}, mesh "
              f"{self.mesh.shape}"
              + (f", from step {self.state.step}" if self.state.step else ""))
-        # close() joins nothing while saves are synchronous; it stays in
-        # the finally for the day they are not (JAX API)
+        set_registry(self.registry)  # layers record into this run's window
+        self.watchdog = Watchdog(
+            stall_factor=cfg.watchdog_stall_factor,
+            min_stall_s=cfg.watchdog_min_stall_s,
+            hard_timeout_s=cfg.watchdog_hard_timeout_s,
+        ) if cfg.watchdog else None
+        prev_watchdog = set_watchdog(self.watchdog)
+        # the handlers only set a flag; the step loop notices it at the
+        # next boundary and leaves through _preempt_exit
+        self._shutdown = (GracefulShutdown().install()
+                          if cfg.handle_preemption else None)
         try:
             for epoch in range(start_epoch, cfg.num_epochs):
                 self._run_epoch(epoch, skip if epoch == start_epoch else 0)
         finally:
+            if self._shutdown is not None:
+                self._shutdown.uninstall()
+            set_watchdog(prev_watchdog)
+            if self.watchdog is not None:
+                self.watchdog.close()
             if self.checkpointer:
                 self.checkpointer.close()
+            # a crash leaves the stream open (the supervisor's restart and
+            # the next attempt append to it), pushed to disk
+            if self.metrics_sink is not None:
+                self.metrics_sink.flush(fsync=True)
+        if self.metrics_sink is not None:
+            self.metrics_sink.close()
         return self.history
+
+    def _guard(self, what: str, step: int):
+        """The watchdog's guard of a section, or nothing."""
+        if self.watchdog is None:
+            return contextlib.nullcontext()
+        return self.watchdog.guard(what, step=step)
+
+    def _preempt_exit(self, signum: int, step: int) -> None:
+        """A shutdown signal arrived: save inside the grace window, record
+        the preemption and leave resumable (``Preempted``, exit 75)."""
+        cfg = self.tcfg
+        t0 = time.perf_counter()
+        saved_step = None
+        if self.checkpointer is not None:
+            # a step saved just before (a periodic save) is skipped there
+            self.checkpointer.save(self.state)
+            saved_step = self.state.step
+        save_wall_s = time.perf_counter() - t0
+        if save_wall_s > cfg.preempt_grace_s:
+            log0(f"emergency checkpoint took {save_wall_s:.1f}s, over the "
+                 f"{cfg.preempt_grace_s:.0f}s grace window: the checkpoint "
+                 f"landed but the cluster may have killed peers; consider "
+                 f"more frequent periodic saves")
+        self.registry.inc("preemptions")
+        self.registry.emit({
+            "record": "preemption", "signal": signum, "step": step,
+            "saved_step": saved_step, "save_wall_s": save_wall_s,
+            "grace_s": cfg.preempt_grace_s,
+        })
+        if self.metrics_sink is not None:
+            self.metrics_sink.flush(fsync=True)
+        log0(f"preempted at step {step}: emergency checkpoint "
+             + (f"at step {saved_step}" if saved_step is not None
+                else "skipped (no checkpoint_dir)") + ", exiting resumable")
+        raise Preempted(signum, step=step)
+
+    def _crash(self, step: int) -> None:
+        """``crash_at_step``: die like a killed host, after the last
+        periodic save (saves are synchronous, so it has committed): no
+        Python cleanup, no flush."""
+        self._sync()
+        # a plain print: log0 is rank-0-gated and the crashing rank is
+        # often another
+        print(f"injected crash at step {step} (rank {self.info.rank})",
+              flush=True)
+        os._exit(13)
 
     def _run_epoch(self, epoch: int, skip: int) -> None:
         cfg = self.tcfg
+        reg = self.registry
+        # per-step records synchronize on the device so the device block
+        # is device time; without them no synchronize is added
+        per_step = bool(cfg.metrics_dir)
         self._sync()
         t0 = time.perf_counter()
         metrics = []
+        step_times: list[float] = []
+        data_waits: list[float] = []
+        t_prev = time.perf_counter()
         for i, batch in enumerate(self.train_loader.epoch(epoch)):
+            if self._shutdown is not None and self._shutdown.requested:
+                self._preempt_exit(self._shutdown.requested, self.state.step)
+            t_batch = time.perf_counter()
+            data_wait = t_batch - t_prev
             if i < skip:
+                t_prev = time.perf_counter()
                 continue
-            metrics.append(self.train_step(self.state, batch))
+            first = not self._first_step_done
+            # the first step (its kernels build) is exempt: not a hang
+            with (contextlib.nullcontext() if first else
+                  self._guard("train_step", self.state.step + 1)):
+                metrics.append(self.train_step(self.state, batch))
+                self._first_step_done = True
+                t_dispatched = time.perf_counter()
+                if per_step:
+                    self._sync()
+            t_done = time.perf_counter()
             step = self.state.step
+            step_times.append(t_done - t_prev)
+            data_waits.append(data_wait)
+            reg.observe("train/data_wait_s", data_wait)
+            loss_host = None
+            if per_step:
+                reg.observe("train/dispatch_s", t_dispatched - t_batch)
+                reg.observe("train/device_block_s", t_done - t_dispatched)
+                reg.observe("train/step_s", t_done - t_prev)
+                loss_host = float(metrics[-1]["loss"])
+                reg.emit({
+                    "record": "step", "epoch": epoch, "step": step,
+                    "data_wait_s": data_wait,
+                    "dispatch_s": t_dispatched - t_batch,
+                    "device_block_s": t_done - t_dispatched,
+                    "step_s": t_done - t_prev, "loss": loss_host,
+                    "compile_inclusive": first,
+                })
             if cfg.log_every and step % cfg.log_every == 0:
-                log0(f"step {step}: loss={float(metrics[-1]['loss']):.4f} "
+                if loss_host is None:
+                    loss_host = float(metrics[-1]["loss"])
+                log0(f"step {step}: loss={loss_host:.4f} "
                      f"lr={self.schedule(step - 1):.2e}")
             if (self.checkpointer and cfg.checkpoint_every_steps
                     and step % cfg.checkpoint_every_steps == 0):
                 self.checkpointer.save(self.state)
-        self._sync()
+            if (cfg.crash_at_step and step == cfg.crash_at_step
+                    and self.info.rank == cfg.crash_rank):
+                self._crash(step)
+            # PDT_TPU_FAULT's step faults: InjectedCrash (the supervisor
+            # retries), a SIGTERM to this process (the preemption path) or
+            # a hang (the watchdog's)
+            get_plan().fire_step_fault(step)
+            t_prev = time.perf_counter()
+        with self._guard("epoch_block", self.state.step):
+            # without per-step syncs a wedged device shows here
+            self._sync()
         train_time = time.perf_counter() - t0
         host = self._log_steps(metrics)
+        # every rank of the batch group gives its step times; rank 0's
+        # record names the slowest (a collective, once an epoch)
+        straggler = epoch_straggler_stats(
+            step_times, data_waits, group=self.mesh.batch_group,
+            device=self.device)
         samples = cfg.global_batch_size * len(metrics)
+        t_eval = time.perf_counter()
         record = {
             "epoch": epoch,
             "train_loss": (float(np.mean([h[0] for h in host]))
@@ -469,10 +647,16 @@ class Trainer:
                 samples / train_time / self.info.world_size,
             **self.evaluate(),
         }
+        reg.observe("eval/wall_s", time.perf_counter() - t_eval)
         self.history.append(record)
         log0(f"epoch {epoch}: {record}")
         if self.checkpointer:
             self.checkpointer.save(self.state)
+        # the epoch record last, so the save and the eval land inside this
+        # epoch's window
+        reg.emit({"record": "epoch", **record, "train_wall_s": train_time,
+                  "straggler": straggler,
+                  "telemetry": reg.snapshot(reset=True)})
 
     def _log_steps(self, metrics: list[dict]) -> list[list[float]]:
         """Append the epoch's steps to ``step_log``, fetching every step's

@@ -3,11 +3,10 @@ JAX package's ``utils/config.py`` ``MeshConfig``, ``ModelConfig``,
 ``model_preset``, ``TrainConfig``, ``add_dataclass_args`` and
 ``dataclass_from_args``).
 
-The fields are those the ported paths read (GPT-2 serving, BERT
-data-parallel fine-tuning, GPT-2 causal-LM training), with the JAX package's defaults, so
-``ModelConfig()`` and a preset name mean the same model in both packages.
-Options whose path is not ported yet raise ``NotImplementedError`` naming
-the ROADMAP.md queue that holds them.
+The fields are those the ported paths read (GPT-2 serving, BERT and
+RoBERTa fine-tuning, GPT-2 causal-LM training), with the JAX package's
+defaults, so ``ModelConfig()`` and a preset name mean the same model in
+both packages.
 """
 
 from __future__ import annotations
@@ -17,7 +16,8 @@ import dataclasses
 import warnings
 from typing import Any
 
-_ROADMAP = "see ROADMAP.md, queue 1"
+DROPOUT_IMPLS = ("exact", "bits32", "bits8", "kernel")
+LAYERNORM_IMPLS = ("fused", "reference")
 
 
 @dataclasses.dataclass
@@ -105,18 +105,24 @@ class ModelConfig:
     # ... and the backward's dy on the previous microbatch's dy amaxes
     # (int8_full and quant_delayed only; not under the pipeline schedules)
     quant_delayed_grads: bool = False
-    # only the "kernel" mask generator is ported (ops/dropout.py)
+    # the dropout mask stream (ops/dropout.py): "kernel" and "bits32" keep
+    # a 32-bit word >= mask_threshold(rate) (the dropout-add-LayerNorm tail
+    # fuses the mask only under "kernel"); "bits8" one byte an element at
+    # 1/256 granularity; "exact" a float32 uniform < 1 - rate, a select
     dropout_impl: str = "kernel"
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     causal: bool = False  # GPT-2 family
+    # RoBERTa-style embeddings (pad-offset position ids, no token types)
+    roberta_style: bool = False
     pad_token_id: int = 0
     # tanh-approximate GELU (the JAX default); False is BERT's erf GELU
     gelu_approximate: bool = True
     # recompute the attention core (scores, softmax, probs dropout) in the
     # backward instead of saving the probs; "reference" attention only
     attention_remat: bool = True
-    # only "fused" (the LayerNorm kernels) is ported
+    # "fused": the LayerNorm kernels; "reference": the plain float32 math
+    # under autograd on every device (ops/layer_norm.py)
     layernorm_impl: str = "fused"
     # per-layer remat: each layer (BERT, GPT-2, the scanned trunk's layer
     # i, a branch's or a stage's) recomputes its forward in the backward
@@ -155,18 +161,15 @@ class ModelConfig:
                 "delayed_grads implements the 'full' backward layout only "
                 "(got mode='fwd')"
             )
-        not_ported = (
-            ("dropout_impl", "kernel", "the exact/bits32/bits8 dropout "
-                                       "streams, slice 2 leftovers"),
-            ("layernorm_impl", "fused", "the jnp-math LayerNorm switch, "
-                                        "slice 2 leftovers"),
-        )
-        for name, ported, item in not_ported:
-            if getattr(self, name) != ported:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet "
-                    f"({item}; {_ROADMAP})"
-                )
+        # JAX raises these where the stream or the LayerNorm runs
+        # (raw_dropout, layer_norm); a config cannot reach a run with them
+        if self.dropout_impl not in DROPOUT_IMPLS:
+            raise ValueError(f"unknown dropout impl {self.dropout_impl!r}; "
+                             f"have {DROPOUT_IMPLS}")
+        if self.layernorm_impl not in LAYERNORM_IMPLS:
+            raise ValueError(f"unknown layernorm impl "
+                             f"{self.layernorm_impl!r}; have "
+                             f"{LAYERNORM_IMPLS}")
         # JAX's remat checks, eagerly: a misspelt policy, or one set without
         # remat, must not pass unnoticed
         if self.remat_policy not in ("nothing", "dots", "weight_dots"):
@@ -209,6 +212,12 @@ _MODEL_PRESETS: dict[str, dict[str, Any]] = {
         vocab_size=28996, hidden_size=1024, num_layers=24, num_heads=16,
         intermediate_size=4096,
     ),
+    "roberta-large": dict(
+        vocab_size=50265, hidden_size=1024, num_layers=24, num_heads=16,
+        intermediate_size=4096, max_position_embeddings=514,
+        type_vocab_size=1, roberta_style=True, pad_token_id=1,
+        layer_norm_eps=1e-5,
+    ),
     "gpt2-medium": dict(
         vocab_size=50257, hidden_size=1024, num_layers=24, num_heads=16,
         intermediate_size=4096, max_position_embeddings=1024,
@@ -247,10 +256,11 @@ class TrainConfig:
     8 x accumulation 12, eval batch 32, linear warmup 100, AdamW with bias
     correction, bf16 compute, sequences of 128.
 
-    The fields are those the ported trainer reads, checkpoints and resume
-    among them (``train/checkpoint.py``); the native loader, prefetch,
-    telemetry, guards and chained steps wait in ROADMAP.md (queue 1,
-    slice 2 leftovers).
+    The fields are those the ported trainer reads: checkpoints and resume
+    (``train/checkpoint.py``), fault injection, preemption and the
+    watchdog (``faults/``) and telemetry (``telemetry/``). The native
+    loader, prefetch, guards, the optimizer-state dtypes and chained steps
+    wait in ROADMAP.md (queue 1).
     """
 
     learning_rate: float = 2e-5
@@ -284,6 +294,31 @@ class TrainConfig:
     # "size" (file sizes), "digest" (sha256 of every file) or "off"; a
     # latest step that fails falls back to the newest verified one
     checkpoint_verify: str = "size"
+    # fault injection: rank ``crash_rank`` hard-exits (``os._exit``, no
+    # cleanup) right after completing update ``crash_at_step``; 0 is off
+    crash_at_step: int = 0
+    crash_rank: int = 0
+    # SIGTERM/SIGINT stop the run at the next step boundary with an
+    # emergency checkpoint (inside preempt_grace_s, else a log line), a
+    # ``preemption`` record and exit 75 (faults/preemption.py)
+    handle_preemption: bool = True
+    preempt_grace_s: float = 30.0
+    # the hung-step watchdog (faults/watchdog.py) around the step and the
+    # checkpoint saves: a ``watchdog_stall`` record after max(min_stall_s,
+    # stall_factor x the section's rolling median), exit 84 past
+    # hard_timeout_s (0: never)
+    watchdog: bool = True
+    watchdog_stall_factor: float = 10.0
+    watchdog_min_stall_s: float = 60.0
+    watchdog_hard_timeout_s: float = 1800.0
+    # rank 0 appends a JSONL stream here (telemetry/sink.py): the
+    # ``run_meta`` header, per-step timings (data wait, dispatch, device
+    # block: each step synchronizes on the device), per-epoch records with
+    # the straggler stats, checkpoint, restart and fault events; read it
+    # with scripts/summarize_metrics.py
+    metrics_dir: str | None = None
+    # "text" | "json": json makes the loggers write one JSON object a line
+    log_format: str = "text"
 
     @property
     def grad_accum_steps(self) -> int:

@@ -154,8 +154,16 @@ def test_bad_sources_and_roberta_raise(tmp_path):
             vocab_size=512, hidden_size=64, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=128,
             max_position_embeddings=66, type_vocab_size=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_bert_classifier(roberta, ModelConfig(**BERT))
+    # RoBERTa is ported: its head's dense and out_proj fill the pooler and
+    # classifier slots, as the JAX loader maps them
+    cfg = dict(BERT, type_vocab_size=1, max_position_embeddings=66,
+               roberta_style=True, pad_token_id=1, layer_norm_eps=1e-5)
+    got = load_bert_classifier(roberta, ModelConfig(**cfg))
+    sd = roberta.state_dict()
+    assert torch.equal(got["bert.pooler.kernel"],
+                       sd["classifier.dense.weight"].t())
+    assert torch.equal(got["classifier.kernel"],
+                       sd["classifier.out_proj.weight"].t())
 
 
 def test_train_dp_starts_from_an_hf_checkpoint(tmp_path):

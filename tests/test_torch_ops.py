@@ -386,7 +386,7 @@ def test_kernel_modules_build_nothing_at_import():
     assert set(_build.KERNELS) == {
         "layer_norm", "layer_norm_bwd", "dropout_add_layer_norm",
         "dropout_add_layer_norm_bwd", "mask_scale", "mask_scale_apply",
-        "paged_attention",
+        "dropout_bits8", "dropout_exact", "paged_attention",
         "paged_attention_mq", "paged_attention_int8",
         "paged_attention_mq_int8", "flash_fwd", "flash_bwd",
         "flash_whole_fwd", "flash_whole_bwd", "flash_dq", "flash_dkv",
@@ -598,8 +598,12 @@ def test_model_config_defaults_match_jax():
         p, r = model_preset(name), jax_preset(name)
         for f in dataclasses.fields(p):
             assert getattr(p, f.name) == getattr(r, f.name), (name, f.name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_preset("tiny", dropout_impl="exact")
+    # the streams and the reference LayerNorm are ported; unknown names
+    # are refused
+    assert model_preset("tiny", dropout_impl="exact",
+                        layernorm_impl="reference").dropout_impl == "exact"
+    with pytest.raises(ValueError, match="unknown dropout impl"):
+        model_preset("tiny", dropout_impl="threefry")
     # remat is ported: JAX's checks, an unknown policy refused, a policy
     # without remat and remat_mlp under remat warned
     assert model_preset("tiny", remat=True, remat_policy="dots").remat

@@ -252,9 +252,9 @@ def test_ring_dropout_per_hop_masks(monkeypatch):
     seeds = []
     plain = ring.raw_dropout
 
-    def recorded(x, rate, seed, site=0):
+    def recorded(x, rate, seed, site=0, impl="kernel"):
         seeds.append((seed, site, tuple(x.shape)))
-        return plain(x, rate, seed, site)
+        return plain(x, rate, seed, site, impl)
 
     monkeypatch.setattr(ring, "raw_dropout", recorded)
     kw = dict(n_shards=4, causal=True, dropout_site=2)
