@@ -520,8 +520,9 @@ FMA_FLASH_SYMBOLS = ("flash_fwd_kernel<", "flash_bwd_kernel<",
 # kernel 13's FMA kernel takes float32 pools only: a serve-option run on
 # bf16 or int8 pools holds none of it
 FMA_PAGED_SYMBOLS = ("paged_mq_kernel<",)
-# the serve-option runs profiled (spec: its second run)
-PROFILED_OPTIONS = ("spec", "chunked", "prefix", "int8")
+# the serve-option runs profiled (spec: its second run); chunked and
+# prefix run kernel 13 on bf16 pools as spec does, unprofiled to make room
+PROFILED_OPTIONS = ("spec", "int8")
 # bf16 outputs against the plain version's: 2 bf16 ulps of the element
 # plus 1e-3 of the tensor's largest magnitude (float32 sums in another
 # order; p rounded to bf16 against another running max)
@@ -589,12 +590,12 @@ INT8_GEMM_SITES = (("query", 1024, 1024, 1024), ("key", 1024, 1024, 1024),
 INT8_GEMM_PADDED = (("padded", 5, 60, 36),)
 # NVIDIA H100 SXM data sheet: dense int8 tensor-core rate
 INT8_OPS_PER_S = 1979e12
-# train-int8: bert-large at the recipe's micro batch, 2 steps of 48 = 8 x 6
-# (the first's learning rate is 0) and a 32-row eval, native and each int8
+# train-int8: bert-large at the recipe's micro batch, 2 steps of 32 = 8 x 4
+# (the first's learning rate is 0) and a 16-row eval, native and each int8
 # variant
 INT8_TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
-                   "--train-size", "96", "--global-batch-size", "48",
-                   "--eval-size", "32",
+                   "--train-size", "64", "--global-batch-size", "32",
+                   "--eval-size", "16",
                    "--num-epochs", "1", "--device", "cuda", "--seed", "42",
                    "--log-every", "0"]
 INT8_VARIANTS = (
@@ -629,13 +630,13 @@ MP_CP_RTOL = 1e-5
 ROBERTA_ARGS = ["--model", "roberta-large", "--task", "mnli", "--train-size",
                 "192", "--eval-size", "96", "--num-epochs", "1", "--device",
                 "cuda", "--seed", "42", "--log-every", "0"]
-# dropout-streams: roberta-large, 1 step of 96 and 32 rows a split, under
-# each stream with the LayerNorm kernels, and the kernel stream with the
-# reference LayerNorm (model_preset overrides)
+# dropout-streams: roberta-large, 1 step of 32 = 8 x 4 and 16 rows a split,
+# under each stream with the LayerNorm kernels, and the kernel stream with
+# the reference LayerNorm (model_preset overrides)
 STREAM_SETTINGS = (("bits32", "fused"), ("bits8", "fused"),
                    ("exact", "fused"), ("kernel", "reference"))
-STREAM_TRAIN = dict(train_size=96, eval_size=32, num_epochs=1, seed=42,
-                    log_every=0)
+STREAM_TRAIN = dict(train_size=32, global_batch_size=32, eval_size=16,
+                    num_epochs=1, seed=42, log_every=0)
 # the crash drill: the tiny preset, a checkpoint a step
 DRILL_ARGS = TINY_ARGS + ["--device", "cuda", "--checkpoint-every-steps",
                           "1"]
@@ -4240,6 +4241,7 @@ def fsdp_checkpoint_check(trainer) -> dict:
         saver = checkpoint.Checkpointer(root)
         saver.save(trainer.state)
         want = whole(trainer.state)
+        saver.wait()  # the asynchronous save commits and seals at the join
         sharded = sum(hasattr(v, "full_tensor") for v in
                       checkpoint._saveable(trainer.state).values())
         plain = _lm_trainer(LM_FSDP_ARGS + ["--checkpoint-dir", root,
@@ -4261,9 +4263,8 @@ def fsdp_checkpoint_check(trainer) -> dict:
 def lm_fsdp_child(port: int) -> dict:
     """The lm-fsdp phase's process: a one-process NCCL group, then the
     LM_FSDP_ARGS run unwrapped (the losses' reference), the same run
-    sharded (``_sharded_lm_trainer``) and counted, the unwrapped run
-    again (warm, for its ms a step), and the sharded run's first step and
-    eval under ``torch.profiler``."""
+    sharded (``_sharded_lm_trainer``) and counted, and the sharded run's
+    first step and eval under ``torch.profiler``."""
     import torch
     import torch.distributed as dist
     from torch.distributed.fsdp import FSDPModule
@@ -4290,14 +4291,10 @@ def lm_fsdp_child(port: int) -> dict:
                      launches=dict(_build.LAUNCH_COUNTS))
             return m
 
-        def unwrapped():
-            m = run(train_lm.build_trainer(
-                train_lm.build_parser().parse_args(LM_FSDP_ARGS)))
-            gc.collect()
-            torch.cuda.empty_cache()
-            return m
-
-        plain = unwrapped()
+        plain = run(train_lm.build_trainer(
+            train_lm.build_parser().parse_args(LM_FSDP_ARGS)))
+        gc.collect()
+        torch.cuda.empty_cache()
         trainer, placements = _sharded_lm_trainer(LM_FSDP_ARGS)
         module = trainer.state.module
         sharded = [n for n, p in module.named_parameters()
@@ -4328,7 +4325,6 @@ def lm_fsdp_child(port: int) -> dict:
                     raise AssertionError(
                         f"lm-fsdp {key}: unwrapped {plain[key]} sharded "
                         f"{fsdp[key]} (rtol {CPU_CARD_RTOL})")
-        plain["warm"] = unwrapped()
         # the profile: one step + the eval, as lm-1024's
         trainer, _ = _sharded_lm_trainer(
             one_step(LM_FSDP_ARGS, LM_PROFILE_TRAIN_SIZE))
@@ -4352,15 +4348,14 @@ def lm_fsdp_child(port: int) -> dict:
         max_rel_diff=max(abs(a - b) / abs(a) for a, b in zip(
             plain["losses"] + plain["grad_norms"],
             fsdp["losses"] + fsdp["grad_norms"])),
-        ms_per_step_vs_warm_unwrapped=(
-            fsdp["ms_per_step"] / plain["warm"]["ms_per_step"]),
         profile=dict(prof_res, profiled_wall_s=wall), **collectives)
 
 
-def lm_fsdp_phase() -> dict:
-    """FSDP on the card: ``lm_fsdp_child`` in a process of its own (the
-    NCCL group stays out of this one); its lines relayed, its result
-    read back."""
+def lm_fsdp_start():
+    """Start ``lm_fsdp_child`` in a process of its own (the NCCL group
+    stays out of this one); ``lm_fsdp_phase`` reads it. The mp-cp phase
+    runs beside it (its tiny models and gloo pair leave the card and the
+    host's cores mostly to this one)."""
     import socket
 
     with socket.socket() as sock:
@@ -4369,17 +4364,29 @@ def lm_fsdp_phase() -> dict:
     code = (f"import json, sys; sys.path.insert(0, {ROOT!r}); "
             f"import chip_smoke; "
             f"print('LM_FSDP ' + json.dumps(chip_smoke.lm_fsdp_child({port})))")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def lm_fsdp_phase(proc) -> dict:
+    """FSDP on the card: the lm-fsdp process (``lm_fsdp_start``); its
+    lines relayed, its result read back."""
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     result = None
-    for line in proc.stdout.splitlines():
+    for line in stdout.splitlines():
         if line.startswith("LM_FSDP "):
             result = json.loads(line[len("LM_FSDP "):])
         else:
             say(f"[lm-fsdp] {line}")
     if proc.returncode != 0 or result is None:
         raise AssertionError(f"lm-fsdp: exit {proc.returncode}: "
-                             f"{proc.stderr[-3000:]}")
+                             f"{stderr[-3000:]}")
     result["profile"].pop("port_us_per_launch", None)
     say("[lm-fsdp] gpt2-medium at seq 1024, 2 steps + eval, sharded by the "
         f"fsdp-{LM_FSDP_SIZE} placements on a one-rank device mesh against "
@@ -4936,20 +4943,11 @@ def serve_tp_child(rank: int, ports: list, argv=SERVE_ARGS,
     return out
 
 
-def serve_tp_phase(plain_streams, int8_streams, argv=SERVE_ARGS,
-                   prompts=OPTION_PROMPTS, new_tokens=OPTION_NEW_TOKENS,
-                   n_layers=24, heads=16) -> dict:
-    """``serve_lm --tp 2`` on the card as two processes (``serve_tp_child``,
-    gloo: its all-reduces and broadcasts take the card's tensors through
-    the host), plain and int8: rank 0's streams, each request's token
-    count, ``stats()["tp"]``, the page count of tp=1's engine, half the
-    heads in each rank's pools, each rank's launches against the leader's
-    dispatch counts, the follower's calls, both exits 0; how many streams
-    equal tp=1's first ``new_tokens`` (``plain_streams``,
-    ``int8_streams``). ``argv``: the serve phase's."""
+def serve_tp_start(argv=SERVE_ARGS, prompts=OPTION_PROMPTS,
+                   new_tokens=OPTION_NEW_TOKENS) -> list:
+    """The serve-tp phase's two processes (``serve_tp_child``), started;
+    ``serve_tp_phase`` reads them."""
     import socket
-
-    from pytorch_distributed_training_tpu_torch.cli import serve_lm
 
     ports = []
     for _ in SERVE_TP_RUNS:
@@ -4967,6 +4965,24 @@ def serve_tp_phase(plain_streams, int8_streams, argv=SERVE_ARGS,
              json.dumps([ports, list(argv), list(prompts), new_tokens])],
             cwd=ROOT, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def serve_tp_phase(procs, plain_streams, int8_streams, argv=SERVE_ARGS,
+                   prompts=OPTION_PROMPTS, new_tokens=OPTION_NEW_TOKENS,
+                   n_layers=24, heads=16) -> dict:
+    """``serve_lm --tp 2`` on the card as two processes (``serve_tp_child``,
+    gloo: its all-reduces and broadcasts take the card's tensors through
+    the host), plain and int8: rank 0's streams, each request's token
+    count, ``stats()["tp"]``, the page count of tp=1's engine, half the
+    heads in each rank's pools, each rank's launches against the leader's
+    dispatch counts, the follower's calls, both exits 0; how many streams
+    equal tp=1's first ``new_tokens`` (``plain_streams``,
+    ``int8_streams``). ``argv``: the serve phase's; ``procs``: the two
+    processes of ``serve_tp_start``, started earlier beside lm-fsdp and
+    mp-cp (the card and the host's cores are shared while they run)."""
+    from pytorch_distributed_training_tpu_torch.cli import serve_lm
+
     ranks = []
     try:
         for rank, proc in enumerate(procs):
@@ -5074,16 +5090,17 @@ def train_int8_phase(root: str, argv=INT8_TRAIN_ARGS,
     int8 variant: 2 steps and the eval, counted as the train phase counts,
     finite losses, every parameter moved, step 1's loss within
     INT8_LOSS_ATOL of native's, ms a step beside native's; the last variant
-    (delayed scales) again with a checkpoint a step under ``root``, its
-    losses bit-identical, then resumed from its step 1
-    (``int8_resume_phase``)."""
+    (delayed scales) with a checkpoint a step under ``root`` (its ms a
+    step then holds the saves' submits, so it has no ratio to native's),
+    resumed from its step 1 (``int8_resume_phase``: step 2 bit-equal)."""
     import torch
 
     ck = os.path.join(root, "int8-large")
-    rerun = variants[-1][1] + ["--checkpoint-every-steps", "1",
+    saved = variants[-1][1] + ["--checkpoint-every-steps", "1",
                                "--checkpoint-dir", ck]
+    variants = variants[:-1] + ((variants[-1][0], saved),)
     runs = {}
-    for name, flags in (("native", []), *variants, ("rerun", rerun)):
+    for name, flags in (("native", []), *variants):
         with no_mask_tensor(f"train-int8 {name} run"):
             trainer, counts, wall = train_once(argv + flags)
         check_launches(f"train-int8 {name} run", counts,
@@ -5093,47 +5110,43 @@ def train_int8_phase(root: str, argv=INT8_TRAIN_ARGS,
         if m["steps"] != 2 or not all(
                 map(math.isfinite, m["losses"] + m["grad_norms"])):
             raise AssertionError(f"train-int8 {name}: {m}")
-        if name == "rerun":
+        start = initial_weights(trainer)
+        now = trainer.state.module.state_dict()
+        unmoved = [k for k in start if torch.equal(now[k].cpu(), start[k])]
+        if unmoved:
+            raise AssertionError(f"train-int8 {name}: unchanged after 2 "
+                                 f"steps: {unmoved[:5]}")
+        del start, now
+        if flags is saved:
             m["digest"] = weights_digest(trainer.state.module)
-        else:
-            start = initial_weights(trainer)
-            now = trainer.state.module.state_dict()
-            unmoved = [k for k in start
-                       if torch.equal(now[k].cpu(), start[k])]
-            if unmoved:
-                raise AssertionError(f"train-int8 {name}: unchanged after 2 "
-                                     f"steps: {unmoved[:5]}")
-            del start, now
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
         runs[name] = m
-        if name not in ("native", "rerun"):
+        if name != "native":
             d = abs(m["losses"][0] - runs["native"]["losses"][0])
             m["step1_loss_diff"] = d
-            m["ms_per_step_vs_native"] = (m["ms_per_step"]
-                                          / runs["native"]["ms_per_step"])
+            if flags is not saved:
+                m["ms_per_step_vs_native"] = (
+                    m["ms_per_step"] / runs["native"]["ms_per_step"])
             if d > INT8_LOSS_ATOL:
                 raise AssertionError(
                     f"train-int8 {name}: step 1 loss {m['losses'][0]} vs "
                     f"native {runs['native']['losses'][0]} (atol "
                     f"{INT8_LOSS_ATOL})")
         say(f"[train-int8] {name}: " + json.dumps(m))
-    if runs["rerun"]["losses"] != runs[variants[-1][0]]["losses"]:
-        raise AssertionError("train-int8: the rerun's losses differ: "
-                             f"{runs['rerun']['losses']}")
-    say(f"[train-int8] {variants[-1][0]} per-step losses bit-identical "
-        "across two runs")
-    runs["resumed"] = int8_resume_phase(argv + rerun, runs["rerun"])
+    runs["resumed"] = int8_resume_phase(argv + saved,
+                                        runs[variants[-1][0]])
     return runs
 
 
 def int8_resume_phase(argv, want: dict) -> dict:
-    """The delayed-int8 rerun's checkpoint at full width (bert-large's
+    """The delayed-int8 run's checkpoint at full width (bert-large's
     padded ``_int_mm`` shapes and its amax count): step 2 taken away, a
     run resumed from step 1, counted from its construction: the amaxes step
     1 saved restored, no calibration launch, and step 2's loss, grad norm
-    and every weight and amax bit-equal to the rerun's (``want``)."""
+    and every weight and amax bit-equal to the uninterrupted run's
+    (``want``)."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.cli import train_dp
@@ -5178,7 +5191,7 @@ def int8_resume_phase(argv, want: dict) -> dict:
     say("[train-int8] bert-large, int8_full, delayed scales on both passes, "
         "resumed from step 1: step 1's amaxes restored, no calibration "
         "launch, step 2's loss, grad norm and every weight bit-equal to the "
-        "rerun's: " + json.dumps(res))
+        "uninterrupted run's: " + json.dumps(res))
     return res
 
 
@@ -5379,17 +5392,133 @@ def _free_cuda():
     torch.cuda.empty_cache()
 
 
+def sync_save(state, directory: str) -> float:
+    """The synchronous save the Checkpointer made before its saves went
+    asynchronous (the A/B's reference): ``torch.distributed.checkpoint
+    .save`` from where the state lies into ``.tmp-<step>``, the rename and
+    the sealed manifest, all before it returns; its seconds."""
+    import torch.distributed.checkpoint as dcp
+
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+    from pytorch_distributed_training_tpu_torch.train import manifest
+
+    t0 = time.perf_counter()
+    os.makedirs(directory, exist_ok=True)
+    path = checkpoint.step_path(directory, state.step)
+    tmp = os.path.join(directory, f".tmp-{state.step}")
+    saveable = checkpoint._saveable(state)
+    tree = manifest.tree_summary(saveable)
+    with checkpoint._quiet():
+        dcp.save(saveable, storage_writer=dcp.FileSystemWriter(
+            tmp, thread_count=checkpoint.WRITE_THREADS))
+    os.rename(tmp, path)
+    manifest._fsync_path(directory)
+    manifest.write_manifest(path, manifest.build_manifest(path, state.step,
+                                                          tree=tree))
+    return time.perf_counter() - t0
+
+
+def ckpt_async_ab(state, root: str) -> dict:
+    """The same gpt2-medium step saved asynchronously (the Checkpointer:
+    the submit, which returns once the host copy is whole, then the join,
+    timed apart) and synchronously (``sync_save``), in turns: async, sync,
+    sync, async. One Checkpointer serves both async turns, so the second
+    reuses its pinned buffers as a training run's later saves do."""
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+
+    adir, sdir = os.path.join(root, "ab-async"), os.path.join(root, "ab-sync")
+    saver = checkpoint.Checkpointer(adir)
+    turns = []
+    for kind in ("async", "sync", "sync", "async"):
+        if kind == "async":
+            saver.save(state)
+            saver.wait()
+            entry = saver.saves[-1]
+            turns.append(dict(kind=kind, submit_s=entry["submit_s"],
+                              join_s=entry["join_s"],
+                              total_s=entry["submit_s"] + entry["join_s"],
+                              bytes=entry["bytes"]))
+            shutil.rmtree(checkpoint.step_path(adir, state.step))
+        else:
+            turns.append(dict(kind=kind, total_s=sync_save(state, sdir)))
+            shutil.rmtree(sdir)
+    saver.close()
+    shutil.rmtree(adir, ignore_errors=True)
+    return dict(turns=turns)
+
+
+def ckpt_kill_child(directory: str) -> None:
+    """The kill drill's process: the tiny preset on the card, a checkpoint
+    a step, killed (``os._exit``) right after the submit of step 2,
+    before its join."""
+    from pytorch_distributed_training_tpu_torch.cli import train_dp
+
+    trainer = train_dp.build_trainer(train_dp.build_parser().parse_args(
+        DRILL_ARGS + ["--checkpoint-dir", directory]))
+    submit = trainer.checkpointer._submit
+
+    def dying(state, step):
+        submit(state, step)
+        if step == 2:
+            os._exit(13)
+
+    trainer.checkpointer._submit = dying
+    trainer.run()
+
+
+def ckpt_kill_start(root: str):
+    """Start ``ckpt_kill_child`` in a process of its own (the tiny preset
+    beside the phase's gpt2-medium runs); ``ckpt_kill_phase`` reads it."""
+    ck = os.path.join(root, "kill")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"chip_smoke.ckpt_kill_child({ck!r})")
+    return ck, subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+
+def ckpt_kill_phase(ck: str, proc) -> dict:
+    """The kill drill's process (``ckpt_kill_start``) exited 13, only the
+    hidden ``.tmp-2`` is left beside the sealed step 1, and a resumed run
+    restores step 1."""
+    from pytorch_distributed_training_tpu_torch.cli import train_dp
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+
+    _, err = proc.communicate(timeout=300)
+    left = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+    if (proc.returncode != 13 or checkpoint.all_steps(ck) != [1]
+            or ".tmp-2" not in left):
+        raise AssertionError(f"ckpt-kill: exit {proc.returncode}, left "
+                             f"{left}: {err[-3000:]}")
+    resumed = train_dp.build_trainer(train_dp.build_parser().parse_args(
+        DRILL_ARGS + ["--checkpoint-dir", ck, "--resume"]))
+    restore = resumed.checkpointer.restores[-1]
+    if resumed.state.step != 1 or restore["step"] != 1:
+        raise AssertionError(f"ckpt-kill: restored {restore}")
+    resumed.checkpointer.close()
+    del resumed
+    shutil.rmtree(ck, ignore_errors=True)
+    res = dict(exit=proc.returncode, left=left, restore=restore)
+    say("[ckpt-resume] killed between the submit of step 2 and its join: "
+        "only .tmp-2 beside step 1, the resume falls back to step 1: "
+        + json.dumps(res))
+    return res
+
+
 def ckpt_resume_phase(root: str) -> dict:
     """``train_lm`` on gpt2-medium with a checkpoint every step: 2 steps
-    uninterrupted, then, with step 2 taken away, a run resumed from step 1
-    (counted) that takes step 2: its loss and grad norm and every weight
-    bit-equal to the uninterrupted run's; the bytes, save and restore
-    seconds. Returns the directory (steps 1 and the resumed run's 2)."""
+    uninterrupted (each save's submit and join), the async/sync A/B on its
+    final state (``ckpt_async_ab``), then, with step 2 taken away, a run
+    resumed from step 1 (counted) that takes step 2: its loss and grad
+    norm and every weight bit-equal to the uninterrupted run's; the bytes,
+    save and restore seconds; then the kill drill (``ckpt_kill_phase``).
+    Returns the directory (steps 1 and the resumed run's 2)."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.ops import _build
     from pytorch_distributed_training_tpu_torch.train import checkpoint
 
+    kill = ckpt_kill_start(root)
     ck = os.path.join(root, "lm")
     argv = CKPT_LM_ARGS + ["--checkpoint-dir", ck]
     full, _, wall = train_once(argv, "train_lm")
@@ -5401,6 +5530,9 @@ def ckpt_resume_phase(root: str) -> dict:
     want_log = full.step_log
     want = {k: v.detach().cpu().clone()
             for k, v in full.state.module.state_dict().items()}
+    ab = ckpt_async_ab(full.state, root)
+    say("[ckpt-resume] gpt2-medium step saved asynchronously (submit, then "
+        "join) and synchronously, in turns: " + json.dumps(ab))
     del full
     _free_cuda()
     # the run stopped after step 1's save
@@ -5437,10 +5569,11 @@ def ckpt_resume_phase(root: str) -> dict:
         steps=want_log, save=saves, resave=resave, restore=restore,
         bytes_a_step=saves[0]["bytes"], uninterrupted_wall_s=wall,
         resumed_wall_s=resumed_wall, launches=counts,
-        scanned=mc.scan_layers)
+        scanned=mc.scan_layers, async_ab=ab)
     say("[ckpt-resume] gpt2-medium, seq 128, 2 steps of 16, a checkpoint a "
         "step: resumed from step 1, step 2's loss, grad norm and every "
         "weight bit-equal to the uninterrupted run's: " + json.dumps(res))
+    res["kill"] = ckpt_kill_phase(*kill)
     return dict(res, dir=ck, restored_digest=digest)
 
 
@@ -5668,6 +5801,17 @@ def serve_ckpt_phase(ck: str, prompts=PROMPTS, new_tokens=NEW_TOKENS,
 
 DRAFT_K = 4
 
+# serve-ops: serve_lm over HTTP at gpt2-medium (the serve-ckpt shape),
+# booted from a weights-only directory of its own that holds ckpt-resume's
+# step 2; the swapped step adds noise of this std to every float weight
+# (the random init's std is 0.02), so the greedy streams move
+SERVE_OPS_ARGS = SERVE_CKPT_ARGS + [
+    "--hotswap-poll-s", "0.5", "--brownout-high", "0.9", "--brownout-low",
+    "0.3", "--slo-windows", "60,600", "--slo-emit-s", "1",
+    "--drain-timeout-s", "60", "--stall-timeout-s", "30"]
+SERVE_OPS_PERTURB = 2e-3
+SERVE_OPS_LONG = 64   # the SIGTERM drill's stream
+
 
 def serve_draft_phase(ck: str, prompts=PROMPTS, new_tokens=OPTION_NEW_TOKENS,
                       n_layers=24, k=DRAFT_K, argv=SERVE_CKPT_ARGS,
@@ -5718,6 +5862,413 @@ def serve_draft_phase(ck: str, prompts=PROMPTS, new_tokens=OPTION_NEW_TOKENS,
         say(f"[serve-draft] {name}: " + json.dumps(
             {k: v for k, v in m.items() if k != "streams"}))
     return runs
+
+
+def _http(port: int, method: str, path: str, body=None, timeout=300):
+    """(status, body text) of one request to a local serve_lm."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, body=None if body is None else json.dumps(body))
+    resp = conn.getresponse()
+    text = resp.read().decode()
+    conn.close()
+    return resp.status, text
+
+
+def http_streams(port: int, prompts, new_tokens) -> dict:
+    """Every prompt POSTed to ``/generate`` at once (a worker each, the
+    JSONL events streamed back), as ``r<i>``; their token ids
+    (``streams``: each must end ``done`` with ``new_tokens``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i, prompt):
+        status, text = _http(port, "POST", "/generate", {
+            "id": f"r{i}", "prompt": prompt, "max_new_tokens": new_tokens})
+        if status != 200:
+            raise AssertionError(f"r{i}: HTTP {status}: {text}")
+        return [json.loads(line) for line in text.splitlines()]
+
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        runs = list(pool.map(one, range(len(prompts)), prompts))
+    return streams([e for run in runs for e in run], prompts, new_tokens)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def wait_ready(port: int, proc=None, timeout=300.0) -> float:
+    """Poll ``/healthz`` until it answers 200; the seconds it took. Fails
+    if ``proc`` (a serve_lm process) exits first."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"serve-ops: serve_lm exited "
+                                 f"{proc.returncode} before it was ready")
+        try:
+            if _http(port, "GET", "/healthz", timeout=5)[0] == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError(f"serve-ops: port {port} never ready")
+
+
+def wait_for(what: str, predicate, timeout=180.0) -> float:
+    t0 = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"serve-ops: timed out waiting for {what}")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def _healthz(port: int) -> dict:
+    return json.loads(_http(port, "GET", "/healthz", timeout=10)[1])
+
+
+def _stats(port: int) -> dict:
+    return json.loads(_http(port, "GET", "/stats", timeout=30)[1])
+
+
+def serve_lm_process(ops: str, root: str, name: str, extra=(), env=None):
+    """``serve_lm`` over HTTP in a process of its own (``SERVE_OPS_ARGS``
+    on ``ops``, its metrics under ``root/name``); (process, port, metrics
+    directory). Its log goes to ``root/name.log``."""
+    port, mdir = _free_port(), os.path.join(root, name)
+    log = open(os.path.join(root, f"{name}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "pytorch_distributed_training_tpu_torch.cli.serve_lm"]
+        + SERVE_OPS_ARGS + ["--checkpoint-dir", ops, "--http-port",
+                            str(port), "--metrics-dir", mdir,
+                            "--replica-name", name, *extra],
+        cwd=ROOT, env=dict(os.environ, **(env or {})),
+        stdout=log, stderr=subprocess.STDOUT, text=True)
+    log.close()
+    return proc, port, mdir
+
+
+def _log_tail(root: str, name: str) -> str:
+    with open(os.path.join(root, f"{name}.log")) as f:
+        return f.read()[-3000:]
+
+
+def _first_ttft(mdir: str) -> float:
+    reqs = [r for r in _summarize_metrics().load_records(mdir)
+            if r["record"] == "serve_request"]
+    return reqs[0]["ttft_s"]
+
+
+def _kinds(records) -> dict:
+    out = {}
+    for r in records:
+        out[r["record"]] = out.get(r["record"], 0) + 1
+    return out
+
+
+def serve_ops_cold(proc, port: int, mdir: str, root: str, prompts,
+                   new_tokens) -> dict:
+    """The serve_lm started without ``--warmup`` (``serve_lm_process``,
+    ready): its first request's TTFT; then a long stream, SIGTERM while it
+    runs: the stream ends ``done``, the process exits 75 with a
+    ``sigterm_drain`` flight dump and a ``preemption`` record."""
+    import http.client
+    import signal
+
+    try:
+        http_streams(port, prompts[:1], new_tokens)
+        ttft = _first_ttft(mdir)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("POST", "/generate", body=json.dumps({
+            "id": "long", "prompt": prompts[2],
+            "max_new_tokens": SERVE_OPS_LONG}))
+        resp = conn.getresponse()
+        # the first token is out: the stream is live when SIGTERM lands
+        first = resp.readline().decode()
+        proc.send_signal(signal.SIGTERM)
+        status, text = resp.status, first + resp.read().decode()
+        conn.close()
+        code = proc.wait(300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    done = [json.loads(line) for line in text.splitlines()][-1:]
+    records = _summarize_metrics().load_records(mdir)
+    kinds = _kinds(records)
+    dumps = [r["reason"] for r in records if r["record"] == "flight_dump"]
+    if (code != 75 or status != 200 or not done
+            or done[0].get("new_tokens") != SERVE_OPS_LONG
+            or dumps != ["sigterm_drain"] or "preemption" not in kinds):
+        raise AssertionError(
+            f"serve-ops SIGTERM drill: exit {code}, HTTP {status}, last "
+            f"event {done}, dumps {dumps}, records {kinds}: "
+            + _log_tail(root, "serve-ops-cold"))
+    return dict(first_ttft_s=ttft, sigterm_exit=code,
+                drained_tokens=done[0]["new_tokens"], records=kinds)
+
+
+def serve_ops_int8(ops: str, w_next: dict, root: str, prompts, new_tokens,
+                   n_layers=24) -> dict:
+    """serve_lm with int8 weights and KV pools and chunked prefill in this
+    process (its launches counted once it is ready), booted from the
+    newest step of ``ops``: the prompts, then an fp32 step (``w_next``)
+    published and swapped into int8, the prompts again; SIGTERM ends it
+    (exit 75). Kernels 12-int8 and 13-int8 and the LayerNorm, counted
+    against the engine's dispatches."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pytorch_distributed_training_tpu_torch.cli import serve_lm
+    from pytorch_distributed_training_tpu_torch.ops import _build
+    from pytorch_distributed_training_tpu_torch.serve.hotswap import (
+        publish_params_checkpoint,
+    )
+    from pytorch_distributed_training_tpu_torch.telemetry.registry import (
+        MetricsRegistry,
+        set_registry,
+    )
+
+    port, mdir = _free_port(), os.path.join(root, "serve-ops-int8")
+    argv = SERVE_OPS_ARGS + INT8 + [
+        "--prefill-chunk", "32", "--warmup", "--checkpoint-dir", ops,
+        "--http-port", str(port), "--metrics-dir", mdir]
+    out, flags = {}, {"ready": False, "ended": False}
+
+    def drive():
+        try:
+            t0 = time.perf_counter()
+            while not flags["ended"]:
+                try:
+                    if _http(port, "GET", "/healthz", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.2)
+            else:
+                return
+            out["boot_s"] = time.perf_counter() - t0
+            flags["ready"] = True
+            _build.reset_launch_counts()
+            boot = _healthz(port)["weights_step"]
+            out["before"] = http_streams(port, prompts, new_tokens)
+            out["boot_step"] = boot
+            publish_params_checkpoint(ops, boot + 1, w_next)
+            out["swap_wait_s"] = wait_for(
+                "the int8 swap", lambda: _healthz(port)["weights_step"]
+                == boot + 1)
+            out["after"] = http_streams(port, prompts, new_tokens)
+            out["stats"] = _stats(port)
+            out["counts"] = dict(_build.LAUNCH_COUNTS)
+        except Exception as e:  # raised on the main thread below
+            out["error"] = e
+        finally:
+            if flags["ready"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    prev_term = signal.getsignal(signal.SIGTERM)
+    prev_reg = set_registry(MetricsRegistry())
+    code = 0
+    with ThreadPoolExecutor(1) as pool:
+        feeder = pool.submit(drive)
+        try:
+            serve_lm.main(argv)
+        except SystemExit as e:
+            code = e.code
+        finally:
+            flags["ended"] = True
+            signal.signal(signal.SIGTERM, prev_term)
+            reg = set_registry(prev_reg)
+            if reg.sink is not None:
+                reg.sink.close()
+        feeder.result(300)
+    if "error" in out:
+        raise out["error"]
+    stats, counts = out["stats"], out["counts"]
+    check_launches(
+        f"serve-ops int8 run ({stats['admitted']} requests, "
+        f"{stats['prefill_chunks']} chunks, {stats['decode_dispatches']} "
+        "ticks)", counts, serve_option_launches(stats, n_layers))
+    # plain decode ticks and chunks both ran, so check_launches held
+    # kernels 12-int8 and 13-int8 to counts above 0
+    if (code != 75 or stats["variant"] != "int8" or stats["swaps"] != 1
+            or not stats["prefill_chunks"] or stats["spec_dispatches"]
+            or not stats["decode_dispatches"]):
+        raise AssertionError(f"serve-ops int8: exit {code}, stats "
+                             f"{ {k: stats[k] for k in ('variant', 'swaps')} }"
+                             f", launches {counts}")
+    records = _summarize_metrics().load_records(mdir)
+    swap = [r for r in records if r["record"] == "swap_applied"]
+    return dict(boot_s=out["boot_s"], boot_step=out["boot_step"],
+                swap_wait_s=out["swap_wait_s"], launches=counts,
+                published_variant=swap[0]["variant"], exit=code,
+                weights_step=stats["weights_step"],
+                before=out["before"], after=out["after"])
+
+
+def _margin_model(state: dict, weights: str, device,
+                  model_name="gpt2-medium"):
+    """``model_name`` on ``state`` (reference attention, float32), cast
+    for serving as an engine of ``weights`` casts it, for
+    ``margin_check``."""
+    from pytorch_distributed_training_tpu_torch.models.gpt2 import (
+        GPT2LMModel,
+        unscanned,
+    )
+    from pytorch_distributed_training_tpu_torch.models.relayout import (
+        has_scanned_trunk,
+    )
+    from pytorch_distributed_training_tpu_torch.utils.config import (
+        model_preset,
+    )
+
+    model = GPT2LMModel(model_preset(
+        model_name, attention_impl="reference",
+        scan_layers=has_scanned_trunk(state)), device="meta")
+    model.load_state_dict(state, assign=True)
+    model = unscanned(model).to(device)
+    model.cast_for_serving(weights)
+    return model.eval()
+
+
+def serve_ops_start(ck: str, root: str) -> dict:
+    """ckpt-resume's step 2 published weights-only into ``root/ops``
+    (``publish_params_checkpoint``), then two serve_lm processes started
+    on it at once (``serve_lm_process``): one without ``--warmup``, one
+    with ``--warmup``, ``--hotswap-poll-s``, ``--metrics-dir``, the
+    brownout and SLO flags and ``PDT_TPU_FAULT=corrupt_ckpt_swap:4``.
+    They boot while this process runs the checkpoint block's checks;
+    ``serve_ops_phase`` drives them."""
+    from pytorch_distributed_training_tpu_torch.serve.hotswap import (
+        publish_params_checkpoint,
+    )
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+
+    ops = os.path.join(root, "ops")
+    w2 = checkpoint.restore_params(ck, step=2)
+    t0 = time.perf_counter()
+    publish_params_checkpoint(ops, 2, w2)
+    publish_s = time.perf_counter() - t0
+    return dict(
+        ops=ops, w2=w2, publish_s=publish_s,
+        cold=serve_lm_process(ops, root, "serve-ops-cold"),
+        warm=serve_lm_process(ops, root, "serve-ops", ["--warmup"],
+                              env={"PDT_TPU_FAULT": "corrupt_ckpt_swap:4"}))
+
+
+def serve_ops_phase(started: dict, root: str, device, prompts=PROMPTS,
+                    new_tokens=OPTION_NEW_TOKENS,
+                    model_name="gpt2-medium") -> dict:
+    """The serving support layers at gpt2-medium's full width, over HTTP,
+    on the two serve_lm processes of ``serve_ops_start``: the one without
+    ``--warmup`` (``serve_ops_cold``: the first TTFT, the SIGTERM drill),
+    then the other: its first TTFT (each first request alone on the
+    card), the prompts streamed, a perturbed step 3
+    published and swapped in (the swap's load and apply seconds from its
+    ``swap_ok`` record), the prompts again, a step 4 whose load fails
+    (refused before a byte is read, so a one-tensor step: the streams
+    stay), ``/healthz`` and ``/debug/flight``, SIGTERM (exit 75); then
+    step 4 removed and ``serve_ops_int8`` (booted on step 3). Every
+    stream against a full-sequence forward of the weights that served
+    it, at MARGIN_TOL (INT8_KV_MARGIN_TOL on int8 pools)."""
+    import signal
+
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.serve.hotswap import (
+        publish_params_checkpoint,
+    )
+    from pytorch_distributed_training_tpu_torch.train import checkpoint
+
+    ops, w2, name = started["ops"], started["w2"], "serve-ops"
+    cold_proc, cold_port, cold_mdir = started["cold"]
+    proc, port, mdir = started["warm"]
+    try:
+        g = torch.Generator().manual_seed(3)
+        w3 = {k: v + SERVE_OPS_PERTURB * torch.randn(v.shape, generator=g)
+              if v.is_floating_point() else v for k, v in w2.items()}
+        wait_ready(cold_port, cold_proc)
+        wait_ready(port, proc)
+        cold = serve_ops_cold(cold_proc, cold_port, cold_mdir, root,
+                              prompts, new_tokens)
+        say("[serve-ops] without --warmup: " + json.dumps(cold))
+        http_streams(port, prompts[:1], new_tokens)
+        ttft = _first_ttft(mdir)
+        before = http_streams(port, prompts, new_tokens)
+        publish_params_checkpoint(ops, 3, w3)
+        swap_wait = wait_for("the swap to step 3", lambda: _healthz(port)[
+            "weights_step"] == 3)
+        after = http_streams(port, prompts, new_tokens)
+        publish_params_checkpoint(ops, 4, {"wte.embedding": w2[
+            "wte.embedding"][:1]})
+        wait_for("the refused step 4", lambda: _stats(port)[
+            "swap_failures"] == 1)
+        refused = http_streams(port, prompts, new_tokens)
+        health = _healthz(port)
+        fstatus, ftext = _http(port, "GET", "/debug/flight")
+        flight = json.loads(ftext)
+        stats = _stats(port)
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(300)
+    finally:
+        for p in (cold_proc, proc):
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    shutil.rmtree(checkpoint.step_path(ops, 4))
+    records = _summarize_metrics().load_records(mdir)
+    kinds = _kinds(records)
+    ok = [r for r in records if r["record"] == "swap_ok"]
+    failed = [r for r in records if r["record"] == "swap_failed"]
+    if (code != 75 or refused != after or before == after
+            or health["state"] != "ready" or health["weights_step"] != 3
+            or fstatus != 200 or not flight["entries"]
+            or stats["swaps"] != 1 or len(ok) != 1
+            or [(r["version"], r["stage"]) for r in failed] != [(4, "load")]
+            or "slo_burn" not in kinds or "span" not in kinds):
+        raise AssertionError(
+            f"serve-ops: exit {code}, refused==after {refused == after}, "
+            f"health {health}, flight {fstatus}, swaps {stats['swaps']}, "
+            f"swap_ok {ok}, swap_failed {failed}, records {kinds}: "
+            + _log_tail(root, name))
+    res = dict(
+        publish_s=started["publish_s"],
+        first_ttft_s={"warmup": ttft, "no_warmup": cold["first_ttft_s"]},
+        swap=dict(load_s=ok[0]["load_s"], total_s=ok[0]["total_s"],
+                  apply_s=ok[0]["total_s"] - ok[0]["load_s"],
+                  wait_s=swap_wait),
+        refused=dict(version=4, stage="load", streams_unchanged=True),
+        flight_entries=len(flight["entries"]), exit=code,
+        records=kinds, cold=cold)
+    say("[serve-ops] serve_lm --http-port --warmup --hotswap-poll-s "
+        "--metrics-dir, gpt2-medium from a checkpoint: " + json.dumps(res))
+    int8 = serve_ops_int8(ops, w2, root, prompts, new_tokens)
+    res["int8"] = {k: v for k, v in int8.items()
+                   if k not in ("before", "after")}
+    say("[serve-ops] int8 weights and KV, an fp32 step swapped in: "
+        + json.dumps(res["int8"]))
+    margins = {}
+    for state, runs in ((w2, (("float32", "serve-ops-before", before),
+                              ("int8", "serve-ops-int8-after",
+                               int8["after"]))),
+                        (w3, (("float32", "serve-ops-after", after),
+                              ("int8", "serve-ops-int8-before",
+                               int8["before"])))):
+        for weights, tag, toks in runs:
+            tol = INT8_KV_MARGIN_TOL if weights == "int8" else MARGIN_TOL
+            model = _margin_model(state, weights, device, model_name)
+            margins[tag] = margin_check(model, tag, toks, prompts, tol,
+                                        device, weights=weights)
+            del model
+            _free_cuda()
+    res["margins"] = margins
+    return res
 
 
 def ckpt_margin_phase(gen: dict, serve: dict, device, prompts=PROMPTS,
@@ -5846,8 +6397,12 @@ def main() -> int:
     lap("lm-1024-int8 + cpu-vs-card-int8")
     lm_scan_equal_phase()
     lap("lm-scan-equal")
-    lm_fsdp_phase()
-    lap("lm-fsdp")
+    # three phases in processes of their own side by side: lm-fsdp, the
+    # serve-tp pair (read after the serve options) and mp-cp's pair
+    fsdp, serve_tp_procs = lm_fsdp_start(), serve_tp_start()
+    mp_cp_phase()
+    lm_fsdp_phase(fsdp)
+    lap("lm-fsdp + mp-cp (+ serve-tp started)")
     remat_phase()
     lap("remat")
     tp_split_phase(device)
@@ -5856,8 +6411,6 @@ def main() -> int:
     lap("ring")
     tp_cp_equal_phase()
     lap("tp-cp-equal")
-    mp_cp_phase()
-    lap("mp-cp")
     serve_tp_block_phase(device)
     lap("serve-tp-block")
     serve = serve_phase()
@@ -5867,7 +6420,8 @@ def main() -> int:
     options = serve_options_phase(plain)
     tick_phase()
     lap("serve options")
-    serve_tp = serve_tp_phase(plain, options["int8"]["streams"])
+    serve_tp = serve_tp_phase(serve_tp_procs, plain,
+                              options["int8"]["streams"])
     lap("serve-tp")
     dense_host = serve_dense_host_phase(plain)
     lap("serve-dense-host")
@@ -5885,11 +6439,15 @@ def main() -> int:
         lap("serve-ckpt")
         draft = serve_draft_phase(resume["dir"])
         lap("serve-draft")
+        # serve-ops' two serve_lm processes boot during the checks
+        started = serve_ops_start(resume["dir"], root)
         ckpt_margin_phase(gen, serve_ckpt, device, extra={
             f"serve-draft-{name}": run.pop("streams")
             for name, run in draft.items()})
         ckpt_fallback_phase(resume)
         lap("ckpt checks")
+        ops = serve_ops_phase(started, root, device)
+        lap("serve-ops")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     checks = {"serve": (plain, PROMPTS, "float32", MARGIN_TOL),
@@ -5925,6 +6483,9 @@ def main() -> int:
     for name in _build.KERNELS:
         r = res[name]
         launches = runs.get(name, train)["launches"].get(name, 0)
+        if name in ("paged_attention_int8", "paged_attention_mq_int8"):
+            # serve-ops' int8 server, swapped into, runs both too
+            launches = max(launches, ops["int8"]["launches"].get(name, 0))
         kernels.append(dict(
             name=name, route="cuda",
             source="pytorch_distributed_training_tpu_torch/csrc/"

@@ -1,9 +1,15 @@
 """Serving entry point: continuous-batching LM inference over stdio JSONL
-(counterpart: the JAX package's ``cli/serve_lm.py``).
+or HTTP (counterpart: the JAX package's ``cli/serve_lm.py``).
 
     echo '{"prompt": "The quick brown", "max_new_tokens": 16}' | \\
     python -m pytorch_distributed_training_tpu_torch.cli.serve_lm \\
         --model gpt2-medium --num-slots 8
+
+    # HTTP: POST /generate streams JSONL token events; GET /healthz,
+    # /stats, /debug/flight; POST /swap with --checkpoint-dir
+    python -m pytorch_distributed_training_tpu_torch.cli.serve_lm \\
+        --model gpt2-medium --checkpoint-dir /ckpts/run1 --http-port 8000 \\
+        --warmup --hotswap-poll-s 1 --metrics-dir /tmp/serve_metrics
 
 Runs on the GPU (``--device cuda``, the default; it raises when no GPU is
 visible and never carries on quietly on the CPU) or on the CPU with
@@ -26,6 +32,24 @@ newest verified step; the engine reports it as ``stats()["weights_step"]``),
 ``--hf-checkpoint`` or random from ``--seed`` (``cli/generate_lm.py``'s
 ``load_model_and_params``). Events go to stdout, logs to stderr.
 
+Service knobs, as in the JAX package: ``--warmup`` runs every serving
+shape once before the first request; ``--interactive-deadline-s`` and
+``--batch-deadline-s`` are the tiers' deadlines (else ``--deadline-s``);
+``--brownout-*`` the overload ladder (off at ``--brownout-high 0``);
+``--metrics-dir`` the JSONL telemetry stream (``serve_meta``, per-request
+``serve_request`` records and spans, ``slo_burn``, flight dumps, a
+``serve_summary`` at exit; ``scripts/summarize_metrics.py`` reads it),
+``--flight-capacity`` the flight recorder's ring, ``--slo-*`` the burn
+monitor, ``--replica-name`` the name on spans and flight records. With
+``--http-port`` the server answers HTTP (``serve/server.py``); SIGTERM
+drains it (admit nothing, finish in-flight streams for up to
+``--drain-timeout-s``, dump the flight recorder) and exits 75;
+``/healthz`` says ``unhealthy`` past ``--stall-timeout-s`` without a
+tick. With ``--checkpoint-dir``, ``POST /swap`` swaps to a named step and
+``--hotswap-poll-s N`` watches the directory for newly sealed steps
+(verified at ``--hotswap-verify``), swapped in between ticks with no
+restart (``serve/hotswap.py``).
+
 ``--tp N`` serves one replica over N processes, one a card, launched by
 ``torch.distributed.run`` (NCCL on cards, gloo with ``--device cpu``)::
 
@@ -43,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+from typing import Optional
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -140,8 +165,75 @@ def build_parser() -> argparse.ArgumentParser:
                         "Requires a model whose num_heads/intermediate_size "
                         "divide by N and a launch of N processes "
                         "(torch.distributed.run --nproc-per-node N)")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every prefill bucket (or the chunk), a decode "
+                        "and a verify once before serving: kernel builds "
+                        "and first launches leave the first request")
     p.add_argument("--deadline-s", type=float, default=0.0,
                    help="default per-request deadline (0 = none)")
+    p.add_argument("--interactive-deadline-s", type=float, default=0.0,
+                   help="SLO deadline for tier=interactive requests "
+                        "(0 = fall back to --deadline-s)")
+    p.add_argument("--batch-deadline-s", type=float, default=0.0,
+                   help="SLO deadline for tier=batch requests "
+                        "(0 = fall back to --deadline-s)")
+    p.add_argument("--brownout-high", type=float, default=0.0,
+                   help="enable the brownout ladder: escalate one level "
+                        "(shed batch -> clamp max_new -> fail-fast "
+                        "interactive) when queue pressure stays above this "
+                        "fraction of capacity (0 = brownout off)")
+    p.add_argument("--brownout-low", type=float, default=0.3,
+                   help="de-escalate one level when pressure stays below "
+                        "this fraction (hysteresis band with "
+                        "--brownout-high)")
+    p.add_argument("--brownout-clamp", type=int, default=16,
+                   help="max_new_tokens cap applied at brownout level 2+")
+    p.add_argument("--brownout-escalate-hold-s", type=float, default=0.5,
+                   help="pressure must stay above --brownout-high this long "
+                        "before each escalation")
+    p.add_argument("--brownout-deescalate-hold-s", type=float, default=1.0,
+                   help="pressure must stay below --brownout-low this long "
+                        "before each recovery step")
+    p.add_argument("--http-port", type=int, default=0,
+                   help="serve HTTP on <host>:<port> (0 = stdin/JSONL mode)")
+    p.add_argument("--http-host", default="127.0.0.1",
+                   help="HTTP bind host")
+    p.add_argument("--drain-timeout-s", type=float, default=10.0,
+                   help="SIGTERM grace window: stop admitting, finish "
+                        "in-flight requests up to this many seconds, then "
+                        "exit 75 (resumable)")
+    p.add_argument("--stall-timeout-s", type=float, default=10.0,
+                   help="/healthz reports 'unhealthy' when the serve loop's "
+                        "tick heartbeat is older than this")
+    p.add_argument("--hotswap-poll-s", type=float, default=0.0,
+                   help="poll --checkpoint-dir every this many seconds and "
+                        "hot-swap newly published, manifest-verified steps "
+                        "into the running engine with no restart (0 = no "
+                        "polling; POST /swap still works with a checkpoint "
+                        "dir)")
+    p.add_argument("--hotswap-verify", default="digest",
+                   choices=("size", "digest"),
+                   help="integrity level a step must pass before a live "
+                        "swap admits it (digest re-hashes every file)")
+    p.add_argument("--metrics-dir", default=None,
+                   help="stream serve telemetry (JSONL) under this directory")
+    p.add_argument("--flight-capacity", type=int, default=256,
+                   help="engine flight-recorder ring size: last N tick "
+                        "summaries dumped as a flight_dump record on "
+                        "watchdog stall, fatal tick, SIGTERM drain and "
+                        "GET /debug/flight")
+    p.add_argument("--slo-windows", default="300,3600",
+                   help="comma-separated burn-rate window lengths in "
+                        "seconds (telemetry/slo.py slo_burn records)")
+    p.add_argument("--slo-emit-s", type=float, default=5.0,
+                   help="min seconds between slo_burn records")
+    p.add_argument("--slo-burn-high", type=float, default=0.0,
+                   help="brownout coupling: burn rate at/above this reads "
+                        "as high-watermark pressure on the overload ladder "
+                        "(0 = off)")
+    p.add_argument("--replica-name", default=None,
+                   help="replica identity stamped on spans and flight "
+                        "records")
     return p
 
 
@@ -169,6 +261,8 @@ def engine_config(args):
         tp=args.tp,
         weights_dtype=args.weights_dtype,
         kv_dtype=args.kv_dtype,
+        warmup=args.warmup,
+        flight_capacity=args.flight_capacity,
     )
 
 
@@ -215,10 +309,74 @@ def _model(args):
     return model, tok, step, _draft(args, tok)
 
 
+def _telemetry(args):
+    """The registry the server records into, with ``--metrics-dir``'s sink
+    attached and its ``serve_meta`` header written (JAX's keys); the SLO
+    monitor; the brownout controller (None at ``--brownout-high 0``)."""
+    from pytorch_distributed_training_tpu_torch.serve.queue import (
+        BrownoutController,
+    )
+    from pytorch_distributed_training_tpu_torch.telemetry.registry import (
+        get_registry,
+    )
+    from pytorch_distributed_training_tpu_torch.telemetry.slo import (
+        BurnRateMonitor,
+        SloConfig,
+    )
+
+    registry = get_registry()
+    if args.metrics_dir:
+        from pytorch_distributed_training_tpu_torch.telemetry.sink import (
+            JsonlSink,
+        )
+
+        sink = JsonlSink(args.metrics_dir)
+        registry.attach_sink(sink)
+        sink.emit({
+            "record": "serve_meta",
+            "model": args.model,
+            "num_slots": args.num_slots,
+            "prompt_buckets": args.prompt_buckets,
+            "max_new_tokens_cap": args.max_new_tokens_cap,
+            "queue_depth": args.queue_depth,
+            "kv_layout": args.kv_layout,
+            "page_size": args.page_size,
+            "num_pages": args.num_pages,
+            "sampling": args.sampling,
+            "spec_k": args.spec_k,
+            "spec_draft": draft_lane(args) if args.spec_k > 0 else None,
+            "prefill_chunk": args.prefill_chunk,
+            "tp": args.tp,
+            "weights_dtype": args.weights_dtype,
+            "kv_dtype": args.kv_dtype,
+            "prefix_cache": args.prefix_cache,
+            "tenant_page_quota": args.tenant_page_quota,
+        })
+    # the burn monitor is always on (one throttled slo_burn record an
+    # interval); its brownout coupling is opt-in
+    slo = BurnRateMonitor(
+        SloConfig(windows_s=tuple(float(w) for w in
+                                  args.slo_windows.split(",") if w.strip()),
+                  emit_interval_s=args.slo_emit_s),
+        registry=registry)
+    brownout = None
+    if args.brownout_high > 0:
+        brownout = BrownoutController(
+            high_watermark=args.brownout_high,
+            low_watermark=args.brownout_low,
+            escalate_hold_s=args.brownout_escalate_hold_s,
+            deescalate_hold_s=args.brownout_deescalate_hold_s,
+            clamp_max_new=args.brownout_clamp, registry=registry,
+            slo_monitor=slo if args.slo_burn_high > 0 else None,
+            slo_burn_high=args.slo_burn_high)
+    return registry, slo, brownout
+
+
 def build_server(args, *, device=None, shard=None):
     """``(server, tokenizer)`` for parsed ``args``: the model on its device
-    behind an unstarted ``InferenceServer`` (``device``: ``--device``'s
-    when None; ``shard``: the model axis under ``--tp``, this rank the
+    behind an unstarted ``InferenceServer`` with the telemetry, SLO,
+    brownout and deadline flags wired (``device``: ``--device``'s when
+    None; ``shard``: the model axis under ``--tp``, this rank the
     leader)."""
     from pytorch_distributed_training_tpu_torch.serve import InferenceServer
     from pytorch_distributed_training_tpu_torch.utils.device import (
@@ -228,32 +386,145 @@ def build_server(args, *, device=None, shard=None):
     if device is None:
         device = resolve_device(args.device)  # before any weights are built
     model, tok, step, draft = _model(args)
+    registry, slo, brownout = _telemetry(args)
+    tier_deadlines = {}
+    if args.interactive_deadline_s > 0:
+        tier_deadlines["interactive"] = args.interactive_deadline_s
+    if args.batch_deadline_s > 0:
+        tier_deadlines["batch"] = args.batch_deadline_s
     # the engine serves its own cast copy of the model (and of the draft)
     server = InferenceServer(
         model, engine_config(args), device=device,
         queue_depth=args.queue_depth,
-        default_deadline_s=args.deadline_s or None, shard=shard,
-        weights_step=step, draft_model=draft,
+        default_deadline_s=args.deadline_s or None,
+        tier_deadlines=tier_deadlines or None, brownout=brownout,
+        registry=registry, stall_timeout_s=args.stall_timeout_s,
+        shard=shard, weights_step=step, draft_model=draft, slo=slo,
+        replica_name=args.replica_name,
     )
     return server, tok
 
 
-def _serve(server, tok, in_stream, out_stream) -> dict:
-    """Serve stdio until EOF; the engine's final stats."""
+#: the exit status of a replica whose ``--http-port`` was taken: not a
+#: crash, a supervisor retries it on a fresh port
+PORT_IN_USE_EXIT_CODE = 76
+
+
+def _serve_http(args, server, tok) -> Optional[int]:
+    """Serve HTTP until SIGTERM (or an interrupt); the signal's number
+    when one ended it. SIGTERM only flags; a drain thread stops
+    admissions, finishes in-flight work for up to ``--drain-timeout-s``,
+    dumps the flight recorder, lets the streams flush and stops the
+    server, while this thread goes on answering (``/healthz`` says
+    ``draining`` throughout)."""
+    import errno
+    import signal
+    import threading
+    import time
+
+    from pytorch_distributed_training_tpu_torch.serve import (
+        make_http_server,
+    )
+    from pytorch_distributed_training_tpu_torch.utils.logging import log0
+
+    try:
+        httpd = make_http_server(server, tok, host=args.http_host,
+                                 port=args.http_port)
+    except OSError as e:
+        if e.errno != errno.EADDRINUSE:
+            raise
+        log0(f"port {args.http_port} already in use; exiting "
+             f"{PORT_IN_USE_EXIT_CODE} for a fresh-port respawn")
+        server.close(drain=False)
+        sys.exit(PORT_IN_USE_EXIT_CODE)
+    log0(f"serving on http://{args.http_host}:{httpd.server_address[1]} "
+         f"(POST /generate, GET /healthz, GET /stats)")
+    drain_requested = threading.Event()
+    got = {"signal": None}
+
+    main = threading.main_thread()
+
+    def drain() -> None:
+        # set at SIGTERM, or by the main thread when serving ends
+        while not drain_requested.wait(1.0):
+            if not main.is_alive():
+                return
+        t0 = time.monotonic()
+        log0(f"SIGTERM: draining (finish in-flight, admit nothing, "
+             f"deadline {args.drain_timeout_s:.1f}s)")
+        server.close(drain=True, timeout=args.drain_timeout_s)
+        # what the engine was doing when the preemption landed
+        server.engine.flight.dump("sigterm_drain")
+        deadline = time.monotonic() + 2.0
+        while httpd.active_streams and time.monotonic() < deadline:
+            time.sleep(0.01)
+        server.registry.emit({"record": "preemption", "scope": "serve",
+                              "drain_s": time.monotonic() - t0})
+        httpd.shutdown()
+
+    drainer = threading.Thread(target=drain, name="serve-drain",
+                               daemon=True)
+    drainer.start()
+
+    def on_term(signum, frame):
+        got["signal"] = signum
+        drain_requested.set()
+
+    signal.signal(signal.SIGTERM, on_term)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        drain_requested.set()
+        httpd.shutdown()
+        drainer.join(args.drain_timeout_s + 5.0)
+        httpd.server_close()
+    return got["signal"]
+
+
+def _serve(args, server, tok, in_stream, out_stream) -> dict:
+    """Serve stdio until EOF, or HTTP until SIGTERM, with the hot-swap
+    manager attached under ``--checkpoint-dir``; the engine's final stats
+    (``Preempted``, exit 75, after a SIGTERM drain)."""
+    from pytorch_distributed_training_tpu_torch.faults.preemption import (
+        Preempted,
+    )
     from pytorch_distributed_training_tpu_torch.serve import serve_stdio
     from pytorch_distributed_training_tpu_torch.utils.logging import log0
 
     server.start()
+    signum = None
     try:
-        served = serve_stdio(
-            server, tok,
-            in_stream if in_stream is not None else sys.stdin,
-            out_stream if out_stream is not None else sys.stdout,
-        )
-        log0(f"stdio stream closed after {served} requests")
+        if args.checkpoint_dir and not args.hf_checkpoint:
+            from pytorch_distributed_training_tpu_torch.serve.hotswap import (
+                HotSwapManager,
+            )
+
+            server.attach_hotswap(HotSwapManager(
+                server, args.checkpoint_dir,
+                poll_interval_s=args.hotswap_poll_s,
+                verify_level=args.hotswap_verify, registry=server.registry,
+                start_step=server.engine.weights_step).start())
+        if args.http_port:
+            signum = _serve_http(args, server, tok)
+        else:
+            served = serve_stdio(
+                server, tok,
+                in_stream if in_stream is not None else sys.stdin,
+                out_stream if out_stream is not None else sys.stdout,
+            )
+            log0(f"stdio stream closed after {served} requests")
     finally:
         server.close(drain=True)
-    return server.stats()
+        stats = server.stats()
+        sink = server.registry.sink
+        if sink is not None:
+            sink.emit({"record": "serve_summary", **stats})
+            sink.flush(fsync=True)
+    if signum is not None:
+        raise Preempted(signum)
+    return stats
 
 
 def _main_tp(args, in_stream, out_stream) -> dict:
@@ -296,7 +567,7 @@ def _main_tp(args, in_stream, out_stream) -> dict:
         except BaseException:
             broadcast_call(shard, CALL_STOP)  # the followers wait on a call
             raise
-        return _serve(server, tok, in_stream, out_stream)
+        return _serve(args, server, tok, in_stream, out_stream)
     finally:
         shutdown()
 
@@ -309,7 +580,7 @@ def main(argv=None, in_stream=None, out_stream=None) -> dict:
     if args.tp > 1:
         return _main_tp(args, in_stream, out_stream)
     server, tok = build_server(args)
-    return _serve(server, tok, in_stream, out_stream)
+    return _serve(args, server, tok, in_stream, out_stream)
 
 
 if __name__ == "__main__":

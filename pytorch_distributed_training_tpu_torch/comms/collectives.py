@@ -60,7 +60,8 @@ averages the rest (FSDP's replicated parameters) over the batch group.
   shape) and one int64 buffer of the operands (token ids, positions,
   block-table rows, context lengths, page numbers: integers all). Two
   broadcasts a call over the model group, on the device under NCCL and on
-  the host under gloo.
+  the host under gloo; ``all_ranks_ok``, the group's vote that a weight
+  swap installs on every rank or none.
 """
 
 from __future__ import annotations
@@ -360,6 +361,16 @@ def broadcast_call(shard, kind: int, operands=(), flag: int = 0) -> None:
                                   for a in operands])
         dist.broadcast(torch.from_numpy(payload).to(device), src,
                        group=shard.group)
+
+
+def all_ranks_ok(shard, ok: bool) -> bool:
+    """True when every rank of ``shard``'s group says ``ok`` (a MIN
+    all-reduce on the call device); ``ok`` without a group."""
+    if shard is None or shard.group is None:
+        return ok
+    flag = torch.tensor([int(ok)], device=_call_device(shard))
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=shard.group)
+    return bool(flag.item())
 
 
 def receive_call(shard) -> tuple[int, int, list]:

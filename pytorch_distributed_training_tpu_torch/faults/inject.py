@@ -23,12 +23,25 @@ default 0):
 - ``slow_host:2x``       stretch this rank's batch assembly by the factor:
                          straggler detection without a slow machine.
 
-The parser also takes the JAX package's serve-scoped kinds
-(``replica_crash``, ``replica_hang``, ``replica_slow``, with busy-tick or
-``t<seconds>`` triggers) and swap-scoped ones (``corrupt_ckpt_swap``,
-``swap_crash``, ``swap_slow``), and refuses what JAX refuses; they fire
-from the fleet and hot-swap layers, which wait in ROADMAP.md (queue 1,
-items 5 and 7).
+Serve-scoped kinds fire from the decode engine's tick (``fire_serve_tick``),
+counted in busy ticks (ticks that admitted or decoded work), so idle
+spinning never moves the schedule:
+
+- ``replica_crash:3``    hard-kill this replica (``os._exit`` with
+                         ``REPLICA_CRASH_EXIT_CODE``, no Python cleanup:
+                         streams die mid-token) after busy tick 3;
+- ``replica_hang:3:2``   block the serve loop 2 s (default 2) after busy
+                         tick 3: the heartbeat goes stale and ``/healthz``
+                         says ``unhealthy`` until it ends;
+- ``replica_slow:3:4x``  from busy tick 3 on, stretch every tick to 4x its
+                         duration (armed for good, as a slow replica is).
+
+They also take a time trigger, ``replica_crash:t3.5``: the first busy tick
+3.5 s or more after the plan was armed. Swap-scoped kinds fire from the
+hot-swap loader (``fire_swap_load``, ``serve/hotswap.py``) before any byte
+of the named checkpoint step is read: ``corrupt_ckpt_swap:12`` raises
+(the swap rolls back, the step is blocklisted), ``swap_crash:12``
+hard-kills the replica, ``swap_slow:12:3`` sleeps 3 s (default 2).
 
 Every spec fires at most once per process (a restarted attempt in the
 same process does not fire it again; ``slow_host`` stays armed but
@@ -60,6 +73,10 @@ _STEP_KINDS = ("crash_at_step", "sigterm_at_step", "hang_at_step")
 _SWAP_KINDS = ("corrupt_ckpt_swap", "swap_crash", "swap_slow")
 _SERVE_KINDS = ("replica_crash", "replica_hang", "replica_slow") + _SWAP_KINDS
 _KINDS = _STEP_KINDS + ("corrupt_ckpt", "slow_host") + _SERVE_KINDS
+
+#: the exit status of a hard replica kill: neither 0 nor 75, so a
+#: supervisor counts it as a crash
+REPLICA_CRASH_EXIT_CODE = 23
 
 logger = get_logger(__name__)
 
@@ -155,11 +172,15 @@ def _emit(record: dict) -> None:
 
 class FaultPlan:
     """The parsed schedule of this process. The Trainer (step boundaries),
-    the loader (batch assembly) and the Checkpointer (close) call its
-    hooks; each is a no-op when no matching spec is armed."""
+    the loader (batch assembly), the Checkpointer (close), the decode
+    engine (busy ticks) and the hot-swap loader call its hooks; each is a
+    no-op when no matching spec is armed."""
 
     def __init__(self, specs: list[FaultSpec]):
         self.specs = specs
+        # the clock of the t<seconds> serve triggers: offsets count from
+        # when the plan was armed
+        self.armed_t = time.monotonic()
 
     @classmethod
     def parse(cls, text: str | None) -> "FaultPlan":
@@ -198,6 +219,81 @@ class FaultPlan:
             with watchdog_guard("injected_hang", step=step):
                 while True:  # a stuck collective never returns; the
                     time.sleep(60)  # watchdog's hard timeout ends this
+
+    def fire_serve_tick(self, busy_tick: int, elapsed_s: float) -> None:
+        """Decode-engine hook, after busy tick ``busy_tick`` took
+        ``elapsed_s`` seconds. A spec matches its busy tick exactly or,
+        with a ``t<seconds>`` trigger, on the first busy tick at or after
+        its offset from the plan's arming."""
+        run_s = time.monotonic() - self.armed_t
+
+        def due(spec: FaultSpec) -> bool:
+            if spec.at_s > 0:
+                return run_s >= spec.at_s
+            return spec.step == busy_tick
+
+        if self._take("replica_crash", due):
+            _emit({"fault": "replica_crash", "tick": busy_tick})
+            logger.warning("injecting replica crash after busy tick %d",
+                           busy_tick)
+            self._flush_sink()
+            os._exit(REPLICA_CRASH_EXIT_CODE)  # no cleanup: streams die
+        spec = self._take("replica_hang", due)
+        if spec is not None:
+            _emit({"fault": "replica_hang", "tick": busy_tick,
+                   "seconds": spec.factor})
+            logger.warning("injecting %.1fs serve-loop hang after busy "
+                           "tick %d", spec.factor, busy_tick)
+            time.sleep(spec.factor)
+            return
+        rank = current_rank()
+        for spec in self.specs:
+            if spec.kind == "replica_slow" and spec.rank == rank and (
+                    run_s >= spec.at_s if spec.at_s > 0
+                    else busy_tick >= spec.step):
+                if not spec.fired:
+                    # recorded once; the stretch stays armed
+                    spec.fired = True
+                    _emit({"fault": "replica_slow", "tick": busy_tick,
+                           "factor": spec.factor})
+                time.sleep(max(0.0, elapsed_s) * (spec.factor - 1.0))
+                return
+
+    def fire_swap_load(self, ckpt_step: int) -> None:
+        """Hot-swap loader hook, before any byte of checkpoint
+        ``ckpt_step`` is read, so the serving state is untouched when it
+        fires."""
+        if self._take("corrupt_ckpt_swap", lambda s: s.step == ckpt_step):
+            _emit({"fault": "corrupt_ckpt_swap", "ckpt_step": ckpt_step})
+            logger.warning("injecting corrupt-array failure into swap load "
+                           "of checkpoint step %d", ckpt_step)
+            raise InjectedCrash(
+                f"injected corrupt checkpoint array during swap load of "
+                f"step {ckpt_step}")
+        if self._take("swap_crash", lambda s: s.step == ckpt_step):
+            _emit({"fault": "swap_crash", "ckpt_step": ckpt_step})
+            logger.warning("injecting replica crash during swap load of "
+                           "checkpoint step %d", ckpt_step)
+            self._flush_sink()
+            os._exit(REPLICA_CRASH_EXIT_CODE)
+        spec = self._take("swap_slow", lambda s: s.step == ckpt_step)
+        if spec is not None:
+            _emit({"fault": "swap_slow", "ckpt_step": ckpt_step,
+                   "seconds": spec.factor})
+            logger.warning("injecting %.1fs stall into swap load of "
+                           "checkpoint step %d", spec.factor, ckpt_step)
+            time.sleep(spec.factor)
+
+    @staticmethod
+    def _flush_sink() -> None:
+        """Push the telemetry stream to disk before a hard ``os._exit``
+        (which skips every writer's cleanup); best effort."""
+        try:
+            sink = get_registry().sink
+            if sink is not None:
+                sink.flush(fsync=True)
+        except Exception:  # dying anyway
+            pass
 
     def slow_host_delay(self, elapsed_s: float) -> None:
         """Loader hook: stretch this rank's batch work to ``factor`` x its

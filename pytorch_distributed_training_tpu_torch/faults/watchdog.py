@@ -18,9 +18,9 @@ train step in ``train/loop.py``, the checkpoint saves in
 - a section that finishes after a stall emits ``watchdog_recovered``.
 
 Guards nest; the monitor watches the innermost armed section. Stalls and
-aborts call the flight-recorder hook (``dump_flight``), which has nothing
-registered until the serving layers' flight recorder lands (ROADMAP.md,
-queue 1, item 5).
+aborts call the flight-recorder hook (``dump_flight``): a serving engine's
+recorder registers there (``telemetry/flight.register``), so a serve-side
+hang leaves its tick timeline beside the stacks.
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ _STACK_LIMIT_CHARS = 8000
 
 logger = get_logger(__name__)
 
-#: callables run with the reason on a stall or an abort (the flight
-#: recorders' dumps; none registered yet)
+#: callables run with the reason on a stall or an abort
+#: (``telemetry/flight.dump_all`` once a recorder registers)
 FLIGHT_DUMPS: list = []
 
 

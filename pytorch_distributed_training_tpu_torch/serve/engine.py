@@ -95,23 +95,56 @@ cast_for_serving``), which gives the values flax's per-call cast gives.
 Every option of the JAX engine's ``EngineConfig`` above is ported, with
 its cross-checks: speculation, chunked prefill, ``tp`` and the prefix cache
 need the paged layout and device sampling, int8 KV the paged layout, a
-quota the prefix cache. Telemetry records, spans, the flight recorder,
-brownout, hot-swap (slice 4c; sharded hot-swap under ``tp`` too) and the
-runtime guards of the JAX engine are not ported yet.
+quota the prefix cache.
+
+- **Telemetry** (the default registry, or ``registry``): a
+  ``serve_request`` record and a span tree (``telemetry/spans.py``:
+  ``serve`` -> ``queue`` / ``prefill`` (``admission``) / ``decode``, with
+  ``swap_overlap`` and ``brownout_clamp``) a finished request, the JAX
+  engine's counters and gauges, the ``slo`` burn monitor fed at finish,
+  and a flight-recorder entry (``telemetry/flight.py``) a busy or
+  eventful tick, registered for the watchdog's dumps. The prefill,
+  decode and tick sections run under ``faults/watchdog.watchdog_guard``,
+  and ``faults/inject``'s serve faults fire after each busy tick.
+- **Brownout** (``brownout``, ``serve/queue.BrownoutController``): each
+  tick feeds it the queue's pressure; at level 1 and up the prefix cache
+  drops its idle runs. The HTTP front end sheds and clamps at admission.
+- **Warm-up** (``warmup``): each prefill bucket (or the chunk), the page
+  copy, a decode or a verify (and the draft's) runs once on the null page
+  at build, so kernel builds and first launches leave the first request;
+  it leaves no trace (no page held, no cache entry, no generator drawn).
+- **Hot-swap** (``request_swap``, applied between ticks): new weights,
+  coerced to the resident variant (fp32 <-> int8, ``ops/quant.py``) and
+  checked against the running model's names and shapes first, are copied
+  into the live parameters in place (the kernels take raw pointers each
+  launch); the first tick after a swap is its trial, and a failing trial
+  copies the previous weights back. The prefix cache is flushed on every
+  swap. Under ``tp`` each rank loads and cuts its own slice of the step
+  and the swap installs on every rank or none.
+
+The JAX engine's runtime guards and its serve manifests wait in
+ROADMAP.md (queue 1, item 7).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import threading
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
+    all_ranks_ok,
     broadcast_call,
+)
+from pytorch_distributed_training_tpu_torch.faults.inject import get_plan
+from pytorch_distributed_training_tpu_torch.faults.watchdog import (
+    watchdog_guard,
 )
 from pytorch_distributed_training_tpu_torch.models.bert import (
     DenseKV,
@@ -119,9 +152,13 @@ from pytorch_distributed_training_tpu_torch.models.bert import (
 )
 from pytorch_distributed_training_tpu_torch.models.gpt2 import unscanned
 from pytorch_distributed_training_tpu_torch.ops.quant import (
+    dequantize_serve_params,
+    quantize_serve_params,
     serve_params_variant,
 )
 from pytorch_distributed_training_tpu_torch.parallel.sharding import (
+    cut_model_slice,
+    model_dims,
     serve_param_specs,
     serve_pool_shape,
     tensor_parallel,
@@ -135,12 +172,20 @@ from pytorch_distributed_training_tpu_torch.serve.prefix_cache import (
 from pytorch_distributed_training_tpu_torch.serve.queue import (
     GenRequest,
     RequestQueue,
+    emit_expiry,
 )
 from pytorch_distributed_training_tpu_torch.serve.sampling import (
     device_sample,
     host_sample,
     spec_accept,
 )
+from pytorch_distributed_training_tpu_torch.telemetry import (
+    flight as flight_mod,
+)
+from pytorch_distributed_training_tpu_torch.telemetry.registry import (
+    get_registry,
+)
+from pytorch_distributed_training_tpu_torch.telemetry.spans import Tracer
 from pytorch_distributed_training_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_training_tpu_torch.utils.logging import get_logger
 
@@ -149,10 +194,13 @@ logger = get_logger(__name__)
 # the device calls a tensor-parallel leader broadcasts to its followers:
 # the stop message that ends them, a forward (ids, positions, block-table
 # rows, context lengths; flag bits: FLAG_MULTIQUERY, FLAG_DRAFT), a page
-# copy (src, dst) of the base pools and any draft pools, and the draft
-# lane's chain of greedy decodes (last committed tokens, pending tokens,
-# block table, context lengths, increments; the flag: spec_k)
-CALL_STOP, CALL_FORWARD, CALL_PAGE_COPY, CALL_DRAFT_CHAIN = 0, 1, 2, 3
+# copy (src, dst) of the base pools and any draft pools, the draft lane's
+# chain of greedy decodes (last committed tokens, pending tokens, block
+# table, context lengths, increments; the flag: spec_k), a weight swap
+# (the checkpoint directory's bytes, the step) and a swap's end (the flag:
+# 1 commit, 0 roll back)
+(CALL_STOP, CALL_FORWARD, CALL_PAGE_COPY, CALL_DRAFT_CHAIN, CALL_SWAP,
+ CALL_SWAP_END) = range(6)
 FLAG_MULTIQUERY, FLAG_DRAFT = 1, 2
 
 
@@ -194,6 +242,10 @@ class EngineConfig:
     tp: int = 1
     weights_dtype: str = "float32"
     kv_dtype: str = "float32"
+    # run every prefill shape, a decode and a verify once at build
+    warmup: bool = False
+    # flight-recorder ring size (busy or eventful ticks kept)
+    flight_capacity: int = 256
 
     def __post_init__(self):
         if self.num_slots < 1:
@@ -244,6 +296,9 @@ class EngineConfig:
                 raise ValueError(f"{what} requires sampling='device'")
         if self.tp < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
+        if self.flight_capacity < 1:
+            raise ValueError(
+                f"flight_capacity must be >= 1, got {self.flight_capacity}")
         if self.weights_dtype not in ("float32", "int8"):
             raise ValueError(
                 f"weights_dtype must be float32/int8, got "
@@ -305,6 +360,53 @@ class _Slot:
     spec: bool = False          # in the speculative lane (fixed at admit)
 
 
+@dataclasses.dataclass
+class SwapTicket:
+    """The outcome of one requested weight swap: ``done`` fires when the
+    engine committed (``ok=True``) or rolled back (``ok=False``) the swap;
+    the requesting thread waits on it, never on the serve loop."""
+
+    version: Optional[int]
+    done: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    ok: Optional[bool] = None
+    error: Optional[str] = None
+    stage: Optional[str] = None
+
+    def resolve(self, ok: bool, *, error: str = None,
+                stage: str = None) -> None:
+        self.ok = ok
+        self.error = error
+        self.stage = stage
+        self.done.set()
+
+
+class _PendingSwap:
+    """The one weight swap waiting for the serve loop: ``put`` from any
+    thread (``RuntimeError`` while one waits), ``take`` on the loop. The
+    engine's only state shared across threads, behind its own lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._item = None
+
+    def put(self, item) -> None:
+        with self._lock:
+            if self._item is not None:
+                raise RuntimeError(
+                    "a weight swap is already pending; one at a time")
+            self._item = item
+
+    def take(self):
+        with self._lock:
+            item, self._item = self._item, None
+        return item
+
+    @property
+    def waiting(self) -> bool:
+        return self._item is not None
+
+
 def _check_tp_divisible(cfg, tp: int, role: str) -> None:
     """JAX ``_check_tp_divisible``: the model axis splits the attention
     heads and the MLP's hidden dim into equal slices, so both must
@@ -320,14 +422,13 @@ def _check_tp_divisible(cfg, tp: int, role: str) -> None:
 
 
 def _served(model, config: EngineConfig, device, shard):
-    """The copy of ``model`` a rank serves: on ``device``, cast for
-    serving at ``config.weights_dtype`` (int8 quantized whole, so a
-    row-parallel kernel's scale is a max over the input dim the cut
-    splits) and, under ``tp > 1``, laid out a block a module and cut to
-    this rank's heads and MLP columns."""
-    serving = copy.deepcopy(model)
-    if config.tp > 1:
-        serving = unscanned(serving)
+    """The copy of ``model`` a rank serves: laid out a block a module (a
+    stacked trunk unstacked once, as the JAX engine does at build), on
+    ``device``, cast for serving at ``config.weights_dtype`` (int8
+    quantized whole, so a row-parallel kernel's scale is a max over the
+    input dim the cut splits) and, under ``tp > 1``, cut to this rank's
+    heads and MLP columns."""
+    serving = unscanned(copy.deepcopy(model))
     serving = serving.to(device)
     serving.cast_for_serving(config.weights_dtype)
     if config.tp > 1:
@@ -399,6 +500,7 @@ class ServeSlice:
             # one [slots, cache_len] buffer a layer, K and V
             self._dense = DenseKV.zeros(cfg, config.num_slots,
                                         config.cache_len, self.device)
+        self._swap_backup = None    # a follower's weights before a swap
         self._draft = self._draft_pools = self._draft_scales = None
         if draft:
             self._draft = _served(draft_model, config, self.device,
@@ -463,6 +565,12 @@ class ServeSlice:
             return None
         if kind == CALL_DRAFT_CHAIN:
             return self._draft_chain(*operands, k=flag)
+        if kind == CALL_SWAP:
+            return self._follow_swap(
+                operands[0].astype(np.uint8).tobytes().decode(),
+                int(operands[1][0]))
+        if kind == CALL_SWAP_END:
+            return self._end_swap(bool(flag))
         raise ValueError(f"unknown device call {kind}")
 
     def _draft_chain(self, last, pending, bt, ctx, inc, *, k: int):
@@ -502,6 +610,90 @@ class ServeSlice:
         kv = self._dense.keys if self._pools is None else self._pools[0]
         return kv[0].shape[2]
 
+    # ------------------------------------------------------------ hot swap
+
+    @property
+    def params(self) -> dict:
+        """The served weights (``state_dict`` views of the live tensors;
+        a swap loader reads their names and layout)."""
+        return self._model.state_dict()
+
+    def _coerce_swap(self, params: dict) -> tuple[dict, str]:
+        """A whole serving ``state_dict`` (float32 or int8, the served
+        model's names) as this rank's resident weights: converted to the
+        resident variant (JAX ``_coerce_variant``: an fp32 publish into an
+        int8 engine is quantized, an int8 one into an fp32 engine
+        dequantized), cut to this rank's slice under ``tp``, each on the
+        host at its live tensor's dtype; with the incoming variant. Raises
+        ``ValueError`` on names or shapes the running model lacks (JAX
+        ``_validate_swap``), before anything changes."""
+        incoming = serve_params_variant(params)
+        if incoming != self.variant:
+            params = (quantize_serve_params(params) if self.variant == "int8"
+                      else dequantize_serve_params(params))
+        if self._shard is not None:
+            dims = model_dims(serve_param_specs(
+                {n: tuple(t.shape) for n, t in params.items()},
+                self.config.tp))
+            params = {n: cut_model_slice(t, dims[n], self._shard)
+                      if n in dims else t for n, t in params.items()}
+        live = self._model.state_dict()
+        if set(params) != set(live):
+            odd = sorted(set(params) ^ set(live))
+            raise ValueError(
+                f"swap rejected: the weights' names do not match the "
+                f"running model's ({odd[:4]})")
+        out = {}
+        for name, cur in live.items():
+            new = params[name]
+            if tuple(new.shape) != tuple(cur.shape):
+                raise ValueError(
+                    f"swap rejected: {name} is {tuple(new.shape)}, the "
+                    f"running model has {tuple(cur.shape)} (shape mismatch: "
+                    f"a checkpoint of an incompatible model config)")
+            out[name] = new.detach().to("cpu", cur.dtype)
+        return out, incoming
+
+    def _install_swap(self, coerced: dict) -> dict:
+        """Install ``coerced``; the replaced weights, cloned on the
+        device, for a rollback (``_restore_swap``)."""
+        backup = {n: t.clone() for n, t in self.params.items()}
+        self._restore_swap(coerced)
+        return backup
+
+    @torch.no_grad()
+    def _restore_swap(self, weights: dict) -> None:
+        """Copy ``weights`` into the live tensors in place (never rebound:
+        kernels take raw pointers, TP and the draft lane hold views) and
+        refresh the float32 tied head."""
+        for n, t in self.params.items():
+            t.copy_(weights[n])
+        self._model.head_weight.copy_(self._model.wte.embedding.float())
+
+    def _follow_swap(self, directory: str, step: int) -> None:
+        """A follower's half of a swap: load the step's weights, cut its
+        slice, vote, and install when every rank could."""
+        from pytorch_distributed_training_tpu_torch.serve.hotswap import (
+            load_swap_params,
+        )
+
+        coerced = None
+        try:
+            coerced, _ = self._coerce_swap(
+                load_swap_params(directory, step, current_params=self.params))
+        except Exception as e:  # the vote carries it to every rank
+            logger.warning("swap of step %d failed on this rank: %s: %s",
+                           step, type(e).__name__, e)
+        if all_ranks_ok(self._shard, coerced is not None):
+            self._swap_backup = self._install_swap(coerced)
+
+    def _end_swap(self, commit: bool) -> None:
+        """A follower's end of a swap's trial: keep the new weights, or
+        copy the previous ones back."""
+        backup, self._swap_backup = self._swap_backup, None
+        if not commit and backup is not None:
+            self._restore_swap(backup)
+
 
 class DecodeEngine(ServeSlice):
     """Slotted continuous-batching decode over a causal LM.
@@ -515,15 +707,31 @@ class DecodeEngine(ServeSlice):
     the model group of ``shard``). ``weights_step``: the checkpoint step
     the weights came from (None for HF or random ones), reported as
     ``stats()["weights_step"]``. ``draft_model``: the draft lane's model
-    (``spec_draft="model"``), served as ``model`` is.
+    (``spec_draft="model"``), served as ``model`` is. ``registry`` (the
+    default registry when None) takes the records; ``brownout``
+    (``serve/queue.BrownoutController``), ``slo``
+    (``telemetry/slo.BurnRateMonitor``), ``tracer`` and ``flight`` are
+    optional (a tracer and a recorder are made when None);
+    ``replica_name`` stamps spans and flight records.
     """
 
     def __init__(self, model, config: EngineConfig, queue: RequestQueue, *,
                  device="cuda", shard=None,
-                 weights_step: Optional[int] = None, draft_model=None):
+                 weights_step: Optional[int] = None, draft_model=None,
+                 registry=None, brownout=None, tracer=None, flight=None,
+                 slo=None, replica_name: Optional[str] = None):
         super().__init__(model, config, device=device, shard=shard,
                          draft_model=draft_model)
         self.weights_step = weights_step
+        self._registry = registry if registry is not None else get_registry()
+        # live weight swaps: the version served, one pending replacement
+        # (coerced and checked) and the trial window's weights before it
+        self.swaps = 0              # committed swaps
+        self.swap_rollbacks = 0     # trial-tick failures rolled back
+        # (params, version, ticket, variant, source), put from any thread
+        self._pending_swap = _PendingSwap()
+        self._trial = None          # (backup, prev_version, ticket)
+        self._last_swap_variant = None
         self._stopped = False
         paged = config.kv_layout == "paged"
         self._pages = PageAllocator(
@@ -564,7 +772,33 @@ class DecodeEngine(ServeSlice):
         # wait for the device, a non-final chunk only enqueues
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        # the overload ladder the tick feeds (None: never degrade)
+        self.brownout = brownout
+        # finished requests a second, an EWMA over ~1 s windows: the live
+        # half of the Retry-After estimate (engine thread writes, HTTP
+        # threads read one float)
+        self.drain_rate = 0.0
+        self._drain_window_t = time.monotonic()
+        self._drain_window_finished = 0
+        # the heartbeat: stamped at the end of every tick, idle ones too
         self.last_tick_t = time.monotonic()
+        self.replica_name = replica_name
+        self.tracer = tracer if tracer is not None else Tracer(
+            registry=self._registry, component=replica_name or "engine")
+        self.flight = flight if flight is not None else (
+            flight_mod.FlightRecorder(
+                config.flight_capacity, component=replica_name or "engine",
+                registry=self._registry))
+        flight_mod.register(self.flight)
+        self.slo = slo
+        # applied swap windows: requests whose life crosses one get a
+        # swap_overlap span
+        self._swap_windows: deque = deque(maxlen=32)
+        # this tick's events for its flight entry (swaps, brownout moves)
+        self._tick_events: list = []
+        self._prev_brownout_level = 0
+        if config.warmup:
+            self._warmup()
 
     # ------------------------------------------------------------- programs
 
@@ -705,13 +939,298 @@ class DecodeEngine(ServeSlice):
         copy-on-write of a partly matched prefix page)."""
         self._dispatch(CALL_PAGE_COPY, [np.asarray([src, dst], np.int64)])
 
+    # -------------------------------------------------------------- warm-up
+
+    @torch.inference_mode()
+    def _warmup(self) -> None:
+        """Run every serving shape once before the first request (JAX
+        ``_warmup``): each prefill bucket (or, chunked, the chunk), the
+        chunk of a prefix hit's tail and the page copy, then a decode step
+        or a verify (and the draft lane's chain), greedy, so kernel builds
+        and first launches leave the first request's TTFT. Paged calls run
+        on the null page (all-zero block tables, context 0); the dense
+        prefill writes slot 0's rows, which a real prefill overwrites, and
+        the dense decode writes position 0 of every row. No page is held,
+        the prefix cache stays empty and no generator is drawn: a warmed
+        engine's streams equal a cold one's."""
+        cfg = self.config
+        S, W = cfg.num_slots, cfg.pages_per_slot
+        paged = self._pages is not None
+        draft = self._draft is not None
+
+        def ids(*shape):
+            return np.zeros(shape, np.int64)
+
+        def table(rows):
+            return np.zeros((rows, W), np.int32)
+
+        logits = []
+        if paged and (cfg.prefill_chunk > 0 or cfg.prefix_cache):
+            C = self._chunk_size
+            pos = np.arange(C, dtype=np.int64)[None]
+            ops = (ids(1, C), pos, table(1), np.zeros((1,), np.int32))
+            logits.append(self._forward(*ops, multiquery=True)[0, -1:])
+            if draft:
+                self._forward(*ops, multiquery=True, draft=True)
+        if not (paged and cfg.prefill_chunk > 0):
+            for bucket in cfg.prompt_buckets:
+                pos = np.arange(bucket, dtype=np.int64)[None]
+                if paged:
+                    ops = (ids(1, bucket), pos, table(1),
+                           np.zeros((1,), np.int32))
+                    logits.append(self._forward(*ops)[0, -1:])
+                    if draft:
+                        self._forward(*ops, draft=True)
+                else:
+                    logits.append(self._dense_forward(
+                        ids(1, bucket), pos, 0)[0, -1:])
+        if paged and cfg.prefix_cache:
+            self._page_copy(0, 0)
+        zeros = np.zeros((S,), np.int64)
+        ctx = np.zeros((S,), np.int32)
+        if paged and cfg.spec_k > 0:
+            k = cfg.spec_k
+            pos = np.tile(np.arange(k + 1, dtype=np.int64), (S, 1))
+            out = self._forward(ids(S, k + 1), pos, table(S), ctx,
+                                multiquery=True)
+            spec_accept(out, self._to_device(ids(S, k)), zeros, zeros,
+                        np.zeros((S,), np.float32), zeros)
+            if draft:
+                self._dispatch(CALL_DRAFT_CHAIN,
+                               [zeros, zeros, table(S), ctx, ctx], k)
+        elif paged:
+            logits.append(self._forward(ids(S, 1), ids(S, 1), table(S),
+                                        ctx)[:, 0])
+        else:
+            logits.append(self._dense_forward(ids(S, 1), ids(S, 1))[:, 0])
+        for row in logits:
+            if cfg.sampling == "device":
+                device_sample(row[:1], [0], [0], [0.0], [0])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------- hot swap
+
+    def request_swap(self, params: dict, version: Optional[int], *,
+                     source: Optional[tuple] = None) -> SwapTicket:
+        """Queue a weight swap from any thread; the serve loop applies it
+        between ticks. ``params``: a whole serving ``state_dict`` of the
+        served model's names (float32 or int8; coerced to the resident
+        variant and checked here, off the loop). ``source``: the
+        ``(checkpoint directory, step)`` it came from, which every
+        follower loads its own slice of under ``tp > 1`` (required
+        there). Returns a ticket whose ``done`` fires at commit or
+        rollback. Raises ``ValueError`` on weights the running model
+        cannot serve (nothing queued) and ``RuntimeError`` while another
+        swap is pending."""
+        if self._shard is not None and source is None:
+            raise ValueError("a swap under tp > 1 needs its source "
+                             "(directory, step): each rank loads its slice")
+        coerced, variant = self._coerce_swap(params)
+        ticket = SwapTicket(version)
+        self._pending_swap.put((coerced, version, ticket, variant, source))
+        return ticket
+
+    def swap_params(self, params: dict, version: Optional[int],
+                    ticket: Optional[SwapTicket] = None, *,
+                    variant: Optional[str] = None,
+                    source: Optional[tuple] = None) -> None:
+        """Install ``params`` as the serving weights, in place; between
+        ticks only (the loop applies ``request_swap``'s; direct calls are
+        for single-threaded use, ``params`` then uncoerced). The KV state
+        stays: slots in flight go on with the new weights. The replaced
+        weights are kept until ``_commit_swap`` (the first clean tick
+        after) or copied back by ``_rollback_swap``. Under ``tp > 1`` the
+        followers load their slices first and it installs on every rank
+        or raises on every rank."""
+        if variant is None:
+            params, variant = self._coerce_swap(params)
+        if self._shard is not None:
+            if source is None:
+                raise ValueError("a swap under tp > 1 needs its source")
+            directory, step = source
+            path = np.frombuffer(str(directory).encode(), np.uint8)
+            broadcast_call(self._shard, CALL_SWAP,
+                           [path.astype(np.int64),
+                            np.asarray([step], np.int64)])
+            if not all_ranks_ok(self._shard, True):
+                raise RuntimeError(
+                    f"swap of step {step} failed on a follower rank")
+        prev_version = self.weights_step
+        backup = self._install_swap(params)
+        self.weights_step = version
+        self._trial = (backup, prev_version, ticket)
+        self._last_swap_variant = variant
+        if self._prefix is not None:
+            # cached K/V is a function of the weights that wrote it: flush
+            # on apply (and stay flushed on a rollback); slots in flight
+            # keep their mapped pages
+            dropped = self._prefix.invalidate_all()
+            if dropped:
+                self._tick_events.append(f"prefix_invalidate:{dropped}")
+            self._registry.inc("serve/prefix_invalidations")
+        self._swap_windows.append({
+            "t0": time.monotonic(), "t1": None, "version": version,
+            "variant": variant, "outcome": "open"})
+        self._tick_events.append(f"swap_applied:{version}")
+        self._registry.inc("serve/swaps_applied")
+        self._registry.emit({"record": "swap_applied", "version": version,
+                             "from_version": prev_version,
+                             "variant": variant})
+
+    def _end_trial(self, commit: bool) -> None:
+        if self._shard is not None:
+            broadcast_call(self._shard, CALL_SWAP_END, [], int(commit))
+
+    def _close_swap_window(self, outcome: str) -> None:
+        if self._swap_windows and self._swap_windows[-1]["t1"] is None:
+            self._swap_windows[-1]["t1"] = time.monotonic()
+            self._swap_windows[-1]["outcome"] = outcome
+
+    def _commit_swap(self) -> None:
+        _backup, _prev, ticket = self._trial
+        self._trial = None
+        self._end_trial(True)
+        self.swaps += 1
+        self._close_swap_window("committed")
+        self._tick_events.append(f"swap_committed:{self.weights_step}")
+        self._registry.inc("serve/swaps")
+        if self.weights_step is not None:
+            self._registry.gauge("serve/weights_step", self.weights_step)
+        self._registry.emit({"record": "swap_committed",
+                             "version": self.weights_step,
+                             "variant": self._last_swap_variant})
+        if ticket is not None:
+            ticket.resolve(True)
+
+    def _rollback_swap(self, error: str) -> None:
+        """The first tick after a swap failed: copy the previous weights
+        back (every rank under ``tp``) and record the failure."""
+        backup, prev_version, ticket = self._trial
+        self._trial = None
+        failed = self.weights_step
+        self._restore_swap(backup)
+        self._end_trial(False)
+        self.weights_step = prev_version
+        self.swap_rollbacks += 1
+        self._close_swap_window("rollback")
+        self._tick_events.append(f"swap_rollback:{failed}")
+        self._registry.inc("serve/swap_rollbacks")
+        self._registry.emit({"record": "swap_failed", "version": failed,
+                             "stage": "tick", "error": error})
+        self._registry.emit({"record": "swap_rollback",
+                             "from_version": failed,
+                             "to_version": prev_version, "stage": "tick"})
+        logger.error("post-swap tick failed (%s); rolled back to weights "
+                     "step %s", error, prev_version)
+        if ticket is not None:
+            ticket.resolve(False, error=error, stage="tick")
+
     # ---------------------------------------------------------- accounting
+
+    def _emit_request_record(self, req: GenRequest) -> None:
+        n = len(req.tokens)
+        decode_s = (req.finish_t - req.first_token_t
+                    if req.finish_t is not None
+                    and req.first_token_t is not None else None)
+        self._registry.emit({
+            "record": "serve_request",
+            "id": req.id,
+            "tier": req.tier,
+            "status": req.status,
+            "finish_reason": req.finish_reason,
+            "prompt_len": req.prompt_len,
+            "bucket": req.bucket,
+            "new_tokens": n,
+            "queue_wait_s": (req.admit_t - req.submit_t
+                             if req.admit_t is not None else None),
+            "ttft_s": (req.first_token_t - req.submit_t
+                       if req.first_token_t is not None else None),
+            "tpot_s": (decode_s / (n - 1)
+                       if decode_s is not None and n > 1 else None),
+            "total_s": (req.finish_t - req.submit_t
+                        if req.finish_t is not None else None),
+            # the weights version that produced this answer
+            "weights_step": self.weights_step,
+        })
+
+    def _emit_spans(self, req: GenRequest) -> None:
+        """The request's span tree, emitted at finish from its monotonic
+        stamps (JAX ``_emit_spans``): ``queue`` (submit to admit),
+        ``prefill`` (admit to first token, ``admission`` inside it) and
+        ``decode`` (first token to finish) tile the ``serve`` root; a
+        request that never left the queue has a queue span over its whole
+        life; ``brownout_clamp`` and ``swap_overlap`` mark what touched
+        it."""
+        tr = self.tracer
+        trace = req.id
+        base = {"tier": req.tier, "status": req.status,
+                "finish_reason": req.finish_reason,
+                "weights_step": self.weights_step, "variant": self.variant}
+        if self.replica_name:
+            base["replica"] = self.replica_name
+        serve = tr.begin(trace, "serve", parent=req.trace_parent,
+                         t0=req.submit_t,
+                         attrs={**base, "bucket": req.bucket,
+                                "new_tokens": len(req.tokens)})
+        admit = req.admit_t
+        q = tr.begin(trace, "queue", parent=serve.span, t0=req.submit_t,
+                     attrs={"tier": req.tier})
+        tr.end(q, t1=admit if admit is not None else req.finish_t)
+        if admit is not None:
+            first = req.first_token_t
+            p = tr.begin(trace, "prefill", parent=serve.span, t0=admit,
+                         attrs={"bucket": req.bucket, "chunks": req.chunks})
+            if req.reserve_t is not None:
+                attrs = {"pages": (self._pages_for(req)
+                                   if self._pages is not None else 0)}
+                if self._prefix is not None:
+                    attrs["prefix_hit"] = req.prefix_hit
+                    attrs["cached_tokens"] = req.cached_tokens
+                a = tr.begin(trace, "admission", parent=p.span, t0=admit,
+                             attrs=attrs)
+                tr.end(a, t1=req.reserve_t)
+            tr.end(p, t1=first if first is not None else req.finish_t)
+            if first is not None:
+                d = tr.begin(trace, "decode", parent=serve.span, t0=first,
+                             attrs={"ticks": req.decode_ticks,
+                                    "tokens": len(req.tokens),
+                                    "drafted": req.drafted,
+                                    "accepted": req.accepted})
+                tr.end(d, t1=req.finish_t)
+        if req.clamped_from is not None:
+            tr.event(trace, "brownout_clamp", parent=serve.span,
+                     t=req.submit_t,
+                     attrs={"from_max_new": req.clamped_from,
+                            "to_max_new": req.max_new_tokens})
+        for w in self._swap_windows:
+            lo = max(w["t0"], req.submit_t)
+            hi = min(w["t1"] if w["t1"] is not None else req.finish_t,
+                     req.finish_t)
+            if hi > lo:
+                sw = tr.begin(trace, "swap_overlap", parent=serve.span,
+                              t0=lo, attrs={"version": w["version"],
+                                            "variant": w["variant"],
+                                            "outcome": w["outcome"]})
+                tr.end(sw, t1=hi)
+        tr.end(serve, t1=req.finish_t)
 
     def _finish(self, req: GenRequest, status: str, reason: str) -> None:
         req.status = status
         req.finish_reason = reason
         req.finish_t = time.monotonic()
         self.finished += 1
+        self._registry.inc(f"serve/finished_{status}")
+        self._emit_request_record(req)
+        self._emit_spans(req)
+        if self.slo is not None and status != "cancelled":
+            # an expired request was served but missed its deadline; only
+            # errors count against availability here (sheds are fed by the
+            # front end)
+            self.slo.observe(
+                req.tier, available=status != "error",
+                deadline_met=(None if req.deadline_s is None
+                              else status == "done"))
         cb = req.on_finish
         if cb is not None:
             try:
@@ -724,6 +1243,7 @@ class DecodeEngine(ServeSlice):
         if req.first_token_t is None:
             req.first_token_t = time.monotonic()
         req.tokens.append(int(token))
+        self._registry.inc("serve/tokens")
         cb = req.stream
         if cb is not None:
             try:
@@ -745,6 +1265,21 @@ class DecodeEngine(ServeSlice):
 
     def slot_occupancy(self) -> float:
         return sum(1 for s in self._slots if s is not None) / len(self._slots)
+
+    def page_occupancy(self) -> float:
+        """The fraction of the KV page pool in use (0.0 under the dense
+        layout)."""
+        if self._pages is None:
+            return 0.0
+        total = self._pages.num_pages - 1
+        return self._pages.pages_used / total if total > 0 else 0.0
+
+    def page_split(self) -> tuple[int, int]:
+        """(shared, free) page counts for ``/healthz``; (0, 0) under the
+        dense layout."""
+        if self._pages is None:
+            return (0, 0)
+        return (self._pages.pages_shared, self._pages.pages_free)
 
     def _free_slot(self) -> Optional[int]:
         for i, s in enumerate(self._slots):
@@ -822,6 +1357,7 @@ class DecodeEngine(ServeSlice):
                 and self._tenant_pages.get(req.tenant, 0) + need
                 > self._tenant_quota_pages()):
             self.tenant_blocked += 1
+            self._registry.inc("serve/tenant_blocked")
             return False
         if self._pages.can_alloc(need):
             return True
@@ -869,6 +1405,7 @@ class DecodeEngine(ServeSlice):
         req.status = "running"
         req.admit_t = time.monotonic()
         self.admitted += 1
+        self._registry.inc("serve/admitted")
 
     def _reserve(self, req: GenRequest, slot: int) -> None:
         """Reserve ``req``'s worst case of pages for ``slot`` (paged) and
@@ -877,6 +1414,7 @@ class DecodeEngine(ServeSlice):
             n = self._pages_for(req)
             self._pages.admit(slot, n)
             self._charge_tenant(slot, req.tenant, n)
+            req.reserve_t = time.monotonic()
 
     def _admit(self, req: GenRequest, slot: int) -> None:
         """Prefill ``req`` into ``slot`` and take its first token."""
@@ -884,7 +1422,8 @@ class DecodeEngine(ServeSlice):
         self._reserve(req, slot)
         t0 = time.perf_counter()
         try:
-            token = self._prefill(req, slot)
+            with watchdog_guard("serve_prefill"):
+                token = self._prefill(req, slot)
         except BaseException:
             # failed admissions must not leak the pages just reserved
             if self._pages is not None:
@@ -927,14 +1466,17 @@ class DecodeEngine(ServeSlice):
             shared.append(match.cow_src)
         self._pages.admit_shared(slot, shared, reserved - len(shared))
         self._charge_tenant(slot, req.tenant, reserved - len(match.pages))
+        req.reserve_t = time.monotonic()
         try:
             if cow:
                 # private copy before the tail's first write: a slot never
                 # writes a page with refcount > 1; its lanes past the
                 # cached length are dead (context length) and overwritten
                 old, new = self._pages.cow(slot, len(match.pages))
-                self._page_copy(old, new)
+                with watchdog_guard("serve_prefill"):
+                    self._page_copy(old, new)
                 self.cow_copies += 1
+                self._registry.inc("serve/cow_copies_total")
         except BaseException:
             self._release_pages(slot)
             raise
@@ -979,9 +1521,10 @@ class DecodeEngine(ServeSlice):
             end = min(start + C, req.prompt_len)
             is_last = end >= req.prompt_len
             t0 = time.perf_counter()
-            token = self._chunk(req, i, start,
-                                req.prompt_len - 1 - start if is_last
-                                else None)
+            with watchdog_guard("serve_prefill"):
+                token = self._chunk(req, i, start,
+                                    req.prompt_len - 1 - start if is_last
+                                    else None)
             self.prefill_s += time.perf_counter() - t0
             self.prefill_chunks += 1
             req.chunks += 1
@@ -997,6 +1540,8 @@ class DecodeEngine(ServeSlice):
                     s.phase = "decode"
                     s.pending_token = token
                     s.steps_done = 0
+        if chunks:
+            self._registry.gauge("serve/prefill_chunks", chunks)
         return chunks > 0
 
     # ------------------------------------------------------------- drafting
@@ -1055,7 +1600,8 @@ class DecodeEngine(ServeSlice):
         for i in active:
             tokens[i] = self._slots[i].pending_token
         t0 = time.perf_counter()
-        sampled = self._decode(tokens, *self._slot_inputs(active))
+        with watchdog_guard("serve_decode"):
+            sampled = self._decode(tokens, *self._slot_inputs(active))
         self.decode_s += time.perf_counter() - t0
         for i in active:
             s = self._slots[i]
@@ -1069,6 +1615,7 @@ class DecodeEngine(ServeSlice):
                 s.pending_token = token
         self.decode_dispatches += 1
         self.decode_tokens += len(active)
+        self._registry.gauge("serve/tokens_per_dispatch", 1.0)
 
     def _last_committed_token(self, s: _Slot) -> int:
         """The token whose K/V sits at position ctx - 1 (the last one fed):
@@ -1096,9 +1643,10 @@ class DecodeEngine(ServeSlice):
             ctx[i] = s.request.prompt_len + s.steps_done - 1
             inc[i] = 1
             bt[i] = self._pages.block_table[i]
-        return self._dispatch(CALL_DRAFT_CHAIN,
-                              [last, pending, bt, ctx, inc],
-                              self.config.spec_k).cpu().numpy()
+        with watchdog_guard("serve_decode"):
+            return self._dispatch(CALL_DRAFT_CHAIN,
+                                  [last, pending, bt, ctx, inc],
+                                  self.config.spec_k).cpu().numpy()
 
     def _verify_tick(self, active) -> None:
         """ONE verify dispatch advancing every decode-phase slot 1..k+1
@@ -1126,11 +1674,13 @@ class DecodeEngine(ServeSlice):
                 hist = [int(t) for t in r.prompt_ids[: r.prompt_len]]
                 hist.extend(int(t) for t in r.tokens)
                 tokens[i, 1:] = self._ngram_draft(hist, k)
-        out = self._verify(tokens, *self._slot_inputs(active))
+        with watchdog_guard("serve_decode"):
+            out = self._verify(tokens, *self._slot_inputs(active))
         self.decode_s += time.perf_counter() - t0
         target, accept = out[:, : k + 1], out[:, k + 1]
         self.spec_dispatches += 1
         self.decode_dispatches += 1
+        emitted = accepted = 0
         for i in active:
             s = self._slots[i]
             r = s.request
@@ -1141,29 +1691,68 @@ class DecodeEngine(ServeSlice):
                 self.spec_accepted += a
                 r.drafted += k
                 r.accepted += a
+                accepted += a
             finished = False
             for j in range(a + 1):
                 token = int(target[i, j])
                 s.steps_done += 1
                 self._emit_token(r, token)
                 self.decode_tokens += 1
+                emitted += 1
                 if self._is_terminal(r, token):
                     self._evict(i)
                     finished = True
                     break
             if not finished:
                 s.pending_token = int(target[i, a])
+        if spec_slots:
+            self._registry.gauge("serve/spec_accept_rate",
+                                 accepted / (k * len(spec_slots)))
+        self._registry.gauge("serve/tokens_per_dispatch",
+                             emitted / len(active))
 
     def tick(self) -> bool:
-        """One engine iteration: expire, admit, stream prompt chunks,
-        decode (or verify) every decode-phase slot. True when any work
-        happened (the serve loop idles on the queue otherwise)."""
-        with torch.inference_mode():
-            return self._tick_body()
+        """One engine iteration: apply a pending weight swap, then expire,
+        admit, stream prompt chunks, decode (or verify) every decode-phase
+        slot. True when any work happened (the serve loop idles on the
+        queue otherwise).
+
+        A swap is installed here, between ticks, so a tick runs wholly on
+        one version. Its first tick is the trial: a clean tick commits
+        it, a failing one copies the previous weights back and the loop
+        goes on serving (a bad swap costs the version, not the
+        replica)."""
+        pending = self._pending_swap.take()
+        if pending is not None:
+            params, version, ticket, variant, source = pending
+            try:
+                self.swap_params(params, version, ticket, variant=variant,
+                                 source=source)
+            except Exception as e:
+                if ticket is not None:
+                    ticket.resolve(False, error=f"{type(e).__name__}: {e}",
+                                   stage="apply")
+        try:
+            # the tick-wide guard nests over the prefill and decode ones:
+            # a hang anywhere in the tick (the fault hooks too) stalls a
+            # named section, which dumps the flight recorder
+            with watchdog_guard("serve_tick"), torch.inference_mode():
+                worked = self._tick_body()
+        except Exception as e:
+            if self._trial is not None:
+                self._rollback_swap(f"{type(e).__name__}: {e}")
+                self.last_tick_t = time.monotonic()
+                return True
+            raise
+        if self._trial is not None:
+            self._commit_swap()
+        return worked
 
     def _tick_body(self) -> bool:
+        t0 = time.monotonic()
         worked = False
         for req in self._queue.expire_overdue():
+            emit_expiry(self._registry, req, "queued")
             self._finish(req, "expired", "deadline")
             worked = True
 
@@ -1172,6 +1761,7 @@ class DecodeEngine(ServeSlice):
         for i, s in enumerate(self._slots):
             if s is not None and s.request.overdue(now):
                 self._evict(i)
+                emit_expiry(self._registry, s.request, "running")
                 self._finish(s.request, "expired", "deadline")
                 worked = True
 
@@ -1205,11 +1795,13 @@ class DecodeEngine(ServeSlice):
             except Exception:
                 # popped and not yet slotted: finish it so its waiter does
                 # not hang, then let the loop's failure path take over
+                self._registry.inc("serve/admit_failures")
                 self._finish(req, "error", "admit_failure")
                 raise
             worked = True
         if self._page_blocked:
             self.page_exhausted += 1
+            self._registry.inc("serve/page_exhausted")
 
         # prompt chunks after admissions (a new slot's first chunk this
         # tick) and before decode (its pages hold the prompt before any
@@ -1227,10 +1819,77 @@ class DecodeEngine(ServeSlice):
             worked = True
 
         self.ticks += 1
+        depth = self._observe_tick()
         if worked:
             self.busy_ticks += 1
+            self._registry.observe("serve/tick", time.monotonic() - t0)
+        # a flight entry for every busy or eventful tick, before the fault
+        # hooks, so a hang injected at this tick dumps a ring whose last
+        # entry is the stalled tick
+        events, self._tick_events = self._tick_events, []
+        if worked or events:
+            self.flight.record(
+                tick=self.ticks, busy_tick=self.busy_ticks,
+                dur_ms=round((time.monotonic() - t0) * 1e3, 3),
+                queue_depth=depth,
+                slots_active=sum(1 for s in self._slots if s is not None),
+                prefill_resident=self._prefill_resident(),
+                decode_active=len(active),
+                pages_used=(self._pages.pages_used
+                            if self._pages is not None else 0),
+                brownout=(self.brownout.level
+                          if self.brownout is not None else 0),
+                weights_step=self.weights_step, finished=self.finished,
+                events=events)
+        if worked:
+            # the fault hooks fire before the heartbeat below, so an
+            # injected hang reads as a stale heartbeat, as a wedged device
+            plan = get_plan()
+            plan.slow_host_delay(time.monotonic() - t0)
+            plan.fire_serve_tick(self.busy_ticks, time.monotonic() - t0)
         self.last_tick_t = time.monotonic()
         return worked
+
+    def _observe_tick(self) -> int:
+        """The tick's gauges, the brownout ladder's pressure sample (with
+        the prefix cache's idle runs dropped from level 1 up) and the
+        drain-rate window; the queue depth."""
+        reg = self._registry
+        depth = self._queue.depth()
+        reg.gauge("serve/queue_depth", depth)
+        reg.gauge("serve/slot_occupancy", self.slot_occupancy())
+        if self._pages is not None:
+            reg.gauge("serve/kv_pages_used", self._pages.pages_used)
+            reg.gauge("serve/kv_pages_free", self._pages.pages_free)
+        if self._prefix is not None:
+            lookups = self._prefix.hits + self._prefix.misses
+            reg.gauge("serve/prefix_hit_rate",
+                      self._prefix.hits / lookups if lookups else 0.0)
+            reg.gauge("serve/pages_shared", self._pages.pages_shared)
+            reg.gauge("serve/cow_copies", self.cow_copies)
+        if self.brownout is not None:
+            level = self.brownout.observe(depth / self._queue.max_depth)
+            reg.gauge("serve/brownout_level", level)
+            if level != self._prev_brownout_level:
+                self._tick_events.append(
+                    f"brownout:{self._prev_brownout_level}->{level}")
+                self._prev_brownout_level = level
+            if level >= 1 and self._prefix is not None:
+                # idle cached runs are the cheapest capacity to give back
+                dropped = self._prefix.evict_idle()
+                if dropped:
+                    self._tick_events.append(f"prefix_evict_idle:{dropped}")
+        now = time.monotonic()
+        window = now - self._drain_window_t
+        if window >= 1.0:
+            rate = (self.finished - self._drain_window_finished) / window
+            # an EWMA, so one quiet window does not zero the estimate
+            self.drain_rate = (rate if self.drain_rate == 0.0
+                               else 0.5 * self.drain_rate + 0.5 * rate)
+            self._drain_window_t = now
+            self._drain_window_finished = self.finished
+            reg.gauge("serve/drain_rate_rps", self.drain_rate)
+        return depth
 
     # -------------------------------------------------------------- shutdown
 
@@ -1245,8 +1904,10 @@ class DecodeEngine(ServeSlice):
         for i, s in enumerate(self._slots):
             if s is not None:
                 self._evict(i)
+                self._registry.inc("serve/cancelled")
                 self._finish(s.request, "cancelled", "cancelled")
         for req in self._queue.drain_pending():
+            self._registry.inc("serve/cancelled")
             self._finish(req, "cancelled", "cancelled")
 
     def shutdown(self) -> None:
@@ -1284,6 +1945,13 @@ class DecodeEngine(ServeSlice):
             "queue_depth": self._queue.depth(),
             "queue_depth_by_tier": self._queue.depth_by_tier(),
             "slot_occupancy": self.slot_occupancy(),
+            "page_occupancy": self.page_occupancy(),
+            "drain_rate_rps": self.drain_rate,
+            "brownout": (self.brownout.stats()
+                         if self.brownout is not None else None),
+            "spans_emitted": self.tracer.emitted,
+            **self.flight.stats(),
+            **(self.slo.stats() if self.slo is not None else {}),
             "num_slots": self.config.num_slots,
             "prompt_buckets": list(self.config.prompt_buckets),
             "prefill_buckets_used": sorted(self._prefill_buckets),
@@ -1327,4 +1995,7 @@ class DecodeEngine(ServeSlice):
                 self.spec_accepted / self.spec_drafted
                 if self.spec_drafted else None
             ),
+            "swaps": self.swaps,
+            "swap_rollbacks": self.swap_rollbacks,
+            "swap_pending": self._pending_swap.waiting,
         }

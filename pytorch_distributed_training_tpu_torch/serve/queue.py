@@ -21,7 +21,11 @@ lanes and tenants.
   tried; other tenants' heads, and the other lane, still get their turn.
   Traffic without tenants is one candidate a lane, the lane's head.
 
-The brownout ladder is not ported yet (ROADMAP.md, queue 1, slice 4c).
+``BrownoutController`` also lives here: the fixed, reversible overload
+ladder (shed batch -> clamp output budgets -> fail-fast interactive) that
+the engine's tick drives from queue pressure and the HTTP front end
+enforces at admission. ``emit_expiry`` records a deadline expiry by where
+the request died (queued or running).
 """
 
 from __future__ import annotations
@@ -45,6 +49,25 @@ TIERS = ("interactive", "batch")
 #: the default weighted-round-robin share a lane: under contention 4
 #: interactive requests pop for every batch request
 DEFAULT_TIER_WEIGHTS = {"interactive": 4, "batch": 1}
+
+
+def emit_expiry(registry, request: "GenRequest", phase: str) -> None:
+    """Record one deadline expiry by where the request died: ``queued``
+    (admission never came: overload) or ``running`` (decode fell behind:
+    a slow replica). Counters ``serve/expired`` and
+    ``serve/expired_<phase>`` and a ``serve_expired`` record."""
+    assert phase in ("queued", "running"), phase
+    registry.inc("serve/expired")
+    registry.inc(f"serve/expired_{phase}")
+    registry.emit({
+        "record": "serve_expired",
+        "id": request.id,
+        "phase": phase,
+        "bucket": request.bucket,
+        "deadline_s": request.deadline_s,
+        "waited_s": time.monotonic() - request.submit_t,
+        "new_tokens": len(request.tokens),
+    })
 
 
 @dataclasses.dataclass
@@ -74,6 +97,12 @@ class GenRequest:
     # (on whenever EngineConfig.spec_k > 0). Spec and non-spec slots emit
     # the same stream, so this is a latency knob, not a quality one.
     spec: Optional[bool] = None
+    # the router's parent span id (X-Parent-Span): the replica's ``serve``
+    # span nests under it
+    trace_parent: Optional[str] = None
+    # brownout clamp provenance: max_new_tokens before the overload clamp
+    # rewrote it (None: never clamped)
+    clamped_from: Optional[int] = None
 
     # ---- engine-owned runtime state
     status: str = "new"      # new -> queued -> running -> done|expired|cancelled|error
@@ -82,6 +111,9 @@ class GenRequest:
     bucket: int = 0
     submit_t: float = 0.0
     admit_t: Optional[float] = None
+    # the KV-page reservation stamp: the ``admission`` span is admit_t ->
+    # reserve_t
+    reserve_t: Optional[float] = None
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
     decode_ticks: int = 0    # decode or verify dispatches that advanced it
@@ -101,6 +133,13 @@ class GenRequest:
             self.deadline_s is not None
             and now - self.submit_t > self.deadline_s
         )
+
+    def result(self, timeout: Optional[float] = None) -> list:
+        """Block until the request is terminal; its generated token ids
+        (cut short on a deadline or a cancel)."""
+        if not self.done.wait(timeout):
+            raise TimeoutError(f"request {self.id} still in flight")
+        return list(self.tokens)
 
 
 class RequestQueue:
@@ -286,6 +325,10 @@ class RequestQueue:
             self._closed = True
             self._work.notify_all()
 
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
     def drain_pending(self) -> list:
         """Remove and return every queued request."""
         with self._lock:
@@ -294,3 +337,171 @@ class RequestQueue:
                 out.extend(dq)
                 dq.clear()
         return out
+
+
+# ------------------------------------------------------------------ brownout
+
+
+#: the fixed degradation ladder, in escalation order. Every transition is
+#: one step at a time and reversible — recovery retraces the ladder down.
+BROWNOUT_LEVELS = ("normal", "shed_batch", "clamp", "fail_fast")
+
+
+class BrownoutController:
+    """Reversible overload ladder driven by sustained queue pressure.
+
+    The engine's tick loop feeds ``observe(pressure)`` (pressure = queue
+    depth / max depth); the controller escalates one level at a time after
+    the pressure holds above ``high_watermark`` for ``escalate_hold_s``,
+    and de-escalates one level at a time after it holds below
+    ``low_watermark`` for ``deescalate_hold_s`` — hysteresis plus hold
+    times, so a flapping gauge cannot flap the policy. The HTTP front-end
+    enforces the current level at admission:
+
+    - level >= 1 (``shed_batch``): new batch-tier requests are rejected
+      (429 + honest Retry-After). Interactive traffic is untouched.
+    - level >= 2 (``clamp``): newly admitted requests have their output
+      budget clamped to ``clamp_max_new`` — shorter answers for everyone
+      beats no answers for some. Already-running requests keep their
+      budget (the clamp is admission-time, hence trivially reversible).
+    - level >= 3 (``fail_fast``): even interactive requests are rejected
+      (503 + honest Retry-After) — the queue can no longer meet the
+      interactive deadline, so an explicit fast "come back later" is the
+      only honest answer left. Never a silent stall.
+
+    ``now_fn`` is injectable; tests drive the ladder with a fake clock.
+    Mutations happen on the engine thread under a lock; the policy
+    queries read ``level`` once (an atomic int read) from any thread.
+    """
+
+    def __init__(
+        self,
+        *,
+        high_watermark: float = 0.8,
+        low_watermark: float = 0.3,
+        escalate_hold_s: float = 0.5,
+        deescalate_hold_s: float = 1.0,
+        clamp_max_new: int = 16,
+        now_fn=None,
+        registry=None,
+        slo_monitor=None,
+        slo_burn_high: float = 0.0,
+    ):
+        if not 0.0 < low_watermark < high_watermark:
+            raise ValueError(
+                f"need 0 < low_watermark < high_watermark, got "
+                f"{low_watermark} / {high_watermark}"
+            )
+        if clamp_max_new < 1:
+            raise ValueError(
+                f"clamp_max_new must be >= 1, got {clamp_max_new}"
+            )
+        self.high_watermark = high_watermark
+        self.low_watermark = low_watermark
+        self.escalate_hold_s = escalate_hold_s
+        self.deescalate_hold_s = deescalate_hold_s
+        self.clamp_max_new = clamp_max_new
+        self._now = now_fn if now_fn is not None else time.monotonic
+        self._registry = registry
+        # optional SLO burn coupling: with a BurnRateMonitor attached and
+        # slo_burn_high > 0, a burn rate at or above it reads as
+        # high-watermark pressure whatever the queue depth (off by
+        # default)
+        self.slo_monitor = slo_monitor
+        self.slo_burn_high = float(slo_burn_high)
+        self.level = 0
+        self.escalations = 0
+        self.deescalations = 0
+        self._above_t: Optional[float] = None
+        self._below_t: Optional[float] = None
+        self._lock = threading.Lock()
+
+    # ------------------------------------------------------------- observe
+
+    def observe(self, pressure: float) -> int:
+        """One pressure sample (engine thread, once per tick); returns the
+        current level. Crossing back into the hysteresis band resets both
+        hold timers — only SUSTAINED pressure moves the ladder."""
+        now = self._now()
+        if (
+            self.slo_monitor is not None
+            and self.slo_burn_high > 0.0
+            and self.slo_monitor.max_burn() >= self.slo_burn_high
+        ):
+            pressure = max(pressure, self.high_watermark)
+        with self._lock:
+            if pressure >= self.high_watermark:
+                self._below_t = None
+                if self._above_t is None:
+                    self._above_t = now
+                if (
+                    self.level < len(BROWNOUT_LEVELS) - 1
+                    and now - self._above_t >= self.escalate_hold_s
+                ):
+                    self._transition(self.level + 1, pressure)
+                    self._above_t = now     # next level needs its own hold
+            elif pressure <= self.low_watermark:
+                self._above_t = None
+                if self._below_t is None:
+                    self._below_t = now
+                if (
+                    self.level > 0
+                    and now - self._below_t >= self.deescalate_hold_s
+                ):
+                    self._transition(self.level - 1, pressure)
+                    self._below_t = now
+            else:
+                self._above_t = None
+                self._below_t = None
+            return self.level
+
+    def _transition(self, new_level: int, pressure: float) -> None:
+        old = self.level
+        self.level = new_level
+        if new_level > old:
+            self.escalations += 1
+        else:
+            self.deescalations += 1
+        if self._registry is not None:
+            self._registry.inc(
+                "serve/brownout_escalations"
+                if new_level > old
+                else "serve/brownout_deescalations"
+            )
+            self._registry.gauge("serve/brownout_level", new_level)
+            self._registry.emit({
+                "record": "brownout_transition",
+                "from": BROWNOUT_LEVELS[old],
+                "to": BROWNOUT_LEVELS[new_level],
+                "level": new_level,
+                "pressure": pressure,
+            })
+
+    # ------------------------------------------------------ policy queries
+
+    def level_name(self) -> str:
+        return BROWNOUT_LEVELS[self.level]
+
+    def sheds(self, tier: str) -> bool:
+        """Is a NEW request of ``tier`` rejected at the current level?
+        Batch sheds from level 1; interactive only at the final level —
+        the ordering the acceptance tests pin."""
+        level = self.level
+        if tier == "batch":
+            return level >= 1
+        return level >= 3
+
+    def clamp(self, max_new_tokens: int) -> int:
+        """The admitted output budget at the current level (identity below
+        the clamp level)."""
+        if self.level >= 2:
+            return min(max_new_tokens, self.clamp_max_new)
+        return max_new_tokens
+
+    def stats(self) -> dict:
+        return {
+            "level": self.level,
+            "level_name": self.level_name(),
+            "escalations": self.escalations,
+            "deescalations": self.deescalations,
+        }

@@ -16,8 +16,12 @@ make the ranks part. The draft lane's chain of greedy decodes is one call:
 every rank runs it whole, feeding its own argmax forward, which the
 all-reduced logits make the same on every rank. A follower runs each forward whole, the replicated
 tied head included, and drops its logits: it joins every row-parallel
-all-reduce, and every rank launches the same kernels. The stop message
-(``DecodeEngine.shutdown``) ends the loop.
+all-reduce, and every rank launches the same kernels. A weight swap is
+a call too (``ServeSlice._follow_swap``): each follower loads the step
+from the checkpoint directory the leader names, cuts its own slice, and
+the model group votes, so the swap installs on every rank or none; the
+swap's end commits it or copies the previous weights back. The stop
+message (``DecodeEngine.shutdown``) ends the loop.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Training telemetry (counterpart: the JAX package's ``telemetry/``
-registry, sink and straggler modules):
+"""Training and serving telemetry (counterpart: the JAX package's
+``telemetry/``):
 
 - ``registry.MetricsRegistry``: counters, gauges and timer histograms that
   instrumentation sites record into; a process-wide default registry lets
@@ -10,8 +10,11 @@ registry, sink and straggler modules):
   ``scripts/summarize_metrics.py`` reads;
 - ``straggler.epoch_straggler_stats``: each rank's step-time stats
   gathered over the batch group at an epoch's end, so rank 0 names the
-  slowest.
-
-The serving observability layers (spans, flight recorder, SLO burn) wait
-in ROADMAP.md (queue 1, item 5).
+  slowest;
+- ``spans.Tracer``: a request's span tree (``serve`` -> ``queue`` /
+  ``prefill`` / ``decode``), emitted by the engine at finish;
+- ``flight.FlightRecorder``: the ring of recent tick summaries, dumped on a
+  watchdog stall, a fatal tick, a SIGTERM drain or ``GET /debug/flight``;
+- ``slo.BurnRateMonitor``: per-tier error-budget burn over sliding
+  windows (``slo_burn`` records), an optional brownout input.
 """

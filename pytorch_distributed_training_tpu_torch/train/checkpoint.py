@@ -33,23 +33,34 @@ write goes to the sibling ``<dir>/.tmp-<step>/``, which rank 0 renames
 into place after every rank's shards are written, then seals with the
 integrity manifest (``train/manifest.py``) and prunes to the newest
 ``keep`` steps; a crash mid-save leaves only the hidden temporary, which
-no step listing counts. Saves are synchronous, so a step commits and is
-sealed before ``save`` returns: JAX's join of an in-flight save before a
-newer one, and its manifest written only after the commit, hold with
-nothing to wait for. Only rank 0 renames, writes manifests and prunes;
-the decisions every rank must share (skip a duplicate step, which steps
-to try) are rank 0's, broadcast. The format is the port's own; orbax
-checkpoints are not read (that needs the JAX stack).
+no step listing counts. Only rank 0 renames, writes manifests and
+prunes; the decisions every rank must share (skip a duplicate step,
+which steps to try) are rank 0's, broadcast. The format is the port's
+own; orbax checkpoints are not read (that needs the JAX stack).
+
+Saves are asynchronous, as JAX's (``enable_async_checkpointing``):
+``save`` copies the state to host buffers (pinned on a card, kept and
+reused from one save to the next), then submits the write through
+``torch.distributed.checkpoint.async_save`` and returns; only the write
+to disk overlaps the next steps. The copy completes before ``save``
+returns, because the optimizer updates parameters and moments in place.
+A submitted step stays pending until a join: the next ``save`` (under
+the watchdog's ``checkpoint_join``), ``wait()`` or ``close()``. At the
+join, and only then, rank 0 renames, seals and prunes (a step whose
+write failed gets no seal). Under a process group the write runs on a
+gloo group of its own, so its collectives never interleave with the
+training's (NCCL on cards). ``save_checkpoint``, the one-shot, joins
+before it returns.
 
 Telemetry, as JAX's: each event is a record of the default registry's
 stream (``checkpoint_save``, ``checkpoint_skip_duplicate``,
 ``checkpoint_resave``, ``checkpoint_fallback``, ``checkpoint_restore``)
-beside its ``log0`` line, with its counters and timers (a save's whole
-synchronous time stands in ``submit_s`` and ``checkpoint/save_submit_s``,
-the part of the step a save costs). A save runs under the watchdog
-(``checkpoint_save``; JAX guards its async joins). ``close()`` fires the
-``corrupt_ckpt`` fault (``faults/inject.py``): it damages a committed,
-sealed step so the next restore must detect it and fall back.
+beside its ``log0`` line, with its counters and timers: ``submit_s`` and
+``checkpoint/save_submit_s`` time what the training loop pays (the host
+copy and the submit), ``checkpoint/join_s`` the joins at ``wait()``.
+``close()`` joins, then fires the ``corrupt_ckpt`` fault
+(``faults/inject.py``): it damages a committed, sealed step so the next
+restore must detect it and fall back.
 """
 
 from __future__ import annotations
@@ -81,12 +92,17 @@ from pytorch_distributed_training_tpu_torch.train import (
     manifest as ckpt_manifest,
 )
 from pytorch_distributed_training_tpu_torch.train.state import TrainState
-from pytorch_distributed_training_tpu_torch.utils.logging import log0
+from pytorch_distributed_training_tpu_torch.utils.logging import (
+    get_logger,
+    log0,
+)
 
 MODEL, OPTIM = "model", "optim"
 # files a rank writes a step in (one a thread): the write takes as long
 # with more, but the manifest's sha256 then hashes them in parallel
 WRITE_THREADS = 8
+
+logger = get_logger(__name__)
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -312,12 +328,50 @@ def _restore_into(path: str, step: int, state: TrainState) -> None:
 # ---------------------------------------------------------- the manager
 
 
+class _HostStager:
+    """The host copy a save writes from (``torch.distributed.checkpoint``'s
+    ``AsyncStager`` protocol): blocking, so the copy is whole before
+    ``save`` returns, into buffers made once and reused by every later
+    save of the same names and shapes (pinned when the state lies on a
+    card; pinning needs one)."""
+
+    def __init__(self):
+        self._buffers = None
+        self._layout = None
+
+    @property
+    def should_synchronize_after_execute(self) -> bool:
+        return False
+
+    def stage(self, state_dict: dict) -> dict:
+        from torch.distributed._state_dict_utils import (
+            _copy_state_dict,
+            _create_cpu_state_dict,
+        )
+
+        layout = {k: (tuple(t.shape), t.dtype) for k, t in state_dict.items()}
+        if self._buffers is None or layout != self._layout:
+            pin = any(t.device.type == "cuda" for t in state_dict.values())
+            self._buffers = _create_cpu_state_dict(state_dict,
+                                                   pin_memory=pin)
+            self._layout = layout
+        return _copy_state_dict(state_dict, self._buffers)
+
+    def synchronize_staging(self) -> None:
+        """Nothing to wait for: ``stage`` blocks."""
+
+    def close(self) -> None:
+        self._buffers = self._layout = None
+
+
 class Checkpointer:
     """The checkpoint manager of a training run: ``keep`` newest steps
     under ``directory``, each verified at ``verify`` (``"off"``,
     ``"size"``, ``"digest"``) before a restore trusts it. ``saves`` and
-    ``restores`` record each one's step, seconds and (saves, rank 0) the
-    bytes written."""
+    ``restores`` record each one's step and seconds; a save's entry gains
+    its join seconds and (rank 0) the bytes written when it commits.
+    Build it on every rank (under a process group it makes the saves'
+    gloo group)."""
 
     def __init__(self, directory: str, *, keep: int = 3, verify: str = "size"):
         if verify not in ckpt_manifest.VERIFY_LEVELS:
@@ -330,6 +384,14 @@ class Checkpointer:
         self.verify = verify
         self.saves: list[dict] = []
         self.restores: list[dict] = []
+        # submitted steps not yet joined: step -> (future, tree, entry)
+        self._pending: dict[int, tuple] = {}
+        self._stager = _HostStager()
+        # the writes' own group: gloo (async_save needs a CPU backend),
+        # apart from the training's collectives
+        self._group = (dist.new_group(backend="gloo")
+                       if dist.is_available() and dist.is_initialized()
+                       else None)
         if _is_main():
             os.makedirs(self.directory, exist_ok=True)
         _barrier()
@@ -341,16 +403,18 @@ class Checkpointer:
         return all_steps(self.directory)
 
     def save(self, state: TrainState) -> str:
-        """Write ``state``'s step (every rank its shards), commit it and
-        seal it. A step already saved is skipped if it verifies and
-        deleted and saved again if it does not (a run that fell back past
-        a corrupt step replaces it when it gets there again)."""
+        """Submit ``state``'s step (every rank its shards) and return once
+        its host copy is whole; the write runs on, and the step commits
+        and is sealed at the next join. A step already saved is skipped
+        if it is this manager's pending step or verifies, and deleted and
+        saved again if it does not (a run that fell back past a corrupt
+        step replaces it when it gets there again)."""
         step = int(state.step)
         path = self._step_path(step)
         reg = get_registry()
-        if step in self.all_steps():
+        if step in self._pending or step in self.all_steps():
             ok, reason = True, "ok"
-            if self.verify != "off":
+            if step not in self._pending and self.verify != "off":
                 ok, reason = ckpt_manifest.verify_step(path, level=self.verify)
             ok, reason = _agree((ok, reason))
             if ok:
@@ -364,13 +428,26 @@ class Checkpointer:
                       "reason": reason})
             log0(f"checkpoint step {step} exists but fails verification "
                  f"({reason}); deleting and re-saving")
+        t0 = time.perf_counter()
+        if self._pending:
+            # the write in flight commits before a newer step supersedes it
+            with watchdog_guard("checkpoint_join", step=step):
+                self._join()
         with watchdog_guard("checkpoint_save", step=step):
-            return self._save(state, step, path, reg)
+            self._submit(state, step)
+        submit_s = time.perf_counter() - t0
+        self._pending[step][2]["submit_s"] = submit_s
+        reg.inc("checkpoint/saves")
+        # what the training loop pays: the host copy and the submit
+        reg.observe("checkpoint/save_submit_s", submit_s)
+        reg.emit({"record": "checkpoint_save", "step": step,
+                  "submit_s": submit_s, "path": path})
+        log0(f"checkpoint saving: {path} (submitted in {submit_s:.2f} s)")
+        return path
 
-    def _save(self, state: TrainState, step: int, path: str, reg) -> str:
+    def _submit(self, state: TrainState, step: int) -> None:
         import torch.distributed.checkpoint as dcp
 
-        t0 = time.perf_counter()
         tmp = os.path.join(self.directory, f".tmp-{step}")
         if _is_main():
             shutil.rmtree(tmp, ignore_errors=True)
@@ -378,33 +455,68 @@ class Checkpointer:
         _barrier()
         saveable = _saveable(state)
         tree = ckpt_manifest.tree_summary(saveable)
-        with _quiet():
-            dcp.save(saveable, storage_writer=dcp.FileSystemWriter(
-                tmp, thread_count=WRITE_THREADS))
-        _barrier()
-        written = 0
-        if _is_main():
-            shutil.rmtree(path, ignore_errors=True)
-            os.rename(tmp, path)
-            ckpt_manifest._fsync_path(self.directory)
-            manifest = ckpt_manifest.build_manifest(path, step, tree=tree)
-            ckpt_manifest.write_manifest(path, manifest)
-            written = sum(f["bytes"] for f in manifest["files"].values())
-            for old in self.all_steps()[:-self.keep]:
-                shutil.rmtree(self._step_path(old), ignore_errors=True)
-        _barrier()
-        seconds = time.perf_counter() - t0
-        self.saves.append(dict(step=step, seconds=seconds, bytes=written))
-        reg.inc("checkpoint/saves")
-        reg.observe("checkpoint/save_submit_s", seconds)
-        reg.emit({"record": "checkpoint_save", "step": step,
-                  "submit_s": seconds, "path": path, "bytes": written})
-        log0(f"checkpoint saved: {path} ({written} bytes, {seconds:.2f} s)")
-        return path
+        # a process with no group writes alone; the message saying so
+        # comes from the writer's thread
+        warnings.filterwarnings("ignore", message=".*single process")
+        future = dcp.async_save(
+            saveable, storage_writer=dcp.FileSystemWriter(
+                tmp, thread_count=WRITE_THREADS),
+            process_group=self._group, async_stager=self._stager)
+        entry = dict(step=step)
+        self.saves.append(entry)
+        self._pending[step] = (future, tree, entry)
+
+    def _join(self) -> None:
+        """Wait for every submitted write; then rank 0 commits each step
+        every rank wrote (rename, seal, prune). A step whose write failed
+        on some rank gets no seal, and its temporary goes."""
+        pending, self._pending = self._pending, {}
+        steps = sorted(pending)
+        t0 = time.perf_counter()
+        oks = []
+        for step in steps:
+            try:
+                pending[step][0].result()
+                oks.append(1)
+            except Exception as e:  # the write failed in the background
+                logger.error("checkpoint write of step %d failed: %s: %s",
+                             step, type(e).__name__, e)
+                oks.append(0)
+        if self._group is not None and steps:
+            flags = torch.tensor(oks)
+            dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=self._group)
+            oks = flags.tolist()
+        for step, ok in zip(steps, oks):
+            _, tree, entry = pending[step]
+            path = self._step_path(step)
+            tmp = os.path.join(self.directory, f".tmp-{step}")
+            written = 0
+            if _is_main():
+                if ok:
+                    shutil.rmtree(path, ignore_errors=True)
+                    os.rename(tmp, path)
+                    ckpt_manifest._fsync_path(self.directory)
+                    manifest = ckpt_manifest.build_manifest(path, step,
+                                                            tree=tree)
+                    ckpt_manifest.write_manifest(path, manifest)
+                    written = sum(f["bytes"]
+                                  for f in manifest["files"].values())
+                    for old in self.all_steps()[:-self.keep]:
+                        shutil.rmtree(self._step_path(old),
+                                      ignore_errors=True)
+                else:
+                    shutil.rmtree(tmp, ignore_errors=True)
+            _barrier()
+            entry.update(join_s=time.perf_counter() - t0, bytes=written,
+                         committed=bool(ok))
+            if ok:
+                log0(f"checkpoint saved: {path} ({written} bytes)")
 
     def wait(self) -> None:
-        """Join any in-flight save: saves are synchronous, so there is
-        none (JAX API)."""
+        """Join every submitted save: its step commits and is sealed."""
+        with get_registry().timer("checkpoint/join_s"), watchdog_guard(
+                "checkpoint_join"):
+            self._join()
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.directory)
@@ -460,9 +572,12 @@ class Checkpointer:
         raise last_exc
 
     def close(self) -> None:
-        """Release the manager (nothing is in flight); then the
+        """Join the saves in flight and release the host buffers; then the
         ``corrupt_ckpt`` fault, when armed: rank 0 damages the named (or
-        newest) committed step in place."""
+        newest) committed, sealed step in place."""
+        with watchdog_guard("checkpoint_join"):
+            self._join()
+        self._stager.close()
         target = get_plan().corrupt_checkpoint_target()
         if target is not None and _is_main():
             step = self.latest_step() if target == "latest" else int(target)
@@ -485,8 +600,14 @@ def _call(fn):
 
 
 def save_checkpoint(directory: str, state: TrainState, *, keep: int = 3) -> str:
-    """One-shot save (``Checkpointer`` inside training loops)."""
-    return Checkpointer(directory, keep=keep).save(state)
+    """One-shot save, committed and sealed before it returns
+    (``Checkpointer`` inside training loops)."""
+    t0 = time.perf_counter()
+    saver = Checkpointer(directory, keep=keep)
+    path = saver.save(state)
+    saver.close()
+    get_registry().observe("checkpoint/save_s", time.perf_counter() - t0)
+    return path
 
 
 def latest_step(directory: str) -> Optional[int]:

@@ -68,8 +68,9 @@ the amaxes agree on every rank by construction, and a broadcast from rank
 
 Checkpoints (``train/checkpoint.py``; JAX ``train/loop.py:240-254``):
 with ``checkpoint_dir`` the run saves at every epoch's end and every
-``checkpoint_every_steps`` updates (every rank its shards; rank 0 commits,
-seals and prunes), and with ``resume`` it starts from the newest verified
+``checkpoint_every_steps`` updates (every rank its shards, written in
+the background; rank 0 commits, seals and prunes at the next save's join,
+and the run's end joins the last), and with ``resume`` it starts from the newest verified
 step there, before the delayed-int8 calibration, which a restored run
 skips (its amaxes are the checkpoint's). ``run`` then starts at
 ``divmod(step, steps_per_epoch)``: the first ``skip`` batches of the
@@ -91,7 +92,9 @@ group) and the registry's snapshot. The watchdog (``watchdog``) guards
 every step but the first and the epoch's closing synchronize;
 ``GracefulShutdown`` (``handle_preemption``) wraps the epochs, and a
 signal stops the run at the next step boundary with an emergency
-checkpoint and ``Preempted`` (exit 75). After each update the
+checkpoint, joined, its submit and join timed against
+``preempt_grace_s``, and ``Preempted`` (exit 75); a join that hangs
+ends the process as a hung step does (the watchdog's exit 84). After each update the
 ``crash_at_step`` / ``crash_rank`` fault ends the process with
 ``os._exit(13)`` and the ``PDT_TPU_FAULT`` step faults fire. On a crash
 the stream stays open (flushed to disk) for the supervisor's ``restart``
@@ -529,8 +532,10 @@ class Trainer:
         t0 = time.perf_counter()
         saved_step = None
         if self.checkpointer is not None:
-            # a step saved just before (a periodic save) is skipped there
+            # a step saved just before (a periodic save) is skipped there;
+            # the join commits and seals it before the exit
             self.checkpointer.save(self.state)
+            self.checkpointer.wait()
             saved_step = self.state.step
         save_wall_s = time.perf_counter() - t0
         if save_wall_s > cfg.preempt_grace_s:
@@ -553,9 +558,12 @@ class Trainer:
 
     def _crash(self, step: int) -> None:
         """``crash_at_step``: die like a killed host, after the last
-        periodic save (saves are synchronous, so it has committed): no
-        Python cleanup, no flush."""
+        periodic save has committed (joined here, as JAX's: the fault is a
+        crash after a checkpoint, not a torn write): no Python cleanup, no
+        flush."""
         self._sync()
+        if self.checkpointer:
+            self.checkpointer.wait()
         # a plain print: log0 is rank-0-gated and the crashing rank is
         # often another
         print(f"injected crash at step {step} (rank {self.info.rank})",

@@ -235,6 +235,7 @@ def test_duplicate_step_skipped_and_a_corrupt_one_saved_again(trained,
     _damage(ckpt.step_path(d, 8), "truncated")
     c.save(t.state)
     assert [s["step"] for s in c.saves] == [8]
+    c.wait()  # the async save commits and seals at the join
     assert manifest.verify_step(ckpt.step_path(d, 8), level="digest") == (
         True, "ok")
     assert os.path.getmtime(os.path.join(ckpt.step_path(d, 8),
