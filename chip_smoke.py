@@ -456,7 +456,11 @@ LN_BWD_SHAPES = TRAIN_SHAPES + ((1024, 2048), (8, 2048), (1000, 1001),
                                 (64, 1001))
 # the eval forward's rows of kernel 3 (eval batch 32 x seq 128)
 DAL_EVAL_ROWS = 4096
-
+# the train phases' runs: the cold one on the C++ batch assembler, required
+# (a batcher that does not build fails it), the rerun on the Python loader
+# without prefetch
+NATIVE_ON = ["--native-loader", "on"]
+PYTHON_LOADER = ["--native-loader", "off", "--prefetch-depth", "0"]
 TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
               "--train-size", "288", "--eval-size", "408", "--num-epochs",
               "1", "--device", "cuda", "--seed", "42", "--log-every", "0"]
@@ -570,14 +574,11 @@ TINY_LM_ARGS = ["--model", "gpt2-tiny", "--attention", "flash", "--task", "lm",
 _GB = LM_1024_ARGS.index("--global-batch-size") + 1
 REMAT_ARGS = (LM_1024_ARGS[:_GB] + ["16"] + LM_1024_ARGS[_GB + 1:_AT]
               + ["32", "--eval-size", "8"] + LM_1024_ARGS[_AT + 3:])
-REMAT_MICRO8_ARGS = (LM_1024_ARGS[:_AT] + ["64", "--eval-size", "8"]
-                     + LM_1024_ARGS[_AT + 3:])
 REMAT_SETTINGS = (
     ("none", []), ("remat", ["--remat"]),
     ("remat-dots", ["--remat", "--remat-policy", "dots"]),
     ("remat-weight-dots", ["--remat", "--remat-policy", "weight_dots"]),
     ("remat-mlp", ["--remat-mlp"]))
-REMAT_MICRO8 = ("none", "remat-mlp")
 
 # int8-gemm: bert-large's six dense sites at the recipe's 1024 tokens a
 # microbatch (8 x 128): (site, tokens, in features, out features)
@@ -598,6 +599,16 @@ INT8_TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
                    "--eval-size", "16",
                    "--num-epochs", "1", "--device", "cuda", "--seed", "42",
                    "--log-every", "0"]
+# train-options: runs 2-4 on train-int8's shape (its native run is run 1)
+OPTION_TRAIN_RUNS = (
+    ("bf16-moments", ["--adam-mu-dtype", "bfloat16",
+                      "--adam-nu-dtype", "bfloat16"]),
+    ("bf16-carry", ["--grad-accum-dtype", "bfloat16"]),
+    ("chain-2", ["--chain-steps", "2"]))
+# kernels 1-5's symbols, as a trace names them
+TRAIN_KERNEL_SYMBOLS = ("layer_norm_fwd_kernel", "layer_norm_bwd_dx_kernel",
+                        "dal_fwd_kernel", "dal_bwd_dx_kernel",
+                        "dropout_kernel")
 INT8_VARIANTS = (
     ("int8", ["--matmul-impl", "int8"]),
     ("int8_full", ["--matmul-impl", "int8_full"]),
@@ -635,6 +646,8 @@ ROBERTA_ARGS = ["--model", "roberta-large", "--task", "mnli", "--train-size",
 # the reference LayerNorm (model_preset overrides)
 STREAM_SETTINGS = (("bits32", "fused"), ("bits8", "fused"),
                    ("exact", "fused"), ("kernel", "reference"))
+# the streams rerun for bit-equality: kernel 5's two modes of their own
+STREAM_RERUN = ("bits8", "exact")
 STREAM_TRAIN = dict(train_size=32, global_batch_size=32, eval_size=16,
                     num_epochs=1, seed=42, log_every=0)
 # the crash drill: the tiny preset, a checkpoint a step
@@ -2874,6 +2887,32 @@ def train_once(argv, cli="train_dp"):
     return trainer, dict(_build.LAUNCH_COUNTS), wall
 
 
+def engine(trainer) -> str:
+    """The train loader's engine: native (the C++ batcher) or python, and
+    the prefetch depth."""
+    from pytorch_distributed_training_tpu_torch.data.native_loader import (
+        NativeShardedLoader,
+    )
+
+    loader, depth = trainer.train_loader, 0
+    if hasattr(loader, "inner"):
+        loader, depth = loader.inner, trainer.train_loader.depth
+    kind = "native" if isinstance(loader, NativeShardedLoader) else "python"
+    return f"{kind}, prefetch {depth}"
+
+
+def data_wait_p50(trainer):
+    """The median ``train/data_wait_s`` of the trainer's last epoch."""
+    return trainer.last_telemetry["timers"]["train/data_wait_s"]["p50_s"]
+
+
+def moment_bytes(trainer) -> int:
+    opt = trainer.state.optimizer
+    return sum(m.numel() * m.element_size()
+               for g in opt.param_groups for p in g["params"]
+               for m in opt.moments(p))
+
+
 def train_metrics(trainer, wall) -> dict:
     rec = trainer.history[-1]
     steps = len(trainer.step_log)
@@ -2885,19 +2924,24 @@ def train_metrics(trainer, wall) -> dict:
         grad_norms=[s["grad_norm"] for s in trainer.step_log],
         **{k: v for k, v in rec.items()
            if k.startswith("accuracy") or k == "f1"},
+        engine=engine(trainer), data_wait_p50_s=data_wait_p50(trainer),
     )
 
 
 def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train",
                 steps=3) -> dict:
     """A classification main path (``train_dp``, or ``train_mp``'s branch
-    ensemble), counted (first run, cold), then a second run from the same
-    seed that must give bit-identical per-step losses."""
+    ensemble), counted (first run, cold, on the C++ batch assembler with
+    prefetch: ``--native-loader on``, so a batcher that does not build
+    fails the run), then a second run from the same seed on the Python
+    loader without prefetch (``--native-loader off --prefetch-depth 0``)
+    that must give bit-identical per-step losses: determinism and the two
+    engines' equality in one rerun."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
     with no_mask_tensor(f"{tag} run"):
-        trainer, counts, wall = train_once(argv, cli)
+        trainer, counts, wall = train_once(argv + NATIVE_ON, cli)
     peak = torch.cuda.max_memory_allocated()
     tc, mc = trainer.tcfg, trainer.mcfg
     branches = getattr(trainer.state.module, "n_branches", 1)
@@ -2925,7 +2969,7 @@ def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train",
                 layers=mc.num_layers, hidden=mc.hidden_size,
                 branches=branches)
     say(f"[{tag}] cold run: " + json.dumps(cold))
-    trainer, _, wall = train_once(argv, cli)
+    trainer, _, wall = train_once(argv + PYTHON_LOADER, cli)
     warm = train_metrics(trainer, wall)
     # the eval alone once more, timed: the profile's busy share needs the
     # warm run's device-side seconds (steps + eval)
@@ -2942,7 +2986,10 @@ def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train",
         raise AssertionError(f"{tag}: per-step losses differ between two "
                              f"runs: {cold['losses']} vs {warm['losses']}")
     say(f"[{tag}] warm run: " + json.dumps(warm))
-    say(f"[{tag}] per-step losses bit-identical across two runs")
+    say(f"[{tag}] per-step losses bit-identical across two runs "
+        f"({cold['engine']}; {warm['engine']}); train/data_wait_s median "
+        f"{cold['data_wait_p50_s']:.6f} s and {warm['data_wait_p50_s']:.6f}"
+        f" s")
     return dict(cold, warm=warm)
 
 
@@ -3091,7 +3138,8 @@ def dropout_streams_phase(settings=STREAM_SETTINGS) -> dict:
     LayerNorm) and under the reference LayerNorm: counted
     (``stream_launches``: no kernel 3 or 4 in the train step, the stream's
     mode of kernel 5, kernels 1 and 2 or none), finite losses, a rerun
-    bit-equal; ms a step beside each other."""
+    bit-equal for kernel 5's bits8 and exact modes; ms a step beside each
+    other."""
     out = {}
     for impl, ln in settings:
         tag = f"{impl}/{ln}"
@@ -3106,17 +3154,20 @@ def dropout_streams_phase(settings=STREAM_SETTINGS) -> dict:
         if m["steps"] != 1 or not all(
                 map(math.isfinite, m["losses"] + m["grad_norms"])):
             raise AssertionError(f"dropout-streams {tag}: {m}")
-        again, _, _ = stream_run(impl, ln)
-        rerun = train_metrics(again, 0.0)["losses"]
-        del again
-        _free_cuda()
-        if rerun != m["losses"]:
-            raise AssertionError(f"dropout-streams {tag}: the rerun's "
-                                 f"losses differ: {rerun} vs {m['losses']}")
+        if impl in STREAM_RERUN:
+            again, _, _ = stream_run(impl, ln)
+            rerun = train_metrics(again, 0.0)["losses"]
+            del again
+            _free_cuda()
+            if rerun != m["losses"]:
+                raise AssertionError(
+                    f"dropout-streams {tag}: the rerun's losses differ: "
+                    f"{rerun} vs {m['losses']}")
         m["launches"] = counts
         out[impl if ln == "fused" else f"{impl}-{ln}-ln"] = m
-        say(f"[dropout-streams] {tag}: losses bit-identical on a rerun; "
-            + json.dumps(m))
+        say(f"[dropout-streams] {tag}: "
+            + ("losses bit-identical on a rerun; " if impl in STREAM_RERUN
+               else "") + json.dumps(m))
     return out
 
 
@@ -4035,15 +4086,12 @@ def remat_run(what: str, argv) -> dict:
     return m
 
 
-def remat_phase(argv=REMAT_ARGS, settings=REMAT_SETTINGS,
-                micro8=REMAT_MICRO8, argv8=REMAT_MICRO8_ARGS) -> dict:
+def remat_phase(argv=REMAT_ARGS, settings=REMAT_SETTINGS) -> dict:
     """``train_lm`` at lm-1024's shape under each remat setting, 2 steps
     each, counted (the recomputed forwards included): the ms a step and
     the train steps' peak memory beside no remat's; the losses bit-equal
     to no remat's (the forward does not change) and the grad norms within
-    TWO_PASS_RTOL (whether bit-equal printed). Then micro 8 (``argv8``,
-    global 32 = 8 x 4) without remat and with ``--remat-mlp``: the same
-    losses, and each peak."""
+    TWO_PASS_RTOL (whether bit-equal printed)."""
     runs = {name: remat_run(f"remat {name}", argv + flags)
             for name, flags in settings}
     base = runs["none"]
@@ -4060,20 +4108,7 @@ def remat_phase(argv=REMAT_ARGS, settings=REMAT_SETTINGS,
                  train_peak_vs_none=(m["train_peak_bytes"]
                                      / base["train_peak_bytes"]))
         say(f"[remat] {name}, micro {m['micro']}: " + json.dumps(m))
-    at = argv8.index("--micro-batch-size") + 1
-    argv8 = argv8[:at] + ["8"] + argv8[at + 1:]
-    flags = dict(settings)
-    big = {name: remat_run(f"remat {name} micro 8", argv8 + flags[name])
-           for name in micro8}
-    first = big[micro8[0]]
-    for name, m in big.items():
-        if m["losses"] != first["losses"]:
-            raise AssertionError(f"remat micro 8 {name}: losses "
-                                 f"{m['losses']} against {first['losses']}")
-        m["train_peak_vs_none"] = (m["train_peak_bytes"]
-                                   / first["train_peak_bytes"])
-        say(f"[remat] {name}, micro 8: " + json.dumps(m))
-    return dict(micro4=runs, micro8=big)
+    return dict(micro4=runs)
 
 
 def two_pass_lm_phase(fused, argv=LM_1024_ARGS, tag="lm-1024-two-pass"):
@@ -5101,12 +5136,17 @@ def train_int8_phase(root: str, argv=INT8_TRAIN_ARGS,
     variants = variants[:-1] + ((variants[-1][0], saved),)
     runs = {}
     for name, flags in (("native", []), *variants):
+        torch.cuda.reset_peak_memory_stats()
         with no_mask_tensor(f"train-int8 {name} run"):
             trainer, counts, wall = train_once(argv + flags)
         check_launches(f"train-int8 {name} run", counts,
                        train_launches(trainer))
         m = train_metrics(trainer, wall)
         m["launches"] = counts
+        if name == "native":  # train-options' run 1, the defaults
+            m.update(peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                     moment_bytes=moment_bytes(trainer),
+                     digest=weights_digest(trainer.state.module))
         if m["steps"] != 2 or not all(
                 map(math.isfinite, m["losses"] + m["grad_norms"])):
             raise AssertionError(f"train-int8 {name}: {m}")
@@ -5138,6 +5178,103 @@ def train_int8_phase(root: str, argv=INT8_TRAIN_ARGS,
     runs["resumed"] = int8_resume_phase(argv + saved,
                                         runs[variants[-1][0]])
     return runs
+
+
+def train_options_phase(defaults: dict, argv=INT8_TRAIN_ARGS,
+                        runs=OPTION_TRAIN_RUNS) -> dict:
+    """The trainer options at bert-large (train-int8's shape: 2 steps of 32
+    = 4 x 8, seq 128, seed 42), run 1 the defaults (train-int8's native
+    run, ``defaults``): the bfloat16 moments and the bfloat16 carry (ms a
+    step, the run's peak, the moments' bytes), ``--chain-steps 2`` (its one
+    loss the float32 mean of run 1's two, computed on the card the same
+    way, bit for bit, and the final weights run 1's), ``--profile-dir``
+    for one step (the trace holds ``train_step`` ranges and kernels 1-5's
+    symbols) and ``--debug-nans`` for one step (clean, ms a step), then a
+    NaN planted in one weight, which must raise ``FloatingPointError``."""
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.utils.profiling import (
+        set_debug_nans,
+    )
+
+    keep = ("ms_per_step", "losses", "engine", "data_wait_p50_s",
+            "peak_mem_bytes", "moment_bytes")
+    res = {"defaults": {k: defaults[k] for k in keep}}
+    say("[train-options] defaults (train-int8's native run): "
+        + json.dumps(res["defaults"]))
+    for name, flags in runs:
+        torch.cuda.reset_peak_memory_stats()
+        with no_mask_tensor(f"train-options {name} run"):
+            trainer, counts, wall = train_once(argv + flags)
+        check_launches(f"train-options {name} run", counts,
+                       train_launches(trainer))
+        m = train_metrics(trainer, wall)
+        m.update(peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 moment_bytes=moment_bytes(trainer), launches=counts)
+        if not all(map(math.isfinite, m["losses"] + m["grad_norms"])):
+            raise AssertionError(f"train-options {name}: {m}")
+        if name == "chain-2":
+            want = float(torch.tensor(defaults["losses"], dtype=torch.float32,
+                                      device="cuda").mean())
+            if (m["losses"] != [want] or weights_digest(
+                    trainer.state.module) != defaults["digest"]):
+                raise AssertionError(
+                    f"train-options chain-2: loss {m['losses']} against the "
+                    f"mean {want} of {defaults['losses']}, or other weights")
+            m["chain_mean_equal"] = m["weights_equal"] = True
+        elif len(m["losses"]) != 2:
+            raise AssertionError(f"train-options {name}: {m}")
+        del trainer
+        _free_cuda()
+        res[name] = m
+        say(f"[train-options] {name}: " + json.dumps(m))
+    one = one_step(argv, "32")
+    with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_") as d:
+        trainer, counts, wall = train_once(one + ["--profile-dir", d])
+        traces = [os.path.join(d, f) for f in os.listdir(d)
+                  if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"train-options profile: {os.listdir(d)}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(traces[0])
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    ranges = sum(e.get("name") == "train_step" for e in events)
+    missing = [sym for sym in TRAIN_KERNEL_SYMBOLS
+               if not any(sym in k for k in kernels)]
+    if not ranges or missing:
+        raise AssertionError(f"train-options profile: {ranges} train_step "
+                             f"ranges, kernels missing {missing}")
+    res["profile"] = dict(ms_per_step=train_metrics(trainer, wall)[
+        "ms_per_step"], train_step_ranges=ranges, trace_bytes=size,
+        kernel_symbols=len(kernels), launches=counts)
+    del trainer, events
+    _free_cuda()
+    say("[train-options] profile: " + json.dumps(res["profile"]))
+    try:
+        trainer, counts, wall = train_once(one + ["--debug-nans"])
+        clean = train_metrics(trainer, wall)
+        with torch.no_grad():  # the drill: a NaN in one weight
+            trainer.state.module.classifier.kernel.view(-1)[0] = float("nan")
+        batch = next(iter(trainer.train_loader.epoch(0)))
+        try:
+            trainer.train_step(trainer.state, batch)
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("train-options debug-nans: a NaN weight "
+                                 "raised nothing")
+        finally:
+            for loader in trainer.loaders:
+                loader.close()
+    finally:
+        set_debug_nans(False)
+    res["debug_nans"] = dict(ms_per_step=clean["ms_per_step"],
+                             losses=clean["losses"], drill=raised)
+    del trainer, batch
+    _free_cuda()
+    say("[train-options] debug-nans: " + json.dumps(res["debug_nans"]))
+    return res
 
 
 def int8_resume_phase(argv, want: dict) -> dict:
@@ -5422,14 +5559,14 @@ def ckpt_async_ab(state, root: str) -> dict:
     """The same gpt2-medium step saved asynchronously (the Checkpointer:
     the submit, which returns once the host copy is whole, then the join,
     timed apart) and synchronously (``sync_save``), in turns: async, sync,
-    sync, async. One Checkpointer serves both async turns, so the second
-    reuses its pinned buffers as a training run's later saves do."""
+    async. One Checkpointer serves both async turns, so the second reuses
+    its pinned buffers as a training run's later saves do."""
     from pytorch_distributed_training_tpu_torch.train import checkpoint
 
     adir, sdir = os.path.join(root, "ab-async"), os.path.join(root, "ab-sync")
     saver = checkpoint.Checkpointer(adir)
     turns = []
-    for kind in ("async", "sync", "sync", "async"):
+    for kind in ("async", "sync", "async"):
         if kind == "async":
             saver.save(state)
             saver.wait()
@@ -6347,10 +6484,12 @@ def main() -> int:
     lap("train")
     int8_root = tempfile.mkdtemp(prefix="pdt_chip_smoke_")
     try:
-        train_int8_phase(int8_root)
+        int8 = train_int8_phase(int8_root)
     finally:
         shutil.rmtree(int8_root, ignore_errors=True)
     lap("train-int8")
+    train_options_phase(int8["native"])
+    lap("train-options")
     train_profile_phase(train["warm"], one_step(TRAIN_ARGS))
     lap("train-profile")
     roberta = roberta_mnli_phase()
@@ -6363,11 +6502,8 @@ def main() -> int:
     finally:
         shutil.rmtree(tel_root, ignore_errors=True)
     lap("telemetry-faults")
-    train_mp = train_phase(TRAIN_MP_ARGS, "train_mp", tag="train-mp")
+    train_phase(TRAIN_MP_ARGS, "train_mp", tag="train-mp")
     lap("train-mp")
-    train_profile_phase(train_mp["warm"], one_step(TRAIN_MP_ARGS),
-                        "train_mp", tag="train-mp-profile")
-    lap("train-mp-profile")
     cpu_vs_card_phase()
     cpu_vs_card_phase(TINY_MP_ARGS, "train_mp")
     stage_phase()

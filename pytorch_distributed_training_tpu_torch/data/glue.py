@@ -8,8 +8,9 @@ stand-in of ``data/synthetic.py``, and ``lm``, its causal-LM corpus (no
 labels; ``num_labels`` 0). ``auto`` tries MRPC through the
 ``datasets`` package and falls back to ``synthetic`` when it is missing
 or the hub and cache are unreachable. Real text is encoded with the
-WordPiece vocabulary at ``vocab_path`` or the hash tokenizer (the JAX
-package's C++ bulk encoder is not ported: ROADMAP.md, queue 1).
+WordPiece vocabulary at ``vocab_path``, in bulk by the C++ encoder
+(``data/native_tokenizer.py``) when its library builds, else by the
+Python ``WordPieceTokenizer``, or by the hash tokenizer without a vocab.
 """
 
 from __future__ import annotations
@@ -19,11 +20,15 @@ from typing import Optional
 import numpy as np
 
 from pytorch_distributed_training_tpu_torch.data import synthetic
+from pytorch_distributed_training_tpu_torch.data.native_tokenizer import (
+    NativeWordPieceEncoder,
+)
 from pytorch_distributed_training_tpu_torch.data.tokenizer import (
     HashTokenizer,
     WordPieceTokenizer,
     encode_pairs,
 )
+from pytorch_distributed_training_tpu_torch.native import load_wordpiece_lib
 from pytorch_distributed_training_tpu_torch.utils.logging import log0
 
 TASKS = {
@@ -136,10 +141,22 @@ def load_task_arrays(
             num_labels=num_labels, seed=split_seed,
         )
         return data, num_labels
-    tokenizer = make_tokenizer(vocab_path, vocab_size)
-    arrays = encode_pairs(
-        tokenizer, ds[field_a], ds[field_b] if field_b else None,
-        max_length=max_length,
-    )
+    arrays = None
+    if vocab_path and load_wordpiece_lib() is not None:
+        # the split in one C++ call (ASCII rows; the others in Python)
+        enc = NativeWordPieceEncoder(vocab_path)
+        try:
+            arrays = enc.encode_pairs(
+                list(ds[field_a]), list(ds[field_b]) if field_b else None,
+                max_length=max_length)
+        finally:
+            enc.close()
+        log0(f"glue/{task} {split}: native C++ WordPiece encode")
+    if arrays is None:
+        tokenizer = make_tokenizer(vocab_path, vocab_size)
+        arrays = encode_pairs(
+            tokenizer, ds[field_a], ds[field_b] if field_b else None,
+            max_length=max_length,
+        )
     arrays["labels"] = np.asarray(ds["label"], np.int32)
     return arrays, num_labels

@@ -25,6 +25,17 @@ fsdp), and their count as ``rank`` and ``world_size``, in place of
   default registry (``data/host_assemble_s`` or ``data/eval_assemble_s``,
   ``data/h2d_place_s``), and the ``slow_host`` fault (``faults/inject.py``)
   stretches them.
+
+The shipping (``_placed`` / ``_ship``: ``whole_rows``, the column cut,
+the timers, the fault, the copy) is shared with the C++ engine,
+``data/native_loader.py``'s ``NativeShardedLoader``, a subclass that
+assembles the same batches on a worker pool. On a card the copy on the
+default stream (the step thread's, without prefetch) is a synchronous
+``.to(device)``; on a side stream (``data/prefetch.py``'s worker) it goes
+through pinned host memory with ``non_blocking=True``. Either way the
+host array has been read when ``_ship`` returns. On the CPU a batch is
+the assembled array itself unless ``copy`` asks for a copy (the C++
+engine's ring slots are reused).
 """
 
 from __future__ import annotations
@@ -146,30 +157,44 @@ class ShardedLoader:
             yield self._placed(batch, rank=1, t0=t0,
                                timer="data/eval_assemble_s")
 
-    def _placed(self, batch: dict, rank: int, t0: float, timer: str) -> dict:
-        """``_ship(batch, rank)``, the assembly since ``t0`` timed under
-        ``timer`` and the placement under ``data/h2d_place_s`` in the
-        default registry, then stretched by the ``slow_host`` fault when
-        one is armed."""
+    def _placed(self, batch: dict, rank: int, t0: float,
+                timer: str | None, copy: bool = False) -> dict:
+        """``_ship(batch, rank, copy)``, the assembly since ``t0`` timed
+        under ``timer`` (None: not timed) and the placement under
+        ``data/h2d_place_s`` in the default registry, then stretched by
+        the ``slow_host`` fault when one is armed."""
         t1 = time.perf_counter()
-        out = self._ship(batch, rank)
+        out = self._ship(batch, rank, copy)
         reg = get_registry()
-        reg.observe(timer, t1 - t0)
+        if timer is not None:
+            reg.observe(timer, t1 - t0)
         reg.observe("data/h2d_place_s", time.perf_counter() - t1)
         get_plan().slow_host_delay(time.perf_counter() - t0)
         return out
 
-    def _ship(self, batch: dict, rank: int) -> dict:
+    def _ship(self, batch: dict, rank: int, copy: bool = False) -> dict:
         """``batch`` (rows of rank ``rank``: [accum, micro] or [batch]) to
-        the device, through ``whole_rows`` and this rank's columns."""
+        the device, through ``whole_rows`` and this rank's columns; on the
+        CPU a copy when ``copy`` (the arrays are reused later)."""
         batch = {k: torch.from_numpy(np.ascontiguousarray(v))
                  for k, v in batch.items()}
         if self.whole_rows is not None:
             batch = self.whole_rows(batch)
+        cuda = self.device.type == "cuda"
+        side = cuda and torch.cuda.current_stream(self.device) \
+            != torch.cuda.default_stream(self.device)
         cols = {}
         for k, v in batch.items():
             if v.dim() > rank:  # [..., S]: this rank's S / seq_size
                 width = v.shape[-1] // self.seq_size
                 v = v.narrow(-1, self.seq_index * width, width)
-            cols[k] = v.contiguous().to(self.device)
+            v = v.contiguous()
+            if side:
+                v = v.pin_memory().to(self.device, non_blocking=True)
+            elif copy and not cuda:
+                v = v.clone()
+            cols[k] = v.to(self.device)
         return cols
+
+    def close(self) -> None:
+        """Release the engine's resources (none for this one)."""

@@ -52,6 +52,14 @@ forward, would fire on the wrong backward; under FSDP it syncs the
 gradients only in the step's last backward. The eval runs stage mode's
 forward, one microbatch at a time (JAX's ``serial_apply``).
 
+The accumulation carry (``accum_dtype``, JAX :879-888 for 1F1B; JAX's
+GPipe trains through the standard step, ``train/step.py``, which carries
+the same way): after each accumulation microbatch's schedule, the
+gradient it left in ``.grad`` is rounded to the carry dtype and added to
+the carry (``train/step.py`` ``GradCarry``), before the once-a-step
+average; under FSDP every accumulation microbatch's last backward syncs,
+so the shards round the global gradient.
+
 ``GPipeClassifier`` is the GPipe forward of one micro-batch: logits of its
 rows on the last stage.
 
@@ -100,9 +108,14 @@ from pytorch_distributed_training_tpu_torch.comms.mesh import (
     dp_degree,
 )
 from pytorch_distributed_training_tpu_torch.models.bert import compute_dtype
-from pytorch_distributed_training_tpu_torch.train.optim import plain_grad_norm
+from pytorch_distributed_training_tpu_torch.train.optim import (
+    plain_grad_norm,
+    torch_dtype,
+)
 from pytorch_distributed_training_tpu_torch.train.state import TrainState
 from pytorch_distributed_training_tpu_torch.train.step import (
+    GradCarry,
+    every,
     finish_step,
     is_replicated,
     micro_loss,
@@ -281,10 +294,6 @@ def bubble(schedule: str, n_stages: int, n_micro: int) -> float:
     return idle / (n_micro + idle)
 
 
-def _every(p) -> bool:
-    return True
-
-
 def _stage_forward(model, micro: dict, seed, x, n_stages: int):
     kw = {} if n_stages == 1 else dict(hidden=x, wire=False)
     return model(micro["input_ids"], micro.get("attention_mask"),
@@ -294,11 +303,12 @@ def _stage_forward(model, micro: dict, seed, x, n_stages: int):
 def make_pipeline_train_step(config: ModelConfig, mesh: Mesh, *,
                              schedule: str, n_micro: int,
                              grad_accum_steps: int,
-                             grad_norm: Callable = plain_grad_norm
-                             ) -> Callable:
+                             grad_norm: Callable = plain_grad_norm,
+                             accum_dtype: str = "float32") -> Callable:
     """The train step of ``schedule`` ("pipeline": GPipe, "1f1b") for this
     rank's stage of ``mesh``: batch leaves are ``[grad_accum_steps ×
-    n_micro, rows, ...]`` (see the module docstring)."""
+    n_micro, rows, ...]``, ``accum_dtype`` the carry's (see the module
+    docstring)."""
     check_config(config, schedule)
     n_stages = mesh.shape[AXIS_STAGE]
     check_layers(config.num_layers, n_stages)
@@ -309,6 +319,8 @@ def make_pipeline_train_step(config: ModelConfig, mesh: Mesh, *,
     shard = batch_index(mesh)
     n_seq = mesh.shape[AXIS_SEQ]
     act_dtype = compute_dtype(config)
+    carry_dtype = torch_dtype(accum_dtype)
+    narrow = carry_dtype != torch.float32
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
@@ -319,6 +331,7 @@ def make_pipeline_train_step(config: ModelConfig, mesh: Mesh, *,
         state.optimizer.zero_grad(set_to_none=True)
         if fsdp:
             model.set_requires_gradient_sync(False)
+        carry = GradCarry(carry_dtype) if narrow else None
         loss_sum = None
         for m in range(grad_accum_steps):
             def run(j, x, m=m):
@@ -333,17 +346,22 @@ def make_pipeline_train_step(config: ModelConfig, mesh: Mesh, *,
                                   inv)[0]
 
             sync = None
-            if fsdp and m == grad_accum_steps - 1:
+            if fsdp and (narrow or m == grad_accum_steps - 1):
                 def sync():
                     model.set_requires_gradient_sync(True)
             for loss in grads(run, n_micro, wire, sync):
                 loss_sum = loss if loss_sum is None else loss_sum + loss
+            if carry is not None:
+                carry.add(model.parameters())
+                if fsdp:
+                    model.set_requires_gradient_sync(False)
         if loss_sum is None:  # a stage before the last
             loss_sum = torch.zeros((), device=ids.device)
         elif n_seq > 1:  # the backwards ran on P times the shard's share
             loss_sum = loss_sum / n_seq
         out = finish_step(state, loss_sum, mesh, grad_norm,
-                          average=is_replicated if fsdp else _every)
+                          average=is_replicated if fsdp else every,
+                          carry=carry)
         out["pipeline_bubble"] = idle
         return out
 

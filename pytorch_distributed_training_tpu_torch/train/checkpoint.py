@@ -189,19 +189,10 @@ def _has_quant(names) -> bool:
 
 def _moments(optimizer) -> dict:
     """``{id(param): (mu, nu)}``, made (zero, of the parameter's local
-    shape, as ``AdamW.step`` makes them) where the optimizer has none."""
-    from pytorch_distributed_training_tpu_torch.train.optim import local
-
-    out = {}
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            st = optimizer.state[p]
-            if not st:
-                w = local(p)
-                st["mu"] = torch.zeros_like(w, dtype=torch.float32)
-                st["nu"] = torch.zeros_like(w, dtype=torch.float32)
-            out[id(p)] = (st["mu"], st["nu"])
-    return out
+    shape in the moment dtypes, as ``AdamW.step`` makes them) where the
+    optimizer has none; saved and restored in their dtype."""
+    return {id(p): optimizer.moments(p)
+            for group in optimizer.param_groups for p in group["params"]}
 
 
 def _like(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

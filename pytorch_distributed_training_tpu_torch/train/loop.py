@@ -100,8 +100,31 @@ ends the process as a hung step does (the watchdog's exit 84). After each update
 the stream stays open (flushed to disk) for the supervisor's ``restart``
 record; a clean run closes it.
 
-Not ported here (ROADMAP.md, queue 1): runtime guards, the native loader
-and prefetch, and chained steps.
+Data (JAX ``train/loop.py:384-452``): one loader factory for the train
+and eval splits, ``native_loader`` picking the engine (the C++ batch
+assembler, ``data/native_loader.py``, under "auto" when its library
+builds, else the Python ``ShardedLoader``; "on" raises without it, and a
+dataset that is not integer falls back under "auto"), and
+``prefetch_depth`` > 0 wrapping the train loader only in
+``data/prefetch.py``'s ``PrefetchingLoader``. Every loader is closed in
+``run``'s ``finally``.
+
+The trainer options of JAX's ``TrainConfig`` (JAX ``train/loop.py``):
+``adam_mu_dtype`` / ``adam_nu_dtype`` (``train/optim.py``),
+``grad_accum_dtype`` (``train/step.py``'s carry, and the schedules'),
+``unroll_accum`` (checked: auto/on/off; the eager loop is one schedule),
+``chain_steps`` (the step runs that many updates a call: it must divide
+``steps_per_epoch``, ``checkpoint_every_steps`` and ``crash_at_step``;
+the loop buffers that many batches, the watchdog guards ``step +
+chain``, a resume inside a chain raises ``RuntimeError``, and the log,
+checkpoint and fault cadences fall on chain ends; the epoch's loss is
+the mean of the chain means, as JAX's), ``profile_dir`` (``utils/
+profiling.maybe_profile`` around the epochs, ``train_step`` and
+``eval_step`` ranges) and ``debug_nans`` (``set_debug_nans``, set from
+the config in ``__init__``). Under the pipeline schedules ``chain_steps``
+> 1 and a non-auto ``unroll_accum`` raise, as JAX refuses them with a
+custom step factory. JAX's runtime guards, its AOT warm start and its
+compilation cache are not ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -136,7 +159,13 @@ from pytorch_distributed_training_tpu_torch.data.glue import (
     load_task_arrays,
     resolve_task,
 )
+from pytorch_distributed_training_tpu_torch.data.native_loader import (
+    NativeShardedLoader,
+)
 from pytorch_distributed_training_tpu_torch.data.pipeline import ShardedLoader
+from pytorch_distributed_training_tpu_torch.data.prefetch import (
+    PrefetchingLoader,
+)
 from pytorch_distributed_training_tpu_torch.faults.inject import get_plan
 from pytorch_distributed_training_tpu_torch.faults.preemption import (
     GracefulShutdown,
@@ -158,6 +187,7 @@ from pytorch_distributed_training_tpu_torch.models.convert import (
 )
 from pytorch_distributed_training_tpu_torch.models.gpt2 import GPT2LMModel
 from pytorch_distributed_training_tpu_torch.models.stage import BertStage
+from pytorch_distributed_training_tpu_torch import native
 from pytorch_distributed_training_tpu_torch.parallel.pipeline import (
     SCHEDULES,
     check_micro_batch,
@@ -217,6 +247,11 @@ from pytorch_distributed_training_tpu_torch.utils.logging import (
     log0,
     set_log_format,
 )
+from pytorch_distributed_training_tpu_torch.utils.profiling import (
+    annotate,
+    maybe_profile,
+    set_debug_nans,
+)
 
 
 # the mesh axis each model-parallel mode splits the model over
@@ -259,6 +294,7 @@ class Trainer:
             self.metrics_sink = JsonlSink(tcfg.metrics_dir)
             self.registry.attach_sink(self.metrics_sink)
         self._first_step_done = False
+        set_debug_nans(tcfg.debug_nans)
         mesh = self.mesh = build_mesh(mesh_config, rank=self.info.rank,
                                       world_size=self.info.world_size)
         for mode, axis in SPLIT_AXIS.items():
@@ -324,16 +360,18 @@ class Trainer:
             self.n_micro = n_micro(mesh) if callable(n_micro) else n_micro
             check_micro_batch(tcfg.micro_batch_size, self.n_micro,
                               dp_degree(mesh))
-        self.train_loader = ShardedLoader(
+        self.train_loader = self._make_loader(
             train_data, global_batch_size=tcfg.global_batch_size,
             grad_accum_steps=tcfg.grad_accum_steps * self.n_micro,
             train=True, **shard,
         )
         self.eval_loaders = {
-            suffix: ShardedLoader(d, global_batch_size=tcfg.eval_batch_size,
-                                  train=False, **shard)
+            suffix: self._make_loader(
+                d, global_batch_size=tcfg.eval_batch_size, train=False,
+                **shard)
             for suffix, d in eval_datas.items()
         }
+        self._check_step_options()
 
         # ----------------------------------------------------------- model
         # made on the CPU from the seed, so every device starts alike
@@ -403,10 +441,83 @@ class Trainer:
                                 mesh=mesh)
         self.history: list[dict] = []
         self.step_log: list[dict] = []
+        # the registry's snapshot at the last epoch's end (its record's
+        # "telemetry")
+        self.last_telemetry: dict = {}
         self.registry.emit(run_metadata(
             mesh, self.device, self.mcfg, tcfg,
             steps_per_epoch=self.train_loader.steps_per_epoch,
             objective=self.objective))
+
+    def _make_loader(self, data, *, train: bool, **kw):
+        """The engine ``native_loader`` picks for ``data`` (JAX :384-452),
+        prefetched ``prefetch_depth`` batches ahead when ``train``."""
+        cfg = self.tcfg
+        mode = cfg.native_loader
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"native_loader must be auto/on/off, got "
+                             f"{mode!r}")
+        if cfg.prefetch_depth < 0:
+            raise ValueError(f"prefetch_depth must be >= 0, got "
+                             f"{cfg.prefetch_depth}")
+        what = "train" if train else "eval"
+        loader = None
+        if mode != "off":
+            if native.native_available():
+                try:
+                    loader = NativeShardedLoader(data, train=train, **kw)
+                except TypeError as e:  # a dataset that is not integer
+                    if mode == "on":
+                        raise
+                    log0(f"native {what} loader declined ({e}); using the "
+                         f"Python loader")
+                else:
+                    log0(f"{what} loader: native C++ batch assembler")
+            elif mode == "on":
+                raise RuntimeError(
+                    "native_loader='on' but the C++ batcher is unavailable "
+                    f"(no toolchain?): {native.BUILD_ERRORS.get('batcher')}")
+            else:
+                log0(f"{what} loader: the C++ batcher does not build here; "
+                     f"using the Python loader")
+        if loader is None:
+            loader = ShardedLoader(data, train=train, **kw)
+        if train and cfg.prefetch_depth > 0:
+            loader = PrefetchingLoader(loader, depth=cfg.prefetch_depth)
+        return loader
+
+    def _check_step_options(self) -> None:
+        """JAX's checks of ``chain_steps`` and ``unroll_accum``
+        (:298-340), with its messages."""
+        cfg = self.tcfg
+        chain = cfg.chain_steps
+        if chain > 1:
+            bad = next(((what, n) for what, n in (
+                ("steps_per_epoch", self.train_loader.steps_per_epoch),
+                ("checkpoint_every_steps", cfg.checkpoint_every_steps),
+                ("crash_at_step", cfg.crash_at_step)) if n and n % chain),
+                None)
+            if bad:
+                raise ValueError(
+                    f"chain_steps={chain} must divide {bad[0]}={bad[1]}")
+        if cfg.unroll_accum not in ("auto", "on", "off"):
+            raise ValueError(f"unroll_accum must be auto/on/off, got "
+                             f"{cfg.unroll_accum!r}")
+        if self.schedule_mode:
+            # the schedules own their accumulation loop
+            if chain > 1:
+                raise ValueError(
+                    "chain_steps > 1 is not supported with a custom "
+                    "train_step_factory")
+            if cfg.unroll_accum != "auto":
+                raise ValueError(
+                    "unroll_accum is not supported with a custom "
+                    "train_step_factory (the schedule owns its scan "
+                    "policy)")
+
+    @property
+    def loaders(self) -> list:
+        return [self.train_loader, *self.eval_loaders.values()]
 
     def shard(self, placements: dict, device_mesh, model=None) -> None:
         """Shard the model (``model``, else the state's) with FSDP on
@@ -441,7 +552,8 @@ class Trainer:
             model.parameters(), self.schedule, b1=tcfg.adam_b1,
             b2=tcfg.adam_b2, eps=tcfg.adam_eps,
             weight_decay=tcfg.weight_decay, max_grad_norm=tcfg.max_grad_norm,
-            grad_norm=grad_norm,
+            grad_norm=grad_norm, mu_dtype=tcfg.adam_mu_dtype,
+            nu_dtype=tcfg.adam_nu_dtype,
         )
         wrapped = None
         if (not sharded and not self.schedule_mode
@@ -463,11 +575,13 @@ class Trainer:
             self.train_step = make_pipeline_train_step(
                 self.mcfg, mesh, schedule=self.schedule_mode,
                 n_micro=self.n_micro, grad_accum_steps=tcfg.grad_accum_steps,
-                grad_norm=grad_norm)
+                grad_norm=grad_norm, accum_dtype=tcfg.grad_accum_dtype)
         else:
             self.train_step = make_train_step(
                 grad_accum_steps=tcfg.grad_accum_steps,
                 objective=self.objective, mesh=mesh, grad_norm=grad_norm,
+                accum_dtype=tcfg.grad_accum_dtype,
+                chain_steps=tcfg.chain_steps,
             )
 
     def _sync(self) -> None:
@@ -501,8 +615,10 @@ class Trainer:
         self._shutdown = (GracefulShutdown().install()
                           if cfg.handle_preemption else None)
         try:
-            for epoch in range(start_epoch, cfg.num_epochs):
-                self._run_epoch(epoch, skip if epoch == start_epoch else 0)
+            with maybe_profile(cfg.profile_dir):
+                for epoch in range(start_epoch, cfg.num_epochs):
+                    self._run_epoch(epoch,
+                                    skip if epoch == start_epoch else 0)
         finally:
             if self._shutdown is not None:
                 self._shutdown.uninstall()
@@ -511,6 +627,10 @@ class Trainer:
                 self.watchdog.close()
             if self.checkpointer:
                 self.checkpointer.close()
+            # the loaders' threads (prefetch, the C++ workers), also when a
+            # step raised
+            for loader in self.loaders:
+                loader.close()
             # a crash leaves the stream open (the supervisor's restart and
             # the next attempt append to it), pushed to disk
             if self.metrics_sink is not None:
@@ -573,6 +693,13 @@ class Trainer:
     def _run_epoch(self, epoch: int, skip: int) -> None:
         cfg = self.tcfg
         reg = self.registry
+        chain = cfg.chain_steps
+        if chain > 1 and skip % chain:
+            # the cadence checks keep every checkpoint on a chain end, so a
+            # resume lands here only from another chain configuration
+            raise RuntimeError(
+                f"resume step {skip} is mid-chain (chain_steps={chain}) — "
+                f"checkpoint written by a different chain configuration?")
         # per-step records synchronize on the device so the device block
         # is device time; without them no synchronize is added
         per_step = bool(cfg.metrics_dir)
@@ -581,6 +708,7 @@ class Trainer:
         metrics = []
         step_times: list[float] = []
         data_waits: list[float] = []
+        buf = []
         t_prev = time.perf_counter()
         for i, batch in enumerate(self.train_loader.epoch(epoch)):
             if self._shutdown is not None and self._shutdown.requested:
@@ -590,10 +718,16 @@ class Trainer:
             if i < skip:
                 t_prev = time.perf_counter()
                 continue
+            if chain > 1:  # one call runs the chain's updates
+                buf.append(batch)
+                if len(buf) < chain:
+                    continue
+                batch, buf = buf, []
             first = not self._first_step_done
             # the first step (its kernels build) is exempt: not a hang
-            with (contextlib.nullcontext() if first else
-                  self._guard("train_step", self.state.step + 1)):
+            with annotate("train_step"), (
+                    contextlib.nullcontext() if first else
+                    self._guard("train_step", self.state.step + chain)):
                 metrics.append(self.train_step(self.state, batch))
                 self._first_step_done = True
                 t_dispatched = time.perf_counter()
@@ -610,15 +744,21 @@ class Trainer:
                 reg.observe("train/device_block_s", t_done - t_dispatched)
                 reg.observe("train/step_s", t_done - t_prev)
                 loss_host = float(metrics[-1]["loss"])
-                reg.emit({
+                record = {
                     "record": "step", "epoch": epoch, "step": step,
                     "data_wait_s": data_wait,
                     "dispatch_s": t_dispatched - t_batch,
                     "device_block_s": t_done - t_dispatched,
                     "step_s": t_done - t_prev, "loss": loss_host,
                     "compile_inclusive": first,
-                })
-            if cfg.log_every and step % cfg.log_every == 0:
+                }
+                occupancy = getattr(self.train_loader, "last_occupancy",
+                                    None)
+                if occupancy is not None:  # prefetching
+                    record["prefetch_occupancy"] = occupancy
+                reg.emit(record)
+            if cfg.log_every and (step // cfg.log_every
+                                  > (step - chain) // cfg.log_every):
                 if loss_host is None:
                     loss_host = float(metrics[-1]["loss"])
                 log0(f"step {step}: loss={loss_host:.4f} "
@@ -644,7 +784,7 @@ class Trainer:
         straggler = epoch_straggler_stats(
             step_times, data_waits, group=self.mesh.batch_group,
             device=self.device)
-        samples = cfg.global_batch_size * len(metrics)
+        samples = cfg.global_batch_size * chain * len(metrics)
         t_eval = time.perf_counter()
         record = {
             "epoch": epoch,
@@ -662,22 +802,24 @@ class Trainer:
             self.checkpointer.save(self.state)
         # the epoch record last, so the save and the eval land inside this
         # epoch's window
+        self.last_telemetry = reg.snapshot(reset=True)
         reg.emit({"record": "epoch", **record, "train_wall_s": train_time,
-                  "straggler": straggler,
-                  "telemetry": reg.snapshot(reset=True)})
+                  "straggler": straggler, "telemetry": self.last_telemetry})
 
     def _log_steps(self, metrics: list[dict]) -> list[list[float]]:
-        """Append the epoch's steps to ``step_log``, fetching every step's
+        """Append the epoch's calls to ``step_log`` (one a chain, at its
+        last step, with the chain's mean loss), fetching every call's
         (loss, grad_norm) from the device in one host transfer."""
         if not metrics:
             return []
         host = torch.stack([torch.stack([m["loss"], m["grad_norm"]])
                             for m in metrics]).cpu().tolist()
-        first = self.state.step - len(host)
+        chain = self.tcfg.chain_steps
+        first = self.state.step - chain * len(host)
         bubble = ({"pipeline_bubble": metrics[0]["pipeline_bubble"]}
                   if "pipeline_bubble" in metrics[0] else {})
-        self.step_log += [dict(step=first + i + 1, loss=loss, grad_norm=norm,
-                               **bubble)
+        self.step_log += [dict(step=first + chain * (i + 1), loss=loss,
+                               grad_norm=norm, **bubble)
                           for i, (loss, norm) in enumerate(host)]
         return host
 
@@ -696,7 +838,8 @@ class Trainer:
                    else MetricAccumulator(self.mcfg.num_labels))
             totals = None
             for batch in loader.epoch():
-                counts = self.eval_step(self.state, batch)
+                with annotate("eval_step"):
+                    counts = self.eval_step(self.state, batch)
                 totals = counts if totals is None else {
                     k: totals[k] + counts[k] for k in counts
                 }

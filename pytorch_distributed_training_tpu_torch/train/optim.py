@@ -11,7 +11,12 @@
   order and grouping: ``mu = b1*mu + (1-b1)*g``, ``nu = b2*nu +
   (1-b2)*(g*g)``, ``upd = (mu/b1c) / (sqrt(nu/b2c) + eps)``, then ``upd +=
   weight_decay * p`` before the learning-rate scale, ``p += -lr * upd``.
-  Moments are float32. Optional global-norm clipping first, as optax's
+  The moments are stored in ``mu_dtype`` / ``nu_dtype`` (float32 or
+  bfloat16, JAX's ``adam_mu_dtype`` / ``adam_nu_dtype``,
+  ``train/fused_adamw.py``): each step upcasts them, runs the arithmetic
+  above in float32 (the update from the float32 moments) and rounds them
+  back. Gradients may come in bfloat16 (the accumulation carry,
+  ``train/step.py``) and are upcast per tensor. Optional global-norm clipping first, as optax's
   ``clip_by_global_norm`` (off by default, as in the reference); the norm
   is ``grad_norm``'s, which for a model split or sharded over ranks
   (``sharded_grad_norm``: the branches or tensor parallelism's slices
@@ -33,7 +38,7 @@ Pallas kernel in the JAX package, so it has no CUDA kernel here.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -42,6 +47,15 @@ from torch.distributed.tensor import DTensor
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     all_reduce_sum,
 )
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype named ``name`` ("float32", "bfloat16", ...); a
+    ``TypeError`` for a name that is no dtype, as ``jnp.dtype`` raises."""
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"data type {name!r} not understood")
+    return dt
 
 
 def _linear(init: float, end: float, steps: int, count: int) -> np.float32:
@@ -130,61 +144,103 @@ class AdamW(torch.optim.Optimizer):
     def __init__(self, params, schedule: Callable[[int], float], *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0, max_grad_norm: float = 0.0,
-                 grad_norm: Callable = plain_grad_norm):
+                 grad_norm: Callable = plain_grad_norm,
+                 mu_dtype: str = "float32", nu_dtype: str = "float32"):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.grad_norm = grad_norm
+        self.mu_dtype = torch_dtype(mu_dtype)
+        self.nu_dtype = torch_dtype(nu_dtype)
         self.count = 0
 
+    def moments(self, p) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mu, nu) of parameter ``p``, made (zeros of its local shape in
+        the moment dtypes) on first use."""
+        st = self.state[p]
+        if not st:
+            w = local(p)
+            st["mu"] = torch.zeros_like(w, dtype=self.mu_dtype)
+            st["nu"] = torch.zeros_like(w, dtype=self.nu_dtype)
+        return st["mu"], st["nu"]
+
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, grads: Optional[dict] = None):
+        """One update from each parameter's ``.grad``, or from ``grads``
+        (parameter -> gradient, e.g. a bfloat16 accumulation carry, which
+        ``.grad`` cannot hold). The parameters update in chunks of at most
+        ``CHUNK`` elements, so the update's float32 temporaries (and the
+        working copies of narrow moments) exist a chunk at a time."""
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
         lr = self.schedule(self.count)
         self.count += 1
         for group in self.param_groups:
-            held = [p for p in group["params"] if p.grad is not None]
+            gs = {p: p.grad if grads is None else grads.get(p)
+                  for p in group["params"]}
+            held = [p for p in group["params"] if gs[p] is not None]
             if not held:
                 continue
+            clip = None
             if self.max_grad_norm > 0:
-                norm = self.grad_norm(held, [p.grad for p in held])
-                clip = norm >= self.max_grad_norm
-            # each shard and each whole tensor: plain tensors only
-            params = [local(p) for p in held]
-            grads = [local(p.grad).float() for p in held]
-            if self.max_grad_norm > 0:
-                grads = [torch.where(clip, g / norm * self.max_grad_norm, g)
-                         for g in grads]
-            b1, b2, eps = group["b1"], group["b2"], group["eps"]
-            mus, nus = [], []
-            for p, w in zip(held, params):
-                st = self.state[p]
-                if not st:
-                    st["mu"] = torch.zeros_like(w, dtype=torch.float32)
-                    st["nu"] = torch.zeros_like(w, dtype=torch.float32)
-                mus.append(st["mu"])
-                nus.append(st["nu"])
-            # float32 integer-exponent powers, as optax's bias correction
-            b1c = float(np.float32(1.0) - np.float32(b1) ** self.count)
-            b2c = float(np.float32(1.0) - np.float32(b2) ** self.count)
-            torch._foreach_mul_(mus, b1)
-            torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
-            g2 = torch._foreach_mul(grads, grads)
-            torch._foreach_mul_(g2, 1 - b2)
-            torch._foreach_mul_(nus, b2)
-            torch._foreach_add_(nus, g2)
-            del g2
-            denom = torch._foreach_div(nus, b2c)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, eps)
-            upd = torch._foreach_div(mus, b1c)
-            torch._foreach_div_(upd, denom)
-            del denom
-            if group["weight_decay"]:
-                torch._foreach_add_(
-                    upd, torch._foreach_mul(params, group["weight_decay"])
-                )
-            torch._foreach_mul_(upd, -lr)
-            torch._foreach_add_(params, upd)
+                norm = self.grad_norm(held, [gs[p] for p in held])
+                clip = (norm >= self.max_grad_norm, norm)
+            for part in _chunks(held, CHUNK):
+                self._update(group, part, [gs[p] for p in part], lr, clip)
+
+    def _update(self, group, held, grads, lr, clip) -> None:
+        # each shard and each whole tensor: plain tensors only
+        params = [local(p) for p in held]
+        grads = [local(g).float() for g in grads]
+        if clip is not None:
+            over, norm = clip
+            grads = [torch.where(over, g / norm * self.max_grad_norm, g)
+                     for g in grads]
+        b1, b2, eps = group["b1"], group["b2"], group["eps"]
+        stored_mu, stored_nu = zip(*(self.moments(p) for p in held))
+        # float32 working copies of moments stored narrower
+        mus = [m.float() for m in stored_mu]
+        nus = [n.float() for n in stored_nu]
+        # float32 integer-exponent powers, as optax's bias correction
+        b1c = float(np.float32(1.0) - np.float32(b1) ** self.count)
+        b2c = float(np.float32(1.0) - np.float32(b2) ** self.count)
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
+        g2 = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(g2, 1 - b2)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, g2)
+        del g2
+        for stored, work in ((stored_mu, mus), (stored_nu, nus)):
+            if stored[0].dtype != torch.float32:
+                torch._foreach_copy_(list(stored), work)
+        denom = torch._foreach_div(nus, b2c)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        upd = torch._foreach_div(mus, b1c)
+        torch._foreach_div_(upd, denom)
+        del denom
+        if group["weight_decay"]:
+            torch._foreach_add_(
+                upd, torch._foreach_mul(params, group["weight_decay"])
+            )
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, upd)
+
+
+#: elements a chunk of the update holds (float32 temporaries of 256 MiB a
+#: tensor list); a larger tensor is a chunk of its own
+CHUNK = 1 << 26
+
+
+def _chunks(params, limit: int):
+    """``params`` in order, in runs of at most ``limit`` elements."""
+    out, run, n = [], [], 0
+    for p in params:
+        if run and n + p.numel() > limit:
+            out.append(run)
+            run, n = [], 0
+        run.append(p)
+        n += p.numel()
+    return out + [run] if run else out

@@ -15,6 +15,29 @@ package's ``train/step.py`` ``make_train_step`` / ``make_eval_step``).
   sharded over ranks, ``train/optim.py``) and one optimizer update. The
   loss returned is the sum of the scaled microbatch losses (= the mean),
   averaged over the batch axes.
+- The accumulation carry (``accum_dtype``, JAX ``train/step.py:311-
+  349``): "float32" accumulates in ``.grad`` as above. A narrower dtype
+  ("bfloat16") is JAX's ``a + g.astype(acc_dtype)``: after each
+  microbatch's backward its gradient is rounded to the carry dtype and
+  added to the carry (``GradCarry``), and the optimizer takes the carry in
+  that dtype (``train/optim.py`` upcasts per tensor). Under DDP every
+  microbatch runs in ``no_sync()``, so each rank rounds its own gradient
+  before the average, and the carry is averaged once over the gradient
+  axes (in float32, then rounded again). Under FSDP each microbatch's
+  reduce-scatter runs (FSDP2 keeps the gradients of unsynced backwards
+  inside its unsharded parameters), so a shard's carry adds the rounded
+  global microbatch gradient, as JAX's does; the replicated parameters
+  round before their average. The float32 ``.grad`` of a microbatch
+  exists beside the carry, so the narrow carry can raise the peak by the
+  carry's bytes; it saves no memory in eager mode.
+- ``unroll_accum`` (JAX's accumulation-scan unrolling): the microbatch
+  loop is eager, one schedule; JAX pins rolled equal to unrolled, so the
+  setting changes nothing here (the trainer checks its value).
+- Chaining (``chain_steps`` > 1, JAX :364-376): ``train_step(state,
+  batches)`` takes a list of ``chain_steps`` batches and runs their
+  updates back to back with no host synchronize between them; ``loss``
+  is the float32 mean of the steps' losses, the other metrics the last
+  step's.
 - ``eval_step(state, batch)``: forward and argmax; the masked counts
   ``correct/total/tp/fp/fn`` under ``valid`` (positive label 1).
 
@@ -90,8 +113,12 @@ from pytorch_distributed_training_tpu_torch.ops.quant import (
 from pytorch_distributed_training_tpu_torch.train.optim import (
     is_sharded,
     plain_grad_norm,
+    torch_dtype,
 )
 from pytorch_distributed_training_tpu_torch.train.state import TrainState
+from pytorch_distributed_training_tpu_torch.utils.profiling import (
+    check_grads,
+)
 
 
 CLASSIFICATION_COUNTS = ("correct", "total", "tp", "fp", "fn")
@@ -232,30 +259,70 @@ def _last_stage(mesh: Mesh) -> bool:
     return mesh.coord(AXIS_STAGE) == mesh.shape[AXIS_STAGE] - 1
 
 
+class GradCarry:
+    """The accumulation carry in a dtype narrower than float32: ``add``
+    rounds each parameter's ``.grad`` to ``dtype``, adds it to the
+    parameter's carry and clears ``.grad`` (a ``DTensor`` gradient stays
+    one); ``grads`` maps each parameter to its carry."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+        self.grads: dict = {}
+
+    def add(self, params) -> None:
+        for p in params:
+            if p.grad is None:
+                continue
+            g = p.grad.to(self.dtype)
+            prev = self.grads.get(p)
+            self.grads[p] = g if prev is None else prev + g
+            p.grad = None
+
+
+def chained(step: Callable) -> Callable:
+    """``step`` over a list of batches, back to back: the float32 mean of
+    their losses, the last step's other metrics (JAX :364-376)."""
+
+    def train_step(state: TrainState, batches) -> dict:
+        outs = [step(state, batch) for batch in batches]
+        out = dict(outs[-1])
+        out["loss"] = torch.stack([o["loss"] for o in outs]).float().mean()
+        return out
+
+    return train_step
+
+
 def make_train_step(*, grad_accum_steps: int,
                     objective: str = "classification",
                     mesh: Optional[Mesh] = None,
-                    grad_norm: Callable = plain_grad_norm) -> Callable:
+                    grad_norm: Callable = plain_grad_norm,
+                    accum_dtype: str = "float32",
+                    chain_steps: int = 1) -> Callable:
     """Build the train step for this rank of ``mesh`` (None: one
     process). ``grad_norm(params, grads)`` is the reported norm
-    (``train/optim.py``)."""
+    (``train/optim.py``); ``accum_dtype`` the carry's dtype and
+    ``chain_steps`` the updates a call runs (see the module
+    docstring)."""
     inv_accum = 1.0 / grad_accum_steps
     mesh = mesh or build_mesh()
     shard, last = batch_index(mesh), _last_stage(mesh)
+    carry_dtype = torch_dtype(accum_dtype)
+    narrow = carry_dtype != torch.float32
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model = state.model
         ddp = isinstance(model, DistributedDataParallel)
         fsdp = isinstance(model, FSDPModule)
         state.optimizer.zero_grad(set_to_none=True)
+        carry = GradCarry(carry_dtype) if narrow else None
         loss_sum = None
         for m in range(grad_accum_steps):
             micro = {k: v[m] for k, v in batch.items()}
             seed = microbatch_seed(state.dropout_seed, state.step, m, shard)
             sync = m == grad_accum_steps - 1
             if fsdp:
-                model.set_requires_gradient_sync(sync)
-            with (model.no_sync() if ddp and not sync
+                model.set_requires_gradient_sync(sync or narrow)
+            with (model.no_sync() if ddp and (narrow or not sync)
                   else contextlib.nullcontext()):
                 out = _forward(model, micro, seed)
                 if last:
@@ -267,30 +334,59 @@ def make_train_step(*, grad_accum_steps: int,
                     loss = torch.zeros_like(out)
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-        # FSDP's ignored parameters: replicated, reduced here
+            if carry is not None:
+                carry.add(state.module.parameters())
+        # FSDP's ignored parameters: replicated, reduced here; under DDP a
+        # narrow carry, which no backward reduced
+        average = is_replicated if fsdp else (
+            every if ddp and narrow else None)
         return finish_step(state, loss_sum, mesh, grad_norm,
-                           average=is_replicated if fsdp else None)
+                           average=average, carry=carry)
 
-    return train_step
+    return chained(train_step) if chain_steps > 1 else train_step
 
 
 def is_replicated(p) -> bool:
     return not is_sharded(p)
 
 
+def every(p) -> bool:
+    return True
+
+
 def finish_step(state: TrainState, loss_sum: torch.Tensor, mesh: Mesh,
                 grad_norm: Callable, *,
-                average: Optional[Callable] = None) -> dict:
+                average: Optional[Callable] = None,
+                carry: Optional[GradCarry] = None) -> dict:
     """The rest of a train step once its backwards have run: the
-    gradients of the parameters ``average`` picks averaged over the
-    gradient axes (``grad_group``), the grad norm, one optimizer update,
-    and the step's loss (``loss_sum``, this rank's) summed over the stage
-    and seq axes and averaged over the batch axes."""
-    params = [p for p in state.module.parameters() if p.grad is not None]
-    if average is not None:
-        average_([p.grad for p in params if average(p)], mesh.grad_group)
-    norm = grad_norm(params, [p.grad for p in params])
-    state.optimizer.step()
+    gradients (``.grad``, or ``carry``'s) of the parameters ``average``
+    picks averaged over the gradient axes (``grad_group``; a carry's in
+    float32, rounded back), the grad norm, one optimizer update, and the
+    step's loss (``loss_sum``, this rank's) summed over the stage and seq
+    axes and averaged over the batch axes."""
+    if carry is None:
+        params = [p for p in state.module.parameters() if p.grad is not None]
+        if average is not None:
+            average_([p.grad for p in params if average(p)],
+                     mesh.grad_group)
+        grads = None
+        held = [p.grad for p in params]
+    else:
+        grads = carry.grads
+        params = list(grads)
+        if average is not None:
+            picked = [p for p in params if average(p)]
+            work = [grads[p].float() for p in picked]
+            average_(work, mesh.grad_group)
+            for p, w in zip(picked, work):
+                grads[p] = w.to(carry.dtype)
+        held = [grads[p] for p in params]
+    check_grads(state.module, params, held)
+    norm = grad_norm(params, held)
+    if grads is None:
+        state.optimizer.step()
+    else:
+        state.optimizer.step(grads=grads)
     state.step += 1
     # the loss lives on the last stage (the others add zeros), in parts
     # over the seq shards, and is the same on every rank of the model axis

@@ -256,11 +256,11 @@ class TrainConfig:
     8 x accumulation 12, eval batch 32, linear warmup 100, AdamW with bias
     correction, bf16 compute, sequences of 128.
 
-    The fields are those the ported trainer reads: checkpoints and resume
-    (``train/checkpoint.py``), fault injection, preemption and the
-    watchdog (``faults/``) and telemetry (``telemetry/``). The native
-    loader, prefetch, guards, the optimizer-state dtypes and chained steps
-    wait in ROADMAP.md (queue 1).
+    The fields are JAX's, less ``guards``, ``aot_warmup`` and
+    ``compile_cache_dir`` (the JAX package's runtime guards and XLA
+    compilation, ROADMAP.md queue 1) and ``prng_impl`` (the port has one
+    dropout generator). The trainer (``train/loop.py``) checks the values
+    JAX's trainer checks, with its messages.
     """
 
     learning_rate: float = 2e-5
@@ -276,7 +276,15 @@ class TrainConfig:
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
+    # the AdamW moments' storage dtypes ("float32" or "bfloat16"); the
+    # update's arithmetic is float32 either way (train/optim.py)
+    adam_mu_dtype: str = "float32"
+    adam_nu_dtype: str = "float32"
     bf16: bool = True
+    # the gradient-accumulation carry's dtype: each microbatch's gradient
+    # is rounded to it and added, and the optimizer takes the carry in it
+    # (train/step.py); "bfloat16" rounds, "float32" is exact
+    grad_accum_dtype: str = "float32"
     max_seq_length: int = 128
     # 0 = the full dataset; > 0 truncates (smoke and integration runs)
     train_size: int = 0
@@ -319,6 +327,28 @@ class TrainConfig:
     metrics_dir: str | None = None
     # "text" | "json": json makes the loggers write one JSON object a line
     log_format: str = "text"
+    # a torch.profiler trace of the epochs (CPU and CUDA activities) under
+    # this directory, under host_<rank> at world size > 1
+    # (utils/profiling.py); None: off
+    profile_dir: str | None = None
+    # raise FloatingPointError at the first NaN in a module's forward
+    # output or in a gradient (utils/profiling.py); synchronizes
+    debug_nans: bool = False
+    # train and eval batch assembly: "auto" the C++ batcher (native/) when
+    # g++ builds it, else the Python loader; "on" requires it; "off" the
+    # Python loader (data/native_loader.py, data/pipeline.py)
+    native_loader: str = "auto"
+    # train batches assembled and copied to the device this many batches
+    # ahead on a background thread (data/prefetch.py); the order is the
+    # loader's, bit for bit; 0 assembles and copies on the step thread
+    prefetch_depth: int = 2
+    # optimizer updates run back to back with no host synchronize between
+    # them; loss is the chain's float32 mean, the other metrics the last
+    # step's, and the log and checkpoint cadences fall on chain ends
+    chain_steps: int = 1
+    # "auto" | "on" | "off": JAX's accumulation-scan unrolling; the eager
+    # microbatch loop is one schedule, so no value changes the math
+    unroll_accum: str = "auto"
 
     @property
     def grad_accum_steps(self) -> int:

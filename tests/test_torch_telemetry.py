@@ -78,8 +78,9 @@ def _summarize():
 @pytest.fixture(scope="module")
 def streams(tmp_path_factory):
     """One tiny synthetic run in each package with a metrics directory:
-    the JAX run without its AOT warm start, guards and prefetch (the
-    port's options), on its 8-device CPU mesh."""
+    the JAX run without its AOT warm start and guards (the port has
+    neither), on its 8-device CPU mesh; both with the Python loader and
+    no prefetch, whose stall timers depend on the thread timing."""
     root = tmp_path_factory.mktemp("streams")
     jdir, pdir = str(root / "jax"), str(root / "port")
     prev = set_registry(None)
@@ -91,7 +92,8 @@ def streams(tmp_path_factory):
                            native_loader="off"),
             JaxMeshConfig(data=8), task="synthetic").run()
         Trainer(model_preset("tiny", compute_dtype="float32"),
-                TrainConfig(**RUN, metrics_dir=pdir), task="synthetic",
+                TrainConfig(**RUN, metrics_dir=pdir, prefetch_depth=0,
+                            native_loader="off"), task="synthetic",
                 device="cpu").run()
     finally:
         set_registry(prev)
