@@ -190,14 +190,15 @@ the JAX package), in phases that each raise on failure:
    kernel class;
 8. serve options (the first 8 prompts, 16 new tokens a request, from
    here on to serve-tp): ``serve_lm``
-   again with ``--spec-k 4`` (a second run
-   must give the same greedy streams), ``--prefill-chunk 32`` and
+   again with ``--spec-k 4`` (its profiled second run must give the
+   same greedy streams), ``--prefill-chunk 32`` and
    ``--prefix-cache`` (8 prompts sharing a 4-page prefix, two of them
    copying a page on write), each counted against the engine's verify,
    chunk and decode dispatches, the pages left equal to those the prefix
    cache holds, every served token checked against the full-sequence
-   forward, each run once more under ``torch.profiler`` (kernel 13's share
-   of the device time; its float32 FMA kernel may not appear); then int8
+   forward, the speculative run once more under ``torch.profiler``
+   (kernel 13's share of the device time; its float32 FMA kernel may not
+   appear); then int8
    serving, ``--weights-dtype int8 --kv-dtype int8``
    plain (profiled), with ``--spec-k 4`` and with ``--prefix-cache``, and
    ``--weights-dtype int8`` alone, each counted (the int8-pool kernels
@@ -250,6 +251,20 @@ the JAX package), in phases that each raise on failure:
    and a digest restore falling back to step 1. ``lm-fsdp`` (phase 6)
    also saves its sharded state and restores it into the unwrapped
    model, bit-equal.
+10. fleet: ``fleet_lm --replicas 2`` at the serve phase's shape (8 slots,
+   buckets 16-128, page 16, seed 0; each replica a ``serve_lm`` process
+   on the card, running kernels 1 and 12), booted beside the checkpoint
+   checks; 12 greedy prompts through the router while
+   ``PDT_TPU_FAULT=replica_crash:1@1`` kills replica 1 mid-load: every
+   request ``done`` or an explicit retryable error, every ``done`` stream
+   equal to the serve phase's token for token, at least one failover;
+   replica 1 respawned (during the full-sequence checks) with one restart
+   burned, the pool back to 2 up; SIGTERM while a 64-token stream runs
+   on replica 0: the stream ends ``done``, ``fleet_lm`` exits 0, the
+   replicas 75 after a ``sigterm_drain`` flight dump and a ``preemption``
+   record. Prints the boot seconds, TTFT p50 through the router beside
+   the serve phase's, replica 0's first TTFT without ``--warmup``,
+   requests/s and the seconds to recovery.
 
 Prints one ``kernels`` JSON line (18 kernels; kernel 5's mask-only mode,
 ``mask_scale``, is on no main path since its apply mode,
@@ -1524,10 +1539,10 @@ def serve_options_phase(plain_streams, new_tokens=OPTION_NEW_TOKENS,
     """``serve_lm`` with each serving option on gpt2-medium at full width,
     counted: every request's token count, the launch counts against the
     engine's dispatch counts, the pages left (those the prefix cache
-    holds), peak memory, a second speculative run with the same greedy
-    streams, one more run of each of ``PROFILED_OPTIONS`` under the
-    profiler (no kernel of ``FMA_PAGED_SYMBOLS``), and how many streams
-    equal the plain run's first ``new_tokens``."""
+    holds), peak memory, one more run of each of ``PROFILED_OPTIONS``
+    under the profiler (no kernel of ``FMA_PAGED_SYMBOLS``; the same
+    greedy streams as the first run), and how many streams equal the
+    plain run's first ``new_tokens``."""
     import torch
 
     res = {}
@@ -1562,23 +1577,22 @@ def serve_options_phase(plain_streams, new_tokens=OPTION_NEW_TOKENS,
             variant=stats["variant"], kv_dtype=stats["kv_dtype"],
             launches=counts,
         )
-        warm = stats
         if name == "spec":
             m.update(accepted_per_verify=stats["spec_accepted"]
                      / stats["spec_dispatches"],
                      accept_rate=stats["spec_accept_rate"],
                      tokens_per_dispatch=stats["tokens_per_dispatch"])
-            again, warm, _, _ = serve_once(argv, prompts, new_tokens)
-            if streams(again, prompts, new_tokens) != toks:
-                raise AssertionError("speculative greedy streams differ "
-                                     "between two runs")
-            m["warm_decode_tok_per_s"] = (warm["decode_tokens"]
-                                          / warm["decode_s"])
         if name in PROFILED_OPTIONS:
+            # the busy share over this run's engine seconds; the profiled
+            # run is the second of the option, and its greedy streams
+            # must equal the first's
             m["profile"] = profile_phase(
-                dict(prefill_s=warm["prefill_s"], decode_s=warm["decode_s"]),
+                dict(prefill_s=stats["prefill_s"], decode_s=stats["decode_s"]),
                 argv, prompts, new_tokens, tag=f"profile-{name}",
                 forbid=FMA_PAGED_SYMBOLS)
+            if m["profile"].pop("streams") != toks:
+                raise AssertionError(f"{name}: greedy streams differ "
+                                     f"between two runs")
         if pc:
             m.update(hit_rate=pc["prefix_hit_rate"],
                      prefix_hits=pc["prefix_hits"],
@@ -1593,7 +1607,8 @@ def serve_options_phase(plain_streams, new_tokens=OPTION_NEW_TOKENS,
                 toks[r] == plain_streams[r][:new_tokens] for r in toks)
         say(f"[serve-{name}] " + json.dumps(m))
         res[name] = dict(m, streams=toks, prompts=prompts)
-    say("[serve-spec] greedy streams identical across two runs")
+    say("[serve-spec] [serve-int8] greedy streams identical across two "
+        "runs (the second profiled)")
     return res
 
 
@@ -1908,7 +1923,7 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
     finally:
         server.close(drain=True)
     events = [json.loads(line) for line in out.getvalue().splitlines()]
-    streams(events, prompts, new_tokens)
+    toks = streams(events, prompts, new_tokens)
     # aggregated once: each call walks every event again (seconds)
     averages = profile_averages(prof)
     bad = sorted({e.key[:90] for e in averages
@@ -1923,7 +1938,7 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
     res.update(paged_mq_ms=mq, paged_mq_share=(
         mq / res["device_kernel_ms"] if res["device_kernel_ms"] else None))
     say(f"[{tag}] " + json.dumps(res))
-    return res
+    return dict(res, streams=toks)
 
 
 class _Event:
@@ -5947,7 +5962,7 @@ SERVE_OPS_ARGS = SERVE_CKPT_ARGS + [
     "0.3", "--slo-windows", "60,600", "--slo-emit-s", "1",
     "--drain-timeout-s", "60", "--stall-timeout-s", "30"]
 SERVE_OPS_PERTURB = 2e-3
-SERVE_OPS_LONG = 64   # the SIGTERM drill's stream
+SERVE_OPS_LONG = 64   # the fleet SIGTERM drill: live when the signal lands
 
 
 def serve_draft_phase(ck: str, prompts=PROMPTS, new_tokens=OPTION_NEW_TOKENS,
@@ -6056,12 +6071,12 @@ def wait_ready(port: int, proc=None, timeout=300.0) -> float:
     raise AssertionError(f"serve-ops: port {port} never ready")
 
 
-def wait_for(what: str, predicate, timeout=180.0) -> float:
+def wait_for(what: str, predicate, timeout=180.0, poll_s=0.1) -> float:
     t0 = time.perf_counter()
     while not predicate():
         if time.perf_counter() - t0 > timeout:
-            raise AssertionError(f"serve-ops: timed out waiting for {what}")
-        time.sleep(0.1)
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(poll_s)
     return time.perf_counter() - t0
 
 
@@ -6107,48 +6122,6 @@ def _kinds(records) -> dict:
     for r in records:
         out[r["record"]] = out.get(r["record"], 0) + 1
     return out
-
-
-def serve_ops_cold(proc, port: int, mdir: str, root: str, prompts,
-                   new_tokens) -> dict:
-    """The serve_lm started without ``--warmup`` (``serve_lm_process``,
-    ready): its first request's TTFT; then a long stream, SIGTERM while it
-    runs: the stream ends ``done``, the process exits 75 with a
-    ``sigterm_drain`` flight dump and a ``preemption`` record."""
-    import http.client
-    import signal
-
-    try:
-        http_streams(port, prompts[:1], new_tokens)
-        ttft = _first_ttft(mdir)
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-        conn.request("POST", "/generate", body=json.dumps({
-            "id": "long", "prompt": prompts[2],
-            "max_new_tokens": SERVE_OPS_LONG}))
-        resp = conn.getresponse()
-        # the first token is out: the stream is live when SIGTERM lands
-        first = resp.readline().decode()
-        proc.send_signal(signal.SIGTERM)
-        status, text = resp.status, first + resp.read().decode()
-        conn.close()
-        code = proc.wait(300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(30)
-    done = [json.loads(line) for line in text.splitlines()][-1:]
-    records = _summarize_metrics().load_records(mdir)
-    kinds = _kinds(records)
-    dumps = [r["reason"] for r in records if r["record"] == "flight_dump"]
-    if (code != 75 or status != 200 or not done
-            or done[0].get("new_tokens") != SERVE_OPS_LONG
-            or dumps != ["sigterm_drain"] or "preemption" not in kinds):
-        raise AssertionError(
-            f"serve-ops SIGTERM drill: exit {code}, HTTP {status}, last "
-            f"event {done}, dumps {dumps}, records {kinds}: "
-            + _log_tail(root, "serve-ops-cold"))
-    return dict(first_ttft_s=ttft, sigterm_exit=code,
-                drained_tokens=done[0]["new_tokens"], records=kinds)
 
 
 def serve_ops_int8(ops: str, w_next: dict, root: str, prompts, new_tokens,
@@ -6276,12 +6249,13 @@ def _margin_model(state: dict, weights: str, device,
 
 def serve_ops_start(ck: str, root: str) -> dict:
     """ckpt-resume's step 2 published weights-only into ``root/ops``
-    (``publish_params_checkpoint``), then two serve_lm processes started
-    on it at once (``serve_lm_process``): one without ``--warmup``, one
-    with ``--warmup``, ``--hotswap-poll-s``, ``--metrics-dir``, the
-    brownout and SLO flags and ``PDT_TPU_FAULT=corrupt_ckpt_swap:4``.
-    They boot while this process runs the checkpoint block's checks;
-    ``serve_ops_phase`` drives them."""
+    (``publish_params_checkpoint``), then a serve_lm process started on
+    it (``serve_lm_process``) with ``--warmup``, ``--hotswap-poll-s``,
+    ``--metrics-dir``, the brownout and SLO flags and
+    ``PDT_TPU_FAULT=corrupt_ckpt_swap:4``. It boots while this process
+    runs the checkpoint block's checks; ``serve_ops_phase`` drives it.
+    The first TTFT without ``--warmup`` and the SIGTERM drill of a live
+    stream are the fleet phase's (its replicas run without it)."""
     from pytorch_distributed_training_tpu_torch.serve.hotswap import (
         publish_params_checkpoint,
     )
@@ -6294,7 +6268,6 @@ def serve_ops_start(ck: str, root: str) -> dict:
     publish_s = time.perf_counter() - t0
     return dict(
         ops=ops, w2=w2, publish_s=publish_s,
-        cold=serve_lm_process(ops, root, "serve-ops-cold"),
         warm=serve_lm_process(ops, root, "serve-ops", ["--warmup"],
                               env={"PDT_TPU_FAULT": "corrupt_ckpt_swap:4"}))
 
@@ -6303,10 +6276,8 @@ def serve_ops_phase(started: dict, root: str, device, prompts=PROMPTS,
                     new_tokens=OPTION_NEW_TOKENS,
                     model_name="gpt2-medium") -> dict:
     """The serving support layers at gpt2-medium's full width, over HTTP,
-    on the two serve_lm processes of ``serve_ops_start``: the one without
-    ``--warmup`` (``serve_ops_cold``: the first TTFT, the SIGTERM drill),
-    then the other: its first TTFT (each first request alone on the
-    card), the prompts streamed, a perturbed step 3
+    on the serve_lm process of ``serve_ops_start``: its first TTFT (the
+    request alone on the card), the prompts streamed, a perturbed step 3
     published and swapped in (the swap's load and apply seconds from its
     ``swap_ok`` record), the prompts again, a step 4 whose load fails
     (refused before a byte is read, so a one-tensor step: the streams
@@ -6324,17 +6295,12 @@ def serve_ops_phase(started: dict, root: str, device, prompts=PROMPTS,
     from pytorch_distributed_training_tpu_torch.train import checkpoint
 
     ops, w2, name = started["ops"], started["w2"], "serve-ops"
-    cold_proc, cold_port, cold_mdir = started["cold"]
     proc, port, mdir = started["warm"]
     try:
         g = torch.Generator().manual_seed(3)
         w3 = {k: v + SERVE_OPS_PERTURB * torch.randn(v.shape, generator=g)
               if v.is_floating_point() else v for k, v in w2.items()}
-        wait_ready(cold_port, cold_proc)
         wait_ready(port, proc)
-        cold = serve_ops_cold(cold_proc, cold_port, cold_mdir, root,
-                              prompts, new_tokens)
-        say("[serve-ops] without --warmup: " + json.dumps(cold))
         http_streams(port, prompts[:1], new_tokens)
         ttft = _first_ttft(mdir)
         before = http_streams(port, prompts, new_tokens)
@@ -6354,10 +6320,9 @@ def serve_ops_phase(started: dict, root: str, device, prompts=PROMPTS,
         proc.send_signal(signal.SIGTERM)
         code = proc.wait(300)
     finally:
-        for p in (cold_proc, proc):
-            if p.poll() is None:
-                p.kill()
-                p.wait(30)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
     shutil.rmtree(checkpoint.step_path(ops, 4))
     records = _summarize_metrics().load_records(mdir)
     kinds = _kinds(records)
@@ -6376,13 +6341,13 @@ def serve_ops_phase(started: dict, root: str, device, prompts=PROMPTS,
             + _log_tail(root, name))
     res = dict(
         publish_s=started["publish_s"],
-        first_ttft_s={"warmup": ttft, "no_warmup": cold["first_ttft_s"]},
+        first_ttft_s={"warmup": ttft},
         swap=dict(load_s=ok[0]["load_s"], total_s=ok[0]["total_s"],
                   apply_s=ok[0]["total_s"] - ok[0]["load_s"],
                   wait_s=swap_wait),
         refused=dict(version=4, stage="load", streams_unchanged=True),
         flight_entries=len(flight["entries"]), exit=code,
-        records=kinds, cold=cold)
+        records=kinds)
     say("[serve-ops] serve_lm --http-port --warmup --hotswap-poll-s "
         "--metrics-dir, gpt2-medium from a checkpoint: " + json.dumps(res))
     int8 = serve_ops_int8(ops, w2, root, prompts, new_tokens)
@@ -6405,6 +6370,297 @@ def serve_ops_phase(started: dict, root: str, device, prompts=PROMPTS,
             del model
             _free_cuda()
     res["margins"] = margins
+    return res
+
+
+# the fleet phase: fleet_lm over two replicas at the serve phase's shape
+# (SERVE_ARGS: 8 slots, buckets 16-128, page 16, seed 0). One prompt goes
+# to each replica first (round robin on equal loads); replica 1 dies
+# after that first busy tick, its request mid-stream (an explicit
+# retryable error, or a failover if no byte was out). Its
+# ``fault_injected`` record is flushed before it exits, and the other
+# ten go out the moment it shows: the router still holds replica 1's
+# breaker closed and its last health sample (taken during its first
+# prefill: no load), so it sends it requests that no live engine admits;
+# they fail before a byte and go over to replica 0 (failovers)
+FLEET_ARGS = ["--replicas", "2", *SERVE_ARGS, "--page-size", "16"]
+FLEET_FAULT = "replica_crash:1@1"
+
+
+def fleet_start(root: str) -> dict:
+    """``fleet_lm`` (``FLEET_ARGS``, ``PDT_TPU_FAULT=FLEET_FAULT``) in a
+    process of its own, its router on a free port and its metrics under
+    ``root/fleet``; a thread polls the router's ``/stats`` and notes the
+    wall time each replica first reports ready (its boot ends there).
+    The replicas boot while this process runs phases that time nothing;
+    ``fleet_phase`` drives them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    port, mdir = _free_port(), os.path.join(root, "fleet")
+    log = open(os.path.join(root, "fleet.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "pytorch_distributed_training_tpu_torch.cli.fleet_lm", *FLEET_ARGS,
+         "--router-port", str(port), "--metrics-dir", mdir],
+        cwd=ROOT, env=dict(os.environ, PDT_TPU_FAULT=FLEET_FAULT),
+        stdout=log, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)   # its replicas share its process group
+    log.close()
+    ready, stop = {}, []     # ``stop`` non-empty ends the poll
+
+    def poll():
+        while not stop and proc.poll() is None:
+            time.sleep(0.1)
+            try:
+                view = json.loads(_http(port, "GET", "/stats", timeout=5)[1])
+            except (OSError, ValueError):
+                continue
+            for r in view["replicas"]:
+                if r["health"].get("state") == "ready":
+                    ready.setdefault(r["name"], time.time())
+            if len(ready) == 2:
+                return
+
+    pool = ThreadPoolExecutor(1, thread_name_prefix="fleet-boot")
+    pool.submit(poll)
+    pool.shutdown(wait=False)
+    return dict(proc=proc, port=port, mdir=mdir, ready=ready, stop=stop)
+
+
+def _fleet_records(mdir: str) -> list:
+    """The records of ``mdir``'s stream so far (a line still being
+    written is skipped; the fleet polls this while replicas write)."""
+    path = os.path.join(mdir, "metrics.jsonl")
+    if not os.path.exists(path):
+        return []
+    records = []
+    with open(path) as f:
+        for line in f:
+            try:
+                records.append(json.loads(line))
+            except json.JSONDecodeError:
+                pass
+    return records
+
+
+def _fleet_request(port: int, i: int, prompt: str, new_tokens: int) -> dict:
+    """One greedy request through the router; its outcome (``done``,
+    ``retryable`` or ``bad``), token ids and client-side TTFT."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/generate", body=json.dumps(
+        {"id": f"r{i}", "prompt": prompt, "max_new_tokens": new_tokens}))
+    resp = conn.getresponse()
+    events, ttft = [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        events.append(json.loads(line))
+        if ttft is None and events[-1]["event"] == "token":
+            ttft = time.perf_counter() - t0
+    conn.close()
+    last = events[-1] if events else {}
+    if resp.status == 200 and last.get("event") == "done" and (
+            last.get("status") == "done"):
+        outcome = "done"
+    elif last.get("event") == "error" and last.get("retryable"):
+        outcome = "retryable"
+    else:
+        outcome = "bad"
+    return dict(outcome=outcome, status=resp.status, ttft_s=ttft,
+                tokens=[e["token_id"] for e in events
+                        if e["event"] == "token"], last=last)
+
+
+def fleet_phase(started: dict, plain: dict, serve_ttft_p50_s: float,
+                prompts=PROMPTS, new_tokens=NEW_TOKENS) -> dict:
+    """The serving fleet on the card (``fleet_start``'s ``fleet_lm``): its
+    replicas' boot seconds; the 12 prompts through the router, one a
+    replica first, then the rest (see ``FLEET_FAULT``), while
+    ``FLEET_FAULT`` kills replica 1 — every request ends ``done`` or
+    with an explicit retryable error, none hangs, every
+    ``done`` stream equals the serve phase's (``plain``: same seed and
+    weights) token for token, replica 1 exited 23 and the router failed
+    over at least once. TTFT p50 through the router (client side) beside
+    the serve phase's, and requests/s. Replica 1 respawns while later
+    phases that time nothing run; ``fleet_finish`` reads the recovery."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    proc, port, mdir = started["proc"], started["port"], started["mdir"]
+    wait_for("the fleet's two replicas", lambda: len(
+        started["ready"]) == 2 or proc.poll() is not None, timeout=600)
+    if proc.poll() is not None:
+        raise AssertionError(f"fleet_lm exited {proc.returncode}")
+    spawn = {r["replica"]: r["ts"] for r in _fleet_records(mdir)
+             if r["record"] == "replica_spawn"}
+    boot = {name: t - spawn[name]
+            for name, t in sorted(started["ready"].items())}
+
+    def picks() -> list:
+        return [r["requests"] for r in json.loads(
+            _http(port, "GET", "/stats")[1])["replicas"]]
+
+    def r1_crashed() -> bool:
+        return any(r.get("fault") == "replica_crash" for r in
+                   _fleet_records(os.path.join(mdir, "replica-1")))
+
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(len(prompts))
+    futs = []
+    while min(picks()) < 1:
+        if len(futs) == 4:
+            raise AssertionError(f"fleet: picks {picks()} after 4 requests")
+        futs.append(pool.submit(_fleet_request, port, len(futs),
+                                prompts[len(futs)], new_tokens))
+        wait_for("the router's pick", lambda: sum(picks()) >= len(futs),
+                 timeout=60, poll_s=0.01)
+    wait_for("replica 1's crash", r1_crashed, timeout=300, poll_s=0.01)
+    futs += [pool.submit(_fleet_request, port, i, p, new_tokens)
+             for i, p in enumerate(prompts) if i >= len(futs)]
+    outs = [f.result(timeout=600) for f in futs]
+    pool.shutdown()
+    wave_s = time.perf_counter() - t0
+    view = json.loads(_http(port, "GET", "/stats")[1])
+    done = [i for i, o in enumerate(outs) if o["outcome"] == "done"]
+    bad = [(i, o["status"], o["last"]) for i, o in enumerate(outs)
+           if o["outcome"] == "bad"]
+    differ = [i for i in done if outs[i]["tokens"] != plain[f"r{i}"]]
+    records = _fleet_records(mdir)
+    crash = [r for r in records if r["record"] == "replica_exit"]
+    if (bad or differ or not done or view["failovers"] < 1
+            or [(r["replica"], r["rc"]) for r in crash] != [("r1", 23)]):
+        timeline = [(round(r["ts"] - records[0]["ts"], 3), r["record"],
+                     r.get("id"), r.get("replica"), r.get("attempts"),
+                     r.get("status"), r.get("to"))
+                    for r in records if r["record"] in (
+                        "router_request", "router_failover",
+                        "router_breaker", "replica_exit")]
+        raise AssertionError(
+            f"fleet: bad {bad}, streams differing {differ}, done {done}, "
+            f"router {view}, exits {crash}, timeline {timeline}: "
+            + _log_tail(os.path.dirname(mdir), "fleet"))
+    ttft = [outs[i]["ttft_s"] for i in done]
+    res = dict(
+        replicas=2, requests=len(prompts), new_tokens=new_tokens,
+        fault=FLEET_FAULT, boot_s=boot,
+        done=len(done), retryable_errors=len(prompts) - len(done),
+        availability=len(done) / len(prompts),
+        failovers=view["failovers"], streams_equal_serve=len(done),
+        ttft_p50_s=statistics.median(ttft), ttft_max_s=max(ttft),
+        serve_ttft_p50_s=serve_ttft_p50_s, wave_s=wave_s,
+        requests_per_s=len(done) / wave_s)
+    say("[fleet] fleet_lm --replicas 2, gpt2-medium at the serve phase's "
+        "shape, replica 1 killed mid-load: " + json.dumps(res))
+    return dict(res, crash_ts=crash[0]["ts"])
+
+
+def fleet_kill(started, root: str) -> None:
+    """Stop what ``fleet_start`` started, if anything still runs (a phase
+    failed between it and ``fleet_finish``): SIGTERM drains the fleet,
+    then its process group (``fleet_lm`` and every replica) is killed;
+    ``root`` removed."""
+    import signal
+
+    if started is not None:
+        proc = started["proc"]
+        started["stop"].append(True)
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait(30)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def fleet_finish(started: dict, wave: dict, prompts=PROMPTS) -> dict:
+    """After ``fleet_phase``: replica 1 respawned with one restart burned
+    and the pool back to 2 up (seconds from its exit, the respawn's boot
+    beside phases that time nothing); then a ``SERVE_OPS_LONG``-token
+    stream straight to replica 0 (the respawned replica 1 carries the
+    fault again) and, once its first token is out, SIGTERM to
+    ``fleet_lm``: the stream still ends ``done``, ``fleet_lm`` exits 0,
+    each replica leaves with 75 after a ``sigterm_drain`` flight dump
+    and a ``preemption`` record, and the fleet's stream ends with its
+    ``fleet_summary``. Replica 0's first request (no ``--warmup``) gives
+    the first TTFT without it."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    proc, port, mdir = started["proc"], started["port"], started["mdir"]
+    wait_for("replica 1's respawn", lambda: json.loads(_http(
+        port, "GET", "/stats")[1])["available"] == 2, timeout=600)
+    recovered_t = time.time()
+    view = json.loads(_http(port, "GET", "/stats")[1])
+    r0_port = view["replicas"][0]["port"]
+    events = []
+
+    def stream():
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", r0_port, timeout=300)
+        conn.request("POST", "/generate", body=json.dumps({
+            "id": "long", "prompt": prompts[2],
+            "max_new_tokens": SERVE_OPS_LONG}))
+        resp = conn.getresponse()
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            events.append(json.loads(line))
+        conn.close()
+        return resp.status
+
+    pool = ThreadPoolExecutor(1, thread_name_prefix="fleet-long")
+    client = pool.submit(stream)
+    wait_for("the long stream's first token",
+             lambda: events or client.done(), timeout=300, poll_s=0.01)
+    proc.send_signal(signal.SIGTERM)
+    code = proc.wait(300)
+    long = dict(status=client.result(timeout=300), events=events)
+    pool.shutdown()
+    records = _fleet_records(mdir)
+    exits = sorted((r["replica"], r["rc"]) for r in records
+                   if r["record"] == "replica_exit")
+    budget = view["pool"]["restart_budget_remaining"]
+    summary = [r for r in records if r["record"] == "fleet_summary"]
+    drains, first_ttft = {}, None
+    for name in ("r0", "r1"):
+        rec = _fleet_records(os.path.join(mdir, f"replica-{name[1:]}"))
+        drains[name] = dict(
+            dumps=[r["reason"] for r in rec if r["record"] == "flight_dump"],
+            preemption=any(r["record"] == "preemption" for r in rec))
+        if name == "r0":
+            first_ttft = next(r["ttft_s"] for r in rec
+                              if r["record"] == "serve_request")
+    done = long.get("events", [{}])[-1]
+    if (view["pool"]["up"] != 2 or budget["r1"] != budget["r0"] - 1
+            or code != 0 or exits != [("r0", 75), ("r1", 23), ("r1", 75)]
+            or not summary or long.get("status") != 200
+            or done.get("event") != "done"
+            or done.get("new_tokens") != SERVE_OPS_LONG
+            or any(d["dumps"] != ["sigterm_drain"] or not d["preemption"]
+                   for d in drains.values())):
+        raise AssertionError(
+            f"fleet: router {view}, exits {exits}, fleet_lm exit {code}, "
+            f"summary {bool(summary)}, the long stream's last event "
+            f"{done}, drains {drains}: "
+            + _log_tail(os.path.dirname(mdir), "fleet"))
+    res = dict(recovery_s=recovered_t - wave["crash_ts"],
+               restarts_used={"r1": budget["r0"] - budget["r1"]},
+               pool_up=view["pool"]["up"], exits=exits, fleet_lm_exit=code,
+               drained_tokens=done["new_tokens"], drains=drains,
+               first_ttft_no_warmup_s=first_ttft)
+    say("[fleet] replica 1 respawned, the pool back to 2 up, then SIGTERM "
+        "during a stream: " + json.dumps(res))
     return res
 
 
@@ -6564,6 +6820,8 @@ def main() -> int:
     tenant = serve_tenant_phase()
     lap("serve-tenant")
     root = tempfile.mkdtemp(prefix="pdt_chip_smoke_")
+    fleet_root = tempfile.mkdtemp(prefix="pdt_chip_smoke_")
+    fleet_started = None
     try:
         resume = ckpt_resume_phase(root)
         lap("ckpt-resume")
@@ -6575,8 +6833,10 @@ def main() -> int:
         lap("serve-ckpt")
         draft = serve_draft_phase(resume["dir"])
         lap("serve-draft")
-        # serve-ops' two serve_lm processes boot during the checks
+        # serve-ops' two serve_lm processes and the fleet's two replicas
+        # boot during the checks, which time nothing
         started = serve_ops_start(resume["dir"], root)
+        fleet_started = fleet_start(fleet_root)
         ckpt_margin_phase(gen, serve_ckpt, device, extra={
             f"serve-draft-{name}": run.pop("streams")
             for name, run in draft.items()})
@@ -6584,6 +6844,12 @@ def main() -> int:
         lap("ckpt checks")
         ops = serve_ops_phase(started, root, device)
         lap("serve-ops")
+        # the fleet's replica 1 respawns during the full-sequence checks
+        fleet = fleet_phase(fleet_started, plain, serve["warm"]["ttft_p50_s"])
+        lap("fleet")
+    except BaseException:
+        fleet_kill(fleet_started, fleet_root)
+        raise
     finally:
         shutil.rmtree(root, ignore_errors=True)
     checks = {"serve": (plain, PROMPTS, "float32", MARGIN_TOL),
@@ -6602,10 +6868,16 @@ def main() -> int:
         checks[name] = (v.pop("streams"), OPTION_PROMPTS,
                         "int8" if int8 else "float32",
                         INT8_KV_MARGIN_TOL if int8 else MARGIN_TOL)
-    full_sequence_phase(device, checks, sampled=[
-        (f"serve-sampled-{name}", toks, SAMPLED_REQUEST["prompt"],
-         SAMPLED_REQUEST) for name, toks in dense_host["sampled"].items()])
-    lap("full-sequence checks")
+    try:
+        full_sequence_phase(device, checks, sampled=[
+            (f"serve-sampled-{name}", toks, SAMPLED_REQUEST["prompt"],
+             SAMPLED_REQUEST)
+            for name, toks in dense_host["sampled"].items()])
+        lap("full-sequence checks")
+        fleet_finish(fleet_started, fleet)
+    finally:
+        fleet_kill(fleet_started, fleet_root)
+    lap("fleet recovery")
     say("[done] seconds by phase " + json.dumps(laps))
 
     kernels = []

@@ -40,9 +40,12 @@ shape once before the first request; ``--interactive-deadline-s`` and
 ``serve_request`` records and spans, ``slo_burn``, flight dumps, a
 ``serve_summary`` at exit; ``scripts/summarize_metrics.py`` reads it),
 ``--flight-capacity`` the flight recorder's ring, ``--slo-*`` the burn
-monitor, ``--replica-name`` the name on spans and flight records. With
-``--http-port`` the server answers HTTP (``serve/server.py``); SIGTERM
-drains it (admit nothing, finish in-flight streams for up to
+monitor, ``--replica-name`` the name on spans and flight records,
+``--guards`` the lock registry's mode (strict by default; a
+``lock_summary`` record at exit, and every ``--lock-summary-s``
+seconds). With ``--http-port`` the server answers HTTP
+(``serve/server.py``); SIGTERM drains it (admit nothing, finish
+in-flight streams for up to
 ``--drain-timeout-s``, dump the flight recorder) and exits 75;
 ``/healthz`` says ``unhealthy`` past ``--stall-timeout-s`` without a
 tick. With ``--checkpoint-dir``, ``POST /swap`` swaps to a named step and
@@ -169,6 +172,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run every prefill bucket (or the chunk), a decode "
                         "and a verify once before serving: kernel builds "
                         "and first launches leave the first request")
+    p.add_argument("--lock-summary-s", type=float, default=0.0,
+                   help="emit the lock_summary telemetry record every this "
+                        "many seconds DURING the run (0 = shutdown-only; a "
+                        "wedged process never reaches shutdown, so set this "
+                        "on long-lived replicas)")
     p.add_argument("--deadline-s", type=float, default=0.0,
                    help="default per-request deadline (0 = none)")
     p.add_argument("--interactive-deadline-s", type=float, default=0.0,
@@ -234,7 +242,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replica-name", default=None,
                    help="replica identity stamped on spans and flight "
                         "records")
+    p.add_argument("--guards", default=None,
+                   choices=("off", "record", "strict"),
+                   help="lock-discipline mode (analysis/concurrency): "
+                        "strict (default) fails on a lock-order inversion; "
+                        "--guards record only emits telemetry (the rollout "
+                        "opt-out), off uses plain locks; PDT_TPU_GUARDS "
+                        "overrides the default. The engine's recompile and "
+                        "transfer counters (guard_recompiles, "
+                        "guard_implicit_transfers) are still to be ported")
     return p
+
+
+def _lock_discipline(args) -> None:
+    """Set the lock registry's mode from ``--guards`` (strict unless
+    ``PDT_TPU_GUARDS`` says otherwise), before any server or engine lock
+    is made, so ``off`` skips the instrumentation entirely."""
+    from pytorch_distributed_training_tpu_torch.analysis.concurrency import (
+        get_lock_registry,
+        guard_mode_from_env,
+    )
+
+    get_lock_registry().mode = (
+        args.guards or guard_mode_from_env(default="strict"))
 
 
 def engine_config(args):
@@ -487,6 +517,10 @@ def _serve(args, server, tok, in_stream, out_stream) -> dict:
     """Serve stdio until EOF, or HTTP until SIGTERM, with the hot-swap
     manager attached under ``--checkpoint-dir``; the engine's final stats
     (``Preempted``, exit 75, after a SIGTERM drain)."""
+    from pytorch_distributed_training_tpu_torch.analysis.concurrency import (
+        get_lock_registry,
+        start_periodic_summary,
+    )
     from pytorch_distributed_training_tpu_torch.faults.preemption import (
         Preempted,
     )
@@ -495,6 +529,11 @@ def _serve(args, server, tok, in_stream, out_stream) -> dict:
 
     server.start()
     signum = None
+    # in-run lock_summary cadence: a wedged replica still leaves its
+    # contention/hold stats in the stream (the exit's record never comes)
+    lock_summary = (start_periodic_summary(args.lock_summary_s,
+                                           registry=server.registry)
+                    if args.lock_summary_s > 0 else None)
     try:
         if args.checkpoint_dir and not args.hf_checkpoint:
             from pytorch_distributed_training_tpu_torch.serve.hotswap import (
@@ -516,11 +555,15 @@ def _serve(args, server, tok, in_stream, out_stream) -> dict:
             )
             log0(f"stdio stream closed after {served} requests")
     finally:
+        if lock_summary is not None:
+            lock_summary.stop()
         server.close(drain=True)
         stats = server.stats()
         sink = server.registry.sink
         if sink is not None:
             sink.emit({"record": "serve_summary", **stats})
+            # the run's per-lock contention/hold/wait accounting
+            sink.emit(get_lock_registry().summary_record())
             sink.flush(fsync=True)
     if signum is not None:
         raise Preempted(signum)
@@ -548,6 +591,7 @@ def _main_tp(args, in_stream, out_stream) -> dict:
         resolve_device,
     )
 
+    _lock_discipline(args)
     info = initialize(resolve_device(args.device))
     try:
         if info.world_size != args.tp:
@@ -579,6 +623,7 @@ def main(argv=None, in_stream=None, out_stream=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.tp > 1:
         return _main_tp(args, in_stream, out_stream)
+    _lock_discipline(args)
     server, tok = build_server(args)
     return _serve(args, server, tok, in_stream, out_stream)
 

@@ -13,9 +13,8 @@ thread into a queue of ``depth`` batches: while step ``i`` runs, batches
   the batches queued before it.
 - ``close()`` stops the worker, drains the queue, joins the thread and
   closes the inner stream on the worker (the C++ engine releases its
-  slots there); it runs once, under a plain ``threading.Lock`` (JAX takes
-  an instrumented lock of its ``analysis/`` package, which the port does
-  not have).
+  slots there); it runs once, under the registry's
+  ``data.prefetch.close`` lock (``analysis/concurrency``).
 - On a card the worker makes its copies on a side stream it enters on its
   own thread (the current stream is per thread) and records an event
   after each batch; the consumer makes its current stream wait for that
@@ -44,6 +43,7 @@ from typing import Iterator
 
 import torch
 
+from pytorch_distributed_training_tpu_torch.analysis import concurrency
 from pytorch_distributed_training_tpu_torch.telemetry.registry import (
     get_registry,
 )
@@ -69,7 +69,7 @@ class PrefetchingIterator:
         self._stop = threading.Event()
         self._finished = False  # the consumer saw _DONE or _ERROR
         # close() may race itself (the trainer's finally and __del__)
-        self._close_lock = threading.Lock()
+        self._close_lock = concurrency.lock("data.prefetch.close")
         self._closed = False
         self.last_occupancy = 0
         self.last_wait_s = 0.0

@@ -1,51 +1,41 @@
 """Continuous-batching inference (counterpart: the JAX package's
 ``serve/``): paged decode engine, admission queue and brownout ladder,
-prefix cache, stdio and HTTP front ends, live weight hot-swap, and the
-followers of a tensor-parallel replica. The fleet, router, autoscaler and
-traffic traces wait in ROADMAP.md (queue 1, item 7)."""
+prefix cache, stdio and HTTP front ends, live weight hot-swap, the
+followers of a tensor-parallel replica, and the serving fleet — the
+health-checked router (``router``), the supervised replica pool and its
+rolling swap (``fleet``), the autoscaler (``autoscale``) and seeded
+open-loop traffic traces (``trace``).
 
-from pytorch_distributed_training_tpu_torch.serve.engine import (
-    DecodeEngine,
-    EngineConfig,
-)
-from pytorch_distributed_training_tpu_torch.serve.hotswap import (
-    CheckpointWatcher,
-    HotSwapManager,
-    publish_params_checkpoint,
-)
-from pytorch_distributed_training_tpu_torch.serve.prefix_cache import (
-    PrefixCache,
-    PrefixMatch,
-)
-from pytorch_distributed_training_tpu_torch.serve.queue import (
-    BackpressureError,
-    BrownoutController,
-    GenRequest,
-    RequestQueue,
-)
-from pytorch_distributed_training_tpu_torch.serve.server import (
-    InferenceServer,
-    make_http_server,
-    serve_stdio,
-)
-from pytorch_distributed_training_tpu_torch.serve.tp_worker import (
-    run_follower,
-)
+This ``__init__`` is lazy (PEP 562): the fleet's coordinator process
+imports ``serve.router``/``serve.fleet`` and must not pay for torch and
+the engine, which the names below pull in only when asked for."""
 
-__all__ = [
-    "BackpressureError",
-    "BrownoutController",
-    "CheckpointWatcher",
-    "DecodeEngine",
-    "EngineConfig",
-    "GenRequest",
-    "HotSwapManager",
-    "InferenceServer",
-    "PrefixCache",
-    "PrefixMatch",
-    "RequestQueue",
-    "make_http_server",
-    "publish_params_checkpoint",
-    "run_follower",
-    "serve_stdio",
-]
+import importlib
+
+_LAZY = {
+    "BackpressureError": "queue",
+    "BrownoutController": "queue",
+    "CheckpointWatcher": "hotswap",
+    "DecodeEngine": "engine",
+    "EngineConfig": "engine",
+    "GenRequest": "queue",
+    "HotSwapManager": "hotswap",
+    "InferenceServer": "server",
+    "PrefixCache": "prefix_cache",
+    "PrefixMatch": "prefix_cache",
+    "RequestQueue": "queue",
+    "make_http_server": "server",
+    "publish_params_checkpoint": "hotswap",
+    "run_follower": "tp_worker",
+    "serve_stdio": "server",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+    return getattr(module, name)

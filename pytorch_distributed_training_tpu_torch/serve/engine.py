@@ -138,6 +138,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pytorch_distributed_training_tpu_torch.analysis import concurrency
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     all_ranks_ok,
     broadcast_call,
@@ -387,7 +388,7 @@ class _PendingSwap:
     engine's only state shared across threads, behind its own lock."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = concurrency.lock("serve.engine.swap")
         self._item = None
 
     def put(self, item) -> None:

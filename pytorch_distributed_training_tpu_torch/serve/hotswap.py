@@ -40,6 +40,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from pytorch_distributed_training_tpu_torch.analysis import concurrency
 from pytorch_distributed_training_tpu_torch.faults.inject import get_plan
 from pytorch_distributed_training_tpu_torch.telemetry.registry import (
     get_registry,
@@ -143,7 +144,7 @@ class CheckpointWatcher:
         # (poll_once is the synchronous entry; the manager's stats() reads
         # current_step/blocklist live) — the lock covers mutations and
         # snapshots, never the apply_fn call
-        self._lock = threading.Lock()
+        self._lock = concurrency.lock("serve.hotswap.watcher")
         self.current_step: Optional[int] = start_step
         self.blocklist: set[int] = set()
         self._digests: dict[int, str] = {}
@@ -373,7 +374,7 @@ class HotSwapManager:
         self._registry = registry if registry is not None else get_registry()
         # serializes swap_to against the local watcher and POST /swap (a
         # swap holds it for its whole load and apply)
-        self._lock = threading.Lock()
+        self._lock = concurrency.lock("serve.hotswap.manager")
         self.attempts = 0
         self.failures = 0
         # advertised on /healthz while a load and apply is in flight: the

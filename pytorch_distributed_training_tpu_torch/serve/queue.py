@@ -38,6 +38,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from pytorch_distributed_training_tpu_torch.analysis import concurrency
+
 
 class BackpressureError(RuntimeError):
     """The queue is at ``max_depth``: resubmit later."""
@@ -176,7 +178,7 @@ class RequestQueue:
         self._schedule = tuple(tier for tier in TIERS
                                for _ in range(self.tier_weights[tier]))
         self._cursor = 0
-        self._lock = threading.Lock()
+        self._lock = concurrency.lock("serve.queue")
         self._work = threading.Condition(self._lock)
         self._closed = False
 
@@ -414,7 +416,7 @@ class BrownoutController:
         self.deescalations = 0
         self._above_t: Optional[float] = None
         self._below_t: Optional[float] = None
-        self._lock = threading.Lock()
+        self._lock = concurrency.lock("serve.brownout")
 
     # ------------------------------------------------------------- observe
 

@@ -15,15 +15,16 @@ goes wrong:
 - **on demand**: ``GET /debug/flight`` on a live replica.
 
 The engine thread writes; the watchdog monitor, HTTP handler threads and
-the drain thread dump; the ring sits behind a plain lock.
+the drain thread dump; the ring sits behind the registry's
+``telemetry.flight`` lock (``analysis/concurrency``).
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 
+from pytorch_distributed_training_tpu_torch.analysis import concurrency
 from pytorch_distributed_training_tpu_torch.telemetry.registry import (
     get_registry,
 )
@@ -52,7 +53,7 @@ class FlightRecorder:
         self.component = component
         self.capacity = capacity
         # engine thread records; watchdog/HTTP/drain threads dump
-        self._lock = threading.Lock()
+        self._lock = concurrency.lock("telemetry.flight")
         self._ring: deque = deque(maxlen=capacity)
         self._seq = 0
         self.recorded = 0
@@ -113,7 +114,7 @@ class FlightRecorder:
 # live ring in the process without plumbing.
 
 _registered: list = []
-_reg_lock = threading.Lock()
+_reg_lock = concurrency.lock("telemetry.flight.registry")
 
 
 def register(recorder: FlightRecorder) -> FlightRecorder:

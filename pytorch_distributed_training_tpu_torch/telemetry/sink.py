@@ -21,9 +21,10 @@ The record types and keys are the JAX package's, so
 
 Every record gains a ``ts`` wall-clock field at write time. The file
 opens in append mode: a supervised restart continues the same stream,
-with a fresh ``run_meta`` marking the attempt. The JAX sink registers its
-lock with ``analysis.concurrency`` (ROADMAP.md, queue 1, item 7); this one
-is a plain lock.
+with a fresh ``run_meta`` marking the attempt. The sink's lock is the
+registry's ``telemetry.sink`` (``analysis/concurrency``). Importing the
+module costs no torch (the fleet's coordinator writes through it);
+``run_metadata`` imports it when called.
 """
 
 from __future__ import annotations
@@ -31,13 +32,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import threading
 import time
 from typing import Any
 
-import torch
-import torch.distributed as dist
-
+from pytorch_distributed_training_tpu_torch.analysis import concurrency
 from pytorch_distributed_training_tpu_torch.utils.logging import current_rank
 
 
@@ -65,7 +63,7 @@ class JsonlSink:
         self._file = None
         # a lock keeps each line whole when several threads emit (the
         # watchdog's monitor beside the train loop)
-        self._lock = threading.Lock()
+        self._lock = concurrency.lock("telemetry.sink")
         self.path = os.path.join(os.path.abspath(metrics_dir), filename)
         if pidx == 0:
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
@@ -108,6 +106,9 @@ def run_metadata(mesh, device: torch.device, model_config=None,
                  train_config=None, **extra) -> dict:
     """The ``run_meta`` header record of a run on ``mesh`` (the port's
     ``comms/mesh.Mesh``) and ``device``."""
+    import torch
+    import torch.distributed as dist
+
     world = (dist.get_world_size() if dist.is_available()
              and dist.is_initialized() else 1)
     rec = {

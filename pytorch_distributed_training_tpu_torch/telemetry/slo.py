@@ -19,18 +19,19 @@ Two good ratios are tracked per tier:
 ``emit_interval_s``) and a ``slo/max_burn`` gauge. The brownout
 controller takes the monitor as an optional input (``slo_burn_high``,
 off by default). The clock is an argument (``now_fn``), so tests drive
-the windows without sleeping. Events sit behind a plain lock: the engine
-thread and HTTP threads observe at once.
+the windows without sleeping. Events sit behind the registry's
+``telemetry.slo`` lock: the engine thread and HTTP threads observe at
+once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from collections import deque
 from typing import Optional
 
+from pytorch_distributed_training_tpu_torch.analysis import concurrency
 from pytorch_distributed_training_tpu_torch.telemetry.registry import (
     get_registry,
 )
@@ -91,7 +92,7 @@ class BurnRateMonitor:
         self._now = now_fn if now_fn is not None else time.monotonic
         # events arrive from the engine thread and HTTP handler threads at
         # once
-        self._lock = threading.Lock()
+        self._lock = concurrency.lock("telemetry.slo")
         # per tier: deque of (t, deadline_met: bool|None, available: bool)
         self._events: dict[str, deque] = {t: deque() for t in self.tiers}
         self._last_emit_t: Optional[float] = None

@@ -19,19 +19,19 @@ port's stream).
   touched. Router side: ``request`` -> ``attempt`` -> ``hedge``.
 
 ``Tracer`` is thread-safe (front-end threads begin what the engine thread
-ends); its id counter sits behind a plain lock (JAX's named-lock registry
-comes with ROADMAP.md queue 1, item 7).
+ends); its id counter sits behind the registry's ``telemetry.spans``
+lock (``analysis/concurrency``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
 import time
 import uuid
 from typing import Optional
 
+from pytorch_distributed_training_tpu_torch.analysis import concurrency
 from pytorch_distributed_training_tpu_torch.telemetry.registry import (
     get_registry,
 )
@@ -90,7 +90,7 @@ class Tracer:
         self._wall = wall_fn if wall_fn is not None else time.time
         # begin() is called from front-end threads while end() runs on the
         # engine thread: the id counter is the shared state
-        self._lock = threading.Lock()
+        self._lock = concurrency.lock("telemetry.spans")
         self._prefix = uuid.uuid4().hex[:6]
         self._seq = 0
         self.emitted = 0

@@ -6,6 +6,9 @@ held past their ring slot's release keep their values; the library's
 build, the engine's errors, and the trainer's engine choice, on the
 CPU."""
 
+import os
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,7 @@ from pytorch_distributed_training_tpu.data.native_loader import (
 from pytorch_distributed_training_tpu.data.pipeline import (
     ShardedLoader as JaxShardedLoader,
 )
+from pytorch_distributed_training_tpu import native as jax_native
 from pytorch_distributed_training_tpu.native import (
     native_available as jax_native_available,
 )
@@ -49,6 +53,35 @@ def _dataset(n=64, seq=8, seed=0):
     }
 
 
+def jax_native_lib(name: str) -> bool:
+    """Whether JAX's native library ``name`` ("batcher" or "wordpiece")
+    loads in this process. JAX's loader builds straight onto the final
+    path and caches a failed load for the whole process, so a test worker
+    that finds the file while another process's ``g++`` is still writing
+    it sees no library. After a failed load: wait until the file stops
+    changing (size and mtime the same 1 s apart, at most 120 s), drop the
+    cached failure for that one name, and load again."""
+    load = {"batcher": jax_native.load_batcher_lib,
+            "wordpiece": jax_native.load_wordpiece_lib}[name]
+    if load() is not None:
+        return True
+    path = os.path.join(jax_native._BUILD_DIR, f"lib{name}.so")
+    deadline = time.monotonic() + 120.0
+    seen = ()
+    while time.monotonic() < deadline:
+        try:
+            st = os.stat(path)
+            now = (st.st_size, st.st_mtime_ns)
+        except FileNotFoundError:
+            now = None
+        if now == seen:
+            break
+        seen = now
+        time.sleep(1.0)
+    jax_native._libs.pop(name, None)
+    return load() is not None
+
+
 def test_library_builds_into_the_package_build_dir():
     assert native.native_available(), native.BUILD_ERRORS
     path = native.lib_path("batcher")
@@ -62,6 +95,7 @@ def test_native_engine_matches_jax_loaders_batch_for_batch(train,
                                                            eight_devices):
     # 44 rows: eval pads its last batch of 16 (12 valid); train drops the
     # ragged tail (2 steps of 16 at accumulation 2)
+    assert jax_native_lib("batcher"), dict(jax_native._libs)
     assert jax_native_available()
     data = _dataset(n=44)
     kw = dict(global_batch_size=16, grad_accum_steps=2, train=train, seed=3)

@@ -28,6 +28,7 @@ from pytorch_distributed_training_tpu_torch.data.tokenizer import (
     WordPieceTokenizer,
     encode_pairs,
 )
+from test_torch_native_loader import jax_native, jax_native_lib
 
 
 def _check(vocab, a, b, max_length):
@@ -35,6 +36,7 @@ def _check(vocab, a, b, max_length):
     and Python encoders'."""
     got = NativeWordPieceEncoder(vocab)
     out = got.encode_pairs(a, b, max_length=max_length)
+    assert jax_native_lib("wordpiece"), dict(jax_native._libs)
     jax_nat = JaxNativeWordPieceEncoder(vocab)
     wants = [encode_pairs(WordPieceTokenizer(vocab), a, b,
                           max_length=max_length),

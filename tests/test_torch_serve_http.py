@@ -502,7 +502,9 @@ def test_serve_lm_stdio_metrics_stream(tmp_path):
     spec.loader.exec_module(mod)
     records = mod.load_records(str(mdir))
     kinds = [r["record"] for r in records]
-    assert kinds[0] == "serve_meta" and kinds[-1] == "serve_summary"
+    # JAX's order at exit: the engine's summary, then the lock registry's
+    assert kinds[0] == "serve_meta" and kinds[-2:] == ["serve_summary",
+                                                       "lock_summary"]
     assert kinds.count("serve_request") == 2 and "span" in kinds
     summary = mod.summarize(records)
     assert summary["serve"]["done"] == 2 and summary["serve"]["tokens"] == 6
@@ -621,4 +623,5 @@ def test_serve_lm_subprocess_drain_and_replica_faults(tmp_path):
     assert any(r["record"] == "preemption" and r["scope"] == "serve"
                for r in records)
     assert records[0]["record"] == "serve_meta"
-    assert records[-1]["record"] == "serve_summary"
+    assert [r["record"] for r in records[-2:]] == ["serve_summary",
+                                                   "lock_summary"]

@@ -348,10 +348,13 @@ def test_watchdog_stall_dumps_flight_with_stalled_tick(lms):
         warm = server.submit(_prompts([4], seed=1)[0], max_new_tokens=12)
         assert wait_until(warm.done.is_set, timeout=120)
         hang_tick = server.engine.busy_ticks + 3
-        wd = watchdog.Watchdog(stall_factor=5.0, min_stall_s=0.1,
+        # the margin between an ordinary eager CPU tick (which can pass
+        # 0.1 s on a loaded host) and the injected hang: a 1 s floor
+        # under a 3 s hang
+        wd = watchdog.Watchdog(stall_factor=5.0, min_stall_s=1.0,
                                hard_timeout_s=0)
         watchdog.set_watchdog(wd)
-        set_plan(FaultPlan.parse(f"replica_hang:{hang_tick}:1.0"))
+        set_plan(FaultPlan.parse(f"replica_hang:{hang_tick}:3.0"))
         req = server.submit(_prompts([4], seed=2)[0], max_new_tokens=8)
         assert wait_until(req.done.is_set, timeout=120)
         assert req.status == "done"
