@@ -204,15 +204,23 @@ the JAX package), in phases that each raise on failure:
    ``--weights-dtype int8`` alone, each counted (the int8-pool kernels
    only) and checked against a full-sequence forward on the same
    dequantized weights; one decode dispatch of the float and the int8
-   engine, its kernels counted and its host time taken in turns; then
-   ``serve-tp``: ``serve_lm --tp 2``, plain and with int8 weights and KV,
+   engine, its kernels counted and its host time taken in turns; on the
+   float engine a dispatch at a shape its warm-up did not see raising
+   ``RecompileError``, a sync inside an armed ``transfer_scope`` raising
+   ``TransferGuardError`` and the same sync on another thread neither
+   raising nor counted, then the dispatch timed with the runtime guards
+   ``off`` and in ``record`` mode in turns; then
+   ``serve-tp``: ``serve_lm --tp 2 --warmup``, plain and with int8
+   weights and KV,
    as two processes on the one card (each makes its own gloo group, as
    NCCL takes one rank a device), the option runs' requests: rank 0's
    streams (counted against tp=1's, and checked against the
    full-sequence forward with the others), ``stats()["tp"]``, the page
    count of tp=1, 8 heads in each rank's pools, each rank's launches
-   against the leader's dispatch counts, the follower's calls, both
-   exits 0; ``serve-dense-host``: ``serve_lm --kv-layout dense --sampling
+   against the leader's dispatch counts (the warm-up's added), the
+   follower's calls, each rank's collective audit of the decode step (2 x
+   24 all-reduces, clean against ``serve_tp_manifest``), both exits 0;
+   ``serve-dense-host``: ``serve_lm --kv-layout dense --sampling
    host`` on the serve phase's prompts (kernel 1 only, counted; greedy
    streams through the margin gate) and one fixed-seed sampled request,
    the same through the dense layout with device sampling and through
@@ -265,6 +273,14 @@ the JAX package), in phases that each raise on failure:
    record. Prints the boot seconds, TTFT p50 through the router beside
    the serve phase's, replica 0's first TTFT without ``--warmup``,
    requests/s and the seconds to recovery.
+
+The runtime guards (``analysis/guards.py``) run strict in every
+``serve_lm`` run, which must end with 0 recompiles and 0 implicit
+transfers, and in the train phases' runs (``strict_guards``), which also
+show the warm start's ``compile`` record and their sharding and
+first-step collective audits ok; lm-fsdp shows its audits, and
+telemetry-faults the records' order (the audits and the ``compile``
+record before the first step).
 
 Prints one ``kernels`` JSON line (18 kernels; kernel 5's mask-only mode,
 ``mask_scale``, is on no main path since its apply mode,
@@ -1447,7 +1463,19 @@ def serve_once(argv, prompts, new_tokens, extra=()):
     wall = time.perf_counter() - t0
     counts = dict(_build.LAUNCH_COUNTS)
     events = [json.loads(line) for line in out.getvalue().splitlines()]
+    check_serve_guards(" ".join(argv), stats)
     return events, stats, counts, wall
+
+
+def check_serve_guards(what, stats) -> None:
+    """A serve_lm run under its default strict guards: no recompile and no
+    implicit transfer after each program's warm-up (a violation would
+    have failed the loop), and a warmed engine's collective audit ok."""
+    got = (stats["guard_mode"], stats["guard_recompiles"],
+           stats["guard_implicit_transfers"])
+    audit = stats["comm_audit"]
+    if got != ("strict", 0, 0) or (audit is not None and not audit["ok"]):
+        raise AssertionError(f"{what}: guards {got}, audit {audit}")
 
 
 def streams(events, prompts, new_tokens, extra=()) -> dict:
@@ -1504,7 +1532,9 @@ def serve_phase(argv=SERVE_ARGS, prompts=PROMPTS, new_tokens=NEW_TOKENS,
     )
     cold = dict(requests=len(prompts), new_tokens=new_tokens,
                 **serve_metrics(events, stats, wall), peak_mem_bytes=peak,
-                launches=counts)
+                launches=counts, guards=[stats[k] for k in (
+                    "guard_mode", "guard_recompiles",
+                    "guard_implicit_transfers")])
     say("[serve] cold run: " + json.dumps(cold))
 
     events, stats, _, wall = serve_once(argv, prompts, new_tokens)
@@ -1514,6 +1544,21 @@ def serve_phase(argv=SERVE_ARGS, prompts=PROMPTS, new_tokens=NEW_TOKENS,
     say("[serve] warm run: " + json.dumps(warm))
     say("[serve] greedy streams identical across two runs")
     return dict(cold, warm=warm, streams=toks)
+
+
+def with_warmup(stats) -> dict:
+    """``stats`` with the warm-up's dispatches (``warmup_dispatches``, by
+    program) added to the dispatch counts the launch formulas read."""
+    w = stats["warmup_dispatches"]
+    verify = w.get("serve_verify", 0)
+    return dict(
+        stats,
+        prefill_dispatches=stats["prefill_dispatches"] + sum(
+            n for k, n in w.items() if k.startswith("serve_prefill_b")),
+        prefill_chunks=stats["prefill_chunks"] + w.get("serve_chunk", 0),
+        decode_dispatches=(stats["decode_dispatches"] + verify
+                           + w.get("serve_decode", 0)),
+        spec_dispatches=stats["spec_dispatches"] + verify)
 
 
 def serve_option_launches(stats, n_layers) -> dict:
@@ -1793,7 +1838,11 @@ def tick_phase(reps=20) -> dict:
     the serve contexts, with float and with int8 weights and pools: the
     kernels of one dispatch (``torch.profiler`` over that dispatch alone)
     and its host ms, the two engines alternated in one call (float, int8,
-    int8, float; ``reps`` dispatches each time)."""
+    int8, float; ``reps`` dispatches each time). Then on the float engine
+    (serve_lm's default strict guards) the forced violations
+    (``forced_violations``) and the guards' cost: the same dispatch, each
+    inside the tick's ``transfer_scope``, with the guards ``off`` and in
+    ``record`` mode, alternated in one call (off, record, record, off)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1836,7 +1885,87 @@ def tick_phase(reps=20) -> dict:
     res["kernels_added_by_int8"] = res["kernels_int8"] - res["kernels_float"]
     for k in ("float", "int8", "int8", "float"):
         res.setdefault(f"tick_ms_{k}", []).append(tick_ms(engines[k]))
+    engine = engines["float"]
+    res["forced"] = forced_violations(engine)
+    guards = engine._guards
+
+    def guarded_ms(mode):
+        guards.mode = mode
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                with guards.transfer_scope("serve_tick"):
+                    engine._decode(*args)
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    before = guards.violations
+    for mode in ("off", "record", "record", "off"):
+        res.setdefault(f"guards_ms_{mode}", []).append(guarded_ms(mode))
+    guards.mode = "strict"
+    if guards.violations != before:
+        raise AssertionError(f"serve-tick: {guards.violations - before} "
+                             f"violations in the record turns")
     say("[serve-tick] " + json.dumps(res))
+    return res
+
+
+def forced_violations(engine) -> dict:
+    """On a warm engine under strict guards: a decode dispatch at a shape
+    its warm-up did not see raises ``RecompileError`` (before it runs); a
+    synchronizing call inside an armed ``transfer_scope`` raises
+    ``TransferGuardError``; the same call on another thread while the
+    scope is armed neither raises nor counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_training_tpu_torch.analysis.guards import (
+        RecompileError,
+        TransferGuardError,
+    )
+
+    guards, res = engine._guards, {}
+    if guards.mode != "strict" or not engine._programs["serve_decode"].warm:
+        raise AssertionError(f"forced: guards {guards.mode}, decode warm "
+                             f"{engine._programs['serve_decode'].warm}")
+    slots, width = engine.config.num_slots, engine.config.pages_per_slot
+    n0 = (guards.recompile_violations, guards.transfer_violations)
+    with torch.inference_mode():
+        try:
+            engine._forward(np.ones((slots + 1, 1), np.int64),
+                            np.ones((slots + 1, 1), np.int64),
+                            np.zeros((slots + 1, width), np.int32),
+                            np.zeros(slots + 1, np.int32),
+                            program="serve_decode")
+        except RecompileError as e:
+            res["recompile"] = str(e).split(" — ")[0]
+        x = torch.ones(4, device="cuda")
+        try:
+            with guards.transfer_scope("forced"):
+                x.sum().item()
+        except TransferGuardError as e:
+            res["transfer"] = str(e).splitlines()[0][:120]
+        n1 = (guards.recompile_violations, guards.transfer_violations)
+        other = []
+
+        def on_another_thread():
+            try:
+                other.append(x.sum().item())
+            except Exception as e:  # noqa: BLE001 - reported below
+                other.append(repr(e))
+
+        with guards.transfer_scope("forced"), ThreadPoolExecutor(1) as pool:
+            pool.submit(on_another_thread).result(timeout=60)
+    res["other_thread"] = other
+    if ("recompile" not in res or "transfer" not in res
+            or n1 != (n0[0] + 1, n0[1] + 1) or other != [4.0]
+            or (guards.recompile_violations,
+                guards.transfer_violations) != n1):
+        raise AssertionError(f"forced violations: {res}, counts {n0} -> "
+                             f"{n1}")
+    say("[serve-tick] forced violations raise on the armed thread only: "
+        + json.dumps(res))
     return res
 
 
@@ -2863,6 +2992,42 @@ def check_branches_differ(start: dict, n_branches: int) -> None:
 
 
 @contextlib.contextmanager
+def strict_guards():
+    """``PDT_TPU_GUARDS=strict`` inside: the trainer's runtime guards raise
+    on a recompile or an implicit transfer (``analysis/guards.py``)."""
+    prev = os.environ.get("PDT_TPU_GUARDS")
+    os.environ["PDT_TPU_GUARDS"] = "strict"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("PDT_TPU_GUARDS")
+        else:
+            os.environ["PDT_TPU_GUARDS"] = prev
+
+
+def check_train_guards(what, trainer, audits=True) -> dict:
+    """The trainer ran under strict guards with no violation, its warm
+    start's ``compile`` record made before its first step, and (``audits``)
+    its sharding and first-step collective audits ok."""
+    g = trainer.guards
+    got = dict(mode=g.mode, recompiles=g.recompile_violations,
+               implicit_transfers=g.transfer_violations,
+               calls={k: v.calls for k, v in g.wrapped.items()},
+               compile=trainer.compile_record)
+    bad = (g.mode != "strict" or g.violations
+           or trainer.compile_record is None)
+    if audits:
+        got.update(sharding_ok=trainer.sharding_record["ok"],
+                   comm_ok=trainer.comm_record["ok"],
+                   comm_count=trainer.comm_record["count"])
+        bad = bad or not (got["sharding_ok"] and got["comm_ok"])
+    if bad:
+        raise AssertionError(f"{what}: guards {got}")
+    return got
+
+
+@contextlib.contextmanager
 def no_mask_tensor(what):
     """Fails when the plain mask-scale is made inside: on the card every
     dropout site applies its mask in the kernel's one pass (and the
@@ -2955,9 +3120,10 @@ def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train",
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    with no_mask_tensor(f"{tag} run"):
+    with no_mask_tensor(f"{tag} run"), strict_guards():
         trainer, counts, wall = train_once(argv + NATIVE_ON, cli)
     peak = torch.cuda.max_memory_allocated()
+    guards = check_train_guards(f"{tag} run", trainer)
     tc, mc = trainer.tcfg, trainer.mcfg
     branches = getattr(trainer.state.module, "n_branches", 1)
     check_launches(
@@ -2982,10 +3148,12 @@ def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train",
     torch.cuda.empty_cache()
     cold.update(peak_mem_bytes=peak, launches=counts,
                 layers=mc.num_layers, hidden=mc.hidden_size,
-                branches=branches)
+                branches=branches, guards=guards)
     say(f"[{tag}] cold run: " + json.dumps(cold))
-    trainer, _, wall = train_once(argv + PYTHON_LOADER, cli)
+    with strict_guards():
+        trainer, _, wall = train_once(argv + PYTHON_LOADER, cli)
     warm = train_metrics(trainer, wall)
+    warm["guards"] = check_train_guards(f"{tag} warm run", trainer)
     # the eval alone once more, timed: the profile's busy share needs the
     # warm run's device-side seconds (steps + eval)
     torch.cuda.synchronize()
@@ -3222,15 +3390,21 @@ def telemetry_faults_phase(root: str, plain: dict,
     _free_cuda()
     recs = _summarize_metrics().load_records(mdir)
     kinds = [r["record"] for r in recs]
-    if kinds != ["run_meta", "step", "step", "epoch"] or not all(
-            r["device_block_s"] > 0 for r in recs if r["record"] == "step"):
-        raise AssertionError(f"telemetry stream: {kinds}")
+    # the guards' audits and the warm start's compile record before the
+    # first step (the default guards, record); no violation record
+    if kinds != ["run_meta", "sharding_audit", "compile", "comm_audit",
+                 "step", "step", "epoch"] or not all(
+            r["device_block_s"] > 0 and not r["compile_inclusive"]
+            for r in recs if r["record"] == "step") or not all(
+            r["ok"] for r in recs if r["record"].endswith("_audit")):
+        raise AssertionError(f"telemetry stream: {recs[:4]}")
     meta, epoch = recs[0], recs[-1]
     steps = [{k: r[k] for k in ("step", "data_wait_s", "dispatch_s",
                                 "device_block_s", "step_s",
                                 "compile_inclusive")}
              for r in recs if r["record"] == "step"]
     res = dict(ms_per_step=with_t["ms_per_step"],
+               compile=next(r for r in recs if r["record"] == "compile"),
                ms_per_step_without=plain["ms_per_step"],
                ratio=with_t["ms_per_step"] / plain["ms_per_step"],
                losses_equal=with_t["losses"] == plain["losses"],
@@ -4356,6 +4530,14 @@ def lm_fsdp_child(port: int) -> dict:
                                  f"{sharded[:5]}")
         tc, mc = trainer.tcfg, trainer.mcfg
         fsdp = run(trainer)
+        # the sharding audit after shard(), the first step's collective
+        # audit (one rank: nothing crosses), under the default guards
+        audits = dict(sharding=trainer.sharding_record,
+                      comm=trainer.comm_record,
+                      compile=trainer.compile_record)
+        if not (audits["sharding"]["ok"] and audits["comm"]["ok"]
+                and audits["compile"] is not None):
+            raise AssertionError(f"lm-fsdp: audits {audits}")
         check_launches(
             f"lm-fsdp run ({trainer.state.step} steps)", fsdp["launches"],
             expected_lm_launches(
@@ -4394,6 +4576,7 @@ def lm_fsdp_child(port: int) -> dict:
                              f"{collectives}")
     return dict(
         plain=plain, fsdp=fsdp, fsdp_size=LM_FSDP_SIZE, checkpoint=ckpt_res,
+        audits=audits,
         sharded_params=len(sharded), params=len(placements),
         max_rel_diff=max(abs(a - b) / abs(a) for a, b in zip(
             plain["losses"] + plain["grad_norms"],
@@ -4982,7 +5165,7 @@ def serve_tp_child(rank: int, ports: list, argv=SERVE_ARGS,
         buf = io.StringIO()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
-        stats = serve_lm.main(argv + flags + ["--tp", "2"],
+        stats = serve_lm.main(argv + flags + ["--tp", "2", "--warmup"],
                               in_stream=io.StringIO(text), out_stream=buf)
         out[name] = dict(stats=stats, launches=dict(_build.LAUNCH_COUNTS),
                          wall_s=time.perf_counter() - t0,
@@ -5065,14 +5248,24 @@ def serve_tp_phase(procs, plain_streams, int8_streams, argv=SERVE_ARGS,
                 or stats["kv_pages_total"] != pages
                 or not stats["kv_heads"] == fstats["kv_heads"] == heads // 2):
             raise AssertionError(f"{name}: stats {stats} follower {fstats}")
-        want = serve_option_launches(stats, n_layers)
+        # the warm-up's dispatches (--warmup: each bucket, a decode) count
+        want = serve_option_launches(with_warmup(stats), n_layers)
         for rank, r in ((0, leader), (1, follower)):
             check_launches(f"{name} rank {rank}", r["launches"], want)
         calls = (stats["prefill_dispatches"] + stats["prefill_chunks"]
-                 + stats["decode_dispatches"])
+                 + stats["decode_dispatches"]
+                 + sum(stats["warmup_dispatches"].values()))
         if fstats["calls"] != calls:
             raise AssertionError(f"{name}: follower ran {fstats['calls']} "
                                  f"calls, the leader dispatched {calls}")
+        # each rank's audit of the hot program's window: its 2 x 24
+        # row-parallel all-reduces, clean against serve_tp_manifest
+        audits = [r["stats"]["comm_audit"] for r in (leader, follower)]
+        check_serve_guards(f"{name} leader", stats)
+        if any(a is None or not a["ok"] or set(a["by_kind"]) != {
+                "all-reduce"} or a["by_kind"]["all-reduce"]["count"]
+                != 2 * n_layers for a in audits):
+            raise AssertionError(f"{name}: comm audits {audits}")
         m = dict(
             serve_metrics(leader["events"], stats, leader["wall_s"]),
             follower_wall_s=follower["wall_s"], calls=calls,
@@ -5082,6 +5275,8 @@ def serve_tp_phase(procs, plain_streams, int8_streams, argv=SERVE_ARGS,
             kv_bytes_per_token=stats["kv_bytes_per_token"],
             launches=leader["launches"],
             follower_launches=follower["launches"],
+            comm_audit={k: audits[0][k] for k in (
+                "ok", "count", "total_bytes", "total_moved_bytes")},
             streams_equal_tp1=sum(toks[r] == tp1[r][:new_tokens]
                                   for r in toks))
         say(f"[{name}] serve_lm --tp 2, two gloo processes on one card: "

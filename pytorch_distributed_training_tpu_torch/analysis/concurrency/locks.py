@@ -23,9 +23,9 @@ port's stream unchanged).
   - ``held_lock_names()`` and ``check_device_boundary`` let
     device-boundary code flag work dispatched **while holding a lock**
     (a kernel launch or a device-to-host copy under a lock serializes
-    every thread needing it behind the card); no caller yet — the
-    runtime guards that call it are still to be ported (ROADMAP.md,
-    queue 1, item 7b).
+    every thread needing it behind the card); the runtime guards
+    (``analysis/guards.py``) call it at every guarded call and
+    ``transfer_scope``.
 
 - ``summary_record()`` shapes the registry into one ``lock_summary``
   telemetry record (per-lock acquires/contention/wait/hold percentiles,
@@ -60,18 +60,6 @@ class LockOrderViolation(RuntimeError):
 def _mode_from_env(default: str = "record") -> str:
     mode = os.environ.get("PDT_TPU_GUARDS", default)
     return mode if mode in _MODES else default
-
-
-def guard_mode_from_env(default: str = "record") -> str:
-    """The guard mode ``PDT_TPU_GUARDS`` names (``default`` when unset);
-    a ValueError for any other word (JAX ``analysis/guards.py``'s
-    contract; it lives here until the runtime guards are ported)."""
-    mode = os.environ.get("PDT_TPU_GUARDS", default)
-    if mode not in _MODES:
-        raise ValueError(
-            f"PDT_TPU_GUARDS must be one of {_MODES}, got {mode!r}"
-        )
-    return mode
 
 
 _tls = threading.local()    # .held: list[str], .quiet: int (re-entrancy)

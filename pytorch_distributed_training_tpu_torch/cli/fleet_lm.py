@@ -28,7 +28,8 @@ time with no restart — a replica whose swap fails keeps its old weights
 (the router reports the resulting version skew) and a poisoned step is
 blocklisted, never retried (serve/hotswap.py). ``--max-replicas N`` turns
 on the autoscaler (serve/autoscale.py). ``--guards`` sets the lock
-registry's mode here and in every replica (``analysis/concurrency``).
+registry's mode here and in every replica (``analysis/concurrency``), and
+the replicas' runtime guards (``analysis/guards.py``).
 
 SIGTERM/SIGINT to THIS process drains the whole fleet: every replica
 stops admitting, finishes in-flight work and exits 75; the router goes
@@ -72,18 +73,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="replica sampling mode (see serve_lm)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel width per replica: each replica "
-                        "is one torch.distributed.run launch of this many "
-                        "ranks (forwarded as serve_lm --tp; one card a "
-                        "rank, gloo with --device cpu)")
+                        "is this many serve_lm ranks the fleet spawns, its "
+                        "exit status the leader's (forwarded as serve_lm "
+                        "--tp; one card a rank, gloo with --device cpu)")
     p.add_argument("--guards", default=None,
                    choices=("off", "record", "strict"),
-                   help="lock-discipline mode (analysis/concurrency), "
-                        "forwarded to every replica and applied to the "
-                        "coordinator's own locks: strict (default) fails "
-                        "on lock-order violations; --guards record is the "
-                        "telemetry-only opt-out; PDT_TPU_GUARDS overrides "
-                        "the default (the replicas' recompile and "
-                        "transfer counters are still to be ported)")
+                   help="runtime guard + lock-discipline mode, forwarded "
+                        "to every replica and applied to the coordinator's "
+                        "own locks: strict (default) fails on violations; "
+                        "--guards record is the telemetry-only opt-out; "
+                        "PDT_TPU_GUARDS overrides the default")
     p.add_argument("--lock-summary-s", type=float, default=0.0,
                    help="emit an in-run lock_summary record every this many "
                         "seconds from the coordinator AND every replica "

@@ -41,9 +41,11 @@ shape once before the first request; ``--interactive-deadline-s`` and
 ``serve_summary`` at exit; ``scripts/summarize_metrics.py`` reads it),
 ``--flight-capacity`` the flight recorder's ring, ``--slo-*`` the burn
 monitor, ``--replica-name`` the name on spans and flight records,
-``--guards`` the lock registry's mode (strict by default; a
-``lock_summary`` record at exit, and every ``--lock-summary-s``
-seconds). With ``--http-port`` the server answers HTTP
+``--guards`` the runtime guards' and the lock registry's mode (strict by
+default, as JAX's: a recompile, an implicit transfer or a lock-order
+inversion fails the serve loop; ``stats()`` carries ``guard_recompiles``
+and ``guard_implicit_transfers``; a ``lock_summary`` record at exit, and
+every ``--lock-summary-s`` seconds). With ``--http-port`` the server answers HTTP
 (``serve/server.py``); SIGTERM drains it (admit nothing, finish
 in-flight streams for up to
 ``--drain-timeout-s``, dump the flight recorder) and exits 75;
@@ -63,7 +65,10 @@ restart (``serve/hotswap.py``).
 ``--tp`` must equal the world size. Every rank builds the whole model from the
 same ``--seed`` (or loads the same checkpoint) and cuts its slice; rank 0, the leader, reads the requests on stdin and
 writes the events, and the other ranks run their slice of every device
-call (``serve/tp_worker.py``). Every rank exits 0 at EOF.
+call (``serve/tp_worker.py``). Every rank exits 0 at EOF. A follower
+ignores SIGTERM: the drain is the leader's (it finishes in-flight work,
+sends the stop message and exits 75), and the fleet's ``RankGroup``
+sends the signal to every rank.
 """
 
 from __future__ import annotations
@@ -244,27 +249,45 @@ def build_parser() -> argparse.ArgumentParser:
                         "records")
     p.add_argument("--guards", default=None,
                    choices=("off", "record", "strict"),
-                   help="lock-discipline mode (analysis/concurrency): "
-                        "strict (default) fails on a lock-order inversion; "
-                        "--guards record only emits telemetry (the rollout "
-                        "opt-out), off uses plain locks; PDT_TPU_GUARDS "
-                        "overrides the default. The engine's recompile and "
-                        "transfer counters (guard_recompiles, "
-                        "guard_implicit_transfers) are still to be ported")
+                   help="runtime correctness guards (analysis/guards.py) "
+                        "AND lock-discipline mode (analysis/concurrency): "
+                        "strict (default) fails the serve loop on "
+                        "recompile/implicit-transfer/lock-order "
+                        "violations; pass --guards record to only emit "
+                        "telemetry (the rollout opt-out), off to disable; "
+                        "PDT_TPU_GUARDS overrides the default")
     return p
 
 
-def _lock_discipline(args) -> None:
-    """Set the lock registry's mode from ``--guards`` (strict unless
-    ``PDT_TPU_GUARDS`` says otherwise), before any server or engine lock
-    is made, so ``off`` skips the instrumentation entirely."""
-    from pytorch_distributed_training_tpu_torch.analysis.concurrency import (
-        get_lock_registry,
+def _guard_mode(args) -> str:
+    """``--guards``, else ``PDT_TPU_GUARDS``, else strict (JAX's serve
+    default: violations fail the loop)."""
+    from pytorch_distributed_training_tpu_torch.analysis.guards import (
         guard_mode_from_env,
     )
 
-    get_lock_registry().mode = (
-        args.guards or guard_mode_from_env(default="strict"))
+    return args.guards or guard_mode_from_env(default="strict")
+
+
+def _lock_discipline(args) -> None:
+    """Set the lock registry's mode from ``--guards`` (``_guard_mode``),
+    before any server or engine lock is made, so ``off`` skips the
+    instrumentation entirely."""
+    from pytorch_distributed_training_tpu_torch.analysis.concurrency import (
+        get_lock_registry,
+    )
+
+    get_lock_registry().mode = _guard_mode(args)
+
+
+def _guards(args, registry=None):
+    """The ``GuardSet`` of ``--guards`` (``_guard_mode``) over
+    ``registry``, for the engine (or a follower's slice)."""
+    from pytorch_distributed_training_tpu_torch.analysis.guards import (
+        GuardSet,
+    )
+
+    return GuardSet(mode=_guard_mode(args), registry=registry)
 
 
 def engine_config(args):
@@ -430,7 +453,7 @@ def build_server(args, *, device=None, shard=None):
         tier_deadlines=tier_deadlines or None, brownout=brownout,
         registry=registry, stall_timeout_s=args.stall_timeout_s,
         shard=shard, weights_step=step, draft_model=draft, slo=slo,
-        replica_name=args.replica_name,
+        replica_name=args.replica_name, guards=_guards(args, registry),
     )
     return server, tok
 
@@ -570,6 +593,16 @@ def _serve(args, server, tok, in_stream, out_stream) -> dict:
     return stats
 
 
+def _follow_drain() -> None:
+    """A follower's SIGTERM: ignored, so the leader's drain can still run
+    its last calls here; the leader's stop message ends the follower."""
+    import signal
+    import threading
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+
+
 def _main_tp(args, in_stream, out_stream) -> dict:
     """``--tp N``: join the launcher's process group, one model group of N
     ranks; rank 0 serves stdio as the leader, the others follow until its
@@ -602,10 +635,11 @@ def _main_tp(args, in_stream, out_stream) -> dict:
                            rank=info.rank,
                            world_size=info.world_size).shard("model")
         if shard.index:
+            _follow_drain()
             model, _, _, draft = _model(args)
             return run_follower(model, engine_config(args),
                                 device=info.device, shard=shard,
-                                draft_model=draft)
+                                draft_model=draft, guards=_guards(args))
         try:
             server, tok = build_server(args, device=info.device, shard=shard)
         except BaseException:

@@ -62,6 +62,18 @@ averages the rest (FSDP's replicated parameters) over the batch group.
   broadcasts a call over the model group, on the device under NCCL and on
   the host under gloo; ``all_ranks_ok``, the group's vote that a weight
   swap installs on every rank or none.
+
+The copies these make on purpose — the control channel's uploads and
+readbacks, gloo's host staging of a card's tensors — are explicit
+transfers (``analysis/guards.explicit_transfer``): the runtime guards'
+implicit-transfer detector does not count them. A card's tensor reduced
+or broadcast under gloo (several processes sharing one card) is staged
+through pinned host memory on the calling thread (``all_reduce_``,
+``_broadcast_``: an asynchronous copy out, a wait on a CUDA event, the
+collective on the host copy, an asynchronous copy back), gloo's own
+staging and bits: left to gloo, it synchronizes the card's stream on a
+worker thread, where torch's sync debug mode, while a guarded region is
+armed, reports it through c10's handler to stderr on every call.
 """
 
 from __future__ import annotations
@@ -72,16 +84,60 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pytorch_distributed_training_tpu_torch.analysis.guards import (
+    explicit_transfer,
+)
+
 
 def _size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
+
+
+def _via_host(device, group=None) -> bool:
+    """Whether a tensor on ``device`` travels through host memory: a CUDA
+    tensor under gloo."""
+    return (torch.device(device).type == "cuda"
+            and dist.get_backend(group) == "gloo")
+
+
+def _staged(t: torch.Tensor, collective) -> torch.Tensor:
+    """Run ``collective`` on a pinned host copy of the card's tensor ``t``
+    and copy the result back into ``t`` (both copies asynchronous on the
+    current stream, the first waited for on an event); ``t``."""
+    with explicit_transfer():
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+    collective(host)
+    return t.copy_(host, non_blocking=True)
+
+
+def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
+                group=None) -> torch.Tensor:
+    """``dist.all_reduce`` of ``t`` in place over ``group``; a card's
+    tensor under gloo staged on this thread (``_staged``); ``t``."""
+    if not _via_host(t.device, group):
+        dist.all_reduce(t, op=op, group=group)
+        return t
+    return _staged(t, lambda h: dist.all_reduce(h, op=op, group=group))
+
+
+def _broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``dist.broadcast`` of ``t`` in place from rank ``src``, a card's
+    tensor under gloo staged as ``all_reduce_`` stages it; ``t``."""
+    if not _via_host(t.device, group):
+        dist.broadcast(t, src, group=group)
+        return t
+    return _staged(t, lambda h: dist.broadcast(h, src, group=group))
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over ``group`` (a copy; ``t`` is left as it is)."""
     out = t.clone()
     if _size(group) > 1:
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        all_reduce_(out, dist.ReduceOp.SUM, group)
     return out
 
 
@@ -95,7 +151,7 @@ def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
     """The elementwise max of ``t`` over ``group``, in place; ``t``. A
     no-op when the group is None or of one rank."""
     if _size(group) > 1:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        all_reduce_(t, dist.ReduceOp.MAX, group)
     return t
 
 
@@ -105,7 +161,7 @@ def average_(tensors: list, group=None) -> None:
     if _size(group) == 1 or not tensors:
         return
     flat = torch._utils._flatten_dense_tensors(tensors)
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    all_reduce_(flat, dist.ReduceOp.SUM, group)
     flat /= _size(group)
     for t, avg in zip(tensors, torch._utils._unflatten_dense_tensors(
             flat, tensors)):
@@ -142,8 +198,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
+        return all_reduce_(out, dist.ReduceOp.SUM, group)
 
     @staticmethod
     def backward(ctx, dy):
@@ -159,8 +214,7 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         dx = dy.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(dx, op=dist.ReduceOp.SUM, group=ctx.group)
-        return dx, None
+        return all_reduce_(dx, dist.ReduceOp.SUM, ctx.group), None
 
 
 def reduce_from_model(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -183,22 +237,17 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.detach().contiguous().view(_WIRE[t.element_size()])
 
 
-def _via_host(device, group=None) -> bool:
-    """Whether a tensor on ``device`` travels point to point through host
-    memory: a CUDA tensor under gloo."""
-    return (torch.device(device).type == "cuda"
-            and dist.get_backend(group) == "gloo")
-
-
 def _send(t: torch.Tensor, dst: int) -> None:
-    dist.send(_wire(t.cpu() if _via_host(t.device) else t), dst)
+    with explicit_transfer():
+        dist.send(_wire(t.cpu() if _via_host(t.device) else t), dst)
 
 
 def _recv(shape, dtype, device, src: int) -> torch.Tensor:
     host = _via_host(device)
     buf = torch.empty(shape, dtype=dtype, device="cpu" if host else device)
     dist.recv(buf.view(_WIRE[buf.element_size()]), src)
-    return buf.to(device) if host else buf
+    with explicit_transfer():
+        return buf.to(device) if host else buf
 
 
 class _StageSend(torch.autograd.Function):
@@ -245,9 +294,10 @@ def exchange(sends=(), recvs=(), group=None) -> list[torch.Tensor]:
     dtype, device, src)`` of ``recvs`` (global ranks, over ``group``, None
     the default group), all posted in one batch and waited for; returns
     the received tensors in the order of ``recvs``."""
-    ops = [dist.P2POp(dist.isend,
-                      _wire(t.cpu() if _via_host(t.device, group) else t),
-                      dst, group) for t, dst in sends]
+    with explicit_transfer():
+        ops = [dist.P2POp(dist.isend, _wire(
+            t.cpu() if _via_host(t.device, group) else t), dst, group)
+            for t, dst in sends]
     out, devices = [], []
     for shape, dtype, device, src in recvs:
         devices.append(device)
@@ -257,7 +307,8 @@ def exchange(sends=(), recvs=(), group=None) -> list[torch.Tensor]:
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return [t.to(device) for t, device in zip(out, devices)]
+    with explicit_transfer():
+        return [t.to(device) for t, device in zip(out, devices)]
 
 
 def _shift(tensors, shard, to: int, src: int) -> list[torch.Tensor]:
@@ -303,13 +354,12 @@ class _BroadcastFirst(torch.autograd.Function):
     def forward(ctx, x, shard):
         ctx.shard = shard
         out = x.detach().clone(memory_format=torch.contiguous_format)
-        dist.broadcast(out, shard.rank(0), group=shard.group)
-        return out
+        return _broadcast_(out, shard.rank(0), shard.group)
 
     @staticmethod
     def backward(ctx, dy):
-        dx = dy.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(dx, op=dist.ReduceOp.SUM, group=ctx.shard.group)
+        dx = all_reduce_(dy.clone(memory_format=torch.contiguous_format),
+                         dist.ReduceOp.SUM, ctx.shard.group)
         return (dx if ctx.shard.index == 0 else torch.zeros_like(dx)), None
 
 
@@ -354,13 +404,14 @@ def broadcast_call(shard, kind: int, operands=(), flag: int = 0) -> None:
         header[at:at + 2] = _CALL_DTYPES.index(a.dtype), a.ndim
         header[at + 2:at + 2 + a.ndim] = a.shape
     device, src = _call_device(shard), shard.rank(0)
-    dist.broadcast(torch.from_numpy(header).to(device), src,
-                   group=shard.group)
-    if operands:
-        payload = np.concatenate([a.astype(np.int64).reshape(-1)
-                                  for a in operands])
-        dist.broadcast(torch.from_numpy(payload).to(device), src,
+    with explicit_transfer():
+        dist.broadcast(torch.from_numpy(header).to(device), src,
                        group=shard.group)
+        if operands:
+            payload = np.concatenate([a.astype(np.int64).reshape(-1)
+                                      for a in operands])
+            dist.broadcast(torch.from_numpy(payload).to(device), src,
+                           group=shard.group)
 
 
 def all_ranks_ok(shard, ok: bool) -> bool:
@@ -368,9 +419,10 @@ def all_ranks_ok(shard, ok: bool) -> bool:
     all-reduce on the call device); ``ok`` without a group."""
     if shard is None or shard.group is None:
         return ok
-    flag = torch.tensor([int(ok)], device=_call_device(shard))
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=shard.group)
-    return bool(flag.item())
+    with explicit_transfer():
+        flag = torch.tensor([int(ok)], device=_call_device(shard))
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=shard.group)
+        return bool(flag.item())
 
 
 def receive_call(shard) -> tuple[int, int, list]:
@@ -380,7 +432,8 @@ def receive_call(shard) -> tuple[int, int, list]:
     device, src = _call_device(shard), shard.rank(0)
     header = torch.empty(_CALL_HEADER, dtype=torch.int64, device=device)
     dist.broadcast(header, src, group=shard.group)
-    header = header.cpu().numpy()
+    with explicit_transfer():
+        header = header.cpu().numpy()
     kind, flag, count = (int(v) for v in header[:3])
     metas = []
     for i in range(count):
@@ -393,7 +446,8 @@ def receive_call(shard) -> tuple[int, int, list]:
     payload = torch.empty(sum(math.prod(shape) for _, shape in metas),
                           dtype=torch.int64, device=device)
     dist.broadcast(payload, src, group=shard.group)
-    flat, operands, at = payload.cpu().numpy(), [], 0
+    with explicit_transfer():
+        flat, operands, at = payload.cpu().numpy(), [], 0
     for dtype, shape in metas:
         n = math.prod(shape)
         operands.append(flat[at:at + n].astype(dtype).reshape(shape))

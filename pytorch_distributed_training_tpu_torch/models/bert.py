@@ -258,11 +258,14 @@ class DenseKV:
     ``cache_index``): per layer a [batch, max_len, heads, head_dim] K and
     V buffer, and ``index``, the tokens written so far (every layer's, as
     one forward writes them all): an int, or a [batch] tensor when each
-    row has its own (the serving engine's slots)."""
+    row has its own (the serving engine's slots), with ``index_max`` its
+    largest value when the caller knows it on the host (else the forward
+    reads it back from the device)."""
 
     keys: list
     values: list
     index: "int | torch.Tensor" = 0
+    index_max: Optional[int] = None
 
     @classmethod
     def zeros(cls, cfg: ModelConfig, batch: int, max_len: int,

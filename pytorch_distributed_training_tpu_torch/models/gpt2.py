@@ -193,8 +193,12 @@ class GPT2LMModel(nn.Module):
         # a dense cache's chunk at its index
         offset = (cache.index if cache is not None
                   else seq_offset(input_ids, self.seq_shard))
-        # a dense cache may hold an index a row (the serving engine's)
-        last = int(offset.max()) if torch.is_tensor(offset) else offset
+        # a dense cache may hold an index a row (the serving engine's,
+        # with its bound from the host)
+        last = (cache.index_max if cache is not None
+                and cache.index_max is not None
+                else int(offset.max()) if torch.is_tensor(offset)
+                else offset)
         if last + seq > cfg.max_position_embeddings:
             raise ValueError(
                 f"sequence length {last + seq} exceeds "

@@ -7,7 +7,8 @@ JAX package's ``native/__init__.py``, whose declarations these are):
   (``data/native_tokenizer.py``).
 
 Each builds at first use with ``g++ -O3 -std=c++17 -shared -fPIC
--pthread`` into ``pytorch_distributed_training_tpu_torch/_build/``, keyed
+-pthread`` into ``ops/_build.build_dir()`` (the ignored
+``pytorch_distributed_training_tpu_torch/_build/`` by default), keyed
 by a hash of the source and the flags, written under a temporary name and
 renamed into place, so processes that build at once (test workers) never
 load a half-written library. Nothing builds at import. Without a
@@ -25,9 +26,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parents[1]
+from pytorch_distributed_training_tpu_torch.ops import _build
+
 SRC_DIR = Path(__file__).resolve().parent / "src"
-BUILD_DIR = _PKG / "_build"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
@@ -36,10 +37,25 @@ _libs: dict[str, ctypes.CDLL | None] = {}
 BUILD_ERRORS: dict[str, str] = {}
 
 
+def _forget() -> None:
+    with _lock:
+        _libs.clear()
+        BUILD_ERRORS.clear()
+
+
+_build.ON_DIR_CHANGE.append(_forget)
+
+
+def __getattr__(name: str):
+    if name == "BUILD_DIR":     # where the libraries build now
+        return _build.build_dir()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     h.update((SRC_DIR / f"{name}.cpp").read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return _build.build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> Path | None:
@@ -49,10 +65,11 @@ def _compile(name: str) -> Path | None:
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = ["g++", *GXX_FLAGS, str(SRC_DIR / f"{name}.cpp"), "-o", str(tmp)]
     try:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run(cmd, check=True, capture_output=True, text=True,
                        timeout=300)
         os.replace(tmp, out)
+        _build.note_build()
     except subprocess.CalledProcessError as e:
         BUILD_ERRORS[name] = e.stderr or str(e)
         return None

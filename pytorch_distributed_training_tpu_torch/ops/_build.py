@@ -10,7 +10,12 @@ Build at first use: nothing here runs at import, so the package imports
 on a machine with no ``nvcc`` (the CPU tests import every module). A
 failed build raises with the compiler's output; nothing falls back.
 ``build()`` compiles several sources at once, one ``nvcc`` process each,
-all started together.
+all started together. The libraries live in ``build_dir()``: the ignored
+``_build/`` beside the package unless ``set_build_dir`` (the trainer's
+``compile_cache_dir``, ``train/compile.py``) names another, which the
+native loader's libraries share. Each library compiled counts on the
+building thread (``thread_builds``): a build inside a warm guarded call
+is a recompile (``analysis/guards.py``).
 
 A library may hold several kernels (``KERNELS`` names each kernel's
 library): the LayerNorm forward and backward share ``layer_norm.cu``, the
@@ -39,7 +44,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+_build_dir = DEFAULT_BUILD_DIR
 
 #: library name -> CUDA source under csrc/
 KERNEL_SOURCES = {
@@ -91,6 +97,43 @@ BUILD_LOGS: dict[str, str] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_TLS = threading.local()     # .builds: libraries compiled by this thread
+
+
+def build_dir() -> Path:
+    """Where the kernel and native libraries are built and looked up."""
+    return _build_dir
+
+
+#: callbacks run when the build directory changes (the native loader's
+#: cache of loaded libraries)
+ON_DIR_CHANGE: list = []
+
+
+def set_build_dir(path=None) -> Path:
+    """Build and look up the libraries under ``path`` (None: the default
+    ``_build/``); returns the directory now in use. A change drops the
+    loaded libraries' cache, so the next use loads (or builds) them from
+    the new directory; handles already taken stay valid."""
+    global _build_dir
+    new = DEFAULT_BUILD_DIR if path is None else Path(path).resolve()
+    if new != _build_dir:
+        with _LOCK:
+            _build_dir = new
+            _LIBS.clear()
+        for callback in ON_DIR_CHANGE:
+            callback()
+    return _build_dir
+
+
+def note_build() -> None:
+    """Count one library compiled by the calling thread."""
+    _TLS.builds = getattr(_TLS, "builds", 0) + 1
+
+
+def thread_builds() -> int:
+    """Libraries the calling thread has compiled so far."""
+    return getattr(_TLS, "builds", 0)
 
 
 def reset_launch_counts() -> None:
@@ -117,7 +160,7 @@ def _lib_path(name: str) -> Path:
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
     key = h.hexdigest()
-    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+    return _build_dir / f"lib{name}-{key[:16]}.so"
 
 
 def build(names=None) -> dict[str, float]:
@@ -125,7 +168,7 @@ def build(names=None) -> dict[str, float]:
     ``nvcc`` per source, all at once. Returns seconds per name built;
     raises ``RuntimeError`` with the compiler output on any failure."""
     names = list(KERNEL_SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _build_dir.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
@@ -151,6 +194,7 @@ def build(names=None) -> dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            note_build()
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds

@@ -70,6 +70,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
+    all_reduce_,
     all_reduce_max,
 )
 
@@ -273,7 +274,7 @@ class _Int8Dense(torch.autograd.Function):
         acc = int8_mm(xq, wq.t().contiguous())
         if groups.sum is not None and dist.get_world_size(groups.sum) > 1:
             # row-parallel: the int32 partials summed before the rescale
-            dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=groups.sum)
+            all_reduce_(acc, dist.ReduceOp.SUM, groups.sum)
         y = (acc.float() * (sx * sw)).to(x.dtype)
         ctx.save_for_backward(xq, wq, sx, sw)
         ctx.meta = (mode, x.dtype, kernel.dtype, groups,

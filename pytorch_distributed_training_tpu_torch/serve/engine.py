@@ -122,8 +122,27 @@ quota the prefix cache.
   swap. Under ``tp`` each rank loads and cuts its own slice of the step
   and the swap installs on every rank or none.
 
-The JAX engine's runtime guards and its serve manifests wait in
-ROADMAP.md (queue 1, item 7).
+- **Runtime guards** (``guards``, an ``analysis/guards.GuardSet``; one
+  from ``PDT_TPU_GUARDS`` when None): every device call is the guarded
+  entry point of its program (``serve_prefill_b<bucket>``, ``serve_chunk``,
+  ``serve_decode``, ``serve_verify``, ``serve_copy`` and the draft's
+  ``serve_draft_*``, as JAX's jitted programs), so a call after a
+  program's warm-up at a new shape, or one that builds a kernel library,
+  is a recompile; warm calls run under the implicit-transfer detector, and
+  once every program is warm (and sampling is on the device) the whole
+  tick runs under ``transfer_scope("serve_tick")``. The tick's intended
+  copies — the operand uploads, the token readbacks, the sampler's noise,
+  the control broadcasts — are explicit transfers, so only a new sync is
+  a violation; in strict mode it fails the serve loop. With ``warmup``,
+  the hot program's (the decode step's, or the verify's) warm-up call has
+  its collectives recorded and audited against its manifest
+  (``analysis/spmd``: no collective at ``tp=1``; under ``tp``, the
+  row-parallel all-reduces only, at most two activation-sized ones a
+  layer), on every rank, in ``_run``'s window (the leader's control
+  broadcast is host control, outside it); ``stats()`` carries
+  ``guard_mode``, ``guard_recompiles``, ``guard_implicit_transfers`` and
+  the audit's record (``comm_audit``), and ``warmup_dispatches`` the
+  warm-up's calls by program.
 """
 
 from __future__ import annotations
@@ -139,6 +158,18 @@ import numpy as np
 import torch
 
 from pytorch_distributed_training_tpu_torch.analysis import concurrency
+from pytorch_distributed_training_tpu_torch.analysis.guards import (
+    GuardSet,
+    explicit_transfer,
+    guard_mode_from_env,
+)
+from pytorch_distributed_training_tpu_torch.analysis.spmd import (
+    comm_audit,
+    record_collectives,
+    serve_manifest,
+    serve_tp_manifest,
+    summarize_collectives,
+)
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     all_ranks_ok,
     broadcast_call,
@@ -199,10 +230,12 @@ logger = get_logger(__name__)
 # chain of greedy decodes (last committed tokens, pending tokens, block
 # table, context lengths, increments; the flag: spec_k), a weight swap
 # (the checkpoint directory's bytes, the step) and a swap's end (the flag:
-# 1 commit, 0 roll back)
+# 1 commit, 0 roll back); FLAG_AUDIT on any call: record and audit its
+# collectives (the hot program's warm-up call)
 (CALL_STOP, CALL_FORWARD, CALL_PAGE_COPY, CALL_DRAFT_CHAIN, CALL_SWAP,
  CALL_SWAP_END) = range(6)
 FLAG_MULTIQUERY, FLAG_DRAFT = 1, 2
+FLAG_AUDIT = 1 << 30
 
 
 @dataclasses.dataclass
@@ -447,10 +480,13 @@ class ServeSlice:
     the device calls that run on them (``_run``). The leader's
     ``DecodeEngine`` and each follower (``serve/tp_worker.py``) build one
     from the same ``EngineConfig``. ``shard``: the model axis's
-    ``AxisShard`` (its size must be ``config.tp``); None at ``tp=1``."""
+    ``AxisShard`` (its size must be ``config.tp``); None at ``tp=1``.
+    ``guards``: the ``GuardSet`` whose mode and registry its collective
+    audit uses (one from ``PDT_TPU_GUARDS`` when None)."""
 
     def __init__(self, model, config: EngineConfig, *, device="cuda",
-                 shard=None, draft_model=None):
+                 shard=None, draft_model=None,
+                 guards: Optional[GuardSet] = None):
         cfg = model.config
         if not cfg.causal:
             raise ValueError("DecodeEngine needs a causal model")
@@ -488,6 +524,9 @@ class ServeSlice:
                 _check_tp_divisible(dmc, tp, "draft")
         self.config = config
         self.device = resolve_device(device)
+        self._guards = guards if guards is not None else GuardSet(
+            mode=guard_mode_from_env())
+        self.comm_record = None     # the hot program's audit record
         self._shard = shard if tp > 1 else None
         self._model = _served(model, config, self.device, self._shard)
         self.variant = serve_params_variant(self._model.state_dict())
@@ -531,7 +570,52 @@ class ServeSlice:
         return pools, scales
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+        with explicit_transfer():   # an operand's upload, by design
+            return torch.from_numpy(np.ascontiguousarray(array)).to(
+                self.device)
+
+    def _hot_manifest(self):
+        """The expected-collective manifest of the hot program (JAX
+        ``_serve_manifest``): the verify under speculation, else the
+        decode step. One device: no collective at all. Under ``tp``: the
+        row-parallel all-reduces only, required, their payload bounded by
+        two activation-sized reductions a layer in the compute dtype (the
+        bytes on the wire) and clamped below one extra attention-out
+        weight at its resident width, so a silently replicated weight (no
+        collective) and a gathered one (a wrong kind, the ceiling blown)
+        both fail."""
+        cfg = self.config
+        name = "serve_verify" if cfg.spec_k > 0 else "serve_decode"
+        if cfg.tp <= 1:
+            return serve_manifest(1, name=name)
+        mcfg = self._model.config
+        dtype_bytes = getattr(torch, mcfg.compute_dtype).itemsize
+        wbytes = 1 if cfg.weights_dtype == "int8" else dtype_bytes
+        return serve_tp_manifest(
+            cfg.tp, layers=mcfg.num_layers, hidden=mcfg.hidden_size,
+            max_q_tokens=cfg.num_slots * (1 + cfg.spec_k),
+            dtype_bytes=dtype_bytes, name=name,
+            weight_bytes_floor=mcfg.hidden_size * mcfg.hidden_size * wbytes)
+
+    def _audit(self, fn):
+        """``fn()`` with the collectives it issues recorded and audited
+        against ``_hot_manifest`` (a ``comm_audit`` record, kept as
+        ``self.comm_record``; strict mode raises on a deviation)."""
+        manifest = self._hot_manifest()
+        with record_collectives() as seen:
+            out = fn()
+        self.comm_record = comm_audit(
+            manifest.name, summarize_collectives(seen), manifest,
+            registry=self._guards.registry, mode=self._guards.mode)
+        return out
+
+    def _audited_run(self, kind: int, operands: list, flag: int = 0):
+        """``_run``, audited (``_audit``) when ``flag`` has
+        ``FLAG_AUDIT``."""
+        if not flag & FLAG_AUDIT:
+            return self._run(kind, operands, flag)
+        return self._audit(
+            lambda: self._run(kind, operands, flag & ~FLAG_AUDIT))
 
     def _paged(self, block_table, context_len, multiquery=False,
                draft=False) -> PagedKV:
@@ -713,18 +797,30 @@ class DecodeEngine(ServeSlice):
     (``serve/queue.BrownoutController``), ``slo``
     (``telemetry/slo.BurnRateMonitor``), ``tracer`` and ``flight`` are
     optional (a tracer and a recorder are made when None);
-    ``replica_name`` stamps spans and flight records.
+    ``replica_name`` stamps spans and flight records; ``guards`` (an
+    ``analysis/guards.GuardSet``, one from ``PDT_TPU_GUARDS`` when None)
+    wraps every device call (see the module docstring).
     """
 
     def __init__(self, model, config: EngineConfig, queue: RequestQueue, *,
                  device="cuda", shard=None,
                  weights_step: Optional[int] = None, draft_model=None,
                  registry=None, brownout=None, tracer=None, flight=None,
-                 slo=None, replica_name: Optional[str] = None):
+                 slo=None, replica_name: Optional[str] = None,
+                 guards: Optional[GuardSet] = None):
+        registry = registry if registry is not None else get_registry()
+        guards = guards if guards is not None else GuardSet(
+            mode=guard_mode_from_env(), registry=registry)
         super().__init__(model, config, device=device, shard=shard,
-                         draft_model=draft_model)
+                         draft_model=draft_model, guards=guards)
         self.weights_step = weights_step
-        self._registry = registry if registry is not None else get_registry()
+        self._registry = registry
+        # the guarded entry point of each program, and the programs the
+        # tick's transfer scope waits for (warm all, JAX _scope_ready)
+        self._programs: dict = {}
+        self._scope_programs = self._required_programs()
+        self._scope_warm = False
+        self.warmup_dispatches: dict = {}
         # live weight swaps: the version served, one pending replacement
         # (coerced and checked) and the trial window's weights before it
         self.swaps = 0              # committed swaps
@@ -803,50 +899,120 @@ class DecodeEngine(ServeSlice):
 
     # ------------------------------------------------------------- programs
 
-    def _dispatch(self, kind: int, operands: list, flag: int = 0):
-        """Every device call: under ``tp > 1`` broadcast to the model
-        group's followers first, then run on this rank's slice."""
+    def _required_programs(self) -> tuple:
+        """The programs a tick may call, all warm before the tick runs
+        under the transfer scope (JAX ``_scope_ready``): the decode step or
+        the verify (and the draft's chain), the chunk (chunked prefill or
+        a prefix hit's tail), every bucket's prefill (monolithic prefill)
+        and the page copy (prefix cache)."""
+        cfg, draft = self.config, self._draft is not None
+        names = ["serve_verify" if cfg.spec_k > 0 else "serve_decode"]
+        if cfg.spec_k > 0 and draft:
+            names.append("serve_draft_chain")
+        if cfg.prefill_chunk > 0 or cfg.prefix_cache:
+            names += ["serve_chunk"] + (["serve_draft_chunk"] if draft
+                                        else [])
+        if cfg.prefill_chunk == 0:
+            for b in cfg.prompt_buckets:
+                names += [f"serve_prefill_b{b}"] + (
+                    [f"serve_draft_prefill_b{b}"] if draft else [])
+        if cfg.prefix_cache:
+            names.append("serve_copy")
+        return tuple(names)
+
+    def _scope_ready(self) -> bool:
+        """True when the whole tick can run under the transfer scope:
+        device sampling (host sampling copies logits to the host by
+        design) and every program it may call warm."""
+        if not self._scope_warm and self.config.sampling == "device":
+            self._scope_warm = all(
+                name in self._programs and self._programs[name].warm
+                for name in self._scope_programs)
+        return self._scope_warm
+
+    def _guarded(self, program: str, fn, *args):
+        """``fn(*args)`` as the guarded entry point ``program``."""
+        call = self._programs.get(program)
+        if call is None:
+            call = self._programs[program] = self._guards.wrap(program, fn)
+        return call(*args)
+
+    def _dispatch(self, kind: int, operands: list, flag: int = 0, *,
+                  program: str):
+        """Every device call of the paged engine, as the guarded entry
+        point ``program``: under ``tp > 1`` broadcast to the model group's
+        followers first, then run on this rank's slice."""
+        return self._guarded(program, self._call, kind, operands, flag)
+
+    def _call(self, kind: int, operands: list, flag: int = 0):
+        flag |= self._audit_flag
         if self._shard is not None:
             if self._stopped:
                 raise RuntimeError("the model group was stopped")
             broadcast_call(self._shard, kind, operands, flag)
-        return self._run(kind, operands, flag)
+        return self._audited_run(kind, operands, flag)
+
+    _audit_flag = 0     # FLAG_AUDIT while the hot program is audited
 
     def _forward(self, ids, pos, bt, ctx, multiquery=False,
-                 draft=False) -> torch.Tensor:
+                 draft=False, *, program: str) -> torch.Tensor:
         """The served model's (``draft``: the draft's) forward over the
         slots' pages (numpy operands: int64 ids and positions, int32
-        block-table rows and context lengths); float32 logits on the
+        block-table rows and context lengths), as ``program`` (the
+        draft's is ``serve_draft_<program>``); float32 logits on the
         device."""
         flag = (FLAG_MULTIQUERY if multiquery else 0) | (
             FLAG_DRAFT if draft else 0)
-        return self._dispatch(CALL_FORWARD, [ids, pos, bt, ctx], flag)
+        if draft:
+            program = program.replace("serve_", "serve_draft_", 1)
+        return self._dispatch(CALL_FORWARD, [ids, pos, bt, ctx], flag,
+                              program=program)
 
     def _dense_forward(self, ids, pos, slot: Optional[int] = None):
-        """A forward over the dense cache: ``slot``'s prefill (its cache
-        rows from position 0) or, ``slot`` None, every slot's decode step,
-        each writing at its own index, its position (idle slots write
-        position 0 of their unused rows, which the next prefill
-        overwrites)."""
+        """A forward over the dense cache, as the guarded entry point of
+        its program: ``slot``'s prefill (its cache rows from position 0,
+        ``serve_prefill_b<bucket>``) or, ``slot`` None, every slot's
+        decode step (``serve_decode``), each writing at its own index, its
+        position (idle slots write position 0 of their unused rows, which
+        the next prefill overwrites)."""
+        program = ("serve_decode" if slot is None
+                   else f"serve_prefill_b{ids.shape[1]}")
+        # the slot goes in as an array: its value is data, not a shape
+        return self._guarded(program, self._dense_run, ids, pos,
+                             None if slot is None else np.asarray(slot))
+
+    def _dense_run(self, ids, pos, slot):
         dense = self._dense
         if slot is not None:
+            slot = int(slot)
             cache = DenseKV([k[slot:slot + 1] for k in dense.keys],
                             [v[slot:slot + 1] for v in dense.values])
         else:
+            # the indices' bound from the host copy: no readback
             cache = DenseKV(dense.keys, dense.values,
-                            index=self._to_device(pos[:, 0]))
-        return self._model(self._to_device(ids),
-                           position_ids=self._to_device(pos), cache=cache)
+                            index=self._to_device(pos[:, 0]),
+                            index_max=int(pos[:, 0].max()))
+
+        def run():
+            return self._model(self._to_device(ids),
+                               position_ids=self._to_device(pos),
+                               cache=cache)
+
+        return self._audit(run) if self._audit_flag else run()
 
     def _sample_one(self, req: GenRequest, logits: torch.Tensor) -> int:
         """The first token from a prefill's last-position [vocab] logits:
         on the device, or on the host (``sampling="host"``); either way
         the prefill's one device-to-host copy."""
         if self.config.sampling == "host":
-            return host_sample(logits.float().cpu().numpy(), req.seed, 0,
-                               req.temperature, req.top_k)
-        return int(device_sample(logits[None], [req.seed], [0],
-                                 [req.temperature], [req.top_k])[0])
+            with explicit_transfer():
+                host = logits.float().cpu().numpy()
+            return host_sample(host, req.seed, 0, req.temperature,
+                               req.top_k)
+        token = device_sample(logits[None], [req.seed], [0],
+                              [req.temperature], [req.top_k])
+        with explicit_transfer():
+            return int(token[0])
 
     def _prefill(self, req: GenRequest, slot: int) -> int:
         """Prefill ``req`` into ``slot``'s pages (and the draft's) or its
@@ -865,10 +1031,11 @@ class DecodeEngine(ServeSlice):
             # the slot's pages through its block-table row
             operands = (padded, pos, self._pages.block_table[slot:slot + 1],
                         np.zeros((1,), np.int32))
-            logits = self._forward(*operands)
+            program = f"serve_prefill_b{bucket}"
+            logits = self._forward(*operands, program=program)
             if self._draft is not None:
                 # the draft lane shares the slot's committed context
-                self._forward(*operands, draft=True)
+                self._forward(*operands, draft=True, program=program)
         self._prefill_buckets.add(bucket)
         self.prefill_dispatches += 1
         return self._sample_one(req, logits[0, req.prompt_len - 1])
@@ -889,14 +1056,17 @@ class DecodeEngine(ServeSlice):
         operands = (ids, pos[None].astype(np.int64),
                     self._pages.block_table[slot:slot + 1],
                     np.asarray([start], np.int32))
-        logits = self._forward(*operands, multiquery=True)
+        logits = self._forward(*operands, multiquery=True,
+                               program="serve_chunk")
         if self._draft is not None:
-            self._forward(*operands, multiquery=True, draft=True)
+            self._forward(*operands, multiquery=True, draft=True,
+                          program="serve_chunk")
         if sample_row is None:
             return None
         token = device_sample(logits[0, sample_row][None], [req.seed], [0],
                               [req.temperature], [req.top_k])
-        return int(token[0])
+        with explicit_transfer():
+            return int(token[0])
 
     def _decode(self, tokens, bt, ctx, seeds, steps, temps,
                 top_ks) -> np.ndarray:
@@ -908,14 +1078,17 @@ class DecodeEngine(ServeSlice):
         if self._pages is None:
             logits = self._dense_forward(ids, pos)[:, 0]
         else:
-            logits = self._forward(ids, pos, bt, ctx)[:, 0]
+            logits = self._forward(ids, pos, bt, ctx,
+                                   program="serve_decode")[:, 0]
         if self.config.sampling == "host":
-            host = logits.float().cpu().numpy()
+            with explicit_transfer():
+                host = logits.float().cpu().numpy()
             return np.asarray([host_sample(host[i], seeds[i], steps[i],
                                            temps[i], top_ks[i])
                                for i in range(len(host))], np.int64)
         sampled = device_sample(logits, seeds, steps, temps, top_ks)
-        return sampled.cpu().numpy()
+        with explicit_transfer():
+            return sampled.cpu().numpy()
 
     def _verify(self, tokens, bt, ctx, seeds, steps0, temps,
                 top_ks) -> np.ndarray:
@@ -927,18 +1100,21 @@ class DecodeEngine(ServeSlice):
         tokens = tokens.astype(np.int64)
         logits = self._forward(
             tokens, (ctx[:, None] + np.arange(q_len)).astype(np.int64), bt,
-            ctx, multiquery=True,
+            ctx, multiquery=True, program="serve_verify",
         )
         target, accept = spec_accept(logits, self._to_device(tokens[:, 1:]),
                                      seeds, steps0, temps, top_ks)
         # the tick's one device-to-host copy
-        return torch.cat([target, accept[:, None]], dim=1).cpu().numpy()
+        out = torch.cat([target, accept[:, None]], dim=1)
+        with explicit_transfer():
+            return out.cpu().numpy()
 
     def _page_copy(self, src: int, dst: int) -> None:
         """Copy page ``src`` onto page ``dst`` in every layer's pools, the
         draft's too, and for int8 pools their scale pools (the
         copy-on-write of a partly matched prefix page)."""
-        self._dispatch(CALL_PAGE_COPY, [np.asarray([src, dst], np.int64)])
+        self._dispatch(CALL_PAGE_COPY, [np.asarray([src, dst], np.int64)],
+                       program="serve_copy")
 
     # -------------------------------------------------------------- warm-up
 
@@ -953,7 +1129,10 @@ class DecodeEngine(ServeSlice):
         prefill writes slot 0's rows, which a real prefill overwrites, and
         the dense decode writes position 0 of every row. No page is held,
         the prefix cache stays empty and no generator is drawn: a warmed
-        engine's streams equal a cold one's."""
+        engine's streams equal a cold one's. The hot program's (the decode
+        step's, or the verify's) call is audited (``_hot_manifest``) on
+        every rank, as JAX audits a warmed program after its first
+        compile."""
         cfg = self.config
         S, W = cfg.num_slots, cfg.pages_per_slot
         paged = self._pages is not None
@@ -970,18 +1149,22 @@ class DecodeEngine(ServeSlice):
             C = self._chunk_size
             pos = np.arange(C, dtype=np.int64)[None]
             ops = (ids(1, C), pos, table(1), np.zeros((1,), np.int32))
-            logits.append(self._forward(*ops, multiquery=True)[0, -1:])
+            logits.append(self._forward(*ops, multiquery=True,
+                                        program="serve_chunk")[0, -1:])
             if draft:
-                self._forward(*ops, multiquery=True, draft=True)
+                self._forward(*ops, multiquery=True, draft=True,
+                              program="serve_chunk")
         if not (paged and cfg.prefill_chunk > 0):
             for bucket in cfg.prompt_buckets:
                 pos = np.arange(bucket, dtype=np.int64)[None]
                 if paged:
                     ops = (ids(1, bucket), pos, table(1),
                            np.zeros((1,), np.int32))
-                    logits.append(self._forward(*ops)[0, -1:])
+                    program = f"serve_prefill_b{bucket}"
+                    logits.append(self._forward(*ops,
+                                                program=program)[0, -1:])
                     if draft:
-                        self._forward(*ops, draft=True)
+                        self._forward(*ops, draft=True, program=program)
                 else:
                     logits.append(self._dense_forward(
                         ids(1, bucket), pos, 0)[0, -1:])
@@ -989,24 +1172,31 @@ class DecodeEngine(ServeSlice):
             self._page_copy(0, 0)
         zeros = np.zeros((S,), np.int64)
         ctx = np.zeros((S,), np.int32)
+        if self._guards.mode != "off":
+            self._audit_flag = FLAG_AUDIT
         if paged and cfg.spec_k > 0:
             k = cfg.spec_k
             pos = np.tile(np.arange(k + 1, dtype=np.int64), (S, 1))
             out = self._forward(ids(S, k + 1), pos, table(S), ctx,
-                                multiquery=True)
+                                multiquery=True, program="serve_verify")
+            self._audit_flag = 0
             spec_accept(out, self._to_device(ids(S, k)), zeros, zeros,
                         np.zeros((S,), np.float32), zeros)
             if draft:
                 self._dispatch(CALL_DRAFT_CHAIN,
-                               [zeros, zeros, table(S), ctx, ctx], k)
+                               [zeros, zeros, table(S), ctx, ctx], k,
+                               program="serve_draft_chain")
         elif paged:
             logits.append(self._forward(ids(S, 1), ids(S, 1), table(S),
-                                        ctx)[:, 0])
+                                        ctx, program="serve_decode")[:, 0])
         else:
             logits.append(self._dense_forward(ids(S, 1), ids(S, 1))[:, 0])
+        self._audit_flag = 0
         for row in logits:
             if cfg.sampling == "device":
                 device_sample(row[:1], [0], [0], [0.0], [0])
+        self.warmup_dispatches = {name: call.calls
+                                  for name, call in self._programs.items()}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1645,9 +1835,12 @@ class DecodeEngine(ServeSlice):
             inc[i] = 1
             bt[i] = self._pages.block_table[i]
         with watchdog_guard("serve_decode"):
-            return self._dispatch(CALL_DRAFT_CHAIN,
-                                  [last, pending, bt, ctx, inc],
-                                  self.config.spec_k).cpu().numpy()
+            drafts = self._dispatch(CALL_DRAFT_CHAIN,
+                                    [last, pending, bt, ctx, inc],
+                                    self.config.spec_k,
+                                    program="serve_draft_chain")
+            with explicit_transfer():
+                return drafts.cpu().numpy()
 
     def _verify_tick(self, active) -> None:
         """ONE verify dispatch advancing every decode-phase slot 1..k+1
@@ -1738,7 +1931,11 @@ class DecodeEngine(ServeSlice):
             # a hang anywhere in the tick (the fault hooks too) stalls a
             # named section, which dumps the flight recorder
             with watchdog_guard("serve_tick"), torch.inference_mode():
-                worked = self._tick_body()
+                if self._scope_ready():
+                    with self._guards.transfer_scope("serve_tick"):
+                        worked = self._tick_body()
+                else:
+                    worked = self._tick_body()
         except Exception as e:
             if self._trial is not None:
                 self._rollback_swap(f"{type(e).__name__}: {e}")
@@ -1999,4 +2196,9 @@ class DecodeEngine(ServeSlice):
             "swaps": self.swaps,
             "swap_rollbacks": self.swap_rollbacks,
             "swap_pending": self._pending_swap.waiting,
+            "guard_mode": self._guards.mode,
+            "guard_recompiles": self._guards.recompile_violations,
+            "guard_implicit_transfers": self._guards.transfer_violations,
+            "comm_audit": self.comm_record,
+            "warmup_dispatches": self.warmup_dispatches,
         }

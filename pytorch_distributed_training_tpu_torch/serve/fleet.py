@@ -29,6 +29,17 @@ SIGTERM -> exit-75 drain (no in-flight request dies) — the knobs
 ``fleet_scale`` records in the fleet process's stream, which
 ``scripts/summarize_metrics.py`` folds into the fleet and storm sections.
 
+A replica of ``tp`` ranks (``serve_lm --tp``) is a ``RankGroup``: the
+fleet spawns the ranks itself with the process-group environment
+(``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``
+on a free port), SIGTERM goes to every rank (the followers run the
+leader's calls until its stop message, so the drain is the leader's), and
+the replica's exit status is the leader's, rank 0's: 75, 76 and 23 reach
+``_spawn_and_wait`` as they are (JAX's ``fleet_lm --tp`` is one
+``serve_lm`` process, whose status its supervisor reads). Once the
+leader has exited the followers get a bounded wait, then are killed;
+``stop()``/``kill()`` reach every rank, so no orphan keeps a card.
+
 The module imports no torch: the fleet process does no device work — the
 model and its kernels live in the replica subprocesses, each on the card
 its ``--device`` names (several replicas may share one card).
@@ -75,6 +86,10 @@ logger = get_logger(__name__)
 #: a real failure (each retry picks a fresh OS-assigned port, so repeated
 #: losses mean something is systematically wrong, not bad luck)
 MAX_PORT_RETRIES = 5
+
+#: seconds the followers of a ``--tp`` replica get to exit after their
+#: leader (its drain sent them the stop message) before they are killed
+FOLLOWER_REAP_S = 10.0
 
 
 def find_free_port(host: str = "127.0.0.1") -> int:
@@ -143,8 +158,7 @@ class FleetConfig:
     spawn_timeout_s: float = 120.0
     host: str = "127.0.0.1"
     #: ranks per replica (``serve_lm --tp``, which ``replica_args`` must
-    #: carry too): above 1, each replica starts through
-    #: ``torch.distributed.run``
+    #: carry too): above 1, each replica is a ``RankGroup``
     tp: int = 1
 
     def __post_init__(self):
@@ -162,8 +176,55 @@ class ReplicaCrashed(RuntimeError):
         self.returncode = returncode
 
 
+class RankGroup:
+    """The ``tp`` ranks of one ``serve_lm --tp`` replica, answering as the
+    ``subprocess.Popen`` of its leader: ``pid``, ``poll`` and ``wait`` are
+    rank 0's (``wait`` then reaps the followers: a bounded wait, then a
+    kill), ``send_signal``/``kill`` reach every rank still running."""
+
+    def __init__(self, argv: list, env: dict, tp: int, host: str):
+        master_port = find_free_port(host)
+        self.procs = [
+            subprocess.Popen(argv, env={
+                **env, "RANK": str(rank), "LOCAL_RANK": str(rank),
+                "WORLD_SIZE": str(tp), "LOCAL_WORLD_SIZE": str(tp),
+                "MASTER_ADDR": host, "MASTER_PORT": str(master_port),
+            }, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            for rank in range(tp)
+        ]
+        self.pid = self.procs[0].pid
+
+    def poll(self) -> Optional[int]:
+        return self.procs[0].poll()
+
+    def wait(self, timeout: Optional[float] = None) -> int:
+        rc = self.procs[0].wait(timeout)
+        self._reap()
+        return rc
+
+    def _reap(self) -> None:
+        deadline = time.monotonic() + FOLLOWER_REAP_S
+        for proc in self.procs[1:]:
+            try:
+                proc.wait(max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(5.0)
+
+    def send_signal(self, signum: int) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.send_signal(signum)
+
+    def kill(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+
+
 class ReplicaProcess:
-    """One supervised serving subprocess on a fixed port."""
+    """One supervised serving subprocess (or ``RankGroup``) on a fixed
+    port."""
 
     def __init__(self, index: int, port: int, fleet_cfg: FleetConfig,
                  registry):
@@ -172,7 +233,7 @@ class ReplicaProcess:
         self.port = port
         self._cfg = fleet_cfg
         self._registry = registry
-        self.proc: Optional[subprocess.Popen] = None
+        self.proc = None    # subprocess.Popen, or a RankGroup
         self.state = "starting"     # starting|up|failed|stopped
         self.restarts_used = 0
         self.graceful_exits = 0
@@ -213,15 +274,8 @@ class ReplicaProcess:
         )
 
     def _argv(self) -> list:
-        # a replica of --tp N is one torch.distributed.run launch of N
-        # ranks (serve_lm's own contract: --tp equals the world size)
-        launcher = (
-            ["-m", "torch.distributed.run", "--standalone",
-             "--nproc-per-node", str(self._cfg.tp)]
-            if self._cfg.tp > 1 else []
-        )
         return [
-            sys.executable, *launcher, "-m",
+            sys.executable, "-m",
             "pytorch_distributed_training_tpu_torch.cli.serve_lm",
             "--http-port", str(self.port),
             "--http-host", self._cfg.host,
@@ -240,6 +294,18 @@ class ReplicaProcess:
             env["PDT_TPU_FAULT"] = fault
         return env
 
+    def _launch(self):
+        """The replica's process: ``serve_lm``, or under ``tp > 1`` its
+        ``RankGroup`` (serve_lm's own contract: ``--tp`` equals the world
+        size)."""
+        if self._cfg.tp > 1:
+            return RankGroup(self._argv(), self._env(), self._cfg.tp,
+                             self._cfg.host)
+        return subprocess.Popen(
+            self._argv(), env=self._env(),
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        )
+
     def _spawn_and_wait(self, attempt: int) -> None:
         """One supervised attempt: spawn, record, wait, classify the exit.
 
@@ -250,10 +316,7 @@ class ReplicaProcess:
         the crash path."""
         port_tries = 0
         while True:
-            proc = subprocess.Popen(
-                self._argv(), env=self._env(),
-                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
-            )
+            proc = self._launch()
             with self._lock:
                 self.spawns += 1
                 self.proc = proc

@@ -15,7 +15,9 @@ threefry.
 
 ``device_sample`` keeps the logits on the device (the noise goes up, one
 [rows, vocab] copy for the sampled rows; an all-greedy batch pays one
-argmax, as the JAX sampler's ``lax.cond`` arranges). ``host_sample`` is
+argmax, as the JAX sampler's ``lax.cond`` arranges); its uploads are
+explicit transfers (``analysis/guards.explicit_transfer``), JAX's
+``device_put`` of the sampler's operands. ``host_sample`` is
 the engine's ``sampling="host"`` path on float32 logits already copied
 to the host, in numpy. Every step of the draw is one IEEE operation a
 element (a true division, a comparison, an addition) or exact (the sort,
@@ -28,6 +30,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pytorch_distributed_training_tpu_torch.analysis.guards import (
+    explicit_transfer,
+)
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -74,18 +80,20 @@ def device_sample(logits: torch.Tensor, seeds, steps, temps, top_ks):
     if rows.size == 0:
         return out
     dev = logits.device
-    idx = torch.as_tensor(rows, device=dev)
+    keep = np.clip(np.asarray(top_ks, np.int64)[rows], 0, vocab)
+    with explicit_transfer():
+        idx = torch.as_tensor(rows, device=dev)
+        temp = torch.as_tensor(temps[rows], device=dev)
+        cut = (torch.as_tensor(np.where(keep > 0, vocab - keep, 0),
+                               device=dev) if keep.any() else None)
+        noise = torch.stack([gumbel_noise(seeds[r], steps[r], vocab)
+                             for r in rows]).to(dev)
     # a tensor divisor: a true division a element, as numpy's (a host
     # scalar would take the reciprocal's product on the card)
-    scaled = logits[idx] / torch.as_tensor(temps[rows], device=dev)[:, None]
-    keep = np.clip(np.asarray(top_ks, np.int64)[rows], 0, vocab)
-    if keep.any():
-        cut = torch.as_tensor(np.where(keep > 0, vocab - keep, 0),
-                              device=dev)
+    scaled = logits[idx] / temp[:, None]
+    if cut is not None:
         kth = torch.sort(scaled, dim=-1).values.gather(1, cut[:, None])
         scaled = torch.where(scaled < kth, _NEG, scaled)
-    noise = torch.stack([gumbel_noise(seeds[r], steps[r], vocab)
-                         for r in rows]).to(dev)
     out[idx] = torch.argmax(scaled + noise, dim=-1)
     return out
 

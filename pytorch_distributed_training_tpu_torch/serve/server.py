@@ -68,8 +68,8 @@ _IDLE_WAIT_S = 0.02
 class InferenceServer:
     """Queue + engine + serve-loop thread, one object. ``tier_deadlines``:
     a tier's deadline (``interactive``, ``batch``), else
-    ``default_deadline_s``; ``brownout``, ``slo``, ``registry`` and
-    ``replica_name`` go to the engine; ``stall_timeout_s`` is the
+    ``default_deadline_s``; ``brownout``, ``slo``, ``registry``,
+    ``guards`` and ``replica_name`` go to the engine; ``stall_timeout_s`` is the
     heartbeat age ``health`` calls ``unhealthy``."""
 
     def __init__(self, model, config: EngineConfig, *, device="cuda",
@@ -79,7 +79,8 @@ class InferenceServer:
                  tier_weights: Optional[dict] = None, brownout=None,
                  registry=None, stall_timeout_s: float = 10.0, shard=None,
                  weights_step: Optional[int] = None, draft_model=None,
-                 slo=None, replica_name: Optional[str] = None):
+                 slo=None, replica_name: Optional[str] = None,
+                 guards=None):
         if tier_deadlines is not None:
             bad = set(tier_deadlines) - set(TIERS)
             if bad:
@@ -94,7 +95,7 @@ class InferenceServer:
             model, config, self.queue, device=device, shard=shard,
             weights_step=weights_step, draft_model=draft_model,
             registry=registry, brownout=brownout, slo=slo,
-            replica_name=replica_name)
+            replica_name=replica_name, guards=guards)
         self.registry = self.engine._registry
         self.default_deadline_s = default_deadline_s
         self.tier_deadlines = dict(tier_deadlines or {})

@@ -21,7 +21,10 @@ a call too (``ServeSlice._follow_swap``): each follower loads the step
 from the checkpoint directory the leader names, cuts its own slice, and
 the model group votes, so the swap installs on every rank or none; the
 swap's end commits it or copies the previous weights back. The stop
-message (``DecodeEngine.shutdown``) ends the loop.
+message (``DecodeEngine.shutdown``) ends the loop. A call the leader
+flags ``FLAG_AUDIT`` (the hot program's first warm call) has this rank's
+collectives recorded and audited too (``ServeSlice._audited_run``, the
+follower's ``guards`` setting the mode), its record in ``stats()``.
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ class TPFollower(ServeSlice):
     ``AxisShard``, this rank at a coordinate above 0)."""
 
     def __init__(self, model, config: EngineConfig, *, device="cuda",
-                 shard, draft_model=None):
+                 shard, draft_model=None, guards=None):
         super().__init__(model, config, device=device, shard=shard,
-                         draft_model=draft_model)
+                         draft_model=draft_model, guards=guards)
         self.calls = 0
 
     def run(self) -> int:
@@ -56,7 +59,7 @@ class TPFollower(ServeSlice):
                 kind, flag, operands = receive_call(self._shard)
                 if kind == CALL_STOP:
                     return self.calls
-                self._run(kind, operands, flag)
+                self._audited_run(kind, operands, flag)
                 self.calls += 1
 
     def stats(self) -> dict:
@@ -70,15 +73,16 @@ class TPFollower(ServeSlice):
             "weight_bytes": self.weight_bytes,
             "kv_bytes_per_token": self._kv_bytes_per_token(),
             "kv_heads": self._kv_heads(),
+            "comm_audit": self.comm_record,
         }
 
 
 def run_follower(model, config: EngineConfig, *, device="cuda",
-                 shard, draft_model=None) -> dict:
+                 shard, draft_model=None, guards=None) -> dict:
     """Build this rank's follower (with the draft lane's model under
     ``spec_draft="model"``) and run it until the leader's stop message;
     its ``stats()``."""
     follower = TPFollower(model, config, device=device, shard=shard,
-                          draft_model=draft_model)
+                          draft_model=draft_model, guards=guards)
     follower.run()
     return follower.stats()

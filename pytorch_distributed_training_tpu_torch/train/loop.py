@@ -86,7 +86,8 @@ supervisor and the fault hooks record into it) and, with
 the end of ``__init__``. With ``metrics_dir`` every step synchronizes on
 the device and emits a ``step`` record (data wait, dispatch, device
 block, loss; ``compile_inclusive`` on the first step, whose kernels
-build); without it no synchronize is added. Each epoch record gains the
+build unless the warm start built them); without it no synchronize is
+added. Each epoch record gains the
 straggler stats (``telemetry/straggler.py``, gathered over the batch
 group) and the registry's snapshot. The watchdog (``watchdog``) guards
 every step but the first and the epoch's closing synchronize;
@@ -123,8 +124,24 @@ profiling.maybe_profile`` around the epochs, ``train_step`` and
 ``eval_step`` ranges) and ``debug_nans`` (``set_debug_nans``, set from
 the config in ``__init__``). Under the pipeline schedules ``chain_steps``
 > 1 and a non-auto ``unroll_accum`` raise, as JAX refuses them with a
-custom step factory. JAX's runtime guards, its AOT warm start and its
-compilation cache are not ported (ROADMAP.md, queue 1).
+custom step factory.
+
+Guards and warm start (JAX ``train/loop.py:108-123, 373-381, 478-593``):
+``compile_cache_dir`` sets the kernel and native libraries' build
+directory before anything builds (``train/compile.enable_persistent_
+cache``); the ``GuardSet`` of ``guards`` (``PDT_TPU_GUARDS`` overrides it)
+runs the sharding audit once the model is placed (``sharding_audit``:
+parameters of 1 MiB or more left whole on a mesh that could shard them,
+FSDP2's ``Shard`` placements and the TP slices being sharded), and wraps
+``train_step``/``eval_step`` in ``run``, so a step at a new signature or
+a kernel build after the first call is a recompile and warm steps run
+under the implicit-transfer detector. With ``aot_warmup`` the run builds
+and loads every library it launches before epoch 0
+(``train/compile.warm_start``, a ``compile`` record), so the first step
+is not ``compile_inclusive``; its first train step is then audited against
+``train_manifest`` (``analysis/spmd``, the collectives it issued),
+except where JAX's warm start is skipped (the pipeline schedules,
+``chain_steps`` > 1, a ``seq`` axis).
 """
 
 from __future__ import annotations
@@ -139,6 +156,18 @@ import numpy as np
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
+from pytorch_distributed_training_tpu_torch.analysis.guards import (
+    GuardSet,
+    guard_mode_from_env,
+    is_shard_placed,
+    sharding_audit,
+)
+from pytorch_distributed_training_tpu_torch.analysis.spmd import (
+    comm_audit,
+    record_collectives,
+    summarize_collectives,
+    train_manifest,
+)
 from pytorch_distributed_training_tpu_torch.comms.bootstrap import initialize
 from pytorch_distributed_training_tpu_torch.comms.collectives import (
     host_sum_counts,
@@ -217,6 +246,10 @@ from pytorch_distributed_training_tpu_torch.telemetry.straggler import (
 from pytorch_distributed_training_tpu_torch.train.checkpoint import (
     Checkpointer,
 )
+from pytorch_distributed_training_tpu_torch.train.compile import (
+    enable_persistent_cache,
+    warm_start,
+)
 from pytorch_distributed_training_tpu_torch.train.metrics import (
     LMMetricAccumulator,
     MetricAccumulator,
@@ -293,7 +326,19 @@ class Trainer:
         if tcfg.metrics_dir:
             self.metrics_sink = JsonlSink(tcfg.metrics_dir)
             self.registry.attach_sink(self.metrics_sink)
+        # the libraries' build directory before anything builds (the
+        # native loader below), and the runtime guards
+        self.compile_cache_dir = enable_persistent_cache(
+            tcfg.compile_cache_dir)
+        self._native_cached = native.lib_path("batcher").exists()
+        self.guards = GuardSet(mode=guard_mode_from_env(default=tcfg.guards),
+                               registry=self.registry)
         self._first_step_done = False
+        self._stepped = False       # the watchdog skips the first step
+        self._comm_audited = False
+        self._placed = False        # the model placed: shard() re-audits
+        # the guards' and the warm start's last records (None: not run)
+        self.sharding_record = self.comm_record = self.compile_record = None
         set_debug_nans(tcfg.debug_nans)
         mesh = self.mesh = build_mesh(mesh_config, rank=self.info.rank,
                                       world_size=self.info.world_size)
@@ -448,6 +493,9 @@ class Trainer:
             mesh, self.device, self.mcfg, tcfg,
             steps_per_epoch=self.train_loader.steps_per_epoch,
             objective=self.objective))
+        # after the header, as JAX's; again whenever shard() re-places it
+        self._placed = True
+        self._sharding_audit()
 
     def _make_loader(self, data, *, train: bool, **kw):
         """The engine ``native_loader`` picks for ``data`` (JAX :384-452),
@@ -529,6 +577,16 @@ class Trainer:
         model = self.state.module if model is None else model
         self._make_state(apply_fsdp(model, placements, device_mesh),
                          sharded=True)
+        if self._placed:
+            self._sharding_audit()
+
+    def _sharding_audit(self) -> None:
+        """Large parameters left whole on a mesh that could shard them
+        (``analysis/guards.sharding_audit``; strict: raise)."""
+        if self.guards.mode != "off":
+            self.sharding_record = sharding_audit(
+                self.state.module, self.mesh, registry=self.registry,
+                mode=self.guards.mode, split=self.tp_split)
 
     def _make_state(self, model, *, sharded: bool) -> None:
         """The grad norm, optimizer, DDP (unless ``sharded``), train state
@@ -604,6 +662,13 @@ class Trainer:
              f"{self.mesh.shape}"
              + (f", from step {self.state.step}" if self.state.step else ""))
         set_registry(self.registry)  # layers record into this run's window
+        if start_epoch < cfg.num_epochs:
+            self._warm_start()
+        if self.guards.mode != "off":
+            # a new signature or a kernel build after the first call is a
+            # recompile; warm calls run under the transfer detector
+            self.train_step = self.guards.wrap("train_step", self.train_step)
+            self.eval_step = self.guards.wrap("eval_step", self.eval_step)
         self.watchdog = Watchdog(
             stall_factor=cfg.watchdog_stall_factor,
             min_stall_s=cfg.watchdog_min_stall_s,
@@ -638,6 +703,55 @@ class Trainer:
         if self.metrics_sink is not None:
             self.metrics_sink.close()
         return self.history
+
+    def _warm_start(self) -> None:
+        """Build and load every library the run launches before its first
+        step (``train/compile.warm_start``); the ``compile`` record."""
+        cfg = self.tcfg
+        if not cfg.aot_warmup or self._first_step_done:
+            return
+        record = warm_start(
+            model_config=self.mcfg, device_type=self.device.type,
+            native_loader=(cfg.native_loader != "off"
+                           and native.native_available()),
+            native_cached=self._native_cached,
+            cache_dir=self.compile_cache_dir)
+        self._first_step_done = True  # step 0 is no longer compile-inclusive
+        self.compile_record = record
+        self.registry.emit(record)
+        log0(f"warm start: {len(record['built'])} of "
+             f"{len(record['libraries'])} libraries built in "
+             f"{record['compile_s']:.2f}s ({record['cache_dir']})")
+
+    def _audits_first_step(self) -> bool:
+        """The first train step's collective audit runs where JAX's warm
+        start audits it: warm start on, guards on, the plain step (not the
+        pipeline schedules, not chained), no seq axis."""
+        cfg = self.tcfg
+        return (not self._comm_audited and cfg.aot_warmup
+                and self.guards.mode != "off" and not self.schedule_mode
+                and cfg.chain_steps == 1 and self.mesh.shape[AXIS_SEQ] == 1)
+
+    def _audited_step(self, batch) -> dict:
+        """One train step with the collectives it issues recorded and
+        audited against ``train_manifest`` (an fsdp axis with sharded
+        parameters requires an all-gather). A single process records
+        nothing: its collectives, if any, run over groups of one rank,
+        which the recorder leaves out."""
+        fsdp_sharded = any(map(is_shard_placed,
+                                self.state.module.parameters()))
+        manifest = train_manifest(self.mesh, fsdp_sharded=fsdp_sharded)
+        if self.info.world_size > 1:
+            with record_collectives() as seen:
+                out = self.train_step(self.state, batch)
+        else:
+            # one process: every group has one rank, and nothing crosses
+            out, seen = self.train_step(self.state, batch), []
+        self._comm_audited = True
+        self.comm_record = comm_audit(
+            "train_step", summarize_collectives(seen), manifest,
+            registry=self.registry, mode=self.guards.mode)
+        return out
 
     def _guard(self, what: str, step: int):
         """The watchdog's guard of a section, or nothing."""
@@ -724,12 +838,16 @@ class Trainer:
                     continue
                 batch, buf = buf, []
             first = not self._first_step_done
-            # the first step (its kernels build) is exempt: not a hang
+            # the first step of a run (its kernels build, unless the warm
+            # start built them; its first launches load them) is exempt:
+            # not a hang
             with annotate("train_step"), (
-                    contextlib.nullcontext() if first else
+                    contextlib.nullcontext() if not self._stepped else
                     self._guard("train_step", self.state.step + chain)):
-                metrics.append(self.train_step(self.state, batch))
-                self._first_step_done = True
+                metrics.append(self._audited_step(batch)
+                               if self._audits_first_step()
+                               else self.train_step(self.state, batch))
+                self._first_step_done = self._stepped = True
                 t_dispatched = time.perf_counter()
                 if per_step:
                     self._sync()

@@ -256,11 +256,9 @@ class TrainConfig:
     8 x accumulation 12, eval batch 32, linear warmup 100, AdamW with bias
     correction, bf16 compute, sequences of 128.
 
-    The fields are JAX's, less ``guards``, ``aot_warmup`` and
-    ``compile_cache_dir`` (the JAX package's runtime guards and XLA
-    compilation, ROADMAP.md queue 1) and ``prng_impl`` (the port has one
-    dropout generator). The trainer (``train/loop.py``) checks the values
-    JAX's trainer checks, with its messages.
+    The fields are JAX's, less ``prng_impl`` (the port has one dropout
+    generator). The trainer (``train/loop.py``) checks the values JAX's
+    trainer checks, with its messages.
     """
 
     learning_rate: float = 2e-5
@@ -349,6 +347,20 @@ class TrainConfig:
     # "auto" | "on" | "off": JAX's accumulation-scan unrolling; the eager
     # microbatch loop is one schedule, so no value changes the math
     unroll_accum: str = "auto"
+    # the kernel and native libraries' build directory (train/compile.py):
+    # a second run with the same code loads them instead of compiling;
+    # None: the package's ignored _build/
+    compile_cache_dir: str | None = None
+    # warm start: build and load every library the run launches before
+    # epoch 0, so the first step is a steady-state one (no
+    # compile_inclusive) and the build gets its own `compile` record
+    aot_warmup: bool = True
+    # runtime guards (analysis/guards.py): "record" counts a recompile (a
+    # step at a new signature, or a kernel build, after warm-up) or an
+    # implicit transfer in a warm step and emits telemetry, and runs the
+    # sharding and first-step collective audits; "strict" raises on any
+    # of them; "off" disables the layer. PDT_TPU_GUARDS overrides it.
+    guards: str = "record"
 
     @property
     def grad_accum_steps(self) -> int:

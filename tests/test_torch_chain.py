@@ -220,8 +220,7 @@ def test_train_config_has_every_jax_field_but_four():
     port = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     jax_fields = {f.name: f.default
                   for f in dataclasses.fields(JaxTrainConfig)}
-    assert set(jax_fields) - set(port) == {
-        "guards", "aot_warmup", "compile_cache_dir", "prng_impl"}
+    assert set(jax_fields) - set(port) == {"prng_impl"}
     assert set(port) <= set(jax_fields)
     for name, default in port.items():
         assert default == jax_fields[name], name

@@ -6,12 +6,15 @@ request ends ``done`` or with an explicit retryable error, every ``done``
 stream equals a single port server's for the same prompt, the router
 records the failover, the dead replica respawns with one restart burned
 and ``summarize_metrics`` folds the stream. SIGTERM to a streaming
-replica finishes the stream, exits 75 and burns no restart. ``fleet_lm``
-and ``serve_lm`` parse JAX's options with JAX's defaults."""
+replica finishes the stream, exits 75 and burns no restart; so does a
+``--tp 2`` replica (two gloo ranks the fleet spawns, its exit status the
+leader's), whose lost bind race is a port retry. ``fleet_lm`` and
+``serve_lm`` parse JAX's options with JAX's defaults."""
 
 import http.client
 import json
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -264,6 +267,56 @@ def test_fleet_sigterm_drains_in_flight_and_exits_75():
             httpd.shutdown()
             httpd.server_close()
         fleet.stop(drain=False)
+
+
+def test_fleet_tp2_replica_port_retry_then_graceful_drain():
+    """A ``--tp 2`` replica (gpt2-tiny, two gloo ranks): its first port is
+    taken, so the leader exits 76 and the fleet retries on a fresh port
+    (``replica_port_retry``, no restart burned); it serves a request; on
+    SIGTERM (sent to both ranks) the leader drains and exits 75 —
+    ``graceful: true``, no restart burned — and no rank is left behind."""
+    reg, sink = _registry()
+    fleet = ServeFleet(
+        FleetConfig(num_replicas=1, replica_args=REPLICA_ARGS + ("--tp", "2"),
+                    tp=2, max_restarts=1, backoff_s=0.2,
+                    drain_timeout_s=20.0),
+        RouterConfig(health_interval_s=0.05, health_timeout_s=1.0,
+                     ttfb_timeout_s=60.0),
+        registry=reg)
+    replica = fleet.replica(0)
+    taken = socket.socket()
+    taken.bind(("127.0.0.1", replica.port))
+    taken.listen(1)
+    httpd = None
+    try:
+        fleet.start()
+        assert wait_until(lambda: sink.of("replica_port_retry"),
+                          timeout=120), sink.records
+        taken.close()
+        assert fleet.wait_ready(timeout=120), fleet.stats()
+        httpd = make_router_http_server(fleet.router)
+        out = _post_generate(_serve_http(httpd), "tensor parallel", 4, "tp")
+        assert out["outcome"] == "done" and len(out["tokens"]) == 4, out
+        group = replica.proc
+        assert len(group.procs) == 2
+        replica.sigterm()
+        assert wait_until(lambda: sink.of("replica_exit"), timeout=90)
+        (exit_rec,) = sink.of("replica_exit")[:1]
+        assert exit_rec["graceful"] is True and exit_rec["rc"] == 75
+        assert all(p.poll() is not None for p in group.procs)
+        d = replica.describe()
+        assert d["restarts_used"] == 0 and d["graceful_exits"] == 1
+        assert d["port_retries"] >= 1
+        retry = sink.of("replica_port_retry")[0]
+        assert retry["replica"] == "r0" and retry["new_port"] != retry[
+            "old_port"]
+    finally:
+        taken.close()
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        fleet.stop(drain=False)
+    assert all(p.poll() is not None for p in replica.proc.procs)
 
 
 def _options(parser):

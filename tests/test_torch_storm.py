@@ -468,10 +468,13 @@ def test_fleet_config_and_argv_match_jax():
     assert argv[3:] == jax_argv[3:]
     env = replica._env()
     assert env["PDT_TPU_FAULT"] == "replica_crash:3" and env["X_ONE"] == "1"
+    # a --tp replica's ranks each run serve_lm itself (serve/fleet.py's
+    # RankGroup sets their process-group environment), as JAX's replica
+    # is one serve_lm process: no launcher in front of it
     tp = fleet.ReplicaProcess(0, 1, fleet.FleetConfig(tp=2),
                               MetricsRegistry())._argv()
-    assert tp[1:6] == ["-m", "torch.distributed.run", "--standalone",
-                       "--nproc-per-node", "2"]
+    assert tp[1:3] == ["-m",
+                       "pytorch_distributed_training_tpu_torch.cli.serve_lm"]
 
 
 # ------------------------------------------------ summarize_metrics

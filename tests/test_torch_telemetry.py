@@ -78,8 +78,9 @@ def _summarize():
 @pytest.fixture(scope="module")
 def streams(tmp_path_factory):
     """One tiny synthetic run in each package with a metrics directory:
-    the JAX run without its AOT warm start and guards (the port has
-    neither), on its 8-device CPU mesh; both with the Python loader and
+    both without the warm start and the guards (their records differ:
+    JAX's donation audit has no counterpart), the JAX run on its 8-device
+    CPU mesh; both with the Python loader and
     no prefetch, whose stall timers depend on the thread timing."""
     root = tmp_path_factory.mktemp("streams")
     jdir, pdir = str(root / "jax"), str(root / "port")
@@ -93,7 +94,8 @@ def streams(tmp_path_factory):
             JaxMeshConfig(data=8), task="synthetic").run()
         Trainer(model_preset("tiny", compute_dtype="float32"),
                 TrainConfig(**RUN, metrics_dir=pdir, prefetch_depth=0,
-                            native_loader="off"), task="synthetic",
+                            native_loader="off", aot_warmup=False,
+                            guards="off"), task="synthetic",
                 device="cpu").run()
     finally:
         set_registry(prev)
