@@ -11,10 +11,13 @@ the JAX package), in phases that each raise on failure:
    bounds;
 2. build: compiles every CUDA source of the port from
    ``pytorch_distributed_training_tpu_torch/csrc`` with ``nvcc`` for
-   ``sm_90a``, one process per source, all at once (the LayerNorm,
-   dropout-add-LayerNorm and dropout libraries may not spill), and counts
-   the Philox mask's integer instructions an element by pipe in their
-   SASS (``cuobjdump``);
+   ``sm_90a``, one process per source, all at once, in the background
+   (``build_start``): the phases wait for the five libraries other than
+   the flash one, whose nvcc runs on beside the kernel phases of the
+   others until the flash phases wait for it (``build_wait``; the
+   LayerNorm, dropout-add-LayerNorm and dropout libraries may not spill),
+   and counts the Philox mask's integer instructions an element by pipe
+   in their SASS (``cuobjdump``);
 3. kernels: holds each kernel against its plain PyTorch version on the
    card (tolerances below; the dropout masks bit for bit), backward kernels
    through ``torch.autograd.grad`` (the LayerNorm pair and the
@@ -51,19 +54,22 @@ the JAX package), in phases that each raise on failure:
    dgrad and wgrad, bit-equal to the exact (float64) product, timed
    beside the bf16 ``torch.matmul``;
 4. train: runs the port's ``train_dp`` on bert-large-cased at full width
-   and depth (3 optimizer steps of 96 = 8 x 12 on the synthetic MRPC task,
-   then the full 408-row eval), with the launch counters reset just before
+   and depth (2 optimizer steps of the recipe's 96 = 8 x 12 on the
+   synthetic MRPC task, then a 96-row eval), with the launch counters
+   reset just before
    and read just after and checked against the counts the step derives
    (no plain mask-scale tensor made: every dropout site applies its mask
    in the kernel);
-   finite losses, moved parameters, bit-identical per-step losses in a
-   second run; a third run, of one step and the eval, under
+   finite losses, moved parameters (against the weights as built),
+   bit-identical per-step losses in a second run (its eval cut to
+   RERUN_EVAL_SIZE rows); a third run, of one step and that eval, under
    ``torch.profiler``; then the same for
    ``train_mp``'s main path, the TriBert ensemble of bert-base-cased x 3
-   branches (the launches of every branch's layers counted, the three
-   branches started unlike each other and every one moved); then
-   ``train-int8``: ``train_dp`` on bert-large at full width and depth, 2
-   steps of 48 = 8 x 6 and a 32-row eval, native and with
+   branches, 2 steps of 32 = 8 x 4 and a 32-row eval (the launches of
+   every branch's layers counted, the three branches started unlike each
+   other and every one moved); then ``train-int8``: ``train_dp`` on
+   bert-large at full width and depth, 2 steps of 16 = 8 x 2 and a
+   16-row eval, native and with
    ``--matmul-impl int8``, ``int8_full`` and ``int8_full --quant-delayed
    --quant-delayed-grads`` (the calibration's forwards and backwards
    counted with the rest), each counted, finite, every parameter moved,
@@ -73,15 +79,17 @@ the JAX package), in phases that each raise on failure:
    removed after), then resumed from its step 1: step 1's amaxes
    restored, no calibration launch, step 2's loss, grad norm and every
    weight bit-equal; ``roberta-mnli``: ``train_dp --model roberta-large
-   --task mnli`` at the recipe (96 = 8 x 12, seq 128, bf16, dropout 0.1,
-   seed 42; the synthetic 3-class fallback through a stand-in
+   --task mnli`` at the recipe's micro batch (8; seq 128, bf16, dropout
+   0.1, seed 42; the synthetic 3-class fallback through a stand-in
    ``datasets`` module that raises ``ConnectionError``, in this script
-   only), 2 steps and 96 rows of each validation split, the train
+   only), 2 steps of 32 = 8 x 4 and 32 rows of each validation split, the
+   train
    phase's checks (counted with the pooler's pre-dropout and both
    splits' eval batches, a rerun bit-identical), its samples/s, ms a
    step, peak memory and both accuracies; ``dropout-streams``:
-   roberta-large through ``model_preset`` overrides, 1 step of 96 and 32
-   rows a split, under ``bits32``, ``bits8`` and ``exact`` and under
+   roberta-large through ``model_preset`` overrides, 1 step of 8 (one
+   microbatch) and 8 rows a split, under ``bits32``, ``bits8`` and
+   ``exact`` and under
    ``layernorm_impl="reference"``: counted (``stream_launches``: no
    kernel 3 or 4 in the train step, the stream's mode of kernel 5,
    kernels 1 and 2 or none), finite losses bit-equal on a rerun;
@@ -92,7 +100,9 @@ the JAX package), in phases that each raise on failure:
    a fresh ``--checkpoint-dir``: one restart in the same process, the
    resumed run's step 2 loss and every weight bit-equal to the
    uninterrupted run's;
-5. cpu-vs-card: the ``tiny`` preset with dropout on, trained 2 steps on
+5. cpu-vs-card (run in phase 6, while the lm-fsdp, mp-cp and serve-tp
+   processes run: it times nothing): the ``tiny`` preset with dropout
+   on, trained 2 steps on
    the CPU (plain versions) and on the card (kernels) from one seed: the
    per-step losses agree, so the card's masks are the plain generator's;
    then the same for 3 tiny branches through ``train_mp`` on the
@@ -105,23 +115,25 @@ the JAX package), in phases that each raise on failure:
    preset at ``int8_full --quant-delayed --quant-delayed-grads`` on the
    CPU and the card, the losses within INT8_CPU_CARD_RTOL; then
    ``train-pipeline``:
-   ``train_mp`` on bert-base-cased at full width, 2 steps of the recipe's
-   96 = 8 x 12 and a 96-row eval, through ``--mp-mode pipeline`` and
-   ``--mp-mode 1f1b`` (4 pipeline microbatches of 2 rows an accumulation
-   microbatch: 48 a step) and ``--mp-mode stage``, each counted against
+   ``train_mp`` on bert-base-cased at full width, 2 steps of 32 = 8 x 4
+   (the recipe's micro batch of 8, 4 accumulation microbatches) and a
+   32-row eval, through ``--mp-mode pipeline`` and ``--mp-mode 1f1b`` (4
+   pipeline microbatches of 2 rows an accumulation microbatch: 16 a
+   step) and ``--mp-mode stage``, each counted against
    the launches its microbatches derive, its losses finite and every
    parameter moved, its ms a step, the peak memory of its train steps and
    its ``pipeline_bubble`` printed; later the same for
    ``gpt2-tiny`` through ``train_lm`` (the whole-sequence flash
    kernels);
 6. lm: runs the port's ``train_lm`` on gpt2-medium at full width and
-   depth, at seq 1024 (3 optimizer steps of 32 = 4 x 8, then a 64-row
+   depth, at seq 1024 (2 optimizer steps of 32 = 4 x 8, then a 16-row
    eval: the blockwise flash kernels) and at seq 128 (1 step of 96 = 8 x
    12, then a 32-row eval: the whole-sequence pair), the launch counters
    reset just before each and read just after and checked against the
    counts the step derives; finite losses, moved parameters, bit-identical
-   per-step losses in a second seq-1024 run, and a third, of one step
-   and the eval, under ``torch.profiler``; then the seq-1024 run again with
+   per-step losses in a second seq-1024 run (its eval cut to
+   LM_RERUN_EVAL_SIZE rows), and a third, of one step and that eval,
+   under ``torch.profiler``; then the seq-1024 run again with
    ``PDT_FLASH_TWO_PASS=1`` (the two-pass backward kernels counted, step
    1's loss bit-identical to the fused run's, later steps within 1e-3),
    and once more, one step, under ``torch.profiler``; the seq-128 run
@@ -133,8 +145,10 @@ the JAX package), in phases that each raise on failure:
    one process (unwrapped). Then ``lm-scan-equal``: the tiny LM with
    dropout on, scanned and ``--no-scan-layers``, the same per-step losses
    bit for bit and the same launches, grad norms and weights within
-   1e-6; and ``lm-fsdp``: in a process of its own with a one-process
-   NCCL group, gpt2-medium at seq 1024 for 2 steps + the eval, unwrapped,
+   1e-6 (run beside lm-fsdp, as cpu-vs-card and tp-cp-equal are); and
+   ``lm-fsdp``: in a process of its own with a one-process NCCL group,
+   gpt2-medium at seq 1024 for 2 steps of 8 = 4 x 2 + a 16-row eval,
+   unwrapped,
    then sharded with FSDP2 by the placements of an fsdp axis of 2 on a
    one-rank device mesh (FSDP2's unshard and reshard of every unit, at
    one rank device copies in place of the all-gather and reduce-scatter,
@@ -142,12 +156,12 @@ the JAX package), in phases that each raise on failure:
    1e-4 of the unwrapped run's, and its first step and the eval once
    more under ``torch.profiler`` (the device time of FSDP's ranges and of
    any collective); ``remat``: gpt2-medium at lm-1024's shape, 2 steps
-   without remat, with ``--remat`` under each ``--remat-policy`` and with
-   ``--remat-mlp``, each counted (the recomputed forwards' launches
-   included), the losses bit-equal to no remat's and the grad norms
-   within TWO_PASS_RTOL, the ms a step and the train steps' own peak
-   memory (reset after the trainer is built, read before the eval), then
-   micro 8 without remat and with ``--remat-mlp``. Then
+   of one microbatch of 4 without remat, with ``--remat`` under each
+   ``--remat-policy`` and with ``--remat-mlp``, each counted (the
+   recomputed forwards' launches included), the losses bit-equal to no
+   remat's and the grad norms within TWO_PASS_RTOL, the ms a step and
+   the train steps' own peak memory (reset after the trainer is built,
+   read before the eval). Then
    tensor and context parallelism (one card is world size 1, so their
    collectives run only over gloo on the CPU): ``tp-split``, one
    gpt2-medium block at lm-1024's shape in bf16 with the flash kernels,
@@ -161,7 +175,7 @@ the JAX package), in phases that each raise on failure:
    forward and q/k/v gradients against ``reference_attention``, rate 0.1
    finite, alike twice and keeping 0.9 of the probabilities within 1%,
    its ms beside kernels 6 + 9 and reference attention at that shape;
-   ``tp-cp-equal``, ``train_lm`` on the tiny LM with ``--tp
+   ``tp-cp-equal`` (beside lm-fsdp), ``train_lm`` on the tiny LM with ``--tp
    --no-scan-layers`` against without ``--tp``, with ``--attention
    ring`` against ``--attention reference`` (JAX's fallback at a seq axis
    of 1), and ``train_dp --attention ring`` against ``reference``, the
@@ -187,7 +201,10 @@ the JAX package), in phases that each raise on failure:
    prefill and decode counts, greedy streams identical across two runs, and
    each served token against a full-sequence forward of the same model;
    a further run under ``torch.profiler`` breaks the device time down by
-   kernel class;
+   kernel class and counts the run's kernels a dispatch (each port
+   kernel's launches in the profile beside its counter); from its first
+   run on, every ``serve_lm`` boot of this process on seed 0 takes that
+   run's CPU model (``share_seeded_models``) instead of building it again;
 8. serve options (the first 8 prompts, 16 new tokens a request, from
    here on to serve-tp): ``serve_lm``
    again with ``--spec-k 4`` (its profiled second run must give the
@@ -208,8 +225,7 @@ the JAX package), in phases that each raise on failure:
    float engine a dispatch at a shape its warm-up did not see raising
    ``RecompileError``, a sync inside an armed ``transfer_scope`` raising
    ``TransferGuardError`` and the same sync on another thread neither
-   raising nor counted, then the dispatch timed with the runtime guards
-   ``off`` and in ``record`` mode in turns; then
+   raising nor counted; then
    ``serve-tp``: ``serve_lm --tp 2 --warmup``, plain and with int8
    weights and KV,
    as two processes on the one card (each makes its own gloo group, as
@@ -262,10 +278,18 @@ the JAX package), in phases that each raise on failure:
 10. fleet: ``fleet_lm --replicas 2`` at the serve phase's shape (8 slots,
    buckets 16-128, page 16, seed 0; each replica a ``serve_lm`` process
    on the card, running kernels 1 and 12), booted beside the checkpoint
-   checks; 12 greedy prompts through the router while
-   ``PDT_TPU_FAULT=replica_crash:1@1`` kills replica 1 mid-load: every
-   request ``done`` or an explicit retryable error, every ``done`` stream
-   equal to the serve phase's token for token, at least one failover;
+   checks; 12 greedy prompts through the router (``fleet_wave``) while
+   ``PDT_TPU_FAULT=replica_hang:1:6@1,replica_crash:1@1`` holds replica
+   1's first busy tick 6 s, then kills it: one-token primers on the first
+   prompt, one at a time, until replica 1 has taken one (its tick is the
+   held one; it ends ``done`` and leaves replica 1 idle); once the
+   router sees replica 1 with no load, the prompts one at a time until
+   one has reached replica 1 behind its held tick (least-loaded picks,
+   round robin on ties: at most two), then the rest; every primer
+   ``done`` with the serve phase's first token, every request ``done`` or
+   an explicit retryable error, every ``done`` stream equal to the serve
+   phase's token for token, at least one failover (the requests queued
+   at replica 1 die before their first byte);
    replica 1 respawned (during the full-sequence checks) with one restart
    burned, the pool back to 2 up; SIGTERM while a 64-token stream runs
    on replica 0: the stream ends ``done``, ``fleet_lm`` exits 0, the
@@ -273,6 +297,23 @@ the JAX package), in phases that each raise on failure:
    record. Prints the boot seconds, TTFT p50 through the router beside
    the serve phase's, replica 0's first TTFT without ``--warmup``,
    requests/s and the seconds to recovery.
+
+Cut for time (each cut's lap before and after: PERF.md section 7): the
+nvcc build runs beside the kernel phases (``build_start``); the
+train-mp, roberta-mnli, train-pipeline, train-int8 and train-options
+runs at 4 or 2 microbatches a step, dropout-streams at one, remat at
+one of 4 rows, lm-fsdp at 2 of 4; the train, train-mp and lm-1024 runs
+at 2 steps with 96-, 32- and 16-row evals; the classification reruns
+and the BERT profile at RERUN_EVAL_SIZE eval rows, the LM rerun and
+profiles at LM_RERUN_EVAL_SIZE; serve-ops on the first 8 prompts; the
+serve boots on seed 0 share one CPU model (``share_seeded_models``);
+the moved-weights checks against a copy of the weights as built
+(``start_weights``) in place of a model made again from the seed (but
+train-int8's, whose trainers calibrate as they are built); the
+cpu-vs-card, stage and equality checks beside lm-fsdp; the guards'
+off/record turns of the serve dispatch (within the off turns' spread in
+every run) gone; the checkpoints removed while the full-sequence checks
+run.
 
 The runtime guards (``analysis/guards.py``) run strict in every
 ``serve_lm`` run, which must end with 0 recompiles and 0 implicit
@@ -493,7 +534,7 @@ DAL_EVAL_ROWS = 4096
 NATIVE_ON = ["--native-loader", "on"]
 PYTHON_LOADER = ["--native-loader", "off", "--prefetch-depth", "0"]
 TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
-              "--train-size", "288", "--eval-size", "408", "--num-epochs",
+              "--train-size", "192", "--eval-size", "96", "--num-epochs",
               "1", "--device", "cuda", "--seed", "42", "--log-every", "0"]
 # cpu-vs-card: float32 so the two devices' matmuls agree to ~1e-6 and a
 # single differing mask element (a loss change of ~1e-3) shows
@@ -505,21 +546,31 @@ TINY_ARGS = ["--model", "tiny", "--task", "synthetic", "--train-size", "32",
 CPU_CARD_RTOL = 1e-4
 # train_mp's main path: the reference MP script's bert-base-cased x 3
 # branches (test_model_parallelism.py:230-238; train_mp's defaults, branch
-# mode) on the reference recipe, 3 steps of 96 = 8 x 12, the full eval
+# mode) at the recipe's micro batch of 8, 2 steps of 32 = 8 x 4 and a
+# 32-row eval
 TRAIN_MP_ARGS = ["--model", "bert-base-cased", "--task", "synthetic",
-                 "--train-size", "288", "--eval-size", "408",
-                 "--num-epochs", "1", "--device", "cuda", "--seed", "42",
-                 "--log-every", "0"]
-# the BERT profile phases run one step of the recipe's 96 and the full
-# eval (three steps took 136-212 s under the profiler)
+                 "--train-size", "64", "--global-batch-size", "32",
+                 "--eval-size", "32", "--num-epochs", "1", "--device",
+                 "cuda", "--seed", "42", "--log-every", "0"]
+# the BERT profile phase runs one step of the recipe's 96 (three steps
+# took 136-212 s under the profiler)
 PROFILE_TRAIN_SIZE = "96"
+# the classification reruns (bit-identical losses) and the BERT profile
+# evaluate this many rows, the LM rerun and profiles LM_RERUN_EVAL_SIZE:
+# the eval rows do not change the training data, so the reruns' losses
+# are the first runs' (their evals took most of a rerun, and most of a
+# profile's events)
+RERUN_EVAL_SIZE = "32"
+LM_RERUN_EVAL_SIZE = "16"
 # train-pipeline: train_mp's preset (bert-base-cased, JAX cli/train_mp.py:
-# 44-46) at the recipe, through the schedules and stage mode at world size
-# 1; two steps, since the first's learning rate is 0 (warmup), and a 96-row
-# eval
+# 44-46) at the recipe's micro batch of 8, through the schedules and stage
+# mode at world size 1; two steps, since the first's learning rate is 0
+# (warmup), of 32 = 8 x 4 (the recipe's 96 = 8 x 12 cut to 4 accumulation
+# microbatches), and a 32-row eval
 PIPELINE_ARGS = ["--model", "bert-base-cased", "--task", "synthetic",
-                 "--train-size", "192", "--eval-size", "96", "--num-epochs",
-                 "1", "--device", "cuda", "--seed", "42", "--log-every", "0"]
+                 "--train-size", "64", "--global-batch-size", "32",
+                 "--eval-size", "32", "--num-epochs", "1", "--device",
+                 "cuda", "--seed", "42", "--log-every", "0"]
 PIPELINE_MODES = ("pipeline", "1f1b", "stage")
 # cpu-vs-card through train_mp: 3 tiny branches on the whole-sequence
 # flash kernels (7, 8; float32, head_dim 16)
@@ -574,16 +625,20 @@ BF16_FLOPS_PER_S = 989e12
 
 LM_1024_ARGS = ["--model", "gpt2-medium", "--task", "lm",
                 "--max-seq-length", "1024", "--global-batch-size", "32",
-                "--micro-batch-size", "4", "--train-size", "96",
-                "--eval-size", "64", "--num-epochs", "1", "--seed", "42",
+                "--micro-batch-size", "4", "--train-size", "64",
+                "--eval-size", "16", "--num-epochs", "1", "--seed", "42",
                 "--log-every", "0", "--device", "cuda"]
 LM_128_ARGS = ["--model", "gpt2-medium", "--task", "lm", "--train-size", "96",
                "--eval-size", "32", "--num-epochs", "1", "--seed", "42",
                "--log-every", "0", "--device", "cuda"]
-# lm-fsdp: lm-1024's shape cut to 2 steps, sharded by the placements of
-# this fsdp size on a one-rank device mesh (one card is world size 1)
+# lm-fsdp: lm-1024's shape cut to 2 steps of 8 = 4 x 2 and a 16-row eval,
+# sharded by the placements of this fsdp size on a one-rank device mesh
+# (one card is world size 1)
 _AT = LM_1024_ARGS.index("--train-size") + 1
-LM_FSDP_ARGS = (LM_1024_ARGS[:_AT] + ["64", "--eval-size", "16"]
+_GB = LM_1024_ARGS.index("--global-batch-size") + 1
+LM_FSDP_BATCH = "8"
+LM_FSDP_ARGS = (LM_1024_ARGS[:_GB] + [LM_FSDP_BATCH]
+                + LM_1024_ARGS[_GB + 1:_AT] + ["16", "--eval-size", "16"]
                 + LM_1024_ARGS[_AT + 3:])
 LM_FSDP_SIZE = 2
 # the lm-1024 profiles' rows: 1 step of 32
@@ -600,11 +655,9 @@ TINY_LM_ARGS = ["--model", "gpt2-tiny", "--attention", "flash", "--task", "lm",
                 "--no-bf16", "--warmup-steps", "1", "--learning-rate", "1e-3",
                 "--log-every", "0"]
 # remat: lm-1024's shape (gpt2-medium, seq 1024, micro 4, flash), 2 steps
-# of 16 = 4 x 4 and an 8-row eval, under each setting; then micro 8 (2
-# steps of 32 = 8 x 4) without remat and with --remat-mlp
-_GB = LM_1024_ARGS.index("--global-batch-size") + 1
-REMAT_ARGS = (LM_1024_ARGS[:_GB] + ["16"] + LM_1024_ARGS[_GB + 1:_AT]
-              + ["32", "--eval-size", "8"] + LM_1024_ARGS[_AT + 3:])
+# of one microbatch of 4 and an 8-row eval, under each setting
+REMAT_ARGS = (LM_1024_ARGS[:_GB] + ["4"] + LM_1024_ARGS[_GB + 1:_AT]
+              + ["8", "--eval-size", "8"] + LM_1024_ARGS[_AT + 3:])
 REMAT_SETTINGS = (
     ("none", []), ("remat", ["--remat"]),
     ("remat-dots", ["--remat", "--remat-policy", "dots"]),
@@ -622,11 +675,11 @@ INT8_GEMM_SITES = (("query", 1024, 1024, 1024), ("key", 1024, 1024, 1024),
 INT8_GEMM_PADDED = (("padded", 5, 60, 36),)
 # NVIDIA H100 SXM data sheet: dense int8 tensor-core rate
 INT8_OPS_PER_S = 1979e12
-# train-int8: bert-large at the recipe's micro batch, 2 steps of 32 = 8 x 4
+# train-int8: bert-large at the recipe's micro batch, 2 steps of 16 = 8 x 2
 # (the first's learning rate is 0) and a 16-row eval, native and each int8
 # variant
 INT8_TRAIN_ARGS = ["--model", "bert-large-cased", "--task", "synthetic",
-                   "--train-size", "64", "--global-batch-size", "32",
+                   "--train-size", "32", "--global-batch-size", "16",
                    "--eval-size", "16",
                    "--num-epochs", "1", "--device", "cuda", "--seed", "42",
                    "--log-every", "0"]
@@ -666,20 +719,21 @@ MP_CP_TRAIN = dict(num_epochs=1, train_size=32, eval_size=24,
                    log_every=0, seed=7)
 MP_CP_RTOL = 1e-5
 # roberta-mnli: the repo's fourth recipe (BASELINE.json configs[3]; the JAX
-# preset utils/config.py:295-299) at the reference recipe (96 = 8 x 12,
-# seq 128, bf16, dropout 0.1, seed 42), 2 steps of 192 rows and 96 rows of
-# each MNLI validation split (the synthetic 3-class fallback)
+# preset utils/config.py:295-299) at the reference recipe's micro batch
+# (8; seq 128, bf16, dropout 0.1, seed 42), 2 steps of 32 = 8 x 4 and 32
+# rows of each MNLI validation split (the synthetic 3-class fallback)
 ROBERTA_ARGS = ["--model", "roberta-large", "--task", "mnli", "--train-size",
-                "192", "--eval-size", "96", "--num-epochs", "1", "--device",
-                "cuda", "--seed", "42", "--log-every", "0"]
-# dropout-streams: roberta-large, 1 step of 32 = 8 x 4 and 16 rows a split,
-# under each stream with the LayerNorm kernels, and the kernel stream with
-# the reference LayerNorm (model_preset overrides)
+                "64", "--global-batch-size", "32", "--eval-size", "32",
+                "--num-epochs", "1", "--device", "cuda", "--seed", "42",
+                "--log-every", "0"]
+# dropout-streams: roberta-large, 1 step of 8 (one microbatch) and 8 rows a
+# split, under each stream with the LayerNorm kernels, and the kernel
+# stream with the reference LayerNorm (model_preset overrides)
 STREAM_SETTINGS = (("bits32", "fused"), ("bits8", "fused"),
                    ("exact", "fused"), ("kernel", "reference"))
 # the streams rerun for bit-equality: kernel 5's two modes of their own
 STREAM_RERUN = ("bits8", "exact")
-STREAM_TRAIN = dict(train_size=32, global_batch_size=32, eval_size=16,
+STREAM_TRAIN = dict(train_size=8, global_batch_size=8, eval_size=8,
                     num_epochs=1, seed=42, log_every=0)
 # the crash drill: the tiny preset, a checkpoint a step
 DRILL_ARGS = TINY_ARGS + ["--device", "cuda", "--checkpoint-every-steps",
@@ -960,15 +1014,47 @@ def device_phase() -> str:
     return smi
 
 
-def build_phase() -> None:
+# the library the flash kernels live in: it compiles longest, so the other
+# libraries' kernel phases run while nvcc is still on it
+FLASH_LIBRARY = "flash_attention"
+
+
+def build_start() -> dict:
+    """Start ``nvcc`` for every CUDA source of the port, one ``_build.build``
+    a library, each on a worker thread of its own, all at once, and return
+    at once (library -> future); ``build_wait`` reads them. The libraries
+    go where ``_build`` puts them at first use. The interpreter joins the
+    workers at exit: a run that fails before it waits for them still
+    leaves no nvcc behind."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pytorch_distributed_training_tpu_torch.ops import _build
+
+    pool = ThreadPoolExecutor(len(_build.KERNEL_SOURCES),
+                              thread_name_prefix="nvcc")
+    jobs = {name: pool.submit(
+        lambda name: _build.build([name]).get(name, 0.0), name)
+        for name in _build.KERNEL_SOURCES}
+    pool.shutdown(wait=False)
+    return jobs
+
+
+def build_wait(jobs: dict, names, timeout_s: float = 900.0) -> None:
+    """Wait for the libraries ``names`` of ``build_start`` (an nvcc error
+    raised here): each one's build seconds, registers and spills (the
+    LayerNorm, dropout-add-LayerNorm and dropout libraries may not
+    spill), and, once both libraries of ``SASS_LOOPS`` are in, the
+    Philox mask's integer instructions an element by pipe."""
     from pytorch_distributed_training_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    per = _build.build()
-    say(f"[build] {len(per)} kernels built in "
-        f"{time.perf_counter() - t0:.1f} s "
-        + json.dumps({k: round(v, 1) for k, v in per.items()}))
-    for name, log in _build.BUILD_LOGS.items():
+    per = {name: round(jobs[name].result(timeout=timeout_s), 1)
+           for name in names}
+    say(f"[build] {len(per)} libraries built (seconds from the start of "
+        f"their nvcc; {time.perf_counter() - t0:.1f} s waited) "
+        + json.dumps(per))
+    for name in names:
+        log = _build.BUILD_LOGS.get(name, "")
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill", log)]
         # the instantiations that spill (ptxas reports each entry function,
@@ -985,6 +1071,9 @@ def build_phase() -> None:
         if (name in ("layer_norm", "dropout_add_layer_norm", "dropout")
                 and sum(spills)):
             raise AssertionError(f"{name} spills: {spilling}")
+    if SASS_MEASURED or not {lib for lib, *_ in SASS_LOOPS.values()} <= set(
+            names):
+        return
     # the Philox mask's integer instructions an element, by pipe, beside
     # the counts the bounds take
     SASS_MEASURED.update(sass_counts())
@@ -1467,6 +1556,29 @@ def serve_once(argv, prompts, new_tokens, extra=()):
     return events, stats, counts, wall
 
 
+def share_seeded_models() -> None:
+    """From here on, every ``serve_lm`` boot in this process on random
+    weights (``--seed``, no checkpoint) that another boot already built
+    takes that boot's CPU model of (``--model``, ``--seed``) instead of
+    building the same one again (seconds of host time each): the engine
+    serves its own cast copy (``serve/engine.py``) and never writes the
+    model it is handed. The boot's engine, pools and requests stay its
+    own."""
+    from pytorch_distributed_training_tpu_torch.cli import generate_lm
+
+    load, built = generate_lm.load_model_and_params, {}
+
+    def load_shared(args, tok):
+        if args.checkpoint_dir or args.hf_checkpoint:
+            return load(args, tok)
+        key = (args.model, args.seed)
+        if key not in built:
+            built[key] = load(args, tok)
+        return built[key]
+
+    generate_lm.load_model_and_params = load_shared
+
+
 def check_serve_guards(what, stats) -> None:
     """A serve_lm run under its default strict guards: no recompile and no
     implicit transfer after each program's warm-up (a violation would
@@ -1840,9 +1952,7 @@ def tick_phase(reps=20) -> dict:
     and its host ms, the two engines alternated in one call (float, int8,
     int8, float; ``reps`` dispatches each time). Then on the float engine
     (serve_lm's default strict guards) the forced violations
-    (``forced_violations``) and the guards' cost: the same dispatch, each
-    inside the tick's ``transfer_scope``, with the guards ``off`` and in
-    ``record`` mode, alternated in one call (off, record, record, off)."""
+    (``forced_violations``)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1885,26 +1995,7 @@ def tick_phase(reps=20) -> dict:
     res["kernels_added_by_int8"] = res["kernels_int8"] - res["kernels_float"]
     for k in ("float", "int8", "int8", "float"):
         res.setdefault(f"tick_ms_{k}", []).append(tick_ms(engines[k]))
-    engine = engines["float"]
-    res["forced"] = forced_violations(engine)
-    guards = engine._guards
-
-    def guarded_ms(mode):
-        guards.mode = mode
-        with torch.inference_mode():
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                with guards.transfer_scope("serve_tick"):
-                    engine._decode(*args)
-        return 1e3 * (time.perf_counter() - t0) / reps
-
-    before = guards.violations
-    for mode in ("off", "record", "record", "off"):
-        res.setdefault(f"guards_ms_{mode}", []).append(guarded_ms(mode))
-    guards.mode = "strict"
-    if guards.violations != before:
-        raise AssertionError(f"serve-tick: {guards.violations - before} "
-                             f"violations in the record turns")
+    res["forced"] = forced_violations(engines["float"])
     say("[serve-tick] " + json.dumps(res))
     return res
 
@@ -2032,11 +2123,16 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
     of the warm run's engine seconds (prefill + decode dispatches, each
     ending in a host copy). The server is built first (weights copied to
     the card) and the profiler covers only the requests; a device kernel
-    whose name holds a ``forbid`` symbol fails the phase."""
+    whose name holds a ``forbid`` symbol fails the phase. The kernels of
+    the whole run over its dispatches (prefills, chunks, decodes and
+    verifies), and each port kernel's launches in the profile beside its
+    launch counter over the same run."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pytorch_distributed_training_tpu_torch.cli import serve_lm
+    from pytorch_distributed_training_tpu_torch.ops import _build
     from pytorch_distributed_training_tpu_torch.serve import serve_stdio
 
     server, tok = serve_lm.build_server(
@@ -2045,10 +2141,14 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
     out = io.StringIO()
     server.start()
     try:
+        _build.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             serve_stdio(server, tok, io.StringIO(request_lines(
                 prompts, new_tokens)), out)
+            torch.cuda.synchronize()
+        counted = dict(_build.LAUNCH_COUNTS)
+        stats = server.stats()
     finally:
         server.close(drain=True)
     events = [json.loads(line) for line in out.getvalue().splitlines()]
@@ -2062,6 +2162,16 @@ def profile_phase(warm, argv=SERVE_ARGS, prompts=PROMPTS,
         raise AssertionError(f"{tag}: launched {bad}, none wanted")
     engine_s = warm["prefill_s"] + warm["decode_s"]
     res = device_time_by_class(averages, engine_s)
+    dispatches = (stats["prefill_dispatches"] + stats["prefill_chunks"]
+                  + stats["decode_dispatches"])
+    seen = {k[:-len(" (port kernel)")]: n
+            for k, n in res["port_launches"].items()}
+    res.update(dispatches=dispatches,
+               kernels_per_dispatch=res["kernel_launches"] / dispatches,
+               launches_counted=counted,
+               launches_unseen={k: n - seen.get(k, 0)
+                                for k, n in counted.items()
+                                if n != seen.get(k, 0)})
     mq = sum(v for k, v in res["by_class_ms"].items()
              if k.startswith("paged_attention_mq"))
     res.update(paged_mq_ms=mq, paged_mq_share=(
@@ -2276,6 +2386,8 @@ def device_time_by_class(averages, wall_s, top_n=10) -> dict:
             (by_class[dx] + by_class[col]) / launches[dx])
     return dict(
         device_kernel_ms=total_us / 1e3,
+        # kernels launched, the copies and fills left out
+        kernel_launches=sum(n for k, n in launches.items() if k != "copy"),
         busy_share=total_us / 1e6 / wall_s if wall_s else None,
         by_class_ms={k: v / 1e3 for k, v in sorted(
             by_class.items(), key=lambda kv: -kv[1])},
@@ -2954,23 +3066,25 @@ def train_launches(trainer) -> dict:
 
 
 def initial_weights(trainer) -> dict:
-    """The weights of step 0 of a classification run, made again from the
-    seed on the CPU."""
+    """The weights of step 0 of a BERT classification run, made again from
+    the seed on the CPU: before the delayed-int8 calibration, which the
+    trainer runs as it is built (its amaxes then count as moved)."""
     import torch
 
     from pytorch_distributed_training_tpu_torch.models.bert import (
         BertForSequenceClassification,
     )
-    from pytorch_distributed_training_tpu_torch.models.branch import (
-        BranchEnsembleClassifier,
-    )
 
-    tc, mc, module = trainer.tcfg, trainer.mcfg, trainer.state.module
-    if isinstance(module, BranchEnsembleClassifier):
-        return BranchEnsembleClassifier(mc, module.n_branches,
-                                        seed=tc.seed).state_dict()
     return BertForSequenceClassification(
-        mc, generator=torch.Generator().manual_seed(tc.seed)).state_dict()
+        trainer.mcfg, generator=torch.Generator().manual_seed(
+            trainer.tcfg.seed)).state_dict()
+
+
+def start_weights(trainer) -> dict:
+    """The weights of ``trainer``'s model as it stands (built, not yet
+    run: step 0), copied to the CPU."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in trainer.state.module.state_dict().items()}
 
 
 def check_branches_differ(start: dict, n_branches: int) -> None:
@@ -3051,19 +3165,34 @@ def no_mask_tensor(what):
                              f"made on the card (shapes {made[:3]})")
 
 
-def train_once(argv, cli="train_dp"):
-    """One run of the port's train_dp (or another trainer CLI of the port);
-    returns (trainer, launch counts of this run, wall seconds)."""
+def train_once(argv, cli="train_dp", start=None):
+    """One run of the port's train_dp (or another trainer CLI of the port:
+    its ``train``, its ``run`` over its ``build_trainer``); returns
+    (trainer, launch counts of this run, wall seconds). ``start``, a dict,
+    receives the model's weights as built (``start_weights``), before
+    the first step."""
     import importlib
 
     from pytorch_distributed_training_tpu_torch.ops import _build
 
     module = importlib.import_module(
         f"pytorch_distributed_training_tpu_torch.cli.{cli}")
+
+    copy_s = []
+
+    def build(args, tcfg=None):
+        trainer = module.build_trainer(args, tcfg)
+        if start is not None:
+            t0 = time.perf_counter()
+            start.clear()
+            start.update(start_weights(trainer))
+            copy_s.append(time.perf_counter() - t0)
+        return trainer
+
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    trainer = module.train(argv)
-    wall = time.perf_counter() - t0
+    trainer = module.run(module.build_parser().parse_args(argv), build)
+    wall = time.perf_counter() - t0 - sum(copy_s)
     return trainer, dict(_build.LAUNCH_COUNTS), wall
 
 
@@ -3109,19 +3238,21 @@ def train_metrics(trainer, wall) -> dict:
 
 
 def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train",
-                steps=3) -> dict:
+                steps=2) -> dict:
     """A classification main path (``train_dp``, or ``train_mp``'s branch
     ensemble), counted (first run, cold, on the C++ batch assembler with
     prefetch: ``--native-loader on``, so a batcher that does not build
     fails the run), then a second run from the same seed on the Python
     loader without prefetch (``--native-loader off --prefetch-depth 0``)
     that must give bit-identical per-step losses: determinism and the two
-    engines' equality in one rerun."""
+    engines' equality in one rerun, which evaluates ``RERUN_EVAL_SIZE``
+    rows (its timed eval the profile's)."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
+    start = {}
     with no_mask_tensor(f"{tag} run"), strict_guards():
-        trainer, counts, wall = train_once(argv + NATIVE_ON, cli)
+        trainer, counts, wall = train_once(argv + NATIVE_ON, cli, start)
     peak = torch.cuda.max_memory_allocated()
     guards = check_train_guards(f"{tag} run", trainer)
     tc, mc = trainer.tcfg, trainer.mcfg
@@ -3134,7 +3265,6 @@ def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train",
     if cold["steps"] != steps or not all(
             map(math.isfinite, cold["losses"] + cold["grad_norms"])):
         raise AssertionError(f"{tag} run: {cold}")
-    start = initial_weights(trainer)
     if branches > 1:
         check_branches_differ(start, branches)
     now = trainer.state.module.state_dict()
@@ -3151,7 +3281,8 @@ def train_phase(argv=TRAIN_ARGS, cli="train_dp", tag="train",
                 branches=branches, guards=guards)
     say(f"[{tag}] cold run: " + json.dumps(cold))
     with strict_guards():
-        trainer, _, wall = train_once(argv + PYTHON_LOADER, cli)
+        trainer, _, wall = train_once(
+            eval_rows(argv, RERUN_EVAL_SIZE) + PYTHON_LOADER, cli)
     warm = train_metrics(trainer, wall)
     warm["guards"] = check_train_guards(f"{tag} warm run", trainer)
     # the eval alone once more, timed: the profile's busy share needs the
@@ -3180,6 +3311,12 @@ def one_step(argv, rows=PROFILE_TRAIN_SIZE):
     """``argv`` with the train rows cut to one step (the profile depth):
     ``rows`` = the global batch."""
     at = argv.index("--train-size") + 1
+    return argv[:at] + [rows] + argv[at + 1:]
+
+
+def eval_rows(argv, rows):
+    """``argv`` with its eval rows (``--eval-size``) set to ``rows``."""
+    at = argv.index("--eval-size") + 1
     return argv[:at] + [rows] + argv[at + 1:]
 
 
@@ -3384,7 +3521,8 @@ def telemetry_faults_phase(root: str, plain: dict,
 
     mdir = os.path.join(root, "metrics")
     with offline_datasets():
-        trainer, _, wall = train_once(argv + ["--metrics-dir", mdir])
+        trainer, _, wall = train_once(eval_rows(argv, RERUN_EVAL_SIZE)
+                                      + ["--metrics-dir", mdir])
     with_t = train_metrics(trainer, wall)
     del trainer
     _free_cuda()
@@ -3530,6 +3668,7 @@ def train_pipeline_phase(argv=PIPELINE_ARGS) -> dict:
     for mode in PIPELINE_MODES:
         trainer = train_mp.build_trainer(train_mp.build_parser().parse_args(
             argv + ["--mp-mode", mode]))
+        start = start_weights(trainer)
         peak, evaluate = {}, trainer.evaluate
 
         def train_peak_then_evaluate(evaluate=evaluate, peak=peak):
@@ -3558,7 +3697,6 @@ def train_pipeline_phase(argv=PIPELINE_ARGS) -> dict:
         if res["steps"] != 2 or not all(
                 map(math.isfinite, res["losses"] + res["grad_norms"])):
             raise AssertionError(f"train-pipeline {mode}: {res}")
-        start = initial_weights(trainer)
         now = trainer.state.module.state_dict()
         unmoved = [k for k in start if torch.equal(now[k].cpu(), start[k])]
         if unmoved:
@@ -4157,19 +4295,18 @@ def lm_metrics(trainer, wall) -> dict:
 def lm_phase(argv, *, steps, rerun, tag) -> dict:
     """One counted ``train_lm`` run on gpt2-medium (finite losses; weights
     moved when ``steps`` > 1); with ``rerun``, a second from the same seed
-    whose per-step losses must be bit-identical and a timed eval."""
+    whose per-step losses must be bit-identical and a timed eval, of
+    ``LM_RERUN_EVAL_SIZE`` rows (the profile's)."""
     import torch
 
-    from pytorch_distributed_training_tpu_torch.models.gpt2 import (
-        GPT2LMModel,
-    )
     from pytorch_distributed_training_tpu_torch.ops.flash_attention import (
         whole_seq,
     )
 
     torch.cuda.reset_peak_memory_stats()
+    start = {} if steps > 1 else None
     with no_mask_tensor(f"{tag} run"):
-        trainer, counts, wall = train_once(argv, "train_lm")
+        trainer, counts, wall = train_once(argv, "train_lm", start)
     peak = torch.cuda.max_memory_allocated()
     tc, mc = trainer.tcfg, trainer.mcfg
     seq = tc.max_seq_length
@@ -4190,9 +4327,6 @@ def lm_phase(argv, *, steps, rerun, tag) -> dict:
     # the warmup schedule's learning rate is 0 at update 1, so only a run
     # of more than one step can move the weights
     if steps > 1:
-        start = GPT2LMModel(
-            mc, generator=torch.Generator().manual_seed(tc.seed)
-        ).state_dict()
         now = trainer.state.module.state_dict()
         unmoved = [k for k in start if torch.equal(now[k].cpu(), start[k])]
         if unmoved:
@@ -4209,7 +4343,8 @@ def lm_phase(argv, *, steps, rerun, tag) -> dict:
     say(f"[{tag}] cold run: " + json.dumps(cold))
     if not rerun:
         return cold
-    trainer, _, wall = train_once(argv, "train_lm")
+    trainer, _, wall = train_once(eval_rows(argv, LM_RERUN_EVAL_SIZE),
+                                  "train_lm")
     warm = lm_metrics(trainer, wall)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4559,7 +4694,7 @@ def lm_fsdp_child(port: int) -> dict:
                         f"{fsdp[key]} (rtol {CPU_CARD_RTOL})")
         # the profile: one step + the eval, as lm-1024's
         trainer, _ = _sharded_lm_trainer(
-            one_step(LM_FSDP_ARGS, LM_PROFILE_TRAIN_SIZE))
+            one_step(LM_FSDP_ARGS, LM_FSDP_BATCH))
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -5721,8 +5856,9 @@ def weights_digest(module) -> str:
     h = hashlib.sha256()
     for name, t in module.state_dict().items():
         h.update(name.encode())
-        h.update(t.detach().cpu().contiguous().view(-1).view(
-            torch.uint8).numpy().tobytes())
+        # the bytes hashed where they land on the host, with no copy more
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy())
     return h.hexdigest()
 
 
@@ -6569,17 +6705,19 @@ def serve_ops_phase(started: dict, root: str, device, prompts=PROMPTS,
 
 
 # the fleet phase: fleet_lm over two replicas at the serve phase's shape
-# (SERVE_ARGS: 8 slots, buckets 16-128, page 16, seed 0). One prompt goes
-# to each replica first (round robin on equal loads); replica 1 dies
-# after that first busy tick, its request mid-stream (an explicit
-# retryable error, or a failover if no byte was out). Its
-# ``fault_injected`` record is flushed before it exits, and the other
-# ten go out the moment it shows: the router still holds replica 1's
-# breaker closed and its last health sample (taken during its first
-# prefill: no load), so it sends it requests that no live engine admits;
-# they fail before a byte and go over to replica 0 (failovers)
+# (SERVE_ARGS: 8 slots, buckets 16-128, page 16, seed 0). FLEET_FAULT
+# holds replica 1's first busy tick FLEET_HOLD_S seconds, then kills it
+# (the port's fault hook hangs before it crashes). ``fleet_wave`` gives
+# that tick a one-token primer, which ends ``done`` before the hold, so
+# replica 1 holds with its slots empty, its breaker closed and its
+# /healthz ready: the router's least-loaded pick (round robin on ties)
+# sends it one of the next two requests, whatever the host's speed.
+# Requests that reach it during the hold queue behind the held tick and
+# die with it before their first byte, so the router fails them over to
+# replica 0
+FLEET_HOLD_S = 6
 FLEET_ARGS = ["--replicas", "2", *SERVE_ARGS, "--page-size", "16"]
-FLEET_FAULT = "replica_crash:1@1"
+FLEET_FAULT = f"replica_hang:1:{FLEET_HOLD_S}@1,replica_crash:1@1"
 
 
 def fleet_start(root: str) -> dict:
@@ -6638,7 +6776,8 @@ def _fleet_records(mdir: str) -> list:
     return records
 
 
-def _fleet_request(port: int, i: int, prompt: str, new_tokens: int) -> dict:
+def _fleet_request(port: int, rid: str, prompt: str,
+                   new_tokens: int) -> dict:
     """One greedy request through the router; its outcome (``done``,
     ``retryable`` or ``bad``), token ids and client-side TTFT."""
     import http.client
@@ -6646,7 +6785,7 @@ def _fleet_request(port: int, i: int, prompt: str, new_tokens: int) -> dict:
     t0 = time.perf_counter()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     conn.request("POST", "/generate", body=json.dumps(
-        {"id": f"r{i}", "prompt": prompt, "max_new_tokens": new_tokens}))
+        {"id": rid, "prompt": prompt, "max_new_tokens": new_tokens}))
     resp = conn.getresponse()
     events, ttft = [], None
     while True:
@@ -6670,20 +6809,69 @@ def _fleet_request(port: int, i: int, prompt: str, new_tokens: int) -> dict:
                         if e["event"] == "token"], last=last)
 
 
+def fleet_wave(port: int, prompts, new_tokens: int,
+               stall_s: float = 0.0) -> tuple:
+    """``prompts`` through the router at ``port`` while replica 1's first
+    busy tick is held (``FLEET_FAULT``). First a one-token primer on
+    ``prompts[0]``, one at a time, until replica 1 has taken one (round
+    robin on equal loads: at most two); replica 1's primer ends ``done``
+    in the held tick, so replica 1 holds with no load. Once the primers
+    are done, the router's view of replica 1 shows no load and
+    ``stall_s`` more seconds have passed (a slow host's lag), the prompts
+    one at a time until one has reached replica 1 (it is the least
+    loaded, or tied and next in the round robin), then the rest at once.
+    The primers' outcomes and every prompt's, in prompt order, each as
+    ``_fleet_request`` gives it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def view() -> list:
+        return json.loads(_http(port, "GET", "/stats")[1])["replicas"]
+
+    def picks() -> list:
+        return [r["requests"] for r in view()]
+
+    pool = ThreadPoolExecutor(len(prompts) + 2)
+    primers, futs = [], []
+
+    def send(futures: list, rid: str, prompt: str, tokens: int) -> None:
+        before = sum(picks())
+        futures.append(pool.submit(_fleet_request, port, rid, prompt,
+                                   tokens))
+        wait_for("the router's pick", lambda: sum(picks()) > before,
+                 timeout=60, poll_s=0.01)
+
+    while picks()[1] < 1:
+        if len(primers) == 2:
+            raise AssertionError(f"fleet: picks {picks()} after 2 primers")
+        send(primers, f"primer{len(primers)}", prompts[0], 1)
+    primers = [f.result(timeout=300) for f in primers]
+    wait_for("replica 1 idle in the router's view",
+             lambda: view()[1]["load"] == 0, timeout=60, poll_s=0.01)
+    time.sleep(stall_s)
+    held = picks()[1]
+    while picks()[1] == held and len(futs) < len(prompts):
+        send(futs, f"r{len(futs)}", prompts[len(futs)], new_tokens)
+    while len(futs) < len(prompts):
+        futs.append(pool.submit(_fleet_request, port, f"r{len(futs)}",
+                                prompts[len(futs)], new_tokens))
+    outs = [f.result(timeout=600) for f in futs]
+    pool.shutdown()
+    return primers, outs
+
+
 def fleet_phase(started: dict, plain: dict, serve_ttft_p50_s: float,
                 prompts=PROMPTS, new_tokens=NEW_TOKENS) -> dict:
     """The serving fleet on the card (``fleet_start``'s ``fleet_lm``): its
-    replicas' boot seconds; the 12 prompts through the router, one a
-    replica first, then the rest (see ``FLEET_FAULT``), while
-    ``FLEET_FAULT`` kills replica 1 — every request ends ``done`` or
-    with an explicit retryable error, none hangs, every
+    replicas' boot seconds; the 12 prompts through ``fleet_wave`` while
+    ``FLEET_FAULT`` holds replica 1's first busy tick, then kills it —
+    every primer ends ``done`` with the serve phase's first token of
+    ``prompts[0]``, every request ``done`` or with an explicit retryable
+    error, none hangs, every
     ``done`` stream equals the serve phase's (``plain``: same seed and
     weights) token for token, replica 1 exited 23 and the router failed
     over at least once. TTFT p50 through the router (client side) beside
     the serve phase's, and requests/s. Replica 1 respawns while later
     phases that time nothing run; ``fleet_finish`` reads the recovery."""
-    from concurrent.futures import ThreadPoolExecutor
-
     proc, port, mdir = started["proc"], started["port"], started["mdir"]
     wait_for("the fleet's two replicas", lambda: len(
         started["ready"]) == 2 or proc.poll() is not None, timeout=600)
@@ -6694,34 +6882,19 @@ def fleet_phase(started: dict, plain: dict, serve_ttft_p50_s: float,
     boot = {name: t - spawn[name]
             for name, t in sorted(started["ready"].items())}
 
-    def picks() -> list:
-        return [r["requests"] for r in json.loads(
-            _http(port, "GET", "/stats")[1])["replicas"]]
-
-    def r1_crashed() -> bool:
-        return any(r.get("fault") == "replica_crash" for r in
-                   _fleet_records(os.path.join(mdir, "replica-1")))
-
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(len(prompts))
-    futs = []
-    while min(picks()) < 1:
-        if len(futs) == 4:
-            raise AssertionError(f"fleet: picks {picks()} after 4 requests")
-        futs.append(pool.submit(_fleet_request, port, len(futs),
-                                prompts[len(futs)], new_tokens))
-        wait_for("the router's pick", lambda: sum(picks()) >= len(futs),
-                 timeout=60, poll_s=0.01)
-    wait_for("replica 1's crash", r1_crashed, timeout=300, poll_s=0.01)
-    futs += [pool.submit(_fleet_request, port, i, p, new_tokens)
-             for i, p in enumerate(prompts) if i >= len(futs)]
-    outs = [f.result(timeout=600) for f in futs]
-    pool.shutdown()
+    primers, outs = fleet_wave(port, prompts, new_tokens)
     wave_s = time.perf_counter() - t0
+    wait_for("replica 1's exit", lambda: any(
+        r["record"] == "replica_exit" for r in _fleet_records(mdir)),
+        timeout=60)
     view = json.loads(_http(port, "GET", "/stats")[1])
     done = [i for i, o in enumerate(outs) if o["outcome"] == "done"]
     bad = [(i, o["status"], o["last"]) for i, o in enumerate(outs)
-           if o["outcome"] == "bad"]
+           if o["outcome"] == "bad"] + [
+        (f"primer{k}", o["outcome"], o["tokens"], o["last"])
+        for k, o in enumerate(primers)
+        if o["outcome"] != "done" or o["tokens"] != plain["r0"][:1]]
     differ = [i for i in done if outs[i]["tokens"] != plain[f"r{i}"]]
     records = _fleet_records(mdir)
     crash = [r for r in records if r["record"] == "replica_exit"]
@@ -6733,14 +6906,15 @@ def fleet_phase(started: dict, plain: dict, serve_ttft_p50_s: float,
                     for r in records if r["record"] in (
                         "router_request", "router_failover",
                         "router_breaker", "replica_exit")]
+        # the log first: the verdict ends the output's tail
         raise AssertionError(
-            f"fleet: bad {bad}, streams differing {differ}, done {done}, "
-            f"router {view}, exits {crash}, timeline {timeline}: "
-            + _log_tail(os.path.dirname(mdir), "fleet"))
+            _log_tail(os.path.dirname(mdir), "fleet")
+            + f"\nfleet: bad {bad}, streams differing {differ}, done {done}, "
+            f"router {view}, exits {crash}, timeline {timeline}")
     ttft = [outs[i]["ttft_s"] for i in done]
     res = dict(
         replicas=2, requests=len(prompts), new_tokens=new_tokens,
-        fault=FLEET_FAULT, boot_s=boot,
+        fault=FLEET_FAULT, boot_s=boot, primers=len(primers),
         done=len(done), retryable_errors=len(prompts) - len(done),
         availability=len(done) / len(prompts),
         failovers=view["failovers"], streams_equal_serve=len(done),
@@ -6845,10 +7019,10 @@ def fleet_finish(started: dict, wave: dict, prompts=PROMPTS) -> dict:
             or any(d["dumps"] != ["sigterm_drain"] or not d["preemption"]
                    for d in drains.values())):
         raise AssertionError(
-            f"fleet: router {view}, exits {exits}, fleet_lm exit {code}, "
+            _log_tail(os.path.dirname(mdir), "fleet")
+            + f"\nfleet: router {view}, exits {exits}, fleet_lm exit {code}, "
             f"summary {bool(summary)}, the long stream's last event "
-            f"{done}, drains {drains}: "
-            + _log_tail(os.path.dirname(mdir), "fleet"))
+            f"{done}, drains {drains}")
     res = dict(recovery_s=recovered_t - wave["crash_ts"],
                restarts_used={"r1": budget["r0"] - budget["r1"]},
                pool_up=view["pool"]["up"], exits=exits, fleet_lm_exit=code,
@@ -6890,6 +7064,8 @@ def ckpt_margin_phase(gen: dict, serve: dict, device, prompts=PROMPTS,
 
 
 def main() -> int:
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     if not torch.cuda.is_available():
@@ -6912,7 +7088,11 @@ def main() -> int:
         say(f"[time] {name}: {laps[name]} s")
 
     smi = device_phase()
-    build_phase()
+    # nvcc compiles the flash library while the other libraries' kernel
+    # phases run
+    builds = build_start()
+    build_wait(builds, [n for n in _build.KERNEL_SOURCES
+                        if n != FLASH_LIBRARY])
     lap("build")
     res = {"layer_norm": layer_norm_phase(device),
            "paged_attention": paged_phase(device),
@@ -6926,11 +7106,14 @@ def main() -> int:
     res["paged_attention_mq"] = paged_mq_phase(device)
     res["paged_attention_int8"], res["paged_attention_mq_int8"] = (
         paged_int8_phase(device))
+    lap("paged-mq + int8 pools")
+    int8_gemm_phase(device)
+    lap("int8-gemm")
+    build_wait(builds, [FLASH_LIBRARY])
+    lap("build (flash)")
     res.update(flash_phase(device))
     res.update(two_pass_phase(device))
     lap("flash kernels")
-    int8_gemm_phase(device)
-    lap("int8-gemm")
     train = train_phase()
     lap("train")
     int8_root = tempfile.mkdtemp(prefix="pdt_chip_smoke_")
@@ -6941,7 +7124,8 @@ def main() -> int:
     lap("train-int8")
     train_options_phase(int8["native"])
     lap("train-options")
-    train_profile_phase(train["warm"], one_step(TRAIN_ARGS))
+    train_profile_phase(train["warm"],
+                        eval_rows(one_step(TRAIN_ARGS), RERUN_EVAL_SIZE))
     lap("train-profile")
     roberta = roberta_mnli_phase()
     lap("roberta-mnli")
@@ -6955,51 +7139,58 @@ def main() -> int:
     lap("telemetry-faults")
     train_phase(TRAIN_MP_ARGS, "train_mp", tag="train-mp")
     lap("train-mp")
-    cpu_vs_card_phase()
-    cpu_vs_card_phase(TINY_MP_ARGS, "train_mp")
-    stage_phase()
-    lap("cpu-vs-card + stage")
     train_pipeline_phase()
     lap("train-pipeline")
-    lm = lm_phase(LM_1024_ARGS, steps=3, rerun=True, tag="lm-1024")
+    lm = lm_phase(LM_1024_ARGS, steps=2, rerun=True, tag="lm-1024")
     lap("lm-1024")
-    train_profile_phase(lm["warm"],
+    train_profile_phase(lm["warm"], eval_rows(
                         one_step(LM_1024_ARGS, LM_PROFILE_TRAIN_SIZE),
+                        LM_RERUN_EVAL_SIZE),
                         "train_lm", tag="lm-1024-profile",
                         forbid=FMA_FLASH_SYMBOLS)
     lap("lm-1024-profile")
     two_pass = two_pass_lm_phase(lm)
-    train_profile_phase(None, one_step(LM_1024_ARGS, LM_PROFILE_TRAIN_SIZE),
+    train_profile_phase(None, eval_rows(
+                        one_step(LM_1024_ARGS, LM_PROFILE_TRAIN_SIZE),
+                        LM_RERUN_EVAL_SIZE),
                         "train_lm", tag="lm-1024-two-pass-profile",
                         env={"PDT_FLASH_TWO_PASS": "1"},
                         forbid=FMA_FLASH_SYMBOLS)
     lap("lm-1024-two-pass")
     lm_short = lm_phase(LM_128_ARGS, steps=1, rerun=False, tag="lm-128")
-    train_profile_phase(None, LM_128_ARGS, "train_lm",
-                        tag="lm-128-profile", forbid=FMA_FLASH_SYMBOLS)
-    cpu_vs_card_phase(TINY_LM_ARGS, "train_lm")
-    lap("lm-128 + cpu-vs-card")
+    train_profile_phase(None, eval_rows(LM_128_ARGS, LM_RERUN_EVAL_SIZE),
+                        "train_lm", tag="lm-128-profile",
+                        forbid=FMA_FLASH_SYMBOLS)
+    lap("lm-128")
     lm_phase(LM_INT8_ARGS, steps=1, rerun=False, tag="lm-1024-int8")
-    cpu_vs_card_phase(TINY_INT8_ARGS, rtol=INT8_CPU_CARD_RTOL)
-    lap("lm-1024-int8 + cpu-vs-card-int8")
-    lm_scan_equal_phase()
-    lap("lm-scan-equal")
+    lap("lm-1024-int8")
     # three phases in processes of their own side by side: lm-fsdp, the
-    # serve-tp pair (read after the serve options) and mp-cp's pair
+    # serve-tp pair (read after the serve options) and mp-cp's pair; in
+    # this process meanwhile the phases that time nothing: the
+    # cpu-vs-card and equality checks
     fsdp, serve_tp_procs = lm_fsdp_start(), serve_tp_start()
     mp_cp_phase()
+    cpu_vs_card_phase()
+    cpu_vs_card_phase(TINY_MP_ARGS, "train_mp")
+    stage_phase()
+    cpu_vs_card_phase(TINY_LM_ARGS, "train_lm")
+    cpu_vs_card_phase(TINY_INT8_ARGS, rtol=INT8_CPU_CARD_RTOL)
+    lm_scan_equal_phase()
+    tp_cp_equal_phase()
     lm_fsdp_phase(fsdp)
-    lap("lm-fsdp + mp-cp (+ serve-tp started)")
+    lap("lm-fsdp + mp-cp + cpu-vs-card + stage + equal checks "
+        "(+ serve-tp started)")
     remat_phase()
     lap("remat")
     tp_split_phase(device)
     lap("tp-split")
     ring_phase(device)
     lap("ring")
-    tp_cp_equal_phase()
-    lap("tp-cp-equal")
     serve_tp_block_phase(device)
     lap("serve-tp-block")
+    # the serve phase's first run builds gpt2-medium from seed 0; the later
+    # boots on it take that model (the kernels run as before)
+    share_seeded_models()
     serve = serve_phase()
     plain = serve.pop("streams")
     profile_phase(serve["warm"])
@@ -7037,7 +7228,7 @@ def main() -> int:
             for name, run in draft.items()})
         ckpt_fallback_phase(resume)
         lap("ckpt checks")
-        ops = serve_ops_phase(started, root, device)
+        ops = serve_ops_phase(started, root, device, prompts=OPTION_PROMPTS)
         lap("serve-ops")
         # the fleet's replica 1 respawns during the full-sequence checks
         fleet = fleet_phase(fleet_started, plain, serve["warm"]["ttft_p50_s"])
@@ -7046,7 +7237,11 @@ def main() -> int:
         fleet_kill(fleet_started, fleet_root)
         raise
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        # the checkpoints (~13 GB) go while the full-sequence checks,
+        # which time nothing, run
+        cleanup = ThreadPoolExecutor(1, thread_name_prefix="cleanup")
+        removed = cleanup.submit(shutil.rmtree, root, True)
+        cleanup.shutdown(wait=False)
     checks = {"serve": (plain, PROMPTS, "float32", MARGIN_TOL),
               "serve-dense-host": (dense_host.pop("streams"), PROMPTS,
                                    "float32", MARGIN_TOL),
@@ -7072,6 +7267,7 @@ def main() -> int:
         fleet_finish(fleet_started, fleet)
     finally:
         fleet_kill(fleet_started, fleet_root)
+    removed.result(timeout=600)
     lap("fleet recovery")
     say("[done] seconds by phase " + json.dumps(laps))
 

@@ -37,9 +37,13 @@ spinning never moves the schedule:
                          duration (armed for good, as a slow replica is).
 
 They also take a time trigger, ``replica_crash:t3.5``: the first busy tick
-3.5 s or more after the plan was armed. Swap-scoped kinds fire from the
-hot-swap loader (``fire_swap_load``, ``serve/hotswap.py``) before any byte
-of the named checkpoint step is read: ``corrupt_ckpt_swap:12`` raises
+3.5 s or more after the plan was armed. A hang and a crash due at the same
+tick (``replica_hang:1:5,replica_crash:1``) hold the tick, then kill the
+replica: requests that reach it during the hold die queued, before their
+first byte (the port's order; JAX's hook fires the crash first).
+Swap-scoped kinds fire from the hot-swap loader (``fire_swap_load``,
+``serve/hotswap.py``) before any byte of the named checkpoint step is
+read: ``corrupt_ckpt_swap:12`` raises
 (the swap rolls back, the step is blocklisted), ``swap_crash:12``
 hard-kills the replica, ``swap_slow:12:3`` sleeps 3 s (default 2).
 
@@ -232,19 +236,23 @@ class FaultPlan:
                 return run_s >= spec.at_s
             return spec.step == busy_tick
 
+        # the hang first: a crash due at the same tick fires after it, so
+        # what reached the replica during the hold dies queued, before its
+        # first byte (JAX's hook fires the crash first)
+        hang = self._take("replica_hang", due)
+        if hang is not None:
+            _emit({"fault": "replica_hang", "tick": busy_tick,
+                   "seconds": hang.factor})
+            logger.warning("injecting %.1fs serve-loop hang after busy "
+                           "tick %d", hang.factor, busy_tick)
+            time.sleep(hang.factor)
         if self._take("replica_crash", due):
             _emit({"fault": "replica_crash", "tick": busy_tick})
             logger.warning("injecting replica crash after busy tick %d",
                            busy_tick)
             self._flush_sink()
             os._exit(REPLICA_CRASH_EXIT_CODE)  # no cleanup: streams die
-        spec = self._take("replica_hang", due)
-        if spec is not None:
-            _emit({"fault": "replica_hang", "tick": busy_tick,
-                   "seconds": spec.factor})
-            logger.warning("injecting %.1fs serve-loop hang after busy "
-                           "tick %d", spec.factor, busy_tick)
-            time.sleep(spec.factor)
+        if hang is not None:
             return
         rank = current_rank()
         for spec in self.specs:

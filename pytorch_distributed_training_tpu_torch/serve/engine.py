@@ -799,7 +799,10 @@ class DecodeEngine(ServeSlice):
     optional (a tracer and a recorder are made when None);
     ``replica_name`` stamps spans and flight records; ``guards`` (an
     ``analysis/guards.GuardSet``, one from ``PDT_TPU_GUARDS`` when None)
-    wraps every device call (see the module docstring).
+    wraps every device call (see the module docstring). ``on_fatal``
+    (None, or a callable of no arguments; the server sets it) runs when a
+    tick is about to die, before the requests it finishes on the way out
+    wake their waiters.
     """
 
     def __init__(self, model, config: EngineConfig, queue: RequestQueue, *,
@@ -829,6 +832,7 @@ class DecodeEngine(ServeSlice):
         self._pending_swap = _PendingSwap()
         self._trial = None          # (backup, prev_version, ticket)
         self._last_swap_variant = None
+        self.on_fatal = None
         self._stopped = False
         paged = config.kv_layout == "paged"
         self._pages = PageAllocator(
@@ -1992,8 +1996,12 @@ class DecodeEngine(ServeSlice):
                     self._admit(req, slot)
             except Exception:
                 # popped and not yet slotted: finish it so its waiter does
-                # not hang, then let the loop's failure path take over
+                # not hang, then let the loop's failure path take over.
+                # Outside a swap's trial this exception ends the tick, so
+                # on_fatal runs first: the waiter wakes to a dead loop
                 self._registry.inc("serve/admit_failures")
+                if self._trial is None and self.on_fatal is not None:
+                    self.on_fatal()
                 self._finish(req, "error", "admit_failure")
                 raise
             worked = True

@@ -98,8 +98,10 @@ class CircuitBreaker:
     """Per-replica consecutive-failure breaker with half-open probes.
 
     Thread-safe; time is injectable (``now_fn``) so the state machine is
-    unit-testable without sleeps. ``on_transition(old, new)`` fires outside
-    the lock for telemetry.
+    unit-testable without sleeps. ``on_transition(old, new)`` fires, for
+    telemetry, before the new state is visible: a reader that sees the
+    state also finds its transition's record (JAX's breaker sets the state
+    first).
     """
 
     CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
@@ -126,11 +128,12 @@ class CircuitBreaker:
         self.transitions = 0
 
     def _set(self, new: str) -> None:
-        old, self.state = self.state, new
+        old = self.state
         if old != new:
             self.transitions += 1
             if self._on_transition is not None:
                 self._on_transition(old, new)
+        self.state = new
 
     def allow_probe(self) -> bool:
         """True when traffic (or a health poll) may hit the replica now.

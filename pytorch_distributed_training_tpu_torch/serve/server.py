@@ -109,6 +109,9 @@ class InferenceServer:
         self._drain_mode = threading.Event()
         self._drain_requested = threading.Event()
         self._loop_failed = threading.Event()
+        # a failed admission wakes its waiter on the way out of the tick:
+        # the loop is marked dead before that
+        self.engine.on_fatal = self._loop_failed.set
 
     # ------------------------------------------------------------ lifecycle
 
@@ -135,11 +138,12 @@ class InferenceServer:
         except Exception:
             # A tick must never die silently: waiters block on request
             # ``done`` events, so fail them all (cancelled, never hung) and
-            # refuse new submissions.
+            # refuse new submissions. Dead first (/healthz: unhealthy), so
+            # no waiter woken below reads a live loop.
+            self._loop_failed.set()
             logger.exception(
                 "serve loop died; cancelling all in-flight requests"
             )
-            self._loop_failed.set()     # /healthz: unhealthy
             try:
                 # what led up to the fatal tick
                 self.engine.flight.dump("fatal_tick")
@@ -522,9 +526,13 @@ def make_http_server(server: InferenceServer, tokenizer, host="127.0.0.1",
                 self._json(400, {"error": f"bad request: {e}", "id": rid},
                            headers={"X-Request-Id": rid} if rid else None)
                 return
-            if server.draining:
+            dead = server.loop_dead()
+            if dead or server.draining:
+                # a dead loop closed its queue too: say which it is
                 self._json(503, {
-                    "error": "replica draining", "state": "draining",
+                    "error": ("serve loop died" if dead
+                              else "replica draining"),
+                    "state": "unhealthy" if dead else "draining",
                     "id": rid,
                 }, headers={
                     "Retry-After": retry_after_estimate(

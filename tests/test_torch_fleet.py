@@ -19,6 +19,7 @@ import subprocess
 import sys
 import threading
 
+import chip_smoke
 import pytest
 
 from pytorch_distributed_training_tpu.cli.fleet_lm import (
@@ -32,6 +33,7 @@ from pytorch_distributed_training_tpu_torch.serve import make_http_server
 from pytorch_distributed_training_tpu_torch.serve.fleet import (
     FleetConfig,
     ServeFleet,
+    split_fault_specs,
 )
 from pytorch_distributed_training_tpu_torch.serve.router import (
     RouterConfig,
@@ -210,6 +212,53 @@ def test_fleet_replica_crash_mid_load_fails_over(tmp_path):
     assert view["failovers"] + view["midstream_errors"] >= 1
     assert view["replicas"]["r0"]["crashes"] >= 1
     assert view["replicas"]["r0"]["spawns"] == 2
+
+
+def test_fleet_failover_window_is_replica_1s_held_tick():
+    """``chip_smoke.py``'s fleet wave and fault plan (replica 1's first
+    busy tick held ``FLEET_HOLD_S``, then the replica killed) over the
+    CPU, with a slow host's lag: 3 s between seeing the hold and the next
+    request. A request still reaches replica 1 behind its held tick and
+    fails over; every primer ends ``done`` with the first prompt's first
+    token, every outcome is ``done`` or a retryable error, every ``done``
+    stream the single server's; replica 1 exits 23."""
+    reg, sink = _registry()
+    # health polls as _fleet's, with a timeout a loaded host's replica
+    # answers within (the window is the held tick, not the poll)
+    fleet = ServeFleet(
+        FleetConfig(num_replicas=2, replica_args=REPLICA_ARGS,
+                    fault_env=split_fault_specs(chip_smoke.FLEET_FAULT),
+                    max_restarts=1, backoff_s=0.2, drain_timeout_s=20.0),
+        RouterConfig(health_interval_s=0.05, health_timeout_s=5.0,
+                     breaker_threshold=3, breaker_cooldown_s=0.5,
+                     retry_backoff_s=0.02, retry_backoff_max_s=0.1,
+                     ttfb_timeout_s=60.0),
+        registry=reg).start()
+    prompts = [f"request number {i}" for i in range(12)]
+    httpd = None
+    try:
+        assert fleet.wait_ready(timeout=120), fleet.stats()
+        httpd = make_router_http_server(fleet.router)
+        primers, outs = chip_smoke.fleet_wave(_serve_http(httpd), prompts,
+                                              16, stall_s=3.0)
+        assert wait_until(lambda: sink.of("replica_exit"), timeout=60)
+        counters = reg.snapshot()["counters"]
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        fleet.stop(drain=False)
+    assert all(o["outcome"] in ("done", "retryable") for o in outs), outs
+    assert counters.get("router/failovers", 0) >= 1, counters
+    first_exit = sink.of("replica_exit")[0]
+    assert (first_exit["replica"], first_exit["rc"]) == ("r1", 23)
+    want = _reference_streams(prompts, 16)
+    assert 1 <= len(primers) <= 2, primers
+    assert all(o["outcome"] == "done" and o["tokens"] == want[0][:1]
+               for o in primers), primers
+    done = [i for i, o in enumerate(outs) if o["outcome"] == "done"]
+    assert len(done) >= len(prompts) - 2, outs
+    assert all(outs[i]["tokens"] == want[i] for i in done)
 
 
 def test_fleet_sigterm_drains_in_flight_and_exits_75():

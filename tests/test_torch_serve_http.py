@@ -13,6 +13,7 @@ import contextlib
 import http.client
 import io
 import json
+import logging
 import os
 import signal
 import socket
@@ -275,6 +276,140 @@ def test_healthz_states_and_the_stall_rule(lms):
                           timeout=10)
     finally:
         server.close(drain=False)
+
+
+class _SlowDeathLog(logging.Handler):
+    """Holds the serve loop for ``delay_s`` on its "serve loop died"
+    record: the gap between a fatal tick's first woken waiter and the
+    loop's own failure path, which load opens by chance, made wide."""
+
+    def __init__(self, delay_s=1.0):
+        super().__init__()
+        self.delay_s = delay_s
+        self.held = 0
+
+    def emit(self, record):
+        if record.getMessage().startswith("serve loop died"):
+            self.held += 1
+            time.sleep(self.delay_s)
+
+
+@contextlib.contextmanager
+def _slow_death_log():
+    handler = _SlowDeathLog()
+    server_mod.logger.addHandler(handler)
+    try:
+        yield handler
+    finally:
+        server_mod.logger.removeHandler(handler)
+
+
+def _failing_admission(engine, rid=None):
+    """The engine's admission of request ``rid`` (any, when None) raises."""
+    admit = engine._admit
+
+    def fail(req, slot):
+        if rid is None or req.id == rid:
+            raise RuntimeError("injected admission failure")
+        return admit(req, slot)
+
+    engine._admit = fail
+
+
+def test_failed_admission_wakes_its_waiter_to_a_dead_loop(lms):
+    """A failed admission ends its request (``error``/``admit_failure``)
+    on the way out of the fatal tick: its ``on_finish`` and its waiter
+    must already read a dead loop (``loop_dead()``, ``unhealthy``), even
+    while the loop's failure path is held up logging."""
+    _, model = lms
+    server = _server(model)
+    _failing_admission(server.engine)
+    seen = {}
+
+    def on_finish(req):
+        seen.update(dead=server.loop_dead(),
+                    state=server.health()["state"])
+
+    with _slow_death_log() as handler:
+        server.start()
+        try:
+            req = server.submit(_prompts([4], seed=5)[0], max_new_tokens=4,
+                                on_finish=on_finish)
+            assert wait_until(req.done.is_set, timeout=30)
+            awake = (server.loop_dead(), server.health()["state"])
+            assert (req.status, req.finish_reason) == ("error",
+                                                       "admit_failure")
+            assert seen == {"dead": True, "state": "unhealthy"}
+            assert awake == (True, "unhealthy")
+            assert wait_until(lambda: handler.held == 1, timeout=30)
+        finally:
+            server.close(drain=False)
+
+
+def test_fatal_tick_wakes_http_clients_to_an_unhealthy_replica(lms):
+    """The twin over HTTP with a slot running when the tick dies: request
+    ``a`` decodes (held after its first decode) while ``b``'s admission
+    fails. ``b`` ends ``error`` from the engine, ``a`` ``cancelled`` from
+    ``cancel_all`` (or the front end's retryable error, if the held log
+    outlasts its poll); each client, the moment its stream ends, reads 503
+    ``unhealthy`` from ``/healthz``, and a new ``/generate`` is 503
+    ``unhealthy`` too, never ``draining``."""
+    _, model = lms
+    server = _server(model, engine=dict(num_slots=2, max_new_tokens=8))
+    engine = server.engine
+    _failing_admission(engine, rid="b")
+    decode, hold = engine._decode_tick, threading.Event()
+
+    def held_decode(active):
+        decode(active)
+        hold.wait(30)
+
+    engine._decode_tick = held_decode
+    httpd, port = _http(server)
+    out = {}
+
+    def client(rid):
+        _, raw = _request(port, "POST", "/generate",
+                          {"prompt": "hello", "max_new_tokens": 8},
+                          headers={"X-Request-Id": rid})
+        resp, health = _request(port, "GET", "/healthz")
+        out[rid] = ([json.loads(line) for line in raw.splitlines()],
+                    resp.status, json.loads(health)["state"])
+
+    threads = {rid: threading.Thread(target=client, args=(rid,),
+                                     daemon=True)
+               for rid in ("a", "b")}
+    with _slow_death_log() as handler:
+        server.start()
+        try:
+            threads["a"].start()
+            assert wait_until(lambda: engine.decode_dispatches >= 1,
+                              timeout=60)
+            threads["b"].start()
+            assert wait_until(lambda: server.queue.depth() == 1, timeout=30)
+            hold.set()
+            for t in threads.values():
+                t.join(60)
+            assert not any(t.is_alive() for t in threads.values())
+            assert handler.held == 1
+            resp, raw = _request(port, "POST", "/generate", {"prompt": "hi"})
+            late = (resp.status, json.loads(raw)["state"])
+        finally:
+            hold.set()
+            httpd.shutdown()
+            httpd.server_close()
+            server.close(drain=False)
+    # a's stream ends at cancel_all's done, or, when the held log outlasts
+    # the handler's 1 s poll, at the front end's retryable error
+    (*streamed, last), _, _ = out["a"]
+    assert streamed and all(e["event"] == "token" for e in streamed)
+    assert ((last["event"], last.get("status")) == ("done", "cancelled")
+            or (last["event"], last.get("retryable")) == ("error", True))
+    assert [(e["event"], e.get("status"), e.get("finish_reason"))
+            for e in out["b"][0]] == [("done", "error", "admit_failure")]
+    assert {rid: out[rid][1:] for rid in out} == {
+        "a": (503, "unhealthy"), "b": (503, "unhealthy")}
+    assert late == (503, "unhealthy")
 
 
 def test_brownout_admission_over_http(lms):
